@@ -16,7 +16,16 @@ Phases (any failure raises and the script exits non-zero):
      (2,4,128,32), (2,4,64,32): no mask, trailing padding, packed segment
      ids, one fully-masked row. Times the kernel, the plain version and
      ``torch.nn.functional.scaled_dot_product_attention`` (the yardstick;
-     the port never calls it) at the serving shape, beside the bound.
+     the port never calls it; timed by its device kernel time, since its
+     host work can outlast its kernels) at the serving shape, beside the
+     bound.
+  3b. backward kernel parity — the dQ and dK/dV kernels against their
+     plain versions (dq, dk, dv, dbias_h) at the three shapes above plus
+     (2,2,256,128) and the ragged (2,3,96,32), bf16 and f32, the same four
+     cases; on the fully-masked row each key's dv must be the row's summed
+     dO (p = 1, the TPU semantics). Times each kernel, its plain version
+     and the backward of ``scaled_dot_product_attention`` (the yardstick
+     for the pair) at (8,12,512,64) bf16 with padding, beside the bounds.
   4. serve — full-width BERT-base (12 x 768, 12 heads, MLP 3072, vocab
      30522, max_seq_len 512, bf16, fused QKV, attention_impl pallas) with
      weights from a seed, written as a port artifact; the server is started
@@ -26,15 +35,33 @@ Phases (any failure raises and the script exits non-zero):
      run checks HTTP 200, shapes, finiteness, that the kernel launched 12
      times per batch, and one request's logits against the same model run
      with the kernel's plain version. SIGTERM drains the server.
+  5. train — ``cli/train.py``'s ``main`` on ``configs/bert_base_mlm.yaml``
+     at full width and depth (dropout 0.1, AdamW, clip 1.0) for 30 steps.
+     The batch goes from 256 to 32 x 512 so that activations and the f32
+     logits fit one card (18.2 GB peak, NVIDIA H100 80GB HBM3 at 700 W).
+     Checks rc 0, finite metrics and the launch counts: forward 12 x (30
+     steps + 2 eval batches), dQ and dK/dV 12 x 30. Prints the steady step
+     time, tokens/s and peak memory, then one profiled step by kernel
+     class and the device idle share.
+  5b. training parity and learning — one step's gradients at 8 x 512
+     through the kernels against the same model and dropout stream with
+     the kernels' plain versions; every leaf within MODEL_GRAD_RTOL and a
+     non-zero QKV weight gradient. Then 30 steps on one repeated batch at
+     a constant lr of 1e-4: the loss at step 30 must be below 0.9 x the
+     loss at step 1 (the first runs went 10.490 → 7.219 on an NVIDIA H100
+     80GB HBM3 at 700 W).
 
-The line before the last is the card's ``nvidia-smi`` name and power limit;
-the line before that the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Every count is set to 0 just before a main-path run (the serve runs, the
+training run) and read just after; launches made to compare or time a
+kernel do not count. The line before the last is the card's
+``nvidia-smi`` name and power limit; the line before that the per-kernel
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import signal
 import statistics
@@ -50,19 +77,55 @@ H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "distributed_tensorflow_framework_torch/ops/csrc/flash_attn_fwd.cu"
 KERNEL_REPLACES = "distributed_tensorflow_framework_tpu/ops/flash_attention.py:140"
+BWD_SOURCE = "distributed_tensorflow_framework_torch/ops/csrc/flash_attn_bwd.cu"
+BWD_REPLACES = {
+    "dq": "distributed_tensorflow_framework_tpu/ops/flash_attention.py:179",
+    "dkv": "distributed_tensorflow_framework_tpu/ops/flash_attention.py:213",
+}
 PARITY_SHAPES = ((8, 12, 512, 64), (2, 4, 128, 32), (2, 4, 64, 32))
+# The backward also runs D = 128 and a length that is not a multiple of the
+# kernels' 64-row tiles (rows and keys past S must contribute nothing).
+BWD_SHAPES = PARITY_SHAPES + ((2, 2, 256, 128), (2, 3, 96, 32))
 # Kernel vs plain version, same inputs on the card. o: bf16 allows two ulps
 # near 1 (the kernel rounds p against a running max, the plain version
 # against the row max, so one rounding can differ); f32 sums the same
 # products in another order. lse: relative, its terms are unrounded f32.
 O_ATOL = {"bfloat16": 1.6e-2, "float32": 2e-5}
 LSE_RTOL = 1e-5
+# Backward kernels vs their plain versions, as max|err| / max|ref| per
+# output. dq, dk, dv in bf16: four bf16 ulps at the largest value, one for
+# the output's own rounding and three for ds and p roundings that an f32
+# summation-order difference in s or dp flips by one ulp. f32: 2e-5, the
+# same products summed in another order. dbias_h sums unrounded f32 ds in
+# both dtypes: 1e-5.
+GRAD_RTOL = {"bfloat16": 1.6e-2, "float32": 2e-5}
+DBIAS_RTOL = 1e-5
 # Served logits vs the same model with the kernel's plain version: bf16
 # activations through 12 layers, where a flipped bf16 rounding in one
 # attention output propagates; logits have std ~0.55 at this init.
 LOGIT_MAX_ATOL = 0.15
 LOGIT_MEAN_ATOL = 1e-2
 HTTP_LENGTHS = (4, 8, 12, 16, 24, 32)
+# Phase 5: BERT-base training at full width and depth. The batch goes from
+# the config's 256 to 32 rows of 512 tokens so that activations and the
+# f32 logits (32 x 512 x 30522) fit one card.
+TRAIN_OVERRIDES = (
+    "data.global_batch_size=32", "train.total_steps=30",
+    "train.log_interval=10", "train.eval_steps=2", "train.eval_interval=0",
+    "checkpoint.directory=", "resilience.rollback=false")
+# Phase 5b: one step at 8 x 512, kernels against their plain versions.
+# Gradients differ where the forward kernel's online softmax rounds a bf16
+# p one ulp away from the plain version's (phase 3), and 12 bf16
+# layers carry such flips into every gradient: tolerance per leaf, as
+# max|err| over the leaf's max|grad|.
+PARITY_OVERRIDES = ("data.global_batch_size=8", "checkpoint.directory=",
+                    "resilience.rollback=false")
+MODEL_GRAD_RTOL = 5e-2
+# Then 30 steps on that one batch at a constant lr of 1e-4, no warmup: the
+# loss at step 30 must be below LEARN_RATIO x the loss at step 1.
+LEARN_OVERRIDES = ("optimizer.schedule=constant", "optimizer.warmup_steps=0",
+                   "optimizer.learning_rate=1e-4", "train.total_steps=30")
+LEARN_RATIO = 0.9
 
 
 def log(msg: str) -> None:
@@ -83,20 +146,58 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, s, d, elem_bytes, segmented):
-    """Least time for the work: each input read once, each output written
-    once, at the memory rate; 4*B*H*S^2*D operations at the peak rate of
-    the input type. Returns (ms, "bytes" | "operations")."""
-    moved = 4 * b * s * h * d * elem_bytes + b * s * 4 + b * s * h * 4
-    moved += 2 * b * s * 4 if segmented else 0
+def roofline_ms(moved_bytes: float, flops: float, elem_bytes: int):
+    """Least time for the work: the bytes at the memory rate, the
+    operations at the peak rate of the input type, whichever is longer.
+    Returns (ms, "bytes" | "operations")."""
     peak = H100_BF16_FLOPS if elem_bytes == 2 else H100_F32_FLOPS
-    t_bytes = moved / H100_BYTES_PER_S
-    t_ops = 4 * b * h * s * s * d / peak
+    t_bytes = moved_bytes / H100_BYTES_PER_S
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def attention_bound(b, h, s, d, elem_bytes, segmented):
+    """Forward kernel: q, k, v, bias (and segment ids) read once, o and lse
+    written once; 4*B*H*S^2*D operations."""
+    moved = 4 * b * s * h * d * elem_bytes + b * s * 4 + b * s * h * 4
+    moved += 2 * b * s * 4 if segmented else 0
+    return roofline_ms(moved, 4 * b * h * s * s * d, elem_bytes)
+
+
+def attention_bwd_bounds(b, h, s, d, elem_bytes, segmented) -> dict:
+    """dQ reads q, k, v, dO, bias, lse and delta and writes dq: three
+    S x S x D products. dK/dV reads the same and writes dk, dv and the f32
+    per-head dbias: four products."""
+    head = b * s * h * d * elem_bytes
+    common = 4 * head + b * s * 4 + 2 * b * s * h * 4
+    common += 2 * b * s * 4 if segmented else 0
+    product = 2 * b * h * s * s * d
+    return {"dq": roofline_ms(common + head, 3 * product, elem_bytes),
+            "dkv": roofline_ms(common + 2 * head + b * h * s * 4,
+                               4 * product, elem_bytes)}
+
+
 # ---------------------------------------------------------------- phase 3
+
+def attention_cases(torch, fa, gen, b: int, s: int) -> dict:
+    """The four masking cases every parity check runs: (key bias, segment
+    ids or None) for no mask, trailing padding in row 0, three packed
+    segments per row over that padding, and row 1 fully masked."""
+    zero = torch.zeros(b, s, device="cuda")
+    pad = zero.clone()
+    pad[0, s - s // 4:] = fa.NEG_INF
+    seg = torch.zeros(b, s, device="cuda")
+    for row in range(b):
+        cuts = torch.randperm(s - 1, device="cuda",
+                              generator=gen)[:2].sort().values + 1
+        seg[row, cuts[0]:] = 1
+        seg[row, cuts[1]:] = 2
+    dead = pad.clone()
+    dead[1, :] = fa.NEG_INF
+    return {"none": (zero, None), "padding": (pad, None),
+            "segments": (pad, seg), "masked_row": (dead, None)}
+
 
 def kernel_parity(torch, fa) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -106,20 +207,8 @@ def kernel_parity(torch, fa) -> dict:
         for b, h, s, d in PARITY_SHAPES:
             q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                        .to(dtype) for _ in range(3))
-            zero = torch.zeros(b, s, device="cuda")
-            pad = zero.clone()
-            pad[0, s - s // 4:] = fa.NEG_INF
-            seg = torch.zeros(b, s, device="cuda")
-            for row in range(b):
-                cuts = torch.randperm(s - 1, device="cuda",
-                                      generator=gen)[:2].sort().values + 1
-                seg[row, cuts[0]:] = 1
-                seg[row, cuts[1]:] = 2
-            dead = pad.clone()
-            dead[1, :] = fa.NEG_INF
-            cases = {"none": (zero, None), "padding": (pad, None),
-                     "segments": (pad, seg), "masked_row": (dead, None)}
-            for case, (bias, sg) in cases.items():
+            for case, (bias, sg) in attention_cases(torch, fa, gen,
+                                                    b, s).items():
                 o, lse = fa.flash_attention_kernel(q, k, v, bias, sg, sg)
                 torch.cuda.synchronize()
                 ro, rlse = fa.flash_attention_reference(q, k, v, bias, sg, sg)
@@ -150,8 +239,9 @@ def kernel_parity(torch, fa) -> dict:
 
 def kernel_timing(torch, fa) -> dict:
     """At the serving shape (B=8, H=12, S=512, D=64, bf16, padding mask):
-    the kernel, its plain version, and SDPA on the same inputs. The 25 MB
-    of inputs stay in the 50 MB L2 between launches."""
+    the kernel and its plain version (CUDA events), and SDPA on the same
+    inputs (its device kernel time). The 25 MB of inputs stay in the 50 MB
+    L2 between launches."""
     import torch.nn.functional as F
 
     b, h, s, d = PARITY_SHAPES[0]
@@ -167,18 +257,139 @@ def kernel_timing(torch, fa) -> dict:
         "ms": time_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, bias)),
         "plain_ms": time_ms(
             torch, lambda: fa.flash_attention_reference(q, k, v, bias)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask4)),
     }
     out["bound_ms"], out["bound_by"] = attention_bound(b, h, s, d, 2, False)
     log(f"timing flash_attn_fwd (B,H,S,D)=({b},{h},{s},{d}) bf16: kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, sdpa "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, sdpa (device) "
         f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']})")
     return out
 
 
+# --------------------------------------------------------------- phase 3b
+
+def rel_err(got, ref) -> float:
+    """max|got - ref| over max|ref| (at least 1e-6), in f32."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / ref.abs().max().clamp(min=1e-6)).item()
+
+
+def bwd_kernel_parity(torch, fa) -> dict:
+    """dQ and dK/dV kernels against their plain versions on the same
+    inputs: o and lse from the forward's plain version, a random dO, delta
+    from (o, dO). Returns the worst absolute error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for b, h, s, d in BWD_SHAPES:
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            for case, (bias, sg) in attention_cases(torch, fa, gen,
+                                                    b, s).items():
+                o, lse = fa.flash_attention_reference(q, k, v, bias, sg, sg)
+                args = (q, k, v, bias, sg, sg, lse, do,
+                        fa.attention_delta(o, do))
+                got = {"dq": fa.flash_attention_dq_kernel(*args)}
+                got["dk"], got["dv"], got["dbias_h"] = (
+                    fa.flash_attention_dkv_kernel(*args))
+                torch.cuda.synchronize()
+                ref = {"dq": fa.flash_attention_dq_reference(*args)}
+                ref["dk"], ref["dv"], ref["dbias_h"] = (
+                    fa.flash_attention_dkv_reference(*args))
+                errs = {key: rel_err(got[key], ref[key]) for key in got}
+                tols = {key: GRAD_RTOL[name] for key in ("dq", "dk", "dv")}
+                tols["dbias_h"] = DBIAS_RTOL
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in got.values())
+                ok = finite and all(errs[key] <= tols[key] for key in errs)
+                if case == "masked_row":
+                    # TPU semantics: p = exp(s - lse) = 1 for every key of
+                    # a fully-masked row, so each key's dv is the sum of dO
+                    # over the row's queries, not its mean.
+                    want = do[1].float().sum(dim=0, keepdim=True)
+                    ok = ok and rel_err(got["dv"][1], want.expand_as(
+                        got["dv"][1])) <= GRAD_RTOL[name]
+                for key, kernel in (("dq", "dq"), ("dk", "dkv"),
+                                    ("dv", "dkv"), ("dbias_h", "dkv")):
+                    worst[kernel] = max(worst[kernel], (
+                        got[key].float() - ref[key].float()).abs().max()
+                        .item())
+                log(f"bwd parity {name} (B,H,S,D)=({b},{h},{s},{d}) {case}: "
+                    + ", ".join(f"{key} {errs[key]:.2e} (tol {tols[key]})"
+                                for key in errs)
+                    + f", finite {finite} -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"backward kernels disagree with their plain "
+                        f"versions: {name} ({b},{h},{s},{d}) {case}")
+    return worst
+
+
+def bwd_kernel_timing(torch, fa) -> dict:
+    """At the training shape (B=8, H=12, S=512, D=64, bf16, padding mask):
+    each backward kernel, its plain version, and the backward of
+    ``scaled_dot_product_attention`` on the same inputs (the yardstick for
+    the pair; the port never calls it)."""
+    import torch.nn.functional as F
+
+    b, h, s, d = PARITY_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    keep = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    keep[:, s - s // 4:] = False
+    bias = torch.where(keep, 0.0, fa.NEG_INF)
+    o, lse = fa.flash_attention_kernel(q, k, v, bias)
+    args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves,
+                                         attn_mask=keep[:, None, None, :])
+    grad_out = do.transpose(1, 2)
+    library_ms = device_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, grad_out, retain_graph=True))
+    bounds = attention_bwd_bounds(b, h, s, d, 2, False)
+    timing = {}
+    for name, kernel, plain in (
+            ("dq", fa.flash_attention_dq_kernel,
+             fa.flash_attention_dq_reference),
+            ("dkv", fa.flash_attention_dkv_kernel,
+             fa.flash_attention_dkv_reference)):
+        rec = {"ms": time_ms(torch, lambda: kernel(*args)),
+               "plain_ms": time_ms(torch, lambda: plain(*args)),
+               "library_ms": library_ms}
+        rec["bound_ms"], rec["bound_by"] = bounds[name]
+        log(f"timing flash_attn_bwd_{name} (B,H,S,D)=({b},{h},{s},{d}) bf16: "
+            f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"sdpa backward (both, device) {library_ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        timing[name] = rec
+    return timing
+
+
 # ---------------------------------------------------------------- phase 4
+
+def reset_counts(fa) -> None:
+    """Set every kernel's launch count to 0, just before a main-path run."""
+    fa.flash_attention.launches = 0
+    fa.flash_attention_dq_kernel.launches = 0
+    fa.flash_attention_dkv_kernel.launches = 0
+
+
+def read_counts(fa, serving: bool = False) -> dict:
+    """The launch counts just after a main-path run; a serving run must
+    have launched no backward kernel."""
+    counts = {"fwd": fa.flash_attention.launches,
+              "dq": fa.flash_attention_dq_kernel.launches,
+              "dkv": fa.flash_attention_dkv_kernel.launches}
+    if serving and (counts["dq"] or counts["dkv"]):
+        raise AssertionError(f"serving launched backward kernels: {counts}")
+    return counts
+
 
 def reference_model(torch, fa, model_config, state_dict):
     """The served model with every attention call swapped for the
@@ -295,13 +506,84 @@ class HttpClient(threading.Thread):
             os.kill(os.getpid(), signal.SIGTERM)
 
 
+def kernel_class(name: str) -> str:
+    name = name.lower()
+    for kernel in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
+                   "flash_attn_fwd"):
+        if kernel in name:
+            return kernel
+    if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "gemm"
+    if "multi_tensor" in name:  # the foreach ops: grad norm, clip, AdamW
+        return "optimizer"
+    return "elementwise"
+
+
+def device_kernels(prof) -> list[tuple[float, int, str]]:
+    """(ms, launches, name) of each device kernel in a profile: device-side
+    records only (the CPU ops that launched them carry the same time
+    again), without user annotation ranges (``Optimizer.step#AdamW.step``
+    spans kernels that are counted on their own)."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ms > 0:
+            out.append((ms, ev.count, ev.key))
+    return out
+
+
+def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
+    """Device kernel time of one call of ``fn``, from the profiler. For a
+    call whose host work outlasts its kernels (an autograd backward over a
+    small graph), CUDA events around back-to-back calls would time the
+    host instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in device_kernels(prof)) / iters
+
+
+def log_profile(prof, what: str, top: int) -> float:
+    """Sum a profile's device kernel time by class, log it with the
+    ``top`` longest kernels, and return the total in ms (0 when the
+    profiler saw no device time)."""
+    classes: dict[str, float] = {}
+    kernels = []
+    for ms, count, key in device_kernels(prof):
+        cls = kernel_class(key)
+        classes[cls] = classes.get(cls, 0.0) + ms
+        kernels.append((ms, count, cls, key[:70]))
+    total = sum(classes.values())
+    if not total:
+        log(f"profile ({what}): torch.profiler saw no device time")
+        return 0.0
+    log(f"profile ({what}, kernel time by class): " + ", ".join(
+        f"{c} {ms:.3f} ms ({100 * ms / total:.1f}%)"
+        for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]))
+        + f"; total {total:.3f} ms")
+    for ms, count, cls, key in sorted(kernels, reverse=True)[:top]:
+        log(f"  {ms:8.3f} ms  x{count:<4d} {cls:<11s} {key}")
+    return total
+
+
 def forward_breakdown(torch, model, plain_model, vocab: int) -> None:
     """Where one full batch's device time goes: the served forward at the
     largest bucket (8 rows x 512 tokens) timed against the same model
     with the kernel's plain version, then one profiled forward summed by
     kernel class. Measurement only; runs after the launch counts are
     read."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -316,34 +598,7 @@ def forward_breakdown(torch, model, plain_model, vocab: int) -> None:
             torch.cuda.synchronize()
     log(f"forward 8x512 bf16: {t_kernel:.3f} ms with the kernel, "
         f"{t_plain:.3f} ms with its plain version (CUDA events, 5 runs)")
-    classes: dict[str, float] = {}
-    kernels = []
-    for ev in prof.key_averages():
-        # Device-side kernel records only: the CPU ops that launched them
-        # carry the same time again.
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us <= 0:
-            continue
-        name = ev.key.lower()
-        cls = ("flash_attn_fwd" if "flash_attn" in name else
-               "gemm" if any(t in name for t in (
-                   "gemm", "cutlass", "xmma", "nvjet", "cublas")) else
-               "other")
-        classes[cls] = classes.get(cls, 0.0) + us
-        kernels.append((us, ev.count, ev.key[:70]))
-    total = sum(classes.values())
-    if not total:
-        log("profile: torch.profiler saw no device time")
-        return
-    log("profile (one forward, kernel time by class): " + ", ".join(
-        f"{c} {us / 1e3:.3f} ms ({100 * us / total:.1f}%)"
-        for c, us in sorted(classes.items(), key=lambda kv: -kv[1]))
-        + f"; total {total / 1e3:.3f} ms")
-    for us, count, key in sorted(kernels, reverse=True)[:8]:
-        log(f"  {us / 1e3:8.3f} ms  x{count:<4d} {key}")
+    log_profile(prof, "one forward", top=8)
 
 
 def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
@@ -386,12 +641,12 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 
     # 4a: the HTTP server through cli/serve.py's main.
     client = HttpClient(os.path.join(workdir, "logs"), m.vocab_size)
-    fa.flash_attention.launches = 0
+    reset_counts(fa)
     client.start()
     rc = cli_serve.main(["--artifact", artifact_dir, "--config", config_path,
                          "--device", "cuda", *sum(
                              (["--set", o] for o in overrides), [])])
-    http_launches = fa.flash_attention.launches
+    http_launches = read_counts(fa, serving=True)["fwd"]
     client.join(60)
     if client.error is not None:
         raise client.error
@@ -421,10 +676,10 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
     engine = InferenceEngine(artifact, cfg.serve, device="cuda")
     rng = np.random.default_rng(SEED + 2)
     long_ids = [rng.integers(0, m.vocab_size, n).tolist() for n in (512, 300)]
-    fa.flash_attention.launches = 0
+    reset_counts(fa)
     outs = [engine.predict({"input_ids": ids}, timeout=600)
             for ids in long_ids]
-    engine_launches = fa.flash_attention.launches
+    engine_launches = read_counts(fa, serving=True)["fwd"]
     engine_batches = engine.stats()["batches"]
     engine.drain(60)
     for ids, out in zip(long_ids, outs):
@@ -447,6 +702,203 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
     forward_breakdown(torch, engine.model, ref, m.vocab_size)
     return http_launches + engine_launches, {
         "requests": len(latencies), "batches": http_batches + engine_batches}
+
+
+# ---------------------------------------------------------------- phase 5
+
+def train_breakdown(torch, config) -> None:
+    """One training step at the phase-5 shape, after the launch counts are
+    read: step time over 5 synced steps (host clock), then one profiled
+    step summed by kernel class; idle = 1 − kernel time / step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    builder = StepBuilder(config, device="cuda")
+    state = builder.init_state(SEED)
+    batch = to_device(next(get_dataset(config.data)), torch.device("cuda"))
+    for _ in range(2):
+        builder.train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        builder.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        builder.train_step(state, batch)
+        torch.cuda.synchronize()
+    log(f"train step {config.data.global_batch_size}x{config.data.seq_len} "
+        f"bf16: {step_ms:.3f} ms (host clock, 5 synced steps)")
+    total = log_profile(prof, "one train step", top=12)
+    if total:
+        log(f"train step device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
+            f" of the step")
+
+
+def train_phase(torch, fa, workdir: str) -> dict:
+    """``cli.train.main`` on BERT-base at full width; returns the launch
+    counts of the run."""
+    from distributed_tensorflow_framework_torch.cli import train as cli_train
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    config_path = "configs/bert_base_mlm.yaml"
+    cfg = load_config(config_path, overrides=list(TRAIN_OVERRIDES))
+    m, o = cfg.model, cfg.optimizer
+    if (m.name, m.num_layers, m.hidden_size, m.num_heads, m.mlp_dim,
+            m.vocab_size, m.max_seq_len, m.dtype, m.fused_qkv,
+            m.attention_impl, m.dropout_rate, o.name, o.grad_clip_norm) != (
+            "bert", 12, 768, 12, 3072, 30522, 512, "bfloat16", True,
+            "pallas", 0.1, "adamw", 1.0):
+        raise AssertionError(f"{config_path} is no longer BERT-base MLM "
+                             f"training: {m}, {o}")
+    log_dir = os.path.join(workdir, "train_logs")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    rc = cli_train.main(["--config", config_path, "--device", "cuda",
+                         "--log-dir", log_dir,
+                         *sum((["--set", s] for s in TRAIN_OVERRIDES), [])])
+    counts = read_counts(fa)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"cli.train.main returned {rc}")
+    with open(os.path.join(log_dir, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    train = [e for e in events if e["kind"] == "train_step"]
+    evals = [e for e in events if e["kind"] == "eval"]
+    steps, micro = cfg.train.total_steps, cfg.train.total_steps * max(
+        1, cfg.train.grad_accum_steps)
+    want = {"fwd": 12 * (micro + cfg.train.eval_steps), "dq": 12 * micro,
+            "dkv": 12 * micro}
+    for e in train:
+        log(f"train step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items())
+            + f", {e['throughput']['examples_per_sec']:.2f} examples/s")
+    for e in evals:
+        log(f"train eval at step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    values = [v for e in train + evals for v in e["metrics"].values()]
+    if ([e["step"] for e in train] != list(range(
+            cfg.train.log_interval, steps + 1, cfg.train.log_interval))
+            or len(evals) != 1
+            or not all(math.isfinite(v) for v in values)):
+        raise AssertionError("training metrics missing or not finite")
+    # Steady window: the logging windows after the first (which builds
+    # the kernels); the throughput meter restarts at every synced log.
+    eps = [e["throughput"]["examples_per_sec"] for e in train[1:]]
+    rate = statistics.mean(eps)
+    tokens = rate * cfg.data.seq_len
+    log(f"train: {steps} steps of {cfg.data.global_batch_size}x"
+        f"{cfg.data.seq_len} in {wall:.1f} s; steady (steps "
+        f"{train[0]['step'] + 1}-{steps}) {1e3 * cfg.data.global_batch_size / rate:.2f}"
+        f" ms/step, {tokens:.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+        f"kernel launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"expected launches {want}, saw {counts}")
+    train_breakdown(torch, cfg)
+    return counts
+
+
+# --------------------------------------------------------------- phase 5b
+
+def plain_attention_fn(torch, fa):
+    """``flash_attention`` with the kernels' plain versions on the card:
+    the forward reference, and the dQ/dK/dV references in the backward."""
+
+    class PlainFlashAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, bias, seg):
+            o, lse = fa.flash_attention_reference(q, k, v, bias, seg, seg)
+            ctx.save_for_backward(q, k, v, bias, seg, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, bias, seg, o, lse = ctx.saved_tensors
+            dq, dk, dv, _ = fa.flash_attention_bwd_reference(
+                q, k, v, bias, seg, seg, o, lse, do)
+            return dq, dk, dv, None, None
+
+    def plain_attention(q, k, v, *, mask=None, segment_ids=None):
+        b, s = q.shape[:2]
+        bias = fa.attention_bias(mask, b, s, q.device)
+        seg = None if segment_ids is None else segment_ids.float()
+        return PlainFlashAttention.apply(q, k, v, bias, seg)
+
+    return plain_attention
+
+
+def train_parity_phase(torch, fa) -> None:
+    """One step's gradients through the kernels against the same model
+    with their plain versions, then learning on one repeated batch."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.models.bert import (
+        MultiHeadAttention,
+    )
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg = load_config("configs/bert_base_mlm.yaml",
+                      overrides=list(PARITY_OVERRIDES))
+    builder = StepBuilder(cfg, device="cuda")
+    batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
+    grads = {}
+    for route in ("kernel", "plain"):
+        state = builder.init_state(SEED)  # same weights, same dropout seed
+        if route == "plain":
+            plain = plain_attention_fn(torch, fa)
+            for module in state.model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention_fn = plain
+        state.optimizer.zero_grad()
+        reset_counts(fa)
+        builder._micro_step(state, batch, 1.0)
+        counts = read_counts(fa)
+        if route == "kernel" and counts != {"fwd": 12, "dq": 12, "dkv": 12}:
+            raise AssertionError(f"kernel route launched {counts}")
+        if route == "plain" and any(counts.values()):
+            raise AssertionError(f"plain route launched kernels: {counts}")
+        grads[route] = {k: p.grad.float().clone()
+                        for k, p in state.model.named_parameters()}
+        del state
+    worst_key, worst = "", 0.0
+    for key, ref in grads["plain"].items():
+        err = rel_err(grads["kernel"][key], ref)
+        if err > worst:
+            worst_key, worst = key, err
+    qkv = [f"layer{i}.attn.qkv.weight" for i in range(12)]
+    qkv_norms = [grads["kernel"][k].norm().item() for k in qkv]
+    qkv_err = max(rel_err(grads["kernel"][k], grads["plain"][k]) for k in qkv)
+    log(f"train parity: gradients through the kernels vs their plain "
+        f"versions, worst leaf {worst_key} {worst:.3e} of its max (tol "
+        f"{MODEL_GRAD_RTOL}); QKV weight gradient norms {min(qkv_norms):.4e}"
+        f"..{max(qkv_norms):.4e}, worst QKV error {qkv_err:.3e}")
+    if worst > MODEL_GRAD_RTOL or not all(
+            n > 0 and math.isfinite(n) for n in qkv_norms):
+        raise AssertionError("kernel-path gradients disagree with the "
+                             "plain-attention model, or the QKV projection "
+                             "got no gradient")
+
+    # Learning: the same batch over and over at a constant lr.
+    cfg = load_config("configs/bert_base_mlm.yaml",
+                      overrides=list(PARITY_OVERRIDES) + list(LEARN_OVERRIDES))
+    builder = StepBuilder(cfg, device="cuda")
+    state = builder.init_state(SEED)
+    trajectory = [float(builder.train_step(state, batch)["loss"])
+                  for _ in range(cfg.train.total_steps)]
+    log("learning on one repeated batch (8x512, lr 1e-4 constant): loss "
+        + " ".join(f"{v:.3f}" for v in trajectory))
+    if not trajectory[-1] < LEARN_RATIO * trajectory[0]:
+        raise AssertionError(
+            f"loss at step {len(trajectory)} ({trajectory[-1]:.4f}) is not "
+            f"below {LEARN_RATIO} x the loss at step 1 ({trajectory[0]:.4f})")
+
 
 
 def main() -> int:
@@ -494,17 +946,31 @@ def main() -> int:
     log("phase 3 kernel parity")
     parity = kernel_parity(torch, fa)
     timing = kernel_timing(torch, fa)
+    log("phase 3b backward kernel parity")
+    bwd_worst = bwd_kernel_parity(torch, fa)
+    bwd_timing = bwd_kernel_timing(torch, fa)
 
-    log("phase 4 serve")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        log("phase 4 serve")
         launches, served = serve_phase(torch, fa, workdir)
-    log(f"serve summary: {served['requests']} HTTP requests + 2 engine "
-        f"requests, {served['batches']} batches, {launches} kernel launches")
+        log(f"serve summary: {served['requests']} HTTP requests + 2 engine "
+            f"requests, {served['batches']} batches, {launches} kernel "
+            f"launches")
+        log("phase 5 train")
+        train_counts = train_phase(torch, fa, workdir)
+    log("phase 5b training parity and learning")
+    train_parity_phase(torch, fa)
 
-    record = {"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": parity["max_abs_err"], **timing}]}
+    record = {"kernels": [
+        {"name": "flash_attn_fwd", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES,
+         "launches": launches + train_counts["fwd"],
+         "max_abs_err": parity["max_abs_err"], **timing},
+        *({"name": f"flash_attn_bwd_{name}", "route": "cuda",
+           "source": BWD_SOURCE, "replaces": BWD_REPLACES[name],
+           "launches": train_counts[name], "max_abs_err": bwd_worst[name],
+           **bwd_timing[name]} for name in ("dq", "dkv")),
+    ]}
     for k in record["kernels"]:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']}, kernel_ms "
             f"{k['ms']}, plain_ms {k['plain_ms']}, library_ms "

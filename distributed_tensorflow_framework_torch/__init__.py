@@ -7,6 +7,9 @@ never JAX and nothing from the JAX package. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 
 Ported so far: BERT MLM serving (config -> artifact -> engine -> HTTP
-server), with the whole-K flash-attention forward as a hand-written CUDA
-kernel (ops/csrc/flash_attn_fwd.cu). ROADMAP.md lists what comes next.
+server) and BERT MLM training on one device (config -> synthetic MLM
+stream -> train step with AdamW -> Trainer loop -> cli/train.py), with the
+whole-K flash-attention forward and backward as hand-written CUDA kernels
+(ops/csrc/flash_attn_fwd.cu, ops/csrc/flash_attn_bwd.cu). ROADMAP.md lists
+what comes next.
 """

@@ -1,15 +1,23 @@
-"""Logging setup and streaming latency percentiles.
+"""Logging setup, metric writing, throughput and latency percentiles.
 
-The port's copy of the two pieces of ``core/metrics.py`` the serving path
-uses: :func:`setup_logging` and :class:`PercentileReservoir`.
+The port's copy of ``core/metrics.py``: :func:`setup_logging`,
+:class:`MetricWriter` (console plus the ``dtf-telemetry/1`` JSONL event
+stream, so ``scripts/analyze_trace.py`` reads a port run; no TensorBoard),
+:class:`ThroughputMeter` and :class:`PercentileReservoir`.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import random
-from typing import Any
+import time
+from typing import Any, Mapping
+
+from distributed_tensorflow_framework_torch.core import telemetry
+
+log = logging.getLogger("dtf_torch")
 
 
 def setup_logging(level: int = logging.INFO) -> None:
@@ -18,6 +26,59 @@ def setup_logging(level: int = logging.INFO) -> None:
             level=level,
             format="%(asctime)s %(levelname).1s %(name)s] %(message)s",
         )
+
+
+class MetricWriter:
+    """Console + optional JSONL metric sink: one ``events.jsonl`` record
+    per write under ``logdir`` (none when ``logdir`` is empty), with phase
+    timings and throughput split into their schema fields."""
+
+    def __init__(self, logdir: str | None = None):
+        path = os.path.join(logdir, "events.jsonl") if logdir else None
+        self.telemetry = telemetry.TelemetryWriter(path)
+
+    def write(self, step: int, values: Mapping[str, Any], *,
+              kind: str = telemetry.KIND_TRAIN_STEP) -> None:
+        scalars = {k: telemetry._to_scalar(v) for k, v in values.items()}
+        log.info("step %d: %s", step, " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in scalars.items()))
+        metrics, phases, throughput = telemetry.split_metrics(scalars)
+        self.telemetry.emit(kind, step=step, metrics=metrics or None,
+                            phases=phases or None,
+                            throughput=throughput or None)
+
+    def close(self) -> None:
+        self.telemetry.close()
+
+
+class ThroughputMeter:
+    """Examples/sec over the steps since the last reset;
+    ``examples_per_sec_per_chip`` divides by the device count."""
+
+    def __init__(self, num_chips: int):
+        self.num_chips = max(1, num_chips)
+        self._t0: float | None = None
+        self._examples = 0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+        self._examples = 0
+
+    def update(self, batch_examples: int) -> None:
+        if self._t0 is None:
+            self.start()
+        self._examples += batch_examples
+
+    def rates(self) -> dict[str, float]:
+        if self._t0 is None or self._examples == 0:
+            return {"examples_per_sec": 0.0, "examples_per_sec_per_chip": 0.0}
+        eps = self._examples / max(time.perf_counter() - self._t0, 1e-9)
+        return {"examples_per_sec": eps,
+                "examples_per_sec_per_chip": eps / self.num_chips}
+
+    def reset(self) -> None:
+        self.start()
 
 
 class PercentileReservoir:

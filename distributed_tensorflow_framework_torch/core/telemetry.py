@@ -3,7 +3,8 @@
 The port's copy of the writer half of ``core/telemetry.py``: the same
 schema string, reserved fields, event kinds and record shape, so
 ``scripts/analyze_trace.py`` reads the port's ``events.jsonl`` unchanged.
-Only the kinds the port emits so far are defined here.
+Only the kinds the port emits so far are defined here: the serve kinds,
+and the train-step, eval, failure and run-meta kinds of the trainer.
 """
 
 from __future__ import annotations
@@ -29,7 +30,10 @@ RESERVED_FIELDS = (
     "throughput", "roofline", "collectives", "health", "extra",
 )
 
+KIND_TRAIN_STEP = "train_step"
+KIND_EVAL = "eval"
 KIND_HEALTH = "health"
+KIND_FAILURE = "failure"
 KIND_RUN_META = "run_meta"
 # Serving SLO events (serve/engine.py): one per served request (queue
 # wait + end-to-end latency), one per executed batch (real vs padded rows,
@@ -55,6 +59,34 @@ def _to_scalar(v: Any) -> Any:
         except (TypeError, ValueError, RuntimeError):
             return str(v)
     return v
+
+
+# Metric-key routing: the trainer's fetched metrics dict mixes model
+# metrics, StepTimer phases and ThroughputMeter rates. The writer splits
+# them into their schema fields so readers never re-parse key names.
+_PHASE_PREFIX, _PHASE_SUFFIX = "time_", "_ms"
+_THROUGHPUT_KEYS = (
+    "examples_per_sec", "examples_per_sec_per_chip",
+    "images_per_sec", "images_per_sec_per_chip",
+    "tokens_per_sec", "tokens_per_sec_per_chip",
+    "real_tokens_per_sec", "docs_per_sec",
+)
+
+
+def split_metrics(values: Mapping[str, Any]) -> tuple[dict, dict, dict]:
+    """Partition a flat metrics dict into (metrics, phases, throughput)."""
+    metrics: dict[str, Any] = {}
+    phases: dict[str, Any] = {}
+    throughput: dict[str, Any] = {}
+    for k, v in values.items():
+        v = _to_scalar(v)
+        if k.startswith(_PHASE_PREFIX) and k.endswith(_PHASE_SUFFIX):
+            phases[k[len(_PHASE_PREFIX):-len(_PHASE_SUFFIX)]] = v
+        elif k in _THROUGHPUT_KEYS:
+            throughput[k] = v
+        else:
+            metrics[k] = v
+    return metrics, phases, throughput
 
 
 def make_event(

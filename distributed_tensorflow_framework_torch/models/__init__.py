@@ -44,7 +44,7 @@ def model_kwargs(config: ModelConfig) -> dict:
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
         mlp_dim=config.mlp_dim, max_seq_len=config.max_seq_len,
-        dtype=_DTYPES[config.dtype], attention_impl=config.attention_impl,
+        dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype], attention_impl=config.attention_impl,
         fused_qkv=config.fused_qkv)
 
 
@@ -52,7 +52,8 @@ def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
               generator: torch.Generator | None = None) -> BertForMLM:
     """Build the model on ``device`` (default CUDA; raises when CUDA is
     absent unless ``device="cpu"``) with its parameters drawn from
-    ``generator`` (default: seed 0 on that device). Eval mode."""
+    ``generator`` (default: seed 0 on that device). Eval mode: the
+    trainer switches it to ``train()``."""
     dev = resolve_device(device)
     model = BertForMLM(**model_kwargs(config), device=dev)
     if generator is None:

@@ -1,7 +1,7 @@
-"""BERT-base for masked-LM, eval forward (the serving path).
+"""BERT-base for masked-LM: the training and the serving forward.
 
-Port of ``distributed_tensorflow_framework_tpu/models/bert.py`` (the
-training-free part): post-LayerNorm encoder, token + position embeddings,
+Port of ``distributed_tensorflow_framework_tpu/models/bert.py`` (the dense
+encoder): post-LayerNorm encoder, token + position embeddings,
 tied-embedding MLM head. Module and parameter names follow the Flax tree
 (``embed_block``, ``layer{i}/attn/qkv``, ``head/mlm_bias``, ...) so
 models/convert.py maps one onto the other by name.
@@ -9,8 +9,14 @@ models/convert.py maps one onto the other by name.
 The dtype flow mirrors the Flax module's: parameters are f32, matmuls run in
 ``dtype`` (bf16 in production), LayerNorms compute in and return f32, the
 embedding output is cast to ``dtype``, and the vocabulary projection is a
-``dtype`` matmul followed by an f32 bias add. Dropout is omitted: this slice
-serves, and the eval forward's dropout is an identity.
+``dtype`` matmul followed by an f32 bias add.
+
+Dropout at ``dropout_rate`` follows the attention block, the MLP and the
+embedding LayerNorm, as in the Flax model. It is active in ``train()`` mode
+and the identity in ``eval()``. Its masks come from the
+``dropout_generator`` the caller passes to ``forward`` (the trainer owns
+it), never from the global RNG; kept values are scaled by 1/keep_prob in
+the activation dtype, as Flax's ``nn.Dropout`` does.
 
 ``attention_impl``: "pallas" runs ops/flash_attention.py (the CUDA kernel on
 the card), "xla" the plain :func:`dot_product_attention`.
@@ -35,6 +41,26 @@ from distributed_tensorflow_framework_torch.ops.flash_attention import (
 )
 
 _F32_MIN = torch.finfo(torch.float32).min
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability 1 − rate
+    and scale it by 1/(1 − rate), computed in x's dtype; the identity when
+    not training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train() mode needs a dropout_generator "
+                         "(the port never draws from the global RNG)")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep_prob, generator=generator).bool()
+    # Flax divides by keep_prob rounded to x's dtype (0.8984375 in bf16);
+    # rounding it here on the host keeps the division free of a copy to
+    # the device.
+    rounded = torch.tensor(keep_prob, dtype=x.dtype).item()
+    return torch.where(keep, x / rounded, 0.0)
 
 
 def dot_product_attention(q, k, v, *, mask=None, segment_ids=None,
@@ -101,8 +127,9 @@ class MultiHeadAttention(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int, *,
                  dtype: torch.dtype, attention_impl: str, fused_qkv: bool,
-                 device=None):
+                 dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.attn = MultiHeadAttention(
             hidden, num_heads, dtype=dtype, attention_impl=attention_impl,
             fused_qkv=fused_qkv, device=device)
@@ -111,10 +138,13 @@ class EncoderLayer(nn.Module):
         self.mlp_out = Dense(mlp_dim, hidden, dtype=dtype, device=device)
         self.ln2 = LayerNorm(hidden, device=device)
 
-    def forward(self, x, mask=None, segment_ids=None):
-        x = self.ln1(x + self.attn(x, mask, segment_ids))
-        y = F.gelu(self.mlp_in(x), approximate="tanh")
-        return self.ln2(x + self.mlp_out(y))
+    def forward(self, x, mask=None, segment_ids=None, generator=None):
+        attn = dropout(self.attn(x, mask, segment_ids), self.dropout_rate,
+                       generator, self.training)
+        x = self.ln1(x + attn)
+        y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        y = dropout(y, self.dropout_rate, generator, self.training)
+        return self.ln2(x + y)
 
 
 class Embed(nn.Module):
@@ -131,15 +161,16 @@ class BertEmbed(nn.Module):
     raw embedding table (the MLM projection is tied to it)."""
 
     def __init__(self, vocab_size: int, hidden: int, max_seq_len: int, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, dropout_rate: float = 0.0, device=None):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.embed = Embed(vocab_size, hidden, device=device)
         self.pos_embedding = nn.Parameter(torch.empty(
             max_seq_len, hidden, dtype=torch.float32, device=device))
         self.embed_ln = LayerNorm(hidden, device=device)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, generator=None):
         table = self.embed.weight
         x = F.embedding(input_ids, table).to(self.dtype)
         if position_ids is None:
@@ -148,6 +179,7 @@ class BertEmbed(nn.Module):
             # Packed rows: per-document positions, reset at each segment.
             pos = self.pos_embedding[position_ids]
         x = self.embed_ln(x + pos.to(self.dtype))
+        x = dropout(x, self.dropout_rate, generator, self.training)
         return x.to(self.dtype), table
 
 
@@ -185,18 +217,20 @@ class BertForMLM(nn.Module):
     def __init__(self, *, vocab_size: int = 30522, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, max_seq_len: int = 512,
+                 dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "xla", fused_qkv: bool = False,
                  device=None):
         super().__init__()
         self.num_layers = num_layers
         self.embed_block = BertEmbed(vocab_size, hidden_size, max_seq_len,
-                                     dtype=dtype, device=device)
+                                     dtype=dtype, dropout_rate=dropout_rate,
+                                     device=device)
         for i in range(num_layers):
             self.add_module(f"layer{i}", EncoderLayer(
                 hidden_size, num_heads, mlp_dim, dtype=dtype,
                 attention_impl=attention_impl, fused_qkv=fused_qkv,
-                device=device))
+                dropout_rate=dropout_rate, device=device))
         self.head = MLMHead(vocab_size, hidden_size, dtype=dtype,
                             device=device)
 
@@ -214,12 +248,17 @@ class BertForMLM(nn.Module):
         with torch.no_grad():
             self.head.mlm_bias.zero_()
 
-    def forward(self, input_ids, attention_mask=None, segment_ids=None):
+    def forward(self, input_ids, attention_mask=None, segment_ids=None, *,
+                dropout_generator: torch.Generator | None = None):
+        """Logits (B, S, vocab) f32. ``dropout_generator`` feeds the dropout
+        masks in ``train()`` mode; ``eval()`` mode ignores it."""
         position_ids = (None if segment_ids is None
                         else segment_positions(segment_ids))
-        x, table = self.embed_block(input_ids, position_ids)
+        x, table = self.embed_block(input_ids, position_ids,
+                                    dropout_generator)
         mask = (None if attention_mask is None
                 else attention_mask[:, None, None, :].bool())
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, mask, segment_ids)
+            x = getattr(self, f"layer{i}")(x, mask, segment_ids,
+                                           dropout_generator)
         return self.head(x, table)

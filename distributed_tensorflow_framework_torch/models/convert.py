@@ -68,27 +68,44 @@ def flax_to_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def to_flax(model: nn.Module) -> dict[str, Any]:
-    """The port model's parameters as a Flax tree of f32 numpy arrays — the
-    inverse of :func:`flax_to_state_dict`, with layouts taken from the
-    module types (a Dense's Flax kernel shape is (in, *out), where the
-    fused ``qkv`` output is (3, H))."""
-    flat: dict[tuple, np.ndarray] = {}
+def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...],
+                                                     tuple[int, ...]]]:
+    """Each state_dict key of the port model → (its Flax path, the Flax
+    leaf's shape), with layouts taken from the module types (a Dense's
+    Flax kernel shape is (in, *out), where the fused ``qkv`` output is
+    (3, H))."""
     modules = dict(model.named_modules())
+    out = {}
     for key, tensor in model.state_dict().items():
         *mods, name = key.split(".")
         owner = modules[".".join(mods)]
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        shape = tuple(tensor.shape)
         if isinstance(owner, Dense):
-            out_shape = ((3, arr.shape[0] // 3) if mods[-1] == "qkv"
-                         else (arr.shape[0],))
+            out_shape = ((3, shape[0] // 3) if mods[-1] == "qkv"
+                         else (shape[0],))
             if name == "weight":
-                arr, name = arr.T.reshape(arr.shape[1], *out_shape), "kernel"
+                name, shape = "kernel", (shape[1], *out_shape)
             else:
-                arr = arr.reshape(out_shape)
+                shape = out_shape
         elif isinstance(owner, LayerNorm) and name == "weight":
             name = "scale"
         elif name == "weight":  # Embed
             name = "embedding"
-        flat[(*mods, name)] = np.ascontiguousarray(arr)
+        out[key] = ((*mods, name), shape)
+    return out
+
+
+def to_flax(model: nn.Module,
+            tensors: dict[str, torch.Tensor] | None = None) -> dict[str, Any]:
+    """The port model's parameters as a Flax tree of f32 numpy arrays — the
+    inverse of :func:`flax_to_state_dict`. ``tensors`` (state_dict key →
+    tensor of the parameter's shape, e.g. gradients or updates) are laid
+    out instead of the parameters when given."""
+    tensors = model.state_dict() if tensors is None else tensors
+    flat: dict[tuple, np.ndarray] = {}
+    for key, (path, shape) in flax_layout(model).items():
+        arr = tensors[key].detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            arr = arr.T
+        flat[path] = np.ascontiguousarray(arr.reshape(shape))
     return unflatten_tree(flat)

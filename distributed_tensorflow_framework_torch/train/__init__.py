@@ -1,1 +1,2 @@
-"""Training-side helpers (task routing so far)."""
+"""Training: losses, schedules, the AdamW chain, the train/eval steps,
+hooks and the Trainer loop (single device)."""

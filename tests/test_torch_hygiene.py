@@ -66,6 +66,8 @@ def test_port_imports_with_jax_blocked():
         "for name in ('jax', 'flax', 'optax', 'orbax'):\n"
         "    sys.modules[name] = None\n"
         "import distributed_tensorflow_framework_torch.cli.serve\n"
+        "import distributed_tensorflow_framework_torch.cli.train\n"
+        "import distributed_tensorflow_framework_torch.train.loop\n"
         "import distributed_tensorflow_framework_torch.serve.server\n"
         "import distributed_tensorflow_framework_torch.serve.engine\n"
         "import distributed_tensorflow_framework_torch.models.convert\n"
@@ -137,6 +139,24 @@ def test_engine_and_cli_need_cuda_unless_cpu(no_cuda, tiny_artifact):
     with pytest.raises(dev.DeviceUnavailableError):
         cli.main(["--artifact", path, "--set", "serve.port=0"])
     assert cli.parse_args(["--artifact", path]).device == "cuda"
+
+
+def test_train_cli_and_trainer_need_cuda_unless_cpu(no_cuda):
+    from distributed_tensorflow_framework_torch.cli import train as cli
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    over = ["model.name=bert", *TINY, "model.attention_impl=pallas",
+            "data.name=synthetic_mlm", "data.vocab_size=100",
+            "data.global_batch_size=2", "optimizer.name=adamw",
+            "train.total_steps=1", "train.eval_steps=0",
+            "checkpoint.directory=", "resilience.rollback=false"]
+    assert cli.parse_args([]).device == "cuda"
+    with pytest.raises(dev.DeviceUnavailableError):
+        cli.main(sum((["--set", o] for o in over), []))
+    with pytest.raises(dev.DeviceUnavailableError):
+        Trainer(load_config(overrides=over))
+    assert cli.main(["--device", "cpu", *sum((["--set", o] for o in over),
+                                             [])]) == 0
 
 
 def test_engine_refuses_multi_device_serving(tiny_artifact):
