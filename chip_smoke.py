@@ -26,6 +26,19 @@ Phases (any failure raises and the script exits non-zero):
      dO (p = 1, the TPU semantics). Times each kernel, its plain version
      and the backward of ``scaled_dot_product_attention`` (the yardstick
      for the pair) at (8,12,512,64) bf16 with padding, beside the bounds.
+  3c. long-context kernel parity — at the streaming lengths (1,2,8192,64)
+     and (1,2,16384,64), bf16 and f32, with padding and with segment ids:
+     the forward kernel against the streaming forward's plain version, and
+     the two-pass dQ/dK/dV kernels and the fused one-pass kernel each
+     against the plain backward and the fused kernel against the two-pass
+     kernels. Then the fused kernel on the ragged (2,3,96,32), bf16 and
+     f32, and at (2,2,2048,64) bf16 (where it takes over the whole-K pair),
+     all four cases. The forward's o is held relative to the case's largest
+     |o|. Times the forward, dQ and dK/dV at (1,12,16384,64) and the fused
+     kernel at (1,12,8192,64), bf16, beside their plain versions, their
+     bounds and SDPA's forward or backward device time; then the fused
+     kernel against the two-pass pair in the whole-K takeover band,
+     (4,12,2048,64) and (2,12,4096,64) bf16.
   4. serve — full-width BERT-base (12 x 768, 12 heads, MLP 3072, vocab
      30522, max_seq_len 512, bf16, fused QKV, attention_impl pallas) with
      weights from a seed, written as a port artifact; the server is started
@@ -40,7 +53,8 @@ Phases (any failure raises and the script exits non-zero):
      The batch goes from 256 to 32 x 512 so that activations and the f32
      logits fit one card (18.2 GB peak, NVIDIA H100 80GB HBM3 at 700 W).
      Checks rc 0, finite metrics and the launch counts: forward 12 x (30
-     steps + 2 eval batches), dQ and dK/dV 12 x 30. Prints the steady step
+     steps + 2 eval batches), dQ and dK/dV 12 x 30, fused 0. Prints the
+     steady step
      time, tokens/s and peak memory, then one profiled step by kernel
      class and the device idle share.
   5b. training parity and learning — one step's gradients at 8 x 512
@@ -50,9 +64,24 @@ Phases (any failure raises and the script exits non-zero):
      a constant lr of 1e-4: the loss at step 30 must be below 0.9 x the
      loss at step 1 (the first runs went 10.490 → 7.219 on an NVIDIA H100
      80GB HBM3 at 700 W).
+  6. long-context training — ``cli/train.py``'s ``main`` on
+     ``configs/bert_long_ring.yaml`` at its width and depth (12 x 768,
+     remat, dropout 0.1, bf16) on one card: ``mesh.seq=1`` and
+     ``attention_impl pallas`` (ring attention is not ported), no
+     checkpoints, 3 steps of the config's 8 rows in 8 micro-batches of
+     one row. FUSED_BWD stays on auto and must pick the two-pass kernels
+     at S = 16384 (above FUSED_BWD_MAX) and the fused kernel at S = 8192
+     (the H100 is in FUSED_BWD_VERIFIED_DEVICES). Checks rc 0, finite metrics
+     and the launch counts per micro-batch: forward 24 (forward and
+     recompute), dQ and dK/dV 12 or fused 12. Prints the steady step time,
+     tokens/s, peak memory and one profiled step by kernel class.
+  6b. fused vs two-pass at S = 8192 — one micro-step's gradients (dropout
+     and remat on) with the fused backward against the two-pass kernels,
+     every leaf within MODEL_GRAD_RTOL; then the phase-6 step timed on
+     each route in turns.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
-training run) and read just after; launches made to compare or time a
+training runs) and read just after; launches made to compare or time a
 kernel do not count. The line before the last is the card's
 ``nvidia-smi`` name and power limit; the line before that the per-kernel
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -60,6 +89,7 @@ JSON record; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -75,14 +105,20 @@ SEED = 0
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "distributed_tensorflow_framework_torch/ops/csrc/flash_attn_fwd.cu"
-KERNEL_REPLACES = "distributed_tensorflow_framework_tpu/ops/flash_attention.py:140"
-BWD_SOURCE = "distributed_tensorflow_framework_torch/ops/csrc/flash_attn_bwd.cu"
-BWD_REPLACES = {
-    "dq": "distributed_tensorflow_framework_tpu/ops/flash_attention.py:179",
-    "dkv": "distributed_tensorflow_framework_tpu/ops/flash_attention.py:213",
-}
+_CSRC = "distributed_tensorflow_framework_torch/ops/csrc/"
+SOURCES = {"fwd": _CSRC + "flash_attn_fwd.cu", "dq": _CSRC + "flash_attn_bwd.cu",
+           "dkv": _CSRC + "flash_attn_bwd.cu",
+           "fused": _CSRC + "flash_attn_bwd_fused.cu"}
+# The TPU kernels each one replaces (def lines): whole-K and streaming.
+_TPU = "distributed_tensorflow_framework_tpu/ops/flash_attention.py:"
+REPLACES = {"fwd": [_TPU + "140", _TPU + "254"],
+            "dq": [_TPU + "179", _TPU + "304"],
+            "dkv": [_TPU + "213", _TPU + "347"], "fused": [_TPU + "403"]}
 PARITY_SHAPES = ((8, 12, 512, 64), (2, 4, 128, 32), (2, 4, 64, 32))
+# Phase 3c: the streaming lengths of the long-context runs, two heads.
+LONG_SHAPES = ((1, 2, 8192, 64), (1, 2, 16384, 64))
+KERNEL_NAMES = {"fwd": "flash_attn_fwd", "dq": "flash_attn_bwd_dq",
+                "dkv": "flash_attn_bwd_dkv", "fused": "flash_attn_bwd_fused"}
 # The backward also runs D = 128 and a length that is not a multiple of the
 # kernels' 64-row tiles (rows and keys past S must contribute nothing).
 BWD_SHAPES = PARITY_SHAPES + ((2, 2, 256, 128), (2, 3, 96, 32))
@@ -92,6 +128,12 @@ BWD_SHAPES = PARITY_SHAPES + ((2, 2, 256, 128), (2, 3, 96, 32))
 # products in another order. lse: relative, its terms are unrounded f32.
 O_ATOL = {"bfloat16": 1.6e-2, "float32": 2e-5}
 LSE_RTOL = 1e-5
+# Phase 3c: o as max|err| over the case's max|o|. Over 8k-16k keys each o
+# averages thousands of values (max|o| ~0.1), so an absolute limit near 1
+# would pass an o that is 20% off. bf16: four ulps at the largest value
+# (the output's rounding and p's rounding against another running max);
+# f32: the same products summed in another order.
+O_RTOL = {"bfloat16": 1.6e-2, "float32": 2e-5}
 # Backward kernels vs their plain versions, as max|err| / max|ref| per
 # output. dq, dk, dv in bf16: four bf16 ulps at the largest value, one for
 # the output's own rounding and three for ds and p roundings that an f32
@@ -126,6 +168,24 @@ MODEL_GRAD_RTOL = 5e-2
 LEARN_OVERRIDES = ("optimizer.schedule=constant", "optimizer.warmup_steps=0",
                    "optimizer.learning_rate=1e-4", "train.total_steps=30")
 LEARN_RATIO = 0.9
+# Phase 6: configs/bert_long_ring.yaml on one card. Ring attention (A11),
+# checkpoints (A4) and the rollback ladder (A14) are not ported, so the
+# same model runs attention_impl pallas on a mesh of one. The config's
+# global batch of 8 rows goes through in 8 micro-batches of one row, so
+# that a 16k-token row's f32 logits (2 GB) are the largest activation; the
+# run is cut to 3 steps.
+LONG_CONFIG = "configs/bert_long_ring.yaml"
+LONG_OVERRIDES = (
+    "mesh.seq=1", "model.attention_impl=pallas", "checkpoint.directory=",
+    "resilience.rollback=false", "train.grad_accum_steps=8",
+    "train.total_steps=3", "train.log_interval=1", "train.eval_steps=0")
+# (sequence length, backward route). Both runs leave FUSED_BWD on auto, the
+# choice users get: on the listed H100 it takes the two-pass pair at 16384
+# (above FUSED_BWD_MAX) and the fused kernel at 8192.
+LONG_RUNS = ((16384, "stream"), (8192, "fused"))
+# The whole-K takeover band (bf16, 2048 <= S <= 4096), where auto picks the
+# fused kernel over the two-pass pair: both timed at 8192 tokens per call.
+BAND_SHAPES = ((4, 12, 2048, 64), (2, 12, 4096, 64))
 
 
 def log(msg: str) -> None:
@@ -168,22 +228,26 @@ def attention_bound(b, h, s, d, elem_bytes, segmented):
 def attention_bwd_bounds(b, h, s, d, elem_bytes, segmented) -> dict:
     """dQ reads q, k, v, dO, bias, lse and delta and writes dq: three
     S x S x D products. dK/dV reads the same and writes dk, dv and the f32
-    per-head dbias: four products."""
+    per-head dbias: four products. The fused kernel reads the same and
+    writes dq, dk, dv and dbias: five products."""
     head = b * s * h * d * elem_bytes
     common = 4 * head + b * s * 4 + 2 * b * s * h * 4
     common += 2 * b * s * 4 if segmented else 0
     product = 2 * b * h * s * s * d
+    dbias = b * h * s * 4
     return {"dq": roofline_ms(common + head, 3 * product, elem_bytes),
-            "dkv": roofline_ms(common + 2 * head + b * h * s * 4,
-                               4 * product, elem_bytes)}
+            "dkv": roofline_ms(common + 2 * head + dbias, 4 * product,
+                               elem_bytes),
+            "fused": roofline_ms(common + 3 * head + dbias, 5 * product,
+                                 elem_bytes)}
 
 
 # ---------------------------------------------------------------- phase 3
 
 def attention_cases(torch, fa, gen, b: int, s: int) -> dict:
-    """The four masking cases every parity check runs: (key bias, segment
-    ids or None) for no mask, trailing padding in row 0, three packed
-    segments per row over that padding, and row 1 fully masked."""
+    """The masking cases every parity check runs: (key bias, segment ids
+    or None) for no mask, trailing padding in row 0, three packed segments
+    per row over that padding, and (where b > 1) row 1 fully masked."""
     zero = torch.zeros(b, s, device="cuda")
     pad = zero.clone()
     pad[0, s - s // 4:] = fa.NEG_INF
@@ -193,10 +257,13 @@ def attention_cases(torch, fa, gen, b: int, s: int) -> dict:
                               generator=gen)[:2].sort().values + 1
         seg[row, cuts[0]:] = 1
         seg[row, cuts[1]:] = 2
-    dead = pad.clone()
-    dead[1, :] = fa.NEG_INF
-    return {"none": (zero, None), "padding": (pad, None),
-            "segments": (pad, seg), "masked_row": (dead, None)}
+    cases = {"none": (zero, None), "padding": (pad, None),
+             "segments": (pad, seg)}
+    if b > 1:
+        dead = pad.clone()
+        dead[1, :] = fa.NEG_INF
+        cases["masked_row"] = (dead, None)
+    return cases
 
 
 def kernel_parity(torch, fa) -> dict:
@@ -371,22 +438,224 @@ def bwd_kernel_timing(torch, fa) -> dict:
     return timing
 
 
+# --------------------------------------------------------------- phase 3c
+
+def bwd_results(torch, fa, args) -> dict:
+    """Every backward kernel and the plain backward on the same inputs:
+    {"two_pass": ..., "fused": ..., "plain": ...}, each a dict of dq, dk,
+    dv and dbias_h."""
+    names = ("dq", "dk", "dv", "dbias_h")
+    two = (fa.flash_attention_dq_kernel(*args),
+           *fa.flash_attention_dkv_kernel(*args))
+    fused = fa.flash_attention_bwd_fused_kernel(*args)
+    torch.cuda.synchronize()
+    plain = (fa.flash_attention_dq_reference(*args),
+             *fa.flash_attention_dkv_reference(*args))
+    return {route: dict(zip(names, outs)) for route, outs in (
+        ("two_pass", two), ("fused", fused), ("plain", plain))}
+
+
+def check_bwd(torch, res: dict, do, name: str, case: str, what: str,
+              worst: dict) -> None:
+    """Hold the fused kernel against the plain backward and against the
+    two-pass kernels, and the two-pass kernels against the plain backward,
+    with phase 3b's tolerances; on the fully-masked row each key's dv must
+    be the row's summed dO. Updates ``worst`` (max |err| per kernel)."""
+    tols = {key: GRAD_RTOL[name] for key in ("dq", "dk", "dv")}
+    tols["dbias_h"] = DBIAS_RTOL
+    checks = (("fused vs plain", "fused", "plain"),
+              ("two-pass vs plain", "two_pass", "plain"),
+              ("fused vs two-pass", "fused", "two_pass"))
+    ok = all(bool(torch.isfinite(t).all())
+             for route in ("two_pass", "fused") for t in res[route].values())
+    parts = []
+    for label, got, ref in checks:
+        errs = {key: rel_err(res[got][key], res[ref][key]) for key in tols}
+        ok = ok and all(errs[key] <= tols[key] for key in tols)
+        parts.append(label + " " + ", ".join(
+            f"{key} {errs[key]:.2e}" for key in tols))
+    if case == "masked_row":
+        want = do[1].float().sum(dim=0, keepdim=True)
+        for route in ("two_pass", "fused"):
+            dv = res[route]["dv"][1]
+            ok = ok and rel_err(dv, want.expand_as(dv)) <= GRAD_RTOL[name]
+    for key, kernel in (("dq", "dq"), ("dk", "dkv"), ("dv", "dkv"),
+                        ("dbias_h", "dkv")):
+        plain = res["plain"][key].float()
+        worst[kernel] = max(worst[kernel], (
+            res["two_pass"][key].float() - plain).abs().max().item())
+        worst["fused"] = max(worst["fused"], (
+            res["fused"][key].float() - plain).abs().max().item())
+    log(f"{what} {case}: " + "; ".join(parts)
+        + f" (tol {GRAD_RTOL[name]}, dbias_h {DBIAS_RTOL}) -> "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"backward kernels disagree: {what} {case}")
+
+
+def long_kernel_parity(torch, fa) -> dict:
+    """Phase 3c: the kernels at the streaming lengths, with padding and
+    with segment ids, bf16 and f32. The forward kernel against the
+    streaming forward's plain version; the two-pass and the fused backward
+    against the plain backward and against each other, on the plain
+    forward's o and lse. Then the fused kernel on the ragged (2,3,96,32)
+    and in the whole-K takeover band (2,2,2048,64) bf16, all four cases.
+    Returns the worst absolute error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "fused": 0.0}
+    runs = [(shape, dtype, ("padding", "segments"))
+            for shape in LONG_SHAPES
+            for dtype in (torch.bfloat16, torch.float32)]
+    runs += [((2, 3, 96, 32), dtype, None)
+             for dtype in (torch.bfloat16, torch.float32)]
+    runs += [((2, 2, 2048, 64), torch.bfloat16, None)]
+    for (b, h, s, d), dtype, wanted in runs:
+        name = str(dtype).split(".")[-1]
+        what = f"{name} (B,H,S,D)=({b},{h},{s},{d})"
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        for case, (bias, sg) in attention_cases(torch, fa, gen, b,
+                                                s).items():
+            if wanted is not None and case not in wanted:
+                continue
+            o, lse = fa.flash_attention_kb_reference(q, k, v, bias, sg, sg)
+            if s > fa.MAX_SEQ_VMEM:
+                ko, klse = fa.flash_attention_kernel(q, k, v, bias, sg, sg)
+                torch.cuda.synchronize()
+                o_err = (ko.float() - o.float()).abs().max().item()
+                o_rel = rel_err(ko, o)
+                lse_err = ((klse - lse).abs()
+                           / lse.abs().clamp(min=1.0)).max().item()
+                ok = (bool(torch.isfinite(ko).all()) and o_rel <= O_RTOL[name]
+                      and lse_err <= LSE_RTOL)
+                worst["fwd"] = max(worst["fwd"], o_err)
+                log(f"long parity fwd {what} {case}: o max|err| {o_err:.3e} "
+                    f"= {o_rel:.3e} of max|o| {o.float().abs().max().item():.3e}"
+                    f" (tol {O_RTOL[name]}), lse rel err {lse_err:.3e} (tol "
+                    f"{LSE_RTOL}) -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"forward kernel disagrees with the "
+                                         f"streaming plain version: {what} "
+                                         f"{case}")
+            args = (q, k, v, bias, sg, sg, lse, do, fa.attention_delta(o, do))
+            check_bwd(torch, bwd_results(torch, fa, args), do, name, case,
+                      f"long parity bwd {what}", worst)
+            del args
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return worst
+
+
+def long_kernel_timing(torch, fa) -> dict:
+    """At the long-context runs' shapes (B=1, H=12, D=64, bf16, no mask, as
+    the synthetic stream's rows): the forward and the two-pass pair at
+    S = 16384, the fused kernel at S = 8192, each beside its plain version,
+    the bound, and SDPA's forward or backward device time on the same
+    inputs (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for s, names in ((16384, ("fwd", "dq", "dkv")), (8192, ("fused",))):
+        b, h, d = 1, 12, 64
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        bias = torch.zeros(b, s, device="cuda")
+        o, lse = fa.flash_attention_kernel(q, k, v, bias)
+        args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        sdpa = {"fwd": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    *(t.detach() for t in leaves)), iters=3, warmup=1),
+                "bwd": device_ms(torch, lambda: torch.autograd.grad(
+                    sdpa_out, leaves, do.transpose(1, 2), retain_graph=True),
+                    iters=3, warmup=1)}
+        bounds = attention_bwd_bounds(b, h, s, d, 2, False)
+        bounds["fwd"] = attention_bound(b, h, s, d, 2, False)
+        calls = {
+            "fwd": (lambda: fa.flash_attention_kernel(q, k, v, bias),
+                    lambda: fa.flash_attention_kb_reference(q, k, v, bias)),
+            "dq": (lambda: fa.flash_attention_dq_kernel(*args),
+                   lambda: fa.flash_attention_dq_reference(*args)),
+            "dkv": (lambda: fa.flash_attention_dkv_kernel(*args),
+                    lambda: fa.flash_attention_dkv_reference(*args)),
+            "fused": (lambda: fa.flash_attention_bwd_fused_kernel(*args),
+                      lambda: fa.flash_attention_bwd_reference(
+                          q, k, v, bias, None, None, o, lse, do, args[-1])),
+        }
+        for name in names:
+            kernel, plain = calls[name]
+            rec = {"ms": time_ms(torch, kernel, iters=3, warmup=1),
+                   "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+                   "library_ms": sdpa["fwd" if name == "fwd" else "bwd"]}
+            rec["bound_ms"], rec["bound_by"] = bounds[name]
+            log(f"timing {KERNEL_NAMES[name]} (B,H,S,D)=({b},{h},{s},{d}) "
+                f"bf16: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, sdpa "
+                f"{'forward' if name == 'fwd' else 'backward (dq+dk+dv)'} "
+                f"(device) {rec['library_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            out[name] = rec
+        del q, k, v, do, o, lse, args, leaves, sdpa_out
+        torch.cuda.empty_cache()
+    out["fused"]["takeover_band"] = [takeover_band_timing(torch, fa, shape)
+                                     for shape in BAND_SHAPES]
+    return out
+
+
+def takeover_band_timing(torch, fa, shape) -> dict:
+    """The fused kernel against the two-pass pair at one shape of the
+    whole-K takeover band (bf16, no mask), where auto must pick fused;
+    timed in turns (fused, pair, pair, fused), CUDA events."""
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    with fused_bwd(fa, None):
+        if fa.backward_route(q, k) != "fused":
+            raise AssertionError(f"auto does not pick the fused backward at "
+                                 f"{shape} bf16")
+    bias = torch.zeros(b, s, device="cuda")
+    o, lse = fa.flash_attention_kernel(q, k, v, bias)
+    args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
+    calls = {"fused": lambda: fa.flash_attention_bwd_fused_kernel(*args),
+             "two_pass": lambda: (fa.flash_attention_dq_kernel(*args),
+                                  fa.flash_attention_dkv_kernel(*args))}
+    times = {"fused": [], "two_pass": []}
+    for route in ("fused", "two_pass", "two_pass", "fused"):
+        times[route].append(time_ms(torch, calls[route], iters=10, warmup=2))
+    rec = {"shape": list(shape), "fused_ms": statistics.mean(times["fused"]),
+           "two_pass_ms": statistics.mean(times["two_pass"])}
+    log(f"timing takeover band (B,H,S,D)=({b},{h},{s},{d}) bf16: fused "
+        f"{', '.join(f'{t:.4f}' for t in times['fused'])} ms, two-pass "
+        f"(dq + dkv) {', '.join(f'{t:.4f}' for t in times['two_pass'])} ms;"
+        f" fused / two-pass {rec['fused_ms'] / rec['two_pass_ms']:.3f}")
+    return rec
+
+
 # ---------------------------------------------------------------- phase 4
+
+def kernel_wrappers(fa) -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    return {"fwd": fa.flash_attention, "dq": fa.flash_attention_dq_kernel,
+            "dkv": fa.flash_attention_dkv_kernel,
+            "fused": fa.flash_attention_bwd_fused_kernel}
+
 
 def reset_counts(fa) -> None:
     """Set every kernel's launch count to 0, just before a main-path run."""
-    fa.flash_attention.launches = 0
-    fa.flash_attention_dq_kernel.launches = 0
-    fa.flash_attention_dkv_kernel.launches = 0
+    for wrapper in kernel_wrappers(fa).values():
+        wrapper.launches = 0
 
 
 def read_counts(fa, serving: bool = False) -> dict:
     """The launch counts just after a main-path run; a serving run must
     have launched no backward kernel."""
-    counts = {"fwd": fa.flash_attention.launches,
-              "dq": fa.flash_attention_dq_kernel.launches,
-              "dkv": fa.flash_attention_dkv_kernel.launches}
-    if serving and (counts["dq"] or counts["dkv"]):
+    counts = {name: wrapper.launches
+              for name, wrapper in kernel_wrappers(fa).items()}
+    if serving and (counts["dq"] or counts["dkv"] or counts["fused"]):
         raise AssertionError(f"serving launched backward kernels: {counts}")
     return counts
 
@@ -508,8 +777,8 @@ class HttpClient(threading.Thread):
 
 def kernel_class(name: str) -> str:
     name = name.lower()
-    for kernel in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv",
-                   "flash_attn_fwd"):
+    for kernel in ("flash_attn_bwd_fused", "flash_attn_bwd_dq",
+                   "flash_attn_bwd_dkv", "flash_attn_fwd"):
         if kernel in name:
             return kernel
     if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
@@ -706,10 +975,11 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 
 # ---------------------------------------------------------------- phase 5
 
-def train_breakdown(torch, config) -> None:
-    """One training step at the phase-5 shape, after the launch counts are
-    read: step time over 5 synced steps (host clock), then one profiled
-    step summed by kernel class; idle = 1 − kernel time / step time."""
+def train_breakdown(torch, config, warmup: int = 2, steps: int = 5) -> None:
+    """One training step at a main-path run's shape, after the launch
+    counts are read: step time over ``steps`` synced steps after
+    ``warmup`` (host clock), then one profiled step summed by kernel class;
+    idle = 1 − kernel time / step time."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_framework_torch.data import get_dataset
@@ -719,20 +989,20 @@ def train_breakdown(torch, config) -> None:
     builder = StepBuilder(config, device="cuda")
     state = builder.init_state(SEED)
     batch = to_device(next(get_dataset(config.data)), torch.device("cuda"))
-    for _ in range(2):
+    for _ in range(warmup):
         builder.train_step(state, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(steps):
         builder.train_step(state, batch)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         builder.train_step(state, batch)
         torch.cuda.synchronize()
     log(f"train step {config.data.global_batch_size}x{config.data.seq_len} "
-        f"bf16: {step_ms:.3f} ms (host clock, 5 synced steps)")
+        f"bf16: {step_ms:.3f} ms (host clock, {steps} synced steps)")
     total = log_profile(prof, "one train step", top=12)
     if total:
         log(f"train step device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
@@ -774,7 +1044,7 @@ def train_phase(torch, fa, workdir: str) -> dict:
     steps, micro = cfg.train.total_steps, cfg.train.total_steps * max(
         1, cfg.train.grad_accum_steps)
     want = {"fwd": 12 * (micro + cfg.train.eval_steps), "dq": 12 * micro,
-            "dkv": 12 * micro}
+            "dkv": 12 * micro, "fused": 0}
     for e in train:
         log(f"train step {e['step']}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in e["metrics"].items())
@@ -860,7 +1130,8 @@ def train_parity_phase(torch, fa) -> None:
         reset_counts(fa)
         builder._micro_step(state, batch, 1.0)
         counts = read_counts(fa)
-        if route == "kernel" and counts != {"fwd": 12, "dq": 12, "dkv": 12}:
+        if route == "kernel" and counts != {"fwd": 12, "dq": 12, "dkv": 12,
+                                            "fused": 0}:
             raise AssertionError(f"kernel route launched {counts}")
         if route == "plain" and any(counts.values()):
             raise AssertionError(f"plain route launched kernels: {counts}")
@@ -898,6 +1169,180 @@ def train_parity_phase(torch, fa) -> None:
         raise AssertionError(
             f"loss at step {len(trajectory)} ({trajectory[-1]:.4f}) is not "
             f"below {LEARN_RATIO} x the loss at step 1 ({trajectory[0]:.4f})")
+
+
+# ---------------------------------------------------------------- phase 6
+
+def long_config(torch, seq: int, extra=()):
+    """``configs/bert_long_ring.yaml`` at ``seq`` tokens on one card, with
+    its width and depth checked."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    over = list(LONG_OVERRIDES) + list(extra)
+    if seq != 16384:
+        over += [f"model.max_seq_len={seq}", f"data.seq_len={seq}"]
+    cfg = load_config(LONG_CONFIG, overrides=over)
+    m = cfg.model
+    if (m.name, m.num_layers, m.hidden_size, m.num_heads, m.mlp_dim,
+            m.vocab_size, m.dtype, m.remat, m.dropout_rate) != (
+            "bert", 12, 768, 12, 3072, 30522, "bfloat16", True, 0.1):
+        raise AssertionError(f"{LONG_CONFIG} is no longer long-context "
+                             f"BERT-base with remat: {m}")
+    return cfg, over
+
+
+@contextlib.contextmanager
+def fused_bwd(fa, value):
+    """``fa.FUSED_BWD`` set to ``value`` (None = auto) for the block, as the
+    JAX package's scripts assign it, and restored after."""
+    saved = fa.FUSED_BWD
+    fa.FUSED_BWD = value
+    try:
+        yield
+    finally:
+        fa.FUSED_BWD = saved
+
+
+def long_train_phase(torch, fa, workdir: str, seq: int, route: str) -> dict:
+    """``cli.train.main`` on the long-context config at ``seq`` tokens with
+    FUSED_BWD on auto, which must pick ``route`` ("fused" or "stream");
+    returns the run's launch counts."""
+    from distributed_tensorflow_framework_torch.cli import train as cli_train
+
+    cfg, over = long_config(torch, seq)
+    log_dir = os.path.join(workdir, f"long_{seq}")
+    steps = cfg.train.total_steps
+    micro = steps * max(1, cfg.train.grad_accum_steps)
+    layers = cfg.model.num_layers
+    fused = route == "fused"
+    # With remat the forward kernel runs twice per layer and micro-batch
+    # (forward and recompute), and once per layer for an eval batch.
+    want = {"fwd": 2 * layers * micro + layers * cfg.train.eval_steps,
+            "dq": 0 if fused else layers * micro,
+            "dkv": 0 if fused else layers * micro,
+            "fused": layers * micro if fused else 0}
+    with fused_bwd(fa, None):
+        auto = fa.backward_route(*(torch.empty(1, seq, 1, 64, device="cuda",
+                                               dtype=torch.bfloat16),) * 2)
+        if auto != route:
+            raise AssertionError(
+                f"S={seq}: auto picks the {auto} backward on "
+                f"{torch.cuda.get_device_name(0)}, expected {route}")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        rc = cli_train.main(["--config", LONG_CONFIG, "--device", "cuda",
+                             "--log-dir", log_dir,
+                             *sum((["--set", o] for o in over), [])])
+        counts = read_counts(fa)
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"cli.train.main returned {rc} at S={seq}")
+    with open(os.path.join(log_dir, "events.jsonl")) as fh:
+        train = [e for e in map(json.loads, fh) if e["kind"] == "train_step"]
+    for e in train:
+        log(f"long S={seq} step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    if [e["step"] for e in train] != list(range(1, steps + 1)) or not all(
+            math.isfinite(v) for e in train for v in e["metrics"].values()):
+        raise AssertionError(f"S={seq}: training metrics missing or not "
+                             f"finite")
+    # Steady window: the steps after the first; the throughput meter
+    # restarts at every synced log step.
+    rate = statistics.mean(e["throughput"]["examples_per_sec"]
+                           for e in train[1:])
+    b = cfg.data.global_batch_size
+    log(f"long S={seq}: {steps} steps of {b}x{seq} (grad accum "
+        f"{cfg.train.grad_accum_steps}, remat, "
+        f"{'fused' if fused else 'two-pass'} backward) in {wall:.1f} s; "
+        f"steady (steps 2-{steps}) {1e3 * b / rate:.1f} ms/step, "
+        f"{rate * seq:.0f} tokens/s; peak memory {peak_gb:.2f} GB; kernel "
+        f"launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"S={seq}: expected launches {want}, saw "
+                             f"{counts}")
+    with fused_bwd(fa, None):
+        train_breakdown(torch, cfg, warmup=1, steps=1)
+    return counts
+
+
+# --------------------------------------------------------------- phase 6b
+
+def long_fused_parity_phase(torch, fa) -> dict:
+    """At S = 8192 with dropout and remat: one micro-step's gradients with
+    the fused backward against the same model, weights, batch and dropout
+    stream with the two-pass kernels (a plain-attention model would hold
+    12 layers of 3 GB score tensors); then the full phase-6 step timed on
+    each route, in turns. Returns the step times."""
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg, _ = long_config(torch, 8192, ("data.global_batch_size=1",
+                                       "train.grad_accum_steps=1"))
+    builder = StepBuilder(cfg, device="cuda")
+    batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
+    grads = {}
+    for fused in (True, False):
+        state = builder.init_state(SEED)
+        state.optimizer.zero_grad()
+        reset_counts(fa)
+        with fused_bwd(fa, fused):
+            builder._micro_step(state, batch, 1.0)
+        counts = read_counts(fa)
+        want = {"fwd": 24, "dq": 0 if fused else 12,
+                "dkv": 0 if fused else 12, "fused": 12 if fused else 0}
+        if counts != want:
+            raise AssertionError(f"fused={fused}: launched {counts}, "
+                                 f"expected {want}")
+        grads[fused] = {k: p.grad.float().clone()
+                        for k, p in state.model.named_parameters()}
+        del state
+    # The key projection's bias has a gradient that is zero in exact
+    # arithmetic (softmax ignores the per-row constant q·b_k), so both
+    # routes hold only f32 noise there: it is measured against the
+    # model's largest gradient, every other leaf against its own.
+    top = max(g.abs().max().item() for g in grads[False].values())
+    worst_key, worst, noise = "", 0.0, 0.0
+    for key, ref in grads[False].items():
+        if key.endswith("attn.key.bias"):
+            noise = max(noise, (grads[True][key] - ref).abs().max()
+                        .item() / top)
+            continue
+        err = rel_err(grads[True][key], ref)
+        if err > worst:
+            worst_key, worst = key, err
+    log(f"long fused parity S=8192 (dropout 0.1, remat): gradients with "
+        f"the fused backward vs the two-pass kernels, worst leaf "
+        f"{worst_key} {worst:.3e} of its max (tol {MODEL_GRAD_RTOL}); "
+        f"key-projection biases {noise:.3e} of the largest gradient")
+    if not (worst <= MODEL_GRAD_RTOL and noise <= MODEL_GRAD_RTOL):
+        raise AssertionError("fused-backward gradients disagree with the "
+                             "two-pass kernels at S=8192")
+    del grads
+
+    cfg, _ = long_config(torch, 8192)
+    builder = StepBuilder(cfg, device="cuda")
+    batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
+    state = builder.init_state(SEED)
+    times = {False: [], True: []}
+    for i, fused in enumerate((False, True, False, True, True, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fused_bwd(fa, fused):
+            builder.train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= 2:  # the first step of each route warms up
+            times[fused].append((time.perf_counter() - t0) * 1e3)
+    out = {"two_pass_ms": statistics.mean(times[False]),
+           "fused_ms": statistics.mean(times[True])}
+    log(f"long step S=8192 {cfg.data.global_batch_size}x8192 (grad accum "
+        f"{cfg.train.grad_accum_steps}), host clock, synced, in turns: "
+        f"two-pass {', '.join(f'{t:.1f}' for t in times[False])} ms, "
+        f"fused {', '.join(f'{t:.1f}' for t in times[True])} ms; means "
+        f"{out['two_pass_ms']:.1f} / {out['fused_ms']:.1f} ms")
+    return out
 
 
 
@@ -949,6 +1394,9 @@ def main() -> int:
     log("phase 3b backward kernel parity")
     bwd_worst = bwd_kernel_parity(torch, fa)
     bwd_timing = bwd_kernel_timing(torch, fa)
+    log("phase 3c long-context kernel parity")
+    long_worst = long_kernel_parity(torch, fa)
+    long_timing = long_kernel_timing(torch, fa)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         log("phase 4 serve")
@@ -958,19 +1406,30 @@ def main() -> int:
             f"launches")
         log("phase 5 train")
         train_counts = train_phase(torch, fa, workdir)
-    log("phase 5b training parity and learning")
-    train_parity_phase(torch, fa)
+        log("phase 5b training parity and learning")
+        train_parity_phase(torch, fa)
+        log("phase 6 long-context training")
+        long_counts = [long_train_phase(torch, fa, workdir, seq, route)
+                       for seq, route in LONG_RUNS]
+    log("phase 6b fused vs two-pass backward at S=8192")
+    long_fused_parity_phase(torch, fa)
 
+    # Launches on the main path: serving, the S=512 training run and the
+    # two long-context runs. Times, bounds and the plain and library times
+    # are those at the long-context shapes (phase 3c); "s512" keeps the
+    # S=512 ones of phases 3 and 3b.
+    launched = {name: train_counts[name] + sum(c[name] for c in long_counts)
+                for name in KERNEL_NAMES}
+    launched["fwd"] += launches
+    short = {"fwd": timing, **bwd_timing}
+    worst = {"fwd": parity["max_abs_err"], **bwd_worst, "fused": 0.0}
     record = {"kernels": [
-        {"name": "flash_attn_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES,
-         "launches": launches + train_counts["fwd"],
-         "max_abs_err": parity["max_abs_err"], **timing},
-        *({"name": f"flash_attn_bwd_{name}", "route": "cuda",
-           "source": BWD_SOURCE, "replaces": BWD_REPLACES[name],
-           "launches": train_counts[name], "max_abs_err": bwd_worst[name],
-           **bwd_timing[name]} for name in ("dq", "dkv")),
-    ]}
+        {"name": KERNEL_NAMES[name], "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": launched[name],
+         "max_abs_err": max(worst[name], long_worst[name]),
+         **long_timing[name],
+         **({"s512": short[name]} if name in short else {})}
+        for name in KERNEL_NAMES]}
     for k in record["kernels"]:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']}, kernel_ms "
             f"{k['ms']}, plain_ms {k['plain_ms']}, library_ms "

@@ -37,6 +37,13 @@ def model_kwargs(config: ModelConfig) -> dict:
         raise NotImplementedError(
             "attention_impl='ring' is not ported yet — ROADMAP.md queue A "
             "item A11 (sequence parallel)")
+    if config.remat_policy != "full":
+        # The JAX package's message: conv_saved keys on the ResNet ConvBN
+        # tag, and BERT refuses it rather than ignore it.
+        raise ValueError(
+            f"model.remat_policy={config.remat_policy!r} requires "
+            f"model.remat=true on a resnet model (the conv_saved policy "
+            f"keys on the ConvBN conv_out tag)")
     if config.dtype not in _DTYPES:
         raise ValueError(f"model.dtype {config.dtype!r} not in "
                          f"{sorted(_DTYPES)}")
@@ -44,8 +51,9 @@ def model_kwargs(config: ModelConfig) -> dict:
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
         mlp_dim=config.mlp_dim, max_seq_len=config.max_seq_len,
-        dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype], attention_impl=config.attention_impl,
-        fused_qkv=config.fused_qkv)
+        dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype],
+        attention_impl=config.attention_impl, fused_qkv=config.fused_qkv,
+        remat=config.remat)
 
 
 def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",

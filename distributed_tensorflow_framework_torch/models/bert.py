@@ -20,15 +20,25 @@ the activation dtype, as Flax's ``nn.Dropout`` does.
 
 ``attention_impl``: "pallas" runs ops/flash_attention.py (the CUDA kernel on
 the card), "xla" the plain :func:`dot_product_attention`.
+
+``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``, the
+counterpart of ``nn.remat(EncoderLayer)``): the backward recomputes a
+layer's activations from its input instead of keeping them, so activation
+memory holds one layer's worth at a time. The recompute replays the
+layer's dropout masks from the same ``dropout_generator`` state and then
+puts the generator back, so the gradients and the generator's state are
+those of the model without remat (:func:`remat_layer`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from distributed_tensorflow_framework_torch.models.layers import (
@@ -147,6 +157,37 @@ class EncoderLayer(nn.Module):
         return self.ln2(x + y)
 
 
+@contextlib.contextmanager
+def _replaying(generator: torch.Generator, state: torch.Tensor):
+    """Run the body with ``generator`` set to ``state``, then return it to
+    where it stood before the body."""
+    after = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(after)
+
+
+def remat_layer(layer: nn.Module, x, mask, segment_ids, generator):
+    """``layer(x, mask, segment_ids, generator)`` under a per-layer
+    activation checkpoint. ``preserve_rng_state`` covers only the default
+    generators, and dropout draws from ``generator``, so the recompute
+    would draw other masks and give wrong gradients without an error. So
+    the forward's generator state is captured as it starts, the recompute
+    runs from that state, and the generator is then put back where the
+    forward left it."""
+    def contexts():
+        if generator is None:
+            return contextlib.nullcontext(), contextlib.nullcontext()
+        return (contextlib.nullcontext(),
+                _replaying(generator, generator.get_state()))
+
+    return torch.utils.checkpoint.checkpoint(
+        layer, x, mask, segment_ids, generator, use_reentrant=False,
+        preserve_rng_state=False, context_fn=contexts)
+
+
 class Embed(nn.Module):
     """Flax ``nn.Embed`` parameter holder (``embedding`` → ``weight``)."""
 
@@ -220,9 +261,10 @@ class BertForMLM(nn.Module):
                  dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "xla", fused_qkv: bool = False,
-                 device=None):
+                 remat: bool = False, device=None):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         self.embed_block = BertEmbed(vocab_size, hidden_size, max_seq_len,
                                      dtype=dtype, dropout_rate=dropout_rate,
                                      device=device)
@@ -258,7 +300,12 @@ class BertForMLM(nn.Module):
                                     dropout_generator)
         mask = (None if attention_mask is None
                 else attention_mask[:, None, None, :].bool())
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, mask, segment_ids,
-                                           dropout_generator)
+            layer = getattr(self, f"layer{i}")
+            if remat:
+                x = remat_layer(layer, x, mask, segment_ids,
+                                dropout_generator)
+            else:
+                x = layer(x, mask, segment_ids, dropout_generator)
         return self.head(x, table)

@@ -4,8 +4,8 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. Nothing is built when a
 module is imported: a :class:`KernelLibrary` builds its source at first use,
 into ``build/kernels/`` at the repository root, under a file name that
-carries the hash of the source and the flags, so an edited source never
-loads a stale library. :func:`build_all` compiles every source at once, one
+carries the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale library. :func:`build_all` compiles every source at once, one
 ``nvcc`` per source, all started together.
 """
 
@@ -68,6 +68,8 @@ def find_nvcc() -> str:
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,10 +1,15 @@
-// Whole-K flash-attention backward for Hopper (sm_90a): dQ, and dK/dV with
-// the per-head key-bias gradient.
+// Flash-attention two-pass backward for Hopper (sm_90a): dQ, and dK/dV with
+// the per-head key-bias gradient, at any sequence length.
 //
-// Replaces the TPU kernels distributed_tensorflow_framework_tpu/ops/
-// flash_attention.py:_attn_bwd_dq_kernel and _attn_bwd_dkv_kernel (both
-// launched by _flash_bwd). For every (batch b, head h, query row i, key j)
-// they recompute the forward's probabilities from its logsumexp and form
+// Replaces four TPU kernels of distributed_tensorflow_framework_tpu/ops/
+// flash_attention.py: the whole-K _attn_bwd_dq_kernel and
+// _attn_bwd_dkv_kernel (launched by _flash_bwd, S <= MAX_SEQ_VMEM) and the
+// streaming _attn_bwd_dq_kernel_kb and _attn_bwd_dkv_kernel_kb (launched by
+// _flash_bwd_kb above it). Both regimes compute the same function; only
+// their VMEM tiling differs, and these kernels stream at every S (nothing
+// of size S x S or 64 x S is kept, offsets are 64-bit). For every
+// (batch b, head h, query row i, key j) they recompute the forward's
+// probabilities from its logsumexp and form
 //
 //   s_ij  = (q_i . k_j) * scale + bias_bj        (f32; NEG_INF where the
 //                                                 segments of i and j differ)
@@ -24,15 +29,16 @@
 // and query rows past S do not exist: their p is exactly 0, never
 // exp(NEG_INF - lse), which would be 1 on a fully-masked row.
 //
-// What bounds it on the H100. At the BERT-base training shape (B=8, H=12,
-// S=512, D=64, bf16) dQ does three S x S x D products (q.k, dO.v, ds.k) and
-// dK/dV four (k.q, v.dO, p.dO, ds.q): 9.7 and 12.9 GFLOP against 32 and
-// 38 MB of operands, so the ideal kernels are bound by operations at the
-// 989 TFLOP/s bf16 tensor-core peak (10 and 13 us). These first kernels,
-// like the forward, multiply with f32 FMAs on the CUDA cores fed from shared
-// memory, so they are bound by the rate of shared-memory loads, well below
-// the 67 TFLOP/s f32 FMA peak. PERF.md records the measured times beside the
-// bounds.
+// What bounds it on the H100. dQ does three S x S x D products (q.k, dO.v,
+// ds.k) and dK/dV four (k.q, v.dO, p.dO, ds.q). At the BERT-base training
+// shape (B=8, H=12, S=512, D=64, bf16) that is 9.7 and 12.9 GFLOP against
+// 32 and 38 MB of operands; at the long-context shape (B=1, H=12, S=16384)
+// 1.24 and 1.65 TFLOP against 126 and 151 MB. So the ideal kernels are bound
+// by operations at the 989 TFLOP/s bf16 tensor-core peak (10 and 13 us at
+// 512, 1.25 and 1.67 ms at 16384). These first kernels, like the forward,
+// multiply with f32 FMAs on the CUDA cores fed from shared memory, so they
+// are bound by the rate of shared-memory loads, well below the 67 TFLOP/s
+// f32 FMA peak. PERF.md records the measured times beside the bounds.
 //
 // What the design does about it. The TPU kernels hold the whole opposing
 // sequence and a 128 x S f32 score block in VMEM; that does not fit an SM.
@@ -47,80 +53,9 @@
 // layout with arbitrary batch and sequence strides (the fused-QKV views need
 // no copy). Tensor-core MMA (mma.sync / wgmma) and TMA are the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_attn_bwd_common.cuh"
 
 namespace {
-
-constexpr int kTile = 64;       // query rows and keys per tile
-constexpr int kTilePad = kTile + 1;
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 scores each
-constexpr float kNegInf = -3.40282346638528859812e+38f;  // finite f32 min
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// The value rounded to the input dtype, back in f32.
-template <typename T>
-__device__ __forceinline__ float rounded(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Everything both kernels read. q/k/v/dout are (B, S, H, D) with element
-// (b, s, h, d) at b*sb + s*ss + h*D + d; bias, qseg, kseg are (B, S) f32
-// (qseg and kseg both null when unsegmented); lse and delta are (B, S, H)
-// f32, contiguous.
-struct Operands {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;
-  const float* bias;
-  const float* qseg;
-  const float* kseg;
-  const float* lse;
-  const float* delta;
-  int S, H;
-  float scale;
-};
-
-// p for one (query row, key) pair that both exist: the TPU kernels'
-// rounding points, scale then bias as two roundings.
-__device__ __forceinline__ float recompute_p(float qk, float scale, float bias,
-                                             bool other_segment, float lse) {
-  float s = __fadd_rn(__fmul_rn(qk, scale), bias);
-  if (other_segment) s = kNegInf;
-  return expf(s - lse);
-}
-
-// Copy rows [s0, s0 + kTile) of one head of a (B, S, H, D) operand into a
-// shared [kTile][pitch] f32 tile, zeros past S.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const T* src, long long ss, int s0,
-                                          int S) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D, s = s0 + r;
-    dst[r * pitch + d] = s < S ? to_f32(src[s * ss + d]) : 0.f;
-  }
-}
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
@@ -257,178 +192,13 @@ flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
   }
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // k and v tiles, padded q and dO tiles, padded p and ds tiles, and the
-  // q-tile's lse, delta and segments.
-  return sizeof(float) * (2 * kTile * D + 2 * kTile * (D + 1) +
-                          2 * kTile * kTilePad + 3 * kTile);
-}
-
+// One block per (b, h, 64-key tile): the key-block loop of
+// flash_attn_bwd_common.cuh, without the fused kernel's dq partials.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_bwd_dkv_kernel(const Operands op, T* __restrict__ dk,
                           T* __restrict__ dv, float* __restrict__ dbias_h) {
-  constexpr int kPad = D + 1;
-  constexpr int kDJ = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                        // [kTile][D]
-  float* vs = ks + kTile * D;              // [kTile][D]
-  float* qs = vs + kTile * D;              // [kTile][kPad]
-  float* dos = qs + kTile * kPad;          // [kTile][kPad]
-  float* ps = dos + kTile * kPad;          // [key][q row], kTilePad pitch
-  float* dss = ps + kTile * kTilePad;      // [key][q row], kTilePad pitch
-  float* lse_s = dss + kTile * kTilePad;   // [kTile]
-  float* delta_s = lse_s + kTile;          // [kTile]
-  float* qseg_s = delta_s + kTile;         // [kTile]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // q rows tx + 16j of the score tile
-  const int ty = tid >> 4;   // keys ty + 16i of the score tile
-  const int k0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int S = op.S, H = op.H;
-  const bool segmented = op.qseg != nullptr;
-
-  const T* qb = static_cast<const T*>(op.q) + b * op.q_sb + (long long)h * D;
-  const T* kb = static_cast<const T*>(op.k) + b * op.k_sb + (long long)h * D;
-  const T* vb = static_cast<const T*>(op.v) + b * op.v_sb + (long long)h * D;
-  const T* dob =
-      static_cast<const T*>(op.dout) + b * op.do_sb + (long long)h * D;
-
-  load_tile<T, D>(ks, D, kb, op.k_ss, k0, S);
-  load_tile<T, D>(vs, D, vb, op.v_ss, k0, S);
-  bool key_in[4];
-  float kbias_r[4], kseg_r[4], dbias_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty + 16 * i;
-    key_in[i] = s < S;
-    kbias_r[i] = key_in[i] ? op.bias[b * S + s] : 0.f;
-    kseg_r[i] = (segmented && key_in[i]) ? op.kseg[b * S + s] : 0.f;
-    dbias_r[i] = 0.f;
-  }
-
-  float acc_dk[4][kDJ], acc_dv[4][kDJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(qs, kPad, qb, op.q_ss, q0, S);
-    load_tile<T, D>(dos, kPad, dob, op.do_ss, q0, S);
-    for (int r = tid; r < kTile; r += kThreads) {
-      const int s = q0 + r;
-      const bool in = s < S;
-      const long long row = (b * S + s) * H + h;
-      lse_s[r] = in ? op.lse[row] : 0.f;
-      delta_s[r] = in ? op.delta[row] : 0.f;
-      qseg_s[r] = (segmented && in) ? op.qseg[b * S + s] : 0.f;
-    }
-    __syncthreads();
-
-    float st[4][4], dpt[4][4];  // [key i][q row j]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = ks[(ty + 16 * i) * D + d];
-        vv[i] = vs[(ty + 16 * i) * D + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = qs[(tx + 16 * j) * kPad + d];
-        dov[j] = dos[(tx + 16 * j) * kPad + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
-          dpt[i][j] = fmaf(dov[j], vv[i], dpt[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float colsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        float p = 0.f, ds = 0.f;
-        if (key_in[i] && q0 + r < S) {
-          p = recompute_p(st[i][j], op.scale, kbias_r[i],
-                          segmented && qseg_s[r] != kseg_r[i], lse_s[r]);
-          ds = __fmul_rn(p, dpt[i][j] - delta_s[r]);
-        }
-        colsum += ds;
-        ps[(ty + 16 * i) * kTilePad + r] = rounded<T>(p);
-        dss[(ty + 16 * i) * kTilePad + r] = rounded<T>(ds);
-      }
-      // The 16 threads sharing key ty + 16i are lanes tx = 0..15 of one
-      // half-warp: reduce the unrounded ds over this tile's q rows.
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        colsum += __shfl_xor_sync(0xffffffffu, colsum, off);
-      dbias_r[i] += colsum;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float pv[4], dsv[4], dov[kDJ], qv[kDJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ps[(ty + 16 * i) * kTilePad + r];
-        dsv[i] = dss[(ty + 16 * i) * kTilePad + r];
-      }
-#pragma unroll
-      for (int j = 0; j < kDJ; ++j) {
-        dov[j] = dos[r * kPad + tx + 16 * j];
-        qv[j] = qs[r * kPad + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kDJ; ++j) {
-          acc_dv[i][j] = fmaf(pv[i], dov[j], acc_dv[i][j]);
-          acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!key_in[i]) continue;
-    const int s = k0 + ty + 16 * i;
-    const long long row = (b * S + s) * H + h;
-#pragma unroll
-    for (int j = 0; j < kDJ; ++j) {
-      dk[row * D + tx + 16 * j] =
-          from_f32<T>(__fmul_rn(acc_dk[i][j], op.scale));
-      dv[row * D + tx + 16 * j] = from_f32<T>(acc_dv[i][j]);
-    }
-    if (tx == 0) dbias_h[(b * H + h) * S + s] = dbias_r[i];
-  }
-}
-
-template <typename Kernel, typename... Outs>
-cudaError_t launch(Kernel kernel, size_t smem, int B, const Operands& op,
-                   cudaStream_t stream, Outs... outs) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((op.S + kTile - 1) / kTile, op.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(op, outs...);
-  return cudaGetLastError();
+  key_block_bwd<T, D, false>(op, nullptr, dk, dv, dbias_h);
 }
 
 template <typename T, int D>
@@ -441,8 +211,8 @@ cudaError_t launch_dq(int B, const Operands& op, void* dq,
 template <typename T, int D>
 cudaError_t launch_dkv(int B, const Operands& op, void* dk, void* dv,
                        void* dbias_h, cudaStream_t stream) {
-  return launch(flash_attn_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>(), B, op,
-                stream, static_cast<T*>(dk), static_cast<T*>(dv),
+  return launch(flash_attn_bwd_dkv_kernel<T, D>, key_block_smem_bytes<D>(), B,
+                op, stream, static_cast<T*>(dk), static_cast<T*>(dv),
                 static_cast<float*>(dbias_h));
 }
 
@@ -466,21 +236,6 @@ cudaError_t dispatch_dkv(int D, int B, const Operands& op, void* dk,
     case 128: return launch_dkv<T, 128>(B, op, dk, dv, dbias_h, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-Operands make_operands(const void* q, const void* k, const void* v,
-                       const void* dout, long long q_sb, long long q_ss,
-                       long long k_sb, long long k_ss, long long v_sb,
-                       long long v_ss, long long do_sb, long long do_ss,
-                       const void* bias, const void* qseg, const void* kseg,
-                       const void* lse, const void* delta, int S, int H,
-                       float scale) {
-  return Operands{q, k, v, dout, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb,
-                  do_ss, static_cast<const float*>(bias),
-                  static_cast<const float*>(qseg),
-                  static_cast<const float*>(kseg),
-                  static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), S, H, scale};
 }
 
 }  // namespace

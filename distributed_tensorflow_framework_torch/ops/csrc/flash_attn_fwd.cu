@@ -1,7 +1,10 @@
-// Whole-K flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), at any sequence length.
 //
-// Replaces the TPU kernel distributed_tensorflow_framework_tpu/ops/
-// flash_attention.py:_attn_fwd_kernel (launched by _flash_fwd). It computes,
+// Replaces two TPU kernels of distributed_tensorflow_framework_tpu/ops/
+// flash_attention.py: the whole-K _attn_fwd_kernel (launched by _flash_fwd,
+// S <= MAX_SEQ_VMEM) and the streaming _attn_fwd_kernel_kb (launched by
+// _flash_fwd_kb above it, a running (m, l, acc) over 1024-key blocks). This
+// kernel streams 64-key tiles at every S, so it computes both. It computes,
 // for every (batch b, head h, query row i):
 //
 //   s_ij  = (q_i . k_j) * scale + bias_bj        (f32; dots accumulate in f32)
@@ -12,12 +15,17 @@
 // where NEG_INF is the FINITE f32 minimum (so a fully-masked row averages V
 // uniformly instead of producing NaN, and its lse stays near NEG_INF — the
 // ring merge relies on that) and round() is the cast of p to the input dtype
-// before the PV product, as the TPU kernel does.
+// before the PV product, as the TPU kernels do. The whole-K TPU kernel
+// rounds p against the row's final max m_i, the streaming one against the
+// running max of its k-blocks, this kernel against its running max over
+// 64-key tiles: in bf16 the three can differ by one rounding of p.
 //
 // What bounds it on the H100. At the BERT-base serving shape (B=8, H=12,
 // S=512, D=64, bf16) the work is 4*B*H*S^2*D = 6.4 GFLOP against 25 MB of
 // q/k/v/o: 6.5 us at the 989 TFLOP/s bf16 tensor-core peak and 7.6 us at
-// 3.35 TB/s, so the ideal kernel sits on the memory/compute ridge. This
+// 3.35 TB/s, so the ideal kernel sits on the memory/compute ridge. At the
+// long-context shape (B=1, H=12, S=16384) it is 0.82 TFLOP against 101 MB:
+// 0.83 ms at the tensor-core peak, bound by operations. This
 // first kernel is far from either: its dots are f32 FMAs on the CUDA cores
 // (67 TFLOP/s peak, no tensor cores) fed from shared memory — eight shared
 // loads for every sixteen FMAs in the inner loops — so it is bound by the

@@ -1,11 +1,18 @@
-"""Fused attention: the whole-K flash-attention kernels for Hopper.
+"""Fused attention: the flash-attention kernels for Hopper.
 
-Port of ``distributed_tensorflow_framework_tpu/ops/flash_attention.py``'s
-whole-K regime: the forward (``_attn_fwd_kernel``, launched by
-``_flash_fwd``) and the two-pass backward (``_attn_bwd_dq_kernel`` and
-``_attn_bwd_dkv_kernel``, launched by ``_flash_bwd``). The kernels are
-hand-written CUDA (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``),
-built for ``sm_90a`` at first use and called through ctypes.
+Port of ``distributed_tensorflow_framework_tpu/ops/flash_attention.py``,
+both of its regimes. The JAX package dispatches on the sequence length:
+whole-K kernels up to ``MAX_SEQ_VMEM`` (4096) and streaming kernels above
+it, and for the backward a third route, the fused one-pass kernel
+(``FUSED_BWD``). The port's kernels are hand-written CUDA for ``sm_90a``,
+built at first use and called through ctypes:
+
+  * ``csrc/flash_attn_fwd.cu`` — the forward at every length (it streams
+    64-key tiles; replaces ``_attn_fwd_kernel`` and ``_attn_fwd_kernel_kb``);
+  * ``csrc/flash_attn_bwd.cu`` — the two-pass dQ and dK/dV kernels at every
+    length (replace the whole-K and the streaming dQ and dK/dV kernels);
+  * ``csrc/flash_attn_bwd_fused.cu`` — the one-pass backward (replaces
+    ``_attn_bwd_fused_kernel_kb``).
 
 Public functions keep the JAX package's layout and guards:
 
@@ -20,21 +27,31 @@ Both are differentiable through :class:`FlashAttention`, the counterpart of
 ``_make_fused``'s custom VJPs: the forward saves q, k, v, bias, the segment
 ids, o and lse (nothing of size S×S), and the backward forms
 ``delta = Σ_d dO·O`` (minus the lse cotangent) in plain torch, as
-``_flash_bwd`` does, then runs the dQ and dK/dV kernels. The key-bias
-gradient (heads summed) is returned only when the bias requires grad.
-Differentiating at S > MAX_SEQ_VMEM raises: the JAX package takes its
-streaming kernels there (ROADMAP B5/B6), which are not ported.
+``_flash_bwd`` does, then takes the route :func:`backward_route` names,
+chosen exactly as the JAX package chooses it. The key-bias gradient (heads
+summed) is returned only when the bias requires grad.
 
 Dispatch is by the tensors' device, never by a fallback: CUDA tensors
-launch the kernels (or raise), CPU tensors run the plain PyTorch versions
-:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
-``flash_attention.launches``, ``flash_attention_dq_kernel.launches`` and
-``flash_attention_dkv_kernel.launches`` count kernel launches.
+launch the kernels (or raise), CPU tensors run the plain PyTorch versions —
+:func:`flash_attention_reference` (whole-K forward),
+:func:`flash_attention_kb_reference` (streaming forward, taken on the CPU
+where the JAX package streams) and :func:`flash_attention_bwd_reference`
+(every backward route). ``flash_attention.launches``,
+``flash_attention_dq_kernel.launches``,
+``flash_attention_dkv_kernel.launches`` and
+``flash_attention_bwd_fused_kernel.launches`` count kernel launches.
+
+The dispatch knobs are module globals read at call time, so tests and
+scripts can assign them as the JAX package's do; ``FLASH_FUSED_BWD=1/0``
+in the environment forces the fused backward on or off, as there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import logging
+import os
 
 import torch
 
@@ -43,13 +60,108 @@ from distributed_tensorflow_framework_torch.ops._build import (
     KernelLibrary,
 )
 
+log = logging.getLogger(__name__)
+
 NEG_INF = float(torch.finfo(torch.float32).min)
 BLOCK_Q = 128  # the JAX kernel's q-block: sets the sequence-length guard
-# Longest sequence the whole-K kernels take under autograd; the JAX package
-# switches to its streaming backward above it.
+# Longest sequence the JAX package gives its whole-K kernels; above it, it
+# streams. The port's CUDA kernels stream at every length, so here it only
+# picks the backward route and, on the CPU, the forward's plain version.
 MAX_SEQ_VMEM = 4096
+# The JAX streaming kernels' tiles. Here they set the key blocks over which
+# the streaming forward's plain version keeps its running max (where p is
+# rounded), and the row blocks the plain versions work through, so that
+# nothing of size S×S is formed at once.
+BLOCK_Q_KB = 512
+BLOCK_K_KB = 1024
+# The fused one-pass backward, as in the JAX package: FUSED_BWD None = auto
+# (fused_bwd_enabled), True/False forces it; FLASH_FUSED_BWD=1/0 sets it
+# from the environment. It runs only where s_k <= FUSED_BWD_MAX, and takes
+# over the whole-K two-pass pair from fused_whole_k_min(dtype) up.
+_FUSED_BWD_ENV = os.environ.get("FLASH_FUSED_BWD")
+FUSED_BWD: bool | None = (
+    None if _FUSED_BWD_ENV is None else _FUSED_BWD_ENV not in ("", "0"))
+FUSED_BWD_MAX = 8192
+FUSED_WHOLE_K_MIN: int | None = None
+FUSED_WHOLE_K_MIN_BF16 = 2048
+# Lower-case substrings of torch.cuda.get_device_name() on which the fused
+# kernel's parity with the two-pass kernels and its S = 8192 step time (no
+# slower than two-pass) are recorded in PERF.md; auto turns it on only
+# there, as the JAX package does per TPU generation. The H100 SXM at 700 W:
+# fused dk/dv/dbias equal to the two-pass kernels', the S = 8192 step 16%
+# faster, and 0.72x the pair's time at S = 2048 and 4096, the bf16 takeover
+# band (PERF.md §6).
+FUSED_BWD_VERIFIED_DEVICES: tuple[str, ...] = ("h100 80gb hbm3",)
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pick_block(s: int, target: int) -> int:
+    """Largest BLOCK_Q-multiple ≤ ``target`` that divides ``s`` (at least
+    BLOCK_Q); ``s`` itself when ``s`` ≤ BLOCK_Q. The JAX package's tile
+    picker: the guards make ``s`` a BLOCK_Q-multiple (or < BLOCK_Q)."""
+    if s <= BLOCK_Q:
+        return s
+    b = max(BLOCK_Q, min(target - target % BLOCK_Q, s))
+    while s % b:
+        b -= BLOCK_Q
+    return b
+
+
+def _row_blocks(s: int) -> list[slice]:
+    """The row blocks of a length-``s`` sequence that the plain versions
+    work through: ``_pick_block(s, BLOCK_Q_KB)`` rows each, or all ``s``
+    rows where ``s`` is no BLOCK_Q-multiple."""
+    n = _pick_block(s, BLOCK_Q_KB) if s <= BLOCK_Q or not s % BLOCK_Q else s
+    return [slice(i, i + n) for i in range(0, s, n)]
+
+
+def fused_whole_k_min(dtype: torch.dtype) -> int:
+    """Shortest sequence at which the fused backward takes over from the
+    whole-K two-pass pair: FUSED_WHOLE_K_MIN when set, else
+    FUSED_WHOLE_K_MIN_BF16 for bf16 and above MAX_SEQ_VMEM otherwise."""
+    if FUSED_WHOLE_K_MIN is not None:
+        return FUSED_WHOLE_K_MIN
+    if dtype == torch.bfloat16:
+        return FUSED_WHOLE_K_MIN_BF16
+    return MAX_SEQ_VMEM + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _warn_unverified(name: str) -> None:
+    log.warning("fused flash-attention backward off: no recorded fused vs "
+                "two-pass results for %r (FUSED_BWD_VERIFIED_DEVICES); set "
+                "FLASH_FUSED_BWD=1 to force it", name)
+
+
+def fused_bwd_enabled(device: torch.device | str | None = None) -> bool:
+    """Resolve the FUSED_BWD tri-state for tensors on ``device``. A bool in
+    FUSED_BWD wins. Auto (None) is off on the CPU, as the JAX package is
+    off the TPU, and on a CUDA device only when its name matches a
+    FUSED_BWD_VERIFIED_DEVICES entry (warning once per unlisted card)."""
+    if FUSED_BWD is not None:
+        return FUSED_BWD
+    if device is None or torch.device(device).type != "cuda":
+        return False
+    name = torch.cuda.get_device_name(device)
+    if any(p in name.lower() for p in FUSED_BWD_VERIFIED_DEVICES):
+        return True
+    _warn_unverified(name)
+    return False
+
+
+def backward_route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """``"whole_k"``, ``"stream"`` or ``"fused"``: the backward the JAX
+    package runs for (B, S, H, D) q and k (``_make_fused``'s ``bwd`` and
+    ``_flash_bwd``). On the card "whole_k" and "stream" both launch the
+    two-pass dQ and dK/dV kernels, "fused" the one-pass kernel."""
+    s, s_k = q.shape[1], k.shape[1]
+    use_fused = fused_bwd_enabled(q.device) and s_k <= FUSED_BWD_MAX
+    takeover = use_fused and min(s, s_k) >= fused_whole_k_min(q.dtype)
+    if max(s, s_k) > MAX_SEQ_VMEM or takeover:
+        return "fused" if use_fused else "stream"
+    return "whole_k"
+
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _LIB = KernelLibrary("flash_attn_fwd.cu", {
@@ -64,6 +176,10 @@ _BWD_LIB = KernelLibrary("flash_attn_bwd.cu", {
     "dtf_flash_attn_bwd_dq": (_I, _BWD_OPERANDS + [_P] + _BWD_SHAPE),
     "dtf_flash_attn_bwd_dkv": (_I, _BWD_OPERANDS + [_P] * 3 + _BWD_SHAPE),
     "dtf_flash_attn_bwd_error_string": (ctypes.c_char_p, [_I]),
+})
+_FUSED_LIB = KernelLibrary("flash_attn_bwd_fused.cu", {
+    "dtf_flash_attn_bwd_fused": (_I, _BWD_OPERANDS + [_P] * 4 + _BWD_SHAPE),
+    "dtf_flash_attn_bwd_fused_error_string": (ctypes.c_char_p, [_I]),
 })
 
 
@@ -92,9 +208,10 @@ def _scores(q, k, bias, q_seg, kv_seg):
 
 
 def flash_attention_reference(q, k, v, bias, q_seg=None, kv_seg=None):
-    """Plain PyTorch version of the forward kernel, on any device: the TPU
-    kernel's math with its rounding points (``p`` rounds to the input
-    dtype before the PV product). Same arguments and results as
+    """Plain PyTorch version of the forward kernel in the whole-K regime,
+    on any device: ``_attn_fwd_kernel``'s math with its rounding points
+    (``p`` rounds to the input dtype, against the row's max, before the PV
+    product). Same arguments and results as
     :func:`flash_attention_with_lse`."""
     s = _scores(q, k, bias, q_seg, kv_seg)
     m = s.amax(dim=-1, keepdim=True)
@@ -106,6 +223,45 @@ def flash_attention_reference(q, k, v, bias, q_seg=None, kv_seg=None):
     return o.to(q.dtype), lse.contiguous()
 
 
+def _rows(t, rows):
+    return None if t is None else t[:, rows]
+
+
+def flash_attention_kb_reference(q, k, v, bias, q_seg=None, kv_seg=None):
+    """Plain PyTorch version of the forward kernel in the streaming regime
+    (``_attn_fwd_kernel_kb``), on any device: a running (m, l, acc) over key
+    blocks of ``_pick_block(s_k, BLOCK_K_KB)``, starting from m = NEG_INF,
+    with ``p`` rounded to the input dtype against the running max. Rows go
+    through in blocks of ``BLOCK_Q_KB``, so nothing of size S×S is formed.
+    Same arguments and results as :func:`flash_attention_reference`."""
+    b, _, h, d = q.shape
+    s_k = k.shape[1]
+    block_k = _pick_block(s_k, BLOCK_K_KB)
+    vf = v.float()
+    f32 = {"dtype": torch.float32, "device": q.device}
+    outs, lses = [], []
+    for rows in _row_blocks(q.shape[1]):
+        qb = q[:, rows]
+        n = qb.shape[1]
+        m = torch.full((b, h, n, 1), NEG_INF, **f32)
+        l = torch.zeros((b, h, n, 1), **f32)
+        acc = torch.zeros((b, h, n, d), **f32)
+        for k0 in range(0, s_k, block_k):
+            keys = slice(k0, k0 + block_k)
+            sc = _scores(qb, k[:, keys], bias[:, keys], _rows(q_seg, rows),
+                         _rows(kv_seg, keys))
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, keys])
+            m = m_new
+        outs.append((acc / l).permute(0, 2, 1, 3).to(q.dtype))
+        lses.append((m + torch.log(l)).permute(0, 2, 1, 3))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1).contiguous()
+
+
 def attention_delta(o, do, dlse=None):
     """``delta = Σ_d dO·O`` in f32, (B, S, H, 1), minus the lse cotangent
     when there is one (``_flash_bwd``: ∂lse/∂s = p folds into ds)."""
@@ -113,24 +269,31 @@ def attention_delta(o, do, dlse=None):
     return delta if dlse is None else delta - dlse.float()
 
 
-def _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
-    """Recomputed ``p = exp(s − lse)`` (no renormalisation: a fully-masked
-    row, whose lse is NEG_INF, gets p = 1 for every key, as on the TPU) and
-    ``ds = p·(dp − delta)``, both (B, H, Sq, Sk) f32."""
-    p = torch.exp(_scores(q, k, bias, q_seg, kv_seg)
-                  - lse.float().permute(0, 2, 1, 3))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    return p, p * (dp - delta.float().permute(0, 2, 1, 3))
+def _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta, rows):
+    """For the query rows ``rows``: recomputed ``p = exp(s − lse)`` (no
+    renormalisation: a fully-masked row, whose lse is NEG_INF, gets p = 1
+    for every key, as on the TPU) and ``ds = p·(dp − delta)``, both
+    (B, H, rows, Sk) f32."""
+    p = torch.exp(_scores(q[:, rows], k, bias, _rows(q_seg, rows), kv_seg)
+                  - lse[:, rows].float().permute(0, 2, 1, 3))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do[:, rows].float(), v.float())
+    return p, p * (dp - delta[:, rows].float().permute(0, 2, 1, 3))
 
 
 def flash_attention_dq_reference(q, k, v, bias, q_seg, kv_seg, lse, do,
                                  delta):
     """Plain PyTorch version of the dQ kernel (same arguments as
     :func:`flash_attention_dq_kernel`): ``ds`` rounds to the input dtype
-    for the ``ds·k`` product, scale multiplies after it."""
-    _, ds = _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), k.float())
-    return (dq * (1.0 / (q.shape[-1] ** 0.5))).to(q.dtype)
+    for the ``ds·k`` product, scale multiplies after it. Rows go through in
+    blocks of ``BLOCK_Q_KB``."""
+    kf, scale = k.float(), 1.0 / (q.shape[-1] ** 0.5)
+    out = []
+    for rows in _row_blocks(q.shape[1]):
+        _, ds = _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta,
+                              rows)
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), kf)
+        out.append((dq * scale).to(q.dtype))
+    return torch.cat(out, dim=1)
 
 
 def flash_attention_dkv_reference(q, k, v, bias, q_seg, kv_seg, lse, do,
@@ -138,21 +301,33 @@ def flash_attention_dkv_reference(q, k, v, bias, q_seg, kv_seg, lse, do,
     """Plain PyTorch version of the dK/dV kernel (same arguments as
     :func:`flash_attention_dkv_kernel`): ``ds`` rounds to the input dtype
     for ``dsᵀ·q``, ``p`` for ``pᵀ·dO``, and the per-head key-bias gradient
-    (B, H, Sk) f32 sums the unrounded ds."""
-    p, ds = _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta)
+    (B, H, Sk) f32 sums the unrounded ds. The sums over query rows are
+    taken in f32 per block of ``BLOCK_Q_KB`` rows, then over the blocks."""
     dtype = q.dtype
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(dtype).float(), q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), do.float())
+    dk = dv = dbias_h = 0.0
+    for rows in _row_blocks(q.shape[1]):
+        p, ds = _probs_and_ds(q, k, v, bias, q_seg, kv_seg, lse, do, delta,
+                              rows)
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds.to(dtype).float(),
+                               q[:, rows].float())
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(),
+                               do[:, rows].float())
+        dbias_h = dbias_h + ds.sum(dim=2)
     dk = dk * (1.0 / (q.shape[-1] ** 0.5))
-    return dk.to(dtype), dv.to(dtype), ds.sum(dim=2)
+    return dk.to(dtype), dv.to(dtype), dbias_h
 
 
 def flash_attention_bwd_reference(q, k, v, bias, q_seg, kv_seg, o, lse, do,
                                   delta=None):
-    """Plain PyTorch version of the dQ and dK/dV kernels together, on any
-    device: ``(dq, dk, dv, dbias_h)``, the first three (B, S, H, D) in the
-    input dtype and dbias_h (B, H, Sk) f32. ``delta`` defaults to
-    :func:`attention_delta` of (o, do)."""
+    """Plain PyTorch version of every backward kernel, on any device:
+    ``(dq, dk, dv, dbias_h)``, the first three (B, S, H, D) in the input
+    dtype and dbias_h (B, H, Sk) f32. ``delta`` defaults to
+    :func:`attention_delta` of (o, do). The whole-K pair, the streaming pair
+    and the fused one-pass kernel compute the same function: each
+    recomputes ``p = exp(s − lse)``, rounds ``ds`` only as the left operand
+    of ``ds·k`` and ``dsᵀ·q`` and ``p`` only for ``pᵀ·dO``, and sums the
+    unrounded ds into dbias; they differ only in the order of their f32
+    sums."""
     if delta is None:
         delta = attention_delta(o, do)
     args = (q, k, v, bias, q_seg, kv_seg, lse, do, delta)
@@ -238,12 +413,13 @@ def flash_attention_kernel(q, k, v, bias, q_seg=None, kv_seg=None):
     return o, lse
 
 
-def _bwd_launch(entry, name, out_shapes, q, k, v, bias, q_seg, kv_seg, lse,
-                do, delta):
-    """Check the operands of a backward entry point, allocate its outputs
-    (``out_shapes``: (shape, dtype) pairs, ``None`` dtype = q's) and launch
-    it. Returns (CUDA error code, the library's error-string function,
-    outputs)."""
+def _bwd_launch(library, entry, name, out_shapes, q, k, v, bias, q_seg,
+                kv_seg, lse, do, delta):
+    """Check the operands of a backward entry point of ``library``,
+    allocate its outputs (``out_shapes``: (shape, dtype, allocator) with
+    ``None`` dtype = q's; the allocator is ``torch.empty``, or
+    ``torch.zeros`` for a buffer the kernel adds into) and launch it.
+    Returns (CUDA error code, the loaded library, outputs)."""
     (q, k, v, do), bias, q_seg, kv_seg = _kernel_operands(
         name, q, k, v, bias, q_seg, kv_seg, do)
     b, s, h, d = q.shape
@@ -252,9 +428,9 @@ def _bwd_launch(entry, name, out_shapes, q, k, v, bias, q_seg, kv_seg, lse,
     if lse.shape != (b, s, h, 1) or delta.shape != (b, s, h, 1):
         raise ValueError(f"lse and delta must be (B, S, H, 1) = "
                          f"{(b, s, h, 1)}")
-    outs = [torch.empty(shape, dtype=dtype or q.dtype, device=q.device)
-            for shape, dtype in out_shapes]
-    lib = _BWD_LIB.load()
+    outs = [alloc(shape, dtype=dtype or q.dtype, device=q.device)
+            for shape, dtype, alloc in out_shapes]
+    lib = library.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
@@ -264,7 +440,7 @@ def _bwd_launch(entry, name, out_shapes, q, k, v, bias, q_seg, kv_seg, lse,
             bias.data_ptr(), _ptr(q_seg), _ptr(kv_seg), lse.data_ptr(),
             delta.data_ptr(), *(t.data_ptr() for t in outs), b, s, h, d,
             _DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), stream)
-    return err, lib.dtf_flash_attn_bwd_error_string, outs
+    return err, lib, outs
 
 
 def flash_attention_dq_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
@@ -272,11 +448,13 @@ def flash_attention_dq_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
     does not take. Returns dq (B, S, H, D) in q's dtype, the first result
     of :func:`flash_attention_bwd_reference`. Adds one to
     ``flash_attention_dq_kernel.launches`` per launch."""
-    err, error_string, (dq,) = _bwd_launch(
-        "dtf_flash_attn_bwd_dq", "flash_attention_dq_kernel",
-        [(q.shape, None)], q, k, v, bias, q_seg, kv_seg, lse, do, delta)
+    err, lib, (dq,) = _bwd_launch(
+        _BWD_LIB, "dtf_flash_attn_bwd_dq", "flash_attention_dq_kernel",
+        [(q.shape, None, torch.empty)], q, k, v, bias, q_seg, kv_seg, lse,
+        do, delta)
     flash_attention_dq_kernel.launches += 1
-    _raise_on_error(err, error_string, "flash_attn_bwd_dq", q)
+    _raise_on_error(err, lib.dtf_flash_attn_bwd_error_string,
+                    "flash_attn_bwd_dq", q)
     return dq
 
 
@@ -286,17 +464,42 @@ def flash_attention_dkv_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
     of :func:`flash_attention_bwd_reference`. Adds one to
     ``flash_attention_dkv_kernel.launches`` per launch."""
     b, s, h, _ = q.shape
-    err, error_string, outs = _bwd_launch(
-        "dtf_flash_attn_bwd_dkv", "flash_attention_dkv_kernel",
-        [(q.shape, None), (q.shape, None), ((b, h, s), torch.float32)],
+    err, lib, outs = _bwd_launch(
+        _BWD_LIB, "dtf_flash_attn_bwd_dkv", "flash_attention_dkv_kernel",
+        [(q.shape, None, torch.empty), (q.shape, None, torch.empty),
+         ((b, h, s), torch.float32, torch.empty)],
         q, k, v, bias, q_seg, kv_seg, lse, do, delta)
     flash_attention_dkv_kernel.launches += 1
-    _raise_on_error(err, error_string, "flash_attn_bwd_dkv", q)
+    _raise_on_error(err, lib.dtf_flash_attn_bwd_error_string,
+                    "flash_attn_bwd_dkv", q)
     return tuple(outs)
+
+
+def flash_attention_bwd_fused_kernel(q, k, v, bias, q_seg, kv_seg, lse, do,
+                                     delta):
+    """Launch the fused one-pass backward CUDA kernel on CUDA tensors;
+    raises on anything it does not take. Returns ``(dq, dk, dv,
+    dbias_h)`` like :func:`flash_attention_bwd_reference`. dq is summed by
+    f32 atomic adds into a zeroed f32 buffer, cast to q's dtype here; the
+    order of those adds varies from run to run. Adds one to
+    ``flash_attention_bwd_fused_kernel.launches`` per launch."""
+    b, s, h, _ = q.shape
+    err, lib, (dq, dk, dv, dbias_h) = _bwd_launch(
+        _FUSED_LIB, "dtf_flash_attn_bwd_fused",
+        "flash_attention_bwd_fused_kernel",
+        [(q.shape, torch.float32, torch.zeros), (q.shape, None, torch.empty),
+         (q.shape, None, torch.empty),
+         ((b, h, s), torch.float32, torch.empty)],
+        q, k, v, bias, q_seg, kv_seg, lse, do, delta)
+    flash_attention_bwd_fused_kernel.launches += 1
+    _raise_on_error(err, lib.dtf_flash_attn_bwd_fused_error_string,
+                    "flash_attn_bwd_fused", q)
+    return dq.to(q.dtype), dk, dv, dbias_h
 
 
 flash_attention_dq_kernel.launches = 0
 flash_attention_dkv_kernel.launches = 0
+flash_attention_bwd_fused_kernel.launches = 0
 
 
 def _check_device(q) -> None:
@@ -312,23 +515,29 @@ def _forward(q, k, v, bias, q_seg, kv_seg):
     _check_device(q)
     if q.is_cuda:
         return flash_attention_kernel(q, k, v, bias, q_seg, kv_seg)
+    if k.shape[1] > MAX_SEQ_VMEM:  # where the JAX package streams
+        return flash_attention_kb_reference(q, k, v, bias, q_seg, kv_seg)
     return flash_attention_reference(q, k, v, bias, q_seg, kv_seg)
 
 
 def _backward(q, k, v, bias, q_seg, kv_seg, o, lse, do, delta):
     _check_device(q)
-    if q.is_cuda:
-        args = (q, k, v, bias, q_seg, kv_seg, lse, do, delta)
-        return (flash_attention_dq_kernel(*args),
-                *flash_attention_dkv_kernel(*args))
-    return flash_attention_bwd_reference(q, k, v, bias, q_seg, kv_seg, o,
-                                         lse, do, delta)
+    route = backward_route(q, k)
+    if not q.is_cuda:  # every route's plain version
+        return flash_attention_bwd_reference(q, k, v, bias, q_seg, kv_seg, o,
+                                             lse, do, delta)
+    args = (q, k, v, bias, q_seg, kv_seg, lse, do, delta)
+    if route == "fused":
+        return flash_attention_bwd_fused_kernel(*args)
+    return (flash_attention_dq_kernel(*args),
+            *flash_attention_dkv_kernel(*args))
 
 
 class FlashAttention(torch.autograd.Function):
-    """``(q, k, v, bias, q_seg, kv_seg) → (o, lse)`` with the whole-K
-    kernels' backward. Segment ids (or None) get no gradient; the bias gets
-    the heads-summed dbias when it requires grad."""
+    """``(q, k, v, bias, q_seg, kv_seg) → (o, lse)`` with the kernels'
+    backward on the route :func:`backward_route` names. Segment ids (or
+    None) get no gradient; the bias gets the heads-summed dbias when it
+    requires grad."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, q_seg, kv_seg):
@@ -355,11 +564,6 @@ def _attention(q, k, v, bias, q_seg, kv_seg):
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v, bias))):
         return _forward(q, k, v, bias, q_seg, kv_seg)
-    if q.shape[1] > MAX_SEQ_VMEM:
-        raise NotImplementedError(
-            f"flash attention gradients at S={q.shape[1]} > {MAX_SEQ_VMEM} "
-            f"need the streaming backward kernels, not ported yet — "
-            f"ROADMAP.md queue B items B5/B6")
     return FlashAttention.apply(q, k, v, bias, q_seg, kv_seg)
 
 

@@ -183,8 +183,8 @@ class ServingServer:
                 health={"event": "serve_drain", "reason": reason,
                         "clean": drained})
         self.httpd.shutdown()
-        self._done.set()
         log.info("drain complete (clean=%s)", drained)
+        self._done.set()
         return drained
 
     def install_sigterm_drain(self) -> None:
@@ -215,5 +215,9 @@ class ServingServer:
                  self.host, self.port)
         self.httpd.serve_forever()
         self.httpd.server_close()
+        if self._draining.is_set():
+            # A signal-triggered drain stops this loop from its own daemon
+            # thread and finishes after; the process must not exit first.
+            self._done.wait(self.cfg.drain_timeout_s)
         if self._drain_error is not None:
             raise self._drain_error

@@ -17,7 +17,8 @@ only when it logs.
 Every knob whose JAX machinery is not ported raises NotImplementedError
 naming its ROADMAP.md item when it is not at its off value: multi-device
 meshes, ``spmd_mode: shard_map``, ZeRO/FSDP, compressed collectives, the
-fused update, remat and the EMA.
+fused update, the selective remat policies and the EMA. ``model.remat``
+(per-layer checkpointing) is carried by the model.
 """
 
 from __future__ import annotations
@@ -80,9 +81,9 @@ def check_single_device_jit(config: ExperimentConfig) -> None:
     precision = config.precision
     if precision.fused_update:
         raise _not_ported("precision.fused_update", "A13")
-    if config.model.remat or precision.remat_policy != "none":
-        raise _not_ported("rematerialisation (model.remat, "
-                          "precision.remat_policy)", "A13")
+    if precision.remat_policy != "none":
+        raise _not_ported("selective rematerialisation "
+                          "(precision.remat_policy)", "A13")
     if precision.activation_dtype or precision.matmul_dtype:
         raise _not_ported("the precision pack (precision.activation_dtype, "
                           "precision.matmul_dtype)", "A13")

@@ -163,13 +163,38 @@ def test_bwd_reference_matches_autograd_of_the_forward(segmented):
     assert dbias_h.shape == (2, 4, 128) and dbias_h.dtype == torch.float32
 
 
-def test_gradient_beyond_max_seq_vmem_raises():
-    s = pt.MAX_SEQ_VMEM + pt.BLOCK_Q
-    q = torch.zeros(1, s, 1, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B5/B6"):
-        pt.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="B5/B6"):
-        pt.flash_attention_with_lse(q, q, q, torch.zeros(1, s))
+def test_gradient_beyond_max_seq_vmem_raises(monkeypatch):
+    """Beyond MAX_SEQ_VMEM the gradient raises nothing: with the threshold
+    forced to 128 in both packages (FUSED_BWD off), s = 256 takes the
+    streaming two-pass route, and its gradients match the JAX package's
+    streaming backward (``_flash_bwd_kb``) on the same inputs (f32, 1e-5)."""
+    for mod in (pt, jx):
+        monkeypatch.setattr(mod, "MAX_SEQ_VMEM", 128)
+        monkeypatch.setattr(mod, "BLOCK_Q_KB", 128)
+        monkeypatch.setattr(mod, "BLOCK_K_KB", 128)
+        monkeypatch.setattr(mod, "FUSED_BWD", False)
+    calls = []
+    stream_bwd = jx._flash_bwd_kb
+    monkeypatch.setattr(jx, "_flash_bwd_kb",
+                        lambda *a, **kw: calls.append(1) or stream_bwd(*a, **kw))
+    jax.clear_caches()  # the jitted backward read MAX_SEQ_VMEM when traced
+    q, k, v, g, keep, _, glse = _inputs(3, s=256)
+    bias = np.where(keep, 0.0, pt.NEG_INF).astype(np.float32)
+
+    def loss(q, k, v):
+        o, lse = jx.flash_attention_chunk(q, k, v, jnp.asarray(bias))
+        return jnp.sum(o * g) + jnp.sum(lse * glse)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    assert calls, "the JAX package did not take its streaming backward"
+    leaves = _leaves((q, k, v), torch.float32)
+    assert pt.backward_route(leaves[0], leaves[1]) == "stream"
+    o, lse = pt.flash_attention_with_lse(*leaves, torch.from_numpy(bias))
+    ((o * torch.from_numpy(g)).sum()
+     + (lse * torch.from_numpy(glse)).sum()).backward()
+    for name, leaf, r in zip("qkv", leaves, ref):
+        _assert_close(leaf.grad, r, TOL["float32"], f"d{name}")
 
 
 def test_forward_only_paths_take_no_autograd():

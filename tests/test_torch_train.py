@@ -439,7 +439,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
     ("mesh.data=2", "A1"),
     ("train.spmd_mode=shard_map", "A9"),
-    ("model.remat=true", "A13"),
+    ("precision.remat_policy=save_nothing", "A13"),
     ("optimizer.ema_decay=0.999", "A3"),
     ("optimizer.name=rmsprop", "A3"),
 ])
@@ -447,6 +447,59 @@ def test_unported_knobs_raise(override, item):
     over = TINY_BERT + NO_CKPT + [override]
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(_cli_args(over, "--device", "cpu"))
+
+
+LONG_TINY = ["mesh.seq=1", "model.attention_impl=pallas",
+             "checkpoint.directory=", "resilience.rollback=false",
+             "model.vocab_size=512", "data.vocab_size=512",
+             "model.hidden_size=32", "model.num_layers=2",
+             "model.num_heads=2", "model.mlp_dim=64",
+             "model.max_seq_len=384", "data.seq_len=384",
+             "data.global_batch_size=2", "train.grad_accum_steps=2",
+             "train.total_steps=2", "train.log_interval=1"]
+
+
+@pytest.mark.parametrize("fused, route", [(False, "stream"),
+                                          (True, "fused")])
+def test_cli_trains_the_long_context_config_on_the_streaming_route(
+        tmp_path, monkeypatch, fused, route):
+    """configs/bert_long_ring.yaml (remat, bf16, dropout) at tiny width on
+    one CPU device, with the streaming thresholds forced small (s = 384
+    over MAX_SEQ_VMEM = 128): the forward takes the streaming plain
+    version, every backward the streaming route, and the run ends with
+    finite metrics."""
+    import json
+    import pathlib
+
+    from distributed_tensorflow_framework_torch.ops import (
+        flash_attention as fa,
+    )
+
+    monkeypatch.setattr(fa, "MAX_SEQ_VMEM", 128)
+    monkeypatch.setattr(fa, "BLOCK_Q_KB", 128)
+    monkeypatch.setattr(fa, "BLOCK_K_KB", 128)
+    monkeypatch.setattr(fa, "FUSED_BWD", fused)
+    routes, streamed = [], []
+    route_fn, kb_fn = fa.backward_route, fa.flash_attention_kb_reference
+    monkeypatch.setattr(fa, "backward_route", lambda q, k: routes.append(
+        route_fn(q, k)) or routes[-1])
+    monkeypatch.setattr(fa, "flash_attention_kb_reference",
+                        lambda *a: streamed.append(1) or kb_fn(*a))
+    config = pathlib.Path(__file__).resolve().parents[1] / "configs"
+    rc = port_cli.main(["--config", str(config / "bert_long_ring.yaml"),
+                        "--device", "cpu", "--log-dir", str(tmp_path),
+                        *sum((["--set", o] for o in LONG_TINY), [])])
+    assert rc == 0
+    # 2 steps x 2 micro-batches x 2 layers; the forward runs twice per
+    # layer (forward and recompute), the backward once.
+    assert routes == [route] * 8
+    assert len(streamed) == 16
+    train = [json.loads(line) for line in
+             (tmp_path / "events.jsonl").read_text().splitlines()
+             if json.loads(line)["kind"] == "train_step"]
+    assert [e["step"] for e in train] == [1, 2]
+    for e in train:
+        assert all(np.isfinite(v) for v in e["metrics"].values())
 
 
 def test_eval_only_raises():
