@@ -1,9 +1,21 @@
-// What the flash-attention backward kernels share: the tile geometry, the
-// dtype conversions, the operand record, the recomputation of p, and the
-// key-block loop of the dK/dV kernel and the fused kernel.
-// Included by flash_attn_bwd.cu (the two-pass dQ and dK/dV kernels) and
+// What the flash-attention backward kernels share: the operand record, the
+// dtype conversions, and the CUDA-core path of the first kernels (64 x 64
+// f32 tiles, 256 threads, f32 FMAs): the recomputation of p and the
+// key-block loop that the fused one-pass kernel runs in both dtypes and the
+// two-pass dK/dV kernel runs in f32.
+// Included by flash_attn_bwd.cu (the two-pass dQ and dK/dV kernels, whose
+// bf16 variants run on the tensor cores with their own tiles) and
 // flash_attn_bwd_fused.cu (the one-pass kernel); ops/_build.py hashes it
-// into both libraries' names.
+// into every library's name.
+//
+// The loop here stays as it was written for the first kernels. It replaces
+// the TPU kernels' dK/dV block (distributed_tensorflow_framework_tpu/ops/
+// flash_attention.py, _attn_bwd_dkv_kernel and _attn_bwd_dkv_kernel_kb for
+// f32 inputs) and the body of _attn_bwd_fused_kernel_kb. On the H100 it is
+// bound by shared-memory loads feeding f32 FMAs (22-23 TFLOP/s, PERF.md),
+// far from the 67 TFLOP/s f32 peak and the 989 TFLOP/s bf16 tensor-core
+// peak; the bf16 two-pass kernels left it for mma.sync tiles (see
+// flash_attn_bwd.cu), and the fused kernel's redesign is the next step.
 
 #pragma once
 
@@ -97,7 +109,8 @@ constexpr size_t key_block_smem_bytes() {
 // and written once. kWithDq adds each query tile's dq partial (scale * sum
 // over the block's 64 keys of round(ds) k) into the f32 buffer dq_acc by
 // atomicAdd: that is the fused kernel, and without it the two-pass dK/dV
-// kernel. Both run this one loop, so their dk, dv and dbias_h are equal.
+// kernel in f32. In f32 both run this one loop, so their dk, dv and dbias_h
+// are equal; the bf16 two-pass kernel sums in another order.
 template <typename T, int D, bool kWithDq>
 __device__ __forceinline__ void key_block_bwd(const Operands& op,
                                               float* __restrict__ dq_acc,
@@ -291,15 +304,15 @@ __device__ __forceinline__ void key_block_bwd(const Operands& op,
   }
 }
 
-// One block per (b, h, 64-row tile of the sequence), kThreads each.
-template <typename Kernel, typename... Outs>
+// One block per (b, h, 64-row tile of the sequence), kBlockThreads each.
+template <int kBlockThreads = kThreads, typename Kernel, typename... Outs>
 cudaError_t launch(Kernel kernel, size_t smem, int B, const Operands& op,
                    cudaStream_t stream, Outs... outs) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((op.S + kTile - 1) / kTile, op.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(op, outs...);
+  kernel<<<grid, kBlockThreads, smem, stream>>>(op, outs...);
   return cudaGetLastError();
 }
 

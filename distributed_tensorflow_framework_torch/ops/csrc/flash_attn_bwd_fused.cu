@@ -35,8 +35,11 @@
 // run in no order, so none of that carries over. Here one block owns one
 // (b, h, 64-key tile) and loops over all 64-row query tiles: dk, dv and
 // dbias_h accumulate in its registers and are written once, with no
-// atomics: the two-pass dK/dV kernel's loop, key_block_bwd in
-// flash_attn_bwd_common.cuh, run with kWithDq set. Each query tile's dq
+// atomics: key_block_bwd in flash_attn_bwd_common.cuh, run with kWithDq set
+// (the f32 two-pass dK/dV kernel runs the same loop without it; the bf16
+// two-pass kernels run on the tensor cores and sum in another order, so
+// the bf16 dk, dv and dbias_h of the two routes agree to within rounding,
+// not bit for bit). Each query tile's dq
 // partial (scale * sum over the block's 64 keys of round(ds) k) is added
 // with f32 atomicAdd into an f32 (B, S, H, D) buffer that the caller zeroes
 // and casts to the input dtype afterwards. Those additions arrive in the
@@ -47,7 +50,7 @@
 
 namespace {
 
-// The dK/dV kernel's loop (flash_attn_bwd_common.cuh) with the dq partials.
+// The key-block loop (flash_attn_bwd_common.cuh) with the dq partials.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_bwd_fused_kernel(const Operands op, float* __restrict__ dq_acc,

@@ -10,7 +10,8 @@ built at first use and called through ctypes:
   * ``csrc/flash_attn_fwd.cu`` — the forward at every length (it streams
     64-key tiles; replaces ``_attn_fwd_kernel`` and ``_attn_fwd_kernel_kb``);
   * ``csrc/flash_attn_bwd.cu`` — the two-pass dQ and dK/dV kernels at every
-    length (replace the whole-K and the streaming dQ and dK/dV kernels);
+    length, bf16 on the tensor cores (replace the whole-K and the streaming
+    dQ and dK/dV kernels);
   * ``csrc/flash_attn_bwd_fused.cu`` — the one-pass backward (replaces
     ``_attn_bwd_fused_kernel_kb``).
 
@@ -87,11 +88,12 @@ FUSED_WHOLE_K_MIN_BF16 = 2048
 # Lower-case substrings of torch.cuda.get_device_name() on which the fused
 # kernel's parity with the two-pass kernels and its S = 8192 step time (no
 # slower than two-pass) are recorded in PERF.md; auto turns it on only
-# there, as the JAX package does per TPU generation. The H100 SXM at 700 W:
-# fused dk/dv/dbias equal to the two-pass kernels', the S = 8192 step 16%
-# faster, and 0.72x the pair's time at S = 2048 and 4096, the bf16 takeover
-# band (PERF.md §6).
-FUSED_BWD_VERIFIED_DEVICES: tuple[str, ...] = ("h100 80gb hbm3",)
+# there, as the JAX package does per TPU generation. None is listed: the
+# H100 80GB HBM3 was, while both routes ran f32 FMAs (fused step 16% faster
+# at S = 8192), and left the list when the two-pass pair moved to the tensor
+# cores and the fused kernel did not (fused about 7x the pair's time in the
+# bf16 takeover band, and the slower S = 8192 step; PERF.md §6).
+FUSED_BWD_VERIFIED_DEVICES: tuple[str, ...] = ()
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -129,8 +131,9 @@ def fused_whole_k_min(dtype: torch.dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _warn_unverified(name: str) -> None:
-    log.warning("fused flash-attention backward off: no recorded fused vs "
-                "two-pass results for %r (FUSED_BWD_VERIFIED_DEVICES); set "
+    log.warning("fused flash-attention backward off: %r is not in "
+                "FUSED_BWD_VERIFIED_DEVICES (no record that the fused kernel "
+                "is no slower than the two-pass kernels there); set "
                 "FLASH_FUSED_BWD=1 to force it", name)
 
 
@@ -335,12 +338,23 @@ def flash_attention_bwd_reference(q, k, v, bias, q_seg, kv_seg, o, lse, do,
             *flash_attention_dkv_reference(*args))
 
 
+def _aligned_16(t: torch.Tensor) -> bool:
+    """Whether ``t`` starts on 16 bytes and its batch and sequence strides
+    are multiples of 16 bytes (a dimension of size 1 has no stride to
+    keep), as the backward kernels' 16-byte async copies need."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * size % 16 == 0 for i in (0, 1) if t.shape[i] > 1)
+
+
 def _head_view(t: torch.Tensor) -> torch.Tensor:
     """The kernels read (B, S, H, D) with free batch/sequence strides but
-    dense (H, D) rows; anything else is copied once."""
+    dense (H, D) rows, starting on 16 bytes with 16-byte strides; anything
+    else is copied once into a fresh contiguous tensor (``contiguous()``
+    alone would keep a misaligned tensor that is already dense)."""
     d = t.shape[-1]
-    if t.stride(-1) != 1 or t.stride(-2) != d:
-        t = t.contiguous()
+    if t.stride(-1) != 1 or t.stride(-2) != d or not _aligned_16(t):
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 

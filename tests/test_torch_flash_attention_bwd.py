@@ -163,10 +163,10 @@ def test_bwd_reference_matches_autograd_of_the_forward(segmented):
     assert dbias_h.shape == (2, 4, 128) and dbias_h.dtype == torch.float32
 
 
-def test_gradient_beyond_max_seq_vmem_raises(monkeypatch):
-    """Beyond MAX_SEQ_VMEM the gradient raises nothing: with the threshold
-    forced to 128 in both packages (FUSED_BWD off), s = 256 takes the
-    streaming two-pass route, and its gradients match the JAX package's
+def test_gradient_beyond_max_seq_vmem_takes_the_streaming_route(monkeypatch):
+    """Beyond MAX_SEQ_VMEM the gradient takes the streaming two-pass route:
+    with the threshold forced to 128 in both packages (FUSED_BWD off),
+    s = 256 goes that way, and its gradients match the JAX package's
     streaming backward (``_flash_bwd_kb``) on the same inputs (f32, 1e-5)."""
     for mod in (pt, jx):
         monkeypatch.setattr(mod, "MAX_SEQ_VMEM", 128)
@@ -220,6 +220,61 @@ def test_cpu_backward_launches_no_kernel():
     assert (pt.flash_attention.launches,
             pt.flash_attention_dq_kernel.launches,
             pt.flash_attention_dkv_kernel.launches) == before
+
+
+def _misaligned(kind):
+    """A (2, 128, 4, 32) bf16 view with dense (H, D) rows that breaks the
+    kernels' 16-byte rule one way."""
+    b, s, h, d = 2, 128, 4, 32
+    if kind == "storage_offset":  # starts 2 bytes past a 16-byte boundary
+        flat = torch.arange(b * s * h * d + 1, dtype=torch.float32)
+        return flat.to(torch.bfloat16)[1:].view(b, s, h, d)
+    if kind == "sequence_stride":  # H·D + 1 elements between positions
+        wide = torch.randn(b, s, h * d + 1).to(torch.bfloat16)
+        return wide[..., :h * d].view(b, s, h, d)
+    wide = torch.randn(b, s * h * d + 1).to(torch.bfloat16)  # batch stride
+    return wide[:, :s * h * d].view(b, s, h, d)
+
+
+@pytest.mark.parametrize("kind", ["storage_offset", "sequence_stride",
+                                  "batch_stride"])
+def test_head_view_copies_a_misaligned_view_once(kind):
+    """The backward kernels copy 16-byte chunks, so an operand whose start
+    or batch/sequence stride is not a multiple of 16 bytes is copied into
+    a fresh contiguous (aligned) tensor with the same values; the copy
+    passes unchanged."""
+    t = _misaligned(kind)
+    assert not pt._aligned_16(t)
+    got = pt._head_view(t)
+    assert got is not t and got.is_contiguous() and pt._aligned_16(got)
+    assert torch.equal(got, t)
+    assert pt._head_view(got) is got
+
+
+def test_head_view_keeps_the_fused_qkv_views_of_bert():
+    """The main path copies nothing: the q, k and v that the port's BERT
+    attention slices out of its fused QKV projection (BERT-base widths,
+    bf16) start on 16 bytes with 16-byte strides, so ``_head_view`` returns
+    each as it is."""
+    from distributed_tensorflow_framework_torch.models.bert import (
+        MultiHeadAttention,
+    )
+
+    attn = MultiHeadAttention(768, 12, dtype=torch.bfloat16,
+                              attention_impl="pallas", fused_qkv=True)
+    seen = []
+
+    def spy(q, k, v, *, mask=None, segment_ids=None):
+        seen.extend((t, pt._head_view(t)) for t in (q, k, v))
+        return q
+
+    attn.attention_fn = spy
+    with torch.no_grad():
+        attn(torch.randn(2, 16, 768).to(torch.bfloat16))
+    assert len(seen) == 3
+    for view, kept in seen:
+        assert not view.is_contiguous() and view.stride(1) == 3 * 768
+        assert kept is view
 
 
 def test_backward_kernel_entries_refuse_cpu_tensors():
