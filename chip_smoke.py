@@ -13,24 +13,27 @@ Phases (any failure raises and the script exits non-zero):
      source, in parallel) and prints the build seconds, then per kernel
      function its registers and spill bytes (ptxas) and its count of
      tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass``). The
-     bf16 two-pass kernels (``*_tc_kernel``) must have some, and none may
-     spill at D = 64.
-  3. kernel parity — the flash-attention kernel against its plain PyTorch
-     version on the card, bf16 and f32, at (B,H,S,D) = (8,12,512,64),
-     (2,4,128,32), (2,4,64,32): no mask, trailing padding, packed segment
-     ids, one fully-masked row. Times the kernel, the plain version and
+     bf16 tensor-core kernels (``*_tc_kernel``: the forward and the
+     two-pass pair) must have some, and none may spill at D = 64.
+  3. kernel parity — the forward kernel against its plain PyTorch version
+     on the card, bf16 and f32, at (B,H,S,D) = (8,12,512,64), (2,4,128,32),
+     (2,4,64,32), (2,2,256,128) and the ragged (2,3,96,32): no mask,
+     trailing padding, packed segment ids, one fully-masked row (whose o
+     must be V's mean); a second launch must give the same bits (no
+     atomics). Then q and k as views that break the 16-byte rule (a 2-byte
+     storage offset, an odd sequence stride): the wrapper copies them, and
+     the outputs equal the aligned operands'. At the serving shape, times
+     the kernel (with its TFLOP/s) and
      ``torch.nn.functional.scaled_dot_product_attention`` (the yardstick;
-     the port never calls it; timed by its device kernel time, since its
-     host work can outlast its kernels) at the serving shape, beside the
-     bound.
+     the port never calls it) by their device kernel time, since the host
+     work of each call outlasts its kernel, and the plain version by CUDA
+     events, beside the bound.
   3b. backward kernel parity — the dQ and dK/dV kernels against their
-     plain versions (dq, dk, dv, dbias_h) at the three shapes above plus
-     (2,2,256,128) and the ragged (2,3,96,32), bf16 and f32, the same four
-     cases; on the fully-masked row each key's dv must be the row's summed
-     dO (p = 1, the TPU semantics), and a second launch of each kernel must
-     give the same bits (no atomics). Then q and k as views that break the
-     16-byte rule (a 2-byte storage offset, an odd sequence stride): the
-     wrappers copy them, and the outputs equal the aligned operands'. Times
+     plain versions (dq, dk, dv, dbias_h) at the same five shapes, bf16 and
+     f32, the same four cases; on the fully-masked row each key's dv must
+     be the row's summed dO (p = 1, the TPU semantics), and a second launch
+     of each kernel must give the same bits (no atomics). Then the
+     misaligned q and k views of phase 3, through the pair. Times
      each kernel, its plain version and the backward of
      ``scaled_dot_product_attention`` (the yardstick for the pair) at
      (8,12,512,64) bf16 with padding, beside the bounds.
@@ -43,12 +46,12 @@ Phases (any failure raises and the script exits non-zero):
      f32, and at (2,2,2048,64) bf16 (where it takes over the whole-K pair),
      all four cases. The forward's o is held relative to the case's largest
      |o|. Times the forward, dQ and dK/dV at (1,12,16384,64) and the fused
-     kernel at (1,12,8192,64), bf16, beside their plain versions, their
-     bounds and SDPA's forward or backward device time; then the fused
-     kernel against the two-pass pair in the whole-K takeover band,
-     (4,12,2048,64) and (2,12,4096,64) bf16, where auto must pick the
-     fused kernel on a card listed in FUSED_BWD_VERIFIED_DEVICES and the
-     whole-K pair elsewhere.
+     kernel at (1,12,8192,64), bf16, with their TFLOP/s, beside their plain
+     versions, their bounds and SDPA's forward or backward device time;
+     then the fused kernel against the two-pass pair in the whole-K
+     takeover band, (4,12,2048,64) and (2,12,4096,64) bf16, where auto must
+     pick the fused kernel on a card listed in FUSED_BWD_VERIFIED_DEVICES
+     and the whole-K pair elsewhere.
   4. serve — full-width BERT-base (12 x 768, 12 heads, MLP 3072, vocab
      30522, max_seq_len 512, bf16, fused QKV, attention_impl pallas) with
      weights from a seed, written as a port artifact; the server is started
@@ -131,14 +134,17 @@ _TPU = "distributed_tensorflow_framework_tpu/ops/flash_attention.py:"
 REPLACES = {"fwd": [_TPU + "140", _TPU + "254"],
             "dq": [_TPU + "179", _TPU + "304"],
             "dkv": [_TPU + "213", _TPU + "347"], "fused": [_TPU + "403"]}
-PARITY_SHAPES = ((8, 12, 512, 64), (2, 4, 128, 32), (2, 4, 64, 32))
+# Phases 3 and 3b: the serving and training shape, two small ones, D = 128
+# and a length that is not a multiple of the kernels' 64-row tiles (rows and
+# keys past S must contribute nothing).
+PARITY_SHAPES = ((8, 12, 512, 64), (2, 4, 128, 32), (2, 4, 64, 32),
+                 (2, 2, 256, 128), (2, 3, 96, 32))
 # Phase 3c: the streaming lengths of the long-context runs, two heads.
 LONG_SHAPES = ((1, 2, 8192, 64), (1, 2, 16384, 64))
 KERNEL_NAMES = {"fwd": "flash_attn_fwd", "dq": "flash_attn_bwd_dq",
                 "dkv": "flash_attn_bwd_dkv", "fused": "flash_attn_bwd_fused"}
-# The backward also runs D = 128 and a length that is not a multiple of the
-# kernels' 64-row tiles (rows and keys past S must contribute nothing).
-BWD_SHAPES = PARITY_SHAPES + ((2, 2, 256, 128), (2, 3, 96, 32))
+# S x S x D products per kernel (attention_bound, attention_bwd_bounds).
+PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4, "fused": 5}
 # Kernel vs plain version, same inputs on the card. o: bf16 allows two ulps
 # near 1 (the kernel rounds p against a running max, the plain version
 # against the row max, so one rounding can differ); f32 sums the same
@@ -236,12 +242,23 @@ def roofline_ms(moved_bytes: float, flops: float, elem_bytes: int):
                                        else "operations")
 
 
+def attention_flops(name: str, b, h, s, d) -> int:
+    """Operations of kernel ``name``: PRODUCTS[name] S x S x D products of
+    2*B*H*S^2*D each."""
+    return PRODUCTS[name] * 2 * b * h * s * s * d
+
+
+def tflops(name: str, b, h, s, d, ms: float) -> float:
+    """Achieved TFLOP/s of kernel ``name`` at (b, h, s, d) in ``ms``."""
+    return attention_flops(name, b, h, s, d) / (ms * 1e-3) / 1e12
+
+
 def attention_bound(b, h, s, d, elem_bytes, segmented):
     """Forward kernel: q, k, v, bias (and segment ids) read once, o and lse
-    written once; 4*B*H*S^2*D operations."""
+    written once; two products."""
     moved = 4 * b * s * h * d * elem_bytes + b * s * 4 + b * s * h * 4
     moved += 2 * b * s * 4 if segmented else 0
-    return roofline_ms(moved, 4 * b * h * s * s * d, elem_bytes)
+    return roofline_ms(moved, attention_flops("fwd", b, h, s, d), elem_bytes)
 
 
 def attention_bwd_bounds(b, h, s, d, elem_bytes, segmented) -> dict:
@@ -252,13 +269,12 @@ def attention_bwd_bounds(b, h, s, d, elem_bytes, segmented) -> dict:
     head = b * s * h * d * elem_bytes
     common = 4 * head + b * s * 4 + 2 * b * s * h * 4
     common += 2 * b * s * 4 if segmented else 0
-    product = 2 * b * h * s * s * d
     dbias = b * h * s * 4
-    return {"dq": roofline_ms(common + head, 3 * product, elem_bytes),
-            "dkv": roofline_ms(common + 2 * head + dbias, 4 * product,
-                               elem_bytes),
-            "fused": roofline_ms(common + 3 * head + dbias, 5 * product,
-                                 elem_bytes)}
+    moved = {"dq": common + head, "dkv": common + 2 * head + dbias,
+             "fused": common + 3 * head + dbias}
+    return {name: roofline_ms(bytes_, attention_flops(name, b, h, s, d),
+                              elem_bytes)
+            for name, bytes_ in moved.items()}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -322,8 +338,10 @@ def build_report(_build, result) -> None:
         regs, stores, loads = usage.get(mangled, (None, None, None))
         log(f"    {short}: {regs} registers, spill stores {stores} B, "
             f"spill loads {loads} B, {mma.get(mangled, 0)} HMMA/HGMMA")
+        # cu++filt writes template arguments as "<(int)64, (bool)0>".
+        d64 = re.search(r"<(\(int\))?64,", short) is not None
         if "_tc_kernel" in short and (
-                not mma.get(mangled) or ("<64," in short and (stores or loads))):
+                not mma.get(mangled) or (d64 and (stores or loads))):
             raise AssertionError(f"{short}: expected tensor-core "
                                  f"instructions and, at D = 64, no spills")
 
@@ -353,6 +371,10 @@ def attention_cases(torch, fa, gen, b: int, s: int) -> dict:
 
 
 def kernel_parity(torch, fa) -> dict:
+    """The forward kernel against its plain version on the same inputs, at
+    every PARITY_SHAPES shape, bf16 and f32, in the four masking cases; a
+    second launch must give the same bits (each block owns its rows, no
+    atomics). Then the misaligned views (misaligned_view_parity)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -363,6 +385,7 @@ def kernel_parity(torch, fa) -> dict:
             for case, (bias, sg) in attention_cases(torch, fa, gen,
                                                     b, s).items():
                 o, lse = fa.flash_attention_kernel(q, k, v, bias, sg, sg)
+                o2, lse2 = fa.flash_attention_kernel(q, k, v, bias, sg, sg)
                 torch.cuda.synchronize()
                 ro, rlse = fa.flash_attention_reference(q, k, v, bias, sg, sg)
                 o_err = (o.float() - ro.float()).abs().max().item()
@@ -370,7 +393,8 @@ def kernel_parity(torch, fa) -> dict:
                            / rlse.abs().clamp(min=1.0)).max().item()
                 finite = bool(torch.isfinite(o).all() and
                               torch.isfinite(lse).all())
-                ok = (finite and o_err <= O_ATOL[name]
+                stable = torch.equal(o, o2) and torch.equal(lse, lse2)
+                ok = (finite and stable and o_err <= O_ATOL[name]
                       and lse_err <= LSE_RTOL)
                 if case == "masked_row":
                     uniform = v[1].float().mean(dim=0, keepdim=True)
@@ -382,19 +406,23 @@ def kernel_parity(torch, fa) -> dict:
                 log(f"parity {name} (B,H,S,D)=({b},{h},{s},{d}) {case}: "
                     f"o max|err| {o_err:.3e} (tol {O_ATOL[name]}), lse "
                     f"rel err {lse_err:.3e} (tol {LSE_RTOL}), finite "
-                    f"{finite} -> {'ok' if ok else 'FAIL'}")
+                    f"{finite}, two launches equal {stable} -> "
+                    f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(
                         f"kernel disagrees with its plain version: {name} "
                         f"({b},{h},{s},{d}) {case}")
+    misaligned_view_parity(torch, fa, gen, "fwd")
     return {"max_abs_err": worst}
 
 
 def kernel_timing(torch, fa) -> dict:
     """At the serving shape (B=8, H=12, S=512, D=64, bf16, padding mask):
-    the kernel and its plain version (CUDA events), and SDPA on the same
-    inputs (its device kernel time). The 25 MB of inputs stay in the 50 MB
-    L2 between launches."""
+    the kernel and SDPA on the same inputs by their device kernel time, the
+    plain version by CUDA events. The kernel is shorter than its wrapper's
+    host work, so CUDA events around back-to-back calls time the host; that
+    figure is logged beside it. The 25 MB of inputs stay in the 50 MB L2
+    between launches."""
     import torch.nn.functional as F
 
     b, h, s, d = PARITY_SHAPES[0]
@@ -406,18 +434,26 @@ def kernel_timing(torch, fa) -> dict:
     bias = torch.where(keep, 0.0, fa.NEG_INF)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask4 = keep[:, None, None, :]
+    def kernel():
+        return fa.flash_attention_kernel(q, k, v, bias)
+
     out = {
-        "ms": time_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, bias)),
+        "ms": device_ms(torch, kernel, iters=50),
+        "events_ms": time_ms(torch, kernel),
         "plain_ms": time_ms(
             torch, lambda: fa.flash_attention_reference(q, k, v, bias)),
         "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask4)),
     }
     out["bound_ms"], out["bound_by"] = attention_bound(b, h, s, d, 2, False)
+    rate = {key: tflops("fwd", b, h, s, d, out[key])
+            for key in ("ms", "library_ms")}
     log(f"timing flash_attn_fwd (B,H,S,D)=({b},{h},{s},{d}) bf16: kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, sdpa (device) "
-        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']})")
+        f"(device) {out['ms']:.4f} ms ({rate['ms']:.1f} TFLOP/s; CUDA events"
+        f" over back-to-back calls {out['events_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.4f} ms, sdpa (device) {out['library_ms']:.4f} ms"
+        f" ({rate['library_ms']:.1f} TFLOP/s), bound {out['bound_ms']:.4f} "
+        f"ms ({out['bound_by']})")
     return out
 
 
@@ -438,7 +474,7 @@ def bwd_kernel_parity(torch, fa) -> dict:
     worst = {"dq": 0.0, "dkv": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for b, h, s, d in BWD_SHAPES:
+        for b, h, s, d in PARITY_SHAPES:
             q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
                                        generator=gen).to(dtype)
                            for _ in range(4))
@@ -483,7 +519,7 @@ def bwd_kernel_parity(torch, fa) -> dict:
                     raise AssertionError(
                         f"backward kernels disagree with their plain "
                         f"versions: {name} ({b},{h},{s},{d}) {case}")
-    misaligned_view_parity(torch, fa, gen)
+    misaligned_view_parity(torch, fa, gen, "bwd")
     return worst
 
 
@@ -494,35 +530,44 @@ def two_pass_kernels(fa, args) -> dict:
     return out
 
 
-def misaligned_view_parity(torch, fa, gen) -> None:
+def misaligned_view_parity(torch, fa, gen, which: str) -> None:
     """At (8,12,512,64) bf16 with padding: q as a view that starts 2 bytes
     past a 16-byte boundary and k as a view with a sequence stride of
     H·D + 1 elements. The wrappers must copy both once (the kernels' 16-byte
     copies need aligned rows), so the outputs equal those of the aligned
-    tensors bit for bit."""
+    tensors bit for bit. ``which``: "fwd" (the forward kernel) or "bwd"
+    (the two-pass pair)."""
     b, h, s, d = PARITY_SHAPES[0]
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
     bias = attention_cases(torch, fa, gen, b, s)["padding"][0]
-    o, lse = fa.flash_attention_reference(q, k, v, bias)
-    args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
     q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
     q_off = q_off.view(q.shape).copy_(q)
     k_wide = torch.empty(b, s, h * d + 1, dtype=k.dtype, device="cuda")
     k_str = k_wide[..., :h * d].view(k.shape).copy_(k)
     if fa._aligned_16(q_off) or fa._aligned_16(k_str):
         raise AssertionError("the misaligned views came out aligned")
-    want = two_pass_kernels(fa, args)
-    got = two_pass_kernels(fa, (q_off, k_str) + args[2:])
+    if which == "fwd":
+        def run(q_, k_):
+            return dict(zip(("o", "lse"),
+                            fa.flash_attention_kernel(q_, k_, v, bias)))
+    else:
+        o, lse = fa.flash_attention_reference(q, k, v, bias)
+        rest = (v, bias, None, None, lse, do, fa.attention_delta(o, do))
+
+        def run(q_, k_):
+            return two_pass_kernels(fa, (q_, k_) + rest)
+    want = run(q, k)
+    got = run(q_off, k_str)
     torch.cuda.synchronize()
     equal = all(torch.equal(got[key], want[key]) for key in want)
-    log(f"bwd misaligned views bfloat16 (B,H,S,D)=({b},{h},{s},{d}) padding:"
-        f" q 2 bytes past 16, k sequence stride {k_str.stride(1)} elements;"
-        f" outputs equal to the aligned operands' {equal} -> "
+    log(f"{which} misaligned views bfloat16 (B,H,S,D)=({b},{h},{s},{d}) "
+        f"padding: q 2 bytes past 16, k sequence stride {k_str.stride(1)} "
+        f"elements; outputs equal to the aligned operands' {equal} -> "
         f"{'ok' if equal else 'FAIL'}")
     if not equal:
-        raise AssertionError("misaligned operand views changed the backward "
-                             "kernels' outputs")
+        raise AssertionError(f"misaligned operand views changed the {which} "
+                             f"kernels' outputs")
 
 
 def bwd_kernel_timing(torch, fa) -> dict:
@@ -720,8 +765,9 @@ def long_kernel_timing(torch, fa) -> dict:
                    "library_ms": sdpa["fwd" if name == "fwd" else "bwd"]}
             rec["bound_ms"], rec["bound_by"] = bounds[name]
             log(f"timing {KERNEL_NAMES[name]} (B,H,S,D)=({b},{h},{s},{d}) "
-                f"bf16: kernel {rec['ms']:.4f} ms, plain "
-                f"{rec['plain_ms']:.4f} ms, sdpa "
+                f"bf16: kernel {rec['ms']:.4f} ms ("
+                f"{tflops(name, b, h, s, d, rec['ms']):.1f} "
+                f"TFLOP/s), plain {rec['plain_ms']:.4f} ms, sdpa "
                 f"{'forward' if name == 'fwd' else 'backward (dq+dk+dv)'} "
                 f"(device) {rec['library_ms']:.4f} ms, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")

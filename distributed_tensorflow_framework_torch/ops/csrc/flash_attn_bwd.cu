@@ -43,9 +43,10 @@
 //
 // What the design does about it (bf16, the main path's dtype):
 //   * Every product runs on the tensor cores: mma.sync.m16n8k16 (bf16 in,
-//     f32 accumulate) fed by ldmatrix from shared memory. Each warp owns
-//     16 rows of the score tile, so the accumulator layout of one product
-//     is the A-operand layout of the next, and p and ds go from the f32
+//     f32 accumulate) fed by ldmatrix from shared memory (the building
+//     blocks, shared with the forward, are in flash_attn_mma.cuh). Each warp
+//     owns 16 rows of the score tile, so the accumulator layout of one
+//     product is the A-operand layout of the next, and p and ds go from the f32
 //     accumulators to bf16 A fragments in registers, with no trip through
 //     shared memory. mma.sync rather than wgmma, by measurement: a wgmma
 //     version of both kernels (m64nNk16 per 64-row warpgroup, the same
@@ -97,11 +98,10 @@
 // f32 tolerance): dQ below, dK/dV the key-block loop of
 // flash_attn_bwd_common.cuh.
 
-#include <stdint.h>
-
 #include <type_traits>
 
 #include "flash_attn_bwd_common.cuh"
+#include "flash_attn_mma.cuh"
 
 namespace {
 
@@ -253,131 +253,8 @@ flash_attn_bwd_dkv_kernel(const Operands op, T* __restrict__ dk,
 
 // ---------------------------------------------------- bf16, tensor cores
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;  // the block's own rows (q or keys)
 static_assert(kTcRows == kTile, "launch() tiles by kTile rows");
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zeros when !valid (src must
-// still be a mapped address).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l & 7 of
-// matrix l >> 3 and receives, of each matrix, row l / 4, columns
-// 2 (l % 4) and 2 (l % 4) + 1 (.trans: those rows of the transpose).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b for a 16 x 16 bf16 A fragment and a 16 x 8 B fragment, f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 rounded to bf16, lo in the low half (the smaller column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragment of columns 16c..16c+15 of a 16-row accumulator held as
-// n-tiles of 8 columns (acc[j][0..1]: row g, acc[j][2..3]: row g + 8).
-template <int kNT>
-__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4],
-                                           const float (&acc)[kNT][4], int c) {
-  a[0] = pack_bf16(acc[2 * c][0], acc[2 * c][1]);
-  a[1] = pack_bf16(acc[2 * c][2], acc[2 * c][3]);
-  a[2] = pack_bf16(acc[2 * c + 1][0], acc[2 * c + 1][1]);
-  a[3] = pack_bf16(acc[2 * c + 1][2], acc[2 * c + 1][3]);
-}
-
-// Shared-memory offset (elements) of this lane's ldmatrix row for
-//  * an A fragment, or a B fragment read transposed from [k][n] storage:
-//    rows r0 + (l & 15), columns c0 + 8 (l >> 4);
-//  * two B fragments (n-tiles r0 and r0 + 8) read from [n][k] storage:
-//    rows r0 + (l & 7) + 8 (l >> 4), columns c0 + 8 ((l >> 3) & 1).
-template <int kPitch>
-__device__ __forceinline__ int frag_a_offset(int lane, int r0, int c0) {
-  return (r0 + (lane & 15)) * kPitch + c0 + ((lane >> 4) << 3);
-}
-template <int kPitch>
-__device__ __forceinline__ int frag_b_offset(int lane, int r0, int c0) {
-  return (r0 + (lane & 7) + ((lane >> 4) << 3)) * kPitch + c0 +
-         (((lane >> 3) & 1) << 3);
-}
-
-// Rows [s0, s0 + kRows) of one head of a (B, S, H, D) bf16 operand into a
-// shared [kRows][D + 8] tile by 16-byte cp.async, zeros past S.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long ss, int s0, int S) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kTcThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int s = s0 + r;
-    const bool in = s < S;
-    cp_async_16(dst + r * (D + 8) + col, src + (in ? s : 0) * ss + col, in);
-  }
-}
-
-// One f32 per row s in [s0, s0 + n) at src[s * stride], zeros past S.
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src,
-                                               long long stride, int s0,
-                                               int n, int S) {
-  for (int c = threadIdx.x; c < n; c += kTcThreads) {
-    const int s = s0 + c;
-    const bool in = s < S;
-    cp_async_4(dst + c, src + (in ? s : 0) * stride, in);
-  }
-}
 
 // Blocks an SM is to hold, which caps registers at 65536 / (128 x blocks):
 // per variant the most that compile without spills (chip_smoke.py phase 2
@@ -785,15 +662,6 @@ cudaError_t dispatch_dkv(int D, int B, const Operands& op, void* dk,
     case 128: return launch_dkv<T, 128>(B, op, dk, dv, dbias_h, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// The 16-byte rule of the bf16 kernels' copies, checked for both dtypes:
-// every (B, S, H, D) operand starts on 16 bytes and its batch and sequence
-// strides are multiples of 16 bytes (ignored where that dimension is 1).
-bool aligned_16(const void* p, long long sb, long long ss, int B, int S,
-                int elem) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (B == 1 || sb * elem % 16 == 0) && (S == 1 || ss * elem % 16 == 0);
 }
 
 cudaError_t check_operands(const Operands& op, int B, int dtype) {

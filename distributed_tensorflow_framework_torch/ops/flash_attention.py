@@ -8,12 +8,17 @@ it, and for the backward a third route, the fused one-pass kernel
 built at first use and called through ctypes:
 
   * ``csrc/flash_attn_fwd.cu`` — the forward at every length (it streams
-    64-key tiles; replaces ``_attn_fwd_kernel`` and ``_attn_fwd_kernel_kb``);
+    64-key tiles with an online softmax; bf16 on the tensor cores; replaces
+    ``_attn_fwd_kernel`` and ``_attn_fwd_kernel_kb``);
   * ``csrc/flash_attn_bwd.cu`` — the two-pass dQ and dK/dV kernels at every
     length, bf16 on the tensor cores (replace the whole-K and the streaming
     dQ and dK/dV kernels);
   * ``csrc/flash_attn_bwd_fused.cu`` — the one-pass backward (replaces
     ``_attn_bwd_fused_kernel_kb``).
+
+The bf16 forward and two-pass kernels share their ``mma.sync`` building
+blocks (``csrc/flash_attn_mma.cuh``); f32 inputs take CUDA-core kernels,
+since TF32 would miss the f32 tolerance.
 
 Public functions keep the JAX package's layout and guards:
 
@@ -341,7 +346,7 @@ def flash_attention_bwd_reference(q, k, v, bias, q_seg, kv_seg, o, lse, do,
 def _aligned_16(t: torch.Tensor) -> bool:
     """Whether ``t`` starts on 16 bytes and its batch and sequence strides
     are multiples of 16 bytes (a dimension of size 1 has no stride to
-    keep), as the backward kernels' 16-byte async copies need."""
+    keep), as the kernels' 16-byte async copies need."""
     size = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         t.stride(i) * size % 16 == 0 for i in (0, 1) if t.shape[i] > 1)
@@ -404,10 +409,12 @@ def _raise_on_error(err, lib_error_string, name, q):
 
 
 def flash_attention_kernel(q, k, v, bias, q_seg=None, kv_seg=None):
-    """Launch the forward CUDA kernel on CUDA tensors; raises on anything
-    it does not take. Returns ``(o, lse)`` like
-    :func:`flash_attention_reference`. Adds one to
-    ``flash_attention.launches`` per launch."""
+    """Launch the forward CUDA kernel on CUDA tensors (bf16 on the tensor
+    cores, f32 on the CUDA cores; operands that break the 16-byte rule are
+    copied once by :func:`_head_view`); raises on anything it does not
+    take. Returns ``(o, lse)`` like :func:`flash_attention_reference`, the
+    same bits on every launch. Adds one to ``flash_attention.launches`` per
+    launch."""
     (q, k, v), bias, q_seg, kv_seg = _kernel_operands(
         "flash_attention_kernel", q, k, v, bias, q_seg, kv_seg)
     b, s, h, d = q.shape

@@ -107,6 +107,48 @@ def test_with_lse_matches_flash_attention_chunk(s, segmented):
     np.testing.assert_allclose(lse.numpy(), _np(lse_ref), **F32_TOL)
 
 
+# The shapes at which chip_smoke.py phase 3 holds the CUDA kernel to this
+# plain version, at CPU size: D = 64 and 128, and the ragged S = 96 (below
+# BLOCK_Q, so both packages take it; not a multiple of the kernel's 64-row
+# tiles). Each in the four masking cases of phase 3.
+KERNEL_SHAPES = [(2, 256, 2, 64), (2, 256, 2, 128), (2, 96, 3, 32)]
+CASES = ("none", "padding", "segments", "masked_row")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,s,h,d", KERNEL_SHAPES,
+                         ids=lambda x: str(x))
+def test_with_lse_matches_jax_at_kernel_shapes(b, s, h, d, case, dtype):
+    """o against ``flash_attention_chunk`` at the o tolerance of the dtype;
+    lse (f32 from exact products in both dtypes) at the f32 one. A
+    fully-masked row averages V uniformly."""
+    q, k, v, keep, seg = _inputs(1000 + s + d, b=b, s=s, h=h, d=d)
+    if case == "masked_row":
+        keep[1, :] = False
+    if case == "none":
+        keep[:] = True
+    bias = np.where(keep, 0.0, pt.NEG_INF).astype(np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    segs = case == "segments"
+    o_ref, lse_ref = jx.flash_attention_chunk(
+        *(_jax(t, jdt) for t in (q, k, v)), jnp.asarray(bias),
+        *((jnp.asarray(seg),) * 2 if segs else ()))
+    o, lse = pt.flash_attention_with_lse(
+        *(_torch(t, tdt) for t in (q, k, v)), torch.from_numpy(bias),
+        *((torch.from_numpy(seg),) * 2 if segs else ()))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert o.dtype == tdt and o.shape == q.shape
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    np.testing.assert_allclose(o.float().numpy(), _np(o_ref), **tol)
+    np.testing.assert_allclose(lse.numpy(), _np(lse_ref), **F32_TOL)
+    if case == "masked_row":
+        v1 = _torch(v[1], tdt).float().mean(dim=0)
+        np.testing.assert_allclose(o[1].float().numpy(), np.broadcast_to(
+            v1.numpy(), o[1].shape), **tol)
+
+
 def test_matches_xla_reference():
     q, k, v, keep, _ = _inputs(3, s=256, d=64)
     bias = np.where(keep, 0.0, pt.NEG_INF).astype(np.float32)
