@@ -13,8 +13,10 @@ Phases (any failure raises and the script exits non-zero):
      source, in parallel) and prints the build seconds, then per kernel
      function its registers and spill bytes (ptxas) and its count of
      tensor-core instructions (HMMA/HGMMA in ``cuobjdump -sass``). The
-     bf16 tensor-core kernels (``*_tc_kernel``: the forward and the
-     two-pass pair) must have some, and none may spill at D = 64.
+     bf16 tensor-core kernels (``*_tc_kernel``: the forward, the two-pass
+     pair and the fused one-pass kernel) must have some, and none may
+     spill at D = 64. A line per (D, segmented) sets the fused kernel's
+     count beside the dK/dV kernel's (five products against four).
   3. kernel parity — the forward kernel against its plain PyTorch version
      on the card, bf16 and f32, at (B,H,S,D) = (8,12,512,64), (2,4,128,32),
      (2,4,64,32), (2,2,256,128) and the ragged (2,3,96,32): no mask,
@@ -32,8 +34,13 @@ Phases (any failure raises and the script exits non-zero):
      plain versions (dq, dk, dv, dbias_h) at the same five shapes, bf16 and
      f32, the same four cases; on the fully-masked row each key's dv must
      be the row's summed dO (p = 1, the TPU semantics), and a second launch
-     of each kernel must give the same bits (no atomics). Then the
-     misaligned q and k views of phase 3, through the pair. Times
+     of each kernel must give the same bits (no atomics). The fused
+     one-pass kernel in the same cases: its dk, dv and dbias_h equal the
+     pair's bit for bit (one key-block body in each dtype) and a relaunch's,
+     its dq lies within GRAD_RTOL of the pair's and of the plain version's
+     (dq is summed by f32 atomics, so its last bits may vary). Then the
+     misaligned q and k views of phase 3, through the pair and through the
+     fused kernel. Times
      each kernel, its plain version and the backward of
      ``scaled_dot_product_attention`` (the yardstick for the pair) at
      (8,12,512,64) bf16 with padding, beside the bounds.
@@ -42,16 +49,17 @@ Phases (any failure raises and the script exits non-zero):
      the forward kernel against the streaming forward's plain version, and
      the two-pass dQ/dK/dV kernels and the fused one-pass kernel each
      against the plain backward and the fused kernel against the two-pass
-     kernels. Then the fused kernel on the ragged (2,3,96,32), bf16 and
-     f32, and at (2,2,2048,64) bf16 (where it takes over the whole-K pair),
-     all four cases. The forward's o is held relative to the case's largest
-     |o|. Times the forward, dQ and dK/dV at (1,12,16384,64) and the fused
+     kernels, whose dk, dv and dbias_h it must equal bit for bit. Then the
+     fused kernel on the ragged (2,3,96,32), bf16 and f32, and at
+     (2,2,2048,64) bf16 (where it takes over the whole-K pair), all four
+     cases. The forward's o is held relative to the case's largest |o|.
+     Times the forward, dQ and dK/dV at (1,12,16384,64) and the fused
      kernel at (1,12,8192,64), bf16, with their TFLOP/s, beside their plain
      versions, their bounds and SDPA's forward or backward device time;
-     then the fused kernel against the two-pass pair in the whole-K
-     takeover band, (4,12,2048,64) and (2,12,4096,64) bf16, where auto must
-     pick the fused kernel on a card listed in FUSED_BWD_VERIFIED_DEVICES
-     and the whole-K pair elsewhere.
+     then the fused kernel against the two-pass pair in turns at
+     (1,12,8192,64) and in the whole-K takeover band, (4,12,2048,64) and
+     (2,12,4096,64) bf16, where auto must pick the fused kernel on a card
+     listed in FUSED_BWD_VERIFIED_DEVICES and the pair elsewhere.
   4. serve — full-width BERT-base (12 x 768, 12 heads, MLP 3072, vocab
      30522, max_seq_len 512, bf16, fused QKV, attention_impl pallas) with
      weights from a seed, written as a port artifact; the server is started
@@ -84,17 +92,17 @@ Phases (any failure raises and the script exits non-zero):
      checkpoints, 3 steps of the config's 8 rows in 8 micro-batches of
      one row. FUSED_BWD stays on auto and must pick the two-pass kernels
      at S = 16384 (above FUSED_BWD_MAX), and at S = 8192 the fused kernel
-     on a card listed in FUSED_BWD_VERIFIED_DEVICES, else the two-pass
-     kernels (the H100 is not listed since the pair moved to the tensor
-     cores). Checks rc 0, finite metrics and the launch counts per
-     micro-batch: forward 24 (forward and recompute), dQ and dK/dV 12 or
-     fused 12. Prints the steady step time, tokens/s, peak memory and one
-     profiled step by kernel class.
+     on a card listed in FUSED_BWD_VERIFIED_DEVICES (the H100 80GB HBM3
+     is), else the two-pass kernels. Checks rc 0, finite metrics and the
+     launch counts per micro-batch: forward 24 (forward and recompute), dQ
+     and dK/dV 12 or fused 12. Prints the steady step time, tokens/s, peak
+     memory and one profiled step by kernel class.
   6b. fused vs two-pass at S = 8192 — one micro-step's gradients (dropout
      and remat on) with the fused backward forced on against the two-pass
      kernels, every leaf within MODEL_GRAD_RTOL; then the phase-6 step
-     timed on each route in turns. This keeps the fused kernel driven
-     through a full-width model step where auto does not pick it.
+     timed on each route in turns (host clock) and profiled once on each
+     (kernel time, which the host's speed does not move). This drives each
+     route through a full-width model step whichever one auto picks.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs) and read just after; launches made to compare or time a
@@ -319,11 +327,12 @@ def sass_tensor_ops(tools: str, library) -> dict:
     return counts
 
 
-def build_report(_build, result) -> None:
+def build_report(_build, result) -> dict:
     """Phase 2's lines for one built library: per kernel function its
     registers and spill bytes (ptxas) and its tensor-core instructions
-    (cuobjdump). The bf16 two-pass kernels must run on the tensor cores,
-    and at D = 64, the main path's width, must not spill."""
+    (cuobjdump). The bf16 tensor-core kernels must run on the tensor cores,
+    and at D = 64, the main path's width, must not spill. Returns
+    {short name: (registers, spill stores, spill loads, HMMA/HGMMA)}."""
     tools = os.path.dirname(_build.find_nvcc())
     usage = ptxas_usage(result.log)
     mma = sass_tensor_ops(tools, result.library)
@@ -333,9 +342,11 @@ def build_report(_build, result) -> None:
                                text=True, check=True).stdout.splitlines()
     log(f"  {result.source.name}: {result.seconds:.2f} s, "
         f"{sum(mma.values())} HMMA/HGMMA in {len(mma)} kernels")
+    report = {}
     for mangled, full in zip(names, demangled):
         short = re.search(r"flash_attn_\w+(<[^>]*>)?", full).group(0)
         regs, stores, loads = usage.get(mangled, (None, None, None))
+        report[short] = (regs, stores, loads, mma.get(mangled, 0))
         log(f"    {short}: {regs} registers, spill stores {stores} B, "
             f"spill loads {loads} B, {mma.get(mangled, 0)} HMMA/HGMMA")
         # cu++filt writes template arguments as "<(int)64, (bool)0>".
@@ -344,6 +355,25 @@ def build_report(_build, result) -> None:
                 not mma.get(mangled) or (d64 and (stores or loads))):
             raise AssertionError(f"{short}: expected tensor-core "
                                  f"instructions and, at D = 64, no spills")
+    return report
+
+
+def fused_beside_pair(report: dict) -> None:
+    """One phase-2 line per variant of the fused tensor-core kernel, beside
+    the two-pass dK/dV kernel with the same template arguments: registers,
+    spill bytes and HMMA counts (the fused kernel's five products against
+    the dK/dV kernel's four)."""
+    for short, (regs, stores, loads, hmma) in sorted(report.items()):
+        if not short.startswith("flash_attn_bwd_fused_tc_kernel"):
+            continue
+        args = short[short.index("<"):]
+        pair = report.get("flash_attn_bwd_dkv_tc_kernel" + args)
+        if pair is None:
+            raise AssertionError(f"no dK/dV kernel beside {short}")
+        log(f"  fused vs dK/dV {args}: registers {regs} / {pair[0]}, spill "
+            f"bytes {stores + loads} / {pair[1] + pair[2]}, HMMA {hmma} / "
+            f"{pair[3]} (ratio {hmma / pair[3]:.3f}, five products against "
+            f"four: 1.25)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -469,9 +499,10 @@ def rel_err(got, ref) -> float:
 def bwd_kernel_parity(torch, fa) -> dict:
     """dQ and dK/dV kernels against their plain versions on the same
     inputs: o and lse from the forward's plain version, a random dO, delta
-    from (o, dO). Returns the worst absolute error of each kernel."""
+    from (o, dO); then the fused kernel against both (fused_parity).
+    Returns the worst absolute error of each kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    worst = {"dq": 0.0, "dkv": 0.0}
+    worst = {"dq": 0.0, "dkv": 0.0, "fused": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for b, h, s, d in PARITY_SHAPES:
@@ -519,8 +550,51 @@ def bwd_kernel_parity(torch, fa) -> dict:
                     raise AssertionError(
                         f"backward kernels disagree with their plain "
                         f"versions: {name} ({b},{h},{s},{d}) {case}")
+                fused_parity(torch, fa, args, got, ref, do, name, case,
+                             f"({b},{h},{s},{d})", worst)
     misaligned_view_parity(torch, fa, gen, "bwd")
+    misaligned_view_parity(torch, fa, gen, "fused")
     return worst
+
+
+def fused_kernel(fa, args) -> dict:
+    """dq, dk, dv and dbias_h from one launch of the fused kernel."""
+    return dict(zip(("dq", "dk", "dv", "dbias_h"),
+                    fa.flash_attention_bwd_fused_kernel(*args)))
+
+
+def fused_parity(torch, fa, args, pair, ref, do, name, case, shape,
+                 worst) -> None:
+    """The fused kernel on one phase-3b case: dk, dv and dbias_h equal to
+    the pair's bit for bit and to a relaunch's; dq within GRAD_RTOL of the
+    pair's and of the plain version's; finite; on the fully-masked row each
+    key's dv is the row's summed dO."""
+    got, again = fused_kernel(fa, args), fused_kernel(fa, args)
+    torch.cuda.synchronize()
+    keys = ("dk", "dv", "dbias_h")
+    bits = all(torch.equal(got[key], pair[key]) for key in keys)
+    stable = all(torch.equal(got[key], again[key]) for key in keys)
+    errs = {"dq vs pair": rel_err(got["dq"], pair["dq"]),
+            "dq vs plain": rel_err(got["dq"], ref["dq"]),
+            "relaunch dq": rel_err(again["dq"], got["dq"])}
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    ok = finite and bits and stable and all(
+        e <= GRAD_RTOL[name] for e in errs.values())
+    if case == "masked_row":
+        want = do[1].float().sum(dim=0, keepdim=True)
+        ok = ok and rel_err(got["dv"][1], want.expand_as(
+            got["dv"][1])) <= GRAD_RTOL[name]
+    for key in got:
+        worst["fused"] = max(worst["fused"], (
+            got[key].float() - ref[key].float()).abs().max().item())
+    log(f"fused parity {name} (B,H,S,D)={shape} {case}: dk, dv, dbias_h "
+        f"equal to the pair's {bits}, to a relaunch's {stable}; "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (tol {GRAD_RTOL[name]}), finite {finite} -> "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"fused kernel disagrees with the pair or the "
+                             f"plain backward: {name} {shape} {case}")
 
 
 def two_pass_kernels(fa, args) -> dict:
@@ -536,7 +610,9 @@ def misaligned_view_parity(torch, fa, gen, which: str) -> None:
     H·D + 1 elements. The wrappers must copy both once (the kernels' 16-byte
     copies need aligned rows), so the outputs equal those of the aligned
     tensors bit for bit. ``which``: "fwd" (the forward kernel) or "bwd"
-    (the two-pass pair)."""
+    (the two-pass pair) or "fused" (the fused kernel, whose dq is summed
+    by atomics and held within GRAD_RTOL; its other outputs bit for
+    bit)."""
     b, h, s, d = PARITY_SHAPES[0]
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
@@ -554,17 +630,23 @@ def misaligned_view_parity(torch, fa, gen, which: str) -> None:
     else:
         o, lse = fa.flash_attention_reference(q, k, v, bias)
         rest = (v, bias, None, None, lse, do, fa.attention_delta(o, do))
+        kernels = two_pass_kernels if which == "bwd" else fused_kernel
 
         def run(q_, k_):
-            return two_pass_kernels(fa, (q_, k_) + rest)
+            return kernels(fa, (q_, k_) + rest)
     want = run(q, k)
     got = run(q_off, k_str)
     torch.cuda.synchronize()
-    equal = all(torch.equal(got[key], want[key]) for key in want)
+    atomic = {"dq"} if which == "fused" else set()
+    equal = all(torch.equal(got[key], want[key]) for key in want
+                if key not in atomic) and all(
+        rel_err(got[key], want[key]) <= GRAD_RTOL["bfloat16"]
+        for key in atomic)
     log(f"{which} misaligned views bfloat16 (B,H,S,D)=({b},{h},{s},{d}) "
         f"padding: q 2 bytes past 16, k sequence stride {k_str.stride(1)} "
-        f"elements; outputs equal to the aligned operands' {equal} -> "
-        f"{'ok' if equal else 'FAIL'}")
+        f"elements; outputs equal to the aligned operands' {equal}"
+        + (" (dq within GRAD_RTOL)" if atomic else "") + " -> "
+        + ("ok" if equal else "FAIL"))
     if not equal:
         raise AssertionError(f"misaligned operand views changed the {which} "
                              f"kernels' outputs")
@@ -632,8 +714,10 @@ def check_bwd(torch, res: dict, do, name: str, case: str, what: str,
               worst: dict) -> None:
     """Hold the fused kernel against the plain backward and against the
     two-pass kernels, and the two-pass kernels against the plain backward,
-    with phase 3b's tolerances; on the fully-masked row each key's dv must
-    be the row's summed dO. Updates ``worst`` (max |err| per kernel)."""
+    with phase 3b's tolerances; the fused kernel's dk, dv and dbias_h must
+    equal the two-pass ones bit for bit (one key-block body in each dtype);
+    on the fully-masked row each key's dv must be the row's summed dO.
+    Updates ``worst`` (max |err| per kernel)."""
     tols = {key: GRAD_RTOL[name] for key in ("dq", "dk", "dv")}
     tols["dbias_h"] = DBIAS_RTOL
     checks = (("fused vs plain", "fused", "plain"),
@@ -641,7 +725,10 @@ def check_bwd(torch, res: dict, do, name: str, case: str, what: str,
               ("fused vs two-pass", "fused", "two_pass"))
     ok = all(bool(torch.isfinite(t).all())
              for route in ("two_pass", "fused") for t in res[route].values())
-    parts = []
+    bits = all(torch.equal(res["fused"][key], res["two_pass"][key])
+               for key in ("dk", "dv", "dbias_h"))
+    ok = ok and bits
+    parts = [f"fused dk, dv, dbias_h equal to the two-pass ones {bits}"]
     for label, got, ref in checks:
         errs = {key: rel_err(res[got][key], res[ref][key]) for key in tols}
         ok = ok and all(errs[key] <= tols[key] for key in tols)
@@ -760,13 +847,18 @@ def long_kernel_timing(torch, fa) -> dict:
         }
         for name in names:
             kernel, plain = calls[name]
-            rec = {"ms": time_ms(torch, kernel, iters=3, warmup=1),
-                   "plain_ms": time_ms(torch, plain, iters=2, warmup=1),
+            rec = {"plain_ms": time_ms(torch, plain, iters=2, warmup=1),
                    "library_ms": sdpa["fwd" if name == "fwd" else "bwd"]}
+            if name == "fused":  # in turns with the pair, as in the band
+                turns = fused_vs_pair_timing(torch, fa, (b, h, s, d), args)
+                rec["ms"], rec["two_pass_ms"] = (turns["fused_ms"],
+                                                 turns["two_pass_ms"])
+            else:
+                rec["ms"] = time_ms(torch, kernel, iters=3, warmup=1)
+            rec["tflops"] = tflops(name, b, h, s, d, rec["ms"])
             rec["bound_ms"], rec["bound_by"] = bounds[name]
             log(f"timing {KERNEL_NAMES[name]} (B,H,S,D)=({b},{h},{s},{d}) "
-                f"bf16: kernel {rec['ms']:.4f} ms ("
-                f"{tflops(name, b, h, s, d, rec['ms']):.1f} "
+                f"bf16: kernel {rec['ms']:.4f} ms ({rec['tflops']:.1f} "
                 f"TFLOP/s), plain {rec['plain_ms']:.4f} ms, sdpa "
                 f"{'forward' if name == 'fwd' else 'backward (dq+dk+dv)'} "
                 f"(device) {rec['library_ms']:.4f} ms, bound "
@@ -774,7 +866,7 @@ def long_kernel_timing(torch, fa) -> dict:
             out[name] = rec
         del q, k, v, do, o, lse, args, leaves, sdpa_out
         torch.cuda.empty_cache()
-    out["fused"]["takeover_band"] = [takeover_band_timing(torch, fa, shape)
+    out["fused"]["takeover_band"] = [fused_vs_pair_timing(torch, fa, shape)
                                      for shape in BAND_SHAPES]
     return out
 
@@ -792,23 +884,28 @@ def long_runs(torch, fa) -> list[tuple[int, str]]:
         torch, fa) else "stream") for seq in LONG_SEQS]
 
 
-def takeover_band_timing(torch, fa, shape) -> dict:
-    """The fused kernel against the two-pass pair at one shape of the
-    whole-K takeover band (bf16, no mask), where auto must pick fused on a
-    listed card and the whole-K pair elsewhere; timed in turns (fused,
-    pair, pair, fused), CUDA events."""
+def fused_vs_pair_timing(torch, fa, shape, args=None) -> dict:
+    """The fused kernel against the two-pass pair at one shape (bf16, no
+    mask) where auto must pick the fused kernel on a listed card and the
+    pair elsewhere: (1,12,8192,64) and the whole-K takeover band. Timed in
+    turns (fused, pair, pair, fused), CUDA events; ``args`` are the kernels'
+    inputs when the caller has them."""
     b, h, s, d = shape
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-                   .to(torch.bfloat16) for _ in range(4))
-    want = "fused" if fused_listed(torch, fa) else "whole_k"
+    want = "fused" if fused_listed(torch, fa) else (
+        "whole_k" if s <= fa.MAX_SEQ_VMEM else "stream")
+    probe = torch.empty(b, s, h, d, device="cuda", dtype=torch.bfloat16)
     with fused_bwd(fa, None):
-        if fa.backward_route(q, k) != want:
+        if fa.backward_route(probe, probe) != want:
             raise AssertionError(f"auto does not pick the {want} backward "
                                  f"at {shape} bf16")
-    bias = torch.zeros(b, s, device="cuda")
-    o, lse = fa.flash_attention_kernel(q, k, v, bias)
-    args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
+    del probe
+    if args is None:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        bias = torch.zeros(b, s, device="cuda")
+        o, lse = fa.flash_attention_kernel(q, k, v, bias)
+        args = (q, k, v, bias, None, None, lse, do, fa.attention_delta(o, do))
     calls = {"fused": lambda: fa.flash_attention_bwd_fused_kernel(*args),
              "two_pass": lambda: (fa.flash_attention_dq_kernel(*args),
                                   fa.flash_attention_dkv_kernel(*args))}
@@ -817,11 +914,13 @@ def takeover_band_timing(torch, fa, shape) -> dict:
         times[route].append(time_ms(torch, calls[route], iters=10, warmup=2))
     rec = {"shape": list(shape), "fused_ms": statistics.mean(times["fused"]),
            "two_pass_ms": statistics.mean(times["two_pass"]), "auto": want}
-    log(f"timing takeover band (B,H,S,D)=({b},{h},{s},{d}) bf16, auto "
+    log(f"timing fused vs two-pass (B,H,S,D)=({b},{h},{s},{d}) bf16, auto "
         f"{want}: fused "
-        f"{', '.join(f'{t:.4f}' for t in times['fused'])} ms, two-pass "
-        f"(dq + dkv) {', '.join(f'{t:.4f}' for t in times['two_pass'])} ms;"
-        f" fused / two-pass {rec['fused_ms'] / rec['two_pass_ms']:.3f}")
+        f"{', '.join(f'{t:.4f}' for t in times['fused'])} ms "
+        f"({tflops('fused', b, h, s, d, rec['fused_ms']):.1f} TFLOP/s), "
+        f"two-pass (dq + dkv) "
+        f"{', '.join(f'{t:.4f}' for t in times['two_pass'])} ms; fused / "
+        f"two-pass {rec['fused_ms'] / rec['two_pass_ms']:.3f}")
     return rec
 
 
@@ -1464,8 +1563,11 @@ def long_fused_parity_phase(torch, fa) -> tuple[dict, int]:
     the fused backward against the same model, weights, batch and dropout
     stream with the two-pass kernels (a plain-attention model would hold
     12 layers of 3 GB score tensors); then the full phase-6 step timed on
-    each route, in turns. Returns the step times and the fused kernel's
-    launches in the forced micro-step."""
+    each route, in turns (host clock), and its kernel time in one profiled
+    step per route. Returns the step times and the fused kernel's launches
+    in the forced micro-step."""
+    from torch.profiler import ProfilerActivity, profile
+
     from distributed_tensorflow_framework_torch.data import get_dataset
     from distributed_tensorflow_framework_torch.data.infeed import to_device
     from distributed_tensorflow_framework_torch.train.step import StepBuilder
@@ -1520,7 +1622,8 @@ def long_fused_parity_phase(torch, fa) -> tuple[dict, int]:
     batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
     state = builder.init_state(SEED)
     times = {False: [], True: []}
-    for i, fused in enumerate((False, True, False, True, True, False)):
+    for i, fused in enumerate((False, True, False, True, True, False,
+                               False, True)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with fused_bwd(fa, fused):
@@ -1535,6 +1638,21 @@ def long_fused_parity_phase(torch, fa) -> tuple[dict, int]:
         f"two-pass {', '.join(f'{t:.1f}' for t in times[False])} ms, "
         f"fused {', '.join(f'{t:.1f}' for t in times[True])} ms; means "
         f"{out['two_pass_ms']:.1f} / {out['fused_ms']:.1f} ms")
+    # The host clock also counts the host's dispatch, which varies from
+    # machine to machine; the kernel time of one profiled step per route
+    # does not.
+    for fused, route in ((False, "two_pass"), (True, "fused")):
+        with fused_bwd(fa, fused), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            builder.train_step(state, batch)
+            torch.cuda.synchronize()
+        out[f"{route}_kernel_ms"] = log_profile(
+            prof, f"one 8x8192 step, {route.replace('_', '-')} backward",
+            top=0)
+    log(f"long step S=8192 kernel time per step: two-pass "
+        f"{out['two_pass_kernel_ms']:.1f} ms, fused "
+        f"{out['fused_kernel_ms']:.1f} ms")
     return out, forced_launches
 
 
@@ -1575,8 +1693,10 @@ def main() -> int:
     built = _build.build_all()
     log(f"phase 2 build: {len(built)} kernel source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
+    report = {}
     for result in built:
-        build_report(_build, result)
+        report.update(build_report(_build, result))
+    fused_beside_pair(report)
 
     log("phase 3 kernel parity")
     parity = kernel_parity(torch, fa)
@@ -1617,10 +1737,12 @@ def main() -> int:
     if forced:
         launched["fused"] = forced_launches
     short = {"fwd": timing, **bwd_timing}
-    worst = {"fwd": parity["max_abs_err"], **bwd_worst, "fused": 0.0}
+    worst = {"fwd": parity["max_abs_err"], **bwd_worst}
     extra = {"fused": {"launches_forced": forced, "step_8192": step_8192}}
     record = {"kernels": [
         {"name": KERNEL_NAMES[name], "route": "cuda", "source": SOURCES[name],
+         "units": "bf16 on the tensor cores (mma.sync.m16n8k16), f32 on the "
+                  "CUDA cores",
          "replaces": REPLACES[name], "launches": launched[name],
          "max_abs_err": max(worst[name], long_worst[name]),
          **long_timing[name],
@@ -1629,7 +1751,8 @@ def main() -> int:
         for name in KERNEL_NAMES]}
     for k in record["kernels"]:
         log(f"kernel {k['name']}: max_abs_err {k['max_abs_err']}, kernel_ms "
-            f"{k['ms']}, plain_ms {k['plain_ms']}, library_ms "
+            f"{k['ms']} ({k['tflops']:.1f} TFLOP/s), plain_ms {k['plain_ms']}, "
+            f"library_ms "
             f"{k['library_ms']}, bound_ms {k['bound_ms']} ({k['bound_by']}), "
             f"launches {k['launches']}")
     print(json.dumps(record))

@@ -5,8 +5,9 @@ with a plain C interface and loaded with ``ctypes``. Nothing is built when a
 module is imported: a :class:`KernelLibrary` builds its source at first use,
 into ``build/kernels/`` at the repository root, under a file name that
 carries the hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source or header never loads a stale library. :func:`build_all` compiles every source at once, one
-``nvcc`` per source, all started together.
+flags, so an edited source or header never loads a stale library.
+:func:`build_all` compiles every source at once, one ``nvcc`` per source,
+all started together.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ class KernelLaunchError(RuntimeError):
 class BuildResult:
     source: pathlib.Path
     library: pathlib.Path
-    seconds: float
+    seconds: float  # 0.0 for a library that was already built
     log: str  # nvcc/ptxas output (registers, shared memory, spills)
 
 
@@ -76,31 +77,36 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
 
 def build_all(sources: list[pathlib.Path] | None = None) -> list[BuildResult]:
     """Compile ``sources`` (default: every ``csrc/*.cu``) in parallel.
-    Already-built libraries are reused. Raises KernelBuildError naming
-    every source that failed."""
+    Already-built libraries are reused, with the compiler output kept
+    beside them. Returns one result per source, in order. Raises
+    KernelBuildError naming every source that failed."""
     sources = sorted(CSRC_DIR.glob("*.cu")) if sources is None else sources
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, results = [], []
     for src in sources:
         out = library_path(src)
         if out.exists():
-            results.append(BuildResult(src, out, 0.0, "already built"))
+            log = out.with_suffix(".log")
+            results.append(BuildResult(src, out, 0.0, log.read_text()
+                                       if log.exists() else "already built"))
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, out, tmp, proc, time.perf_counter()))
+        jobs.append((len(results), src, out, tmp, proc, time.perf_counter()))
+        results.append(None)
     failures = []
-    for src, out, tmp, proc, t0 in jobs:
+    for i, src, out, tmp, proc, t0 in jobs:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             failures.append(f"{src.name} (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".log").write_text(log)  # read back when reused
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-        results.append(BuildResult(src, out, seconds, log))
+        results[i] = BuildResult(src, out, seconds, log)
     if failures:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
     return results

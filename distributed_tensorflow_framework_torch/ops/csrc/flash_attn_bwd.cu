@@ -67,7 +67,10 @@
 //     in registers, are the A operands of dV += P^T dO and dK += dS^T Q,
 //     whose B operands (dO, Q) are read transposed from shared memory.
 //     dbias_h is a row sum of the f32 ds fragment: in-thread sums over the
-//     tiles, one quad shuffle and one store per key at the end.
+//     tiles, one quad shuffle and one store per key at the end. This body
+//     is key_block_bwd_tc in flash_attn_bwd_common.cuh, which the fused
+//     one-pass kernel runs with its dq product added, so the two routes'
+//     bf16 dk, dv and dbias_h are the same bits.
 //   * Tiles stay bf16 in shared memory (no widening), in rows padded by 16
 //     bytes so that the eight rows an ldmatrix phase reads fall in distinct
 //     bank groups. They arrive by 16-byte cp.async with zero-fill past S,
@@ -115,9 +118,9 @@ constexpr size_t dq_smem_bytes() {
                           kTile * kTilePad + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
+flash_attn_bwd_dq_kernel(const Operands op, float* __restrict__ dq) {
   constexpr int kPad = D + 1;
   constexpr int kDJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -138,14 +141,17 @@ flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
   const int S = op.S, H = op.H;
   const bool segmented = op.qseg != nullptr;
 
-  const T* qb = static_cast<const T*>(op.q) + b * op.q_sb + (long long)h * D;
-  const T* kb = static_cast<const T*>(op.k) + b * op.k_sb + (long long)h * D;
-  const T* vb = static_cast<const T*>(op.v) + b * op.v_sb + (long long)h * D;
-  const T* dob =
-      static_cast<const T*>(op.dout) + b * op.do_sb + (long long)h * D;
+  const float* qb =
+      static_cast<const float*>(op.q) + b * op.q_sb + (long long)h * D;
+  const float* kb =
+      static_cast<const float*>(op.k) + b * op.k_sb + (long long)h * D;
+  const float* vb =
+      static_cast<const float*>(op.v) + b * op.v_sb + (long long)h * D;
+  const float* dob =
+      static_cast<const float*>(op.dout) + b * op.do_sb + (long long)h * D;
 
-  load_tile<T, D>(qs, D, qb, op.q_ss, q0, S);
-  load_tile<T, D>(dos, D, dob, op.do_ss, q0, S);
+  load_tile<D>(qs, D, qb, op.q_ss, q0, S);
+  load_tile<D>(dos, D, dob, op.do_ss, q0, S);
   float lse_r[4], delta_r[4], qseg_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -165,8 +171,8 @@ flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
 
   for (int k0 = 0; k0 < S; k0 += kTile) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, kPad, kb, op.k_ss, k0, S);
-    load_tile<T, D>(vs, kPad, vb, op.v_ss, k0, S);
+    load_tile<D>(ks, kPad, kb, op.k_ss, k0, S);
+    load_tile<D>(vs, kPad, vb, op.v_ss, k0, S);
     for (int c = tid; c < kTile; c += kThreads) {
       const int s = k0 + c;
       kbias[c] = s < S ? op.bias[b * S + s] : 0.f;
@@ -213,7 +219,7 @@ flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
                                       lse_r[i]);
           ds = __fmul_rn(p, dp[i][j] - delta_r[i]);
         }
-        dss[(ty + 16 * i) * kTilePad + c] = rounded<T>(ds);
+        dss[(ty + 16 * i) * kTilePad + c] = ds;
       }
     __syncthreads();
 
@@ -238,17 +244,17 @@ flash_attn_bwd_dq_kernel(const Operands op, T* __restrict__ dq) {
     const long long row = (b * S + s) * H + h;
 #pragma unroll
     for (int j = 0; j < kDJ; ++j)
-      dq[row * D + tx + 16 * j] = from_f32<T>(__fmul_rn(acc[i][j], op.scale));
+      dq[row * D + tx + 16 * j] = __fmul_rn(acc[i][j], op.scale);
   }
 }
 
 // One block per (b, h, 64-key tile): the key-block loop of
 // flash_attn_bwd_common.cuh, without the fused kernel's dq partials.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_kernel(const Operands op, T* __restrict__ dk,
-                          T* __restrict__ dv, float* __restrict__ dbias_h) {
-  key_block_bwd<T, D, false>(op, nullptr, dk, dv, dbias_h);
+flash_attn_bwd_dkv_kernel(const Operands op, float* __restrict__ dk,
+                          float* __restrict__ dv, float* __restrict__ dbias_h) {
+  key_block_bwd<D, false>(op, nullptr, dk, dv, dbias_h);
 }
 
 // ---------------------------------------------------- bf16, tensor cores
@@ -260,16 +266,11 @@ static_assert(kTcRows == kTile, "launch() tiles by kTile rows");
 // per variant the most that compile without spills (chip_smoke.py phase 2
 // prints registers and spills). The kernels are bound by latency as much as
 // by throughput, so the fourth dQ block (128 registers instead of 160) made
-// dQ faster at S = 16384 on the H100; dK/dV reaches its third block by
-// packing p and ds early, and the cap keeps its D = 32 variant from
-// spilling.
+// dQ faster at S = 16384 on the H100. dK/dV: dkv_min_blocks in
+// flash_attn_bwd_common.cuh.
 template <int D, bool kSegmented>
 constexpr int dq_min_blocks() {
   return D == 128 ? 1 : kSegmented ? 3 : 4;
-}
-template <int D, bool kSegmented>
-constexpr int dkv_min_blocks() {
-  return D == 128 || (D == 64 && kSegmented) ? 1 : 3;
 }
 
 template <int D>
@@ -423,184 +424,15 @@ flash_attn_bwd_dq_tc_kernel(const Operands op, bf16* __restrict__ dq) {
   }
 }
 
-template <int D>
-struct DkvTc {
-  static constexpr int kN = kTcRows;           // keys of the block
-  static constexpr int kM = D == 128 ? 32 : 64;  // query rows of a tile
-  static constexpr int kP = D + 8;
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (2 * kN + 4 * kM) * kP + sizeof(float) * 6 * kM;
-};
-
-// dK, dV and dbias_h for one (b, h, 64-key tile), bf16 on the tensor cores.
+// dK, dV and dbias_h for one (b, h, 64-key tile), bf16 on the tensor cores:
+// the key-block body of flash_attn_bwd_common.cuh, which the fused kernel
+// runs with its dq partials.
 template <int D, bool kSegmented>
 __global__ void __launch_bounds__(kTcThreads, dkv_min_blocks<D, kSegmented>())
 flash_attn_bwd_dkv_tc_kernel(const Operands op, bf16* __restrict__ dk,
                              bf16* __restrict__ dv,
                              float* __restrict__ dbias_h) {
-  using C = DkvTc<D>;
-  constexpr int kN = C::kN, kM = C::kM, kP = C::kP;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem);      // [kN][kP]
-  bf16* vs = ks + kN * kP;                          // [kN][kP]
-  bf16* qs = vs + kN * kP;                          // [2][kM][kP]
-  bf16* dos = qs + 2 * kM * kP;                     // [2][kM][kP]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * kM * kP);  // [2][kM]
-  float* delta_s = lse_s + 2 * kM;                  // [2][kM]
-  float* qseg_s = delta_s + 2 * kM;                 // [2][kM]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kN;
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int S = op.S, H = op.H;
-  const bf16* qb = static_cast<const bf16*>(op.q) + b * op.q_sb + h * D;
-  const bf16* kb = static_cast<const bf16*>(op.k) + b * op.k_sb + h * D;
-  const bf16* vb = static_cast<const bf16*>(op.v) + b * op.v_sb + h * D;
-  const bf16* dob = static_cast<const bf16*>(op.dout) + b * op.do_sb + h * D;
-
-  auto load_queries = [&](int q0, int stage) {
-    load_tile_async<D, kM>(qs + stage * kM * kP, qb, op.q_ss, q0, S);
-    load_tile_async<D, kM>(dos + stage * kM * kP, dob, op.do_ss, q0, S);
-    load_vec_async(lse_s + stage * kM, op.lse + b * S * H + h, H, q0, kM, S);
-    load_vec_async(delta_s + stage * kM, op.delta + b * S * H + h, H, q0, kM,
-                   S);
-    if (kSegmented)
-      load_vec_async(qseg_s + stage * kM, op.qseg + b * S, 1, q0, kM, S);
-  };
-  load_tile_async<D, kN>(ks, kb, op.k_ss, k0, S);
-  load_tile_async<D, kN>(vs, vb, op.v_ss, k0, S);
-  load_queries(0, 0);
-  cp_async_commit();
-
-  // Bias and segment of this thread's keys g and g + 8 of the warp.
-  bool key_in[2];
-  float kbias_r[2], kseg_r[2], dbias_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = k0 + warp * 16 + g + 8 * i;
-    key_in[i] = s < S;
-    kbias_r[i] = key_in[i] ? op.bias[b * S + s] : 0.f;
-    kseg_r[i] = (kSegmented && key_in[i]) ? op.kseg[b * S + s] : 0.f;
-    dbias_r[i] = 0.f;
-  }
-
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc_dk[j][r] = acc_dv[j][r] = 0.f;
-
-  const int n_tiles = (S + kM - 1) / kM;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1, q0 = it * kM;
-    if (it + 1 < n_tiles) load_queries(q0 + kM, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();  // tile `it` has landed for every thread
-    const bf16* qst = qs + stage * kM * kP;
-    const bf16* dost = dos + stage * kM * kP;
-
-    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x kM rows.
-    float acc_s[kM / 8][4], acc_dp[kM / 8][4];
-#pragma unroll
-    for (int j = 0; j < kM / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc_s[j][r] = acc_dp[j][r] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, ks + frag_a_offset<kP>(lane, warp * 16, kk * 16));
-      ldmatrix_x4(va, vs + frag_a_offset<kP>(lane, warp * 16, kk * 16));
-#pragma unroll
-      for (int p = 0; p < kM / 16; ++p) {
-        uint32_t qf[4], df[4];
-        const int off = frag_b_offset<kP>(lane, p * 16, kk * 16);
-        ldmatrix_x4(qf, qst + off);
-        ldmatrix_x4(df, dost + off);
-        mma_bf16(acc_s[2 * p], ka, qf[0], qf[1]);
-        mma_bf16(acc_s[2 * p + 1], ka, qf[2], qf[3]);
-        mma_bf16(acc_dp[2 * p], va, df[0], df[1]);
-        mma_bf16(acc_dp[2 * p + 1], va, df[2], df[3]);
-      }
-    }
-
-    // p and ds, ds summed per key, both rounded into the A fragments of the
-    // dV and dK products as soon as a 16-row chunk is done; rows and keys
-    // past S get p = 0.
-    const bool edge = q0 + kM > S || k0 + kN > S;
-    const float* lse_st = lse_s + stage * kM;
-    const float* delta_st = delta_s + stage * kM;
-    const float* qseg_st = qseg_s + stage * kM;
-    uint32_t pa[kM / 16][4], sa[kM / 16][4];
-#pragma unroll
-    for (int j = 0; j < kM / 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float2 lse2 = *reinterpret_cast<const float2*>(lse_st + c);
-      const float2 delta2 = *reinterpret_cast<const float2*>(delta_st + c);
-      float2 qseg2 = make_float2(0.f, 0.f);
-      if (kSegmented) qseg2 = *reinterpret_cast<const float2*>(qseg_st + c);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = r >> 1;
-        const bool odd = r & 1;
-        float s = __fadd_rn(__fmul_rn(acc_s[j][r], op.scale), kbias_r[i]);
-        if (kSegmented && (odd ? qseg2.y : qseg2.x) != kseg_r[i])
-          s = kNegInf;
-        float p = exp2f((s - (odd ? lse2.y : lse2.x)) * kLog2e);
-        if (edge && (!key_in[i] || q0 + c + odd >= S)) p = 0.f;
-        const float ds =
-            __fmul_rn(p, acc_dp[j][r] - (odd ? delta2.y : delta2.x));
-        dbias_r[i] += ds;
-        acc_s[j][r] = p;
-        acc_dp[j][r] = ds;
-      }
-      if (j & 1) {
-        accum_to_a(pa[j >> 1], acc_s, j >> 1);
-        accum_to_a(sa[j >> 1], acc_dp, j >> 1);
-      }
-    }
-
-    // dV += round(P^T) dO and dK += round(dS^T) Q: dO and Q read
-    // transposed ([q][d] is [k][n]).
-#pragma unroll
-    for (int c = 0; c < kM / 16; ++c) {
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t df[4], qf[4];
-        const int off = frag_a_offset<kP>(lane, c * 16, p * 16);
-        ldmatrix_x4_trans(df, dost + off);
-        ldmatrix_x4_trans(qf, qst + off);
-        mma_bf16(acc_dv[2 * p], pa[c], df[0], df[1]);
-        mma_bf16(acc_dv[2 * p + 1], pa[c], df[2], df[3]);
-        mma_bf16(acc_dk[2 * p], sa[c], qf[0], qf[1]);
-        mma_bf16(acc_dk[2 * p + 1], sa[c], qf[2], qf[3]);
-      }
-    }
-    __syncthreads();  // stage `stage` is refilled two tiles on
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    // The quad of lanes 4g..4g+3 holds key g + 8i's columns.
-    float sum = dbias_r[i];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (!key_in[i]) continue;
-    const int s = k0 + warp * 16 + g + 8 * i;
-    const long long row = (b * S + s) * H + h;
-    if (t == 0) dbias_h[(b * H + h) * S + s] = sum;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const long long col = row * D + 8 * j + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + col) = __floats2bfloat162_rn(
-          __fmul_rn(acc_dk[j][2 * i], op.scale),
-          __fmul_rn(acc_dk[j][2 * i + 1], op.scale));
-      *reinterpret_cast<__nv_bfloat162*>(dv + col) =
-          __floats2bfloat162_rn(acc_dv[j][2 * i], acc_dv[j][2 * i + 1]);
-    }
-  }
+  key_block_bwd_tc<D, kSegmented, false>(op, nullptr, dk, dv, dbias_h);
 }
 
 // ------------------------------------------------------------ dispatch
@@ -609,7 +441,7 @@ template <typename T, int D>
 cudaError_t launch_dq(int B, const Operands& op, void* dq,
                       cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
-    return launch(flash_attn_bwd_dq_kernel<float, D>, dq_smem_bytes<D>(), B,
+    return launch(flash_attn_bwd_dq_kernel<D>, dq_smem_bytes<D>(), B,
                   op, stream, static_cast<float*>(dq));
   } else {
     bf16* out = static_cast<bf16*>(dq);
@@ -627,7 +459,7 @@ cudaError_t launch_dkv(int B, const Operands& op, void* dk, void* dv,
                        void* dbias_h, cudaStream_t stream) {
   float* dbias = static_cast<float*>(dbias_h);
   if constexpr (std::is_same<T, float>::value) {
-    return launch(flash_attn_bwd_dkv_kernel<float, D>,
+    return launch(flash_attn_bwd_dkv_kernel<D>,
                   key_block_smem_bytes<D>(), B, op, stream,
                   static_cast<float*>(dk), static_cast<float*>(dv), dbias);
   } else {
@@ -662,19 +494,6 @@ cudaError_t dispatch_dkv(int D, int B, const Operands& op, void* dk,
     case 128: return launch_dkv<T, 128>(B, op, dk, dv, dbias_h, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-cudaError_t check_operands(const Operands& op, int B, int dtype) {
-  if ((op.qseg == nullptr) != (op.kseg == nullptr))
-    return cudaErrorInvalidValue;
-  const int elem = dtype == 0 ? 4 : 2;
-  const int S = op.S;
-  if (!(aligned_16(op.q, op.q_sb, op.q_ss, B, S, elem) &&
-        aligned_16(op.k, op.k_sb, op.k_ss, B, S, elem) &&
-        aligned_16(op.v, op.v_sb, op.v_ss, B, S, elem) &&
-        aligned_16(op.dout, op.do_sb, op.do_ss, B, S, elem)))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
 }
 
 }  // namespace

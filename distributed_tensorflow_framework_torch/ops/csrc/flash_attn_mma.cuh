@@ -2,8 +2,9 @@
 // 16-byte cp.async copies into padded bf16 tiles, ldmatrix fragment loads,
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) and the move of an f32
 // accumulator into a bf16 A fragment. Included by flash_attn_fwd.cu (the
-// forward) and flash_attn_bwd.cu (the two-pass dQ and dK/dV kernels);
-// ops/_build.py hashes it into every library's name.
+// forward), flash_attn_bwd.cu (the two-pass dQ and dK/dV kernels) and,
+// through flash_attn_bwd_common.cuh, flash_attn_bwd_fused.cu (the fused
+// one-pass kernel); ops/_build.py hashes it into every library's name.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l = 4g + t
 // holds, of a 16 x 8 f32 accumulator, rows g and g + 8, columns 2t and

@@ -13,12 +13,14 @@ built at first use and called through ctypes:
   * ``csrc/flash_attn_bwd.cu`` — the two-pass dQ and dK/dV kernels at every
     length, bf16 on the tensor cores (replace the whole-K and the streaming
     dQ and dK/dV kernels);
-  * ``csrc/flash_attn_bwd_fused.cu`` — the one-pass backward (replaces
-    ``_attn_bwd_fused_kernel_kb``).
+  * ``csrc/flash_attn_bwd_fused.cu`` — the one-pass backward, bf16 on the
+    tensor cores (replaces ``_attn_bwd_fused_kernel_kb``).
 
-The bf16 forward and two-pass kernels share their ``mma.sync`` building
-blocks (``csrc/flash_attn_mma.cuh``); f32 inputs take CUDA-core kernels,
-since TF32 would miss the f32 tolerance.
+The bf16 kernels share their ``mma.sync`` building blocks
+(``csrc/flash_attn_mma.cuh``), and the fused kernel runs the two-pass dK/dV
+kernel's body (``csrc/flash_attn_bwd_common.cuh``), so the two routes' dk,
+dv and dbias_h are the same bits; f32 inputs take CUDA-core kernels, since
+TF32 would miss the f32 tolerance.
 
 Public functions keep the JAX package's layout and guards:
 
@@ -48,8 +50,13 @@ where the JAX package streams) and :func:`flash_attention_bwd_reference`
 ``flash_attention_bwd_fused_kernel.launches`` count kernel launches.
 
 The dispatch knobs are module globals read at call time, so tests and
-scripts can assign them as the JAX package's do; ``FLASH_FUSED_BWD=1/0``
-in the environment forces the fused backward on or off, as there.
+scripts can assign them as the JAX package's do. They start from the
+environment at import, with the JAX package's names, defaults and parsing:
+``FLASH_BLOCK_Q_KB`` (512), ``FLASH_BLOCK_K_KB`` (1024),
+``FLASH_MAX_SEQ_VMEM`` (4096), ``FLASH_FUSED_BWD_MAX`` (8192),
+``FLASH_FUSED_WHOLE_K_MIN`` (unset: the dtype-aware default of
+:func:`fused_whole_k_min`) and ``FLASH_FUSED_BWD=1/0``, which forces the
+fused backward on or off.
 """
 
 from __future__ import annotations
@@ -73,32 +80,38 @@ BLOCK_Q = 128  # the JAX kernel's q-block: sets the sequence-length guard
 # Longest sequence the JAX package gives its whole-K kernels; above it, it
 # streams. The port's CUDA kernels stream at every length, so here it only
 # picks the backward route and, on the CPU, the forward's plain version.
-MAX_SEQ_VMEM = 4096
+MAX_SEQ_VMEM = int(os.environ.get("FLASH_MAX_SEQ_VMEM", "4096"))
 # The JAX streaming kernels' tiles. Here they set the key blocks over which
 # the streaming forward's plain version keeps its running max (where p is
 # rounded), and the row blocks the plain versions work through, so that
 # nothing of size S×S is formed at once.
-BLOCK_Q_KB = 512
-BLOCK_K_KB = 1024
+BLOCK_Q_KB = int(os.environ.get("FLASH_BLOCK_Q_KB", "512"))
+BLOCK_K_KB = int(os.environ.get("FLASH_BLOCK_K_KB", "1024"))
 # The fused one-pass backward, as in the JAX package: FUSED_BWD None = auto
-# (fused_bwd_enabled), True/False forces it; FLASH_FUSED_BWD=1/0 sets it
-# from the environment. It runs only where s_k <= FUSED_BWD_MAX, and takes
-# over the whole-K two-pass pair from fused_whole_k_min(dtype) up.
+# (fused_bwd_enabled), True/False forces it. It runs only where s_k <=
+# FUSED_BWD_MAX, and takes over the whole-K two-pass pair from
+# fused_whole_k_min(dtype) up. FLASH_FUSED_BWD=1/0, FLASH_FUSED_BWD_MAX and
+# FLASH_FUSED_WHOLE_K_MIN set them from the environment.
 _FUSED_BWD_ENV = os.environ.get("FLASH_FUSED_BWD")
 FUSED_BWD: bool | None = (
     None if _FUSED_BWD_ENV is None else _FUSED_BWD_ENV not in ("", "0"))
-FUSED_BWD_MAX = 8192
-FUSED_WHOLE_K_MIN: int | None = None
+FUSED_BWD_MAX = int(os.environ.get("FLASH_FUSED_BWD_MAX", "8192"))
+_FUSED_WHOLE_K_MIN_ENV = os.environ.get("FLASH_FUSED_WHOLE_K_MIN")
+FUSED_WHOLE_K_MIN: int | None = (
+    None if _FUSED_WHOLE_K_MIN_ENV is None else int(_FUSED_WHOLE_K_MIN_ENV))
 FUSED_WHOLE_K_MIN_BF16 = 2048
 # Lower-case substrings of torch.cuda.get_device_name() on which the fused
 # kernel's parity with the two-pass kernels and its S = 8192 step time (no
 # slower than two-pass) are recorded in PERF.md; auto turns it on only
-# there, as the JAX package does per TPU generation. None is listed: the
-# H100 80GB HBM3 was, while both routes ran f32 FMAs (fused step 16% faster
-# at S = 8192), and left the list when the two-pass pair moved to the tensor
-# cores and the fused kernel did not (fused about 7x the pair's time in the
-# bf16 takeover band, and the slower S = 8192 step; PERF.md §6).
-FUSED_BWD_VERIFIED_DEVICES: tuple[str, ...] = ()
+# there, as the JAX package does per TPU generation. The H100 80GB HBM3 at
+# 700 W, with both routes on the tensor cores (chip_smoke.py, PERF.md §6):
+# fused dk, dv and dbias_h equal to the pair's bit for bit; the fused kernel
+# 0.909x the pair's time at (1,12,8192,64) bf16 (2.7454 against 3.0187 ms),
+# 0.929x at (4,12,2048,64) and 0.915x at (2,12,4096,64), the bf16 takeover
+# band; the S = 8192 training step 28-32 ms less kernel time than on the
+# pair (858-860 against 888-890 ms), a gain that its host-clock time shows
+# only within the spread between turns.
+FUSED_BWD_VERIFIED_DEVICES: tuple[str, ...] = ("h100 80gb hbm3",)
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -498,11 +511,14 @@ def flash_attention_dkv_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
 
 def flash_attention_bwd_fused_kernel(q, k, v, bias, q_seg, kv_seg, lse, do,
                                      delta):
-    """Launch the fused one-pass backward CUDA kernel on CUDA tensors;
-    raises on anything it does not take. Returns ``(dq, dk, dv,
-    dbias_h)`` like :func:`flash_attention_bwd_reference`. dq is summed by
-    f32 atomic adds into a zeroed f32 buffer, cast to q's dtype here; the
-    order of those adds varies from run to run. Adds one to
+    """Launch the fused one-pass backward CUDA kernel on CUDA tensors
+    (bf16 on the tensor cores, f32 on the CUDA cores; operands that break
+    the 16-byte rule are copied once by :func:`_head_view`); raises on
+    anything it does not take. Returns ``(dq, dk, dv, dbias_h)`` like
+    :func:`flash_attention_bwd_reference`; dk, dv and dbias_h are the bits
+    of :func:`flash_attention_dkv_kernel`. dq is summed by f32 atomic adds
+    into a zeroed f32 buffer, cast to q's dtype here; the order of those
+    adds varies from run to run. Adds one to
     ``flash_attention_bwd_fused_kernel.launches`` per launch."""
     b, s, h, _ = q.shape
     err, lib, (dq, dk, dv, dbias_h) = _bwd_launch(
