@@ -70,14 +70,19 @@ Phases (any failure raises and the script exits non-zero):
      times per batch, and one request's logits against the same model run
      with the kernel's plain version. SIGTERM drains the server.
   5. train — ``cli/train.py``'s ``main`` on ``configs/bert_base_mlm.yaml``
-     at full width and depth (dropout 0.1, AdamW, clip 1.0) for 30 steps.
-     The batch goes from 256 to 32 x 512 so that activations and the f32
-     logits fit one card (18.2 GB peak, NVIDIA H100 80GB HBM3 at 700 W).
-     Checks rc 0, finite metrics and the launch counts: forward 12 x (30
-     steps + 2 eval batches), dQ and dK/dV 12 x 30, fused 0. Prints the
-     steady step
-     time, tokens/s and peak memory, then one profiled step by kernel
-     class and the device idle share.
+     at full width and depth (dropout 0.1, AdamW, clip 1.0) for 30 steps,
+     its checkpoint and resilience sections live: the recovery ladder
+     armed, the background prefetcher, an async final save. Only
+     ``checkpoint.directory`` is moved into the script's temporary workdir,
+     so no earlier run's checkpoint is restored. The batch goes from 256
+     to 32 x 512 so that activations and the f32 logits fit one card.
+     Checks rc 0, finite metrics, one committed checkpoint at step 30 and
+     the launch counts: forward 12 x (30 steps + 2 eval batches), dQ and
+     dK/dV 12 x 30, fused 0. Prints the steady step time (and the first
+     window's, which holds the kernel builds and the ladder's baseline
+     snapshot), tokens/s, peak memory, the save's ``ckpt_save_blocked_ms``
+     and ``ckpt_save_total_ms``, then one profiled step by kernel class,
+     the device idle share and the ladder snapshot's device-to-host time.
   5b. training parity and learning — one step's gradients at 8 x 512
      through the kernels against the same model and dropout stream with
      the kernels' plain versions; every leaf within MODEL_GRAD_RTOL and a
@@ -85,18 +90,36 @@ Phases (any failure raises and the script exits non-zero):
      a constant lr of 1e-4: the loss at step 30 must be below 0.9 x the
      loss at step 1 (the first runs went 10.490 → 7.219 on an NVIDIA H100
      80GB HBM3 at 700 W).
+  5c. resume — phase 5's run in two legs: 15 steps and a save into a
+     fresh directory, then a new run restores step 15 and trains to 30.
+     The losses at steps 10, 20 and 30 and every tensor of the step-30
+     checkpoint (parameters, AdamW slots and steps, the dropout
+     generator) must equal phase 5's bit for bit. Then ``--eval-only`` on
+     that directory must print phase 5's eval exactly.
+  5d. recovery ladder — at 8 x 512 through ``cli.train.main``:
+     ``DTF_FAULTS=nan_grads:7`` (a snapshot every 2 steps) gives exactly
+     one rollback, finite metrics to step 12, and a final checkpoint whose
+     data state is past the skipped batches; ``repeat_nan`` on every
+     replay of step 3 returns 85 after ``max_rollbacks`` rollbacks; a
+     SIGTERM at step 4, once the CLI's handler is armed, returns 83 with a
+     committed checkpoint at step 4 that a new trainer restores.
+  5e. export — phase 5's step-30 checkpoint through ``cli/export.py`` into
+     an artifact, loaded by the serving engine: one 512-token request's
+     logits against the trained model's forward within LOGIT_MAX_ATOL and
+     LOGIT_MEAN_ATOL.
   6. long-context training — ``cli/train.py``'s ``main`` on
      ``configs/bert_long_ring.yaml`` at its width and depth (12 x 768,
      remat, dropout 0.1, bf16) on one card: ``mesh.seq=1`` and
-     ``attention_impl pallas`` (ring attention is not ported), no
-     checkpoints, 3 steps of the config's 8 rows in 8 micro-batches of
+     ``attention_impl pallas`` (ring attention is not ported), the
+     config's checkpoint and resilience sections live (the directory in
+     the workdir), 3 steps of the config's 8 rows in 8 micro-batches of
      one row. FUSED_BWD stays on auto and must pick the two-pass kernels
      at S = 16384 (above FUSED_BWD_MAX), and at S = 8192 the fused kernel
      on a card listed in FUSED_BWD_VERIFIED_DEVICES (the H100 80GB HBM3
      is), else the two-pass kernels. Checks rc 0, finite metrics and the
      launch counts per micro-batch: forward 24 (forward and recompute), dQ
      and dK/dV 12 or fused 12. Prints the steady step time, tokens/s, peak
-     memory and one profiled step by kernel class.
+     memory, the final save's costs and one profiled step by kernel class.
   6b. fused vs two-pass at S = 8192 — one micro-step's gradients (dropout
      and remat on) with the fused backward forced on against the two-pass
      kernels, every leaf within MODEL_GRAD_RTOL; then the phase-6 step
@@ -105,8 +128,10 @@ Phases (any failure raises and the script exits non-zero):
      route through a full-width model step whichever one auto picks.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
-training runs) and read just after; launches made to compare or time a
-kernel do not count. Where auto picks the fused kernel nowhere on this
+training runs, the resumed, rolled-back, preempted, evaluated and
+exported runs) and read just after; launches made to compare or time a
+kernel do not count. The record's ``launches`` are those of phases 4, 5
+and 6. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
 card's ``nvidia-smi`` name and power limit; the line before that the
@@ -120,6 +145,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -179,36 +205,51 @@ DBIAS_RTOL = 1e-5
 LOGIT_MAX_ATOL = 0.15
 LOGIT_MEAN_ATOL = 1e-2
 HTTP_LENGTHS = (4, 8, 12, 16, 24, 32)
-# Phase 5: BERT-base training at full width and depth. The batch goes from
-# the config's 256 to 32 rows of 512 tokens so that activations and the
-# f32 logits (32 x 512 x 30522) fit one card.
+# Phase 5: BERT-base training at full width and depth, with the config's
+# checkpoint and resilience sections live; only checkpoint.directory moves
+# into the script's temporary workdir (the config's /tmp path could hold
+# an earlier run's checkpoints, which a run would restore). The batch goes
+# from the config's 256 to 32 rows of 512 tokens so that activations and
+# the f32 logits (32 x 512 x 30522) fit one card.
 TRAIN_OVERRIDES = (
     "data.global_batch_size=32", "train.total_steps=30",
-    "train.log_interval=10", "train.eval_steps=2", "train.eval_interval=0",
-    "checkpoint.directory=", "resilience.rollback=false")
+    "train.log_interval=10", "train.eval_steps=2", "train.eval_interval=0")
+# Phase 5c: the same run in two legs, 15 steps, a save and a restore. The
+# 10,000-step warm-up covers both legs, so the split does not move the
+# schedule (which depends on train.total_steps).
+RESUME_SPLIT = 15
+# Phase 5d: the recovery ladder at 8 x 512. A snapshot every 2 steps and a
+# fetch every 2 steps; nan_grads at step 7 is seen at step 8 and rolls back
+# to 6, skipping batches 7 and 8. Then repeat_nan poisons step 3 on every
+# replay until max_rollbacks is spent (rc 85), and a SIGTERM at step 4
+# stops a run for a final save (rc 83).
+LADDER_OVERRIDES = (
+    "data.global_batch_size=8", "train.total_steps=12",
+    "train.log_interval=2", "train.eval_steps=0",
+    "resilience.snapshot_interval_steps=2")
+NAN_STEP = 7
+SIGTERM_STEP = 4
 # Phase 5b: one step at 8 x 512, kernels against their plain versions.
 # Gradients differ where the forward kernel's online softmax rounds a bf16
 # p one ulp away from the plain version's (phase 3), and 12 bf16
 # layers carry such flips into every gradient: tolerance per leaf, as
 # max|err| over the leaf's max|grad|.
-PARITY_OVERRIDES = ("data.global_batch_size=8", "checkpoint.directory=",
-                    "resilience.rollback=false")
+PARITY_OVERRIDES = ("data.global_batch_size=8",)
 MODEL_GRAD_RTOL = 5e-2
 # Then 30 steps on that one batch at a constant lr of 1e-4, no warmup: the
 # loss at step 30 must be below LEARN_RATIO x the loss at step 1.
 LEARN_OVERRIDES = ("optimizer.schedule=constant", "optimizer.warmup_steps=0",
                    "optimizer.learning_rate=1e-4", "train.total_steps=30")
 LEARN_RATIO = 0.9
-# Phase 6: configs/bert_long_ring.yaml on one card. Ring attention (A11),
-# checkpoints (A4) and the rollback ladder (A14) are not ported, so the
-# same model runs attention_impl pallas on a mesh of one. The config's
-# global batch of 8 rows goes through in 8 micro-batches of one row, so
-# that a 16k-token row's f32 logits (2 GB) are the largest activation; the
-# run is cut to 3 steps.
+# Phase 6: configs/bert_long_ring.yaml on one card, its checkpoint and
+# resilience sections live (checkpoint.directory in the workdir). Ring
+# attention (A11) is not ported, so the same model runs attention_impl
+# pallas on a mesh of one. The config's global batch of 8 rows goes
+# through in 8 micro-batches of one row, so that a 16k-token row's f32
+# logits (2 GB) are the largest activation; the run is cut to 3 steps.
 LONG_CONFIG = "configs/bert_long_ring.yaml"
 LONG_OVERRIDES = (
-    "mesh.seq=1", "model.attention_impl=pallas", "checkpoint.directory=",
-    "resilience.rollback=false", "train.grad_accum_steps=8",
+    "mesh.seq=1", "model.attention_impl=pallas", "train.grad_accum_steps=8",
     "train.total_steps=3", "train.log_interval=1", "train.eval_steps=0")
 # Phase 6's sequence lengths. Both runs leave FUSED_BWD on auto, the choice
 # users get: the two-pass pair at 16384 (above FUSED_BWD_MAX), and at 8192
@@ -971,9 +1012,10 @@ def reference_model(torch, fa, model_config, state_dict):
     return model
 
 
-def check_logits(torch, ref_model, ids, got, bucket: int, what: str) -> dict:
-    """``got`` (len, vocab) against the plain-attention model on the same
-    padded row the engine ran."""
+def check_logits(torch, ref_model, ids, got, bucket: int, what: str,
+                 ref_name: str = "plain-attention model") -> dict:
+    """``got`` (len, vocab) against ``ref_model`` (the plain-attention
+    model) on the same padded row the engine ran."""
     n = len(ids)
     pad_ids = torch.zeros(1, bucket, dtype=torch.int64, device="cuda")
     pad_ids[0, :n] = torch.tensor(ids, device="cuda")
@@ -985,12 +1027,12 @@ def check_logits(torch, ref_model, ids, got, bucket: int, what: str) -> dict:
     diff = (got - ref).abs()
     res = {"max": diff.max().item(), "mean": diff.mean().item(),
            "ref_std": ref.std().item()}
-    log(f"{what}: logits vs plain-attention model max|err| "
+    log(f"{what}: logits vs {ref_name} max|err| "
         f"{res['max']:.4e} (tol {LOGIT_MAX_ATOL}), mean {res['mean']:.4e} "
         f"(tol {LOGIT_MEAN_ATOL}), ref std {res['ref_std']:.4f}")
     if not (res["max"] <= LOGIT_MAX_ATOL and res["mean"] <= LOGIT_MEAN_ATOL):
-        raise AssertionError(f"{what}: served logits disagree with the "
-                             f"plain-attention model")
+        raise AssertionError(f"{what}: served logits disagree with "
+                             f"{ref_name}")
     return res
 
 
@@ -1296,16 +1338,75 @@ def train_breakdown(torch, config, warmup: int = 2, steps: int = 5) -> None:
     if total:
         log(f"train step device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
             f" of the step")
+    snapshot_cost(torch, state, f"{config.data.global_batch_size}x"
+                                f"{config.data.seq_len}")
 
 
-def train_phase(torch, fa, workdir: str) -> dict:
-    """``cli.train.main`` on BERT-base at full width; returns the launch
-    counts of the run."""
+def snapshot_cost(torch, state, what: str) -> None:
+    """The recovery ladder's snapshot of a train state (a host copy of its
+    tensors, train/anomaly.py), timed alone on the host clock: the copy
+    the trainer takes before its first step and at clean fetches."""
+    from distributed_tensorflow_framework_torch.train import anomaly
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = anomaly.snapshot_state(state)
+        times.append((time.perf_counter() - t0) * 1e3)
+    size = sum(t.numel() * t.element_size() for t in tensor_leaves(host))
+    log(f"ladder snapshot {what}: {size / 1e9:.3f} GB device -> host in "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock)")
+
+
+def tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    elif hasattr(tree, "element_size"):
+        yield tree
+
+
+def read_events(directory: str) -> list[dict]:
+    with open(os.path.join(directory, "events.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def log_saves(events: list[dict], what: str) -> None:
+    """One line per committed save of a run: the time the training thread
+    was blocked and the time to the landed commit."""
+    saves = [e for e in events if e["kind"] == "ckpt_save"]
+    if not saves:
+        raise AssertionError(f"{what}: no ckpt_save event")
+    for e in saves:
+        m = e["metrics"]
+        log(f"{what} checkpoint save at step {e['step']} "
+            f"({'async' if e['extra']['async_save'] else 'sync'}): "
+            f"ckpt_save_blocked_ms {m['ckpt_save_blocked_ms']}, "
+            f"ckpt_save_total_ms {m['ckpt_save_total_ms']}")
+
+
+def run_cli_train(config_path: str, overrides, *extra) -> int:
     from distributed_tensorflow_framework_torch.cli import train as cli_train
+
+    return cli_train.main(["--config", config_path, "--device", "cuda",
+                           *extra, *sum((["--set", o] for o in overrides),
+                                        [])])
+
+
+def train_phase(torch, fa, workdir: str) -> tuple[dict, dict]:
+    """``cli.train.main`` on BERT-base at full width; returns the launch
+    counts of the run, and its checkpoint directory, losses and eval."""
+    from distributed_tensorflow_framework_torch.ckpt import manifest as mf
     from distributed_tensorflow_framework_torch.core.config import load_config
 
     config_path = "configs/bert_base_mlm.yaml"
-    cfg = load_config(config_path, overrides=list(TRAIN_OVERRIDES))
+    ckpt_dir = os.path.join(workdir, "ckpt_512")
+    overrides = [*TRAIN_OVERRIDES, f"checkpoint.directory={ckpt_dir}"]
+    cfg = load_config(config_path, overrides=overrides)
     m, o = cfg.model, cfg.optimizer
     if (m.name, m.num_layers, m.hidden_size, m.num_heads, m.mlp_dim,
             m.vocab_size, m.max_seq_len, m.dtype, m.fused_qkv,
@@ -1318,16 +1419,13 @@ def train_phase(torch, fa, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)
     t0 = time.perf_counter()
-    rc = cli_train.main(["--config", config_path, "--device", "cuda",
-                         "--log-dir", log_dir,
-                         *sum((["--set", s] for s in TRAIN_OVERRIDES), [])])
+    rc = run_cli_train(config_path, overrides, "--log-dir", log_dir)
     counts = read_counts(fa)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         raise AssertionError(f"cli.train.main returned {rc}")
-    with open(os.path.join(log_dir, "events.jsonl")) as fh:
-        events = [json.loads(line) for line in fh]
+    events = read_events(log_dir)
     train = [e for e in events if e["kind"] == "train_step"]
     evals = [e for e in events if e["kind"] == "eval"]
     steps, micro = cfg.train.total_steps, cfg.train.total_steps * max(
@@ -1347,20 +1445,275 @@ def train_phase(torch, fa, workdir: str) -> dict:
             or len(evals) != 1
             or not all(math.isfinite(v) for v in values)):
         raise AssertionError("training metrics missing or not finite")
-    # Steady window: the logging windows after the first (which builds
-    # the kernels); the throughput meter restarts at every synced log.
+    # Steady window: the logging windows after the first, which builds
+    # the kernels and holds the ladder's baseline snapshot; the throughput
+    # meter restarts at every synced log.
+    b = cfg.data.global_batch_size
     eps = [e["throughput"]["examples_per_sec"] for e in train[1:]]
     rate = statistics.mean(eps)
     tokens = rate * cfg.data.seq_len
-    log(f"train: {steps} steps of {cfg.data.global_batch_size}x"
+    log(f"train: {steps} steps of {b}x"
         f"{cfg.data.seq_len} in {wall:.1f} s; steady (steps "
-        f"{train[0]['step'] + 1}-{steps}) {1e3 * cfg.data.global_batch_size / rate:.2f}"
-        f" ms/step, {tokens:.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
-        f"kernel launches {counts} (expected {want})")
+        f"{train[0]['step'] + 1}-{steps}) {1e3 * b / rate:.2f}"
+        f" ms/step, {tokens:.0f} tokens/s (first window "
+        f"{1e3 * b / train[0]['throughput']['examples_per_sec']:.2f} ms/step,"
+        f" with the kernel builds and the baseline snapshot); peak memory "
+        f"{peak_gb:.2f} GB; kernel launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"expected launches {want}, saw {counts}")
+    log_saves(events, "train")
+    if mf.committed_steps(ckpt_dir) != [steps]:
+        raise AssertionError(f"expected one committed checkpoint at step "
+                             f"{steps} in {ckpt_dir}, found "
+                             f"{mf.committed_steps(ckpt_dir)}")
     train_breakdown(torch, cfg)
-    return counts
+    return counts, {"ckpt": ckpt_dir, "config": config_path,
+                    "losses": {e["step"]: e["metrics"]["loss"]
+                               for e in train},
+                    "eval": evals[0]["metrics"]}
+
+
+# --------------------------------------------------------------- phase 5c
+
+def resume_phase(torch, fa, workdir: str, full: dict) -> None:
+    """Phase 5's run in two legs: 15 steps and a final save into a fresh
+    directory, then a new run restores step 15 and trains to 30. The
+    step-30 losses and checkpoints must equal phase 5's bit for bit; then
+    ``--eval-only`` on the directory must give phase 5's eval."""
+    from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+
+    ckpt_dir = os.path.join(workdir, "ckpt_resume")
+    over = [*TRAIN_OVERRIDES, f"checkpoint.directory={ckpt_dir}"]
+    layers, steps = 12, 30
+    legs = (([f"train.total_steps={RESUME_SPLIT}", "train.eval_steps=0"],
+             {"fwd": layers * RESUME_SPLIT, "dq": layers * RESUME_SPLIT,
+              "dkv": layers * RESUME_SPLIT, "fused": 0}),
+            ([], {"fwd": layers * (steps - RESUME_SPLIT + 2),
+                  "dq": layers * (steps - RESUME_SPLIT),
+                  "dkv": layers * (steps - RESUME_SPLIT), "fused": 0}))
+    for i, (extra, want) in enumerate(legs):
+        reset_counts(fa)
+        rc = run_cli_train(full["config"], over + extra)
+        counts = read_counts(fa)
+        if rc != 0 or counts != want:
+            raise AssertionError(f"resume leg {i + 1}: rc {rc}, launches "
+                                 f"{counts}, expected {want}")
+        if i == 0 and mf.committed_steps(ckpt_dir) != [RESUME_SPLIT]:
+            raise AssertionError(f"leg 1 committed "
+                                 f"{mf.committed_steps(ckpt_dir)}")
+    events = read_events(ckpt_dir)
+    starts = [e for e in events if e["kind"] == "startup"]
+    restored = starts[-1]["extra"]["restored_step"]
+    losses = {e["step"]: e["metrics"]["loss"] for e in events
+              if e["kind"] == "train_step"}
+    log(f"resume: leg 1 trained steps 1-{RESUME_SPLIT} and saved, leg 2 "
+        f"restored step {restored} and trained to {steps}; losses "
+        + ", ".join(f"step {k} {v!r} (phase 5 {full['losses'][k]!r})"
+                    for k, v in sorted(losses.items()) if k in full["losses"]))
+    common = sorted(set(losses) & set(full["losses"]))
+    if (restored != RESUME_SPLIT or common != [10, 20, 30]
+            or any(losses[k] != full["losses"][k] for k in common)):
+        raise AssertionError("the resumed run's losses differ from phase 5's")
+    ours = torch.load(os.path.join(ckpt_dir, str(steps), "state.pt"),
+                      map_location="cpu", weights_only=True)
+    ref = torch.load(os.path.join(full["ckpt"], str(steps), "state.pt"),
+                     map_location="cpu", weights_only=True)
+    ours_t, ref_t = list(tensor_leaves(ours)), list(tensor_leaves(ref))
+    unequal = [i for i, (a, b) in enumerate(zip(ours_t, ref_t))
+               if not torch.equal(a, b)]
+    log(f"resume: step-{steps} checkpoint vs phase 5's, {len(ref_t)} tensors "
+        f"(parameters, AdamW slots and steps, dropout generator): "
+        f"{len(ref_t) - len(unequal)} bit-equal, {len(unequal)} differ")
+    if len(ours_t) != len(ref_t) or unequal:
+        worst = max(((ours_t[i].float() - ref_t[i].float()).abs().max()
+                     .item() for i in unequal), default=0.0)
+        raise AssertionError(f"resumed state differs from phase 5's in "
+                             f"{len(unequal)} tensors (max |diff| {worst})")
+    del ours, ref, ours_t, ref_t
+    reset_counts(fa)
+    rc = run_cli_train(full["config"], over, "--eval-only")
+    counts = read_counts(fa)
+    evals = [e for e in read_events(ckpt_dir) if e["kind"] == "eval"]
+    got = evals[-1]["metrics"]
+    log(f"eval-only at step {evals[-1]['step']}: " + ", ".join(
+        f"{k} {v!r}" for k, v in got.items()) + f" (phase 5: "
+        + ", ".join(f"{k} {v!r}" for k, v in full["eval"].items())
+        + f"); kernel launches {counts}")
+    if rc != 0 or got != full["eval"] or counts["fwd"] != layers * 2:
+        raise AssertionError("--eval-only does not reproduce phase 5's eval")
+    shutil.rmtree(ckpt_dir)
+
+
+# --------------------------------------------------------------- phase 5d
+
+@contextlib.contextmanager
+def fault_env(spec: str):
+    """``DTF_FAULTS=spec`` for the block, read by the port's fault plan."""
+    from distributed_tensorflow_framework_torch.core import faults
+
+    os.environ["DTF_FAULTS"] = spec
+    faults.install(None)
+    try:
+        yield
+    finally:
+        del os.environ["DTF_FAULTS"]
+        faults.install(None)
+
+
+def ladder_phase(torch, fa, workdir: str) -> None:
+    """The recovery ladder and the SIGTERM contract on the card, through
+    ``cli.train.main`` at 8 x 512."""
+    from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+    from distributed_tensorflow_framework_torch.core import supervision
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.hooks import BaseHook
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    config_path = "configs/bert_base_mlm.yaml"
+
+    def overrides(name, *extra):
+        return [*LADDER_OVERRIDES, *extra,
+                f"checkpoint.directory={os.path.join(workdir, name)}"]
+
+    # One nan_grads step: exactly one rollback, and the run finishes.
+    over = overrides("ckpt_nan")
+    cfg = load_config(config_path, overrides=over)
+    steps = cfg.train.total_steps
+    reset_counts(fa)
+    with fault_env(f"nan_grads:{NAN_STEP}"):
+        rc = run_cli_train(config_path, over)
+    counts = read_counts(fa)
+    events = read_events(cfg.checkpoint.directory)
+    rollbacks = [e["health"] for e in events if e["kind"] == "rollback"]
+    skipped = [e["health"] for e in events if e["kind"] == "batch_skipped"]
+    train = [e for e in events if e["kind"] == "train_step"]
+    with open(os.path.join(cfg.checkpoint.directory, str(steps),
+                           "data_iter.json")) as fh:
+        data_state = json.load(fh)
+    log(f"ladder: nan_grads at step {NAN_STEP}: rc {rc}, rollbacks "
+        f"{rollbacks}, skipped {skipped}, logged steps "
+        f"{[e['step'] for e in train]}, losses "
+        f"{[round(e['metrics']['loss'], 4) for e in train]}; final "
+        f"checkpoint's data state {data_state}; kernel launches {counts}")
+    n_skip = sum(s["batches"] for s in skipped)
+    if (rc != 0 or len(rollbacks) != 1 or n_skip < 1
+            or [e["step"] for e in train] != list(range(2, steps + 1, 2))
+            or not all(math.isfinite(v) for e in train
+                       for v in e["metrics"].values())
+            or data_state["consumed"] != steps + n_skip
+            or mf.committed_steps(cfg.checkpoint.directory) != [steps]
+            or not counts["fwd"] or not counts["dq"] or not counts["dkv"]):
+        raise AssertionError("the nan_grads rollback did not recover")
+    shutil.rmtree(cfg.checkpoint.directory)
+
+    # repeat_nan over max_rollbacks + 1 replays of step 3: rc 85.
+    over = overrides("ckpt_repeat", "train.log_interval=1",
+                     "resilience.snapshot_interval_steps=1",
+                     "train.total_steps=6")
+    cfg = load_config(config_path, overrides=over)
+    tries = cfg.resilience.max_rollbacks + 1
+    reset_counts(fa)
+    with fault_env(f"repeat_nan:3:{tries}"):
+        rc = run_cli_train(config_path, over)
+    counts = read_counts(fa)
+    rollbacks = [e for e in read_events(cfg.checkpoint.directory)
+                 if e["kind"] == "rollback"]
+    log(f"ladder: repeat_nan:3:{tries}: rc {rc} after {len(rollbacks)} "
+        f"rollbacks (max_rollbacks {cfg.resilience.max_rollbacks}); kernel "
+        f"launches {counts}")
+    if (rc != supervision.ANOMALY_ESCALATION_RC
+            or len(rollbacks) != cfg.resilience.max_rollbacks
+            or not counts["fwd"]):
+        raise AssertionError("the exhausted ladder did not escalate rc 85")
+    shutil.rmtree(cfg.checkpoint.directory)
+
+    # SIGTERM at step 4 once the CLI's handler is armed: rc 83 and a
+    # committed checkpoint at step 4 that a new trainer restores.
+    class SigtermAt(BaseHook):
+        def after_step(self, trainer, step, metrics):
+            if step == SIGTERM_STEP:
+                if signal.getsignal(signal.SIGTERM) is not \
+                        supervision._on_sigterm:
+                    raise AssertionError("the SIGTERM handler is not armed")
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    over = overrides("ckpt_sigterm")
+    cfg = load_config(config_path, overrides=over)
+    hooks = Trainer.default_hooks
+    Trainer.default_hooks = lambda self: hooks(self) + [SigtermAt()]
+    try:
+        reset_counts(fa)
+        rc = run_cli_train(config_path, over)
+        counts = read_counts(fa)
+    finally:
+        Trainer.default_hooks = hooks
+        supervision.reset_preemption()
+    committed = mf.committed_steps(cfg.checkpoint.directory)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.build()
+    trainer.writer.close()
+    log(f"ladder: SIGTERM at step {SIGTERM_STEP}: rc {rc}, committed "
+        f"{committed}, a new trainer restored step {trainer.restored_step}; "
+        f"kernel launches {counts}")
+    if (rc != supervision.GRACEFUL_PREEMPT_RC or committed != [SIGTERM_STEP]
+            or trainer.restored_step != SIGTERM_STEP
+            or counts["fwd"] != 12 * SIGTERM_STEP):
+        raise AssertionError("the SIGTERM contract failed")
+    del trainer
+    shutil.rmtree(cfg.checkpoint.directory)
+
+
+# --------------------------------------------------------------- phase 5e
+
+def export_phase(torch, fa, workdir: str, full: dict) -> None:
+    """Phase 5's step-30 checkpoint through ``cli/export.py`` into an
+    artifact, served by the engine on the card: its logits for one
+    512-token request against the trained model's forward."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.cli import export as cli_export
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        load_artifact,
+    )
+
+    over = [*TRAIN_OVERRIDES, f"checkpoint.directory={full['ckpt']}",
+            "serve.seq_buckets=[128,256,512]"]
+    out = os.path.join(workdir, "artifact_trained")
+    t0 = time.perf_counter()
+    rc = cli_export.main(["--config", full["config"], "--output", out,
+                          "--device", "cuda",
+                          *sum((["--set", o] for o in over), [])])
+    export_s = time.perf_counter() - t0
+    cfg = load_config(full["config"], overrides=over)
+    artifact = load_artifact(out)
+    engine = InferenceEngine(artifact, cfg.serve, device="cuda")
+    ids = np.random.default_rng(SEED + 5).integers(
+        0, cfg.model.vocab_size, 512).tolist()
+    reset_counts(fa)
+    try:
+        got = engine.predict({"input_ids": ids}, timeout=600)
+    finally:
+        launches = read_counts(fa, serving=True)["fwd"]
+        engine.drain(60)
+    trained = get_model(cfg.model, device="cuda")
+    trained.load_state_dict(torch.load(
+        os.path.join(full["ckpt"], "30", "state.pt"), map_location="cpu",
+        weights_only=True)["model"])
+    log(f"export: step {artifact.step} of {full['ckpt']} -> {out} in "
+        f"{export_s:.1f} s (rc {rc}); engine kernel launches {launches}")
+    if rc != 0 or artifact.step != 30 or launches != 12:
+        raise AssertionError("export or serving of the trained checkpoint "
+                             "failed")
+    check_logits(torch, trained, ids, got, 512,
+                 "exported step-30 artifact, 512 tokens",
+                 ref_name="the trained model")
+    del trained, engine
+    shutil.rmtree(out)
 
 
 # --------------------------------------------------------------- phase 5b
@@ -1496,10 +1849,10 @@ def long_train_phase(torch, fa, workdir: str, seq: int, route: str) -> dict:
     """``cli.train.main`` on the long-context config at ``seq`` tokens with
     FUSED_BWD on auto, which must pick ``route`` ("fused" or "stream");
     returns the run's launch counts."""
-    from distributed_tensorflow_framework_torch.cli import train as cli_train
-
     cfg, over = long_config(torch, seq)
     log_dir = os.path.join(workdir, f"long_{seq}")
+    ckpt_dir = os.path.join(workdir, f"ckpt_long_{seq}")
+    over = [*over, f"checkpoint.directory={ckpt_dir}"]
     steps = cfg.train.total_steps
     micro = steps * max(1, cfg.train.grad_accum_steps)
     layers = cfg.model.num_layers
@@ -1520,16 +1873,14 @@ def long_train_phase(torch, fa, workdir: str, seq: int, route: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fa)
         t0 = time.perf_counter()
-        rc = cli_train.main(["--config", LONG_CONFIG, "--device", "cuda",
-                             "--log-dir", log_dir,
-                             *sum((["--set", o] for o in over), [])])
+        rc = run_cli_train(LONG_CONFIG, over, "--log-dir", log_dir)
         counts = read_counts(fa)
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         raise AssertionError(f"cli.train.main returned {rc} at S={seq}")
-    with open(os.path.join(log_dir, "events.jsonl")) as fh:
-        train = [e for e in map(json.loads, fh) if e["kind"] == "train_step"]
+    events = read_events(log_dir)
+    train = [e for e in events if e["kind"] == "train_step"]
     for e in train:
         log(f"long S={seq} step {e['step']}: " + ", ".join(
             f"{k} {v:.6g}" for k, v in e["metrics"].items()))
@@ -1551,6 +1902,8 @@ def long_train_phase(torch, fa, workdir: str, seq: int, route: str) -> dict:
     if counts != want:
         raise AssertionError(f"S={seq}: expected launches {want}, saw "
                              f"{counts}")
+    log_saves(events, f"long S={seq}")
+    shutil.rmtree(ckpt_dir)
     with fused_bwd(fa, None):
         train_breakdown(torch, cfg, warmup=1, steps=1)
     return counts
@@ -1715,9 +2068,16 @@ def main() -> int:
             f"requests, {served['batches']} batches, {launches} kernel "
             f"launches")
         log("phase 5 train")
-        train_counts = train_phase(torch, fa, workdir)
+        train_counts, full = train_phase(torch, fa, workdir)
         log("phase 5b training parity and learning")
         train_parity_phase(torch, fa)
+        log("phase 5c resume and --eval-only")
+        resume_phase(torch, fa, workdir, full)
+        log("phase 5d recovery ladder and SIGTERM")
+        ladder_phase(torch, fa, workdir)
+        log("phase 5e export to serve")
+        export_phase(torch, fa, workdir, full)
+        shutil.rmtree(full["ckpt"])
         log("phase 6 long-context training")
         long_counts = [long_train_phase(torch, fa, workdir, seq, route)
                        for seq, route in long_runs(torch, fa)]

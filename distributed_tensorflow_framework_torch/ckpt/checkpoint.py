@@ -1,0 +1,397 @@
+"""Checkpointing of the full training state: the port's counterpart of
+``ckpt/checkpoint.py``'s ``CheckpointManager``.
+
+A checkpoint is a step directory, committed by its integrity manifest
+(ckpt/manifest.py) exactly as in the JAX package:
+
+    <directory>/<step>/
+      state.pt        — torch.save of the model's tensors, the optimizer
+                        (torch AdamW's state_dict) and the dropout
+                        generator's state; read back with
+                        ``torch.load(weights_only=True)``
+      meta.json       — the step, the generator's device type and the
+                        model's parameter names
+      data_iter.json  — the data iterator's state (when given)
+      manifest.json   — sha256 and size of each file above, plus the
+                        data-state commit record (data/shard.py); written
+                        last, by tmp + fsync + atomic rename
+
+The JAX package writes orbax checkpoints, which need JAX; this format
+needs only torch, and the port does not read orbax checkpoints (the
+converter is ROADMAP.md queue A item A15).
+
+  * ``save``: with ``checkpoint.async_save`` the training thread pays only
+    the device → host copy of the state at the step boundary; the write,
+    the hashing, the fsyncs and the commit run on the saver thread
+    (ckpt/async_saver.py). Without it, the same commit runs inline. A new
+    save waits for the previous commit. After each commit the oldest
+    committed steps beyond ``max_to_keep`` are deleted.
+  * ``latest_step``/``all_steps`` list committed steps only. A directory
+    with step directories and no manifest anywhere is a store from before
+    manifests: its steps are trusted unverified, with a warning.
+  * ``restore`` with no step takes the newest step that verifies,
+    quarantining (``<step>.corrupt``) every newer one that does not, with
+    ``ckpt_quarantined`` and ``restore_fallback`` events; an explicit step
+    that fails verification raises. A fused-QKV checkpoint restored into
+    an unfused model (or the reverse) raises naming ``model.fused_qkv``.
+
+Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
+the training thread spent in ``save`` (the wait for the previous commit
+and the host copy); ``ckpt_save_total_ms`` is from ``save`` to the landed
+commit. Async saves show blocked < total; sync saves blocked == total.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import time
+from typing import Any
+
+import torch
+
+from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+from distributed_tensorflow_framework_torch.ckpt.async_saver import AsyncSaver
+from distributed_tensorflow_framework_torch.core import faults, telemetry
+from distributed_tensorflow_framework_torch.core.config import CheckpointConfig
+from distributed_tensorflow_framework_torch.data import shard as data_shard
+from distributed_tensorflow_framework_torch.train.state import (
+    TrainState,
+    host_copy,
+)
+
+log = logging.getLogger(__name__)
+
+CKPT_SCHEMA = "dtf-torch-ckpt/1"
+STATE_FILE = "state.pt"
+META_FILE = "meta.json"
+DATA_FILE = "data_iter.json"
+# The port trains on one host; saving across hosts is ROADMAP.md item A1.
+PROCESS_COUNT = 1
+
+
+def _attention_layout(names) -> str | None:
+    """'fused' / 'unfused' QKV projection layout of a set of parameter
+    names, or None when the model has no attention projections. The fused
+    module holds ``attn.qkv``, the unfused ``attn.{query,key,value}``
+    (models/bert.py); the whole triple is required so a stray ``key`` part
+    cannot misclassify."""
+    parts = {part for name in names for part in name.split(".")}
+    if "qkv" in parts:
+        return "fused"
+    if {"query", "key", "value"} <= parts:
+        return "unfused"
+    return None
+
+
+def _write_durable(path: str, write) -> None:
+    with open(path, "wb") as fh:
+        write(fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+
+
+def _write_json(path: str, obj: Any) -> None:
+    _write_durable(path, lambda fh: fh.write(
+        json.dumps(obj, indent=1, sort_keys=True).encode()))
+
+
+class CheckpointManager:
+    def __init__(self, config: CheckpointConfig, *,
+                 telemetry_writer: telemetry.TelemetryWriter | None = None):
+        if not config.directory:
+            raise ValueError("CheckpointConfig.directory must be set")
+        self.config = config
+        self._telemetry = telemetry_writer
+        self._path = os.path.abspath(config.directory)
+        os.makedirs(self._path, exist_ok=True)
+        self._saver = AsyncSaver() if config.async_save else None
+        self._watermark_source = None
+        self._data_repartition = data_shard.REPARTITION_NONE
+        self._data_resume_strict = True
+
+    @property
+    def directory(self) -> str:
+        return self._path
+
+    def set_data_sources(self, *, watermark_source=None,
+                         repartition: str | None = None,
+                         resume_strict: bool | None = None) -> None:
+        """``watermark_source`` is the live infeed's ``watermark()``,
+        recorded at each save (None clears it: a closed infeed must not be
+        polled by a final save); ``repartition`` the dataset's tag;
+        ``resume_strict`` the ``data.resume_strict`` knob of the restore
+        gate."""
+        self._watermark_source = watermark_source
+        if repartition is not None:
+            self._data_repartition = repartition
+        if resume_strict is not None:
+            self._data_resume_strict = bool(resume_strict)
+
+    def _emit(self, kind: str, **fields: Any) -> None:
+        if self._telemetry is not None:
+            self._telemetry.emit(kind, **fields)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self._path, str(step))
+
+    # ------------------------------------------------------------- save --
+    def _drain(self) -> None:
+        """Barrier on the in-flight commit: every step listing and every
+        new save funnels through here, and a background failure surfaces
+        on the training thread."""
+        if self._saver is not None:
+            self._saver.wait()
+
+    def _write_and_commit(self, step: int, host_state: dict,
+                          dataset_state: dict | None, *, t_begin: float,
+                          blocked_s: float | None, watermark: int) -> None:
+        """The whole durable commit: payload files, the ``ckpt_in_save``
+        fault point, the manifest, the ``ckpt_committed`` fault point,
+        garbage collection and telemetry. The same code on the saver
+        thread or inline."""
+        step_dir = self._step_dir(step)
+        os.makedirs(step_dir)
+        tensors = {k: host_state[k] for k in
+                   ("model", "optimizer", "dropout_generator")}
+        _write_durable(os.path.join(step_dir, STATE_FILE),
+                       lambda fh: torch.save(tensors, fh))
+        _write_json(os.path.join(step_dir, META_FILE), {
+            "schema": CKPT_SCHEMA, "step": int(host_state["step"]),
+            "generator_device": host_state["generator_device"],
+            "params": list(host_state["model"])})
+        extra = None
+        if dataset_state is not None:
+            _write_json(os.path.join(step_dir, DATA_FILE), dataset_state)
+            extra = {data_shard.DATA_RECORD_KEY: data_shard.data_state_record(
+                dataset_state, process_count=PROCESS_COUNT,
+                repartition=self._data_repartition, watermark=watermark)}
+        # A crash_in_save fault here leaves a written directory with no
+        # manifest: the uncommitted step restore must refuse.
+        faults.fire("ckpt_in_save", step=step)
+        mf.write_manifest(step_dir, step, extra=extra)
+        for fault in faults.fire("ckpt_committed", step=step):
+            if fault.kind == "corrupt_ckpt":
+                faults.corrupt_checkpoint_dir(step_dir)
+        self._collect_garbage()
+        total_ms = (time.perf_counter() - t_begin) * 1e3
+        blocked_ms = total_ms if blocked_s is None else blocked_s * 1e3
+        self._emit(telemetry.KIND_CKPT_SAVE, step=step,
+                   metrics={"ckpt_save_blocked_ms": round(blocked_ms, 3),
+                            "ckpt_save_total_ms": round(total_ms, 3)},
+                   async_save=self._saver is not None)
+        log.info("Saved checkpoint at step %d (%s, blocked %.0f ms / total "
+                 "%.0f ms)", step,
+                 "async" if self._saver is not None else "sync",
+                 blocked_ms, total_ms)
+
+    def _collect_garbage(self) -> None:
+        keep = self.config.max_to_keep
+        if keep <= 0:
+            return
+        for step in mf.committed_steps(self._path)[:-keep]:
+            shutil.rmtree(self._step_dir(step), ignore_errors=True)
+
+    def save(self, step: int, state: TrainState, *,
+             dataset_state: dict | None = None) -> bool:
+        """Save ``state`` as step ``step``; False when that step is already
+        committed. ``dataset_state`` must be the iterator snapshot paired
+        with ``step`` (data/infeed.py), not the live dataset's state,
+        which the prefetcher has moved past it. Async mode returns once
+        the host copy is queued; a commit failure is re-raised at the next
+        save or barrier."""
+        t0 = time.perf_counter()
+        self._drain()  # a new save waits for the previous commit
+        if step in mf.committed_steps(self._path):
+            return False
+        if os.path.isdir(self._step_dir(step)):
+            mf.quarantine(self._path, step, "uncommitted save",
+                          ["no committed manifest (save did not complete)"])
+        watermark = 0
+        if self._watermark_source is not None and dataset_state is not None:
+            try:
+                watermark = int(self._watermark_source())
+            except Exception:
+                log.warning("infeed watermark probe failed", exc_info=True)
+        # A real copy taken at the step boundary: the loop updates the
+        # live tensors in place from the next step on.
+        host_state = host_copy(state.state_dict())
+        ds_state = (None if dataset_state is None
+                    else json.loads(json.dumps(dataset_state)))
+        if self._saver is None:
+            self._write_and_commit(step, host_state, ds_state, t_begin=t0,
+                                   blocked_s=None, watermark=watermark)
+            return True
+        blocked_s = time.perf_counter() - t0
+        self._saver.submit(
+            lambda: self._write_and_commit(
+                step, host_state, ds_state, t_begin=t0,
+                blocked_s=blocked_s, watermark=watermark),
+            step=step)
+        return True
+
+    # -------------------------------------------------------- listings --
+    def all_steps(self) -> list[int]:
+        """Committed steps, ascending. In a store with step directories
+        and no manifest anywhere, every step directory, with a warning."""
+        self._drain()
+        committed = mf.committed_steps(self._path)
+        if not committed:
+            legacy = sorted(mf.step_dirs(self._path))
+            if legacy:
+                log.warning("checkpoint directory %s has no integrity "
+                            "manifests — steps %s are trusted unverified",
+                            self._path, legacy)
+            return legacy
+        return committed
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # ---------------------------------------------------------- restore --
+    def _verify(self, step: int) -> list[str]:
+        """Integrity errors for one step ([] = safe to restore)."""
+        step_dir = self._step_dir(step)
+        manifest = mf.read_manifest(step_dir)
+        if manifest is None:
+            if not mf.committed_steps(self._path):
+                log.warning("restoring step %d without integrity "
+                            "verification (no manifests in %s)", step,
+                            self._path)
+                return []
+            return ["no committed manifest (save did not complete)"]
+        if not self.config.verify_restore:
+            return []  # the commit record is still required
+        return mf.verify_step_dir(step_dir, manifest)
+
+    def _verified_latest(self) -> int | None:
+        """Newest step that verifies, quarantining every newer one that
+        does not; None when no restorable step remains."""
+        self._drain()
+        candidates = sorted(mf.step_dirs(self._path), reverse=True)
+        if not candidates:
+            return None
+        if not mf.committed_steps(self._path):
+            return candidates[0]  # a store from before manifests
+        chosen = None
+        for step in candidates:
+            errors = self._verify(step)
+            if not errors:
+                chosen = step
+                break
+            log.error("checkpoint step %d in %s is corrupt/torn: %s", step,
+                      self._path, "; ".join(errors[:3]))
+            reason = ("uncommitted save" if "no committed manifest"
+                      in errors[0] else "integrity verification failed")
+            mf.quarantine(self._path, step, reason, errors)
+            self._emit(telemetry.KIND_CKPT_QUARANTINED, step=step,
+                       health={"reason": reason,
+                               "errors": "; ".join(errors[:3]),
+                               "directory": self._path})
+        if chosen is not None and chosen != candidates[0]:
+            log.warning("restore falling back from corrupt step %d to "
+                        "verified step %d", candidates[0], chosen)
+            self._emit(telemetry.KIND_RESTORE_FALLBACK, step=chosen,
+                       health={"from_step": candidates[0], "to_step": chosen,
+                               "directory": self._path})
+        return chosen
+
+    def _check_attention_layout(self, step: int, meta: dict,
+                                names) -> None:
+        """Fail fast, naming the fix, when the stored parameters use the
+        other ``model.fused_qkv`` layout than the model being restored."""
+        stored = _attention_layout(meta.get("params", ()))
+        want = _attention_layout(names)
+        if stored is None or want is None or stored == want:
+            return
+        raise ValueError(
+            f"Checkpoint at step {step} in {self._path} stores {stored} "
+            f"attention projections but the model is configured for {want} "
+            f"(model.fused_qkv={'true' if want == 'fused' else 'false'}). "
+            f"Set model.fused_qkv to match the checkpoint, or transplant the "
+            f"params — the fused qkv weight is torch.cat([query, key, "
+            f"value]) of the unfused weights (models/convert.py maps both "
+            f"layouts).")
+
+    def _load(self, step: int | None, model) -> tuple[int, dict, dict] | None:
+        """(step, meta, tensors) of ``step`` — which must verify — or of
+        the newest step that verifies; None when there is none. The
+        tensors are read to the host: ``load_state_dict`` copies the
+        model's to the device, and torch AdamW keeps its per-parameter
+        step on the host, as a fresh AdamW does."""
+        if step is not None:
+            errors = self._verify(step)
+            if errors:
+                raise ValueError(
+                    f"checkpoint step {step} in {self._path} failed "
+                    f"integrity verification: {'; '.join(errors)}")
+        else:
+            step = self._verified_latest()
+        if step is None:
+            return None
+        step_dir = self._step_dir(step)
+        with open(os.path.join(step_dir, META_FILE)) as fh:
+            meta = json.load(fh)
+        self._check_attention_layout(step, meta, model.state_dict())
+        tensors = torch.load(os.path.join(step_dir, STATE_FILE),
+                             map_location="cpu", weights_only=True)
+        return step, meta, tensors
+
+    def restore(self, state: TrainState, *, dataset=None,
+                step: int | None = None) -> int | None:
+        """Load a checkpoint into ``state`` (and the iterator state into
+        ``dataset``) in place; returns the restored step, or None when
+        there is none. With ``step`` given, that step or an error."""
+        loaded = self._load(step, state.model)
+        if loaded is None:
+            return None
+        step, meta, tensors = loaded
+        data_state = None
+        data_path = os.path.join(self._step_dir(step), DATA_FILE)
+        if dataset is not None and os.path.isfile(data_path):
+            with open(data_path) as fh:
+                data_state = json.load(fh)
+            # The gate runs before anything is loaded: a failed gate
+            # leaves the state and the dataset untouched.
+            manifest = mf.read_manifest(self._step_dir(step)) or {}
+            plan = data_shard.check_restore_data(
+                manifest.get(data_shard.DATA_RECORD_KEY), data_state,
+                process_count=PROCESS_COUNT,
+                resume_strict=self._data_resume_strict)
+            if plan is not None:
+                self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
+        state.load_state_dict({**tensors, "step": meta["step"],
+                               "generator_device": meta["generator_device"]})
+        if data_state is not None:
+            dataset.restore(data_state)
+        return step
+
+    def restore_model(self, model, *, step: int | None = None) -> int | None:
+        """Load only a checkpoint's model tensors into ``model`` (the
+        export path: no optimizer and no generator, so any device);
+        returns the step, or None when there is none."""
+        loaded = self._load(step, model)
+        if loaded is None:
+            return None
+        step, _, tensors = loaded
+        model.load_state_dict(tensors["model"])
+        return step
+
+    # ---------------------------------------------------------- barrier --
+    def wait_until_finished(self) -> None:
+        """The exit barrier: returns once every accepted save has
+        committed (manifest written and fsync'd)."""
+        self._drain()
+
+    def close(self) -> None:
+        try:
+            self._drain()
+        finally:
+            if self._saver is not None:
+                try:
+                    self._saver.close()
+                except Exception:
+                    log.warning("async saver close failed", exc_info=True)

@@ -3,17 +3,24 @@ config on one device.
 
     python -m distributed_tensorflow_framework_torch.cli.train \\
         --config configs/bert_base_mlm.yaml [--device cuda] \\
-        [--set data.global_batch_size=32 --set checkpoint.directory= \\
-         --set resilience.rollback=false] [--log-dir DIR]
+        [--set data.global_batch_size=32 --set checkpoint.directory=DIR] \\
+        [--log-dir DIR] [--eval-only]
 
 The same YAML configs and ``--set`` overrides as the JAX package's
 ``train.py``. ``--device`` defaults to ``cuda`` and the command fails when
 no CUDA device is present, unless ``--device cpu``. ``--print-config``
-prints the resolved config and exits without touching a device.
-``--eval-only`` raises: it restores a checkpoint, and checkpointing is not
-ported yet (ROADMAP.md queue A item A4). ``--log-dir`` receives
-``events.jsonl``. After training, ``train.eval_steps > 0`` runs a final
-eval. Returns 0 on success; failures raise.
+prints the resolved config and exits without touching a device. With
+``checkpoint.directory`` set, the run restores the newest verified
+checkpoint there and saves into it; running the same command again
+resumes. ``--eval-only`` restores the checkpoint (``checkpoint.restore_step``
+or the newest) and evaluates it; it raises when there is none.
+``--log-dir`` receives ``events.jsonl`` (default: the checkpoint
+directory). After training, ``train.eval_steps > 0`` runs a final eval.
+
+Exit codes: 0 done; 83 (``GRACEFUL_PREEMPT_RC``) after a SIGTERM, which
+stops at the next step boundary and saves a checkpoint; 85
+(``ANOMALY_ESCALATION_RC``) when the recovery ladder ran out of rollbacks.
+Other failures raise.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import argparse
 import logging
 import sys
 
+from distributed_tensorflow_framework_torch.core import supervision
 from distributed_tensorflow_framework_torch.core.config import load_config
 from distributed_tensorflow_framework_torch.core.metrics import setup_logging
 
@@ -35,8 +43,7 @@ def parse_args(argv=None):
                    metavar="key.path=value",
                    help="config override (repeatable)")
     p.add_argument("--eval-only", action="store_true",
-                   help="restore the latest checkpoint and evaluate (not "
-                        "ported yet: raises)")
+                   help="restore the checkpoint and evaluate it")
     p.add_argument("--print-config", action="store_true",
                    help="print the resolved config as YAML and exit without "
                         "touching a device")
@@ -44,7 +51,8 @@ def parse_args(argv=None):
                    help="torch device to train on (default cuda; cpu runs "
                         "the plain PyTorch path)")
     p.add_argument("--log-dir", type=str, default=None,
-                   help="directory for the events.jsonl telemetry stream")
+                   help="directory for the events.jsonl telemetry stream "
+                        "(default: checkpoint.directory)")
     return p.parse_args(argv)
 
 
@@ -57,21 +65,48 @@ def main(argv=None) -> int:
 
         print(yaml.safe_dump(config.to_dict(), sort_keys=False))
         return 0
-    if args.eval_only:
-        raise NotImplementedError(
-            "--eval-only restores a checkpoint to evaluate, and "
-            "checkpointing is not ported yet — ROADMAP.md queue A item A4")
+    from distributed_tensorflow_framework_torch.train.anomaly import (
+        PersistentAnomalyError,
+    )
     from distributed_tensorflow_framework_torch.train.loop import Trainer
 
     trainer = Trainer(config, device=args.device, log_dir=args.log_dir)
     try:
         trainer.build()
-        final = trainer.train()
+        if args.eval_only:
+            if trainer.restored_step is None:
+                raise ValueError(
+                    f"--eval-only needs a committed checkpoint, and "
+                    f"checkpoint.directory={config.checkpoint.directory!r} "
+                    f"holds none")
+            results = trainer.evaluate(step=trainer.host_step)
+            log.info("eval results at step %d: %s", trainer.host_step,
+                     results)
+            return 0
+        # SIGTERM lets the loop finish its step and save; train() returns
+        # only after the checkpoint's exit barrier, so rc 83 never races
+        # an in-flight commit.
+        with supervision.graceful_preemption():
+            try:
+                final = trainer.train()
+            except PersistentAnomalyError as e:
+                log.error("persistent anomaly — escalating with rc=%d: %s "
+                          "(provenance: %s)",
+                          supervision.ANOMALY_ESCALATION_RC, e, e.provenance)
+                return supervision.ANOMALY_ESCALATION_RC
+        if trainer.preempted:
+            log.warning("preempted gracefully at step %d (checkpoint saved: "
+                        "%s) — exiting rc=%d", trainer.host_step,
+                        bool(config.checkpoint.directory),
+                        supervision.GRACEFUL_PREEMPT_RC)
+            return supervision.GRACEFUL_PREEMPT_RC
         if config.train.eval_steps > 0:
             results = trainer.evaluate(step=trainer.host_step)
             log.info("final eval: %s", results)
         log.info("final train metrics: %s", final)
     finally:
+        if trainer._ckpt_manager is not None:
+            trainer._ckpt_manager.close()
         trainer.writer.close()
     return 0
 

@@ -3,8 +3,11 @@
 The port's copy of the writer half of ``core/telemetry.py``: the same
 schema string, reserved fields, event kinds and record shape, so
 ``scripts/analyze_trace.py`` reads the port's ``events.jsonl`` unchanged.
-Only the kinds the port emits so far are defined here: the serve kinds,
-and the train-step, eval, failure and run-meta kinds of the trainer.
+Only the kinds the port emits so far are defined here: the serve kinds;
+the train-step, eval, failure, health, run-meta and startup kinds of the
+trainer; the checkpoint kinds (save, quarantine, restore fallback, data
+state); and the recovery-ladder kinds (anomaly, rollback, skipped batches,
+infeed stall).
 """
 
 from __future__ import annotations
@@ -35,6 +38,22 @@ KIND_EVAL = "eval"
 KIND_HEALTH = "health"
 KIND_FAILURE = "failure"
 KIND_RUN_META = "run_meta"
+# Checkpoint integrity and the async save pipeline (ckpt/checkpoint.py):
+# a quarantined step, a restore that fell back past it, one event per
+# committed save (loop-blocked vs submit-to-commit ms), and the restore
+# gate's plan for the saved iterator state (data/shard.py).
+KIND_CKPT_QUARANTINED = "ckpt_quarantined"
+KIND_RESTORE_FALLBACK = "restore_fallback"
+KIND_CKPT_SAVE = "ckpt_save"
+KIND_DATA_STATE = "data_state"
+# Construction → first completed step, with the restored step.
+KIND_STARTUP = "startup"
+# The in-process recovery ladder (train/anomaly.py) and the infeed
+# watchdog (data/infeed.py).
+KIND_ANOMALY = "anomaly_detected"
+KIND_ROLLBACK = "rollback"
+KIND_BATCH_SKIPPED = "batch_skipped"
+KIND_INFEED_STALL = "infeed_stall"
 # Serving SLO events (serve/engine.py): one per served request (queue
 # wait + end-to-end latency), one per executed batch (real vs padded rows,
 # compute time, queue depth left behind), periodic queue-depth gauges,

@@ -3,15 +3,24 @@
 The port's copy of ``data/pipeline.py``, cut to what the single-card
 training path uses: a :class:`HostDataset` yields dict batches of numpy
 arrays of this process's share of the global batch, and its iterator state
-is a small dict that ``restore`` rewinds to. Fault injection, data chaos
-and the rollback skip record are not ported (ROADMAP.md queue A item A14).
+is a small dict that ``restore`` rewinds to. The state carries
+``consumed``, the 1-based ordinal of the last batch handed out, and
+``batches_skipped``, the ordinals a rollback decided not to train on
+(train/anomaly.py), which a restored stream discards again. Each pull is
+the ``infeed`` fault point (core/faults.py). The multi-host data chaos
+faults are ROADMAP.md queue A item A17.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
+
+from distributed_tensorflow_framework_torch.core import faults
+
+log = logging.getLogger(__name__)
 
 Batch = Mapping[str, np.ndarray]
 
@@ -27,35 +36,84 @@ def host_batch_size(global_batch_size: int, process_count: int) -> int:
 
 
 class HostDataset:
-    """A restartable per-host batch stream.
+    """A restartable, checkpointable per-host batch stream.
 
     ``make_iter`` maps a state dict to an iterator of batches and must
-    advance that SAME dict in place, so ``state()`` is always current;
-    ``element_spec`` maps each key to (per-host batch shape, dtype);
-    ``cardinality`` is batches per epoch, None for an infinite stream.
+    advance that SAME dict in place, so ``state()`` is always current.
+    Nested state values are REBOUND, never mutated in place: ``state()``
+    hands out shallow copies, so an in-place mutation would edit every
+    snapshot already queued for a save. ``element_spec`` maps each key to
+    (per-host batch shape, dtype); ``cardinality`` is batches per epoch,
+    None for an infinite stream; ``repartition`` is the data/shard.py tag
+    saying whether the state survives a change of host count.
     """
 
     def __init__(self, make_iter: Callable[[dict[str, Any]], Iterator[Batch]],
                  *, element_spec: Mapping[str, tuple[tuple[int, ...], Any]],
                  initial_state: dict[str, Any] | None = None,
-                 cardinality: int | None = None):
+                 cardinality: int | None = None,
+                 repartition: str = "none"):
         self._make_iter = make_iter
         self.element_spec = dict(element_spec)
         self._state: dict[str, Any] = dict(initial_state or {})
         self._iter: Iterator[Batch] | None = None
         self.cardinality = cardinality
+        self.repartition = repartition
+        # Process-lifetime pull ordinal (1-based, not reset by restore):
+        # what stall_infeed:S:P counts.
+        self._pulls = 0
 
     def __iter__(self):
         return self
 
-    def __next__(self) -> Batch:
+    def _pull(self) -> Batch:
+        self._pulls += 1
+        faults.fire("infeed", step=self._pulls)
         if self._iter is None:
             self._iter = self._make_iter(self._state)
-        return next(self._iter)
+        batch = next(self._iter)
+        self._state["consumed"] = int(self._state.get("consumed", 0)) + 1
+        return batch
+
+    def __next__(self) -> Batch:
+        batch = self._pull()
+        skipped = self._state.get("batches_skipped")
+        if skipped:
+            # A restore from before a rollback's skip region replays the
+            # stream: discard the ordinals the rollback never trained on.
+            skip = {int(o) for o in skipped}
+            while int(self._state["consumed"]) in skip:
+                log.info("discarding batch ordinal %d (recorded as skipped "
+                         "by a rollback)", self._state["consumed"])
+                batch = self._pull()
+        return batch
 
     def state(self) -> dict[str, Any]:
-        return dict(self._state)
+        snap = dict(self._state)
+        skipped = snap.get("batches_skipped")
+        if skipped:
+            # A restore of this snapshot resumes after `consumed`: skip
+            # ordinals at or below it are dead weight.
+            consumed = int(snap.get("consumed", 0))
+            live = [int(o) for o in skipped if int(o) > consumed]
+            if live:
+                snap["batches_skipped"] = live
+            else:
+                snap.pop("batches_skipped", None)
+        return snap
 
     def restore(self, state: dict[str, Any]) -> None:
         self._state = dict(state)
         self._iter = None  # rebuilt lazily from the restored state
+
+    def record_skipped(self, ordinals) -> None:
+        """Record consumed-batch ordinals a rollback skipped. REBINDS
+        ``batches_skipped`` to the sorted union (never appends in place),
+        so snapshots taken before the call keep their contents. A single
+        rebind is atomic under the interpreter lock, and the prefetch
+        thread's ``make_iter`` never touches this key."""
+        merged = sorted({int(o) for o in self._state.get("batches_skipped",
+                                                         ())}
+                        | {int(o) for o in ordinals})
+        if merged:
+            self._state["batches_skipped"] = merged

@@ -14,6 +14,7 @@ import numpy as np
 
 from distributed_tensorflow_framework_torch.core import prng
 from distributed_tensorflow_framework_torch.core.config import DataConfig
+from distributed_tensorflow_framework_torch.data import shard
 from distributed_tensorflow_framework_torch.data.pipeline import (
     HostDataset,
     host_batch_size,
@@ -56,4 +57,5 @@ def synthetic_mlm(config: DataConfig, process_index: int,
             "attention_mask": ((b, s), np.int32),
         },
         initial_state={"step": 0},
+        repartition=shard.REPARTITION_INVARIANT,
     )

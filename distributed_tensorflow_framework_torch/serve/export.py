@@ -16,6 +16,8 @@ checkpoint, because orbax needs JAX. The schema string differs, so each
 package's loader refuses the other's artifact by name. ``load_artifact``
 checks the manifest and the spec digest, then converts the tree to the
 port's state_dict layout (models/convert.py) on every load.
+``export_checkpoint`` freezes a committed training checkpoint of the port
+(ckpt/checkpoint.py) into such an artifact.
 """
 
 from __future__ import annotations
@@ -31,14 +33,19 @@ from typing import Any
 import numpy as np
 
 from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+    CheckpointManager,
+)
 from distributed_tensorflow_framework_torch.core.config import (
     ExperimentConfig,
     ModelConfig,
     _build,
 )
+from distributed_tensorflow_framework_torch.models import get_model
 from distributed_tensorflow_framework_torch.models.convert import (
     flatten_tree,
     flax_to_state_dict,
+    to_flax,
     unflatten_tree,
 )
 
@@ -154,6 +161,38 @@ def save_artifact(
     mf.write_manifest(out, step)
     log.info("exported serving artifact to %s (step %d, %s)", out, step, task)
     return out
+
+
+def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
+                      step: int | None = None,
+                      device: str = "cuda") -> str:
+    """Freeze the model of a committed checkpoint in
+    ``config.checkpoint.directory`` (``step``, default the newest that
+    verifies, through the same integrity checks and quarantine as a
+    restore) into a serving artifact at ``output_dir``. The model is built
+    from ``config.model`` on ``device`` (default CUDA, which it needs
+    unless ``device="cpu"``); only its tensors are read, so a checkpoint
+    trained on either device exports on either."""
+    if not config.checkpoint.directory:
+        raise ValueError("checkpoint.directory must name the trained run "
+                         "to export")
+    model = get_model(config.model, device=device)  # BERT only, as yet
+    manager = CheckpointManager(dataclasses.replace(config.checkpoint,
+                                                    async_save=False))
+    try:
+        restored = manager.restore_model(model, step=step)
+    finally:
+        manager.close()
+    if restored is None:
+        raise ValueError(f"no committed checkpoint to export in "
+                         f"{config.checkpoint.directory}")
+    return save_artifact(
+        output_dir, model_config=config.model, task="mlm",
+        params=to_flax(model), step=restored,
+        input_spec=input_spec_for(config, "mlm"),
+        source={"checkpoint_dir": os.path.abspath(
+                    config.checkpoint.directory),
+                "experiment": config.name})
 
 
 def load_artifact(artifact_dir: str) -> Artifact:

@@ -1,19 +1,24 @@
 """Training hooks: the port's copy of ``train/hooks.py``'s NaN guard,
-throughput, logging and eval hooks.
+throughput, logging, eval, checkpoint and heartbeat hooks.
 
 Hooks only ever see host-side metric values the trainer already fetched,
-so they never force an extra device sync. The checkpoint, heartbeat,
-profile and MoE hooks are not ported (ROADMAP.md queue A items A4, A14,
-A16 and A8).
+so they never force an extra device sync. The profile and MoE hooks are
+not ported (ROADMAP.md queue A items A16 and A8).
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import time
 
 from distributed_tensorflow_framework_torch.core import telemetry
 from distributed_tensorflow_framework_torch.core.metrics import (
     ThroughputMeter,
+)
+from distributed_tensorflow_framework_torch.train.anomaly import (
+    PersistentAnomalyError,
 )
 
 
@@ -34,8 +39,11 @@ class BaseHook:
 class NaNGuardHook(BaseHook):
     """Abort when a fetched metric goes non-finite (the NanTensorHook
     contract). Checks only at metric-fetch steps (``metrics`` is None
-    otherwise) and records a ``failure`` event naming the metric and step
-    before raising."""
+    otherwise) and records a ``failure`` event naming the metric, the step
+    and the last committed checkpoint before raising. With the recovery
+    ladder armed it is the ladder's escalation tail: a rolled-back anomaly
+    never reaches it, so a non-finite value here means the ladder is
+    exhausted, and the abort is a ``PersistentAnomalyError`` (rc 85)."""
 
     def after_step(self, trainer, step, metrics) -> None:
         if metrics is None:
@@ -46,14 +54,30 @@ class NaNGuardHook(BaseHook):
             except (TypeError, ValueError):
                 continue
             if not math.isfinite(val):
+                ckpt = self._last_good_checkpoint(trainer)
                 trainer.writer.telemetry.emit(
                     telemetry.KIND_FAILURE, step=step,
                     health={"failure": "non_finite_metric", "metric": name,
-                            "value": str(v), "last_good_checkpoint": ""})
+                            "value": str(v),
+                            "last_good_checkpoint": ckpt or ""})
+                restart = (f"restart from {ckpt}" if ckpt else
+                           "no checkpoint saved — restart from scratch")
+                rec = getattr(trainer, "recovery", None)
+                if rec is not None and rec.exhausted:
+                    raise PersistentAnomalyError(
+                        f"{rec.escalation_message()} Non-finite metric "
+                        f"{name}={v} at step {step}. Last good checkpoint: "
+                        f"{restart}.", provenance=rec.provenance())
                 raise FloatingPointError(
                     f"Non-finite metric {name}={v} at step {step} — aborting "
-                    f"(NaNGuardHook). No checkpoint saved — restart from "
-                    f"scratch.")
+                    f"(NaNGuardHook). Last good checkpoint: {restart}.")
+
+    @staticmethod
+    def _last_good_checkpoint(trainer) -> str | None:
+        mgr = getattr(trainer, "_ckpt_manager", None)
+        last = mgr.latest_step() if mgr is not None else None
+        return None if last is None else os.path.join(mgr.directory,
+                                                       str(last))
 
 
 class ThroughputHook(BaseHook):
@@ -108,3 +132,77 @@ class EvalHook(BaseHook):
     def after_step(self, trainer, step, metrics) -> None:
         if step > 0 and step % self.interval == 0:
             self.eval_fn(step, num_batches=self.num_batches)
+
+
+class CheckpointHook(BaseHook):
+    """Interval saver. With ``checkpoint.async_save`` on, ``save`` returns
+    after the device → host copy and the commit lands on the saver thread.
+    ``on_end`` is the flush: a forced save of the final step (also on the
+    SIGTERM path, rc 83), then the exit barrier, so the trainer never
+    returns with a commit in flight."""
+
+    def __init__(self, manager, interval: int):
+        self.manager = manager
+        self.interval = max(1, interval)
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if step > 0 and step % self.interval == 0:
+            self.manager.save(step, trainer.state,
+                              dataset_state=trainer.data_ckpt_state)
+
+    def on_end(self, trainer) -> None:
+        self.manager.save(int(trainer.host_step), trainer.state,
+                          dataset_state=trainer.data_ckpt_state)
+        self.manager.wait_until_finished()
+
+
+class HeartbeatHook(BaseHook):
+    """Liveness file for an external watchdog: every ``min_interval_s`` of
+    wall time, atomically rewrites a small JSON record (run id, pid, the
+    last completed step, the time, the last fetched metrics), so a
+    supervisor tells "slow" from "wedged" by the record's age. A
+    pid-suffixed temp file, fsync'd, then one ``os.replace``: readers see
+    the old record or the new one, never a torn file."""
+
+    def __init__(self, path: str, *, min_interval_s: float = 10.0):
+        self.path = path
+        self.min_interval_s = min_interval_s
+        self._last_write = 0.0
+        self._last_metrics: dict | None = None
+
+    def on_start(self, trainer) -> None:
+        self._write(trainer, step=int(trainer.host_step), status="running")
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if metrics is not None:
+            self._last_metrics = {k: float(v) for k, v in metrics.items()}
+        now = time.time()
+        if now - self._last_write >= self.min_interval_s:
+            self._write(trainer, step=step, status="running", now=now)
+
+    def on_end(self, trainer) -> None:
+        status = ("preempted" if getattr(trainer, "preempted", False)
+                  else "finished")
+        self._write(trainer, step=int(trainer.host_step), status=status)
+
+    def _write(self, trainer, *, step, status, now=None) -> None:
+        now = time.time() if now is None else now
+        self._last_write = now
+        record = {
+            "schema": telemetry.SCHEMA,
+            "run_id": trainer.writer.telemetry.run_id,
+            "status": status,
+            "step": step,
+            "last_completed_step": step,
+            "t": now,
+            "pid": os.getpid(),
+            "last_metrics": self._last_metrics,
+        }
+        tmp = f"{self.path}.{os.getpid()}.tmp"
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                    exist_ok=True)
+        with open(tmp, "w") as fh:
+            json.dump(record, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, self.path)

@@ -1,46 +1,71 @@
 """The training loop: the port's counterpart of ``train/loop.py``'s
 ``Trainer``.
 
-``build`` → step loop with hooks → final eval, on one device. As in the
-JAX trainer, each step's metrics stay on the device and the host syncs
-only at ``train.log_interval`` and at the last step; ``train.dispatch_ahead``
-bounds how many unsynced steps may be queued by syncing on the oldest.
-The first step builds the CUDA kernels (at first use), so its host time is
-filed under the ``compile`` phase, as the JAX trainer files its first
-dispatch.
+build → maybe-restore → step loop with hooks → final save, on one device.
+As in the JAX trainer, each step's metrics stay on the device and the host
+syncs only at ``train.log_interval`` and at the last step;
+``train.dispatch_ahead`` bounds how many unsynced steps may be queued by
+syncing on the oldest. The first step builds the CUDA kernels (at first
+use), so its host time is filed under the ``compile`` phase, as the JAX
+trainer files its first dispatch.
 
-Not ported, and refused where the JAX trainer would act on them:
-checkpointing (``checkpoint.directory`` non-empty raises, ROADMAP.md queue
-A item A4), the in-process recovery ladder (``resilience.rollback: true``
-raises, A14), the infeed watchdog (``resilience.infeed_deadline_s > 0``,
-A14), the profile window and compiled-memory analysis (A16) and the XLA
-compilation cache (``train.compilation_cache_dir``, no eager counterpart).
-Left out because they only write events and change no result: tracing
-spans, the goodput ledger, memory sampling, the startup event, fault
-injection, the flight recorder, the collective tally and the background
-prefetcher (``data.async_infeed``, ``data.prefetch``). Evaluation walks
-``train.eval_steps`` batches of the (infinite, synthetic) eval stream; the
-exact single-pass eval over a finite set arrives with the TFRecord reader
-(A7).
+With ``checkpoint.directory`` set, ``build`` restores the newest verified
+checkpoint (or ``checkpoint.restore_step``), the checkpoint hook saves
+every ``checkpoint.save_interval_steps`` and at the end, a heartbeat file
+is kept there, and ``events.jsonl`` goes there unless ``log_dir`` is
+given. Batches come through the prefetcher of data/infeed.py (a producer
+thread with ``data.async_infeed``), behind the infeed watchdog
+(``resilience.infeed_deadline_s``) with retries and backoff. With
+``resilience.rollback`` (the default), the recovery ladder of
+train/anomaly.py classifies every fetched step, rolls back to the last
+clean in-memory snapshot on an anomaly, skips the batches in between and
+escalates with ``PersistentAnomalyError`` when it runs out of rollbacks.
+A SIGTERM (core/supervision.py) stops the loop at the next step boundary
+for a final save. The ``DTF_FAULTS`` points of core/faults.py fire at
+each step's start.
+
+Refused: the profile window and compiled-memory analysis (ROADMAP.md queue
+A item A16) and the XLA compilation cache (``train.compilation_cache_dir``,
+no eager counterpart). Left out because they only write events and change
+no result: tracing spans, the goodput ledger, memory sampling, the flight
+recorder and the collective tally. Evaluation walks ``train.eval_steps``
+batches of the (infinite, synthetic) eval stream; the exact single-pass
+eval over a finite set arrives with the TFRecord reader (A7).
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import sys
+import time
 
 import torch
 
-from distributed_tensorflow_framework_torch.core import profiling, telemetry
+from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+    CheckpointManager,
+)
+from distributed_tensorflow_framework_torch.core import (
+    faults,
+    profiling,
+    supervision,
+    telemetry,
+)
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.metrics import (
     MetricWriter,
     setup_logging,
 )
 from distributed_tensorflow_framework_torch.data import get_dataset
-from distributed_tensorflow_framework_torch.data.infeed import to_device
+from distributed_tensorflow_framework_torch.data.infeed import (
+    InfeedStallError,
+    prefetch_to_device,
+    to_device,
+)
+from distributed_tensorflow_framework_torch.train import anomaly as anomaly_lib
 from distributed_tensorflow_framework_torch.train import hooks as hooks_lib
+from distributed_tensorflow_framework_torch.train import schedules
 from distributed_tensorflow_framework_torch.train.step import StepBuilder
 
 log = logging.getLogger(__name__)
@@ -48,21 +73,6 @@ log = logging.getLogger(__name__)
 
 def check_trainer_config(config: ExperimentConfig) -> None:
     """Raise for the loop-level settings the port does not carry."""
-    if config.checkpoint.directory:
-        raise NotImplementedError(
-            f"checkpoint.directory={config.checkpoint.directory!r}: "
-            f"checkpointing is not ported yet — ROADMAP.md queue A item A4 "
-            f"(set checkpoint.directory= to train without checkpoints)")
-    res = config.resilience
-    if res.rollback:
-        raise NotImplementedError(
-            "resilience.rollback=true: the in-process recovery ladder is not "
-            "ported yet — ROADMAP.md queue A item A14 (set "
-            "resilience.rollback=false)")
-    if res.infeed_deadline_s > 0:
-        raise NotImplementedError(
-            "resilience.infeed_deadline_s>0: the infeed watchdog is not "
-            "ported yet — ROADMAP.md queue A item A14")
     tcfg = config.train
     if tcfg.profile_stop > tcfg.profile_start or tcfg.memory_analysis:
         raise NotImplementedError(
@@ -75,26 +85,43 @@ def check_trainer_config(config: ExperimentConfig) -> None:
             "item A16")
 
 
+def _fault_scale(fault: faults.Fault) -> float:
+    """The loss multiplier of a step_begin fault (train/step.py)."""
+    if fault.kind in ("nan_grads", "repeat_nan"):
+        return float("nan")
+    return faults.LOSS_SPIKE_FACTOR  # loss_spike
+
+
 class Trainer:
     """Trains ``config`` on ``device`` (default CUDA; ``device="cpu"``
-    runs the plain PyTorch path). ``log_dir`` receives ``events.jsonl``
-    (the JAX trainer writes it to ``checkpoint.directory``, which the port
-    refuses until checkpointing is ported)."""
+    runs the plain PyTorch path). ``events.jsonl`` goes to ``log_dir``,
+    else to ``checkpoint.directory``, else nowhere."""
 
     def __init__(self, config: ExperimentConfig, *,
                  device: str | torch.device = "cuda",
                  log_dir: str | None = None):
         setup_logging()
+        self._init_t = time.perf_counter()
         check_trainer_config(config)
         self.config = config
         self.builder = StepBuilder(config, device=device)
         self.device = self.builder.device
         self.dataset = get_dataset(config.data)
-        self.writer = MetricWriter(log_dir)
+        self.writer = MetricWriter(log_dir or config.checkpoint.directory
+                                   or None)
+        self.recovery = (anomaly_lib.RecoveryManager(
+            config.resilience, telemetry_writer=self.writer.telemetry)
+            if config.resilience.rollback else None)
         self.state = None
         self.host_step = 0
+        self.preempted = False
+        self._ckpt_manager = None
+        self.restored_step: int | None = None
+        self._startup_emitted = False
         self._eval_ds = None
         self._eval_start: dict = {}
+        # Iterator snapshot paired with host_step (data/infeed.py).
+        self.data_ckpt_state: dict = self.dataset.state()
 
     def build(self) -> None:
         cfg = self.config
@@ -108,6 +135,40 @@ class Trainer:
         self.state = self.builder.init_state(cfg.train.seed)
         if cfg.train.eval_steps > 0:
             self._ensure_eval()
+        ck = cfg.checkpoint
+        if ck.restore_step >= 0 and not (ck.directory and ck.restore):
+            # Fail loudly: starting from scratch because restoring is off
+            # is the fallback restore_step exists to prevent.
+            raise ValueError(
+                "checkpoint.restore_step set but restoring is disabled — "
+                "need checkpoint.directory non-empty and "
+                "checkpoint.restore=true")
+        if not ck.directory:
+            return
+        self._ckpt_manager = CheckpointManager(
+            ck, telemetry_writer=self.writer.telemetry)
+        self._ckpt_manager.set_data_sources(
+            repartition=self.dataset.repartition,
+            resume_strict=cfg.data.resume_strict)
+        if not ck.restore:
+            return
+        want = ck.restore_step
+        if want >= 0 and want not in self._ckpt_manager.all_steps():
+            raise ValueError(
+                f"checkpoint.restore_step={want} not found in "
+                f"{ck.directory!r} (available: "
+                f"{self._ckpt_manager.all_steps()})")
+        restored = self._ckpt_manager.restore(
+            self.state, dataset=self.dataset,
+            step=want if want >= 0 else None)
+        if restored is not None:
+            self.host_step = self.restored_step = restored
+            # Re-pair the checkpointable snapshot with the restored stream
+            # position: a rollback baseline built from the initial one
+            # would mis-compute skip ordinals.
+            self.data_ckpt_state = self.dataset.state()
+            log.info("Restored checkpoint at step %d from %s", restored,
+                     self._ckpt_manager.directory)
 
     def default_hooks(self) -> list:
         cfg = self.config
@@ -117,6 +178,12 @@ class Trainer:
                                            cfg.train.log_interval, tp)]
         if cfg.train.nan_guard:
             hooks.append(hooks_lib.NaNGuardHook())
+        if self._ckpt_manager is not None:
+            hooks.append(hooks_lib.HeartbeatHook(
+                os.path.join(self._ckpt_manager.directory, "heartbeat.json"),
+                min_interval_s=cfg.cluster.heartbeat_interval_s))
+            hooks.append(hooks_lib.CheckpointHook(
+                self._ckpt_manager, cfg.checkpoint.save_interval_steps))
         if cfg.train.eval_interval > 0:
             if cfg.train.eval_steps > 0:
                 hooks.append(hooks_lib.EvalHook(
@@ -131,43 +198,186 @@ class Trainer:
     def train(self, hooks: list | None = None) -> dict[str, float]:
         if self.state is None:
             self.build()
+        ck = self.config.checkpoint
+        if (self._ckpt_manager is not None and ck.restore_step >= 0
+                and ck.restore_step < (self._ckpt_manager.latest_step()
+                                       or 0)):
+            # Saving a branch into a directory that holds NEWER steps
+            # would skip every already-saved step and a restart would
+            # re-restore restore_step, losing the branch.
+            raise ValueError(
+                f"checkpoint.restore_step={ck.restore_step} is older than "
+                f"the directory's latest step "
+                f"({self._ckpt_manager.latest_step()}) — training would "
+                f"interleave two lineages. Copy the checkpoint into a fresh "
+                f"checkpoint.directory to branch, or use --eval-only.")
         cfg = self.config.train
         hooks = self.default_hooks() if hooks is None else hooks
         for h in hooks:
             h.on_start(self)
+        infeed = prefetch_to_device(
+            self.dataset, self.device, size=self.config.data.prefetch,
+            background=self.config.data.async_infeed,
+            deadline_s=self.config.resilience.infeed_deadline_s)
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.set_data_sources(
+                watermark_source=infeed.watermark)
+        if self.recovery is not None:
+            # Baseline: the ladder can roll back even if the first anomaly
+            # lands before the first clean fetch.
+            self.recovery.take_snapshot(self.host_step, self.state,
+                                        data_state=self.data_ckpt_state,
+                                        force=True)
         timer = profiling.StepTimer()
         pending: collections.deque = collections.deque()
         last_metrics: dict[str, float] = {}
         first = True
-        while self.host_step < cfg.total_steps:
-            with timer.phase("infeed"):
-                batch = to_device(next(self.dataset), self.device)
-            if cfg.dispatch_ahead > 0 and len(pending) >= cfg.dispatch_ahead:
-                with timer.phase("backpressure"):
-                    float(pending.popleft()["loss"])
-            with timer.phase("compile" if first else "dispatch"):
-                metrics = self.builder.train_step(self.state, batch)
-            first = False
-            if cfg.dispatch_ahead > 0:
-                pending.append(metrics)
-            self.host_step += 1
-            host_metrics = None
-            if (self.host_step % cfg.log_interval == 0
-                    or self.host_step >= cfg.total_steps):
-                # Apart from the backpressure above, the host waits for
-                # the device only here.
-                with timer.phase("metrics_fetch"):
-                    host_metrics = {k: float(v) for k, v in metrics.items()}
-                host_metrics.update(timer.means())
-                timer.reset()
-                pending.clear()
-                last_metrics = host_metrics
-            for h in hooks:
-                h.after_step(self, self.host_step, host_metrics)
+        try:
+            while self.host_step < cfg.total_steps:
+                if supervision.preemption_requested():
+                    # SIGTERM: the previous step is complete; on_end below
+                    # force-saves and the CLI exits GRACEFUL_PREEMPT_RC.
+                    self.preempted = True
+                    log.warning("preemption requested — stopping at step %d "
+                                "for a final checkpoint", self.host_step)
+                    self.writer.telemetry.emit(
+                        telemetry.KIND_HEALTH, step=self.host_step,
+                        health={"event": "graceful_preemption",
+                                "step": self.host_step})
+                    break
+                with timer.phase("infeed"):
+                    batch, self.data_ckpt_state = self._next_batch(infeed)
+                scale = 1.0
+                for fault in faults.fire("step_begin",
+                                         step=self.host_step + 1):
+                    scale *= _fault_scale(fault)
+                if (cfg.dispatch_ahead > 0
+                        and len(pending) >= cfg.dispatch_ahead):
+                    with timer.phase("backpressure"):
+                        float(pending.popleft()["loss"])
+                with timer.phase("compile" if first else "dispatch"):
+                    metrics = self.builder.train_step(self.state, batch,
+                                                      fault_scale=scale)
+                first = False
+                if cfg.dispatch_ahead > 0:
+                    pending.append(metrics)
+                self.host_step += 1
+                if not self._startup_emitted:
+                    self._startup_emitted = True
+                    self.writer.telemetry.emit(
+                        telemetry.KIND_STARTUP, step=self.host_step,
+                        time_to_first_step_s=(time.perf_counter()
+                                              - self._init_t),
+                        restored_step=self.restored_step)
+                host_metrics = None
+                if (self.host_step % cfg.log_interval == 0
+                        or self.host_step >= cfg.total_steps):
+                    # Apart from the backpressure above, the host waits
+                    # for the device only here.
+                    with timer.phase("metrics_fetch"):
+                        host_metrics = {k: float(v)
+                                        for k, v in metrics.items()}
+                    host_metrics.update(timer.means())
+                    timer.reset()
+                    pending.clear()
+                    # A rollback returns None: the hooks never see the
+                    # anomalous metrics, and host_step has been rewound.
+                    host_metrics = self._maybe_recover(host_metrics)
+                    if host_metrics is not None:
+                        last_metrics = host_metrics
+                for h in hooks:
+                    h.after_step(self, self.host_step, host_metrics)
+                if self.recovery is not None and self.recovery.exhausted:
+                    # A finite anomaly past max_rollbacks (NaNGuardHook
+                    # sees only non-finite ones), or nan_guard off.
+                    raise anomaly_lib.PersistentAnomalyError(
+                        self.recovery.escalation_message(),
+                        provenance=self.recovery.provenance())
+        finally:
+            # The producer must stop pulling from a dataset the caller
+            # may restore or reuse, and the final save must not poll it.
+            infeed.close()
+            if self._ckpt_manager is not None:
+                self._ckpt_manager.set_data_sources(watermark_source=None)
         for h in hooks:
             h.on_end(self)
+        if self._ckpt_manager is not None:
+            # Exit barrier, for hook lists without the CheckpointHook too.
+            self._ckpt_manager.wait_until_finished()
         return last_metrics
 
+    # ------------------------------------------------- recovery ladder --
+    def _next_batch(self, infeed):
+        """One infeed pull behind the stall watchdog: past the deadline,
+        wait for the SAME pull again with linear backoff, one
+        ``infeed_stall`` event per attempt; past ``infeed_retries`` the
+        InfeedStallError propagates."""
+        rcfg = self.config.resilience
+        attempt = 0
+        while True:
+            try:
+                return next(infeed)
+            except InfeedStallError as e:
+                attempt += 1
+                self.writer.telemetry.emit(
+                    telemetry.KIND_INFEED_STALL, step=self.host_step,
+                    health={"deadline_s": e.deadline_s, "attempt": attempt,
+                            "max_retries": rcfg.infeed_retries})
+                if attempt > rcfg.infeed_retries:
+                    log.error("infeed stalled past %d retries — escalating",
+                              rcfg.infeed_retries)
+                    raise
+                backoff = rcfg.infeed_backoff_s * attempt
+                log.warning("infeed stall (attempt %d/%d, deadline %.1fs) — "
+                            "retrying in %.2fs", attempt,
+                            rcfg.infeed_retries, e.deadline_s, backoff)
+                time.sleep(backoff)
+
+    def _maybe_recover(self, host_metrics: dict[str, float]
+                       ) -> dict[str, float] | None:
+        """Classify a fetched step. Clean: feed the detector, maybe
+        snapshot, return the metrics. Anomalous with a rollback left:
+        restore the newest snapshot, record the skipped batch ordinals,
+        rewind host_step, return None. Anomalous with none left: set
+        ``recovery.exhausted`` and return the metrics (the caller
+        escalates after the hooks)."""
+        rec = self.recovery
+        if rec is None:
+            return host_metrics
+        if rec.classify(self.host_step, host_metrics) is None:
+            rec.take_snapshot(self.host_step, self.state,
+                              data_state=self.data_ckpt_state)
+            return host_metrics
+        if not rec.can_rollback():
+            rec.exhausted = True
+            return host_metrics
+        self.state, snap = rec.rollback(self.state,
+                                        from_step=self.host_step)
+        # The data iterator is NOT rewound: record which consumed ordinals
+        # were skipped, in the dataset and (rebound, never mutated: queued
+        # saves share nested lists) in the step-paired snapshot.
+        snap_consumed = int((snap.data_state or {}).get("consumed", 0))
+        live_consumed = int(self.data_ckpt_state.get("consumed", 0))
+        if live_consumed > snap_consumed:
+            skipped = range(snap_consumed + 1, live_consumed + 1)
+            self.dataset.record_skipped(skipped)
+            merged = sorted(
+                {int(o) for o in self.data_ckpt_state.get("batches_skipped",
+                                                          ())}
+                | set(skipped))
+            self.data_ckpt_state = {**self.data_ckpt_state,
+                                    "batches_skipped": merged}
+        self.host_step = snap.step
+        steps = self.config.resilience.lr_rewarmup_steps
+        if steps > 0:
+            log.info("re-warming learning rate over steps [%d, %d) after "
+                     "rollback", snap.step, snap.step + steps)
+            self.builder.set_schedule_wrapper(
+                self.state, lambda sched: schedules.with_rewarmup(
+                    sched, snap.step, steps))
+        return None
+
+    # ------------------------------------------------------------ eval --
     def _ensure_eval(self):
         """Build the eval stream once (``eval_data``, else ``data``) and
         remember its start, so every evaluation reads the same batches."""

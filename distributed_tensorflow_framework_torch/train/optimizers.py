@@ -84,6 +84,18 @@ class AdamW:
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """The inner AdamW state (slots and per-parameter step) and the
+        schedule's count. The tensors are the live ones, not copies."""
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """The inverse of ``state_dict``. torch.optim keeps a tensor it is
+        given where device and dtype already match, so pass tensors that
+        nothing else holds."""
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+
 
 def make_optimizer(config: OptimizerConfig, total_steps: int,
                    model: nn.Module) -> tuple[AdamW, Schedule]:

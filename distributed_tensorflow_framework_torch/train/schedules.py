@@ -4,7 +4,8 @@
 that gives the same values as the optax schedules the JAX package builds:
 ``constant``, ``cosine``, ``linear`` and ``staircase``, each behind an
 optional linear warmup. As in ``optax.join_schedules``, the decay schedule
-after warmup sees ``step - warmup_steps``.
+after warmup sees ``step - warmup_steps``. :func:`with_rewarmup` is the
+post-rollback re-warmup (``resilience.lr_rewarmup_steps``).
 """
 
 from __future__ import annotations
@@ -61,4 +62,19 @@ def make_schedule(config: OptimizerConfig, total_steps: int) -> Schedule:
 
     def sched(step: int) -> float:
         return ramp(step) if step < warmup else decay(step - warmup)
+    return sched
+
+
+def with_rewarmup(schedule: Schedule, resume_step: int,
+                  rewarmup_steps: int) -> Schedule:
+    """After an in-memory rollback to ``resume_step``, scale ``schedule``
+    linearly from 1/``rewarmup_steps`` back to 1 over
+    ``[resume_step, resume_step + rewarmup_steps)``; unchanged outside that
+    window (``resilience.lr_rewarmup_steps``)."""
+    if rewarmup_steps <= 0:
+        return schedule
+
+    def sched(step: int) -> float:
+        frac = (step - resume_step + 1.0) / rewarmup_steps
+        return schedule(step) * min(max(frac, 0.0), 1.0)
     return sched

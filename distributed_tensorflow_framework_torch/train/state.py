@@ -5,16 +5,38 @@ The step counter, the parameters (the model), the optimizer and its
 state, and the dropout generator (the JAX state's ``rng``). PyTorch
 updates the parameters and optimizer slots in place, so the state is a
 mutable record rather than a pytree that each step replaces.
+
+``state_dict``/``load_state_dict`` are what a checkpoint and a rollback
+snapshot hold: the step, the model's tensors, the optimizer (torch AdamW's
+slots and per-parameter step, and ``AdamW.count``), and the dropout
+generator's state with the device type it belongs to. ``state_dict``
+returns the LIVE tensors: anything kept past the next step takes
+:func:`host_copy` of it, since on the CPU ``tensor.to("cpu")`` is the
+same tensor and the next ``optimizer.step`` would overwrite it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
 from distributed_tensorflow_framework_torch.models.bert import BertForMLM
 from distributed_tensorflow_framework_torch.train.optimizers import AdamW
+
+
+def host_copy(tree: Any) -> Any:
+    """A host copy of every tensor in a nest of dicts, lists and tuples
+    (``copy=True``, so a CPU tensor is copied too); other leaves as they
+    are. A device tensor's copy waits for the work that writes it."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return type(tree)((k, host_copy(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
 
 
 @dataclass
@@ -23,3 +45,33 @@ class TrainState:
     model: BertForMLM
     optimizer: AdamW
     dropout_generator: torch.Generator
+
+    def state_dict(self) -> dict:
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "dropout_generator": self.dropout_generator.get_state(),
+            "generator_device": self.dropout_generator.device.type,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load ``state`` in place. Its optimizer tensors are taken over
+        (see ``AdamW.load_state_dict``): pass a copy nothing else holds.
+        A generator state from another device type is refused — a CUDA
+        generator's state does not fit a CPU generator, nor the reverse,
+        and re-seeding would silently change the dropout stream."""
+        saved = state["generator_device"]
+        here = self.dropout_generator.device.type
+        if saved != here:
+            raise ValueError(
+                f"the saved dropout generator state belongs to a {saved} "
+                f"generator and this run's generator is on {here}: a "
+                f"checkpoint restores only onto the device type it was "
+                f"saved from ({saved}), and re-seeding would change the "
+                f"dropout stream")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.dropout_generator.set_state(
+            state["dropout_generator"].to("cpu"))
+        self.step = int(state["step"])

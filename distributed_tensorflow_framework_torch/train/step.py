@@ -124,18 +124,30 @@ class StepBuilder:
                                            self.device))
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model)
+        self.base_schedule = self.schedule
         return TrainState(
             step=0, model=model.train(), optimizer=optimizer,
             dropout_generator=prng.torch_generator(seed, prng.ROLE_DROPOUT,
                                                    self.device))
 
-    def _micro_step(self, state: TrainState, batch: dict,
-                    loss_scale) -> dict[str, torch.Tensor]:
+    def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
+        """Apply ``wrapper`` to the config's schedule for the optimizer and
+        the ``learning_rate`` metric (the post-rollback re-warmup,
+        schedules.with_rewarmup)."""
+        self.schedule = wrapper(self.base_schedule)
+        state.optimizer.schedule = self.schedule
+
+    def _micro_step(self, state: TrainState, batch: dict, loss_scale,
+                    fault_scale: float = 1.0) -> dict[str, torch.Tensor]:
         """Forward + MLM loss + backward of ``loss * loss_scale``; the
-        gradients add into ``.grad``."""
+        gradients add into ``.grad``. ``fault_scale`` multiplies the loss
+        itself (see ``train_step``)."""
         logits = state.model(*model_inputs(self.task, batch),
                              dropout_generator=state.dropout_generator)
         loss, metrics = losses.mlm_loss(logits, batch["targets"])
+        if fault_scale != 1.0:
+            loss = loss * fault_scale
+            metrics["loss"] = loss
         (loss * loss_scale).backward()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -150,19 +162,23 @@ class StepBuilder:
             out.append(dict(zip(batch.keys(), chunks)))
         return out
 
-    def train_step(self, state: TrainState,
-                   batch: dict) -> dict[str, torch.Tensor | float]:
+    def train_step(self, state: TrainState, batch: dict, *,
+                   fault_scale: float = 1.0
+                   ) -> dict[str, torch.Tensor | float]:
         """One optimizer step on ``batch`` (tensors on the device). Updates
-        ``state`` in place and returns the step's metrics, unsynced."""
+        ``state`` in place and returns the step's metrics, unsynced.
+        ``fault_scale`` multiplies the loss, its gradients and the reported
+        loss: NaN for the ``nan_grads`` drills, 1e4 for ``loss_spike``
+        (core/faults.py); the default 1.0 leaves the step untouched."""
         state.model.train()
         state.optimizer.zero_grad()
         if self.accum == 1:
-            metrics = self._micro_step(state, batch, 1.0)
+            metrics = self._micro_step(state, batch, 1.0, fault_scale)
         else:
             weights, sums = [], {}
             for mb in self._split(batch):
                 w = losses.mlm_mask(mb["targets"]).sum()
-                m = self._micro_step(state, mb, w)
+                m = self._micro_step(state, mb, w, fault_scale)
                 weights.append(w)
                 for k, v in m.items():
                     sums[k] = sums.get(k, 0.0) + w * v
