@@ -41,9 +41,10 @@ Phases (any failure raises and the script exits non-zero):
      (dq is summed by f32 atomics, so its last bits may vary). Then the
      misaligned q and k views of phase 3, through the pair and through the
      fused kernel. Times
-     each kernel, its plain version and the backward of
-     ``scaled_dot_product_attention`` (the yardstick for the pair) at
-     (8,12,512,64) bf16 with padding, beside the bounds.
+     each kernel (device time, with CUDA events beside it), its plain
+     version and the backward of ``scaled_dot_product_attention`` (the
+     yardstick for the pair) at (8,12,512,64) bf16 with padding, beside
+     the bounds.
   3c. long-context kernel parity — at the streaming lengths (1,2,8192,64)
      and (1,2,16384,64), bf16 and f32, with padding and with segment ids:
      the forward kernel against the streaming forward's plain version, and
@@ -107,6 +108,25 @@ Phases (any failure raises and the script exits non-zero):
      an artifact, loaded by the serving engine: one 512-token request's
      logits against the trained model's forward within LOGIT_MAX_ATOL and
      LOGIT_MEAN_ATOL.
+  5f. packed training from records — ``data/progression.py`` authors a
+     TFRecord corpus in the workdir (seq_len 512; 8,192 training documents
+     of 32-224 real tokens in 8 shards; 1,000 eval documents, so the last
+     eval batch of 32 is padded; seed 0). ``cli/train.py``'s ``main``
+     trains ``configs/bert_base_mlm.yaml`` from it as written (packed 4:1,
+     a 10,000-record shuffle buffer, dropout 0.1, AdamW, the ladder and
+     the prefetcher live) at 32 x 512 for 30 steps, then evaluates the
+     whole eval set once. Checks rc 0, finite metrics, the launch counts
+     (forward 12 x 30 with segment ids plus 12 x 32 eval batches without,
+     dQ and dK/dV 12 x 30 all with segment ids, fused 0), the last
+     ``data_packing`` event against a host replay of the packed stream,
+     and ``eval_examples`` against the masked positions of a host replay
+     of the eval stream (integer equality: the exact-eval contract).
+     Prints the steady step time, tokens/s, the packing efficiency, real
+     tokens/s, the median ``time_infeed_ms``, peak memory and a profiled
+     step by kernel class with the idle share. Then the same corpus
+     unpacked (``pack_factor=1``, 30 steps) beside it, and one packed
+     8 x 512 step's gradients through the segmented kernels against their
+     plain versions, every leaf within MODEL_GRAD_RTOL.
   6. long-context training — ``cli/train.py``'s ``main`` on
      ``configs/bert_long_ring.yaml`` at its width and depth (12 x 768,
      remat, dropout 0.1, bf16) on one card: ``mesh.seq=1`` and
@@ -129,9 +149,10 @@ Phases (any failure raises and the script exits non-zero):
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
-exported runs) and read just after; launches made to compare or time a
-kernel do not count. The record's ``launches`` are those of phases 4, 5
-and 6. Where auto picks the fused kernel nowhere on this
+exported runs, the packed and unpacked runs) and read just after;
+launches made to compare or time a kernel do not count. The record's
+``launches`` are those of phases 4, 5, 5f and 6, and its
+``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
 card's ``nvidia-smi`` name and power limit; the line before that the
@@ -241,6 +262,20 @@ MODEL_GRAD_RTOL = 5e-2
 LEARN_OVERRIDES = ("optimizer.schedule=constant", "optimizer.warmup_steps=0",
                    "optimizer.learning_rate=1e-4", "train.total_steps=30")
 LEARN_RATIO = 0.9
+# Phase 5f: configs/bert_base_mlm.yaml trained from TFRecords, packed 4:1
+# and shuffled from a 10,000-record buffer as written, 32 x 512 as in
+# phase 5. The corpus is authored in the workdir by data/progression.py:
+# 8,192 training documents of 32-224 real tokens (a quarter of a 512-token
+# row on average, so 4:1 packing fits) in 8 shards (a full interleave
+# cycle), and 1,000 eval documents in 4 shards, which is 31.25 batches of
+# 32: the exact eval pads its 32nd batch.
+PACKED_CORPUS = ("--seq-len", "512", "--train-seqs", "8192",
+                 "--eval-seqs", "1000", "--shards", "8", "--min-doc", "32",
+                 "--max-doc", "224", "--seed", str(SEED))
+PACKED_EVAL_BATCHES = 32
+PACKED_OVERRIDES = (
+    "data.global_batch_size=32", "train.total_steps=30",
+    "train.log_interval=10", "train.eval_interval=0")
 # Phase 6: configs/bert_long_ring.yaml on one card, its checkpoint and
 # resilience sections live (checkpoint.directory in the workdir). Ring
 # attention (A11) is not ported, so the same model runs attention_impl
@@ -695,9 +730,12 @@ def misaligned_view_parity(torch, fa, gen, which: str) -> None:
 
 def bwd_kernel_timing(torch, fa) -> dict:
     """At the training shape (B=8, H=12, S=512, D=64, bf16, padding mask):
-    each backward kernel, its plain version, and the backward of
-    ``scaled_dot_product_attention`` on the same inputs (the yardstick for
-    the pair; the port never calls it)."""
+    each backward kernel by its device kernel time (CUDA events around
+    back-to-back calls time the wrapper's host work, which outlasts the
+    kernel; that figure is logged beside it), its plain version by CUDA
+    events, and the backward of ``scaled_dot_product_attention`` on the
+    same inputs by device time (the yardstick for the pair; the port never
+    calls it)."""
     import torch.nn.functional as F
 
     b, h, s, d = PARITY_SHAPES[0]
@@ -722,14 +760,18 @@ def bwd_kernel_timing(torch, fa) -> dict:
              fa.flash_attention_dq_reference),
             ("dkv", fa.flash_attention_dkv_kernel,
              fa.flash_attention_dkv_reference)):
-        rec = {"ms": time_ms(torch, lambda: kernel(*args)),
+        rec = {"ms": device_ms(torch, lambda: kernel(*args), iters=50),
+               "events_ms": time_ms(torch, lambda: kernel(*args)),
                "plain_ms": time_ms(torch, lambda: plain(*args)),
                "library_ms": library_ms}
         rec["bound_ms"], rec["bound_by"] = bounds[name]
         log(f"timing flash_attn_bwd_{name} (B,H,S,D)=({b},{h},{s},{d}) bf16: "
-            f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"sdpa backward (both, device) {library_ms:.4f} ms, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            f"kernel (device) {rec['ms']:.4f} ms "
+            f"({tflops(name, b, h, s, d, rec['ms']):.1f} TFLOP/s; CUDA events"
+            f" over back-to-back calls {rec['events_ms']:.4f} ms), plain "
+            f"{rec['plain_ms']:.4f} ms, sdpa backward (both, device) "
+            f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
         timing[name] = rec
     return timing
 
@@ -975,9 +1017,17 @@ def kernel_wrappers(fa) -> dict:
 
 
 def reset_counts(fa) -> None:
-    """Set every kernel's launch count to 0, just before a main-path run."""
+    """Set every kernel's launch counts (all launches, and those with
+    segment ids) to 0, just before a main-path run."""
     for wrapper in kernel_wrappers(fa).values():
         wrapper.launches = 0
+        wrapper.segmented_launches = 0
+
+
+def read_segmented(fa) -> dict:
+    """The launches with segment ids (packed rows) just after a run."""
+    return {name: wrapper.segmented_launches
+            for name, wrapper in kernel_wrappers(fa).items()}
 
 
 def read_counts(fa, serving: bool = False) -> dict:
@@ -1751,52 +1801,13 @@ def train_parity_phase(torch, fa) -> None:
     from distributed_tensorflow_framework_torch.core.config import load_config
     from distributed_tensorflow_framework_torch.data import get_dataset
     from distributed_tensorflow_framework_torch.data.infeed import to_device
-    from distributed_tensorflow_framework_torch.models.bert import (
-        MultiHeadAttention,
-    )
     from distributed_tensorflow_framework_torch.train.step import StepBuilder
 
     cfg = load_config("configs/bert_base_mlm.yaml",
                       overrides=list(PARITY_OVERRIDES))
     builder = StepBuilder(cfg, device="cuda")
     batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
-    grads = {}
-    for route in ("kernel", "plain"):
-        state = builder.init_state(SEED)  # same weights, same dropout seed
-        if route == "plain":
-            plain = plain_attention_fn(torch, fa)
-            for module in state.model.modules():
-                if isinstance(module, MultiHeadAttention):
-                    module.attention_fn = plain
-        state.optimizer.zero_grad()
-        reset_counts(fa)
-        builder._micro_step(state, batch, 1.0)
-        counts = read_counts(fa)
-        if route == "kernel" and counts != {"fwd": 12, "dq": 12, "dkv": 12,
-                                            "fused": 0}:
-            raise AssertionError(f"kernel route launched {counts}")
-        if route == "plain" and any(counts.values()):
-            raise AssertionError(f"plain route launched kernels: {counts}")
-        grads[route] = {k: p.grad.float().clone()
-                        for k, p in state.model.named_parameters()}
-        del state
-    worst_key, worst = "", 0.0
-    for key, ref in grads["plain"].items():
-        err = rel_err(grads["kernel"][key], ref)
-        if err > worst:
-            worst_key, worst = key, err
-    qkv = [f"layer{i}.attn.qkv.weight" for i in range(12)]
-    qkv_norms = [grads["kernel"][k].norm().item() for k in qkv]
-    qkv_err = max(rel_err(grads["kernel"][k], grads["plain"][k]) for k in qkv)
-    log(f"train parity: gradients through the kernels vs their plain "
-        f"versions, worst leaf {worst_key} {worst:.3e} of its max (tol "
-        f"{MODEL_GRAD_RTOL}); QKV weight gradient norms {min(qkv_norms):.4e}"
-        f"..{max(qkv_norms):.4e}, worst QKV error {qkv_err:.3e}")
-    if worst > MODEL_GRAD_RTOL or not all(
-            n > 0 and math.isfinite(n) for n in qkv_norms):
-        raise AssertionError("kernel-path gradients disagree with the "
-                             "plain-attention model, or the QKV projection "
-                             "got no gradient")
+    gradient_parity(torch, fa, builder, batch, "train parity")
 
     # Learning: the same batch over and over at a constant lr.
     cfg = load_config("configs/bert_base_mlm.yaml",
@@ -1812,6 +1823,225 @@ def train_parity_phase(torch, fa) -> None:
             f"loss at step {len(trajectory)} ({trajectory[-1]:.4f}) is not "
             f"below {LEARN_RATIO} x the loss at step 1 ({trajectory[0]:.4f})")
 
+
+def gradient_parity(torch, fa, builder, batch, what: str) -> None:
+    """One step's gradients on ``batch`` through the kernels against the
+    same model, weights and dropout stream with their plain versions:
+    every leaf within MODEL_GRAD_RTOL of its largest gradient, and a
+    non-zero QKV weight gradient. The kernel route must launch forward, dQ
+    and dK/dV once per layer (all with segment ids for a packed batch),
+    the plain route none."""
+    from distributed_tensorflow_framework_torch.models.bert import (
+        MultiHeadAttention,
+    )
+
+    layers = 12
+    packed = "segment_ids" in batch
+    grads = {}
+    for route in ("kernel", "plain"):
+        state = builder.init_state(SEED)  # same weights, same dropout seed
+        if route == "plain":
+            plain = plain_attention_fn(torch, fa)
+            for module in state.model.modules():
+                if isinstance(module, MultiHeadAttention):
+                    module.attention_fn = plain
+        state.optimizer.zero_grad()
+        reset_counts(fa)
+        builder._micro_step(state, batch, 1.0)
+        counts, segmented = read_counts(fa), read_segmented(fa)
+        want = {"fwd": layers, "dq": layers, "dkv": layers, "fused": 0}
+        if route == "kernel" and (counts != want or segmented != (
+                want if packed else dict.fromkeys(want, 0))):
+            raise AssertionError(f"kernel route launched {counts}, with "
+                                 f"segment ids {segmented}")
+        if route == "plain" and any(counts.values()):
+            raise AssertionError(f"plain route launched kernels: {counts}")
+        grads[route] = {k: p.grad.float().clone()
+                        for k, p in state.model.named_parameters()}
+        del state
+    worst_key, worst = "", 0.0
+    for key, ref in grads["plain"].items():
+        err = rel_err(grads["kernel"][key], ref)
+        if err > worst:
+            worst_key, worst = key, err
+    qkv = [f"layer{i}.attn.qkv.weight" for i in range(layers)]
+    qkv_norms = [grads["kernel"][k].norm().item() for k in qkv]
+    qkv_err = max(rel_err(grads["kernel"][k], grads["plain"][k]) for k in qkv)
+    log(f"{what}: gradients through the kernels vs their plain "
+        f"versions, worst leaf {worst_key} {worst:.3e} of its max (tol "
+        f"{MODEL_GRAD_RTOL}); QKV weight gradient norms {min(qkv_norms):.4e}"
+        f"..{max(qkv_norms):.4e}, worst QKV error {qkv_err:.3e}")
+    if worst > MODEL_GRAD_RTOL or not all(
+            n > 0 and math.isfinite(n) for n in qkv_norms):
+        raise AssertionError("kernel-path gradients disagree with the "
+                             "plain-attention model, or the QKV projection "
+                             "got no gradient")
+
+
+# --------------------------------------------------------------- phase 5f
+
+def census(events: list[dict]) -> dict:
+    """The last ``data_packing`` event's metrics: the cumulative packing
+    census of the run's train stream."""
+    packs = [e for e in events if e["kind"] == "data_packing"]
+    if not packs:
+        raise AssertionError("no data_packing event")
+    return packs[-1]["metrics"]
+
+
+def packed_run(torch, fa, workdir: str, corpus: str, name: str,
+               extra) -> dict:
+    """``cli.train.main`` on BERT-base from the corpus's records, with
+    ``extra`` overrides; checks rc 0, finite metrics and the launch counts
+    (all and with segment ids), and returns the run's numbers."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    config_path = "configs/bert_base_mlm.yaml"
+    log_dir = os.path.join(workdir, f"{name}_logs")
+    over = [*PACKED_OVERRIDES, f"data.data_dir={corpus}/train",
+            f"checkpoint.directory={workdir}/ckpt_{name}", *extra]
+    cfg = load_config(config_path, overrides=over)
+    steps, layers = cfg.train.total_steps, 12
+    evals = (PACKED_EVAL_BATCHES if cfg.train.eval_steps else 0)
+    packed = cfg.data.pack_factor > 1
+    want = {"fwd": layers * (steps + evals), "dq": layers * steps,
+            "dkv": layers * steps, "fused": 0}
+    want_seg = ({"fwd": layers * steps, "dq": layers * steps,
+                 "dkv": layers * steps, "fused": 0} if packed
+                else dict.fromkeys(want, 0))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    rc = run_cli_train(config_path, over, "--log-dir", log_dir)
+    counts, segmented = read_counts(fa), read_segmented(fa)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"{name}: cli.train.main returned {rc}")
+    events = read_events(log_dir)
+    train = [e for e in events if e["kind"] == "train_step"]
+    eval_events = [e for e in events if e["kind"] == "eval"]
+    for e in train + eval_events:
+        log(f"{name} {e['kind']} at step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    values = [v for e in train + eval_events for v in e["metrics"].values()]
+    if ([e["step"] for e in train] != list(range(
+            cfg.train.log_interval, steps + 1, cfg.train.log_interval))
+            or len(eval_events) != (1 if evals else 0)
+            or not all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"{name}: training metrics missing or not "
+                             f"finite")
+    if counts != want or segmented != want_seg:
+        raise AssertionError(f"{name}: launches {counts} (with segment ids "
+                             f"{segmented}), expected {want} ({want_seg})")
+    # Steady window: the logging windows after the first, as in phase 5.
+    b, seq = cfg.data.global_batch_size, cfg.data.seq_len
+    rate = statistics.mean(e["throughput"]["examples_per_sec"]
+                           for e in train[1:])
+    efficiency = census(events)["packing_efficiency"]
+    run = {"cfg": cfg, "events": events, "counts": counts,
+           "segmented": segmented, "ms": 1e3 * b / rate,
+           "tokens_s": rate * seq, "real_tokens_s": rate * seq * efficiency,
+           "efficiency": efficiency,
+           "infeed_ms": statistics.median(e["phases"]["infeed"]
+                                          for e in train[1:]),
+           "eval": eval_events[0]["metrics"] if evals else None}
+    log(f"{name}: {steps} steps of {b}x{seq} in {wall:.1f} s; steady (steps "
+        f"{train[0]['step'] + 1}-{steps}) {run['ms']:.2f} ms/step, "
+        f"{run['tokens_s']:.0f} tokens/s, packing efficiency "
+        f"{efficiency:.4f}, real tokens/s {run['real_tokens_s']:.0f}; "
+        f"median time_infeed_ms {run['infeed_ms']:.3f} (windows: "
+        + ", ".join(f"{e['phases']['infeed']:.3f}" for e in train)
+        + f"); peak memory {peak_gb:.2f} GB; kernel launches {counts}, with "
+        f"segment ids {segmented}")
+    log_saves(events, name)
+    return run
+
+
+def packed_phase(torch, fa, workdir: str) -> dict:
+    """``configs/bert_base_mlm.yaml`` trained from TFRecords packed 4:1 as
+    written, then exactly evaluated; the same corpus unpacked beside it.
+    Returns the launch counts of both runs, all and with segment ids."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.data import (
+        get_dataset,
+        packing,
+        progression,
+    )
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    corpus = os.path.join(workdir, "corpus")
+    t0 = time.perf_counter()
+    progression.main([corpus, *PACKED_CORPUS])
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(corpus) for f in files)
+    log(f"packed corpus: {size / 1e6:.2f} MB of records authored in "
+        f"{time.perf_counter() - t0:.2f} s")
+    packed = packed_run(torch, fa, workdir, corpus, "packed", [
+        "eval_data.name=text_mlm", f"eval_data.data_dir={corpus}/eval",
+        "eval_data.seq_len=512", "eval_data.global_batch_size=32"])
+    cfg = packed["cfg"]
+    if (cfg.data.pack_factor, cfg.data.shuffle_buffer) != (4, 10_000):
+        raise AssertionError(f"configs/bert_base_mlm.yaml no longer packs "
+                             f"4:1 from a 10,000-record buffer: {cfg.data}")
+
+    # The census against a host replay of the same packed stream: the
+    # real and padded positions of the batches the run trained on.
+    ds = get_dataset(cfg.data)
+    real = padded = 0
+    for _ in range(cfg.train.total_steps):
+        mask = next(ds)["attention_mask"]
+        real += int(mask.sum())
+        padded += int(mask.size - mask.sum())
+    replay = packing.packing_stats(real, padded)
+    got = census(packed["events"])
+    log(f"packed census: last data_packing event {got}; host replay "
+        f"{replay}")
+    if got != replay:
+        raise AssertionError("the packing census differs from the replay")
+
+    # Exact eval: every eval record once, so eval_examples is the count of
+    # positions the masker selects over the 1,000 records.
+    eval_ds = get_dataset(cfg.eval_data, train=False)
+    masked = sum(int((next(eval_ds)["targets"] >= 0).sum())
+                 for _ in range(PACKED_EVAL_BATCHES))
+    examples = packed["eval"]["eval_examples"]
+    log(f"packed exact eval: {eval_ds.cardinality} batches, eval_examples "
+        f"{examples!r}; host replay of the masking over the "
+        f"{PACKED_CORPUS[PACKED_CORPUS.index('--eval-seqs') + 1]} records: "
+        f"{masked} masked positions")
+    if eval_ds.cardinality != PACKED_EVAL_BATCHES or examples != masked:
+        raise AssertionError("the eval did not walk every record once")
+
+    train_breakdown(torch, cfg)
+    unpacked = packed_run(torch, fa, workdir, corpus, "unpacked",
+                          ["data.pack_factor=1", "train.eval_steps=0"])
+    log(f"packed vs unpacked, same corpus: {packed['ms']:.2f} vs "
+        f"{unpacked['ms']:.2f} ms/step, packing efficiency "
+        f"{packed['efficiency']:.4f} vs {unpacked['efficiency']:.4f}, real "
+        f"tokens/s {packed['real_tokens_s']:.0f} vs "
+        f"{unpacked['real_tokens_s']:.0f}: ratio "
+        f"{packed['real_tokens_s'] / unpacked['real_tokens_s']:.3f}")
+
+    # One packed 8 x 512 step through the segmented kernels against their
+    # plain versions.
+    cfg8 = load_config("configs/bert_base_mlm.yaml", overrides=[
+        *PARITY_OVERRIDES, f"data.data_dir={corpus}/train"])
+    batch = next(get_dataset(cfg8.data))
+    log(f"packed parity batch: {int(np.max(batch['segment_ids']))} documents "
+        f"in the fullest row, {int(batch['attention_mask'].sum())} real "
+        f"tokens of {batch['attention_mask'].size}")
+    gradient_parity(torch, fa, StepBuilder(cfg8, device="cuda"),
+                    to_device(batch, torch.device("cuda")),
+                    "packed train parity")
+    for name in ("packed", "unpacked"):
+        shutil.rmtree(os.path.join(workdir, f"ckpt_{name}"))
+    return {key: {k: packed[key][k] + unpacked[key][k]
+                  for k in KERNEL_NAMES}
+            for key in ("counts", "segmented")}
 
 # ---------------------------------------------------------------- phase 6
 
@@ -2078,19 +2308,23 @@ def main() -> int:
         log("phase 5e export to serve")
         export_phase(torch, fa, workdir, full)
         shutil.rmtree(full["ckpt"])
+        log("phase 5f packed training from records")
+        packed_counts = packed_phase(torch, fa, workdir)
         log("phase 6 long-context training")
         long_counts = [long_train_phase(torch, fa, workdir, seq, route)
                        for seq, route in long_runs(torch, fa)]
     log("phase 6b fused vs two-pass backward at S=8192")
     step_8192, forced_launches = long_fused_parity_phase(torch, fa)
 
-    # Launches on the main path: serving, the S=512 training run and the
-    # two long-context runs. Times, bounds and the plain and library times
+    # Launches on the main path: serving, the S=512 training runs (phase 5
+    # and phase 5f's packed and unpacked runs) and the two long-context
+    # runs; those with segment ids all come from phase 5f. Times, bounds and the plain and library times
     # are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
     # kernel on this card, its launches are those of phase 6b's micro-step
     # with FUSED_BWD forced on, and say so.
-    launched = {name: train_counts[name] + sum(c[name] for c in long_counts)
+    launched = {name: train_counts[name] + packed_counts["counts"][name]
+                + sum(c[name] for c in long_counts)
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
@@ -2104,6 +2338,7 @@ def main() -> int:
          "units": "bf16 on the tensor cores (mma.sync.m16n8k16), f32 on the "
                   "CUDA cores",
          "replaces": REPLACES[name], "launches": launched[name],
+         "segmented_launches": packed_counts["segmented"][name],
          "max_abs_err": max(worst[name], long_worst[name]),
          **long_timing[name],
          **({"s512": short[name]} if name in short else {}),

@@ -6,8 +6,9 @@ schema string, reserved fields, event kinds and record shape, so
 Only the kinds the port emits so far are defined here: the serve kinds;
 the train-step, eval, failure, health, run-meta and startup kinds of the
 trainer; the checkpoint kinds (save, quarantine, restore fallback, data
-state); and the recovery-ladder kinds (anomaly, rollback, skipped batches,
-infeed stall).
+state); the recovery-ladder kinds (anomaly, rollback, skipped batches,
+infeed stall); and the packing census. The summary rollup of
+``summarize_events`` is ROADMAP.md queue A item A16.
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ KIND_CKPT_QUARANTINED = "ckpt_quarantined"
 KIND_RESTORE_FALLBACK = "restore_fallback"
 KIND_CKPT_SAVE = "ckpt_save"
 KIND_DATA_STATE = "data_state"
+# The sequence-packing census (data/packing.py), at each metrics fetch:
+# ``metrics`` holds the cumulative real/padded tokens and
+# packing_efficiency, goodput per padded token.
+KIND_DATA_PACKING = "data_packing"
 # Construction → first completed step, with the restored step.
 KIND_STARTUP = "startup"
 # The in-process recovery ladder (train/anomaly.py) and the infeed

@@ -47,7 +47,9 @@ where the JAX package streams) and :func:`flash_attention_bwd_reference`
 (every backward route). ``flash_attention.launches``,
 ``flash_attention_dq_kernel.launches``,
 ``flash_attention_dkv_kernel.launches`` and
-``flash_attention_bwd_fused_kernel.launches`` count kernel launches.
+``flash_attention_bwd_fused_kernel.launches`` count kernel launches; the
+``segmented_launches`` beside each count those with segment ids (packed
+rows), which reach the kernels' ``kSegmented`` variants.
 
 The dispatch knobs are module globals read at call time, so tests and
 scripts can assign them as the JAX package's do. They start from the
@@ -443,6 +445,7 @@ def flash_attention_kernel(q, k, v, bias, q_seg=None, kv_seg=None):
             _ptr(kv_seg), o.data_ptr(), lse.data_ptr(), b, s, h, d,
             _DTYPE_CODES[q.dtype], 1.0 / (d ** 0.5), stream)
     flash_attention.launches += 1
+    flash_attention.segmented_launches += q_seg is not None
     _raise_on_error(err, lib.dtf_cuda_error_string, "flash_attn_fwd", q)
     return o, lse
 
@@ -487,6 +490,7 @@ def flash_attention_dq_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
         [(q.shape, None, torch.empty)], q, k, v, bias, q_seg, kv_seg, lse,
         do, delta)
     flash_attention_dq_kernel.launches += 1
+    flash_attention_dq_kernel.segmented_launches += q_seg is not None
     _raise_on_error(err, lib.dtf_flash_attn_bwd_error_string,
                     "flash_attn_bwd_dq", q)
     return dq
@@ -504,6 +508,7 @@ def flash_attention_dkv_kernel(q, k, v, bias, q_seg, kv_seg, lse, do, delta):
          ((b, h, s), torch.float32, torch.empty)],
         q, k, v, bias, q_seg, kv_seg, lse, do, delta)
     flash_attention_dkv_kernel.launches += 1
+    flash_attention_dkv_kernel.segmented_launches += q_seg is not None
     _raise_on_error(err, lib.dtf_flash_attn_bwd_error_string,
                     "flash_attn_bwd_dkv", q)
     return tuple(outs)
@@ -529,6 +534,7 @@ def flash_attention_bwd_fused_kernel(q, k, v, bias, q_seg, kv_seg, lse, do,
          ((b, h, s), torch.float32, torch.empty)],
         q, k, v, bias, q_seg, kv_seg, lse, do, delta)
     flash_attention_bwd_fused_kernel.launches += 1
+    flash_attention_bwd_fused_kernel.segmented_launches += q_seg is not None
     _raise_on_error(err, lib.dtf_flash_attn_bwd_fused_error_string,
                     "flash_attn_bwd_fused", q)
     return dq.to(q.dtype), dk, dv, dbias_h
@@ -537,6 +543,9 @@ def flash_attention_bwd_fused_kernel(q, k, v, bias, q_seg, kv_seg, lse, do,
 flash_attention_dq_kernel.launches = 0
 flash_attention_dkv_kernel.launches = 0
 flash_attention_bwd_fused_kernel.launches = 0
+flash_attention_dq_kernel.segmented_launches = 0
+flash_attention_dkv_kernel.segmented_launches = 0
+flash_attention_bwd_fused_kernel.segmented_launches = 0
 
 
 def _check_device(q) -> None:
@@ -629,6 +638,7 @@ def flash_attention(q, k, v, *, mask=None, segment_ids=None):
 
 
 flash_attention.launches = 0
+flash_attention.segmented_launches = 0
 
 
 def flash_attention_with_lse(q, k, v, bias, q_seg=None, kv_seg=None):

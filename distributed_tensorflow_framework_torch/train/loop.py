@@ -28,9 +28,12 @@ Refused: the profile window and compiled-memory analysis (ROADMAP.md queue
 A item A16) and the XLA compilation cache (``train.compilation_cache_dir``,
 no eager counterpart). Left out because they only write events and change
 no result: tracing spans, the goodput ledger, memory sampling, the flight
-recorder and the collective tally. Evaluation walks ``train.eval_steps``
-batches of the (infinite, synthetic) eval stream; the exact single-pass
-eval over a finite set arrives with the TFRecord reader (A7).
+recorder and the collective tally. Evaluation is exact, as in the JAX
+trainer: a finite eval stream (TFRecords) is walked once in full, every
+record once, the padded tail weighted out; an infinite one (the synthetic
+fallback) gives ``train.eval_steps`` batches. At each metrics fetch the
+sequence-packing census of the train stream's state is written as a
+``data_packing`` event.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from distributed_tensorflow_framework_torch.core.metrics import (
     MetricWriter,
     setup_logging,
 )
-from distributed_tensorflow_framework_torch.data import get_dataset
+from distributed_tensorflow_framework_torch.data import get_dataset, packing
 from distributed_tensorflow_framework_torch.data.infeed import (
     InfeedStallError,
     prefetch_to_device,
@@ -285,6 +288,7 @@ class Trainer:
                     host_metrics = self._maybe_recover(host_metrics)
                     if host_metrics is not None:
                         last_metrics = host_metrics
+                    self._emit_packing()
                 for h in hooks:
                     h.after_step(self, self.host_step, host_metrics)
                 if self.recovery is not None and self.recovery.exhausted:
@@ -305,6 +309,18 @@ class Trainer:
             # Exit barrier, for hook lists without the CheckpointHook too.
             self._ckpt_manager.wait_until_finished()
         return last_metrics
+
+    def _emit_packing(self) -> None:
+        """The packing census riding the step-paired data snapshot
+        (data/packing.py counters), cumulative: the last event of a run
+        is its total. Streams without the counters emit nothing."""
+        real = self.data_ckpt_state.get(packing.REAL_TOKENS_KEY)
+        if real is not None:
+            self.writer.telemetry.emit(
+                telemetry.KIND_DATA_PACKING, step=self.host_step,
+                metrics=packing.packing_stats(
+                    int(real), int(self.data_ckpt_state.get(
+                        packing.PADDED_TOKENS_KEY, 0))))
 
     # ------------------------------------------------- recovery ladder --
     def _next_batch(self, infeed):
@@ -389,14 +405,30 @@ class Trainer:
 
     def evaluate(self, step: int | None = None,
                  num_batches: int | None = None) -> dict[str, float]:
-        """Weighted means of the MLM metrics over ``num_batches`` (default
-        ``train.eval_steps``) eval batches; ``eval_examples`` is the masked
-        tokens seen. Written as an ``eval`` event when ``step`` is given."""
+        """Exact evaluation: weighted means of the MLM metrics, and
+        ``eval_examples``, the masked tokens seen. A finite eval stream
+        (``cardinality`` set) is walked once in full, every record once,
+        the zero-padded tail adding no weight; ``num_batches`` at or above
+        the cardinality means the full set, below it truncates with a
+        warning. An infinite stream gives ``num_batches`` (default
+        ``train.eval_steps``) batches. Written as an ``eval`` event when
+        ``step`` is given."""
         if self.state is None:
             self.build()
         ds = self._ensure_eval()
         ds.restore(self._eval_start)  # a fresh pass every call
-        n = self.config.train.eval_steps if num_batches is None else num_batches
+        if ds.cardinality is None:
+            n = (self.config.train.eval_steps if num_batches is None
+                 else num_batches)
+        elif num_batches is None or num_batches >= ds.cardinality:
+            n = ds.cardinality
+        else:
+            # A silently dropped tail would bias every mid-training
+            # metric logged, so a truncation is said out loud.
+            n = num_batches
+            log.warning("eval truncated: %d of %d batches (set "
+                        "train.eval_steps >= %d for full coverage)", n,
+                        ds.cardinality, ds.cardinality)
         totals: dict[str, float] = {}
         for _ in range(n):
             m = self.builder.eval_step(self.state,

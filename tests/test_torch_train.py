@@ -132,11 +132,23 @@ def test_apply_mlm_mask_is_bit_identical():
         np.testing.assert_array_equal(x, y)
 
 
-def test_tfrecords_in_data_dir_raise(tmp_path):
-    (tmp_path / "train-00000.tfrecord").write_bytes(b"")
-    pcfg, _ = _both(["data.name=text_mlm", f"data.data_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_dataset(pcfg.data)
+def test_tfrecords_in_data_dir_are_read(tmp_path):
+    """The layout that the port once refused (MLM TFRecords under
+    data.data_dir) is read now, into the JAX package's batches."""
+    from distributed_tensorflow_framework_torch.data import progression
+
+    rows = np.random.default_rng(0).integers(1000, 2000, (6, 16))
+    progression.write_tfrecords(
+        str(tmp_path / "train-00000.tfrecord"),
+        (progression.encode_example(r) for r in rows))
+    pcfg, jcfg = _both(["data.name=text_mlm", f"data.data_dir={tmp_path}",
+                        "data.seq_len=16", "data.global_batch_size=2",
+                        "data.shuffle_buffer=1", "data.vocab_size=2000"])
+    pds, jds = port_dataset(pcfg.data), jax_dataset(jcfg.data)
+    for _ in range(4):
+        a, b = next(pds), next(jds)
+        for key in b:
+            np.testing.assert_array_equal(a[key], b[key])
 
 
 def test_to_device_keeps_values_and_dtypes():
