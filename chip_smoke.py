@@ -146,6 +146,33 @@ Phases (any failure raises and the script exits non-zero):
      timed on each route in turns (host clock) and profiled once on each
      (kernel time, which the host's speed does not move). This drives each
      route through a full-width model step whichever one auto picks.
+  7. image classification (no attention kernel on this path: cuDNN and
+     cuBLAS through PyTorch). 7a: ``configs/lenet_mnist.yaml`` as written
+     (2,000 steps of 128, f32, SGD with momentum) from a seeded
+     ``mnist.npz`` of 6,000 + 1,000 learnable 28x28 images in the
+     workdir; the loss must fall below half its first logged value, the
+     exact eval must cover the 1,000 test images once and equal a CPU
+     replay of the step-2000 checkpoint. 7b: ``configs/resnet50_cifar10.yaml``
+     on one card as written (global batch 1024, bf16, SGD with momentum,
+     lr 0.4, cosine with 500 warmup steps, weight decay 1e-4) for 30
+     steps from a seeded ``cifar-10-batches-py`` (5 x 2,048 train, 2,000
+     test images), then its exact eval (2,000 images); then the step on a
+     resident batch, profiled by kernel class (convolutions, BatchNorm,
+     GEMM kernels, the optimizer, the rest) with the idle share. 7c:
+     ``configs/resnet50_imagenet.yaml``'s model on its synthetic fallback
+     (224, the s2d stem, label smoothing 0.1, staircase, bf16 images), 20
+     steps with the global batch cut from 4,096 to 256, and the same with
+     the 7x7 stem; then each step alone on a resident batch, in turns, and
+     profiled. Each run prints the steady ms/step, images/s, the median
+     ``time_infeed_ms`` and peak memory beside the card's name and power
+     limit. 7d: LeNet and small ResNets (CIFAR, 7x7 and s2d stems) on the
+     card in f32 and bf16 against the same weights in f32 on the CPU (one
+     train step's logits, gradients and running statistics, IMAGE_RTOL and
+     IMAGE_GRAD_RTOL); then 7b's run under
+     ``torch.use_deterministic_algorithms``, 30 steps straight against 15,
+     a save, a restore and 15 more: the restored tensors equal the step-15
+     checkpoint, and the step-30 checkpoints (parameters, BN buffers,
+     momentum) and the losses after the split are bit-equal.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
@@ -295,6 +322,37 @@ LONG_SEQS = (16384, 8192)
 # fused kernel over the two-pass pair on a listed card: both timed at 8192
 # tokens per call.
 BAND_SHAPES = ((4, 12, 2048, 64), (2, 12, 4096, 64))
+# Phase 7: the image-classification configs. Their datasets are written in
+# the workdir with numpy from SEED: each class is a fixed random template,
+# and an image is its class's template at a random contrast under heavy
+# noise (std 80 of 255), so the labels can be learnt, but not at once.
+LENET_CONFIG = "configs/lenet_mnist.yaml"
+CIFAR_CONFIG = "configs/resnet50_cifar10.yaml"
+IMAGENET_CONFIG = "configs/resnet50_imagenet.yaml"
+MNIST_SIZES = (6000, 1000)            # train, test
+CIFAR_SIZES = (5, 2048, 2000)         # train batches x images, test
+# 7a runs config 1 whole (2,000 steps). 7b runs config 2 as written but for
+# the run length (30 of 20,000 steps) and a log every 10 steps (when the
+# host syncs; the steady window needs more than one). 7c cuts config 3's
+# pod-wide global batch of 4,096 to 256 and runs 20 steps on its synthetic
+# fallback, with the s2d stem as written and with the 7x7 stem beside it.
+CIFAR_OVERRIDES = ("train.total_steps=30", "train.log_interval=10")
+CIFAR_RESUME_SPLIT = 15
+IMAGENET_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
+                      "train.log_interval=10")
+# 7a: the trainer's exact eval against a CPU replay of the same weights
+# over the same 1,000 images, f32 on both sides (TF32 is off): the loss
+# within 1e-4 relative (cuDNN and the CPU sum the products in other
+# orders) and top-1/top-5 within one image (a logit near a tie may flip).
+LENET_EVAL_RTOL = 1e-4
+# 7d: the models on the card against the same model and weights on the
+# CPU, one train step: logits and running statistics as max|err| over the
+# largest reference value, gradients over the largest gradient. f32 (TF32
+# off): other summation orders and algorithms, BN dividing by a batch std.
+# bf16 on the card against f32 on the CPU: bf16 activations (8 bits of
+# mantissa, 0.4% per rounding) through every conv and BN of the model.
+IMAGE_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+IMAGE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1.5e-1}
 
 
 def log(msg: str) -> None:
@@ -1205,14 +1263,14 @@ def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     return sum(ms for ms, _, _ in device_kernels(prof)) / iters
 
 
-def log_profile(prof, what: str, top: int) -> float:
-    """Sum a profile's device kernel time by class, log it with the
-    ``top`` longest kernels, and return the total in ms (0 when the
-    profiler saw no device time)."""
+def log_profile(prof, what: str, top: int, classify=None) -> float:
+    """Sum a profile's device kernel time by class (``classify``, default
+    :func:`kernel_class`), log it with the ``top`` longest kernels, and
+    return the total in ms (0 when the profiler saw no device time)."""
     classes: dict[str, float] = {}
     kernels = []
     for ms, count, key in device_kernels(prof):
-        cls = kernel_class(key)
+        cls = (classify or kernel_class)(key)
         classes[cls] = classes.get(cls, 0.0) + ms
         kernels.append((ms, count, cls, key[:70]))
     total = sum(classes.values())
@@ -2239,6 +2297,464 @@ def long_fused_parity_phase(torch, fa) -> tuple[dict, int]:
     return out, forced_launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+def write_mnist(root: str) -> None:
+    """A keras-layout ``mnist.npz``: 28x28 uint8 images of ten learnable
+    classes, MNIST_SIZES train and test."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    templates = rng.random((10, 28, 28))
+
+    def split(n):
+        y = rng.integers(0, 10, n)
+        x = (78 + 100 * templates[y] * rng.uniform(0.5, 1.0, (n, 1, 1))
+             + rng.normal(0.0, 80.0, (n, 28, 28)))
+        return np.clip(x, 0, 255).astype(np.uint8), y.astype(np.uint8)
+
+    (xt, yt), (xe, ye) = split(MNIST_SIZES[0]), split(MNIST_SIZES[1])
+    np.savez(os.path.join(root, "mnist.npz"), x_train=xt, y_train=yt,
+             x_test=xe, y_test=ye)
+
+
+def write_cifar(root: str) -> None:
+    """A ``cifar-10-batches-py`` directory: CIFAR_SIZES pickled batches of
+    32x32x3 uint8 images (stored channel-major, as CIFAR-10 stores them)
+    of ten learnable classes."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    templates = rng.random((10, 32, 32, 3))
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    batches, per_batch, n_test = CIFAR_SIZES
+    names = [(f"data_batch_{i}", per_batch) for i in range(1, batches + 1)]
+    for name, n in names + [("test_batch", n_test)]:
+        y = rng.integers(0, 10, n)
+        x = (78 + 100 * templates[y] * rng.uniform(0.5, 1.0, (n, 1, 1, 1))
+             + rng.normal(0.0, 80.0, (n, 32, 32, 3)))
+        x = np.clip(x, 0, 255).astype(np.uint8).transpose(0, 3, 1, 2)
+        with open(os.path.join(base, name), "wb") as fh:
+            pickle.dump({b"data": x.reshape(n, -1), b"labels": y.tolist()},
+                        fh)
+
+
+def image_kernel_class(name: str) -> str:
+    """cuDNN convolutions, BatchNorm, GEMMs, the optimizer's foreach ops,
+    and the rest (ReLU, adds, pooling, casts, the loss)."""
+    n = name.lower()
+    if any(t in n for t in ("bn_fw", "bn_bw", "batch_norm", "batchnorm")):
+        return "batchnorm"
+    if any(t in n for t in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                            "cudnn")):
+        return "conv"
+    if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "gemm"
+    if "multi_tensor" in n:
+        return "optimizer"
+    return "elementwise"
+
+
+def image_step(torch, config, steps: int = 5):
+    """The train step of ``config`` alone, on one batch resident on the
+    card: a builder, its state and the batch, timed over ``steps`` synced
+    steps after two (host clock); returns (ms per step, the step function)."""
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    builder = StepBuilder(config, device="cuda")
+    state = builder.init_state(SEED)
+    batch = to_device(next(get_dataset(config.data)), torch.device("cuda"))
+
+    def step():
+        builder.train_step(state, batch)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, step
+
+
+def image_profile(torch, step, step_ms: float, what: str) -> float:
+    """One profiled step by kernel class, and the device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    total = log_profile(prof, what, top=12, classify=image_kernel_class)
+    if total:
+        log(f"{what}: device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
+            f" of the {step_ms:.3f} ms step")
+    return total
+
+
+def image_run(torch, config_path: str, overrides, what: str,
+              log_dir: str) -> dict:
+    """``cli.train.main`` on an image config: rc 0, finite metrics, the
+    steady window's ms/step and images/s (the windows after the first,
+    which builds and autotunes), the median ``time_infeed_ms`` over them
+    and the peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = run_cli_train(config_path, overrides, "--log-dir", log_dir)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"{what}: cli.train.main returned {rc}")
+    events = read_events(log_dir)
+    train = [e for e in events if e["kind"] == "train_step"]
+    evals = [e for e in events if e["kind"] == "eval"]
+    values = [v for e in train + evals for v in e["metrics"].values()]
+    if len(train) < 2 or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{what}: metrics missing or not finite")
+    rate = statistics.mean(e["throughput"]["examples_per_sec"]
+                           for e in train[1:])
+    infeed = statistics.median(e["phases"]["infeed"]
+                               for e in train[1:])
+    return {"events": events, "train": train, "evals": evals,
+            "rate": rate, "infeed_ms": infeed, "peak_gb": peak_gb,
+            "wall": wall, "first": train[0]["throughput"]["examples_per_sec"]}
+
+
+def log_image_run(run: dict, what: str, batch: int, smi: str) -> None:
+    steps = run["train"][-1]["step"]
+    log(f"{what}: {steps} steps of {batch} images in {run['wall']:.1f} s; "
+        f"steady (steps {run['train'][0]['step'] + 1}-{steps}) "
+        f"{1e3 * batch / run['rate']:.3f} ms/step, {run['rate']:.1f} "
+        f"images/s (first window {1e3 * batch / run['first']:.3f} ms/step, "
+        f"with the first step's autotuning); median time_infeed_ms "
+        f"{run['infeed_ms']:.3f}; peak memory {run['peak_gb']:.2f} GB "
+        f"[{smi}]")
+
+
+def lenet_phase(torch, workdir: str, smi: str) -> None:
+    """7a: configs/lenet_mnist.yaml as written (2,000 steps of 128, SGD
+    with momentum, f32) from a seeded mnist.npz, its checkpoints in the
+    workdir. The loss must fall, the exact eval must cover the 1,000 test
+    images once, and equal a CPU replay of the saved weights."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.train import losses
+
+    data = os.path.join(workdir, "mnist")
+    os.makedirs(data)
+    write_mnist(data)
+    ckpt = os.path.join(workdir, "ckpt_lenet")
+    over = [f"data.data_dir={data}", f"checkpoint.directory={ckpt}"]
+    cfg = load_config(LENET_CONFIG, overrides=over)
+    m, d, o, t = cfg.model, cfg.data, cfg.optimizer, cfg.train
+    got = (m.name, m.dtype, d.name, d.global_batch_size, o.name,
+           o.learning_rate, t.total_steps)
+    if got != ("lenet5", "float32", "mnist", 128, "sgd_momentum", 0.01,
+               2000):
+        raise AssertionError(f"{LENET_CONFIG} is no longer config 1: {got}")
+    run = image_run(torch, LENET_CONFIG, over, "lenet",
+                    os.path.join(workdir, "lenet_logs"))
+    train, evals = run["train"], run["evals"]
+    first, last = train[0]["metrics"]["loss"], train[-1]["metrics"]["loss"]
+    log(f"lenet loss: step {train[0]['step']} {first:.5f} -> step "
+        f"{train[-1]['step']} {last:.5f}; top1 "
+        f"{train[-1]['metrics']['top1']:.4f}")
+    if [e["step"] for e in train] != list(range(100, 2001, 100)):
+        raise AssertionError("lenet: train_step events missing")
+    if not last < 0.5 * first:
+        raise AssertionError(f"lenet: the loss did not fall ({first} -> "
+                             f"{last})")
+    if len(evals) != 1 or evals[0]["metrics"]["eval_examples"] != \
+            MNIST_SIZES[1]:
+        raise AssertionError(f"lenet: expected one eval over "
+                             f"{MNIST_SIZES[1]} images, got {evals}")
+    log_image_run(run, "lenet", d.global_batch_size, smi)
+    # The CPU replay: the step-2000 weights, the same eval stream.
+    model = get_model(m, device="cpu")
+    manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
+                                                    async_save=False))
+    try:
+        step = manager.restore_model(model, step=t.total_steps)
+    finally:
+        manager.close()
+    totals: dict[str, float] = {}
+    with torch.no_grad():
+        for batch in get_dataset(d, train=False):
+            batch = to_device(batch, torch.device("cpu"))
+            sums = losses.classification_metrics_sums(
+                model(batch["image"]), batch["label"], batch["weight"])
+            for k, v in sums.items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+    n = totals.pop("weight_sum")
+    replay = {f"eval_{k[:-4]}": v / n for k, v in totals.items()}
+    got = evals[0]["metrics"]
+    log(f"lenet exact eval at step {step}: " + ", ".join(
+        f"{k} {got[k]!r} (CPU replay {replay[k]!r})" for k in replay)
+        + f"; eval_examples {got['eval_examples']} (replay {n})")
+    if (n != got["eval_examples"]
+            or abs(got["eval_loss"] - replay["eval_loss"])
+            > LENET_EVAL_RTOL * abs(replay["eval_loss"])
+            or any(abs(got[k] - replay[k]) > 1.5 / n
+                   for k in ("eval_top1", "eval_top5"))):
+        raise AssertionError("lenet: the eval differs from the CPU replay")
+
+
+def cifar_phase(torch, workdir: str, smi: str) -> str:
+    """7b: configs/resnet50_cifar10.yaml as written on one card (mesh.data
+    -1, global batch 1024, bf16, SGD momentum lr 0.4 cosine with 500
+    warmup steps, weight decay 1e-4) for 30 steps from a seeded
+    cifar-10-batches-py, then the exact eval over its 2,000 test images;
+    then one step on a resident batch, profiled. Returns the data dir."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    data = os.path.join(workdir, "cifar")
+    os.makedirs(data)
+    write_cifar(data)
+    ckpt = os.path.join(workdir, "ckpt_cifar")
+    over = [f"data.data_dir={data}", f"checkpoint.directory={ckpt}",
+            *CIFAR_OVERRIDES]
+    cfg = load_config(CIFAR_CONFIG, overrides=over)
+    m, d, o = cfg.model, cfg.data, cfg.optimizer
+    got = (m.name, m.dtype, d.global_batch_size, o.name, o.learning_rate,
+           o.schedule, o.warmup_steps, o.weight_decay, cfg.mesh.data)
+    if got != ("resnet50_cifar", "bfloat16", 1024, "sgd_momentum", 0.4,
+               "cosine", 500, 1e-4, -1):
+        raise AssertionError(f"{CIFAR_CONFIG} is no longer config 2: {got}")
+    run = image_run(torch, CIFAR_CONFIG, over, "resnet50-cifar10",
+                    os.path.join(workdir, "cifar_logs"))
+    for e in run["train"]:
+        log(f"resnet50-cifar10 step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    if (len(run["evals"]) != 1 or run["evals"][0]["metrics"][
+            "eval_examples"] != CIFAR_SIZES[2]):
+        raise AssertionError(f"resnet50-cifar10: expected one eval over "
+                             f"{CIFAR_SIZES[2]} images")
+    log("resnet50-cifar10 eval: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in run["evals"][0]["metrics"].items()))
+    log_image_run(run, "resnet50-cifar10", d.global_batch_size, smi)
+    log_saves(run["events"], "resnet50-cifar10")
+    step_ms, step = image_step(torch, cfg)
+    log(f"resnet50-cifar10 step alone (a resident batch): {step_ms:.3f} "
+        f"ms, {1e3 * d.global_batch_size / step_ms:.1f} images/s (host "
+        f"clock, 5 synced steps) [{smi}]")
+    image_profile(torch, step, step_ms, "one resnet50-cifar10 step")
+    return data
+
+
+def cifar_resume_phase(torch, workdir: str, data: str) -> None:
+    """7d, resume: phase 7b's run under torch.use_deterministic_algorithms
+    — 30 steps straight, and 15 steps saved, restored and trained to 30.
+    The restored tensors equal the step-15 checkpoint, and the step-30
+    checkpoints of the two runs are bit-equal (parameters, BN buffers,
+    momentum), as are the losses logged after the split. The 500-step
+    warmup covers both legs, so the split does not move the schedule."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+    from distributed_tensorflow_framework_torch.train.state import host_copy
+
+    total = 2 * CIFAR_RESUME_SPLIT
+
+    def over(name, steps):
+        return [f"data.data_dir={data}",
+                f"checkpoint.directory={os.path.join(workdir, name)}",
+                "train.log_interval=10", f"train.total_steps={steps}",
+                "train.eval_steps=0"]
+
+    def tensors(name, step):
+        return torch.load(os.path.join(workdir, name, str(step), "state.pt"),
+                          map_location="cpu", weights_only=True)
+
+    def compare(a, b):
+        a, b = list(tensor_leaves(a)), list(tensor_leaves(b))
+        if len(a) != len(b):
+            raise AssertionError(f"{len(a)} tensors against {len(b)}")
+        return [i for i, (x, y) in enumerate(zip(a, b))
+                if not torch.equal(x, y)], len(a)
+
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, steps in (("det_straight", total),
+                            ("det_resumed", CIFAR_RESUME_SPLIT)):
+            if run_cli_train(CIFAR_CONFIG, over(name, steps)) != 0:
+                raise AssertionError(f"resume run {name} to {steps} failed")
+        trainer = Trainer(load_config(CIFAR_CONFIG, overrides=over(
+            "det_resumed", total)), device="cuda")
+        try:
+            trainer.build()
+            restored = trainer.restored_step
+            host_state = host_copy(trainer.state.state_dict())
+        finally:
+            if trainer._ckpt_manager is not None:
+                trainer._ckpt_manager.close()
+            trainer.writer.close()
+        saved = tensors("det_resumed", CIFAR_RESUME_SPLIT)
+        differ, n = compare(
+            {k: host_state[k] for k in saved}, saved)
+        log(f"resume: restored step {restored}; {n} tensors against the "
+            f"step-{CIFAR_RESUME_SPLIT} checkpoint: {n - len(differ)} "
+            f"bit-equal, {len(differ)} differ")
+        if restored != CIFAR_RESUME_SPLIT or differ:
+            raise AssertionError("resume: the restored state differs")
+        del trainer, host_state
+        if run_cli_train(CIFAR_CONFIG, over("det_resumed", total)) != 0:
+            raise AssertionError("resume leg 2 failed")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    losses = {}
+    for name in ("det_straight", "det_resumed"):
+        losses[name] = {e["step"]: e["metrics"]["loss"]
+                        for e in read_events(os.path.join(workdir, name))
+                        if e["kind"] == "train_step"}
+    a, b = losses["det_straight"], losses["det_resumed"]
+    after = sorted(k for k in set(a) & set(b) if k > CIFAR_RESUME_SPLIT)
+    differ, n = compare(tensors("det_resumed", total),
+                        tensors("det_straight", total))
+    log(f"resume (deterministic algorithms): losses " + ", ".join(
+        f"step {k} {b[k]!r} (straight {a[k]!r})" for k in after)
+        + f"; step-{total} checkpoints, {n} tensors (parameters, BN "
+        f"buffers, momentum): {n - len(differ)} bit-equal, {len(differ)} "
+        f"differ")
+    if differ or not after or any(a[k] != b[k] for k in after):
+        raise AssertionError("resume: the resumed run differs from the "
+                             "straight one")
+
+
+def imagenet_phase(torch, workdir: str, smi: str) -> None:
+    """7c: config 3's model (ResNet-50 at 224, the s2d stem, label
+    smoothing 0.1, the staircase schedule, bf16 images) on its synthetic
+    fallback, 20 steps of 256 (cut from 4,096), beside the same with the
+    7x7 stem; then the step alone on a resident batch, the two stems in
+    turns, each profiled once."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    stems = {"s2d": [], "7x7": ["model.space_to_depth_stem=false"]}
+    configs = {}
+    for stem, extra in stems.items():
+        over = [f"checkpoint.directory="
+                f"{os.path.join(workdir, 'ckpt_imagenet_' + stem)}",
+                *IMAGENET_OVERRIDES, *extra]
+        cfg = load_config(IMAGENET_CONFIG, overrides=over)
+        m, d, o = cfg.model, cfg.data, cfg.optimizer
+        got = (m.name, m.num_classes, m.dtype, d.image_size, d.image_dtype,
+               d.data_dir, o.schedule, cfg.train.label_smoothing)
+        if got != ("resnet50", 1000, "bfloat16", 224, "bfloat16", "",
+                   "staircase", 0.1):
+            raise AssertionError(f"{IMAGENET_CONFIG} is no longer config "
+                                 f"3: {got}")
+        if m.space_to_depth_stem != (stem == "s2d"):
+            raise AssertionError(f"{stem}: space_to_depth_stem is "
+                                 f"{m.space_to_depth_stem}")
+        configs[stem] = cfg
+        run = image_run(torch, IMAGENET_CONFIG, over, f"resnet50-imagenet "
+                        f"{stem}", os.path.join(workdir, "imagenet_logs_"
+                                                + stem))
+        log_image_run(run, f"resnet50-imagenet {stem} stem (synthetic "
+                      f"fallback)", d.global_batch_size, smi)
+    steps = {stem: image_step(torch, cfg) for stem, cfg in configs.items()}
+    turns = {stem: [] for stem in steps}
+    for _ in range(2):
+        for stem, (_, step) in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            turns[stem].append((time.perf_counter() - t0) * 1e3 / 5)
+    b = configs["s2d"].data.global_batch_size
+    log(f"resnet50-imagenet step alone (a resident batch of {b}, host "
+        f"clock, 5 synced steps per turn, in turns): " + "; ".join(
+            f"{stem} stem " + ", ".join(f"{t:.3f}" for t in ts)
+            + f" ms ({1e3 * b / statistics.mean(ts):.1f} images/s)"
+            for stem, ts in turns.items()) + f" [{smi}]")
+    kernel = {stem: image_profile(torch, step, statistics.mean(turns[stem]),
+                                  f"one resnet50-imagenet step, {stem} stem")
+              for stem, (_, step) in steps.items()}
+    log(f"resnet50-imagenet kernel time per step: s2d stem "
+        f"{kernel['s2d']:.3f} ms, 7x7 stem {kernel['7x7']:.3f} ms")
+
+
+def image_parity_phase(torch) -> None:
+    """7d: LeNet and a small ResNet (stages (1, 1), width 16) with the
+    CIFAR, 7x7 and s2d stems, on the card in f32 and in bf16 against the
+    same model and weights in f32 on the CPU: one train step's logits,
+    gradients and running statistics (IMAGE_RTOL, IMAGE_GRAD_RTOL)."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.models.lenet import LeNet5
+    from distributed_tensorflow_framework_torch.models.resnet import ResNet
+    from distributed_tensorflow_framework_torch.train import losses
+
+    cases = {
+        "lenet": (lambda dt: LeNet5(10, dtype=dt), (8, 28, 28, 1)),
+        "resnet cifar stem": (lambda dt: ResNet(
+            (1, 1), 10, width=16, cifar_stem=True, dtype=dt), (8, 32, 32, 3)),
+        "resnet 7x7 stem": (lambda dt: ResNet((1, 1), 10, width=16, dtype=dt),
+                            (8, 64, 64, 3)),
+        "resnet s2d stem": (lambda dt: ResNet(
+            (1, 1), 10, width=16, space_to_depth_stem=True, dtype=dt),
+            (8, 64, 64, 3)),
+    }
+    rng = np.random.default_rng(SEED)
+
+    def one_step(model, image, labels):
+        model.train()
+        logits = model(image)
+        losses.classification_loss(logits, labels)[0].backward()
+        return (logits.detach().float().cpu(),
+                {k: p.grad.float().cpu() for k, p in
+                 model.named_parameters()},
+                {k: b.cpu() for k, b in model.named_buffers()})
+
+    for name, (make, shape) in cases.items():
+        image = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+        labels = torch.from_numpy(rng.integers(0, 10, shape[0]))
+        ref_model = make(torch.float32)
+        ref_model.init_weights(torch.Generator().manual_seed(SEED))
+        weights = {k: v.clone() for k, v in ref_model.state_dict().items()}
+        ref = one_step(ref_model, image, labels)
+        for dtype in ("float32", "bfloat16"):
+            model = make(getattr(torch, dtype))
+            model.load_state_dict(weights)
+            model = model.to("cuda", memory_format=torch.channels_last)
+            got = one_step(model, image.cuda(), labels.cuda())
+            logit_err = ((got[0] - ref[0]).abs().max()
+                         / ref[0].abs().max()).item()
+            top = max(g.abs().max() for g in ref[1].values())
+            grad_err = max(((got[1][k] - g).abs().max() / top).item()
+                           for k, g in ref[1].items())
+            stat_err = max((((got[2][k] - b).abs().max()
+                             / b.abs().max().clamp(min=1e-12)).item()
+                            for k, b in ref[2].items()), default=0.0)
+            log(f"image parity {name} {dtype} on the card vs f32 on the "
+                f"CPU: logits {logit_err:.3e}, gradients {grad_err:.3e} of "
+                f"the largest, running statistics {stat_err:.3e} (tol "
+                f"{IMAGE_RTOL[dtype]}, {IMAGE_GRAD_RTOL[dtype]}, "
+                f"{IMAGE_RTOL[dtype]})")
+            if (logit_err > IMAGE_RTOL[dtype] or stat_err > IMAGE_RTOL[dtype]
+                    or grad_err > IMAGE_GRAD_RTOL[dtype]):
+                raise AssertionError(f"image parity {name} {dtype}")
+
 
 def main() -> int:
     try:
@@ -2315,6 +2831,22 @@ def main() -> int:
                        for seq, route in long_runs(torch, fa)]
     log("phase 6b fused vs two-pass backward at S=8192")
     step_8192, forced_launches = long_fused_parity_phase(torch, fa)
+
+    # Phase 7: image classification. No attention kernel lies on this
+    # path; its convolutions, BatchNorm and GEMMs are cuDNN and cuBLAS.
+    torch.cuda.empty_cache()
+    gpu = smi.splitlines()[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_img_") as workdir:
+        log("phase 7a LeNet-5 on MNIST, config 1 as written")
+        lenet_phase(torch, workdir, gpu)
+        log("phase 7b ResNet-50 on CIFAR-10, config 2 on one card")
+        cifar_data = cifar_phase(torch, workdir, gpu)
+        log("phase 7c ResNet-50 at 224, config 3's model on its synthetic "
+            "fallback")
+        imagenet_phase(torch, workdir, gpu)
+        log("phase 7d image models on the card vs the CPU, and resume")
+        image_parity_phase(torch)
+        cifar_resume_phase(torch, workdir, cifar_data)
 
     # Launches on the main path: serving, the S=512 training runs (phase 5
     # and phase 5f's packed and unpacked runs) and the two long-context

@@ -7,9 +7,13 @@ never JAX and nothing from the JAX package. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 
 Ported so far: BERT MLM serving (config -> artifact -> engine -> HTTP
-server) and BERT MLM training on one device (config -> synthetic MLM
-stream -> train step with AdamW -> Trainer loop -> cli/train.py), with the
-whole-K flash-attention forward and backward as hand-written CUDA kernels
-(ops/csrc/flash_attn_fwd.cu, ops/csrc/flash_attn_bwd.cu). ROADMAP.md lists
+server) and BERT MLM training on one device (config -> synthetic or
+TFRecord MLM stream -> train step with AdamW -> Trainer loop ->
+cli/train.py), with the flash-attention forward and backward as
+hand-written CUDA kernels (ops/csrc/); checkpoint, resume and the recovery
+ladder; and image classification on one device (LeNet-5 and ResNet over
+the MNIST, CIFAR-10 and synthetic ImageNet pipelines, with the SGD,
+momentum, Adam, RMSProp and LARS optimizers and the parameter EMA), whose
+convolutions and BatchNorm are cuDNN's through PyTorch. ROADMAP.md lists
 what comes next.
 """

@@ -5,9 +5,11 @@ A checkpoint is a step directory, committed by its integrity manifest
 (ckpt/manifest.py) exactly as in the JAX package:
 
     <directory>/<step>/
-      state.pt        — torch.save of the model's tensors, the optimizer
-                        (torch AdamW's state_dict) and the dropout
-                        generator's state; read back with
+      state.pt        — torch.save of the model's tensors (BatchNorm
+                        running statistics included), the optimizer
+                        (its inner torch optimizer's state_dict), the
+                        dropout generator's state and the parameter EMA
+                        when there is one; read back with
                         ``torch.load(weights_only=True)``
       meta.json       — the step, the generator's device type and the
                         model's parameter names
@@ -155,7 +157,8 @@ class CheckpointManager:
         step_dir = self._step_dir(step)
         os.makedirs(step_dir)
         tensors = {k: host_state[k] for k in
-                   ("model", "optimizer", "dropout_generator")}
+                   ("model", "optimizer", "dropout_generator", "ema")
+                   if k in host_state}
         _write_durable(os.path.join(step_dir, STATE_FILE),
                        lambda fh: torch.save(tensors, fh))
         _write_json(os.path.join(step_dir, META_FILE), {
@@ -320,8 +323,8 @@ class CheckpointManager:
         """(step, meta, tensors) of ``step`` — which must verify — or of
         the newest step that verifies; None when there is none. The
         tensors are read to the host: ``load_state_dict`` copies the
-        model's to the device, and torch AdamW keeps its per-parameter
-        step on the host, as a fresh AdamW does."""
+        model's (and the EMA's) to the device, and torch Adam/AdamW keep
+        their per-parameter step on the host, as a fresh one does."""
         if step is not None:
             errors = self._verify(step)
             if errors:

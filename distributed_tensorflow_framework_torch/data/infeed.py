@@ -30,6 +30,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from distributed_tensorflow_framework_torch.data.pipeline import is_bfloat16
+
 log = logging.getLogger(__name__)
 
 _EOF = object()
@@ -49,9 +51,15 @@ class InfeedStallError(RuntimeError):
 
 def to_device(batch: Mapping[str, np.ndarray],
               device: torch.device) -> dict[str, torch.Tensor]:
+    """Each array as a tensor on ``device``; a tagged bf16 image array
+    (data/pipeline.py ``BFLOAT16``) becomes a ``torch.bfloat16`` tensor."""
     out = {}
     for key, value in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(value))
+        value = np.ascontiguousarray(value)
+        if is_bfloat16(value.dtype):
+            t = torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(value)
         if device.type == "cuda":
             # The caching host allocator keeps the pinned buffer alive
             # until the copy on the stream has finished.

@@ -3,7 +3,15 @@
 The port's copy of ``data/pipeline.py``, cut to what the single-card
 training path uses: a :class:`HostDataset` yields dict batches of numpy
 arrays of this process's share of the global batch, and its iterator state
-is a small dict that ``restore`` rewinds to. The state carries
+is a small dict that ``restore`` rewinds to. :func:`finite_array_eval` is
+the exact single-pass eval stream over in-memory image arrays.
+
+bf16 images: numpy has no bfloat16 and the port does not use
+``ml_dtypes``, so a bf16 image array is a uint16 array of the bf16 bits
+whose dtype carries the metadata tag :data:`BFLOAT16` (the bits
+``ml_dtypes.bfloat16`` would hold: round to nearest even, by torch).
+``data/infeed.py:to_device`` views it as ``torch.bfloat16``; the host →
+device copy moves half the bytes of f32, as in the JAX package. The state carries
 ``consumed``, the 1-based ordinal of the last batch handed out, and
 ``batches_skipped``, the ordinals a rollback decided not to train on
 (train/anomaly.py), which a restored stream discards again. Each pull is
@@ -17,12 +25,81 @@ import logging
 from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
+import torch
 
 from distributed_tensorflow_framework_torch.core import faults
 
 log = logging.getLogger(__name__)
 
 Batch = Mapping[str, np.ndarray]
+
+# uint16 bf16 bits, tagged so that to_device views them as torch.bfloat16.
+BFLOAT16 = np.dtype(np.uint16, metadata={"torch_dtype": "bfloat16"})
+
+
+def is_bfloat16(dtype: np.dtype) -> bool:
+    return (dtype.metadata or {}).get("torch_dtype") == "bfloat16"
+
+
+def image_np_dtype(image_dtype: str) -> np.dtype:
+    """Host dtype for ``DataConfig.image_dtype`` ('float32' | 'bfloat16');
+    the augmentation math stays f32 either way."""
+    if image_dtype == "bfloat16":
+        return BFLOAT16
+    if image_dtype in ("float32", "f32"):
+        return np.dtype(np.float32)
+    raise ValueError(f"Unsupported image_dtype {image_dtype!r}")
+
+
+def cast_images(images: np.ndarray, out_dtype: np.dtype) -> np.ndarray:
+    """f32 images → ``out_dtype`` (``astype(copy=False)`` for f32; the
+    tagged bf16 bits, rounded to nearest even, for :data:`BFLOAT16`)."""
+    if not is_bfloat16(out_dtype):
+        return images.astype(out_dtype, copy=False)
+    bits = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy()
+    return bits.view(BFLOAT16)
+
+
+def finite_array_eval(images: np.ndarray, labels: np.ndarray, *, batch: int,
+                      process_index: int, process_count: int,
+                      out_dtype: np.dtype) -> "HostDataset":
+    """Single-pass padded eval stream over in-memory arrays (``images``
+    already in ``out_dtype``): every example once, this host's strided
+    share, the final partial batch zero-padded to the static batch size
+    with a per-example ``weight`` (1 real, 0 pad), so the eval step's
+    weighted sums count the real examples only. Every host yields the
+    same number of batches."""
+    n = len(images)
+    shard_idx = np.arange(n)[process_index::process_count]
+    max_shard = -(-n // process_count)  # the largest host shard
+    num_batches = -(-max_shard // batch)
+
+    def make_iter(state):
+        state.setdefault("batch", 0)
+        for i in range(state["batch"], num_batches):
+            idx = shard_idx[i * batch:(i + 1) * batch]
+            k = len(idx)
+            img = np.zeros((batch,) + images.shape[1:], dtype=out_dtype)
+            lab = np.zeros((batch,), np.int32)
+            w = np.zeros((batch,), np.float32)
+            if k:
+                img[:k] = images[idx]
+                lab[:k] = labels[idx]
+                w[:k] = 1.0
+            state["batch"] = i + 1
+            yield {"image": img, "label": lab, "weight": w}
+
+    return HostDataset(
+        make_iter,
+        element_spec={
+            "image": ((batch,) + tuple(images.shape[1:]), out_dtype),
+            "label": ((batch,), np.int32),
+            "weight": ((batch,), np.float32),
+        },
+        initial_state={"batch": 0},
+        cardinality=num_batches,
+    )
 
 
 def host_batch_size(global_batch_size: int, process_count: int) -> int:

@@ -43,6 +43,23 @@ class DataShardError(ValueError):
         self.hint = hint
 
 
+def block_bounds(batch_index: int, host_batch: int, process_index: int,
+                 process_count: int) -> tuple[int, int]:
+    """``[lo, hi)`` into the epoch permutation for this host's block of
+    global batch ``batch_index``: global batch ``i`` is
+    ``perm[i*B : (i+1)*B]`` and host ``h`` takes rows ``[h*b, (h+1)*b)``
+    of it, so the consumed prefix after ``k`` batches is ``perm[:k*B]`` at
+    any host count."""
+    lo = (batch_index * process_count + process_index) * host_batch
+    return lo, lo + host_batch
+
+
+def epoch_batches(n_examples: int, host_batch: int,
+                  process_count: int) -> int:
+    """Full global batches per epoch (the ragged tail is dropped)."""
+    return n_examples // (host_batch * process_count)
+
+
 def state_digest(state: Mapping[str, Any]) -> str:
     """sha256 over the canonical JSON of an iterator state: the same
     round trip the saved JSON takes, so save and restore agree."""

@@ -1,18 +1,23 @@
 """Carry weights between a Flax parameter tree and the port's state_dict.
 
 The port's modules are named after the Flax tree, so the mapping is by name
-with four layout rules:
+with these layout rules:
 
   * Dense ``kernel`` (in, *out) → Linear ``weight`` (prod(out), in): the
     transpose of the kernel flattened to 2-D. The fused ``qkv`` kernel
     (H, 3, H) becomes (3H, H), row ``c*H + o`` holding column (c, o);
   * Dense ``bias`` (*out) → flat (prod(out),), so the fused (3, H) → (3H,);
-  * LayerNorm ``scale`` → ``weight``; Embed ``embedding`` → ``weight``;
-  * everything else (``pos_embedding``, ``mlm_bias``, LayerNorm ``bias``)
-    keeps its name and shape.
+  * Conv ``kernel`` (kh, kw, cin, cout) → ``weight`` (cout, cin, kh, kw);
+  * LayerNorm and BatchNorm ``scale`` → ``weight``; Embed ``embedding`` →
+    ``weight``;
+  * a ConvBN's ``BatchNorm_0/bn`` → the port's ``bn`` module, and the
+    Flax ``batch_stats`` tree's ``mean``/``var`` → its ``running_mean``/
+    ``running_var`` buffers;
+  * everything else (``pos_embedding``, ``mlm_bias``, biases) keeps its
+    name and shape.
 
 Trees are nested dicts of numpy arrays, as ``jax.device_get`` of the Flax
-params gives them and as serve/export.py stores them.
+params (and ``batch_stats``) gives them and as serve/export.py stores them.
 """
 
 from __future__ import annotations
@@ -24,9 +29,15 @@ import torch
 from torch import nn
 
 from distributed_tensorflow_framework_torch.models.layers import (
+    BatchNorm,
+    Conv,
     Dense,
     LayerNorm,
 )
+
+# A ConvBN's BatchNorm in the Flax tree, and its port module name.
+_FLAX_BN = ("BatchNorm_0", "bn")
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def flatten_tree(tree: dict[str, Any], prefix: tuple = ()) -> dict[tuple, Any]:
@@ -51,14 +62,27 @@ def unflatten_tree(flat: dict[tuple, Any]) -> dict[str, Any]:
     return tree
 
 
-def flax_to_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax parameter tree (numpy leaves) → the port's state_dict (f32 CPU
-    tensors; ``load_state_dict`` moves them to the model's device)."""
+def flax_to_state_dict(params: dict[str, Any],
+                       batch_stats: dict[str, Any] | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """Flax parameter tree (numpy leaves), and the ``batch_stats`` tree of
+    a BN model, → the port's state_dict (f32 CPU tensors;
+    ``load_state_dict`` moves them to the model's device)."""
     out: dict[str, torch.Tensor] = {}
-    for path, leaf in flatten_tree(params).items():
+    leaves = [(path, leaf, False) for path, leaf in
+              flatten_tree(params).items()]
+    leaves += [(path, leaf, True) for path, leaf in
+               flatten_tree(batch_stats or {}).items()]
+    for path, leaf, is_stat in leaves:
         arr = np.asarray(leaf, dtype=np.float32)
         *mods, name = path
-        if name == "kernel":
+        if tuple(mods[-2:]) == _FLAX_BN:
+            mods = [*mods[:-2], "bn"]
+        if is_stat:
+            name = _STATS[name]
+        elif name == "kernel" and arr.ndim == 4:  # Conv
+            arr, name = arr.transpose(3, 2, 0, 1), "weight"
+        elif name == "kernel":
             arr, name = arr.reshape(arr.shape[0], -1).T, "weight"
         elif name == "bias":  # the fused (3, H) Dense bias; 1-D stays
             arr = arr.reshape(-1)
@@ -70,13 +94,13 @@ def flax_to_state_dict(params: dict[str, Any]) -> dict[str, torch.Tensor]:
 
 def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...],
                                                      tuple[int, ...]]]:
-    """Each state_dict key of the port model → (its Flax path, the Flax
-    leaf's shape), with layouts taken from the module types (a Dense's
-    Flax kernel shape is (in, *out), where the fused ``qkv`` output is
-    (3, H))."""
+    """Each parameter's state_dict key in the port model → (its Flax path,
+    the Flax leaf's shape), with layouts taken from the module types (a
+    Dense's Flax kernel shape is (in, *out), where the fused ``qkv``
+    output is (3, H); a Conv's is (kh, kw, cin, cout))."""
     modules = dict(model.named_modules())
     out = {}
-    for key, tensor in model.state_dict().items():
+    for key, tensor in model.named_parameters():
         *mods, name = key.split(".")
         owner = modules[".".join(mods)]
         shape = tuple(tensor.shape)
@@ -87,11 +111,29 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...],
                 name, shape = "kernel", (shape[1], *out_shape)
             else:
                 shape = out_shape
+        elif isinstance(owner, Conv) and name == "weight":
+            name, shape = "kernel", (shape[2], shape[3], shape[1], shape[0])
+        elif isinstance(owner, BatchNorm):
+            mods = [*mods[:-1], *_FLAX_BN]
+            name = "scale" if name == "weight" else name
         elif isinstance(owner, LayerNorm) and name == "weight":
             name = "scale"
         elif name == "weight":  # Embed
             name = "embedding"
         out[key] = ((*mods, name), shape)
+    return out
+
+
+def flax_stats_layout(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """Each BatchNorm running buffer's state_dict key → its path in the
+    Flax ``batch_stats`` tree."""
+    renames = {v: k for k, v in _STATS.items()}
+    out = {}
+    for key, module in model.named_modules():
+        if isinstance(module, BatchNorm):
+            mods = [*key.split(".")[:-1], *_FLAX_BN]
+            for buf, name in renames.items():
+                out[f"{key}.{buf}"] = (*mods, name)
     return out
 
 
@@ -105,7 +147,18 @@ def to_flax(model: nn.Module,
     flat: dict[tuple, np.ndarray] = {}
     for key, (path, shape) in flax_layout(model).items():
         arr = tensors[key].detach().to("cpu", torch.float32).numpy()
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        elif path[-1] == "kernel":
             arr = arr.T
         flat[path] = np.ascontiguousarray(arr.reshape(shape))
     return unflatten_tree(flat)
+
+
+def batch_stats_to_flax(model: nn.Module) -> dict[str, Any]:
+    """The BN running statistics as the Flax ``batch_stats`` tree ({} for
+    a model without BN)."""
+    state = model.state_dict()
+    return unflatten_tree({
+        path: state[key].detach().to("cpu", torch.float32).numpy().copy()
+        for key, path in flax_stats_layout(model).items()})

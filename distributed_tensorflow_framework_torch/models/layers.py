@@ -6,13 +6,18 @@ differ, the statistics do not.
 
   * dense kernels: variance_scaling(1.0, "fan_in", "truncated_normal") —
     normal truncated at ±2σ, rescaled so the truncated std is sqrt(1/fan_in);
+  * conv kernels: variance_scaling(2.0, "fan_out", "normal"), a plain
+    normal (Flax ``nn.Conv``'s own default, the truncated fan-in one, for
+    LeNet's);
   * embedding tables: normal(0, 0.02);
-  * biases zero, LayerNorm scale one.
+  * biases zero, LayerNorm and BatchNorm scale one (zero for a residual
+    block's last BN).
 
-:func:`dense` and :class:`LayerNorm` reproduce Flax's dtype flow
-(``nn.Dense(dtype=..., param_dtype=float32)`` and
-``nn.LayerNorm(dtype=float32)``) so the bf16 rounding points line up with
-the JAX model's.
+:func:`dense`, :class:`LayerNorm`, :class:`Conv` and :class:`BatchNorm`
+reproduce Flax's dtype flow (``param_dtype=float32``, compute in
+``dtype``; normalisation statistics in f32) so the bf16 rounding points
+line up with the JAX model's. The image half (conv, BatchNorm, ConvBN,
+space-to-depth, SAME max-pool) is below its own heading.
 """
 
 from __future__ import annotations
@@ -98,3 +103,222 @@ class LayerNorm(nn.Module):
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+
+# --------------------------------------------------------------- images --
+#
+# The image half of the JAX package's models/layers.py. The image models
+# take NHWC batches, as the pipelines yield them and as the JAX models
+# read them, permute them once at entry and run NCHW logically. The
+# permuted view of an NHWC tensor has channels_last strides, which is the
+# layout in which cuDNN runs bf16 convolutions on the tensor cores, and
+# the trainer puts the weights in it too (``nn.Module.to(memory_format=
+# torch.channels_last)``). Every op below keeps that layout.
+
+def variance_scaling_fan_out_normal_(
+        weight: torch.Tensor, generator: torch.Generator | None,
+        scale: float = 2.0) -> torch.Tensor:
+    """Flax ``variance_scaling(scale, "fan_out", "normal")`` for a conv
+    weight (cout, cin, kh, kw): a plain normal (not truncated) with
+    std √(scale / fan_out), fan_out = kh·kw·cout — the JAX package's
+    ``conv_kernel_init``."""
+    cout, _, kh, kw = weight.shape
+    return normal_(weight, math.sqrt(scale / (kh * kw * cout)), generator)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding along one axis: the output is ⌈size/stride⌉ and
+    the total padding max((out−1)·stride + kernel − size, 0), the smaller
+    half before. At stride 2 it is asymmetric (a 3×3/s2 conv on 32 pads
+    (0, 1), the 7×7/s2 stem on 224 pads (2, 3)), which a symmetric
+    ``padding=k//2`` does not reproduce."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_pairs(x: torch.Tensor, kernel: tuple[int, int],
+               stride: tuple[int, int], padding) -> tuple[tuple[int, int],
+                                                          tuple[int, int]]:
+    if padding == "SAME":
+        return (same_pads(x.shape[2], kernel[0], stride[0]),
+                same_pads(x.shape[3], kernel[1], stride[1]))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return tuple(tuple(p) for p in padding)
+
+
+def pad_nchw(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    """``F.pad`` of H and W by ((top, bottom), (left, right)), kept in
+    channels_last when x is."""
+    (t, b), (l, r) = pads
+    if not (t or b or l or r):
+        return x
+    out = F.pad(x, (l, r, t, b), value=value)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        out = out.contiguous(memory_format=torch.channels_last)
+    return out
+
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv(param_dtype=float32)`` on NCHW activations: the
+    weight is f32 (cout, cin, kh, kw) — the Flax kernel (kh, kw, cin, cout)
+    transposed — and the input, weight and bias are cast to ``dtype``, so
+    the conv rounds once and the bias add again. ``padding`` is "SAME"
+    (XLA's, see :func:`same_pads`), "VALID" or explicit
+    ((top, bottom), (left, right)) pairs, which pass through as given.
+    Symmetric pads go to ``F.conv2d``; asymmetric ones are applied first
+    with ``F.pad``. On the card an f32 conv takes cuDNN's default, TF32
+    (``torch.backends.cudnn.allow_tf32``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int], *,
+                 strides: tuple[int, int] = (1, 1), padding="SAME",
+                 use_bias: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides)
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            features, in_features, *self.kernel_size, dtype=torch.float32,
+            device=device))
+        self.bias = (nn.Parameter(torch.empty(
+            features, dtype=torch.float32, device=device))
+            if use_bias else None)
+
+    def reset_parameters(self, generator: torch.Generator | None, *,
+                         init: str = "he") -> None:
+        """``init="he"``: the JAX ``conv_kernel_init``; ``"lecun"``: Flax
+        ``nn.Conv``'s default, variance_scaling(1, fan_in, truncated)."""
+        if init == "he":
+            variance_scaling_fan_out_normal_(self.weight, generator)
+        else:
+            cout, cin, kh, kw = self.weight.shape
+            variance_scaling_fan_in_(self.weight, cin * kh * kw, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (t, b), (l, r) = _pad_pairs(x, self.kernel_size, self.strides,
+                                    self.padding)
+        x = x.to(self.dtype)
+        if t == b and l == r:
+            padding = (t, l)
+        else:
+            x, padding = pad_nchw(x, ((t, b), (l, r))), (0, 0)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.weight.to(self.dtype), bias,
+                        stride=self.strides, padding=padding)
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm`` (the JAX package's ``BatchNorm``,
+    momentum 0.9, ε 1e-5) over the channels of an NCHW tensor.
+
+    The statistics and the normalisation are f32 whatever the input
+    dtype; the output is cast to ``dtype``. ``weight``/``bias`` are the
+    Flax ``scale``/``bias``; ``running_mean``/``running_var`` are its
+    ``batch_stats`` ``mean``/``var`` (no ``num_batches_tracked``, so the
+    state_dict maps one to one). In train mode the running statistics move
+    as Flax moves them, ``ra ← 0.9·ra + 0.1·batch`` (torch's momentum
+    0.1), with the BIASED batch variance: ``F.batch_norm`` would fold in
+    the unbiased one (×n/(n−1)), so its statistics are read into scratch
+    buffers (momentum 1) and the update is made here, the variance scaled
+    back by (n−1)/n. ``zero_init_gamma`` starts the scale at zero (the
+    last BN of a residual block)."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
+                 momentum: float = 0.9, eps: float = 1e-5,
+                 zero_init_gamma: bool = False, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = momentum
+        self.eps = eps
+        self.zero_init_gamma = zero_init_gamma
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.empty(features, **f32))
+        self.bias = nn.Parameter(torch.empty(features, **f32))
+        self.register_buffer("running_mean", torch.zeros(features, **f32))
+        self.register_buffer("running_var", torch.ones(features, **f32))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(0.0 if self.zero_init_gamma else 1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, training=False,
+                             eps=self.eps)
+            return y.to(self.dtype)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias,
+                         training=True, momentum=1.0, eps=self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=(1.0 - keep)
+                                             * (n - 1) / n)
+        return y.to(self.dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias, He init) → BatchNorm → optional ReLU: the JAX
+    ``ConvBN``, whose Flax tree is ``conv/kernel`` and
+    ``BatchNorm_0/bn/{scale,bias}`` (models/convert.py maps ``bn`` onto
+    ``BatchNorm_0/bn``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, int], *,
+                 strides: tuple[int, int] = (1, 1), padding="SAME",
+                 use_relu: bool = True, zero_init_gamma: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.use_relu = use_relu
+        self.conv = Conv(in_features, features, kernel_size, strides=strides,
+                         padding=padding, dtype=dtype, device=device)
+        self.bn = BatchNorm(features, dtype=dtype,
+                            zero_init_gamma=zero_init_gamma, device=device)
+
+    def reset_parameters(self, generator: torch.Generator | None) -> None:
+        self.conv.reset_parameters(generator)
+        self.bn.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.use_relu else x
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC space-to-depth: (N,H,W,C) → (N,H/b,W/b,b²·C), the channel
+    order (di, dj, c) flattened — pixel (b·i+di, b·j+dj, c) lands at
+    channel (di·b + dj)·C + c, the order the s2d stem's kernel mapping
+    depends on."""
+    n, h, w, c = x.shape
+    if h % block or w % block:
+        raise ValueError(f"space_to_depth: {h}x{w} not divisible by {block}")
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // block, w // block, block * block * c)
+
+
+def max_pool_same(x: torch.Tensor, window: int,
+                  stride: int) -> torch.Tensor:
+    """Flax ``nn.max_pool(padding="SAME")``: XLA's SAME pads, filled with
+    −inf, so a pad never wins the max."""
+    pads = _pad_pairs(x, (window, window), (stride, stride), "SAME")
+    return F.max_pool2d(pad_nchw(x, pads, value=float("-inf")), window,
+                        stride)
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """The NHWC batch as an NCHW view: no copy, channels_last strides."""
+    return x.permute(0, 3, 1, 2)

@@ -41,7 +41,10 @@ from distributed_tensorflow_framework_torch.core.config import (
     ModelConfig,
     _build,
 )
-from distributed_tensorflow_framework_torch.models import get_model
+from distributed_tensorflow_framework_torch.models import (
+    BERT_NAMES,
+    get_model,
+)
 from distributed_tensorflow_framework_torch.models.convert import (
     flatten_tree,
     flax_to_state_dict,
@@ -176,7 +179,11 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     if not config.checkpoint.directory:
         raise ValueError("checkpoint.directory must name the trained run "
                          "to export")
-    model = get_model(config.model, device=device)  # BERT only, as yet
+    if config.model.name.lower() not in BERT_NAMES:
+        raise NotImplementedError(
+            f"exporting {config.model.name!r}: the port exports and serves "
+            f"the mlm (bert) task only so far — ROADMAP.md queue A item A15")
+    model = get_model(config.model, device=device)
     manager = CheckpointManager(dataclasses.replace(config.checkpoint,
                                                     async_save=False))
     try:

@@ -1,2 +1,2 @@
-"""Training: losses, schedules, the AdamW chain, the train/eval steps,
-hooks and the Trainer loop (single device)."""
+"""Training: losses, schedules, the optimizer chains and the parameter EMA,
+the train/eval steps, hooks and the Trainer loop (single device)."""

@@ -7,7 +7,9 @@ syncs only at ``train.log_interval`` and at the last step;
 ``train.dispatch_ahead`` bounds how many unsynced steps may be queued by
 syncing on the oldest. The first step builds the CUDA kernels (at first
 use), so its host time is filed under the ``compile`` phase, as the JAX
-trainer files its first dispatch.
+trainer files its first dispatch. The same loop trains the masked-LM
+(BERT) and the image classification (LeNet, ResNet) configs;
+``examples_per_sec`` counts sequences or images.
 
 With ``checkpoint.directory`` set, ``build`` restores the newest verified
 checkpoint (or ``checkpoint.restore_step``), the checkpoint hook saves
@@ -405,8 +407,9 @@ class Trainer:
 
     def evaluate(self, step: int | None = None,
                  num_batches: int | None = None) -> dict[str, float]:
-        """Exact evaluation: weighted means of the MLM metrics, and
-        ``eval_examples``, the masked tokens seen. A finite eval stream
+        """Exact evaluation: weighted means of the task's metrics
+        (``eval_loss`` and ``eval_mlm_acc``, or ``eval_top1``/``eval_top5``)
+        and ``eval_examples``, the masked tokens (MLM) or the images seen. A finite eval stream
         (``cardinality`` set) is walked once in full, every record once,
         the zero-padded tail adding no weight; ``num_batches`` at or above
         the cardinality means the full set, below it truncates with a

@@ -1,15 +1,56 @@
-"""Masked-LM loss and metrics: the port's copy of ``train/losses.py``'s MLM
-half.
+"""Losses and metrics: the port's copy of ``train/losses.py``.
 
-Everything is computed in f32 on the logits. ``targets`` holds the
-original token at masked (predicted) positions and -1 elsewhere; the
-denominator of the training loss is ``max(#masked, 1)``.
+Everything is computed in f32 on the logits. Classification: softmax CE
+(with ``label_smoothing`` α the target is (1−α)·onehot + α/K, as
+``optax.smooth_labels`` makes it), top-1, and top-5 when there are more
+than 5 classes; ties in ``topk`` may order differently than in
+``jax.lax.top_k``. Masked LM: ``targets`` holds the original token at
+masked (predicted) positions and -1 elsewhere; the denominator of the
+training loss is ``max(#masked, 1)``. The ``*_metrics_sums`` functions
+give the weighted sums of exact evaluation, which the eval loop adds over
+batches and divides by ``weight_sum``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _top5(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.topk(5, dim=-1).indices == labels[:, None]).any(
+        dim=-1).float()
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                        label_smoothing: float = 0.0
+                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Mean softmax CE over the batch, with top-1 (and top-5)."""
+    logits = logits.float()
+    labels = labels.long()
+    loss = F.cross_entropy(logits, labels, label_smoothing=label_smoothing)
+    metrics = {"loss": loss,
+               "top1": (logits.argmax(dim=-1) == labels).float().mean()}
+    if logits.shape[-1] > 5:
+        metrics["top5"] = _top5(logits, labels).mean()
+    return loss, metrics
+
+
+def classification_metrics_sums(logits: torch.Tensor, labels: torch.Tensor,
+                                weight: torch.Tensor
+                                ) -> dict[str, torch.Tensor]:
+    """Weighted metric SUMS for exact evaluation: zero-weight padding rows
+    add nothing, and ``weight_sum`` counts the real examples."""
+    logits = logits.float()
+    labels = labels.long()
+    w = weight.float()
+    losses = F.cross_entropy(logits, labels, reduction="none")
+    correct = (logits.argmax(dim=-1) == labels).float()
+    out = {"loss_sum": (losses * w).sum(), "top1_sum": (correct * w).sum(),
+           "weight_sum": w.sum()}
+    if logits.shape[-1] > 5:
+        out["top5_sum"] = (_top5(logits, labels) * w).sum()
+    return out
 
 
 def mlm_mask(targets: torch.Tensor) -> torch.Tensor:

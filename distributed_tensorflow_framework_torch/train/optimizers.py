@@ -1,23 +1,43 @@
 """Optimizer construction from config: the port's copy of
-``train/optimizers.py`` for ``adamw``, the BERT recipe's optimizer.
+``train/optimizers.py``.
 
-The JAX package builds the optax chain ``clip_by_global_norm →
-scale_by_adam → add_decayed_weights(mask) → −lr·schedule(count)``, with
-the count starting at 0 (so the first update uses ``schedule(0)``, which
-is 0 under warmup). :class:`AdamW` computes the same update with
-``torch.optim.AdamW`` over two parameter groups (decayed and not): its
-step is ``p ← p·(1 − lr·wd) − lr·m̂/(√v̂ + ε)``, ε outside the square root
-and bias correction from count 1, which is the chain's update. The global
-norm clip runs first, on the gradients in place.
+The JAX package builds an optax chain ``clip_by_global_norm → base rule
+→ −lr·schedule(count)``, the count starting at 0 (so the first update uses
+``schedule(0)``, which is 0 under warmup). :class:`Optimizer` runs the
+clip on the gradients in place, sets the learning rate ``schedule(count)``
+on every parameter group, and steps an inner ``torch.optim`` optimizer
+over two groups, decayed and not:
+
+  * ``adamw``: ``torch.optim.AdamW`` — ``p ← p·(1 − lr·wd) −
+    lr·m̂/(√v̂ + ε)``, ε outside the root, bias correction from count 1,
+    which is optax's ``adamw`` update;
+  * ``sgd``/``sgd_momentum``/``momentum``: ``torch.optim.SGD`` with
+    dampening 0 — ``g + wd·p`` (optax ``add_decayed_weights`` before the
+    trace), the trace ``m ← g + μ·m`` (zero start, so the first step's
+    buffer is g), then ``−lr·m``, or ``−lr·(g + μ·m)`` with ``nesterov``;
+  * ``adam``: ``torch.optim.Adam`` with its coupled ``g + wd·p``, which is
+    ``add_decayed_weights`` followed by optax's ``adam``;
+  * ``rmsprop`` (:class:`RMSProp`, by hand): optax's ``scale_by_rms`` with
+    the TF1 slot start ν = 1 and ε INSIDE the root, ``u = g·(ν + ε)^-½``
+    after ``ν ← d·ν + (1−d)·g²``, then ``−lr·u`` and a momentum trace
+    after the scaling when ``momentum > 0``. ``torch.optim.RMSprop``
+    starts ν at 0 and adds ε outside the root, which with Inception's
+    ε = 1 is a different optimizer;
+  * ``lars`` (:class:`LARS`, by hand): optax's order — ``g + wd·p`` on the
+    decayed leaves, the trust ratio 0.001·‖p‖/‖u‖ on every leaf (1 where
+    either norm is 0), ``−lr·u``, then the momentum trace, which here
+    comes AFTER the learning rate.
 
 The weight-decay mask is the JAX package's ``_decay_mask`` rule applied to
 the Flax names and shapes that models/convert.py gives each parameter:
-rank ≥ 2 kernels, ``embed/embedding`` and ``pos_embedding`` decay; every
-``bias`` and ``scale``, and ``mlm_bias``, do not.
+rank ≥ 2 kernels (dense and conv), ``embed/embedding`` and
+``pos_embedding`` decay; every ``bias``, ``scale`` and BatchNorm leaf, and
+``mlm_bias``, do not.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,7 +48,7 @@ from distributed_tensorflow_framework_torch.train.schedules import (
     make_schedule,
 )
 
-_NOT_PORTED = ("sgd", "sgd_momentum", "momentum", "adam", "rmsprop", "lars")
+SGD_NAMES = ("sgd", "sgd_momentum", "momentum")
 
 
 def decay_mask(model: nn.Module) -> dict[str, bool]:
@@ -44,8 +64,118 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-class AdamW:
-    """The optax ``adamw`` chain with global-norm clipping, on a model's
+def _decayed_grads(group: dict) -> tuple[list, list]:
+    """The group's parameters with a gradient, and ``g + wd·p`` for them
+    (optax ``add_decayed_weights``; the gradients themselves when the
+    group does not decay)."""
+    params = [p for p in group["params"] if p.grad is not None]
+    grads = [p.grad for p in params]
+    if group["weight_decay"]:
+        grads = torch._foreach_add(grads, params,
+                                   alpha=group["weight_decay"])
+    return params, grads
+
+
+def _trace(opt: torch.optim.Optimizer, params: list, updates: list,
+           momentum: float) -> list:
+    """optax ``trace``: ``t ← u + μ·t`` from zero; returns the new t."""
+    traces = []
+    for p, u in zip(params, updates):
+        state = opt.state[p]
+        if "trace" not in state:
+            state["trace"] = torch.zeros_like(p)
+        traces.append(state["trace"])
+    torch._foreach_mul_(traces, momentum)
+    torch._foreach_add_(traces, updates)
+    return traces
+
+
+class RMSProp(torch.optim.Optimizer):
+    """optax ``rmsprop(initial_scale=1.0, eps_in_sqrt=True)`` after an
+    optional ``add_decayed_weights`` (see the module docstring)."""
+
+    def __init__(self, groups, *, decay: float, eps: float,
+                 momentum: float):
+        super().__init__(groups, dict(lr=0.0, weight_decay=0.0, decay=decay,
+                                      eps=eps, momentum=momentum))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params, grads = _decayed_grads(group)
+            if not params:
+                continue
+            nus = []
+            for p in params:
+                state = self.state[p]
+                if "nu" not in state:
+                    state["nu"] = torch.ones_like(p)
+                nus.append(state["nu"])
+            decay = group["decay"]
+            torch._foreach_mul_(nus, decay)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - decay)
+            scale = torch._foreach_add(nus, group["eps"])
+            torch._foreach_rsqrt_(scale)
+            updates = torch._foreach_mul(grads, scale)
+            torch._foreach_mul_(updates, -group["lr"])
+            if group["momentum"] > 0:
+                updates = _trace(self, params, updates, group["momentum"])
+            torch._foreach_add_(params, updates)
+
+
+class LARS(torch.optim.Optimizer):
+    """optax ``lars(trust_coefficient=0.001, eps=0, nesterov=False)`` with
+    the weight-decay mask as the parameter groups (see the module
+    docstring)."""
+
+    def __init__(self, groups, *, momentum: float,
+                 trust_coefficient: float = 0.001):
+        super().__init__(groups, dict(lr=0.0, weight_decay=0.0,
+                                      momentum=momentum,
+                                      trust_coefficient=trust_coefficient))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params, grads = _decayed_grads(group)
+            if not params:
+                continue
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(grads))
+            ratio = group["trust_coefficient"] * p_norm / u_norm
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(ratio), ratio)
+            updates = torch._foreach_mul(grads, list(ratio.unbind()))
+            torch._foreach_mul_(updates, -group["lr"])
+            updates = _trace(self, params, updates, group["momentum"])
+            torch._foreach_add_(params, updates)
+
+
+def _inner(config: OptimizerConfig, groups: list[dict]
+           ) -> torch.optim.Optimizer:
+    name = config.name.lower()
+    if name == "adamw":
+        return torch.optim.AdamW(groups, lr=0.0,
+                                 betas=(config.beta1, config.beta2),
+                                 eps=config.eps)
+    if name in SGD_NAMES:
+        return torch.optim.SGD(groups, lr=0.0, momentum=config.momentum,
+                               nesterov=config.nesterov
+                               and config.momentum > 0)
+    if name == "adam":
+        return torch.optim.Adam(groups, lr=0.0,
+                                betas=(config.beta1, config.beta2),
+                                eps=config.eps)
+    if name == "rmsprop":
+        return RMSProp(groups, decay=config.rms_decay, eps=config.eps,
+                       momentum=config.momentum)
+    if name == "lars":
+        return LARS(groups, momentum=config.momentum)
+    raise ValueError(f"Unknown optimizer {config.name!r}")
+
+
+class Optimizer:
+    """The config's optax chain with global-norm clipping, on a model's
     parameters. ``step(grad_norm)`` takes the pre-clip global norm of the
     gradients held in ``.grad`` and applies one update with the learning
     rate ``schedule(count)``."""
@@ -60,9 +190,7 @@ class AdamW:
             {"params": [p for k, p in params.items() if not mask[k]],
              "weight_decay": 0.0},
         ]
-        self.inner = torch.optim.AdamW(
-            groups, lr=0.0, betas=(config.beta1, config.beta2),
-            eps=config.eps)
+        self.inner = _inner(config, groups)
         self.params = list(params.values())
         self.clip_norm = config.grad_clip_norm
         self.schedule = schedule
@@ -85,8 +213,9 @@ class AdamW:
         self.inner.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        """The inner AdamW state (slots and per-parameter step) and the
-        schedule's count. The tensors are the live ones, not copies."""
+        """The inner optimizer's state (slots, and the per-parameter step
+        of Adam and AdamW) and the schedule's count. The tensors are the
+        live ones, not copies."""
         return {"inner": self.inner.state_dict(), "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
@@ -98,14 +227,26 @@ class AdamW:
 
 
 def make_optimizer(config: OptimizerConfig, total_steps: int,
-                   model: nn.Module) -> tuple[AdamW, Schedule]:
+                   model: nn.Module) -> tuple[Optimizer, Schedule]:
     """The optimizer over ``model``'s parameters and its schedule."""
-    name = config.name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {config.name!r} is not ported yet (the port has "
-            f"adamw) — ROADMAP.md queue A item A3")
-    if name != "adamw":
-        raise ValueError(f"Unknown optimizer {config.name!r}")
     schedule = make_schedule(config, total_steps)
-    return AdamW(config, schedule, model), schedule
+    return Optimizer(config, schedule, model), schedule
+
+
+def ema_decay_at(decay: float, step: int) -> np.float32:
+    """The EMA's decay after step ``step`` (the count before the
+    increment): ``min(decay, (1 + t)/(10 + t))`` in f32, as the JAX step
+    computes it (tf.train.ExponentialMovingAverage with num_updates)."""
+    t = np.float32(step)
+    return np.minimum(np.float32(decay),
+                      (np.float32(1.0) + t) / (np.float32(10.0) + t))
+
+
+@torch.no_grad()
+def ema_update_(ema: list[torch.Tensor], params: list[torch.Tensor],
+                decay: float, step: int) -> None:
+    """``ema ← d·ema + (1 − d)·p`` in place, d = :func:`ema_decay_at`."""
+    d = ema_decay_at(decay, step)
+    torch._foreach_mul_(ema, float(d))
+    torch._foreach_add_(ema, [p.float() for p in params],
+                        alpha=float(np.float32(1.0) - d))

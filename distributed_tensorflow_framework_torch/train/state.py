@@ -1,15 +1,19 @@
 """Training state: the port's counterpart of ``train/state.py``'s
 ``TrainState``.
 
-The step counter, the parameters (the model), the optimizer and its
-state, and the dropout generator (the JAX state's ``rng``). PyTorch
-updates the parameters and optimizer slots in place, so the state is a
-mutable record rather than a pytree that each step replaces.
+The step counter, the parameters and the BatchNorm running statistics
+(the model: the JAX state's ``params`` and ``batch_stats``), the optimizer
+and its state, the dropout generator (the JAX state's ``rng``) and the
+parameter EMA (``ema_params``: f32 copies on the device, empty unless
+``optimizer.ema_decay > 0``). PyTorch updates the parameters and optimizer
+slots in place, so the state is a mutable record rather than a pytree that
+each step replaces.
 
 ``state_dict``/``load_state_dict`` are what a checkpoint and a rollback
-snapshot hold: the step, the model's tensors, the optimizer (torch AdamW's
-slots and per-parameter step, and ``AdamW.count``), and the dropout
-generator's state with the device type it belongs to. ``state_dict``
+snapshot hold: the step, the model's tensors (BN buffers included), the
+optimizer (the inner torch optimizer's slots and ``Optimizer.count``), the
+dropout generator's state with the device type it belongs to, and the
+EMA when there is one. ``state_dict``
 returns the LIVE tensors: anything kept past the next step takes
 :func:`host_copy` of it, since on the CPU ``tensor.to("cpu")`` is the
 same tensor and the next ``optimizer.step`` would overwrite it.
@@ -17,13 +21,13 @@ same tensor and the next ``optimizer.step`` would overwrite it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+from torch import nn
 
-from distributed_tensorflow_framework_torch.models.bert import BertForMLM
-from distributed_tensorflow_framework_torch.train.optimizers import AdamW
+from distributed_tensorflow_framework_torch.train.optimizers import Optimizer
 
 
 def host_copy(tree: Any) -> Any:
@@ -42,22 +46,31 @@ def host_copy(tree: Any) -> Any:
 @dataclass
 class TrainState:
     step: int
-    model: BertForMLM
-    optimizer: AdamW
+    model: nn.Module
+    optimizer: Optimizer
     dropout_generator: torch.Generator
+    # Parameter name → its f32 moving average; {} when the EMA is off.
+    ema_params: dict[str, torch.Tensor] = field(default_factory=dict)
 
     def state_dict(self) -> dict:
-        return {
+        out = {
             "step": self.step,
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "dropout_generator": self.dropout_generator.get_state(),
             "generator_device": self.dropout_generator.device.type,
         }
+        if self.ema_params:
+            out["ema"] = dict(self.ema_params)
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         """Load ``state`` in place. Its optimizer tensors are taken over
-        (see ``AdamW.load_state_dict``): pass a copy nothing else holds.
+        (see ``Optimizer.load_state_dict``): pass a copy nothing else
+        holds. The EMA follows ``optimizer.ema_decay`` across a restart,
+        as in the JAX trainer: a saved EMA is copied into this state's,
+        re-seeded from the restored parameters when none was saved, and
+        dropped when this run keeps none.
         A generator state from another device type is refused — a CUDA
         generator's state does not fit a CPU generator, nor the reverse,
         and re-seeding would silently change the dropout stream."""
@@ -72,6 +85,11 @@ class TrainState:
                 f"dropout stream")
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        with torch.no_grad():
+            for key, p in self.model.named_parameters():
+                if key in self.ema_params:
+                    self.ema_params[key].copy_(
+                        state["ema"][key] if "ema" in state else p)
         self.dropout_generator.set_state(
             state["dropout_generator"].to("cpu"))
         self.step = int(state["step"])

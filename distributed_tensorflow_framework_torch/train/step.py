@@ -1,23 +1,31 @@
 """Train and eval steps: the port's counterpart of ``train/step.py``.
 
 :class:`StepBuilder` is cut to the JAX package's single-device ``jit``
-path for the masked-LM task: one micro-step is the forward in ``train()``
-mode, :func:`~.losses.mlm_loss` and the backward (through the
-flash-attention kernels when ``attention_impl: pallas``); with
+path, for the masked-LM task (BERT) and the classification task (LeNet,
+ResNet). One micro-step is the forward in ``train()`` mode, the task's
+loss (:func:`~.losses.mlm_loss`, or :func:`~.losses.classification_loss`
+with ``train.label_smoothing``) and the backward (through the
+flash-attention kernels when ``attention_impl: pallas``). With
 ``train.grad_accum_steps > 1`` the micro-batch gradients are summed
-weighted by their masked-token counts and divided by the total, which is
-the full-batch gradient (``_accumulated_grads``), and the dropout stream
-advances per micro-batch. Then the optimizer applies one update.
+weighted — by their masked-token counts for MLM, by 1 for classification
+— and divided by the total, which is the full-batch gradient
+(``_accumulated_grads``); BatchNorm's running statistics move micro-batch
+by micro-batch, and the dropout stream advances per micro-batch. Then the
+optimizer applies one update, and with ``optimizer.ema_decay > 0`` the
+parameter EMA follows it (``ema ← d·ema + (1 − d)·p``,
+``d = min(decay, (1 + t)/(10 + t))`` at the step t before the increment).
 
-Step metrics: ``loss`` and ``mlm_acc``, ``grad_norm`` (the global norm of
-the gradients BEFORE clipping) and ``learning_rate`` (the schedule at the
-step before the increment). They stay on the device; the trainer syncs
-only when it logs.
+Step metrics: ``loss`` and ``mlm_acc`` or ``top1``/``top5``,
+``grad_norm`` (the global norm of the gradients BEFORE clipping) and
+``learning_rate`` (the schedule at the step before the increment). They
+stay on the device; the trainer syncs only when it logs. The eval step
+runs in ``eval()`` mode (BN on its running statistics, no dropout), on the
+EMA parameters when ``train.eval_use_ema`` and the EMA is on.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
 naming its ROADMAP.md item when it is not at its off value: multi-device
 meshes, ``spmd_mode: shard_map``, ZeRO/FSDP, compressed collectives, the
-fused update, the selective remat policies and the EMA. ``model.remat``
+fused update and the selective remat policies. ``model.remat``
 (per-layer checkpointing) is carried by the model.
 """
 
@@ -33,6 +41,7 @@ from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import get_model
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
+    ema_update_,
     global_norm,
     make_optimizer,
 )
@@ -87,8 +96,6 @@ def check_single_device_jit(config: ExperimentConfig) -> None:
     if precision.activation_dtype or precision.matmul_dtype:
         raise _not_ported("the precision pack (precision.activation_dtype, "
                           "precision.matmul_dtype)", "A13")
-    if opt.ema_decay > 0:
-        raise _not_ported("the parameter EMA (optimizer.ema_decay>0)", "A3")
 
 
 class StepBuilder:
@@ -101,10 +108,8 @@ class StepBuilder:
         self.config = config
         self.device = resolve_device(device)
         self.task = task_for_model(config.model.name)
-        if self.task != "mlm":
-            raise _not_ported(f"training model {config.model.name!r}",
-                              "A2 (LeNet-5), A5 (ResNet) and A6 (Inception)")
-        if config.data.vocab_size > config.model.vocab_size:
+        if (self.task == "mlm"
+                and config.data.vocab_size > config.model.vocab_size):
             # Ids at or above the embedding size would fault the CUDA
             # gather; the JAX package refuses the same configuration.
             raise ValueError(
@@ -117,18 +122,26 @@ class StepBuilder:
 
     def init_state(self, seed: int) -> TrainState:
         """Parameters drawn from the (seed, init) stream, the optimizer
-        over them, and the (seed, dropout) generator; model in train()."""
+        over them, the (seed, dropout) generator and, with
+        ``optimizer.ema_decay > 0``, the EMA starting at the parameters;
+        model in train()."""
         model = get_model(
             self.config.model, device=self.device,
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
-                                           self.device))
+                                           self.device),
+            in_channels=(None if self.task == "mlm"
+                         else self.config.data.channels))
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model)
         self.base_schedule = self.schedule
+        ema = ({k: p.detach().float().clone()
+                for k, p in model.named_parameters()}
+               if self.config.optimizer.ema_decay > 0 else {})
         return TrainState(
             step=0, model=model.train(), optimizer=optimizer,
             dropout_generator=prng.torch_generator(seed, prng.ROLE_DROPOUT,
-                                                   self.device))
+                                                   self.device),
+            ema_params=ema)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -139,17 +152,31 @@ class StepBuilder:
 
     def _micro_step(self, state: TrainState, batch: dict, loss_scale,
                     fault_scale: float = 1.0) -> dict[str, torch.Tensor]:
-        """Forward + MLM loss + backward of ``loss * loss_scale``; the
-        gradients add into ``.grad``. ``fault_scale`` multiplies the loss
-        itself (see ``train_step``)."""
-        logits = state.model(*model_inputs(self.task, batch),
-                             dropout_generator=state.dropout_generator)
-        loss, metrics = losses.mlm_loss(logits, batch["targets"])
+        """Forward + the task's loss + backward of ``loss * loss_scale``;
+        the gradients add into ``.grad``. ``fault_scale`` multiplies the
+        loss itself (see ``train_step``)."""
+        if self.task == "mlm":
+            logits = state.model(*model_inputs(self.task, batch),
+                                 dropout_generator=state.dropout_generator)
+            loss, metrics = losses.mlm_loss(logits, batch["targets"])
+        else:
+            logits = state.model(batch["image"])
+            loss, metrics = losses.classification_loss(
+                logits, batch["label"],
+                label_smoothing=self.config.train.label_smoothing)
         if fault_scale != 1.0:
             loss = loss * fault_scale
             metrics["loss"] = loss
         (loss * loss_scale).backward()
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _microbatch_weight(self, mb: dict) -> torch.Tensor:
+        """A micro-batch's share of the full-batch loss denominator: its
+        masked tokens for MLM, 1 for the per-example mean of
+        classification."""
+        if self.task == "mlm":
+            return losses.mlm_mask(mb["targets"]).sum()
+        return torch.ones((), device=mb["label"].device)
 
     def _split(self, batch: dict) -> list[dict]:
         out = []
@@ -177,7 +204,7 @@ class StepBuilder:
         else:
             weights, sums = [], {}
             for mb in self._split(batch):
-                w = losses.mlm_mask(mb["targets"]).sum()
+                w = self._microbatch_weight(mb)
                 m = self._micro_step(state, mb, w, fault_scale)
                 weights.append(w)
                 for k, v in m.items():
@@ -188,6 +215,10 @@ class StepBuilder:
             metrics = {k: v * inv for k, v in sums.items()}
         grad_norm = global_norm([p.grad for p in state.model.parameters()])
         state.optimizer.step(grad_norm)
+        if state.ema_params:
+            ema_update_(list(state.ema_params.values()),
+                        [p for _, p in state.model.named_parameters()],
+                        self.config.optimizer.ema_decay, state.step)
         metrics["grad_norm"] = grad_norm
         metrics["learning_rate"] = self.schedule(state.step)
         state.step += 1
@@ -196,17 +227,24 @@ class StepBuilder:
     @torch.no_grad()
     def eval_step(self, state: TrainState,
                   batch: dict) -> dict[str, torch.Tensor]:
-        """Weighted MLM metric sums for one eval batch, in ``eval()`` mode
-        (no dropout). Batches without a ``weight`` key weight every
-        example 1."""
+        """Weighted metric sums for one eval batch, in ``eval()`` mode (no
+        dropout; BN on its running statistics), with the EMA parameters
+        when ``train.eval_use_ema`` and the EMA is on. Batches without a
+        ``weight`` key weight every example 1."""
+        inputs = model_inputs(self.task, batch)
         state.model.eval()
         try:
-            logits = state.model(*model_inputs(self.task, batch))
+            if state.ema_params and self.config.train.eval_use_ema:
+                logits = torch.func.functional_call(
+                    state.model, state.ema_params, inputs)
+            else:
+                logits = state.model(*inputs)
         finally:
             state.model.train()
-        targets = batch["targets"]
+        labels = batch["targets" if self.task == "mlm" else "label"]
         weight = batch.get("weight")
         if weight is None:
-            weight = torch.ones(targets.shape[0], device=targets.device)
-        return losses.mlm_metrics_sums(logits, targets, weight)
-
+            weight = torch.ones(labels.shape[0], device=labels.device)
+        if self.task == "mlm":
+            return losses.mlm_metrics_sums(logits, labels, weight)
+        return losses.classification_metrics_sums(logits, labels, weight)

@@ -167,8 +167,8 @@ def test_init_distributions_match_flax(jax_params):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"name": "resnet50"}, "A5"),
-    ({"name": "lenet5"}, "A2"),
+    ({"name": "inception_v3"}, "A6"),
+    ({"name": "resnet50", "remat": True}, "A18"),
     ({"num_experts": 4}, "A8"),
     ({"pipeline_stages": 2}, "A12"),
     ({"attention_impl": "ring"}, "A11"),
