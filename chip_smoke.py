@@ -173,12 +173,35 @@ Phases (any failure raises and the script exits non-zero):
      a save, a restore and 15 more: the restored tensors equal the step-15
      checkpoint, and the step-30 checkpoints (parameters, BN buffers,
      momentum) and the losses after the split are bit-equal.
+  8. data parallel (train/step.py under DDP, core/mesh.py). The card is
+     one, and NCCL refuses two ranks on one device, so: 8a runs
+     ``cli/train.py`` in a child process with the gang environment of a
+     world of 1 (an NCCL group, the model under DDP) at phase 5's cut;
+     its run_meta must name the NCCL group and DDP, its losses at the log
+     steps must equal phase 5's bit for bit and the three attention
+     kernels must have launched as in phase 5; its steady ms/step is
+     printed beside phase 5's (DDP's cost at one rank). 8b: the same for
+     7d's deterministic ResNet-50/CIFAR-10 run, whose losses it must equal
+     bit for bit. 8c: two child ranks of a gloo group on the one card
+     (gloo carries all_reduce and broadcast of CUDA tensors), each feeding
+     its block of the global batch, against one process taking the whole
+     batch: ResNet-50 with the CIFAR stem in f32 at 2 x 128 (the only run
+     of the cross-rank BatchNorm on the card) and BERT at full width, 2
+     layers, f32, dropout 0, at 2 x (4 x 512) with different masked-token
+     counts in the two blocks; losses and grad_norm at every step within
+     DP_TOL; BERT's parameters after 3 steps within DP_TOL of the one
+     process's; ResNet's parameters and running statistics after step 1
+     no further from an f64 step of the same batch than DP_F64_RATIO
+     times the one process's (the f32 step is itself ~6e-4 of its
+     largest gradient from exact). The children are this script run as
+     ``chip_smoke.py --child SPEC``; a child that fails fails the phase.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
-exported runs, the packed and unpacked runs) and read just after;
-launches made to compare or time a kernel do not count. The record's
-``launches`` are those of phases 4, 5, 5f and 6, and its
+exported runs, the packed and unpacked runs, 8a's run, whose child sets
+and reads its own counts) and read just after; launches made to compare
+or time a kernel do not count. The record's
+``launches`` are those of phases 4, 5, 5f, 6 and 8a, and its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -1578,7 +1601,8 @@ def train_phase(torch, fa, workdir: str) -> tuple[dict, dict]:
     return counts, {"ckpt": ckpt_dir, "config": config_path,
                     "losses": {e["step"]: e["metrics"]["loss"]
                                for e in train},
-                    "eval": evals[0]["metrics"]}
+                    "eval": evals[0]["metrics"], "ms_per_step": 1e3 * b / rate,
+                    "want": want}
 
 
 # --------------------------------------------------------------- phase 5c
@@ -2513,12 +2537,13 @@ def lenet_phase(torch, workdir: str, smi: str) -> None:
         raise AssertionError("lenet: the eval differs from the CPU replay")
 
 
-def cifar_phase(torch, workdir: str, smi: str) -> str:
+def cifar_phase(torch, workdir: str, smi: str) -> tuple[str, float]:
     """7b: configs/resnet50_cifar10.yaml as written on one card (mesh.data
     -1, global batch 1024, bf16, SGD momentum lr 0.4 cosine with 500
     warmup steps, weight decay 1e-4) for 30 steps from a seeded
     cifar-10-batches-py, then the exact eval over its 2,000 test images;
-    then one step on a resident batch, profiled. Returns the data dir."""
+    then one step on a resident batch, profiled. Returns the data dir and
+    the steady ms/step."""
     from distributed_tensorflow_framework_torch.core.config import load_config
 
     data = os.path.join(workdir, "cifar")
@@ -2552,10 +2577,10 @@ def cifar_phase(torch, workdir: str, smi: str) -> str:
         f"ms, {1e3 * d.global_batch_size / step_ms:.1f} images/s (host "
         f"clock, 5 synced steps) [{smi}]")
     image_profile(torch, step, step_ms, "one resnet50-cifar10 step")
-    return data
+    return data, 1e3 * d.global_batch_size / run["rate"]
 
 
-def cifar_resume_phase(torch, workdir: str, data: str) -> None:
+def cifar_resume_phase(torch, workdir: str, data: str) -> dict:
     """7d, resume: phase 7b's run under torch.use_deterministic_algorithms
     — 30 steps straight, and 15 steps saved, restored and trained to 30.
     The restored tensors equal the step-15 checkpoint, and the step-30
@@ -2626,6 +2651,7 @@ def cifar_resume_phase(torch, workdir: str, data: str) -> None:
                         for e in read_events(os.path.join(workdir, name))
                         if e["kind"] == "train_step"}
     a, b = losses["det_straight"], losses["det_resumed"]
+    straight_over = over("det_straight", total)
     after = sorted(k for k in set(a) & set(b) if k > CIFAR_RESUME_SPLIT)
     differ, n = compare(tensors("det_resumed", total),
                         tensors("det_straight", total))
@@ -2637,6 +2663,19 @@ def cifar_resume_phase(torch, workdir: str, data: str) -> None:
     if differ or not after or any(a[k] != b[k] for k in after):
         raise AssertionError("resume: the resumed run differs from the "
                              "straight one")
+    return {"losses": a, "overrides": straight_over,
+            "ms_per_step": steady_ms(read_events(os.path.join(
+                workdir, "det_straight")))}
+
+
+def steady_ms(events: list[dict]) -> float:
+    """ms/step over a run's logging windows after the first (which holds
+    the builds and the autotuning), from the trainer's throughput."""
+    train = [e for e in events if e["kind"] == "train_step"]
+    meta = next(e for e in events if e["kind"] == "run_meta")
+    rate = statistics.mean(e["throughput"]["examples_per_sec"]
+                           for e in train[1:])
+    return 1e3 * meta["extra"]["global_batch_size"] / rate
 
 
 def imagenet_phase(torch, workdir: str, smi: str) -> None:
@@ -2756,6 +2795,392 @@ def image_parity_phase(torch) -> None:
                 raise AssertionError(f"image parity {name} {dtype}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+# 8c: two ranks of a gloo group on the one card, each taking its block of
+# a global batch, against one process taking the whole batch; f32, TF32
+# off, no warmup (so that 3 steps move the parameters by the full rate).
+# ResNet-50 with the CIFAR stem at 2 x 128 (BN over the two blocks), at
+# the config's lr scaled linearly to the batch (0.4 x 256 / 1024); BERT
+# at full width, depth cut to 2, dropout 0, at 2 x (4 x 512), whose halves
+# hold different masked-token counts.
+DP_STEPS = 3
+DP_RESNET = (CIFAR_CONFIG, (
+    "model.dtype=float32", "data.name=synthetic_images",
+    "data.global_batch_size=256", "optimizer.learning_rate=0.1",
+    "optimizer.warmup_steps=0",
+    f"train.total_steps={DP_STEPS}", "checkpoint.directory="))
+DP_BERT = ("configs/bert_base_mlm.yaml", (
+    "model.num_layers=2", "model.dtype=float32", "model.dropout_rate=0.0",
+    "data.global_batch_size=8", "optimizer.warmup_steps=0",
+    f"train.total_steps={DP_STEPS}", "checkpoint.directory="))
+# Two ranks against one whole batch: the same f32 arithmetic summed in
+# other orders (DDP's average of two half-batch gradients; BN statistics
+# as E[x²] − E[x]² over all-reduced sums against cuDNN's). Losses and
+# grad_norm relative to one process. ResNet-50's f32 step is itself far
+# from exact arithmetic (the line prints each path's distance from an
+# f64 step of the same batch: ~6e-4 of the largest update for one process
+# on the H100), so the two paths are not held to each other but to that
+# f64 step, after the first step (later steps amplify every rounding):
+# the ranks' parameters (over the largest update) and running statistics
+# (over the leaf's largest value) may sit no further from it than
+# DP_F64_RATIO times the one process's, or within DP_F64_FLOOR. BERT
+# (no BatchNorm) is held to the one process: AdamW divides a gradient by
+# its root mean square, so a gradient that is zero in exact arithmetic
+# (the key bias: softmax ignores a score shift shared by every key)
+# moves by up to noise/ε × lr a step (1e-2 × lr seen on the CPU), and its
+# parameters after 3 steps are held to an absolute 5e-2 × lr.
+DP_TOL = {"resnet": {"loss": 1e-4, "grad_norm": 1e-4},
+          "bert": {"loss": 1e-5, "grad_norm": 1e-4, "params": 5e-2}}
+DP_F64_RATIO = 2.0
+DP_F64_FLOOR = 1e-5
+# After which step the tensors are held (see above).
+DP_HOLD = {"resnet": 1, "bert": DP_STEPS}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gang_env(port: int, world: int, rank: int) -> dict:
+    """The gang environment of core/cluster.py for one rank; a world of 1
+    keeps it (cluster.worker_env would drop it), so a group is formed."""
+    return {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank)}
+
+
+def run_children(specs: list[dict], workdir: str, name: str,
+                 timeout: float = 600.0) -> list[dict]:
+    """Start ``python chip_smoke.py --child <spec>`` once per spec, all
+    together, each with its own environment and log file; wait for all
+    and return what each wrote. A child that fails or times out fails the
+    phase, with the end of every child's log; every child is stopped on
+    the way out."""
+    procs = []
+    try:
+        for i, spec in enumerate(specs):
+            path = os.path.join(workdir, f"{name}_{i}.json")
+            spec = {**spec, "out": path}
+            env = spec.pop("env")
+            with open(path + ".spec", "w") as fh:
+                json.dump(spec, fh)
+            logf = open(os.path.join(workdir, f"{name}_{i}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--child",
+                 path + ".spec"], env=env, stdout=logf,
+                stderr=subprocess.STDOUT), logf, path))
+        # Poll them all: a rank that fails leaves its peers blocked in a
+        # collective, so the first failure stops the rest.
+        deadline = time.monotonic() + timeout
+        while any(proc.poll() is None for proc, _, _ in procs):
+            if (time.monotonic() > deadline
+                    or any(proc.poll() not in (None, 0)
+                           for proc, _, _ in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for proc, logf, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    codes = [proc.returncode for proc, _, _ in procs]
+    if any(codes) or not all(os.path.exists(path) for _, _, path in procs):
+        for i, (_, logf, _) in enumerate(procs):
+            with open(logf.name) as fh:
+                print(f"{name} child {i}:\n{fh.read()[-4000:]}",
+                      file=sys.stderr)
+        raise AssertionError(f"{name} children exited {codes} (a child "
+                             f"killed after a peer failed shows -9)")
+    out = []
+    for _, _, path in procs:
+        with open(path) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def child_main(spec_path: str) -> int:
+    """One child of phase 8: ``cli`` runs ``cli.train.main`` with the
+    launch counts set to 0 just before and read just after (under
+    ``torch.use_deterministic_algorithms`` when asked); ``rank`` is one
+    rank of 8c. Writes its result as JSON to the spec's ``out``."""
+    import torch
+
+    from distributed_tensorflow_framework_torch.ops import (
+        flash_attention as fa,
+    )
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec.get("deterministic"):
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+    if spec["kind"] == "cli":
+        from distributed_tensorflow_framework_torch.cli import (
+            train as cli_train,
+        )
+
+        reset_counts(fa)
+        rc = cli_train.main(spec["argv"])
+        result = {"rc": rc, "counts": read_counts(fa)}
+    else:
+        result = dp_rank(torch, os.path.dirname(spec["out"]))
+    with open(spec["out"], "w") as fh:
+        json.dump(result, fh)
+    return 0
+
+
+def dp_case(torch, config_path: str, overrides, hold: int,
+            runtime=None) -> dict:
+    """DP_STEPS steps of a StepBuilder on the global batches of
+    ``config``'s stream (drawn whole, at one process), each rank taking
+    its block: the global metrics of every step, the initial parameters
+    and the parameters and buffers after step ``hold``."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg = load_config(config_path, overrides=list(overrides))
+    builder = StepBuilder(cfg, device="cuda", runtime=runtime)
+    state = builder.init_state(SEED)
+    init = {k: p.detach().cpu().clone()
+            for k, p in state.model.named_parameters()}
+    world = 1 if runtime is None else runtime.process_count
+    rank = 0 if runtime is None else runtime.process_index
+    ds = get_dataset(cfg.data)
+    steps, masked = [], []
+    b, half = (cfg.data.global_batch_size // world,
+               cfg.data.global_batch_size // 2)
+    for step in range(1, DP_STEPS + 1):
+        batch = next(ds)
+        if "targets" in batch:
+            masked.append([int((batch["targets"][:half] >= 0).sum()),
+                           int((batch["targets"][half:] >= 0).sum())])
+        block = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+        metrics = builder.global_metrics(builder.train_step(
+            state, to_device(block, torch.device("cuda"))))
+        steps.append({k: float(v) for k, v in metrics.items()})
+        if step == hold:
+            tensors = {k: v.detach().cpu().clone() for k, v in
+                       state.model.state_dict().items()}
+    return {"steps": steps, "masked": masked, "tensors": tensors,
+            "params": init, "lr": cfg.optimizer.learning_rate}
+
+
+def dp_rank(torch, out_dir: str) -> dict:
+    """One rank of 8c: a gloo group (with CUDA tensors) on the one card;
+    the ResNet case and then the BERT case in the same group, their held
+    tensors saved in ``out_dir``."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
+    try:
+        out = {"backend": runtime.backend, "rank": runtime.process_index}
+        for name, (path, over) in (("resnet", DP_RESNET),
+                                   ("bert", DP_BERT)):
+            res = dp_case(torch, path, over, DP_HOLD[name], runtime)
+            tensor_path = os.path.join(
+                out_dir, f"dp_{name}_rank{runtime.process_index}.pt")
+            torch.save(res.pop("tensors"), tensor_path)
+            del res["params"]
+            out[name] = {**res, "tensors": tensor_path}
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def dp_f64_step(torch, config_path: str, overrides) -> dict:
+    """The first step of ``dp_case``'s stream in float64 in one process:
+    the model, its casts, the loss and the optimizer's update all in f64.
+    Returns the tensors after it and the initial parameters."""
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.optimizers import (
+        global_norm,
+    )
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg = load_config(config_path, overrides=list(overrides))
+    state = StepBuilder(cfg, device="cuda").init_state(SEED)
+    model = state.model.double()
+    for module in model.modules():
+        if isinstance(getattr(module, "dtype", None), torch.dtype):
+            module.dtype = torch.float64
+    init = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
+    loss = F.cross_entropy(model(batch["image"].double()),
+                           batch["label"].long(),
+                           label_smoothing=cfg.train.label_smoothing)
+    loss.backward()
+    state.optimizer.step(global_norm([p.grad for p in model.parameters()]))
+    return {"tensors": {k: v.detach().cpu() for k, v in
+                        model.state_dict().items()}, "params": init}
+
+
+def dp_distance(tensors: dict, truth: dict) -> dict:
+    """(distance, worst leaf) of held tensors from the f64 step's:
+    parameters over the largest update it made, running statistics over
+    each leaf's largest value."""
+    init = truth["params"]
+    top = max((truth["tensors"][k] - v).abs().max().item()
+              for k, v in init.items())
+    out = {"params": (0.0, ""), "buffers": (0.0, "")}
+    for key, want in truth["tensors"].items():
+        err = (tensors[key].double() - want).abs().max().item()
+        kind = "params" if key in init else "buffers"
+        den = top if kind == "params" else max(want.abs().max().item(),
+                                                1e-30)
+        out[kind] = max(out[kind], (err / den, key))
+    return out
+
+
+def dp_compare(torch, name: str, ranks: list[dict], ref: dict,
+               truth: dict | None = None) -> None:
+    """8c: each rank's global metrics against the whole batch's in one
+    process, and its held tensors against the one process's (BERT) or
+    against the f64 step's beside the one process's (ResNet)."""
+    tol = DP_TOL[name]
+    worst = {k: (0.0, "") for k in tol}
+    ref_far = (dp_distance(ref["tensors"], truth) if truth is not None
+               else None)
+    far = {"params": (0.0, ""), "buffers": (0.0, "")}
+    for r in ranks:
+        res = r[name]
+        for got, want in zip(res["steps"], ref["steps"]):
+            for key in ("loss", "grad_norm"):
+                err = abs(got[key] - want[key]) / abs(want[key])
+                worst[key] = max(worst[key], (err, key))
+        tensors = torch.load(res["tensors"], weights_only=True)
+        if truth is not None:
+            dist = dp_distance(tensors, truth)
+            far = {k: max(far[k], dist[k]) for k in far}
+            continue
+        for key, want in ref["tensors"].items():
+            if key in ref["params"]:
+                err = (tensors[key].float() - want.float()).abs().max()
+                worst["params"] = max(worst["params"],
+                                      (err.item() / ref["lr"], key))
+    line = ", ".join(f"{k} {v:.3e} (tol {tol[k]})"
+                     for k, (v, _) in worst.items() if k != "params")
+    if truth is None:
+        line += (f", parameters {worst['params'][0]:.3e} of lr (tol "
+                 f"{tol['params']}, {worst['params'][1]})")
+    else:
+        line += "; after step 1, from an f64 step: " + ", ".join(
+            f"{k} two ranks {far[k][0]:.3e} ({far[k][1]}), one process "
+            f"{ref_far[k][0]:.3e} ({ref_far[k][1]})" for k in far)
+        line += (f" (parameters over the largest update, statistics over "
+                 f"the leaf's largest value; tol {DP_F64_RATIO}x the one "
+                 f"process's or {DP_F64_FLOOR})")
+    log(f"8c {name}: 2 ranks (gloo, CUDA tensors, one card) vs the whole "
+        f"batch in one process, {DP_STEPS} steps: {line}; losses "
+        + ", ".join(f"{s['loss']!r}" for s in ref["steps"]))
+    if any(worst[k][0] > tol[k] for k in tol):
+        raise AssertionError(f"8c {name}: two ranks differ from one")
+    if truth is not None and any(
+            far[k][0] > max(DP_F64_RATIO * ref_far[k][0], DP_F64_FLOOR)
+            for k in far):
+        raise AssertionError(f"8c {name}: two ranks are further from the "
+                             f"f64 step than one process is")
+
+
+def data_parallel_phase(torch, fa, workdir: str, full: dict,
+                        cifar: dict, cifar_ms: float, smi: str) -> dict:
+    """Phase 8: 8a and 8b run ``cli.train`` in a child process with the
+    gang environment of a world of 1 (an NCCL group, the model under DDP)
+    at phase 5's and phase 7d's cuts, whose losses must be phase 5's and
+    the deterministic 7d run's bit for bit; 8c runs two gloo ranks on the
+    one card against one process. Returns 8a's launch counts (the main
+    path's run of this phase)."""
+    # 8a: BERT-base at world 1 over NCCL, phase 5's cut.
+    log_dir = os.path.join(workdir, "dp_bert_logs")
+    argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
+            log_dir, *sum((["--set", o] for o in (
+                *TRAIN_OVERRIDES,
+                f"checkpoint.directory={os.path.join(workdir, 'dp_bert')}")),
+                [])]
+    (res,) = run_children([{"kind": "cli", "argv": argv,
+                            "env": gang_env(free_port(), 1, 0)}],
+                          workdir, "dp_bert")
+    events = read_events(log_dir)
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    losses = {e["step"]: e["metrics"]["loss"] for e in events
+              if e["kind"] == "train_step"}
+    ms = steady_ms(events)
+    log(f"8a bert world 1: group {meta['process_group']}, ddp "
+        f"{meta['ddp']}, rc {res['rc']}; losses " + ", ".join(
+            f"step {k} {v!r} (phase 5 {full['losses'][k]!r})"
+            for k, v in sorted(losses.items()))
+        + f"; steady {ms:.2f} ms/step against phase 5's "
+        f"{full['ms_per_step']:.2f} "
+        f"({100 * (ms / full['ms_per_step'] - 1):+.2f}%); kernel launches "
+        f"{res['counts']} [{smi}]")
+    if (res["rc"] != 0 or meta["process_group"] != "nccl" or not meta["ddp"]
+            or losses != full["losses"] or res["counts"] != full["want"]):
+        raise AssertionError("8a: the world-1 NCCL run differs from phase 5")
+    counts = res["counts"]
+    # 8b: ResNet-50/CIFAR-10 at world 1 over NCCL, 7d's deterministic cut.
+    log_dir = os.path.join(workdir, "dp_cifar")
+    over = [o for o in cifar["overrides"]
+            if not o.startswith("checkpoint.directory=")]
+    argv = ["--config", CIFAR_CONFIG, "--device", "cuda", *sum(
+        (["--set", o] for o in (*over, f"checkpoint.directory={log_dir}")),
+        [])]
+    (res,) = run_children([{"kind": "cli", "argv": argv,
+                            "env": gang_env(free_port(), 1, 0),
+                            "deterministic": True}], workdir, "dp_cifar")
+    events = read_events(log_dir)
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    losses = {e["step"]: e["metrics"]["loss"] for e in events
+              if e["kind"] == "train_step"}
+    ms = steady_ms(events)
+    log(f"8b resnet50-cifar10 world 1 (deterministic algorithms): group "
+        f"{meta['process_group']}, ddp {meta['ddp']}, rc {res['rc']}; "
+        f"losses " + ", ".join(
+            f"step {k} {v!r} (no group {cifar['losses'][k]!r})"
+            for k, v in sorted(losses.items()))
+        + f"; steady {ms:.3f} ms/step against {cifar['ms_per_step']:.3f} "
+        f"without a group ({100 * (ms / cifar['ms_per_step'] - 1):+.2f}%) "
+        f"and phase 7b's {cifar_ms:.3f} [{smi}]")
+    if (res["rc"] != 0 or meta["process_group"] != "nccl" or not meta["ddp"]
+            or losses != cifar["losses"]):
+        raise AssertionError("8b: the world-1 NCCL run differs from the run "
+                             "without a group")
+    # 8c: two gloo ranks on the one card against one process.
+    torch.cuda.empty_cache()
+    refs = {}
+    for name, (path, over) in (("resnet", DP_RESNET), ("bert", DP_BERT)):
+        refs[name] = dp_case(torch, path, over, DP_HOLD[name])
+        torch.cuda.empty_cache()
+    truth = dp_f64_step(torch, *DP_RESNET)
+    torch.cuda.empty_cache()
+    port = free_port()
+    ranks = run_children([{"kind": "rank", "env": gang_env(port, 2, r)}
+                          for r in range(2)], workdir, "dp_ranks")
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"8c: backends {ranks}")
+    masked = ranks[0]["bert"]["masked"]
+    log(f"8c bert masked tokens per rank block, per step: {masked}")
+    if any(m[0] == m[1] for m in masked):
+        raise AssertionError("8c: the ranks' blocks hold equal masked counts")
+    dp_compare(torch, "resnet", ranks, refs["resnet"], truth)
+    dp_compare(torch, "bert", ranks, refs["bert"])
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2766,6 +3191,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--child"]:
+        return child_main(sys.argv[2])
     try:
         from distributed_tensorflow_framework_torch.core.device import (
             gpu_name_and_power_limit,
@@ -2840,23 +3267,28 @@ def main() -> int:
         log("phase 7a LeNet-5 on MNIST, config 1 as written")
         lenet_phase(torch, workdir, gpu)
         log("phase 7b ResNet-50 on CIFAR-10, config 2 on one card")
-        cifar_data = cifar_phase(torch, workdir, gpu)
+        cifar_data, cifar_ms = cifar_phase(torch, workdir, gpu)
         log("phase 7c ResNet-50 at 224, config 3's model on its synthetic "
             "fallback")
         imagenet_phase(torch, workdir, gpu)
         log("phase 7d image models on the card vs the CPU, and resume")
         image_parity_phase(torch)
-        cifar_resume_phase(torch, workdir, cifar_data)
+        cifar_det = cifar_resume_phase(torch, workdir, cifar_data)
+        log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
+            "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
+        dp_counts = data_parallel_phase(torch, fa, workdir, full, cifar_det,
+                                        cifar_ms, gpu)
 
-    # Launches on the main path: serving, the S=512 training runs (phase 5
-    # and phase 5f's packed and unpacked runs) and the two long-context
-    # runs; those with segment ids all come from phase 5f. Times, bounds and the plain and library times
+    # Launches on the main path: serving, the S=512 training runs (phase 5,
+    # phase 5f's packed and unpacked runs and phase 8a's world-1 DDP run)
+    # and the two long-context runs; those with segment ids all come from
+    # phase 5f. Times, bounds and the plain and library times
     # are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
     # kernel on this card, its launches are those of phase 6b's micro-step
     # with FUSED_BWD forced on, and say so.
     launched = {name: train_counts[name] + packed_counts["counts"][name]
-                + sum(c[name] for c in long_counts)
+                + sum(c[name] for c in long_counts) + dp_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

@@ -37,6 +37,19 @@ converter is ROADMAP.md queue A item A15).
     that fails verification raises. A fused-QKV checkpoint restored into
     an unfused model (or the reverse) raises naming ``model.fused_qkv``.
 
+Across ranks (a ``runtime`` of core/mesh.py with more than one): the
+state is replicated, so the chief alone writes the step directory and its
+manifest commit record; the other ranks write nothing and wait for the
+commit at the trainer's exit barrier (core/cluster.py). Each rank's
+dropout generator is its own, so at each save the chief collects them
+(one ``broadcast`` per rank) into ``dropout_generators`` beside its own.
+At restore the chief picks the newest verified step (quarantining as
+above) and broadcasts it, and every rank loads that step; a rank takes
+its own generator back when the gang has the size that saved it, and
+keeps its freshly seeded stream (with a warning) when it has not. The
+data-state record carries the process count, and ``check_restore_data``
+gates a change of it.
+
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
 and the host copy); ``ckpt_save_total_ms`` is from ``save`` to the landed
@@ -70,8 +83,6 @@ CKPT_SCHEMA = "dtf-torch-ckpt/1"
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 DATA_FILE = "data_iter.json"
-# The port trains on one host; saving across hosts is ROADMAP.md item A1.
-PROCESS_COUNT = 1
 
 
 def _attention_layout(names) -> str | None:
@@ -102,11 +113,15 @@ def _write_json(path: str, obj: Any) -> None:
 
 class CheckpointManager:
     def __init__(self, config: CheckpointConfig, *,
-                 telemetry_writer: telemetry.TelemetryWriter | None = None):
+                 telemetry_writer: telemetry.TelemetryWriter | None = None,
+                 runtime=None):
         if not config.directory:
             raise ValueError("CheckpointConfig.directory must be set")
         self.config = config
         self._telemetry = telemetry_writer
+        self._runtime = runtime
+        self.is_chief = runtime is None or runtime.is_chief
+        self.process_count = 1 if runtime is None else runtime.process_count
         self._path = os.path.abspath(config.directory)
         os.makedirs(self._path, exist_ok=True)
         self._saver = AsyncSaver() if config.async_save else None
@@ -157,19 +172,21 @@ class CheckpointManager:
         step_dir = self._step_dir(step)
         os.makedirs(step_dir)
         tensors = {k: host_state[k] for k in
-                   ("model", "optimizer", "dropout_generator", "ema")
+                   ("model", "optimizer", "dropout_generator",
+                    "dropout_generators", "ema")
                    if k in host_state}
         _write_durable(os.path.join(step_dir, STATE_FILE),
                        lambda fh: torch.save(tensors, fh))
         _write_json(os.path.join(step_dir, META_FILE), {
             "schema": CKPT_SCHEMA, "step": int(host_state["step"]),
             "generator_device": host_state["generator_device"],
+            "process_count": self.process_count,
             "params": list(host_state["model"])})
         extra = None
         if dataset_state is not None:
             _write_json(os.path.join(step_dir, DATA_FILE), dataset_state)
             extra = {data_shard.DATA_RECORD_KEY: data_shard.data_state_record(
-                dataset_state, process_count=PROCESS_COUNT,
+                dataset_state, process_count=self.process_count,
                 repartition=self._data_repartition, watermark=watermark)}
         # A crash_in_save fault here leaves a written directory with no
         # manifest: the uncommitted step restore must refuse.
@@ -204,8 +221,12 @@ class CheckpointManager:
         with ``step`` (data/infeed.py), not the live dataset's state,
         which the prefetcher has moved past it. Async mode returns once
         the host copy is queued; a commit failure is re-raised at the next
-        save or barrier."""
+        save or barrier. Every rank calls it at the same steps; only the
+        chief writes (the others return False)."""
         t0 = time.perf_counter()
+        generators = self._gather_generators(state)
+        if not self.is_chief:
+            return False
         self._drain()  # a new save waits for the previous commit
         if step in mf.committed_steps(self._path):
             return False
@@ -221,6 +242,8 @@ class CheckpointManager:
         # A real copy taken at the step boundary: the loop updates the
         # live tensors in place from the next step on.
         host_state = host_copy(state.state_dict())
+        if generators is not None:
+            host_state["dropout_generators"] = generators
         ds_state = (None if dataset_state is None
                     else json.loads(json.dumps(dataset_state)))
         if self._saver is None:
@@ -234,6 +257,21 @@ class CheckpointManager:
                 blocked_s=blocked_s, watermark=watermark),
             step=step)
         return True
+
+    def _gather_generators(self, state: TrainState) -> list | None:
+        """Every rank's dropout generator state, on the chief (None on the
+        others and in a single process): rank r broadcasts its own. The
+        states have one size on every rank (one device type)."""
+        rt = self._runtime
+        if self.process_count == 1:
+            return None
+        mine = state.dropout_generator.get_state()
+        out = []
+        for rank in range(self.process_count):
+            buf = (mine if rank == rt.process_index
+                   else torch.empty_like(mine)).to(rt.collective_device)
+            out.append(rt.broadcast_(buf, src=rank).cpu())
+        return out if self.is_chief else None
 
     # -------------------------------------------------------- listings --
     def all_steps(self) -> list[int]:
@@ -347,7 +385,15 @@ class CheckpointManager:
                 step: int | None = None) -> int | None:
         """Load a checkpoint into ``state`` (and the iterator state into
         ``dataset``) in place; returns the restored step, or None when
-        there is none. With ``step`` given, that step or an error."""
+        there is none. With ``step`` given, that step or an error. Every
+        rank calls it; the chief chooses the step."""
+        if self.process_count > 1:
+            chosen = None
+            if self.is_chief:
+                chosen = step if step is not None else self._verified_latest()
+            step = self._runtime.broadcast_int(chosen)
+            if step is None:
+                return None
         loaded = self._load(step, state.model)
         if loaded is None:
             return None
@@ -362,15 +408,33 @@ class CheckpointManager:
             manifest = mf.read_manifest(self._step_dir(step)) or {}
             plan = data_shard.check_restore_data(
                 manifest.get(data_shard.DATA_RECORD_KEY), data_state,
-                process_count=PROCESS_COUNT,
+                process_count=self.process_count,
                 resume_strict=self._data_resume_strict)
             if plan is not None:
                 self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
-        state.load_state_dict({**tensors, "step": meta["step"],
-                               "generator_device": meta["generator_device"]})
+        state.load_state_dict({
+            **tensors, "step": meta["step"],
+            "generator_device": meta["generator_device"],
+            "dropout_generator": self._own_generator(state, meta, tensors)})
         if data_state is not None:
             dataset.restore(data_state)
         return step
+
+    def _own_generator(self, state: TrainState, meta: dict,
+                       tensors: dict) -> torch.Tensor:
+        """This rank's saved dropout generator state when the checkpoint
+        was saved by a gang of this size, else the live (freshly seeded)
+        one: a gang of another size has other streams."""
+        saved = int(meta.get("process_count", 1))
+        if saved == self.process_count:
+            if saved == 1:
+                return tensors["dropout_generator"]
+            return tensors["dropout_generators"][
+                self._runtime.process_index]
+        log.warning("checkpoint saved by %d rank(s), restored on %d: each "
+                    "rank keeps its freshly seeded dropout stream", saved,
+                    self.process_count)
+        return state.dropout_generator.get_state()
 
     def restore_model(self, model, *, step: int | None = None) -> int | None:
         """Load only a checkpoint's model tensors into ``model`` (the

@@ -1,5 +1,5 @@
 """``python -m distributed_tensorflow_framework_torch.cli.train`` — train a
-config on one device.
+config on one device, or data parallel over a gang of ranks.
 
     python -m distributed_tensorflow_framework_torch.cli.train \\
         --config configs/bert_base_mlm.yaml [--device cuda] \\
@@ -17,10 +17,19 @@ or the newest) and evaluates it; it raises when there is none.
 ``--log-dir`` receives ``events.jsonl`` (default: the checkpoint
 directory). After training, ``train.eval_steps > 0`` runs a final eval.
 
+Started N times with the gang environment of ``core/cluster.py``
+(``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES=N``,
+``JAX_PROCESS_ID=i``), the processes form one ``torch.distributed`` group
+(NCCL on CUDA, gloo with ``--device cpu``; rank i on GPU i modulo the
+visible count) and train one model data parallel, each rank feeding its
+block of the global batch (core/mesh.py, train/step.py). Without it the
+run is a single process.
+
 Exit codes: 0 done; 83 (``GRACEFUL_PREEMPT_RC``) after a SIGTERM, which
-stops at the next step boundary and saves a checkpoint; 85
-(``ANOMALY_ESCALATION_RC``) when the recovery ladder ran out of rollbacks.
-Other failures raise.
+stops at the next step boundary and saves a checkpoint; 84
+(``ELASTIC_RESHARD_RC``) when the mesh does not fit the gang's ranks
+(e.g. ``mesh.data=2`` in one process); 85 (``ANOMALY_ESCALATION_RC``)
+when the recovery ladder ran out of rollbacks. Other failures raise.
 """
 
 from __future__ import annotations
@@ -65,12 +74,31 @@ def main(argv=None) -> int:
 
         print(yaml.safe_dump(config.to_dict(), sort_keys=False))
         return 0
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        MeshSizeError,
+        initialize_runtime,
+    )
+
+    try:
+        runtime = initialize_runtime(config.mesh, args.device)
+    except MeshSizeError as e:
+        # A topology change to refit to (ROADMAP.md A17), not a crash.
+        log.error("mesh does not fit the gang — exiting rc=%d for an "
+                  "elastic refit: %s", supervision.ELASTIC_RESHARD_RC, e)
+        return supervision.ELASTIC_RESHARD_RC
+    try:
+        return _train(args, config, runtime)
+    finally:
+        runtime.shutdown()
+
+
+def _train(args, config, runtime) -> int:
     from distributed_tensorflow_framework_torch.train.anomaly import (
         PersistentAnomalyError,
     )
     from distributed_tensorflow_framework_torch.train.loop import Trainer
 
-    trainer = Trainer(config, device=args.device, log_dir=args.log_dir)
+    trainer = Trainer(config, log_dir=args.log_dir, runtime=runtime)
     try:
         trainer.build()
         if args.eval_only:

@@ -1,0 +1,228 @@
+"""The data-parallel runtime across ranks: the port's counterpart of
+``core/mesh.py``.
+
+The JAX package builds one ``jax.sharding.Mesh`` over every device of the
+gang and lets XLA insert the collectives. The port runs one process per
+GPU (the JAX package: one per host) and a ``torch.distributed`` group
+stands in for the mesh's ``data`` axis:
+
+  * with the gang environment of ``core/cluster.py`` set
+    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``), :func:`initialize_runtime` pins the rank to GPU
+    ``rank % device_count`` and calls ``init_process_group`` at
+    ``tcp://<coordinator>`` with that world size and rank: NCCL on CUDA,
+    gloo on the CPU, or the ``backend`` the caller names;
+  * without it no group is formed; the world is 1 and the run is the
+    single-device path.
+
+The mesh's sizes resolve as in the JAX package (one axis may be -1, the
+product must equal the world size, else :class:`MeshSizeError`, which
+``cli/train.py`` maps to rc 84). Only the ``data`` axis may exceed 1:
+``fsdp``/``model`` (A10), ``seq`` (A11), ``pipe`` (A12) and ``expert``
+(A8) raise NotImplementedError naming their ROADMAP.md item.
+
+Across ranks the port uses two collectives only, ``all_reduce`` and
+``broadcast``: gloo carries no other on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import os
+from typing import Mapping
+
+import torch
+import torch.distributed as dist
+
+from distributed_tensorflow_framework_torch.core import cluster
+from distributed_tensorflow_framework_torch.core.config import MeshConfig
+from distributed_tensorflow_framework_torch.core.device import resolve_device
+
+log = logging.getLogger(__name__)
+
+MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
+# The ROADMAP.md queue A item that ports each axis other than ``data``.
+_AXIS_ITEMS = {"fsdp": "A10 (FSDP)", "model": "A10 (tensor parallel)",
+               "seq": "A11 (sequence parallel)", "pipe": "A12 (pipeline)",
+               "expert": "A8 (expert parallel)"}
+
+
+class MeshSizeError(ValueError):
+    """The configured mesh does not fit the gang's ranks. Typed so that
+    ``cli/train.py`` can exit with the elastic rc 84."""
+
+    def __init__(self, sizes: dict[str, int], needed: int, available: int):
+        self.sizes = dict(sizes)
+        self.needed = int(needed)
+        self.available = int(available)
+        super().__init__(f"Mesh {self.sizes} needs {self.needed} devices but "
+                         f"{self.available} are available")
+
+
+def _resolve_axis_sizes(config: MeshConfig, n: int) -> dict[str, int]:
+    """Fill the single -1 axis and validate the product against n."""
+    sizes = config.axis_sizes()
+    fixed = {k: v for k, v in sizes.items() if v != -1}
+    fixed_prod = math.prod(fixed.values())
+    free = [k for k, v in sizes.items() if v == -1]
+    if len(free) > 1:
+        raise ValueError(f"At most one mesh axis may be -1, got {free}")
+    if free:
+        if n % fixed_prod:
+            raise MeshSizeError(sizes, fixed_prod, n)
+        sizes[free[0]] = n // fixed_prod
+    total = math.prod(sizes.values())
+    if total != n:
+        raise MeshSizeError(sizes, total, n)
+    return sizes
+
+
+def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
+    for axis, item in _AXIS_ITEMS.items():
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
+                f"queue A item {item}; the port runs data parallel only")
+
+
+def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
+    """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
+    an axis other than ``data`` above 1, MeshSizeError when the sizes do
+    not fit the ranks."""
+    _refuse_unported_axes(config.axis_sizes())
+    sizes = _resolve_axis_sizes(config, world)
+    _refuse_unported_axes(sizes)
+    return sizes
+
+
+def gang_from_env(environ: Mapping[str, str] | None = None
+                  ) -> tuple[str, int, int] | None:
+    """(coordinator, world size, rank) from the gang environment, or None
+    when it is not set (a single process)."""
+    env = os.environ if environ is None else environ
+    coord = env.get(cluster.ENV_COORDINATOR)
+    count = env.get(cluster.ENV_NUM_PROCESSES)
+    if not (coord and count):
+        return None
+    try:
+        world, rank = int(count), int(env.get(cluster.ENV_PROCESS_ID) or 0)
+    except ValueError as e:
+        raise cluster.ClusterSpecError(
+            f"malformed gang environment: {cluster.ENV_NUM_PROCESSES}="
+            f"{count!r}, {cluster.ENV_PROCESS_ID}="
+            f"{env.get(cluster.ENV_PROCESS_ID)!r}") from e
+    if world < 1 or not 0 <= rank < world:
+        raise cluster.ClusterSpecError(
+            f"rank {rank} outside a gang of {world}")
+    return coord, world, rank
+
+
+def max_over_ranks(value: int) -> int:
+    """The largest ``value`` over the ranks of the default process group,
+    which must exist."""
+    if not dist.is_initialized():
+        raise RuntimeError("max_over_ranks needs the process group that "
+                           "initialize_runtime forms from the gang "
+                           "environment")
+    # NCCL reduces device tensors only; gloo takes host ones.
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    value = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    dist.all_reduce(value, op=dist.ReduceOp.MAX)
+    return int(value)
+
+
+@dataclasses.dataclass
+class MeshRuntime:
+    """This process's view of the runtime. ``backend`` is the process
+    group's (``"nccl"`` or ``"gloo"``), None when no group was formed.
+    The collectives below act on the default group and do nothing at a
+    world of 1, so the single-rank arithmetic stays today's."""
+
+    sizes: dict[str, int]
+    process_index: int
+    process_count: int
+    device: torch.device
+    backend: str | None = None
+
+    @property
+    def is_chief(self) -> bool:
+        """Rank 0: it writes checkpoints and logs (the reference's chief
+        worker)."""
+        return self.process_index == 0
+
+    @property
+    def data_parallel_size(self) -> int:
+        return self.sizes["data"] * self.sizes["fsdp"] * self.sizes["expert"]
+
+    def describe(self) -> str:
+        return (f"rank {self.process_index}/{self.process_count} on "
+                f"{self.device}, group {self.backend or 'none'}, mesh "
+                f"{self.sizes}")
+
+    @property
+    def collective_device(self) -> torch.device:
+        """Where a tensor made for a collective lives: NCCL reduces device
+        tensors only, gloo takes host ones."""
+        return self.device if self.backend == "nccl" else torch.device("cpu")
+
+    def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` over the ranks in place; returns it."""
+        if self.process_count > 1:
+            dist.all_reduce(tensor)
+        return tensor
+
+    def broadcast_(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Overwrite ``tensor`` with rank ``src``'s in place; returns it."""
+        if self.process_count > 1:
+            dist.broadcast(tensor, src=src)
+        return tensor
+
+    def broadcast_int(self, value: int | None, src: int = 0) -> int | None:
+        """Rank ``src``'s value on every rank (None travels as -1)."""
+        if self.process_count == 1:
+            return value
+        out = torch.tensor([-1 if value is None else int(value)],
+                           dtype=torch.int64, device=self.collective_device)
+        out = int(self.broadcast_(out, src))
+        return None if out < 0 else out
+
+    def shutdown(self) -> None:
+        """Destroy the process group this runtime formed."""
+        if self.backend is not None and dist.is_initialized():
+            dist.destroy_process_group()
+            self.backend = None
+
+
+def initialize_runtime(config: MeshConfig | None = None,
+                       device: str | torch.device = "cuda",
+                       backend: str | None = None, *,
+                       environ: Mapping[str, str] | None = None
+                       ) -> MeshRuntime:
+    """Resolve the mesh against the gang and form the process group.
+    ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
+    tensors runs two ranks on one card). Raises NotImplementedError for a
+    non-data axis above 1, MeshSizeError when the mesh does not fit the
+    ranks, DeviceUnavailableError for CUDA without a card."""
+    config = config or MeshConfig()
+    gang = gang_from_env(environ)
+    if gang is None:
+        runtime = MeshRuntime(resolve_mesh(config, 1), 0, 1,
+                              resolve_device(device))
+    else:
+        coord, world, rank = gang
+        sizes = resolve_mesh(config, world)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            resolve_device(dev)  # raises without a card
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dev = resolve_device(dev)
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        if not dist.is_initialized():
+            dist.init_process_group(backend, init_method=f"tcp://{coord}",
+                                    world_size=world, rank=rank)
+        runtime = MeshRuntime(sizes, rank, world, dev, dist.get_backend())
+    log.info("Mesh runtime: %s", runtime.describe())
+    return runtime

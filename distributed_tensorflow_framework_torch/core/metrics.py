@@ -31,14 +31,28 @@ def setup_logging(level: int = logging.INFO) -> None:
 class MetricWriter:
     """Console + optional JSONL metric sink: one ``events.jsonl`` record
     per write under ``logdir`` (none when ``logdir`` is empty), with phase
-    timings and throughput split into their schema fields."""
+    timings and throughput split into their schema fields.
 
-    def __init__(self, logdir: str | None = None):
-        path = os.path.join(logdir, "events.jsonl") if logdir else None
-        self.telemetry = telemetry.TelemetryWriter(path)
+    Only the chief writes metrics (the console and the ``write`` records).
+    In a gang of more than one every rank keeps a telemetry stream of its
+    own — the chief's ``events.jsonl``, rank i's ``events-p<i>.jsonl`` —
+    whose events carry ``process_id``."""
+
+    def __init__(self, logdir: str | None = None, *, is_chief: bool = True,
+                 process_index: int = 0, process_count: int = 1):
+        self._enabled = is_chief
+        path = None
+        if logdir:
+            name = ("events.jsonl" if is_chief
+                    else f"events-p{process_index}.jsonl")
+            path = os.path.join(logdir, name)
+        self.telemetry = telemetry.TelemetryWriter(
+            path, process_id=process_index if process_count > 1 else None)
 
     def write(self, step: int, values: Mapping[str, Any], *,
               kind: str = telemetry.KIND_TRAIN_STEP) -> None:
+        if not self._enabled:
+            return
         scalars = {k: telemetry._to_scalar(v) for k, v in values.items()}
         log.info("step %d: %s", step, " ".join(
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"

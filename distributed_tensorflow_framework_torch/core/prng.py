@@ -26,12 +26,12 @@ def host_rng(seed: int, role: int, *context: int) -> np.random.Generator:
     return np.random.default_rng((seed, role, *context))
 
 
-def torch_generator(seed: int, role: int,
-                    device: str | torch.device) -> torch.Generator:
+def torch_generator(seed: int, role: int, device: str | torch.device,
+                    *context: int) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` for one role's stream, seeded
-    from (seed, role) through numpy's SeedSequence so roles never share a
-    stream."""
-    derived = np.random.SeedSequence((seed, role)).generate_state(
+    from (seed, role, *context) through numpy's SeedSequence so roles (and
+    the ranks of a gang, passed as context) never share a stream."""
+    derived = np.random.SeedSequence((seed, role, *context)).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(
         int(derived) & 0x7FFF_FFFF_FFFF_FFFF)

@@ -4,6 +4,9 @@ The port's copy of the single-process part of ``core/supervision.py``:
 
   * ``GRACEFUL_PREEMPT_RC`` (83): SIGTERM honoured — the in-flight step
     finished, a checkpoint was saved, relaunch whenever;
+  * ``ELASTIC_RESHARD_RC`` (84): the configured mesh does not fit the
+    gang's ranks (``core/mesh.py:MeshSizeError``) — a topology change to
+    refit to, not a crash;
   * ``ANOMALY_ESCALATION_RC`` (85): the in-process recovery ladder
     (train/anomaly.py) gave up after ``max_rollbacks`` consecutive
     rollbacks;
@@ -12,8 +15,8 @@ The port's copy of the single-process part of ``core/supervision.py``:
     arms it for a block and puts the previous handler back after it, for
     callers that run the CLI in process (tests, ``chip_smoke.py``).
 
-Gang supervision, the elastic rc 84, backoff and heartbeat reading are
-ROADMAP.md queue A item A17. Stdlib only.
+Gang supervision (the refit after rc 84), backoff and heartbeat reading
+are ROADMAP.md queue A item A17. Stdlib only.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import signal
 log = logging.getLogger(__name__)
 
 GRACEFUL_PREEMPT_RC = 83
+ELASTIC_RESHARD_RC = 84
 ANOMALY_ESCALATION_RC = 85
 
 _preempt_requested = False

@@ -4,10 +4,10 @@ The port's copy of the writer half of ``core/telemetry.py``: the same
 schema string, reserved fields, event kinds and record shape, so
 ``scripts/analyze_trace.py`` reads the port's ``events.jsonl`` unchanged.
 Only the kinds the port emits so far are defined here: the serve kinds;
-the train-step, eval, failure, health, run-meta and startup kinds of the
-trainer; the checkpoint kinds (save, quarantine, restore fallback, data
-state); the recovery-ladder kinds (anomaly, rollback, skipped batches,
-infeed stall); and the packing census. The summary rollup of
+the train-step, eval, failure, health, run-meta, startup and data-shard
+kinds of the trainer; the checkpoint kinds (save, quarantine, restore
+fallback, data state); the recovery-ladder kinds (anomaly, rollback,
+skipped batches, infeed stall); and the packing census. The summary rollup of
 ``summarize_events`` is ROADMAP.md queue A item A16.
 """
 
@@ -53,6 +53,8 @@ KIND_DATA_STATE = "data_state"
 KIND_DATA_PACKING = "data_packing"
 # Construction → first completed step, with the restored step.
 KIND_STARTUP = "startup"
+# This rank's slice of every global batch (data/shard.py:shard_plan).
+KIND_DATA_SHARD = "data_shard"
 # The in-process recovery ladder (train/anomaly.py) and the infeed
 # watchdog (data/infeed.py).
 KIND_ANOMALY = "anomaly_detected"
@@ -156,8 +158,11 @@ class TelemetryWriter:
     lock around the append keeps every JSONL line whole.
     """
 
-    def __init__(self, path: str | None, *, run_id: str | None = None):
+    def __init__(self, path: str | None, *, run_id: str | None = None,
+                 process_id: int | None = None):
         self.run_id = run_id or make_run_id()
+        # The rank, on every event of a gang of more than one.
+        self.process_id = process_id
         self._fh = None
         self._lock = threading.Lock()
         self.path = path
@@ -168,6 +173,8 @@ class TelemetryWriter:
 
     def emit(self, kind: str, **fields: Any) -> dict:
         """Build + append one event; returns the record."""
+        if self.process_id is not None:
+            fields.setdefault("process_id", self.process_id)
         ev = make_event(kind, run_id=self.run_id, **fields)
         line = json.dumps(ev, default=str) + "\n"
         with self._lock:

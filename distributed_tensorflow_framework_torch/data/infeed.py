@@ -1,9 +1,17 @@
 """Host → device infeed: batches to tensors, prefetched, behind a watchdog.
 
-The single-card counterpart of ``data/infeed.py``. :func:`to_device` moves
-one host batch of numpy arrays: on a CUDA device each array goes through
-pinned memory with a non-blocking copy, so the transfer is queued behind
-the work already on the stream instead of stalling the host.
+The port's counterpart of ``data/infeed.py``. The JAX ``to_global`` lifts
+each host's rows into one global array sharded over the mesh; the port
+runs one process per GPU, so each rank moves its own block of the global
+batch (its dataset's ``host_batch`` rows, data/shard.py) to its own card
+and never assembles the global batch: DDP's gradient all-reduce and the
+cross-rank BatchNorm (models/layers.py) see the ranks' blocks as one
+batch.
+
+:func:`to_device` moves one host batch of numpy arrays: on a CUDA device
+each array goes through pinned memory with a non-blocking copy, so the
+transfer is queued behind the work already on the stream instead of
+stalling the host.
 
 :func:`prefetch_to_device` keeps ``size`` batches in flight and yields
 ``(batch, iterator_state_snapshot)`` in pull order. The snapshot is the
@@ -15,7 +23,7 @@ on a producer thread; otherwise on the training thread. With
 ``deadline_s > 0`` (``resilience.infeed_deadline_s``) a pull that outlasts
 the deadline raises :class:`InfeedStallError`; the pull keeps running, and
 the next ``next()`` waits for the same batch (the trainer retries with
-backoff). The multi-host assembly is ROADMAP.md queue A item A1.
+backoff).
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""Data-state commit records and the restore gate, for one host.
+"""Data sharding across ranks, and the data-state commit records.
 
-The port's copy of the record half of ``data/shard.py``. At every save the
-iterator state goes into the checkpoint as JSON and a record of it, with
-its sha256, into the same manifest as the weight hashes
-(``data_state_record``), so "where was the data stream?" shares the
-integrity contract with "which bytes are the weights?". At restore,
-``check_restore_data`` digest-checks the restored state against that
-record and decides whether a change of host count may reuse it. The port
-trains on one host (``process_count`` 1); per-host block sharding arrives
-with ROADMAP.md queue A item A1. Stdlib only.
+The port's copy of ``data/shard.py``. :class:`ShardAssignment` is a rank's
+slot in the gang, read from the same discovery environment that forms the
+process group (``core/cluster.py``), and :func:`shard_plan` validates its
+slice of every global batch (recorded as a ``data_shard`` event); global
+batch ``i`` is ``perm[i*B:(i+1)*B]`` and rank ``h`` reads block ``h`` of
+it (:func:`block_bounds`). At every save the iterator state goes into the
+checkpoint as JSON and a record of it, with its sha256, into the same
+manifest as the weight hashes (``data_state_record``), so "where was the
+data stream?" shares the integrity contract with "which bytes are the
+weights?". At restore, ``check_restore_data`` digest-checks the restored
+state against that record and decides whether a change of the process
+count may reuse it. Stdlib only.
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ from __future__ import annotations
 import hashlib
 import json
 import logging
+import os
+from dataclasses import dataclass
 from typing import Any, Mapping
+
+from distributed_tensorflow_framework_torch.core import cluster
 
 log = logging.getLogger(__name__)
 
@@ -41,6 +48,69 @@ class DataShardError(ValueError):
             message = f"{message}\n  hint: {hint}"
         super().__init__(message)
         self.hint = hint
+
+
+@dataclass(frozen=True)
+class ShardAssignment:
+    """This rank's slot in the data-reading gang."""
+
+    process_index: int
+    process_count: int
+
+    def __post_init__(self):
+        if self.process_count < 1:
+            raise DataShardError(f"process_count {self.process_count} < 1")
+        if not 0 <= self.process_index < self.process_count:
+            raise DataShardError(
+                f"process_index {self.process_index} outside gang of "
+                f"{self.process_count}")
+
+    @classmethod
+    def from_env(cls, environ: Mapping[str, str] | None = None
+                 ) -> "ShardAssignment":
+        """The assignment from the gang's discovery environment; without
+        it, shard 0 of 1."""
+        env = os.environ if environ is None else environ
+        try:
+            count = int(env.get(cluster.ENV_NUM_PROCESSES) or 1)
+            index = int(env.get(cluster.ENV_PROCESS_ID) or 0)
+        except ValueError as e:
+            raise DataShardError(
+                f"malformed gang discovery env: {e} "
+                f"({cluster.ENV_NUM_PROCESSES}="
+                f"{env.get(cluster.ENV_NUM_PROCESSES)!r}, "
+                f"{cluster.ENV_PROCESS_ID}="
+                f"{env.get(cluster.ENV_PROCESS_ID)!r})") from e
+        return cls(process_index=index, process_count=count)
+
+
+def shard_plan(assignment: ShardAssignment, *, global_batch: int,
+               data_parallel: int | None = None,
+               shard_mode: str = "block") -> dict:
+    """Validate and describe this rank's slice of every global batch.
+    ``data_parallel`` is the mesh's data-parallel extent, which must be a
+    multiple of the process count."""
+    p, n = assignment.process_index, assignment.process_count
+    if global_batch % n:
+        raise DataShardError(
+            f"global_batch_size {global_batch} not divisible by "
+            f"process_count {n}",
+            hint="pick a global batch that is a multiple of the gang size")
+    if data_parallel is not None and data_parallel > 0 and data_parallel % n:
+        raise DataShardError(
+            f"mesh data-parallel extent {data_parallel} not divisible by "
+            f"process_count {n} — ranks would feed unequal numbers of "
+            f"data-parallel rows",
+            hint="size the mesh's data/fsdp axes as a multiple of the gang "
+                 "size")
+    return {
+        "process_index": p,
+        "process_count": n,
+        "host_batch": global_batch // n,
+        "global_batch": int(global_batch),
+        "shard_mode": shard_mode,
+        "data_parallel": data_parallel,
+    }
 
 
 def block_bounds(batch_index: int, host_batch: int, process_index: int,

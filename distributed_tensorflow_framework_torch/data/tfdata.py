@@ -59,14 +59,17 @@ def count_records(files: Sequence[str]) -> int:
 
 def eval_batches_all_hosts(host_records: int, batch: int, *,
                            process_count: int = 1) -> int:
-    """Per-host eval batch count: ``ceil(records / batch)``. Equalising it
-    across hosts (the JAX package's all-gathered max) needs the
-    multi-process runtime."""
-    if process_count > 1:
-        raise NotImplementedError(
-            "exact eval across processes (equal eval batch counts on every "
-            "host) is not ported yet — ROADMAP.md queue A item A1")
-    return -(-host_records // batch)
+    """Per-rank eval batch count, equal on every rank: the largest
+    ``ceil(records / batch)`` over the ranks (one ``all_reduce(MAX)`` over
+    the default process group). Ranks whose file shard runs out first pad
+    with zero-weight batches (``pad_tail_to``), so every record is read
+    once and each rank runs the same number of eval steps."""
+    mine = -(-host_records // batch)
+    if process_count == 1:
+        return mine
+    from distributed_tensorflow_framework_torch.core import mesh
+
+    return mesh.max_over_ranks(mine)
 
 
 def _file_rows(path: str, key: str, width: int) -> Iterator[np.ndarray]:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -214,6 +215,53 @@ class Conv(nn.Module):
                         stride=self.strides, padding=padding)
 
 
+class _CrossRankBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank of the default
+    process group, in f32: ``(x, weight, bias, eps) -> (y, mean, var)``.
+
+    Forward: one ``all_reduce`` of the per-channel ``[Σx, Σx², n]``, then
+    Flax's statistics, ``mean = E[x]`` and the biased
+    ``var = max(E[x²] − E[x]², 0)``. Backward: one ``all_reduce`` of
+    ``[Σdy, Σdy·x̂]`` gives the global means that ``dx`` needs; ``dweight``/``dbias`` stay the rank's
+    own sums, which DDP averages with the other gradients. Only
+    ``all_reduce``: gloo carries no other collective on CUDA tensors, and
+    ``nn.SyncBatchNorm`` needs ``all_gather`` (and keeps the unbiased
+    running variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        dims, c = (0, 2, 3), x.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32,
+                           device=x.device)
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        dist.all_reduce(stats)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return (xhat * weight[:, None, None] + bias[:, None, None], mean,
+                var)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims, c = (0, 2, 3), x.shape[1]
+        dy = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        dbias, dweight = local[:c].clone(), local[c:].clone()
+        dist.all_reduce(local)
+        mean_dy = (local[:c] / n)[:, None, None]
+        mean_dy_xhat = (local[c:] / n)[:, None, None]
+        dx = ((dy - mean_dy - xhat * mean_dy_xhat)
+              * (invstd * weight)[:, None, None])
+        return dx.to(x.dtype), dweight, dbias, None
+
+
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` (the JAX package's ``BatchNorm``,
     momentum 0.9, ε 1e-5) over the channels of an NCHW tensor.
@@ -228,7 +276,14 @@ class BatchNorm(nn.Module):
     the unbiased one (×n/(n−1)), so its statistics are read into scratch
     buffers (momentum 1) and the update is made here, the variance scaled
     back by (n−1)/n. ``zero_init_gamma`` starts the scale at zero (the
-    last BN of a residual block)."""
+    last BN of a residual block).
+
+    ``cross_rank`` (:func:`use_cross_rank_bn`, which the trainer calls
+    when the world is above 1) takes the training statistics over the
+    batch of every rank (:class:`_CrossRankBatchNorm`): under the JAX
+    package's ``jit`` the batch is one global array, so its BN statistics
+    are global whatever ``model.bn_cross_replica`` says. At one rank the
+    single-device path above runs unchanged."""
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.9, eps: float = 1e-5,
@@ -238,6 +293,7 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.zero_init_gamma = zero_init_gamma
+        self.cross_rank = False
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.empty(features, **f32))
         self.bias = nn.Parameter(torch.empty(features, **f32))
@@ -257,17 +313,33 @@ class BatchNorm(nn.Module):
                              self.weight, self.bias, training=False,
                              eps=self.eps)
             return y.to(self.dtype)
+        keep = self.momentum
+        if self.cross_rank:
+            y, mean, var = _CrossRankBatchNorm.apply(x, self.weight,
+                                                     self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+                self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+            return y.to(self.dtype)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias,
                          training=True, momentum=1.0, eps=self.eps)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
-            keep = self.momentum
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
             self.running_var.mul_(keep).add_(var, alpha=(1.0 - keep)
                                              * (n - 1) / n)
         return y.to(self.dtype)
+
+
+def use_cross_rank_bn(model: nn.Module) -> int:
+    """Switch every BatchNorm of ``model`` to statistics over all ranks of
+    the default process group; returns how many there are."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.cross_rank = True
+    return len(bns)
 
 
 class ConvBN(nn.Module):

@@ -2,8 +2,13 @@
 throughput, logging, eval, checkpoint and heartbeat hooks.
 
 Hooks only ever see host-side metric values the trainer already fetched,
-so they never force an extra device sync. The profile and MoE hooks are
-not ported (ROADMAP.md queue A items A16 and A8).
+so they never force an extra device sync. Across ranks every rank runs
+the same hooks at the same steps, as in the JAX trainer: the logging hook
+writes through the chief-only ``MetricWriter``, the checkpoint hook's
+manager writes on the chief alone (core/metrics.py, ckpt/checkpoint.py),
+and each rank beats its own heartbeat file (``heartbeat-p<i>.json``,
+core/cluster.py). The profile and MoE hooks are not ported (ROADMAP.md
+queue A items A16 and A8).
 """
 
 from __future__ import annotations

@@ -1,7 +1,17 @@
 """The training loop: the port's counterpart of ``train/loop.py``'s
 ``Trainer``.
 
-build → maybe-restore → step loop with hooks → final save, on one device.
+build → maybe-restore → step loop with hooks → final save, on one device
+or on every rank of a gang (``runtime``, core/mesh.py: one process per
+GPU, the model under DDP, train/step.py). Each rank reads its block of
+every global batch (``get_dataset`` with its process index and count,
+the layout in a ``data_shard`` event); at log steps the task metrics are
+reduced to the global batch's, so every rank sees the same values and the
+recovery ladder decides alike everywhere. Metrics go to the console and
+``events.jsonl`` from the chief only; rank i keeps ``events-p<i>.jsonl``
+and ``heartbeat-p<i>.json``. The chief writes the checkpoints, and after
+the final one every rank waits at the exit barrier for its commit record
+(core/cluster.py).
 As in the JAX trainer, each step's metrics stay on the device and the host
 syncs only at ``train.log_interval`` and at the last step;
 ``train.dispatch_ahead`` bounds how many unsynced steps may be queued by
@@ -33,16 +43,17 @@ no result: tracing spans, the goodput ledger, memory sampling, the flight
 recorder and the collective tally. Evaluation is exact, as in the JAX
 trainer: a finite eval stream (TFRecords) is walked once in full, every
 record once, the padded tail weighted out; an infinite one (the synthetic
-fallback) gives ``train.eval_steps`` batches. At each metrics fetch the
-sequence-packing census of the train stream's state is written as a
-``data_packing`` event.
+fallback) gives ``train.eval_steps`` batches. Across ranks each rank
+evaluates its shard (the same number of batches everywhere,
+data/tfdata.py) and the metric sums are added over the ranks. At each
+metrics fetch the sequence-packing census of the train stream's state is
+written as a ``data_packing`` event.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
-import os
 import sys
 import time
 
@@ -52,17 +63,23 @@ from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
     CheckpointManager,
 )
 from distributed_tensorflow_framework_torch.core import (
+    cluster,
     faults,
     profiling,
     supervision,
     telemetry,
 )
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
+from distributed_tensorflow_framework_torch.core.mesh import (
+    MeshRuntime,
+    initialize_runtime,
+)
 from distributed_tensorflow_framework_torch.core.metrics import (
     MetricWriter,
     setup_logging,
 )
 from distributed_tensorflow_framework_torch.data import get_dataset, packing
+from distributed_tensorflow_framework_torch.data import shard as data_shard
 from distributed_tensorflow_framework_torch.data.infeed import (
     InfeedStallError,
     prefetch_to_device,
@@ -99,21 +116,29 @@ def _fault_scale(fault: faults.Fault) -> float:
 
 class Trainer:
     """Trains ``config`` on ``device`` (default CUDA; ``device="cpu"``
-    runs the plain PyTorch path). ``events.jsonl`` goes to ``log_dir``,
-    else to ``checkpoint.directory``, else nowhere."""
+    runs the plain PyTorch path), or as one rank of ``runtime`` (default:
+    ``initialize_runtime`` from the gang environment, a single process
+    without it). ``events.jsonl`` goes to ``log_dir``, else to
+    ``checkpoint.directory``, else nowhere."""
 
     def __init__(self, config: ExperimentConfig, *,
                  device: str | torch.device = "cuda",
-                 log_dir: str | None = None):
+                 log_dir: str | None = None,
+                 runtime: MeshRuntime | None = None):
         setup_logging()
         self._init_t = time.perf_counter()
         check_trainer_config(config)
         self.config = config
-        self.builder = StepBuilder(config, device=device)
+        self.runtime = runtime or initialize_runtime(config.mesh, device)
+        rt = self.runtime
+        self.builder = StepBuilder(config, runtime=rt)
         self.device = self.builder.device
-        self.dataset = get_dataset(config.data)
+        self.dataset = get_dataset(config.data, process_index=rt.process_index,
+                                   process_count=rt.process_count)
         self.writer = MetricWriter(log_dir or config.checkpoint.directory
-                                   or None)
+                                   or None, is_chief=rt.is_chief,
+                                   process_index=rt.process_index,
+                                   process_count=rt.process_count)
         self.recovery = (anomaly_lib.RecoveryManager(
             config.resilience, telemetry_writer=self.writer.telemetry)
             if config.resilience.rollback else None)
@@ -129,15 +154,24 @@ class Trainer:
         self.data_ckpt_state: dict = self.dataset.state()
 
     def build(self) -> None:
-        cfg = self.config
+        cfg, rt = self.config, self.runtime
+        self.state = self.builder.init_state(cfg.train.seed)
         self.writer.telemetry.emit_run_meta(
             argv=list(sys.argv), config_name=cfg.name,
             spmd_mode=cfg.train.spmd_mode, model=cfg.model.name,
             dataset=cfg.data.name,
             global_batch_size=cfg.data.global_batch_size,
-            mesh={"data": 1}, process_count=1, process_index=0,
-            device=str(self.device))
-        self.state = self.builder.init_state(cfg.train.seed)
+            mesh=rt.sizes, process_count=rt.process_count,
+            process_index=rt.process_index, device=str(self.device),
+            process_group=rt.backend, ddp=self.state.ddp is not None)
+        self.writer.telemetry.emit(
+            telemetry.KIND_DATA_SHARD, step=self.host_step,
+            shard=data_shard.shard_plan(
+                data_shard.ShardAssignment(rt.process_index,
+                                           rt.process_count),
+                global_batch=cfg.data.global_batch_size,
+                data_parallel=rt.data_parallel_size,
+                shard_mode=cfg.data.shard_mode))
         if cfg.train.eval_steps > 0:
             self._ensure_eval()
         ck = cfg.checkpoint
@@ -151,7 +185,7 @@ class Trainer:
         if not ck.directory:
             return
         self._ckpt_manager = CheckpointManager(
-            ck, telemetry_writer=self.writer.telemetry)
+            ck, telemetry_writer=self.writer.telemetry, runtime=rt)
         self._ckpt_manager.set_data_sources(
             repartition=self.dataset.repartition,
             resume_strict=cfg.data.resume_strict)
@@ -177,15 +211,17 @@ class Trainer:
 
     def default_hooks(self) -> list:
         cfg = self.config
+        rt = self.runtime
         tp = hooks_lib.ThroughputHook(batch_size=cfg.data.global_batch_size,
-                                      num_chips=1)
+                                      num_chips=rt.process_count)
         hooks = [tp, hooks_lib.LoggingHook(self.writer,
                                            cfg.train.log_interval, tp)]
         if cfg.train.nan_guard:
             hooks.append(hooks_lib.NaNGuardHook())
         if self._ckpt_manager is not None:
             hooks.append(hooks_lib.HeartbeatHook(
-                os.path.join(self._ckpt_manager.directory, "heartbeat.json"),
+                cluster.heartbeat_path(self._ckpt_manager.directory,
+                                       rt.process_index, rt.process_count),
                 min_interval_s=cfg.cluster.heartbeat_interval_s))
             hooks.append(hooks_lib.CheckpointHook(
                 self._ckpt_manager, cfg.checkpoint.save_interval_steps))
@@ -280,8 +316,9 @@ class Trainer:
                     # Apart from the backpressure above, the host waits
                     # for the device only here.
                     with timer.phase("metrics_fetch"):
-                        host_metrics = {k: float(v)
-                                        for k, v in metrics.items()}
+                        host_metrics = {
+                            k: float(v) for k, v in
+                            self.builder.global_metrics(metrics).items()}
                     host_metrics.update(timer.means())
                     timer.reset()
                     pending.clear()
@@ -310,6 +347,15 @@ class Trainer:
         if self._ckpt_manager is not None:
             # Exit barrier, for hook lists without the CheckpointHook too.
             self._ckpt_manager.wait_until_finished()
+            if self.runtime.process_count > 1:
+                # No rank returns before the chief's final commit record
+                # is durable: a rank that exits early takes the process
+                # group down under a peer.
+                cluster.exit_barrier(
+                    self._ckpt_manager.directory, step=self.host_step,
+                    timeout_s=self.config.cluster.exit_barrier_timeout_s,
+                    poll_s=self.config.cluster.exit_barrier_poll_s,
+                    is_chief=self.runtime.is_chief)
         return last_metrics
 
     def _emit_packing(self) -> None:
@@ -400,8 +446,10 @@ class Trainer:
         """Build the eval stream once (``eval_data``, else ``data``) and
         remember its start, so every evaluation reads the same batches."""
         if self._eval_ds is None:
-            self._eval_ds = get_dataset(self.config.eval_data
-                                        or self.config.data, train=False)
+            self._eval_ds = get_dataset(
+                self.config.eval_data or self.config.data,
+                process_index=self.runtime.process_index,
+                process_count=self.runtime.process_count, train=False)
             self._eval_start = self._eval_ds.state()
         return self._eval_ds
 
@@ -409,7 +457,8 @@ class Trainer:
                  num_batches: int | None = None) -> dict[str, float]:
         """Exact evaluation: weighted means of the task's metrics
         (``eval_loss`` and ``eval_mlm_acc``, or ``eval_top1``/``eval_top5``)
-        and ``eval_examples``, the masked tokens (MLM) or the images seen. A finite eval stream
+        and ``eval_examples``, the masked tokens (MLM) or the images seen,
+        over every rank's shard. A finite eval stream
         (``cardinality`` set) is walked once in full, every record once,
         the zero-padded tail adding no weight; ``num_batches`` at or above
         the cardinality means the full set, below it truncates with a
@@ -438,6 +487,12 @@ class Trainer:
                                        to_device(next(ds), self.device))
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
+        if self.runtime.process_count > 1:
+            keys = sorted(totals)
+            summed = self.runtime.all_reduce_(torch.tensor(
+                [totals[k] for k in keys], dtype=torch.float64,
+                device=self.runtime.collective_device))
+            totals = dict(zip(keys, summed.tolist()))
         weight = totals.pop("weight_sum", 0.0)
         results = {f"eval_{k[:-len('_sum')]}": v / max(weight, 1e-9)
                    for k, v in totals.items()}

@@ -51,6 +51,15 @@ class TrainState:
     dropout_generator: torch.Generator
     # Parameter name → its f32 moving average; {} when the EMA is off.
     ema_params: dict[str, torch.Tensor] = field(default_factory=dict)
+    # The DistributedDataParallel wrapper of ``model`` that the train step
+    # runs forward through when a process group exists; not state: it
+    # holds no tensor of its own, and a checkpoint names the model's.
+    ddp: nn.Module | None = None
+
+    @property
+    def train_module(self) -> nn.Module:
+        """What the train step calls: the DDP wrapper, else the model."""
+        return self.model if self.ddp is None else self.ddp
 
     def state_dict(self) -> dict:
         out = {

@@ -1,44 +1,70 @@
 """Train and eval steps: the port's counterpart of ``train/step.py``.
 
-:class:`StepBuilder` is cut to the JAX package's single-device ``jit``
-path, for the masked-LM task (BERT) and the classification task (LeNet,
-ResNet). One micro-step is the forward in ``train()`` mode, the task's
-loss (:func:`~.losses.mlm_loss`, or :func:`~.losses.classification_loss`
-with ``train.label_smoothing``) and the backward (through the
-flash-attention kernels when ``attention_impl: pallas``). With
-``train.grad_accum_steps > 1`` the micro-batch gradients are summed
-weighted — by their masked-token counts for MLM, by 1 for classification
-— and divided by the total, which is the full-batch gradient
-(``_accumulated_grads``); BatchNorm's running statistics move micro-batch
-by micro-batch, and the dropout stream advances per micro-batch. Then the
-optimizer applies one update, and with ``optimizer.ema_decay > 0`` the
-parameter EMA follows it (``ema ← d·ema + (1 − d)·p``,
-``d = min(decay, (1 + t)/(10 + t))`` at the step t before the increment).
+:class:`StepBuilder` is cut to the JAX package's ``jit`` path, for the
+masked-LM task (BERT) and the classification task (LeNet, ResNet), on one
+device or data parallel over the ranks of a process group
+(core/mesh.py). One micro-step is the forward in ``train()`` mode, the
+task's loss (:func:`~.losses.mlm_loss`, or
+:func:`~.losses.classification_loss` with ``train.label_smoothing``) and
+the backward (through the flash-attention kernels when ``attention_impl:
+pallas``). With ``train.grad_accum_steps > 1`` the micro-batch gradients
+are summed weighted — by their masked-token counts for MLM, by 1 for
+classification — and divided by the total, which is the full-batch
+gradient (``_accumulated_grads``); BatchNorm's running statistics move
+micro-batch by micro-batch, and the dropout stream advances per
+micro-batch. Then the optimizer applies one update, and with
+``optimizer.ema_decay > 0`` the parameter EMA follows it (``ema ← d·ema +
+(1 − d)·p``, ``d = min(decay, (1 + t)/(10 + t))`` at the step t before
+the increment).
+
+Across ranks the model runs under ``DistributedDataParallel``
+(``gradient_as_bucket_view``, no buffer broadcast: the BatchNorm
+statistics are already global, models/layers.py; ``no_sync`` on every
+micro-batch but the last), and each rank feeds its block of the global
+batch. DDP averages the ranks' gradients, while the JAX MLM loss divides
+by the masked tokens of the GLOBAL batch; so before any forward one
+``all_reduce`` sums the step's masked count W, and each rank's gradient
+is scaled so that the average is the global one: at one micro-batch the
+rank back-propagates its Σce · world / W; with accumulation it sums its
+micro-batches' Σce and the reduced gradient is multiplied by world / W.
+At a world of 1 both factors are exactly today's (1 and 1 / ΣW), so the
+single-rank step is bit for bit the single-device one. Classification
+shards are equal, so the mean of the ranks' means is the global mean.
+Each rank's dropout stream is its own ((seed, dropout, rank)); at a world
+of 1 it is the single-device stream.
 
 Step metrics: ``loss`` and ``mlm_acc`` or ``top1``/``top5``,
-``grad_norm`` (the global norm of the gradients BEFORE clipping) and
-``learning_rate`` (the schedule at the step before the increment). They
-stay on the device; the trainer syncs only when it logs. The eval step
-runs in ``eval()`` mode (BN on its running statistics, no dropout), on the
-EMA parameters when ``train.eval_use_ema`` and the EMA is on.
+``grad_norm`` (the global norm of the reduced gradients BEFORE clipping)
+and ``learning_rate`` (the schedule at the step before the increment).
+They stay on the device; the trainer syncs only when it logs, and above
+one rank reduces the task metrics there into global weighted means
+(:meth:`StepBuilder.global_metrics`). The eval step runs in ``eval()``
+mode (BN on its running statistics, no dropout), on the EMA parameters
+when ``train.eval_use_ema`` and the EMA is on.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: multi-device
-meshes, ``spmd_mode: shard_map``, ZeRO/FSDP, compressed collectives, the
-fused update and the selective remat policies. ``model.remat``
-(per-layer checkpointing) is carried by the model.
+naming its ROADMAP.md item when it is not at its off value: mesh axes
+other than ``data``, ``spmd_mode: shard_map``, ZeRO/FSDP, compressed
+collectives, the fused update and the selective remat policies.
+``model.remat`` (per-layer checkpointing) is carried by the model.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from distributed_tensorflow_framework_torch.core import mesh as mesh_lib
 from distributed_tensorflow_framework_torch.core import prng
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import get_model
+from distributed_tensorflow_framework_torch.models.layers import (
+    use_cross_rank_bn,
+)
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
     ema_update_,
@@ -70,13 +96,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet — ROADMAP.md queue A item {item}")
 
 
-def check_single_device_jit(config: ExperimentConfig) -> None:
-    """Raise for every setting the single-card jit path does not carry."""
-    mesh = config.mesh.axis_sizes()
-    if any(size > 1 for size in mesh.values()):
-        raise _not_ported(
-            f"a mesh of more than one device ({mesh}); the port trains on "
-            f"one card", "A1 (torch.distributed runtime) and A10 (FSDP)")
+def check_data_parallel_jit(config: ExperimentConfig, world: int = 1) -> None:
+    """Raise for every setting the data-parallel jit path over ``world``
+    ranks does not carry: MeshSizeError when ``mesh.data`` is neither -1
+    nor the world, NotImplementedError for the rest."""
+    mesh_lib.resolve_mesh(config.mesh, world)
     if config.train.spmd_mode != "jit":
         raise _not_ported(f"train.spmd_mode={config.train.spmd_mode!r} "
                           f"(explicit collectives)", "A9")
@@ -100,13 +124,19 @@ def check_single_device_jit(config: ExperimentConfig) -> None:
 
 class StepBuilder:
     """Builds the train state and the train/eval steps for a workload on
-    one device (default CUDA; ``device="cpu"`` runs the plain path)."""
+    one device (default CUDA; ``device="cpu"`` runs the plain path), or,
+    given a ``runtime`` (core/mesh.py), on its device and data parallel
+    over its ranks."""
 
     def __init__(self, config: ExperimentConfig, *,
-                 device: str | torch.device = "cuda"):
-        check_single_device_jit(config)
+                 device: str | torch.device = "cuda",
+                 runtime: mesh_lib.MeshRuntime | None = None):
+        self.runtime = runtime
+        self.world = 1 if runtime is None else runtime.process_count
+        check_data_parallel_jit(config, self.world)
         self.config = config
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if runtime is None
+                       else runtime.device)
         self.task = task_for_model(config.model.name)
         if (self.task == "mlm"
                 and config.data.vocab_size > config.model.vocab_size):
@@ -122,26 +152,37 @@ class StepBuilder:
 
     def init_state(self, seed: int) -> TrainState:
         """Parameters drawn from the (seed, init) stream, the optimizer
-        over them, the (seed, dropout) generator and, with
-        ``optimizer.ema_decay > 0``, the EMA starting at the parameters;
-        model in train()."""
+        over them, the (seed, dropout) generator — (seed, dropout, rank)
+        above one rank — and, with ``optimizer.ema_decay > 0``, the EMA
+        starting at the parameters; model in train(). With a process group
+        the model is wrapped in DDP (which broadcasts rank 0's parameters),
+        and above one rank its BatchNorms take global statistics."""
         model = get_model(
             self.config.model, device=self.device,
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
                                            self.device),
             in_channels=(None if self.task == "mlm"
                          else self.config.data.channels))
+        if self.world > 1:
+            use_cross_rank_bn(model)
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model)
         self.base_schedule = self.schedule
         ema = ({k: p.detach().float().clone()
                 for k, p in model.named_parameters()}
                if self.config.optimizer.ema_decay > 0 else {})
+        rank = () if self.world == 1 else (self.runtime.process_index,)
+        ddp = None
+        if self.runtime is not None and self.runtime.backend is not None:
+            ddp = DistributedDataParallel(
+                model, device_ids=(None if self.device.type == "cpu"
+                                   else [self.device.index]),
+                broadcast_buffers=False, gradient_as_bucket_view=True)
         return TrainState(
             step=0, model=model.train(), optimizer=optimizer,
-            dropout_generator=prng.torch_generator(seed, prng.ROLE_DROPOUT,
-                                                   self.device),
-            ema_params=ema)
+            dropout_generator=prng.torch_generator(
+                seed, prng.ROLE_DROPOUT, self.device, *rank),
+            ema_params=ema, ddp=ddp)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -156,11 +197,12 @@ class StepBuilder:
         the gradients add into ``.grad``. ``fault_scale`` multiplies the
         loss itself (see ``train_step``)."""
         if self.task == "mlm":
-            logits = state.model(*model_inputs(self.task, batch),
-                                 dropout_generator=state.dropout_generator)
+            logits = state.train_module(
+                *model_inputs(self.task, batch),
+                dropout_generator=state.dropout_generator)
             loss, metrics = losses.mlm_loss(logits, batch["targets"])
         else:
-            logits = state.model(batch["image"])
+            logits = state.train_module(batch["image"])
             loss, metrics = losses.classification_loss(
                 logits, batch["label"],
                 label_smoothing=self.config.train.label_smoothing)
@@ -189,30 +231,55 @@ class StepBuilder:
             out.append(dict(zip(batch.keys(), chunks)))
         return out
 
+    def _global_weight(self, local: torch.Tensor) -> torch.Tensor:
+        """The step's loss denominator over every rank's batch."""
+        if self.world == 1:
+            return local
+        return self.runtime.all_reduce_(local.clone())
+
     def train_step(self, state: TrainState, batch: dict, *,
                    fault_scale: float = 1.0
                    ) -> dict[str, torch.Tensor | float]:
-        """One optimizer step on ``batch`` (tensors on the device). Updates
-        ``state`` in place and returns the step's metrics, unsynced.
-        ``fault_scale`` multiplies the loss, its gradients and the reported
-        loss: NaN for the ``nan_grads`` drills, 1e4 for ``loss_spike``
-        (core/faults.py); the default 1.0 leaves the step untouched."""
+        """One optimizer step on ``batch`` (this rank's block, tensors on
+        the device). Updates ``state`` in place and returns the step's
+        metrics, unsynced; above one rank the task metrics are this
+        rank's, with their weight under ``_weight``
+        (:meth:`global_metrics`). ``fault_scale`` multiplies the loss, its
+        gradients and the reported loss: NaN for the ``nan_grads`` drills,
+        1e4 for ``loss_spike`` (core/faults.py); the default 1.0 leaves
+        the step untouched."""
         state.model.train()
         state.optimizer.zero_grad()
         if self.accum == 1:
-            metrics = self._micro_step(state, batch, 1.0, fault_scale)
+            scale, weight = 1.0, None
+            if self.world > 1:
+                weight = self._microbatch_weight(batch)
+                if self.task == "mlm":
+                    scale = (weight.clamp(min=1.0) * self.world
+                             / self._global_weight(weight).clamp(min=1.0))
+            metrics = self._micro_step(state, batch, scale, fault_scale)
         else:
-            weights, sums = [], {}
-            for mb in self._split(batch):
-                w = self._microbatch_weight(mb)
-                m = self._micro_step(state, mb, w, fault_scale)
-                weights.append(w)
+            micro = self._split(batch)
+            weights = [self._microbatch_weight(mb) for mb in micro]
+            weight = torch.stack(weights).sum()
+            total = self._global_weight(weight)
+            sums = {}
+            for i, (mb, w) in enumerate(zip(micro, weights)):
+                # DDP reduces the summed gradients in the last backward.
+                with (state.ddp.no_sync()
+                      if state.ddp is not None and i < self.accum - 1
+                      else contextlib.nullcontext()):
+                    m = self._micro_step(state, mb, w, fault_scale)
                 for k, v in m.items():
                     sums[k] = sums.get(k, 0.0) + w * v
-            inv = 1.0 / torch.stack(weights).sum().clamp(min=1e-9)
+            inv = self.world / total.clamp(min=1e-9)
             grads = [p.grad for p in state.model.parameters()]
             torch._foreach_mul_(grads, inv)
-            metrics = {k: v * inv for k, v in sums.items()}
+            local_inv = inv if self.world == 1 else 1.0 / weight.clamp(
+                min=1e-9)
+            metrics = {k: v * local_inv for k, v in sums.items()}
+        if self.world > 1:
+            metrics["_weight"] = weight
         grad_norm = global_norm([p.grad for p in state.model.parameters()])
         state.optimizer.step(grad_norm)
         if state.ema_params:
@@ -223,6 +290,25 @@ class StepBuilder:
         metrics["learning_rate"] = self.schedule(state.step)
         state.step += 1
         return metrics
+
+    def global_metrics(self, metrics: dict) -> dict:
+        """The step's metrics with its task metrics as weighted means over
+        every rank's batch (one ``all_reduce``; the JAX loss over the
+        global batch): each rank's mean times its weight, summed, over the
+        summed weight, at least 1 as in ``mlm_loss``. Called at log steps,
+        which are the same on every rank. Single-rank metrics pass as
+        they are."""
+        if "_weight" not in metrics:
+            return metrics
+        out = dict(metrics)
+        weight = out.pop("_weight")
+        keys = [k for k in out if k not in ("grad_norm", "learning_rate")]
+        sums = torch.stack([out[k].float() * weight for k in keys]
+                           + [weight.float()])
+        self.runtime.all_reduce_(sums)
+        total = sums[-1].clamp(min=1.0)
+        out.update({k: sums[i] / total for i, k in enumerate(keys)})
+        return out
 
     @torch.no_grad()
     def eval_step(self, state: TrainState,

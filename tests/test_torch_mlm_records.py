@@ -209,7 +209,7 @@ def test_guards(short_docs):
     with pytest.raises(RuntimeError, match="shard too small"):
         next(make_mlm(pcfg, 0, 1))
     pcfg, _ = _cfgs(short_docs, global_batch_size=8)
-    with pytest.raises(NotImplementedError, match="A1"):
+    with pytest.raises(RuntimeError, match="needs the process group"):
         make_mlm(pcfg, 0, 2, train=False)
 
 

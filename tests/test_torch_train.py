@@ -448,7 +448,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
 @pytest.mark.parametrize("override, item", [
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
-    ("mesh.data=2", "A1"),
+    ("mesh.fsdp=2", "A10"),
     ("train.spmd_mode=shard_map", "A9"),
     ("precision.remat_policy=save_nothing", "A13"),
     ("model.name=inception_v3", "A6"),
