@@ -196,6 +196,34 @@ Phases (any failure raises and the script exits non-zero):
      largest gradient from exact). The children are this script run as
      ``chip_smoke.py --child SPEC``; a child that fails fails the phase.
 
+  9. ImageNet from records and Inception-v3 (no attention kernel on this
+     path). First the JPEG toolchain (``jpeglib.h``, ``libjpeg.so*``,
+     nvJPEG in the CUDA toolkit, the CPU count) and the native reader's
+     build with the codec it found (libjpeg, else nvJPEG); where that is
+     not libjpeg, its transforms of the committed libjpeg reference
+     (``native/jpeg_reference.npz``) within CODEC_MEAN_TOL, and an
+     encode/decode round trip within CODEC_ROUND_TRIP_TOL. 9a: the TF-free
+     writer authors 4,096 train and 1,000 validation JPEG records in the
+     workdir (seconds printed). 9b: the reader alone, images/s by path
+     (native: DCT-scaled decode and bilinear; tf.data: the window at full
+     scale and TF's bicubic) and thread count. 9c: config 3 as written
+     from the records (tf.data path, then the native path), 20 steps of
+     256 (cut from 4,096), each with its exact eval over the 1,000
+     validation images (eval_examples must be 1,000); 9d: config 4 as
+     written, 20 steps of 256 (cut from 2,048), its exact eval too; then
+     each model's step alone on a resident batch of its records,
+     profiled by kernel class with the idle share and the peak memory.
+     9e: Inception-v3 in f32 on the card against the CPU: eval logits
+     within INCEPTION_EVAL_RTOL, train-mode logits, aux logits and
+     gradients no further from an f64 run than INCEPTION_RATIO times the
+     CPU's. 9f: ResNet-50's f32 step after one step against an f64 step
+     with the port's BatchNorm, PyTorch's and Flax's formula (the port's
+     no further than DP_F64_RATIO times Flax's formula's), then config
+     3's step alone with the port's BN and Flax's formula in turns.
+     ``--only 9abcdef`` (any of the letters) runs the toolchain check and
+     those parts alone, a development run that prints no kernels line
+     and no last line.
+
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, 8a's run, whose child sets
@@ -1235,6 +1263,492 @@ class HttpClient(threading.Thread):
             self.error = e
         finally:
             os.kill(os.getpid(), signal.SIGTERM)
+
+
+# ---------------------------------------------------------------- phase 9
+
+def jpeg_toolchain() -> dict:
+    """What the native reader's build needs from the machine: ``jpeglib.h``
+    (the path the compiler finds and its ``JPEG_LIB_VERSION``), the
+    ``libjpeg.so*`` the linker sees, nvJPEG in the CUDA toolkit, and the
+    host's CPU count (the decode threads)."""
+    import glob
+
+    out = {"cpu_count": os.cpu_count(), "jpeglib_h": None,
+           "JPEG_LIB_VERSION": None, "LIBJPEG_TURBO_VERSION": None}
+    probe = ("#include <stdio.h>\n#include <jpeglib.h>\n"
+             "JPEG_LIB_VERSION\nLIBJPEG_TURBO_VERSION_NUMBER\n")
+    cxx = shutil.which("g++")
+    if cxx is not None:
+        proc = subprocess.run([cxx, "-H", "-E", "-x", "c++", "-"],
+                              input=probe, capture_output=True, text=True)
+        if proc.returncode == 0:
+            heads = re.findall(r"^\.+ (\S*jpeglib\.h)$", proc.stderr,
+                               re.MULTILINE)
+            out["jpeglib_h"] = heads[0] if heads else "found"
+            tail = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+            out["JPEG_LIB_VERSION"] = tail[-2].strip()
+            out["LIBJPEG_TURBO_VERSION"] = tail[-1].strip()
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        listing = subprocess.run([ldconfig, "-p"], capture_output=True,
+                                 text=True).stdout
+    except OSError:
+        listing = ""
+    out["libjpeg_so"] = sorted({ln.split("=>")[-1].strip()
+                                for ln in listing.splitlines()
+                                if "libjpeg.so" in ln})
+    cuda = "/usr/local/cuda"
+    out["nvjpeg_h"] = [p for p in glob.glob(f"{cuda}/include/nvjpeg.h")
+                       + glob.glob(f"{cuda}/targets/*/include/nvjpeg.h")]
+    out["libnvjpeg"] = sorted(glob.glob(f"{cuda}/lib64/libnvjpeg*")
+                              + glob.glob(f"{cuda}/targets/*/lib/libnvjpeg*"))
+    return out
+
+
+# Phase 9f: the one-device BatchNorm (ROADMAP.md queue C, settled in
+# "Deliberate differences"). 8c's ResNet-50 case (f32, TF32 off, the CIFAR
+# stem, 256 images in one process) after one step, against its f64 step,
+# under each way of computing the training statistics: the port's
+# BatchNorm (F.batch_norm; on the card PyTorch's native channels_last
+# kernels) and the cross-rank Function's E[x²] − E[x]² over f32 sums
+# (Flax's formula) with no group.
+BN_VARIANTS = ("port", "function")
+
+
+@contextlib.contextmanager
+def batchnorm_variant(torch, which: str):
+    """Swap the training statistics of every port BatchNorm for the
+    duration: ``port`` leaves the class as it is, ``function`` computes
+    them with the cross-rank Function, collectives skipped (no group)."""
+    from distributed_tensorflow_framework_torch.models import layers
+
+    saved = layers.BatchNorm.forward
+
+    def function_forward(self, x):
+        if not self.training:
+            return saved(self, x)
+        y, mean, var = layers._CrossRankBatchNorm.apply(
+            x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return y.to(self.dtype)
+
+    if which == "function":
+        layers.BatchNorm.forward = function_forward
+    try:
+        yield
+    finally:
+        layers.BatchNorm.forward = saved
+
+
+def batchnorm_phase(torch, workdir: str, smi: str) -> dict:
+    """9f: each BN variant's ResNet-50 step against the f64 step (the
+    distances of 8c): the port's may sit no further from it than
+    DP_F64_RATIO times the Function's, or within DP_F64_FLOOR. Then
+    config 3's step alone on a resident batch with the port's BN and the
+    Function's in turns, and one profiled step of each: what the switch
+    to Flax's formula would cost."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    truth = dp_f64_step(torch, *DP_RESNET)
+    torch.cuda.empty_cache()
+    far = {}
+    for which in BN_VARIANTS:
+        with batchnorm_variant(torch, which):
+            res = dp_case(torch, *DP_RESNET, DP_HOLD["resnet"])
+        far[which] = dp_distance(res["tensors"], truth)
+        torch.cuda.empty_cache()
+    log("9f batchnorm, ResNet-50 f32 at 256 after one step, from an f64 "
+        "step (parameters over the largest update, statistics over the "
+        "leaf's largest value): " + "; ".join(
+            f"{w} " + ", ".join(f"{k} {v:.3e} ({leaf})"
+                                for k, (v, leaf) in far[w].items())
+            for w in BN_VARIANTS) + f" [{smi}]")
+    if any(far["port"][k][0] > DP_F64_RATIO * far["function"][k][0]
+           + DP_F64_FLOOR for k in far["port"]):
+        raise AssertionError("9f: the port's BatchNorm is further from the "
+                             "f64 step than Flax's formula")
+    cfg = load_config(IMAGENET_CONFIG, overrides=[
+        *IMAGENET_OVERRIDES, "checkpoint.directory="])
+    _, step = image_step(torch, cfg)
+    turns = {"port": [], "function": []}
+    for which in ("port", "function", "function", "port"):
+        with batchnorm_variant(torch, which):
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+            turns[which].append((time.perf_counter() - t0) * 1e3 / 5)
+    kernel = {}
+    for which in turns:
+        with batchnorm_variant(torch, which):
+            kernel[which] = image_profile(
+                torch, step, statistics.mean(turns[which]),
+                f"9f resnet50-imagenet 256, {which} BatchNorm")
+    log("9f resnet50-imagenet 256 step alone (host clock, 5 synced steps "
+        "per turn, port/function/function/port): " + "; ".join(
+            f"{w} BN " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
+            for w, ts in turns.items())
+        + f"; kernel time per step: port BN {kernel['port']:.3f} ms, "
+        f"function BN {kernel['function']:.3f} ms [{smi}]")
+    del step
+    torch.cuda.empty_cache()
+    return {"far": far, "turns": turns, "kernel_ms": kernel}
+
+
+# Phase 9: ImageNet from records (configs 3 and 4). 9a authors the corpus
+# with the port's TF-free writer (data/imagenet_records.py) in the
+# workdir: 4,096 train images in 8 shards, 1,000 validation images in 2
+# (not a multiple of the batch, so the exact eval pads its 4th batch).
+RECORD_CORPUS = ("--train-images", "4096", "--validation-images", "1000",
+                 "--train-shards", "8", "--validation-shards", "2",
+                 "--num-classes", "1000", "--seed", str(SEED))
+RECORD_EVAL_IMAGES = 1000
+# 9c/9d: configs 3 and 4 as written from the corpus, the global batch cut
+# to 256 (config 3: 4,096 on the pod; config 4: 2,048) and the run to 20
+# steps, a log every 10; each ends with its exact eval over the 1,000
+# validation images (the eval_steps of both configs exceed the 4 batches,
+# so the whole set).
+RECORD_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
+                    "train.log_interval=10")
+INCEPTION_CONFIG = "configs/inception_v3.yaml"
+# 9b: batches timed per reader path and thread count, and of config 3's
+# pipeline (an epoch of the corpus is 16 batches).
+READER_BATCHES = 4
+PIPELINE_BATCHES = 8
+# The codec reference (native/jpeg_reference.npz, written by the libjpeg
+# build with data/imagenet_records.py --decode-reference): where this
+# machine builds the reader with nvJPEG (it has no libjpeg), each
+# transform of the reference JPEGs, raw [0, 255] pixels at 48 x 48, is
+# held to the libjpeg build's as a mean |difference| over the pixels:
+# nvJPEG's IDCT and chroma upsampling are not libjpeg's, and the native
+# path's DCT-scaled decode becomes a full decode averaged over blocks.
+CODEC_REFERENCE = ("distributed_tensorflow_framework_torch/native/"
+                   "jpeg_reference.npz")
+CODEC_MEAN_TOL = {"native_train": 6.0, "native_eval": 6.0,
+                  "tf_train": 4.0, "tf_eval": 4.0}
+# And a round trip through the build's own encoder and decoder (quality
+# 90) of smooth colour ramps: a libjpeg(-turbo) build's mean |decoded -
+# source|, and the bound for any build (the libjpeg figure and then some:
+# another encoder's quantisation).
+CODEC_ROUND_TRIP_LIBJPEG = 0.68
+CODEC_ROUND_TRIP_TOL = 2.0
+# 9e: Inception-v3 in f32 on the card (TF32 off) against the same weights
+# on the CPU at 299 x 299, batch 4, with the same loss on both heads. Eval
+# logits (BN on running statistics) within INCEPTION_EVAL_RTOL of the
+# largest |logit|. Train mode sums rounding through 94 BatchNorms over few
+# samples (tests/test_torch_inception.py: Flax's own f32 pass lands 2-9%
+# of the largest gradient from f64), so the card's logits, aux logits and
+# gradients are held to the model in f64 on the card, no further from it
+# than INCEPTION_RATIO times the CPU's f32 pass, or within 1e-5.
+INCEPTION_EVAL_RTOL = 1e-4
+INCEPTION_RATIO = 3.0
+
+
+def codec_phase(torch) -> None:
+    """The native reader's build and its JPEG codec; where that is
+    not libjpeg, its transforms of the reference JPEGs against the libjpeg
+    build's, and an encode/decode round trip."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.data import (
+        imagenet_records,
+        native_reader,
+    )
+
+    t0 = time.perf_counter()
+    native_reader.load_library()
+    codec = native_reader.jpeg_backend()
+    log(f"9 native reader built in {time.perf_counter() - t0:.2f} s "
+        f"({native_reader.library_path().name}); JPEG codec {codec}")
+    if codec == "none":
+        raise AssertionError("the native reader has no JPEG codec here")
+    jpegs, want = imagenet_records.load_reference(CODEC_REFERENCE)
+    got = imagenet_records.reference_transforms(jpegs)
+    line = []
+    for key in imagenet_records.REFERENCE_TRANSFORMS:
+        err = np.abs(got[key] - want[key])
+        line.append(f"{key} mean {err.mean():.3f}, p99 "
+                    f"{np.percentile(err, 99):.2f}, max {err.max():.2f} "
+                    f"(tol mean {CODEC_MEAN_TOL[key]})")
+        if codec == "libjpeg" and not np.array_equal(
+                got[key].astype(np.float16).astype(np.float32), want[key]):
+            raise AssertionError(f"9 codec: the libjpeg build differs "
+                                 f"from its reference on {key}")
+        if err.mean() > CODEC_MEAN_TOL[key]:
+            raise AssertionError(f"9 codec: {codec} {key} differs from "
+                                 f"libjpeg by {err.mean():.3f} on average")
+    log(f"9 codec {codec} vs the libjpeg reference (grey levels over 48x48 "
+        f"x 3 x {len(jpegs)} pixels): " + "; ".join(line))
+    # A round trip through this build's encoder and decoder: the eval
+    # transform at the frame's own size with the whole frame is the
+    # decoded frame (the bicubic weights at the pixel centres are 0, 1,
+    # 0, 0).
+    errs = []
+    for w, h in imagenet_records.REFERENCE_FRAMES:
+        img = np.broadcast_to(
+            np.linspace(30, 220, w)[None, :, None]
+            + np.linspace(0, 40, h)[:, None, None]
+            + np.asarray([0.0, 10.0, -10.0]), (h, w, 3)).astype(np.uint8)
+        record = imagenet_records.example({
+            imagenet_records.IMAGE_KEY: imagenet_records.bytes_feature(
+                native_reader.encode_jpeg(img, 90)),
+            imagenet_records.LABEL_KEY: imagenet_records.int64_feature([1])})
+        back, _ = native_reader.decode_images([record], *img.shape[:2],
+                                              central_frac=1.0)
+        errs.append(np.abs(back[0] - img).mean())
+    log(f"9 codec {codec} round trip (quality 90, {len(errs)} colour "
+        f"ramps): mean |decoded - source| "
+        f"{statistics.mean(errs):.3f} grey levels (max over images "
+        f"{max(errs):.3f}; a libjpeg build {CODEC_ROUND_TRIP_LIBJPEG}, tol "
+        f"{CODEC_ROUND_TRIP_TOL})")
+    if max(errs) > CODEC_ROUND_TRIP_TOL:
+        raise AssertionError("9 codec: the round trip is off")
+
+
+def author_corpus(workdir: str) -> str:
+    """9a: the corpus, authored by the port's TF-free writer."""
+    from distributed_tensorflow_framework_torch.data import imagenet_records
+
+    out = os.path.join(workdir, "imagenet")
+    t0 = time.perf_counter()
+    if imagenet_records.main([out, *RECORD_CORPUS]) != 0:
+        raise AssertionError("9a: the corpus writer failed")
+    size = sum(os.path.getsize(os.path.join(out, f))
+               for f in os.listdir(out))
+    log(f"9a corpus: 4,096 + 1,000 JPEG records ({size / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.2f} s ({os.cpu_count()} CPUs)")
+    return out
+
+
+def reader_throughput(corpus: str, smi: str) -> None:
+    """9b: images/s of each reader path alone (config 3's 224 x 224 train
+    transforms, standardised, batches of 256) per thread count."""
+    import itertools
+
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.data import tfdata
+    from distributed_tensorflow_framework_torch.data.imagenet import (
+        CYCLE_LENGTH,
+        MEAN_RGB,
+        STDDEV_RGB,
+    )
+    from distributed_tensorflow_framework_torch.data.native_reader import (
+        NativeRecordReader,
+        decode_images,
+    )
+
+    files = sorted(os.path.join(corpus, f) for f in os.listdir(corpus)
+                   if f.startswith("train-"))
+    mean, std = (np.asarray(v, np.float32) for v in (MEAN_RGB, STDDEV_RGB))
+    b, n = 256, READER_BATCHES
+    seeds = np.arange(b, dtype=np.uint64)
+    counts = sorted({1, 4, os.cpu_count() or 1})
+    rates = {}
+    for threads in counts:
+        reader = NativeRecordReader(files)
+        try:
+            it = reader.batches_images(b, 224, 224, threads=threads,
+                                       crop_seeds=itertools.repeat(seeds),
+                                       mean=mean, std=std)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(it)
+            rates[("native (DCT-scaled, bilinear)", threads)] = (
+                n * b / (time.perf_counter() - t0))
+        finally:
+            reader.close()
+        records = tfdata.interleave(files, tfdata.file_records, CYCLE_LENGTH)
+        chunks = [list(itertools.islice(records, b)) for _ in range(n + 1)]
+        decode_images(chunks[0], 224, 224, crop_seeds=seeds, mean=mean,
+                      std=std, threads=threads)
+        t0 = time.perf_counter()
+        for chunk in chunks[1:]:
+            decode_images(chunk, 224, 224, crop_seeds=seeds, mean=mean,
+                          std=std, threads=threads)
+        rates[("tf (full-scale window, bicubic)", threads)] = (
+            n * b / (time.perf_counter() - t0))
+    log(f"9b reader alone, {n} x {b} train images at 224 ({os.cpu_count()} "
+        f"CPUs): " + "; ".join(f"{path} {threads} threads {r:.0f} images/s"
+                              for (path, threads), r in rates.items())
+        + f" [{smi}]")
+    # The whole pipeline as config 3 builds it (shuffle buffer, crop
+    # seeds, the bf16 cast), without a trainer: its first batch (which
+    # fills the shuffle buffer) apart, then PIPELINE_BATCHES within the
+    # epoch.
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data.imagenet import (
+        make_imagenet,
+    )
+
+    line = []
+    for native in (False, True):
+        cfg = load_config(IMAGENET_CONFIG, overrides=[
+            f"data.data_dir={corpus}", "data.global_batch_size=256",
+            f"data.use_native_reader={native}"]).data
+        ds = make_imagenet(cfg, 0, 1)
+        t0 = time.perf_counter()
+        next(ds)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(PIPELINE_BATCHES):
+            next(ds)
+        rate = PIPELINE_BATCHES * 256 / (time.perf_counter() - t0)
+        line.append(f"{'native' if native else 'tf.data'} path first batch "
+                    f"{first:.2f} s, then {rate:.0f} images/s")
+    log(f"9b config 3's pipeline alone (shuffle buffer "
+        f"{cfg.shuffle_buffer}, bf16 images, {PIPELINE_BATCHES} batches of "
+        f"256): " + "; ".join(line) + f" [{smi}]")
+
+
+def record_run(torch, config_path: str, over, what: str, workdir: str,
+               smi: str) -> dict:
+    """One config from the corpus through ``cli.train.main``: the run line
+    and the exact eval over the validation images."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    cfg = load_config(config_path, overrides=list(over))
+    run = image_run(torch, config_path, over, what,
+                    os.path.join(workdir, what.replace(" ", "_") + "_logs"))
+    log_image_run(run, what, cfg.data.global_batch_size, smi)
+    for e in run["train"]:
+        log(f"{what} step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    evals = [e["metrics"] for e in run["evals"]]
+    log(f"{what} exact eval: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in (evals[-1] if evals else {}).items()))
+    if len(evals) != 1 or evals[0]["eval_examples"] != RECORD_EVAL_IMAGES:
+        raise AssertionError(f"{what}: expected one eval over "
+                             f"{RECORD_EVAL_IMAGES} images, got {evals}")
+    return {"config": cfg, "run": run}
+
+
+def records_phase(torch, workdir: str, corpus: str, smi: str) -> None:
+    """9c and 9d: configs 3 and 4 as written from the corpus, then each
+    model's step alone on a resident batch of its records, profiled."""
+    data = [f"data.data_dir={corpus}", *RECORD_OVERRIDES]
+    runs = {}
+    for native in (False, True):
+        what = (f"resnet50-imagenet records "
+                f"({'native' if native else 'tf.data'} path)")
+        runs[what] = record_run(torch, IMAGENET_CONFIG, [
+            *data, f"data.use_native_reader={native}",
+            f"checkpoint.directory={os.path.join(workdir, 'ck_rn' + str(native))}"],
+            what, workdir, smi)
+        torch.cuda.empty_cache()
+    runs["inception-v3 records"] = record_run(
+        torch, INCEPTION_CONFIG, [
+            *data, f"checkpoint.directory={os.path.join(workdir, 'ck_inc')}"],
+        "inception-v3 records", workdir, smi)
+    torch.cuda.empty_cache()
+    for what in (f"resnet50-imagenet records (native path)",
+                 "inception-v3 records"):
+        cfg = runs[what]["config"]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, step = image_step(torch, cfg)
+        b = cfg.data.global_batch_size
+        log(f"{what.split()[0]} step alone (a resident batch of {b} from the "
+            f"records): {step_ms:.3f} ms, {1e3 * b / step_ms:.1f} images/s "
+            f"(host clock, 5 synced steps), peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{smi}]")
+        image_profile(torch, step, step_ms, f"one {what.split()[0]} step")
+        del step
+        torch.cuda.empty_cache()
+
+
+def inception_parity(torch) -> None:
+    """9e: Inception-v3 in f32 on the card against the CPU (see
+    INCEPTION_EVAL_RTOL and INCEPTION_RATIO)."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.models.inception import (
+        InceptionV3,
+    )
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(4, 299, 299, 3, generator=gen)
+    w = torch.randn(2, 4, 1000, generator=gen)
+    base = InceptionV3(1000, dropout_rate=0.0, dtype=torch.float32)
+    base.init_weights(torch.Generator().manual_seed(SEED))
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+
+    def run(device, dtype):
+        model = InceptionV3(1000, dropout_rate=0.0, dtype=dtype,
+                            device=device)
+        model.load_state_dict(state)
+        model = model.to(device=device, dtype=dtype)
+        if device == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        model.train()
+        out = model(x.to(device, dtype))
+        ((out["logits"] * w[0].to(device, dtype)).sum()
+         + (out["aux_logits"] * w[1].to(device, dtype)).sum()).backward()
+        model.load_state_dict(state)
+        model.eval()
+        with torch.no_grad():
+            evals = model(x.to(device, dtype))
+        as64 = lambda t: t.detach().to("cpu", torch.float64).numpy()  # noqa: E731
+        return {"logits": as64(out["logits"]),
+                "aux_logits": as64(out["aux_logits"]),
+                "grads": {k: as64(p.grad) for k, p in
+                          model.named_parameters()},
+                "eval": as64(evals)}
+
+    card, cpu = run("cuda", torch.float32), run("cpu", torch.float32)
+    truth = run("cuda", torch.float64)
+
+    def distance(got):
+        out = {k: np.abs(got[k] - truth[k]).max() / np.abs(truth[k]).max()
+               for k in ("logits", "aux_logits")}
+        top = max(np.abs(g).max() for g in truth["grads"].values())
+        out["grads"] = max(np.abs(got["grads"][k] - g).max() / top
+                           for k, g in truth["grads"].items())
+        return out
+
+    far_card, far_cpu = distance(card), distance(cpu)
+    eval_err = (np.abs(card["eval"] - cpu["eval"]).max()
+                / np.abs(cpu["eval"]).max())
+    log("9e inception-v3 f32 at 4 x 299 x 299 (TF32 off), train mode, "
+        "distance from the model in f64 on the card: " + ", ".join(
+            f"{k} card {far_card[k]:.3e} / CPU {far_cpu[k]:.3e}"
+            for k in far_card)
+        + f" (tol {INCEPTION_RATIO}x the CPU's); eval logits card vs CPU "
+        f"{eval_err:.3e} of the largest (tol {INCEPTION_EVAL_RTOL})")
+    if (eval_err > INCEPTION_EVAL_RTOL
+            or any(far_card[k] > INCEPTION_RATIO * far_cpu[k] + 1e-5
+                   for k in far_card)):
+        raise AssertionError("9e: Inception-v3 on the card differs from "
+                             "the CPU")
+
+
+def image_records_phase(torch, workdir: str, smi: str, parts: str) -> None:
+    """Phase 9 (the parts named in ``parts``: a-f)."""
+    log("9 jpeg toolchain: " + json.dumps(jpeg_toolchain()))
+    codec_phase(torch)
+    corpus = None
+    if set(parts) & set("abcd"):
+        log("phase 9a corpus from the TF-free writer")
+        corpus = author_corpus(workdir)
+    if "b" in parts:
+        log("phase 9b the reader alone")
+        reader_throughput(corpus, smi)
+    if set(parts) & set("cd"):
+        log("phase 9c/9d configs 3 and 4 from records")
+        records_phase(torch, workdir, corpus, smi)
+    if "e" in parts:
+        log("phase 9e Inception-v3 on the card vs the CPU")
+        inception_parity(torch)
+    if "f" in parts:
+        log("phase 9f one-device BatchNorm against an f64 step")
+        batchnorm_phase(torch, workdir, smi)
 
 
 def kernel_class(name: str) -> str:
@@ -3206,6 +3720,7 @@ def main() -> int:
               f"run from the repository root", file=sys.stderr)
         return 2
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3214,6 +3729,14 @@ def main() -> int:
         f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}; torch "
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
         f"matmul and cuDNN")
+
+    if only is not None:
+        # A development run of phase 9's parts alone (``--only 9bf``): no
+        # kernels line and no last line, which only a whole run prints.
+        gpu = smi.splitlines()[0]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as workdir:
+            image_records_phase(torch, workdir, gpu, only.lstrip("9"))
+        return 0
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -3278,6 +3801,12 @@ def main() -> int:
             "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
         dp_counts = data_parallel_phase(torch, fa, workdir, full, cifar_det,
                                         cifar_ms, gpu)
+
+    # Phase 9: ImageNet from records, Inception-v3, the one-device BN. No
+    # attention kernel lies on this path either.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as workdir:
+        image_records_phase(torch, workdir, gpu, "abcdef")
 
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs and phase 8a's world-1 DDP run)

@@ -2,9 +2,9 @@
 
 The port's copy of ``data/__init__.py``'s dispatch: ``synthetic*``
 (masked-LM when the name holds ``mlm`` or ``text``, images otherwise),
-``mnist``, ``cifar10``, ``imagenet`` (its synthetic fallback) and
-``text_mlm``/``mlm``. ``register_dataset`` is ROADMAP.md queue A item
-A19.
+``mnist``, ``cifar10``, ``imagenet`` (TFRecords of JPEGs, or the
+synthetic fallback without them) and ``text_mlm``/``mlm``.
+``register_dataset`` is ROADMAP.md queue A item A19.
 """
 
 from __future__ import annotations

@@ -1,24 +1,35 @@
 """ctypes bindings for the native TFRecord reader (``native/record_reader.cc``).
 
-The port's copy of ``data/native_reader.py`` without the image methods.
-The C++ source is compiled by ``g++`` at first use (nothing is built when
-this module is imported) into ``build/native/`` at the repository root,
-under a file name that carries the hash of the source and the flags, so an
-edited source never loads a stale library. There is no Python fallback:
-without ``g++``, or when it fails, :func:`load_library` raises
-:class:`NativeBuildError`.
+The port's copy of ``data/native_reader.py``, plus the transforms of the
+JAX package's tf.data image path and a JPEG encoder. The C++ source is
+compiled by ``g++`` at first use (nothing is built when this module is
+imported) with the JPEG codec :func:`jpeg_codec` finds (libjpeg, else the
+CUDA toolkit's nvJPEG) into ``build/native/`` at the repository root,
+under a file name that carries the hash of the source and the flags, so
+an edited source never loads a stale library. There is no Python
+fallback: without ``g++``, or when it fails, :func:`load_library` raises
+:class:`NativeBuildError`; a build without a codec reads records, and its
+image functions raise :class:`NativeBuildError` naming the missing files.
 
   * ``NativeRecordReader.records()``      — raw record payloads (bytes)
   * ``NativeRecordReader.batches_i32()``  — (batch, width) int32 arrays of
     a named Int64List feature, parsed in C++ (short rows zero-padded)
   * ``NativeRecordReader.rows_i32()``     — the same in chunks, with each
     record's value count, for the fixed-length checks of data/tfdata.py
-  * ``count_records_native(paths)`` and ``masked_crc32c(data)``
+  * ``NativeRecordReader.batches_images()`` / ``batches_images_eval()`` —
+    the JAX native ImageNet path's decoded batches (DCT-scaled partial
+    decode, bilinear resize)
+  * ``decode_images(records, ...)`` — the tf.data path's transforms of
+    serialized Examples (full-scale decode, TF's bicubic resize);
+    ``decode_window`` and ``sample_crop`` expose its pieces
+  * ``encode_jpeg(rgb, quality)``, ``count_records_native(paths)`` and
+    ``masked_crc32c(data)``
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import logging
 import os
@@ -36,19 +47,54 @@ SOURCE = pathlib.Path(__file__).resolve().parents[1] / "native" / (
     "record_reader.cc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
+JPEG_BACKENDS = {0: "none", 1: "libjpeg", 2: "nvjpeg"}
 
 _lock = threading.Lock()
 _lib = None
 
 
 class NativeBuildError(RuntimeError):
-    """``g++`` is missing or failed on the record reader's source. The
-    message carries the compiler's output."""
+    """``g++`` is missing or failed on the record reader's source, or the
+    image functions were called in a build without a JPEG codec. The
+    message carries the compiler's output or the missing files."""
+
+
+def _cuda_home() -> pathlib.Path:
+    return pathlib.Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+
+
+def _nvjpeg_files() -> list[pathlib.Path]:
+    cuda = _cuda_home()
+    return [cuda / "include" / "nvjpeg.h",
+            cuda / "include" / "cuda_runtime_api.h",
+            cuda / "lib64" / "libnvjpeg.so", cuda / "lib64" / "libcudart.so"]
+
+
+@functools.cache
+def jpeg_codec() -> tuple[str, tuple[str, ...], tuple[str, ...]]:
+    """(codec, compile flags, link flags) of the build: ``libjpeg`` where
+    ``g++`` finds ``jpeglib.h`` (the JAX package's decoder); else
+    ``nvjpeg``, the CUDA toolkit's (``CUDA_HOME``, default
+    ``/usr/local/cuda``), when its headers and libraries are there; else
+    ``none``, a build whose image functions raise naming the missing
+    files. Decided once per process."""
+    cxx = shutil.which("g++")
+    if cxx is not None and subprocess.run(
+            [cxx, "-E", "-x", "c++", "-"],
+            input="#include <cstdio>\n#include <jpeglib.h>\n",
+            capture_output=True, text=True).returncode == 0:
+        return "libjpeg", (), ("-ljpeg",)
+    if all(p.exists() for p in _nvjpeg_files()):
+        lib = str(_cuda_home() / "lib64")
+        return ("nvjpeg", ("-DRR_NVJPEG", f"-I{_cuda_home() / 'include'}"),
+                (f"-L{lib}", f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart"))
+    return "none", ("-DRR_NO_JPEG",), ()
 
 
 def library_path() -> pathlib.Path:
+    _, cflags, lflags = jpeg_codec()
     h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(CXX_FLAGS + cflags + lflags).encode())
     return BUILD_DIR / f"librecord_reader-{h.hexdigest()[:16]}.so"
 
 
@@ -63,7 +109,8 @@ def _build() -> pathlib.Path:
             "from source at first use and has no Python fallback")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    _, cflags, lflags = jpeg_codec()
+    cmd = [cxx, *CXX_FLAGS, *cflags, str(SOURCE), *lflags, "-o", str(tmp)]
     log.info("building native record reader: %s", " ".join(cmd))
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -101,6 +148,41 @@ def load_library():
                 ctypes.c_void_p, ctypes.c_char_p,
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int]
+            f32p = ctypes.POINTER(ctypes.c_float)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            lib.rr_next_batch_images.restype = ctypes.c_int
+            lib.rr_next_batch_images.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, f32p,
+                i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, u64p, f32p, f32p]
+            lib.rr_next_batch_images_eval.restype = ctypes.c_int
+            lib.rr_next_batch_images_eval.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, f32p,
+                i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, f32p, f32p]
+            lib.rr_decode_images.restype = ctypes.c_int
+            lib.rr_decode_images.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), u64p, ctypes.c_int,
+                ctypes.c_char_p, ctypes.c_char_p, f32p, i32p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, u64p,
+                ctypes.c_float, f32p, f32p]
+            lib.rr_decode_window.restype = ctypes.c_int
+            lib.rr_decode_window.argtypes = [
+                ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, f32p]
+            lib.rr_sample_crop.restype = ctypes.c_int
+            lib.rr_sample_crop.argtypes = [ctypes.c_uint64, ctypes.c_int,
+                                           ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)]
+            lib.rr_encode_jpeg.restype = ctypes.c_int
+            lib.rr_encode_jpeg.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.POINTER(ctypes.POINTER(ctypes.c_char)),
+                ctypes.POINTER(ctypes.c_ulong)]
+            lib.rr_jpeg_backend.restype = ctypes.c_int
+            lib.rr_jpeg_backend.argtypes = []
             lib.rr_masked_crc32c.restype = ctypes.c_uint32
             lib.rr_masked_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
             lib.rr_error.restype = ctypes.c_char_p
@@ -115,6 +197,139 @@ def masked_crc32c(data: bytes) -> int:
     """The TFRecord framing checksum of ``data``: crc32c, rotated right by
     15 bits, plus 0xa282ead8."""
     return int(load_library().rr_masked_crc32c(data, len(data)))
+
+
+def jpeg_backend() -> str:
+    """The codec the loaded library was built with: ``libjpeg``,
+    ``nvjpeg`` or ``none``."""
+    return JPEG_BACKENDS[load_library().rr_jpeg_backend()]
+
+
+def _image_library():
+    """The library, for a function that decodes or encodes JPEGs; raises
+    NativeBuildError when it was built without a codec."""
+    lib = load_library()
+    if lib.rr_jpeg_backend() == 0:
+        raise NativeBuildError(
+            "the native reader was built without a JPEG codec: g++ found no "
+            "jpeglib.h (libjpeg or libjpeg-turbo headers) and the CUDA "
+            "toolkit lacks one of " + ", ".join(
+                str(p) for p in _nvjpeg_files() if not p.exists()))
+    return lib
+
+
+def _f32p(arr: np.ndarray | None):
+    return (ctypes.POINTER(ctypes.c_float)() if arr is None
+            else arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+
+
+def _norm_arrays(mean, std) -> tuple[np.ndarray | None, np.ndarray | None]:
+    """Per-channel (mean, std) as contiguous f32 arrays of 3, or two Nones.
+    Exactly one of the pair is a caller bug: skipping the standardisation
+    would feed raw pixels downstream."""
+    if (mean is None) != (std is None):
+        raise ValueError(
+            "normalization needs BOTH mean and std (got only "
+            + ("mean" if std is None else "std") + ")")
+    if mean is None:
+        return None, None
+    mean_arr = np.ascontiguousarray(mean, np.float32)
+    std_arr = np.ascontiguousarray(std, np.float32)
+    if mean_arr.shape != (3,) or std_arr.shape != (3,):
+        raise ValueError(f"mean and std need 3 channels, got "
+                         f"{mean_arr.shape} and {std_arr.shape}")
+    return mean_arr, std_arr
+
+
+def decode_images(records: Sequence[bytes], height: int, width: int, *,
+                  crop_seeds: np.ndarray | None = None,
+                  central_frac: float = 0.875,
+                  mean: np.ndarray | None = None,
+                  std: np.ndarray | None = None, threads: int = 0,
+                  image_key: str = "image/encoded",
+                  label_key: str = "image/class/label"
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """(images f32 (n, height, width, 3), labels int32 (n,)) of serialized
+    Examples through the JAX tf.data path's transforms, in C++ threads
+    (``threads`` 0: eight). With ``crop_seeds`` ((n,) uint64) the train
+    transform: each record's distorted-crop window and flip from its seed,
+    the window alone decoded at full scale (decode_and_crop_jpeg); without,
+    the eval transform: the frame decoded and tf.image.central_crop's
+    ``central_frac`` window of it. Then TF's bicubic resize and, given
+    ``mean``/``std``, ``(v - mean) / std``. Raises ValueError naming the
+    first record that has no JPEG or label, or whose JPEG fails."""
+    lib = _image_library()
+    n = len(records)
+    images = np.empty((n, height, width, 3), np.float32)
+    labels = np.zeros((n,), np.int32)
+    if n == 0:
+        return images, labels
+    mean_arr, std_arr = _norm_arrays(mean, std)
+    recs = (ctypes.c_char_p * n)(*records)
+    lens = np.asarray([len(r) for r in records], np.uint64)
+    seeds = None
+    if crop_seeds is not None:
+        seeds = np.ascontiguousarray(crop_seeds, np.uint64)
+        if seeds.shape != (n,):
+            raise ValueError(f"crop_seeds {seeds.shape} for {n} records")
+    rc = lib.rr_decode_images(
+        recs, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), n,
+        image_key.encode(), label_key.encode(), _f32p(images),
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), height,
+        width, threads,
+        (ctypes.POINTER(ctypes.c_uint64)() if seeds is None
+         else seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))),
+        central_frac, _f32p(mean_arr), _f32p(std_arr))
+    if rc < 0:
+        raise ValueError(
+            f"record {-rc - 1} of the batch: no {image_key!r} JPEG or "
+            f"{label_key!r} label, or the JPEG does not decode")
+    return images, labels
+
+
+def decode_window(jpeg: bytes, window: tuple[int, int, int, int],
+                  height: int, width: int, *, flip: bool = False
+                  ) -> np.ndarray:
+    """f32 (height, width, 3) raw pixels of ``jpeg``'s window ``(x, y, w,
+    h)`` through the train transform: the window decoded alone at full
+    scale, TF's bicubic resize, mirrored when ``flip``."""
+    out = np.empty((height, width, 3), np.float32)
+    cx, cy, cw, ch = window
+    if _image_library().rr_decode_window(jpeg, len(jpeg), cx, cy, cw, ch,
+                                       int(flip), height, width,
+                                       _f32p(out)) != 0:
+        raise ValueError(f"the JPEG does not decode, or the window "
+                         f"{window} leaves its frame")
+    return out
+
+
+def sample_crop(seed: int, frame_width: int, frame_height: int
+                ) -> tuple[tuple[int, int, int, int], bool]:
+    """The distorted-crop window ``(x, y, w, h)`` and the flip that both
+    image paths draw for a frame of that size from ``seed``."""
+    window = (ctypes.c_int * 4)()
+    flip = load_library().rr_sample_crop(seed, frame_width, frame_height,
+                                         window)
+    return tuple(window), bool(flip)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90) -> bytes:
+    """Baseline JPEG bytes of an (h, w, 3) uint8 RGB image, libjpeg's
+    encoder at ``quality`` (4:2:0 chroma)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"need (h, w, 3) RGB, got {rgb.shape}")
+    lib = _image_library()
+    buf = ctypes.POINTER(ctypes.c_char)()
+    size = ctypes.c_ulong()
+    if lib.rr_encode_jpeg(rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                          rgb.shape[1], rgb.shape[0], quality,
+                          ctypes.byref(buf), ctypes.byref(size)) != 0:
+        raise ValueError(f"libjpeg could not encode a {rgb.shape} image")
+    try:
+        return ctypes.string_at(buf, size.value)
+    finally:
+        lib.rr_free(buf)
 
 
 # files-tuple → record count. Restores rebuild pipelines, so the count per
@@ -219,6 +434,82 @@ class NativeRecordReader:
             if rc == 0:
                 return
             yield rows[:rc], lengths[:rc]
+
+    def batches_images(self, batch: int, height: int, width: int,
+                       *, image_key: str = "image/encoded",
+                       label_key: str = "image/class/label",
+                       threads: int = 0,
+                       crop_seeds: Iterator[np.ndarray] | None = None,
+                       mean: np.ndarray | None = None,
+                       std: np.ndarray | None = None,
+                       ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """(images f32 (b,h,w,3), labels i32 (b,)) per full batch.
+
+        JPEG decode and bilinear resize run in C++ worker threads. With
+        ``crop_seeds`` (an iterator of (batch,) uint64 arrays, one per
+        batch) each image gets the distorted crop and a random flip,
+        decoded via partial IDCT (DCT scaling, crop/skip scanlines).
+        ``mean``/``std`` (length 3) fuse the standardisation into the
+        resize; without them the pixels are raw [0, 255]."""
+        _image_library()
+        images = np.empty((batch, height, width, 3), np.float32)
+        labels = np.empty((batch,), np.int32)
+        iptr = _f32p(images)
+        lptr = labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        mean_arr, std_arr = _norm_arrays(mean, std)
+        while True:
+            seeds = None
+            if crop_seeds is not None:
+                seeds = np.ascontiguousarray(next(crop_seeds), np.uint64)
+                if seeds.shape != (batch,):
+                    raise ValueError(f"crop seeds {seeds.shape} for a "
+                                     f"batch of {batch}")
+            rc = self._lib.rr_next_batch_images(
+                self._h, image_key.encode(), label_key.encode(), iptr, lptr,
+                batch, height, width, threads,
+                (ctypes.POINTER(ctypes.c_uint64)() if seeds is None else
+                 seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))),
+                _f32p(mean_arr), _f32p(std_arr))
+            if rc < 0:
+                self._check_error()
+                raise RuntimeError(f"native image decode error (rc={rc})")
+            if rc == 0:
+                return
+            yield images.copy(), labels.copy()
+
+    def batches_images_eval(self, batch: int, height: int, width: int,
+                            *, image_key: str = "image/encoded",
+                            label_key: str = "image/class/label",
+                            threads: int = 0, central_frac: float = 0.875,
+                            mean: np.ndarray | None = None,
+                            std: np.ndarray | None = None,
+                            ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
+        """(images, labels, k) per batch of ONE pass: the central crop
+        (``central_frac``, tf.image.central_crop's arithmetic) and the
+        bilinear resize in C++. ``k <= batch`` real records; the final
+        batch is zero-padded past ``k`` (labels 0), for the caller to
+        weight out."""
+        _image_library()
+        images = np.empty((batch, height, width, 3), np.float32)
+        labels = np.empty((batch,), np.int32)
+        iptr = _f32p(images)
+        lptr = labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        mean_arr, std_arr = _norm_arrays(mean, std)
+        while True:
+            rc = self._lib.rr_next_batch_images_eval(
+                self._h, image_key.encode(), label_key.encode(), iptr, lptr,
+                batch, height, width, threads, central_frac,
+                _f32p(mean_arr), _f32p(std_arr))
+            if rc < 0:
+                self._check_error()
+                raise RuntimeError(f"native eval decode error (rc={rc})")
+            if rc == 0:
+                return
+            img, lab = images.copy(), labels.copy()
+            if rc < batch:
+                img[rc:] = 0.0
+                lab[rc:] = 0
+            yield img, lab, rc
 
     def close(self):
         if self._h:

@@ -67,15 +67,32 @@ def _field(number: int, payload: bytes) -> bytes:
     return _varint(number << 3 | 2) + _varint(len(payload)) + payload
 
 
+def int64_feature(values: np.ndarray) -> bytes:
+    """A serialised ``Feature{int64_list{value}}``: Feature.int64_list = 3,
+    Int64List.value = 1 (packed)."""
+    values = np.asarray(values)
+    return _field(3, _field(1, _varints(values)) if values.size else b"")
+
+
+def bytes_feature(value: bytes) -> bytes:
+    """A serialised ``Feature{bytes_list{value: [value]}}``:
+    Feature.bytes_list = 1, BytesList.value = 1."""
+    return _field(1, _field(1, value))
+
+
+def example(features: dict[str, bytes]) -> bytes:
+    """``tf.train.Example`` of serialised features, in the dict's order:
+    Example.features = 1, Features.feature = 1 (a map entry: key = 1,
+    value = 2)."""
+    return _field(1, b"".join(
+        _field(1, _field(1, key.encode()) + _field(2, feature))
+        for key, feature in features.items()))
+
+
 def encode_example(values: np.ndarray, key: str = FEATURE) -> bytes:
     """``tf.train.Example{features{feature{key: int64_list{value}}}}``
-    serialised as TensorFlow serialises it: Example.features = 1,
-    Features.feature = 1 (a map entry: key = 1, value = 2), Feature.
-    int64_list = 3, Int64List.value = 1 (packed)."""
-    values = np.asarray(values)
-    int64_list = _field(1, _varints(values)) if values.size else b""
-    entry = _field(1, key.encode()) + _field(2, _field(3, int64_list))
-    return _field(1, _field(1, entry))
+    serialised as TensorFlow serialises it."""
+    return example({key: int64_feature(values)})
 
 
 def write_tfrecords(path: str, payloads: Iterable[bytes]) -> None:

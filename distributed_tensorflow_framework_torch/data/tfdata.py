@@ -9,18 +9,20 @@ deterministic=True)`` → ``parse_single_example`` with a
 ``batch(...)``; this module gives the same record order and batches from
 ``data/native_reader.py``:
 
-  * :func:`interleave_rows` — one record from each open file in turn, an
+  * :func:`interleave` — one element from each open file in turn, an
     exhausted file's slot taken by the next file, as tf's interleave
-    does; a record whose feature holds another count than ``seq_len``
-    raises, as a ``FixedLenFeature`` does.
+    does; :func:`interleave_rows` reads the MLM feature through it, and a
+    record whose feature holds another count than ``seq_len`` raises, as a
+    ``FixedLenFeature`` does (data/imagenet.py interleaves raw records with
+    :func:`file_records`).
   * :func:`shuffle_rows` — a buffer of ``buffer_size`` records with
     tf.data's buffer semantics (fill, draw a uniform slot, refill). Its
     draws come from ``core/prng.host_rng``, so the order differs from
     tf's (which cannot be reproduced without TensorFlow); a buffer of 1
     is the identity in both.
-  * :func:`train_rows` / :func:`batch_rows` — ``shuffle().repeat()``
-    reshuffled each epoch, then ``batch(b)`` with or without the
-    remainder (the tail zero-padded to ``b``).
+  * :func:`shuffled_epochs`, :func:`train_rows` / :func:`batch_rows` —
+    ``shuffle().repeat()`` reshuffled each epoch, then ``batch(b)`` with or
+    without the remainder (the tail zero-padded to ``b``).
   * :func:`skip_count_dataset` — the counterpart of
     ``tfdata_to_hostdataset``: the iterator state is ``{"batches",
     "seed"}``, and a restore rebuilds the (seed-deterministic) stream and
@@ -89,39 +91,55 @@ def _file_rows(path: str, key: str, width: int) -> Iterator[np.ndarray]:
         reader.close()
 
 
-def interleave_rows(files: Sequence[str], key: str, width: int
-                    ) -> Iterator[np.ndarray]:
-    """(width,) int32 rows of feature ``key`` in the order of tf.data's
-    ``Dataset.from_tensor_slices(files).interleave(TFRecordDataset,
-    cycle_length=8, block_length=1, deterministic=True)``; a record whose
-    feature holds another count than ``width`` raises.
+def file_records(path: str) -> Iterator[bytes]:
+    """The raw records of one TFRecord file, in order."""
+    reader = NativeRecordReader([path])
+    try:
+        yield from reader.records()
+    finally:
+        reader.close()
+
+
+def interleave(files: Sequence[str], open_file: Callable[[str], Iterator],
+               cycle_length: int = CYCLE_LENGTH) -> Iterator:
+    """The elements of ``open_file(path)`` for each of ``files`` in the
+    order of tf.data's ``Dataset.from_tensor_slices(files).interleave(
+    open_file, cycle_length, block_length=1, deterministic=True)``.
 
     The cycle visits its slots in turn. An empty slot opens the next file
     (while files remain) and reads from it on the same visit; a slot whose
     file is exhausted is emptied and the cycle moves on, so the next file
     takes that slot on the cycle's next visit."""
     pending = iter(files)
-    slots: list[Iterator[np.ndarray] | None] = [None] * CYCLE_LENGTH
+    slots: list[Iterator | None] = [None] * cycle_length
     open_slots, out_of_files, i = 0, False, 0
     while not out_of_files or open_slots:
         slot = slots[i]
         if slot is not None:
-            row = next(slot, None)
-            if row is not None:
-                yield row
+            item = next(slot, None)
+            if item is not None:
+                yield item
             else:
                 slots[i] = None
                 open_slots -= 1
-            i = (i + 1) % CYCLE_LENGTH
+            i = (i + 1) % cycle_length
         elif not out_of_files:
             path = next(pending, None)
             if path is None:
                 out_of_files = True
             else:
-                slots[i] = _file_rows(path, key, width)
+                slots[i] = open_file(path)
                 open_slots += 1
         else:
-            i = (i + 1) % CYCLE_LENGTH
+            i = (i + 1) % cycle_length
+
+
+def interleave_rows(files: Sequence[str], key: str, width: int
+                    ) -> Iterator[np.ndarray]:
+    """(width,) int32 rows of feature ``key`` in the order of the MLM
+    pipeline's ``interleave(TFRecordDataset, cycle_length=8)``; a record
+    whose feature holds another count than ``width`` raises."""
+    return interleave(files, lambda path: _file_rows(path, key, width))
 
 
 def shuffle_rows(rows: Iterable[np.ndarray], buffer_size: int,
@@ -147,21 +165,29 @@ def shuffle_rows(rows: Iterable[np.ndarray], buffer_size: int,
         yield out
 
 
-def train_rows(files: Sequence[str], key: str, width: int, *,
-               shuffle_buffer: int, seed: int, process_index: int
-               ) -> Iterator[np.ndarray]:
-    """``interleave → shuffle(shuffle_buffer).repeat()``: each epoch
-    reshuffled from ``host_rng(seed, ROLE_DATA, epoch, process_index)``.
-    Ends, as tf's ``repeat()`` does, when an epoch yields no record."""
+def shuffled_epochs(make_epoch: Callable[[], Iterator], shuffle_buffer: int,
+                    *, seed: int, process_index: int) -> Iterator:
+    """``shuffle(shuffle_buffer).repeat()`` over the epochs that
+    ``make_epoch()`` streams: each epoch reshuffled from ``host_rng(seed,
+    ROLE_DATA, epoch, process_index)``. Ends, as tf's ``repeat()`` does,
+    when an epoch yields nothing."""
     for epoch in itertools.count():
         rng = prng.host_rng(seed, prng.ROLE_DATA, epoch, process_index)
         empty = True
-        for row in shuffle_rows(interleave_rows(files, key, width),
-                                shuffle_buffer, rng):
+        for item in shuffle_rows(make_epoch(), shuffle_buffer, rng):
             empty = False
-            yield row
+            yield item
         if empty:
             return
+
+
+def train_rows(files: Sequence[str], key: str, width: int, *,
+               shuffle_buffer: int, seed: int, process_index: int
+               ) -> Iterator[np.ndarray]:
+    """``interleave → shuffle(shuffle_buffer).repeat()`` of the MLM rows."""
+    return shuffled_epochs(lambda: interleave_rows(files, key, width),
+                           shuffle_buffer, seed=seed,
+                           process_index=process_index)
 
 
 def batch_rows(rows: Iterable[np.ndarray], batch: int, width: int, *,

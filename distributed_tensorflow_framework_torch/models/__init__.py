@@ -1,13 +1,13 @@
 """Model registry: ``get_model`` from a ModelConfig.
 
 Port of ``models/__init__.py``'s name dispatch: ``bert`` (BERT-base MLM),
-``lenet``/``lenet5``/``lenet-5`` and ``resnet-?N(_cifar|-cifar)?``
-(ResNet-18 to 152; the ``_cifar`` suffix takes the CIFAR stem). The JAX
-package's validation errors on ``space_to_depth_stem``, ``remat`` and
-``remat_policy`` are kept. Every configuration the port cannot build yet
-raises NotImplementedError naming the ROADMAP.md item that ports it
-(Inception-v3, MoE, pipelined and ring-attention BERT, ResNet remat);
-``register_model`` is item A19.
+``lenet``/``lenet5``/``lenet-5``, ``resnet-?N(_cifar|-cifar)?``
+(ResNet-18 to 152; the ``_cifar`` suffix takes the CIFAR stem) and
+``inception_v3``. The JAX package's validation errors on
+``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept. Every
+configuration the port cannot build yet raises NotImplementedError naming
+the ROADMAP.md item that ports it (MoE, pipelined and ring-attention BERT,
+ResNet and Inception remat); ``register_model`` is item A19.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ def build_model(config: ModelConfig, *, device: torch.device,
                 in_channels: int | None = None) -> nn.Module:
     """The uninitialised module for ``config`` on ``device``.
     ``in_channels`` (the data's ``channels``) defaults to 1 for LeNet and
-    3 for ResNet."""
+    3 for ResNet and Inception."""
     name = config.name.lower()
     if name in BERT_NAMES:
         from distributed_tensorflow_framework_torch.models.bert import (
@@ -109,7 +109,16 @@ def build_model(config: ModelConfig, *, device: torch.device,
                            space_to_depth_stem=config.space_to_depth_stem,
                            in_channels=in_channels or 3, device=device)
     if name in INCEPTION_NAMES:
-        raise _not_ported(f"model {config.name!r}", "A6")
+        if config.remat:
+            raise _not_ported(
+                "model.remat on Inception-v3 (torch.utils.checkpoint replays "
+                "each BN's running-statistics update)", "A18")
+        from distributed_tensorflow_framework_torch.models.inception import (
+            InceptionV3,
+        )
+
+        return InceptionV3(config.num_classes, in_channels=in_channels or 3,
+                           dtype=dtype, device=device)
     raise ValueError(f"Unknown model {config.name!r}")
 
 

@@ -44,6 +44,7 @@ from torch import nn
 from distributed_tensorflow_framework_torch.models.layers import (
     Dense,
     LayerNorm,
+    dropout,
     normal_,
 )
 from distributed_tensorflow_framework_torch.ops.flash_attention import (
@@ -51,26 +52,6 @@ from distributed_tensorflow_framework_torch.ops.flash_attention import (
 )
 
 _F32_MIN = torch.finfo(torch.float32).min
-
-
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            training: bool) -> torch.Tensor:
-    """Flax ``nn.Dropout``: keep each element with probability 1 − rate
-    and scale it by 1/(1 − rate), computed in x's dtype; the identity when
-    not training or at rate 0."""
-    if not training or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in train() mode needs a dropout_generator "
-                         "(the port never draws from the global RNG)")
-    keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep_prob, generator=generator).bool()
-    # Flax divides by keep_prob rounded to x's dtype (0.8984375 in bf16);
-    # rounding it here on the host keeps the division free of a copy to
-    # the device.
-    rounded = torch.tensor(keep_prob, dtype=x.dtype).item()
-    return torch.where(keep, x / rounded, 0.0)
 
 
 def dot_product_attention(q, k, v, *, mask=None, segment_ids=None,

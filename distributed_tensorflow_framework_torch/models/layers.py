@@ -79,6 +79,26 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y + bias.to(dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability 1 − rate
+    and scale it by 1/(1 − rate), computed in x's dtype; the identity when
+    not training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train() mode needs a dropout_generator "
+                         "(the port never draws from the global RNG)")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep_prob, generator=generator).bool()
+    # Flax divides by keep_prob rounded to x's dtype (0.8984375 in bf16);
+    # rounding it here on the host keeps the division free of a copy to
+    # the device.
+    rounded = torch.tensor(keep_prob, dtype=x.dtype).item()
+    return torch.where(keep, x / rounded, 0.0)
+
+
 class LayerNorm(nn.Module):
     """Flax ``nn.LayerNorm(dtype=float32)``: ε = 1e-6 (torch's default is
     1e-5), statistics in f32 with the fast variance E[x²] − E[x]² clamped
@@ -202,17 +222,27 @@ class Conv(nn.Module):
             with torch.no_grad():
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
+        """``padding`` overrides the layer's for this call (Inception's aux
+        head picks it from the map's size)."""
         (t, b), (l, r) = _pad_pairs(x, self.kernel_size, self.strides,
-                                    self.padding)
+                                    self.padding if padding is None
+                                    else padding)
         x = x.to(self.dtype)
         if t == b and l == r:
-            padding = (t, l)
+            symmetric = (t, l)
         else:
-            x, padding = pad_nchw(x, ((t, b), (l, r))), (0, 0)
+            x, symmetric = pad_nchw(x, ((t, b), (l, r))), (0, 0)
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x, self.weight.to(self.dtype), bias,
-                        stride=self.strides, padding=padding)
+                        stride=self.strides, padding=symmetric)
+
+
+def _all_reduce(t: torch.Tensor) -> None:
+    """Sum ``t`` over the ranks of the default process group in place; a
+    no-op without a group (one device)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.all_reduce(t)
 
 
 class _CrossRankBatchNorm(torch.autograd.Function):
@@ -226,7 +256,8 @@ class _CrossRankBatchNorm(torch.autograd.Function):
     own sums, which DDP averages with the other gradients. Only
     ``all_reduce``: gloo carries no other collective on CUDA tensors, and
     ``nn.SyncBatchNorm`` needs ``all_gather`` (and keeps the unbiased
-    running variance)."""
+    running variance). Without a process group the reductions are the
+    rank's own: Flax's statistics on one device."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -235,7 +266,7 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         count = torch.full((1,), xf.numel() // c, dtype=torch.float32,
                            device=x.device)
         stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
-        dist.all_reduce(stats)
+        _all_reduce(stats)
         n = stats[2 * c]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
@@ -254,7 +285,7 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
         local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
         dbias, dweight = local[:c].clone(), local[c:].clone()
-        dist.all_reduce(local)
+        _all_reduce(local)
         mean_dy = (local[:c] / n)[:, None, None]
         mean_dy_xhat = (local[c:] / n)[:, None, None]
         dx = ((dy - mean_dy - xhat * mean_dy_xhat)

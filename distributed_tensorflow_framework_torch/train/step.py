@@ -1,12 +1,13 @@
 """Train and eval steps: the port's counterpart of ``train/step.py``.
 
 :class:`StepBuilder` is cut to the JAX package's ``jit`` path, for the
-masked-LM task (BERT) and the classification task (LeNet, ResNet), on one
-device or data parallel over the ranks of a process group
-(core/mesh.py). One micro-step is the forward in ``train()`` mode, the
-task's loss (:func:`~.losses.mlm_loss`, or
-:func:`~.losses.classification_loss` with ``train.label_smoothing``) and
-the backward (through the flash-attention kernels when ``attention_impl:
+masked-LM task (BERT) and the classification task (LeNet, ResNet,
+Inception-v3), on one device or data parallel over the ranks of a process
+group (core/mesh.py). One micro-step is the forward in ``train()`` mode,
+the task's loss (:func:`~.losses.mlm_loss`, or
+:func:`~.losses.classification_loss` with ``train.label_smoothing``, plus
+0.4 times the same loss of Inception's aux logits, reported as
+``aux_loss`` beside ``total_loss``) and the backward (through the flash-attention kernels when ``attention_impl:
 pallas``). With ``train.grad_accum_steps > 1`` the micro-batch gradients
 are summed weighted — by their masked-token counts for MLM, by 1 for
 classification — and divided by the total, which is the full-batch
@@ -72,6 +73,11 @@ from distributed_tensorflow_framework_torch.train.optimizers import (
     make_optimizer,
 )
 from distributed_tensorflow_framework_torch.train.state import TrainState
+
+
+# Inception-v3's auxiliary classifier joins the loss at this weight (the
+# canonical 0.4, JAX train/step.py).
+AUX_LOSS_WEIGHT = 0.4
 
 
 def task_for_model(name: str) -> str:
@@ -202,10 +208,23 @@ class StepBuilder:
                 dropout_generator=state.dropout_generator)
             loss, metrics = losses.mlm_loss(logits, batch["targets"])
         else:
-            logits = state.train_module(batch["image"])
+            # Inception draws its dropout from the trainer's stream and, in
+            # train mode, returns its aux head's logits too.
+            kwargs = ({"dropout_generator": state.dropout_generator}
+                      if getattr(state.model, "dropout_rate", 0.0) else {})
+            logits = state.train_module(batch["image"], **kwargs)
+            aux_logits = None
+            if isinstance(logits, dict):
+                logits, aux_logits = logits["logits"], logits["aux_logits"]
+            smoothing = self.config.train.label_smoothing
             loss, metrics = losses.classification_loss(
-                logits, batch["label"],
-                label_smoothing=self.config.train.label_smoothing)
+                logits, batch["label"], label_smoothing=smoothing)
+            if aux_logits is not None:
+                aux_loss, _ = losses.classification_loss(
+                    aux_logits, batch["label"], label_smoothing=smoothing)
+                loss = loss + AUX_LOSS_WEIGHT * aux_loss
+                metrics["aux_loss"] = aux_loss
+                metrics["total_loss"] = loss
         if fault_scale != 1.0:
             loss = loss * fault_scale
             metrics["loss"] = loss

@@ -167,7 +167,7 @@ def test_init_distributions_match_flax(jax_params):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"name": "inception_v3"}, "A6"),
+    ({"name": "inception_v3", "remat": True}, "A18"),
     ({"name": "resnet50", "remat": True}, "A18"),
     ({"num_experts": 4}, "A8"),
     ({"pipeline_stages": 2}, "A12"),

@@ -9,10 +9,11 @@ gang environment of core/cluster.py (``JAX_COORDINATOR_ADDRESS``,
   * world A, two ranks: three steps of a tiny BERT (MLM, whose two halves
     of each global batch hold different masked-token counts) at
     ``grad_accum_steps`` 1 and 2, of LeNet-5 at 2 and of a small ResNet
-    with BatchNorm, each rank feeding its block of the global batch; exact eval over uneven
-    shards (21 MNIST test images; MLM records in three files of 5, 9 and 2
-    records); and a 4-step trainer run whose chief writes checkpoints at
-    steps 2 and 4, with dropout on;
+    with BatchNorm, each rank feeding its block of the global batch; exact
+    eval over uneven shards (21 MNIST test images; MLM records in three
+    files of 5, 9 and 2 records); the ImageNet record reader on both paths
+    over uneven shards; and a 4-step trainer run whose chief writes
+    checkpoints at steps 2 and 4, with dropout on;
   * world B, two ranks: the same trainer run from a copy of world A's
     directory that holds step 2 only;
   * world C, one rank: the world-A steps with no group, then in a gloo
@@ -34,6 +35,7 @@ Exact eval: equal ``eval_examples``, metrics rtol 1e-6. The world-1 group
 and the resume: bit-equal.
 """
 
+import glob
 import json
 import os
 import shutil
@@ -92,6 +94,9 @@ CASES = {"bert_accum1": TINY_BERT + ["train.grad_accum_steps=1"],
          "resnet": SMALL_RESNET}
 MNIST_TEST = 21
 MLM_EVAL_FILES = (5, 9, 2)
+# ImageNet records (data/imagenet_records.py's images, 10 classes) in
+# uneven shards: train 3/2/3 records, validation 3/5/1.
+IMAGENET_FILES = {"train": (3, 2, 3), "validation": (3, 5, 1)}
 
 
 def _small_resnet(config, *, device, generator=None, in_channels=None):
@@ -143,6 +148,19 @@ def _eval_data(workdir):
              y_train=rng.integers(0, 10, 16, np.uint8),
              x_test=rng.integers(0, 256, (MNIST_TEST, 28, 28), np.uint8),
              y_test=rng.integers(0, 10, MNIST_TEST, np.uint8))
+    from distributed_tensorflow_framework_torch.data import imagenet_records
+
+    os.makedirs(os.path.join(workdir, "imagenet"))
+    templates = imagenet_records.class_templates(10, 0)
+    for split, counts in IMAGENET_FILES.items():
+        n = 0
+        for f, count in enumerate(counts):
+            progression.write_tfrecords(
+                os.path.join(workdir, "imagenet",
+                             f"{split}-{f:05d}-of-{len(counts):05d}"),
+                [imagenet_records.image_record(templates, 0, split, n + i,
+                                               90) for i in range(count)])
+            n += count
     os.makedirs(os.path.join(workdir, "mlm"))
     for i, n in enumerate(MLM_EVAL_FILES):
         progression.write_tfrecords(
@@ -185,6 +203,33 @@ def _evaluate(name, workdir, runtime=None) -> dict:
                 for _ in range(ds.cardinality)))
     finally:
         trainer.writer.close()
+    return out
+
+
+def _imagenet_ranks(workdir, runtime) -> dict:
+    """Each rank's ImageNet streams on both paths: the labels of its first
+    train batch, and its exact eval's batch count, real records and their
+    labels."""
+    from distributed_tensorflow_framework_torch.data.imagenet import (
+        make_imagenet,
+    )
+
+    out = {}
+    for native in (True, False):
+        config = port_config(overrides=[
+            "data.name=imagenet", f"data.data_dir={workdir}/imagenet",
+            "data.image_size=32", "data.num_classes=10",
+            "data.global_batch_size=4", "data.shuffle_buffer=4",
+            f"data.use_native_reader={native}"]).data
+        args = (runtime.process_index, runtime.process_count)
+        train = next(make_imagenet(config, *args))
+        evals = list(make_imagenet(config, *args, train=False))
+        out["native" if native else "tf"] = {
+            "train_labels": sorted(train["label"].tolist()),
+            "eval_batches": len(evals),
+            "eval_records": int(sum(b["weight"].sum() for b in evals)),
+            "eval_labels": sorted(
+                int(v) for b in evals for v in b["label"][b["weight"] > 0])}
     return out
 
 
@@ -233,6 +278,7 @@ def _rank_main(task: str, workdir: str) -> None:
                             for n in CASES}
             out["eval"] = {n: _evaluate(n, workdir, runtime)
                            for n in EVAL_CONFIGS}
+            out["imagenet"] = _imagenet_ranks(workdir, runtime)
             out["train"] = _train_run(workdir, f"{workdir}/ckpt_a", runtime)
         else:
             out["train"] = _train_run(workdir, f"{workdir}/ckpt_b", runtime)
@@ -458,6 +504,35 @@ def test_exact_eval_over_uneven_shards(worlds, name):
         assert a["batches"] == 5
         assert a["eval_examples"] == a["local_masked"] + b["local_masked"]
         assert a["local_masked"] != b["local_masked"]
+
+
+@pytest.mark.parametrize("path", ["native", "tf"])
+def test_imagenet_reader_across_two_ranks(worlds, path):
+    """Rank r reads files[r::2]: its eval covers exactly those records
+    (rank 0 files 0 and 2, 3 + 1 records; rank 1 file 1, 5), both ranks
+    run the larger batch count (batches of 2: 2 and 3, so 3), and its
+    first train batch comes from its own files."""
+    from distributed_tensorflow_framework_torch.data.native_reader import (
+        NativeRecordReader,
+    )
+
+    def labels(split, rank):
+        files = sorted(glob.glob(f"{worlds['dir']}/imagenet/{split}-*"))
+        reader = NativeRecordReader(files[rank::2])
+        try:
+            return sorted(int(row[0]) - 1 for rows, _ in reader.rows_i32(
+                "image/class/label", 1) for row in rows)
+        finally:
+            reader.close()
+
+    for rank, got in enumerate(r["imagenet"][path] for r in worlds["main"]):
+        own = labels("validation", rank)
+        assert got["eval_batches"] == 3
+        assert got["eval_records"] == len(own) == (4, 5)[rank]
+        assert got["eval_labels"] == own
+        train = labels("train", rank)
+        assert all(got["train_labels"].count(v) <= train.count(v)
+                   for v in set(got["train_labels"]))
 
 
 def test_chief_checkpoint_resumes_bit_equal_on_two_ranks(worlds):

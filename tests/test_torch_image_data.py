@@ -14,8 +14,8 @@ the mean, divided by the std, under 1e-6; the bound is 1e-6, or one bf16
 ulp); the crops before standardisation are compared exactly. bf16
 images are compared as bits: the JAX package's ``ml_dtypes.bfloat16``
 array against the port's tagged uint16 array. Also: state and restore, the exact eval's padded tail, the
-ImageNet fallback and its refusal of record files, and ``to_device`` of a
-bf16 batch.
+ImageNet fallback and an empty record file (refused, never replaced by the
+fallback), and ``to_device`` of a bf16 batch.
 """
 
 import logging
@@ -196,14 +196,20 @@ def test_missing_data_falls_back_to_synthetic(tmp_path, caplog, name,
     _assert_equal(next(pds), next(jds))
 
 
-def test_imagenet_records_are_refused(tmp_path):
+@pytest.mark.parametrize("native", [False, True])
+def test_imagenet_records_are_refused(tmp_path, native):
+    """A record file under data_dir is read, never replaced by the
+    synthetic stream: one that holds no record is refused when the first
+    batch is drawn (the reader itself: tests/test_torch_imagenet_records.py)."""
     (tmp_path / "train-00000-of-00001").write_bytes(b"")
     (tmp_path / "labels.txt").write_text("sidecar")
     cfg = port_config(overrides=["data.name=imagenet",
                                  "model.num_classes=1000",
-                                 f"data.data_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_dataset(cfg.data)
+                                 f"data.data_dir={tmp_path}",
+                                 f"data.use_native_reader={native}"])
+    ds = port_dataset(cfg.data)
+    with pytest.raises(RuntimeError, match="no full batch"):
+        next(ds)
 
 
 def test_to_device_views_bf16_bits_as_bfloat16():

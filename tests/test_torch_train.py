@@ -451,7 +451,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("mesh.fsdp=2", "A10"),
     ("train.spmd_mode=shard_map", "A9"),
     ("precision.remat_policy=save_nothing", "A13"),
-    ("model.name=inception_v3", "A6"),
+    ("model.num_experts=4", "A8"),
     ("precision.matmul_dtype=int8", "A13"),
 ])
 def test_unported_knobs_raise(override, item):

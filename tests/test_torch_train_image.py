@@ -7,9 +7,9 @@ parameters and BN statistics (models/convert.py) on the same synthetic
 batches: ``sgd_momentum`` with weight decay and warmup, label smoothing,
 and ``grad_accum_steps=2``, where the BN running statistics move
 micro-batch by micro-batch. Then a CPU ``cli.train`` run of a cut
-``configs/lenet_mnist.yaml`` from a tiny ``mnist.npz``, the three image
-configs built as written, and resume with the BN buffers, the momentum and
-the EMA.
+``configs/lenet_mnist.yaml`` from a tiny ``mnist.npz``, the four image
+configs (Inception-v3's included) built as written, and resume with the
+BN buffers, the momentum and the EMA.
 
 Tolerances, with their reasons (f32):
   * loss, top-1 and the learning rate: rtol 1e-5 (f32 sums in other
@@ -199,7 +199,7 @@ def test_cli_trains_the_lenet_config_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["lenet_mnist", "resnet50_cifar10",
-                                  "resnet50_imagenet"])
+                                  "resnet50_imagenet", "inception_v3"])
 def test_image_configs_build_and_step_as_written(tmp_path, name):
     """Each image config builds its trainer with no override but
     ``checkpoint.directory`` (mesh.data -1 is one device; the datasets
