@@ -223,13 +223,37 @@ Phases (any failure raises and the script exits non-zero):
      ``--only 9abcdef`` (any of the letters) runs the toolchain check and
      those parts alone, a development run that prints no kernels line
      and no last line.
+  10. explicit collectives (``train.spmd_mode: shard_map``,
+     parallel/collectives.py). 10a: ``cli/train.py`` in a child with the
+     gang environment of a world of 1 (an NCCL group) on
+     ``configs/bert_base_mlm.yaml`` at phase 5's cut, under shard_map with
+     the int8 error-feedback wire (block 256): its run_meta must name the
+     NCCL group, shard_map, int8, error feedback and the native transport;
+     the ``collectives`` tally of its train_step events must hold the
+     int8 scatter and gather bytes, with the wire bytes at most a third of
+     the logical; its losses must be finite, the last below the first, and
+     within COLL_LOSS_TOL of phase 5's at the log steps; the attention
+     kernels must launch as in phase 5. Prints its steady ms/step beside
+     phase 5's and 8a's, its peak memory and the residual's size (4 bytes
+     a parameter, read from its step-30 checkpoint), then the same step in
+     this process profiled by kernel class. 10a': the same for 10
+     steps with no wire, whose losses must be phase 5's bit for bit. 10b:
+     two child ranks of a gloo group on the card run every function of
+     parallel/collectives.py in every wire mode on seeded tensors of
+     BERT-base leaf shapes, on CUDA tensors (gloo's all_reduce transport)
+     and on CPU tensors (gloo's native ops): bit-equal, with equal
+     tallies; then config 1's LeNet under shard_map at 2 x 64: 10 steps
+     with the int8 error-feedback wire within COLL_LOSS_TOL of the f32
+     run, and 5 steps, a save, a restore and 5 more under
+     ``torch.use_deterministic_algorithms`` bit-equal to 10 straight steps
+     (parameters, momentum and residual). Prints the phase's seconds.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
-exported runs, the packed and unpacked runs, 8a's run, whose child sets
-and reads its own counts) and read just after; launches made to compare
-or time a kernel do not count. The record's
-``launches`` are those of phases 4, 5, 5f, 6 and 8a, and its
+exported runs, the packed and unpacked runs, the runs of 8a, 10a and
+10a', whose children set and read their own counts) and read just after;
+launches made to compare or time a kernel do not count. The record's
+``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a and 10a', and its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -3418,10 +3442,11 @@ def run_children(specs: list[dict], workdir: str, name: str,
 
 
 def child_main(spec_path: str) -> int:
-    """One child of phase 8: ``cli`` runs ``cli.train.main`` with the
-    launch counts set to 0 just before and read just after (under
-    ``torch.use_deterministic_algorithms`` when asked); ``rank`` is one
-    rank of 8c. Writes its result as JSON to the spec's ``out``."""
+    """One child of phases 8 and 10: ``cli`` runs ``cli.train.main`` with
+    the launch counts set to 0 just before and read just after (under
+    ``torch.use_deterministic_algorithms`` when asked), and its peak
+    device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b.
+    Writes its result as JSON to the spec's ``out``."""
     import torch
 
     from distributed_tensorflow_framework_torch.ops import (
@@ -3441,8 +3466,12 @@ def child_main(spec_path: str) -> int:
         )
 
         reset_counts(fa)
+        torch.cuda.reset_peak_memory_stats()
         rc = cli_train.main(spec["argv"])
-        result = {"rc": rc, "counts": read_counts(fa)}
+        result = {"rc": rc, "counts": read_counts(fa),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    elif spec["kind"] == "coll":
+        result = coll_rank(torch, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -3618,7 +3647,7 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
     at phase 5's and phase 7d's cuts, whose losses must be phase 5's and
     the deterministic 7d run's bit for bit; 8c runs two gloo ranks on the
     one card against one process. Returns 8a's launch counts (the main
-    path's run of this phase)."""
+    path's run of this phase) and its steady ms/step."""
     # 8a: BERT-base at world 1 over NCCL, phase 5's cut.
     log_dir = os.path.join(workdir, "dp_bert_logs")
     argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
@@ -3633,7 +3662,7 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     losses = {e["step"]: e["metrics"]["loss"] for e in events
               if e["kind"] == "train_step"}
-    ms = steady_ms(events)
+    ms = bert_ms = steady_ms(events)
     log(f"8a bert world 1: group {meta['process_group']}, ddp "
         f"{meta['ddp']}, rc {res['rc']}; losses " + ", ".join(
             f"step {k} {v!r} (phase 5 {full['losses'][k]!r})"
@@ -3692,6 +3721,367 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
         raise AssertionError("8c: the ranks' blocks hold equal masked counts")
     dp_compare(torch, "resnet", ranks, refs["resnet"], truth)
     dp_compare(torch, "bert", ranks, refs["bert"])
+    return counts, bert_ms
+
+
+# --------------------------------------------------------------- phase 10
+
+# 10a: phase 5's cut at world 1 over NCCL, the explicit-collective step on
+# the int8 error-feedback wire (block 256, the default); 10a': the same
+# with no wire for 10 steps, whose losses must be phase 5's bit for bit.
+COLL_OVERRIDES = ("train.spmd_mode=shard_map",
+                  "parallel.collective_dtype=int8")
+COLL_PLAIN_STEPS = 10
+# The int8 run's losses against phase 5's at the log steps, and 10b's
+# int8 LeNet against its f32 run: the tolerance of
+# tests/test_compressed_allreduce.py::test_int8_ef_dp_loss_parity.
+COLL_LOSS_TOL = {"rtol": 0.02, "atol": 2e-3}
+# 10b: every function of parallel/collectives.py on seeded tensors of
+# BERT-base leaf shapes (the word embedding, the fused QKV, a bias and a
+# 3-element leaf), on CUDA tensors (gloo's all_reduce transport) and on
+# CPU tensors (gloo's native ops). The same f32 operations in the same
+# order on both devices (IEEE division, round half to even, the fused
+# multiply-adds of collectives.py), so the results must be bit-equal.
+COLL_LEAVES = {"embedding": (30522, 768), "qkv": (768, 2304),
+               "bias": (768,), "tiny": (3,)}
+COLL_WIRES = ("", "bfloat16", "int8")
+# 10b's LeNet: config 1's model under shard_map at 2 x 64, 10 steps (5, a
+# save, a restore and 5 more under deterministic algorithms).
+COLL_LENET = ("data.global_batch_size=128", "train.spmd_mode=shard_map",
+              "checkpoint.directory=", "checkpoint.async_save=false")
+COLL_STEPS, COLL_SPLIT = 10, 5
+
+
+def coll_inputs(torch, rank: int) -> dict:
+    """This rank's seeded leaves (gradient-sized, of another magnitude on
+    each rank) and a residual of each leaf's shape."""
+    gen = torch.Generator().manual_seed(SEED * 1000 + rank)
+    scale = (1e-3, 1e-1)[rank % 2]
+    return {"g": {k: torch.randn(s, generator=gen) * scale
+                  for k, s in COLL_LEAVES.items()},
+            "r": {k: torch.randn(s, generator=gen) * 1e-5
+                  for k, s in COLL_LEAVES.items()}}
+
+
+def coll_cases(coll, inp: dict, rt) -> dict:
+    """Every function of parallel/collectives.py in every wire mode, as
+    {case: call}."""
+    import functools
+
+    g, r = inp["g"], inp["r"]
+    cases = {
+        "allreduce_f32": lambda: coll.allreduce_gradients(g, rt),
+        "allreduce_bf16_f32": lambda: coll.allreduce_gradients(
+            g, rt, compute_dtype="bfloat16"),
+        "allreduce_bf16_wire": lambda: coll.allreduce_gradients(
+            g, rt, compute_dtype="bfloat16", accumulate_f32=False),
+        "allreduce_int8": lambda: coll.allreduce_gradients(
+            g, rt, compute_dtype="int8"),
+        "allreduce_int8_ef": lambda: list(coll.allreduce_gradients_ef(
+            g, r, rt)),
+        "psum": lambda: coll.psum(g, rt),
+        "pmean": lambda: coll.pmean(g, rt),
+    }
+    for name, x in g.items():
+        for w in COLL_WIRES:
+            cases[f"all_gather_{name}_{w or 'f32'}"] = functools.partial(
+                coll.all_gather, x, rt, wire_dtype=w)
+            if x.shape[0] % rt.process_count == 0:
+                cases[f"reduce_scatter_{name}_{w or 'f32'}"] = (
+                    functools.partial(coll.reduce_scatter, x, rt,
+                                      wire_dtype=w))
+    return cases
+
+
+def coll_functions(torch, rt) -> dict:
+    """10b part 1 on one rank: each case on CUDA tensors and on CPU
+    tensors, compared here. A native CPU op that this torch's gloo lacks
+    is reported, and that case's CUDA result is held against the same
+    protocol on CPU tensors through the all_reduce transport (which the
+    CPU tests hold bit-equal to the native ops)."""
+    from distributed_tensorflow_framework_torch.parallel import (
+        collectives as coll,
+    )
+
+    host = coll_inputs(torch, rt.process_index)
+    dev = {k: {n: t.cuda() for n, t in v.items()} for k, v in host.items()}
+    cuda_calls, cpu_calls = coll_cases(coll, dev, rt), coll_cases(
+        coll, host, rt)
+    out = {}
+    for name in cuda_calls:
+        t0 = time.perf_counter()
+        with coll.tally() as tc:
+            got = [t.cpu() for t in tensor_leaves(cuda_calls[name]())]
+        torch.cuda.synchronize()
+        missing = None
+        try:
+            with coll.tally() as th:
+                want = list(tensor_leaves(cpu_calls[name]()))
+        except (RuntimeError, NotImplementedError) as e:
+            missing = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+            rt.collective_transport = lambda device: "all_reduce"
+            try:
+                with coll.tally() as th:
+                    want = list(tensor_leaves(cpu_calls[name]()))
+            finally:
+                del rt.collective_transport
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+        out[name] = {
+            "equal": len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+            "max_abs_diff": diff, "tally_equal": tc.summary() == th.summary(),
+            "cpu_missing": missing, "s": time.perf_counter() - t0}
+    return out
+
+
+def coll_lenet(torch, rt, out_dir: str) -> dict:
+    """10b part 2 on one rank: config 1's LeNet under shard_map at 2 x 64
+    on this rank's blocks of 10 global batches: the f32 run, the int8
+    error-feedback run, and the int8 run in two legs of 5 around a save
+    (the chief's) and a restore into a state built from another seed."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    def build(wire: str, seed: int = SEED):
+        cfg = load_config(LENET_CONFIG, overrides=[*COLL_LENET, *(
+            [f"parallel.collective_dtype={wire}"] if wire else [])])
+        builder = StepBuilder(cfg, device="cuda", runtime=rt)
+        return builder, builder.init_state(seed)
+
+    def steps(builder, state, batches) -> list[float]:
+        b = builder.config.data.global_batch_size // rt.process_count
+        out = []
+        for batch in batches:
+            block = {k: v[rt.process_index * b:(rt.process_index + 1) * b]
+                     for k, v in batch.items()}
+            m = builder.train_step(state, to_device(block,
+                                                    torch.device("cuda")))
+            out.append(float(m["loss"]))
+        return out
+
+    ds = get_dataset(build("")[0].config.data)
+    batches = [next(ds) for _ in range(COLL_STEPS)]
+    f32 = steps(*build(""), batches)
+    builder, straight = build("int8")
+    q8 = steps(builder, straight, batches)
+    builder, legs = build("int8")
+    steps(builder, legs, batches[:COLL_SPLIT])
+    manager = CheckpointManager(dataclasses.replace(
+        builder.config.checkpoint, directory=os.path.join(
+            out_dir, "coll_ckpt")), runtime=rt)
+    manager.save(COLL_SPLIT, legs)
+    builder, resumed = build("int8", seed=SEED + 1)
+    restored = manager.restore(resumed)
+    manager.close()
+    tail = steps(builder, resumed, batches[COLL_SPLIT:])
+    want = list(tensor_leaves(straight.state_dict()))
+    got = list(tensor_leaves(resumed.state_dict()))
+    return {"f32": f32, "int8": q8, "resumed_tail": tail,
+            "restored": restored, "tensors": len(want),
+            "equal": sum(torch.equal(a, b) for a, b in zip(got, want)),
+            "residual_nonzero": any(
+                bool(v.any()) for v in straight.collective_residual.values())}
+
+
+def coll_rank(torch, out_dir: str) -> dict:
+    """One rank of 10b: a gloo group (CUDA and CPU tensors) on the one
+    card."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        functions = coll_functions(torch, runtime)
+        t1 = time.perf_counter()
+        lenet = coll_lenet(torch, runtime, out_dir)
+        return {"backend": runtime.backend, "rank": runtime.process_index,
+                "transport": {d: runtime.collective_transport(d)
+                              for d in ("cuda", "cpu")},
+                "functions": functions, "lenet": lenet,
+                "s": {"functions": t1 - t0,
+                      "lenet": time.perf_counter() - t1}}
+    finally:
+        runtime.shutdown()
+
+
+def coll_cli_run(workdir: str, full: dict, name: str, extra) -> tuple:
+    """``cli.train.main`` in a child with the gang environment of a world
+    of 1 (NCCL) at phase 5's cut plus ``extra``: (result, events,
+    checkpoint directory)."""
+    log_dir = os.path.join(workdir, f"{name}_logs")
+    ckpt = os.path.join(workdir, name)
+    argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
+            log_dir, *sum((["--set", o] for o in (
+                *TRAIN_OVERRIDES, *extra,
+                f"checkpoint.directory={ckpt}")), [])]
+    (res,) = run_children([{"kind": "cli", "argv": argv,
+                            "env": gang_env(free_port(), 1, 0)}],
+                          workdir, name)
+    if res["rc"] != 0:
+        raise AssertionError(f"{name}: cli.train.main returned {res['rc']}")
+    return res, read_events(log_dir), ckpt
+
+
+def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
+                      smi: str) -> dict:
+    """Phase 10: 10a/10a' (BERT-base at world 1 over NCCL under shard_map,
+    int8 and no wire) and 10b (two gloo ranks on the card). Returns the
+    attention kernels' launches of 10a and 10a' (main-path runs)."""
+    t0 = time.perf_counter()
+    # 10a: the int8 error-feedback wire at full width.
+    res, events, ckpt = coll_cli_run(workdir, full, "coll_int8",
+                                     COLL_OVERRIDES)
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    train = [e for e in events if e["kind"] == "train_step"]
+    losses = {e["step"]: e["metrics"]["loss"] for e in train}
+    tally = train[-1]["collectives"]
+    ms = steady_ms(events)
+    state = torch.load(os.path.join(ckpt, "30", "state.pt"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    rows = state["collective_residual"]
+    n_params = sum(v[0].numel() for v in rows.values())
+    log(f"10a bert-base int8 shard_map world 1: group "
+        f"{meta['process_group']}, spmd_mode {meta['spmd_mode']}, wire "
+        f"{meta['collective_dtype']!r} block {meta['collective_block_size']}"
+        f", error feedback {meta['error_feedback']}, transport "
+        f"{meta['collective_transport']}, ddp {meta['ddp']}; losses "
+        + ", ".join(f"step {k} {v!r} (phase 5 {full['losses'][k]!r}, gap "
+                    f"{v - full['losses'][k]:+.3e})"
+                    for k, v in sorted(losses.items()))
+        + f" (tol rtol {COLL_LOSS_TOL['rtol']} atol {COLL_LOSS_TOL['atol']})"
+        f"; kernel launches {res['counts']} [{smi}]")
+    log(f"10a tally per step: wire {tally['total_bytes']} bytes, logical "
+        f"{tally['total_logical_bytes']} "
+        f"({tally['total_logical_bytes'] / tally['total_bytes']:.3f}x); "
+        + ", ".join(f"{k} {v}" for k, v in tally.items()
+                    if k.startswith("allreduce_grads")))
+    rel = 100 * (ms / full["ms_per_step"] - 1)
+    log(f"10a steady {ms:.2f} ms/step against phase 5's "
+        f"{full['ms_per_step']:.2f} ({rel:+.2f}%) and 8a's {ms_8a:.2f}; "
+        f"peak memory {res['peak_gb']:.2f} GB "
+        f"(the residual: {n_params} parameters x 4 bytes = "
+        f"{4 * n_params / 1e9:.3f} GB, saved as {len(rows)} rows of 1 rank) "
+        f"[{smi}]")
+    ok = (meta["process_group"] == "nccl" and meta["spmd_mode"] == "shard_map"
+          and meta["collective_dtype"] == "int8" and meta["error_feedback"]
+          and meta["collective_transport"] == "native" and not meta["ddp"])
+    if not ok:
+        raise AssertionError(f"10a: run_meta {meta}")
+    if ("allreduce_grads_q8_scatter_bytes" not in tally
+            or "allreduce_grads_q8_gather_bytes" not in tally
+            or tally["total_bytes"] * 3 > tally["total_logical_bytes"]):
+        raise AssertionError(f"10a: the tally shows no 3x compression: "
+                             f"{tally}")
+    steps = sorted(losses)
+    if (steps != sorted(full["losses"])
+            or not all(math.isfinite(v) for v in losses.values())
+            or not losses[steps[-1]] < losses[steps[0]]
+            or any(abs(losses[k] - full["losses"][k]) > COLL_LOSS_TOL["atol"]
+                   + COLL_LOSS_TOL["rtol"] * abs(full["losses"][k])
+                   for k in steps)):
+        raise AssertionError("10a: the int8 losses are not finite, falling "
+                             "and within the tolerance of phase 5's")
+    if res["counts"] != full["want"]:
+        raise AssertionError(f"10a: launches {res['counts']}, phase 5 "
+                             f"{full['want']}")
+    counts = dict(res["counts"])
+    # Where the codec's time goes: the same step in this process (no
+    # group, so the collectives are the codec alone), profiled.
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    train_breakdown(torch, load_config(full["config"], overrides=[
+        *TRAIN_OVERRIDES, *COLL_OVERRIDES]))
+    torch.cuda.empty_cache()
+    # 10a': shard_map with no wire, bit-equal to phase 5's first steps.
+    res, events, _ = coll_cli_run(
+        workdir, full, "coll_plain",
+        ("train.spmd_mode=shard_map", f"train.total_steps={COLL_PLAIN_STEPS}"))
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    train = [e for e in events if e["kind"] == "train_step"]
+    losses = {e["step"]: e["metrics"]["loss"] for e in train}
+    tally = train[-1]["collectives"]
+    want_losses = {k: v for k, v in full["losses"].items()
+                   if k <= COLL_PLAIN_STEPS}
+    layers = 12
+    want = {"fwd": layers * (COLL_PLAIN_STEPS + 2),
+            "dq": layers * COLL_PLAIN_STEPS, "dkv": layers * COLL_PLAIN_STEPS,
+            "fused": 0}
+    log(f"10a' bert-base shard_map, no wire, world 1: group "
+        f"{meta['process_group']}, transport {meta['collective_transport']};"
+        f" losses " + ", ".join(f"step {k} {v!r} (phase 5 "
+                               f"{full['losses'][k]!r})"
+                               for k, v in sorted(losses.items()))
+        + f"; tally {tally}; kernel launches {res['counts']} (expected "
+        f"{want})")
+    if (losses != want_losses or res["counts"] != want
+            or "allreduce_grads_pmean_bytes" not in tally):
+        raise AssertionError("10a': the shard_map run without a wire "
+                             "differs from phase 5")
+    counts = {k: counts[k] + res["counts"][k] for k in counts}
+    # 10b: two gloo ranks on the one card.
+    torch.cuda.empty_cache()
+    port = free_port()
+    ranks = run_children([{"kind": "coll", "env": gang_env(port, 2, r),
+                           "deterministic": True} for r in range(2)],
+                         workdir, "coll_ranks")
+    for r in ranks:
+        if r["backend"] != "gloo" or r["transport"] != {
+                "cuda": "all_reduce", "cpu": "native"}:
+            raise AssertionError(f"10b: rank {r['rank']}: backend "
+                                 f"{r['backend']}, transport {r['transport']}")
+    bad = []
+    for name in ranks[0]["functions"]:
+        per = [r["functions"][name] for r in ranks]
+        missing = {p["cpu_missing"] for p in per} - {None}
+        log(f"10b {name}: CUDA (all_reduce transport) vs CPU ("
+            + (f"MISSING native op: {missing}; the all_reduce transport on "
+               f"CPU tensors" if missing else "gloo native ops")
+            + f"): equal {[p['equal'] for p in per]}, max |diff| "
+            f"{max(p['max_abs_diff'] for p in per):.3e}, tallies equal "
+            f"{[p['tally_equal'] for p in per]}, "
+            f"{max(p['s'] for p in per):.2f} s")
+        if not all(p["equal"] and p["tally_equal"] for p in per):
+            bad.append(name)
+    lenet = [r["lenet"] for r in ranks]
+    f32, q8 = lenet[0]["f32"], lenet[0]["int8"]
+    gap = max(abs(a - b) - COLL_LOSS_TOL["rtol"] * abs(b)
+              for a, b in zip(q8, f32))
+    log(f"10b lenet 2 x 64 shard_map, {COLL_STEPS} steps: f32 losses "
+        f"{[round(v, 6) for v in f32]}; int8 error feedback "
+        f"{[round(v, 6) for v in q8]} (worst |gap| - rtol|f32| {gap:.3e}, "
+        f"tol atol {COLL_LOSS_TOL['atol']})")
+    log(f"10b lenet int8 resume (deterministic algorithms): restored step "
+        + ", ".join(f"rank {i} {x['restored']}: {x['equal']} of "
+                    f"{x['tensors']} tensors bit-equal to {COLL_STEPS} "
+                    f"straight steps, losses after the restore equal "
+                    f"{x['resumed_tail'] == x['int8'][COLL_SPLIT:]}"
+                    for i, x in enumerate(lenet))
+        + "; seconds " + ", ".join(
+            f"rank {r['rank']} functions {r['s']['functions']:.2f} lenet "
+            f"{r['s']['lenet']:.2f}" for r in ranks))
+    if bad:
+        raise AssertionError(f"10b: CUDA and CPU differ in {bad}")
+    if (gap > COLL_LOSS_TOL["atol"] or not all(map(math.isfinite, q8))
+            or lenet[0]["int8"] != lenet[1]["int8"]):
+        raise AssertionError("10b: the int8 LeNet run misses the f32 run")
+    if not all(x["restored"] == COLL_SPLIT and x["equal"] == x["tensors"]
+               and x["residual_nonzero"]
+               and x["resumed_tail"] == x["int8"][COLL_SPLIT:]
+               for x in lenet):
+        raise AssertionError("10b: the resumed int8 run differs from the "
+                             "straight one")
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -3799,8 +4189,8 @@ def main() -> int:
         cifar_det = cifar_resume_phase(torch, workdir, cifar_data)
         log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
             "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
-        dp_counts = data_parallel_phase(torch, fa, workdir, full, cifar_det,
-                                        cifar_ms, gpu)
+        dp_counts, ms_8a = data_parallel_phase(torch, fa, workdir, full,
+                                               cifar_det, cifar_ms, gpu)
 
     # Phase 9: ImageNet from records, Inception-v3, the one-device BN. No
     # attention kernel lies on this path either.
@@ -3808,16 +4198,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as workdir:
         image_records_phase(torch, workdir, gpu, "abcdef")
 
+    # Phase 10: explicit collectives. 10a and 10a' run BERT-base through
+    # the attention kernels, so their launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as workdir:
+        log("phase 10 explicit collectives: BERT-base under shard_map at "
+            "world 1 over NCCL, int8 (10a) and no wire (10a'); two gloo "
+            "ranks on the card (10b)")
+        coll_counts = collectives_phase(torch, workdir, full, ms_8a, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
-    # phase 5f's packed and unpacked runs and phase 8a's world-1 DDP run)
-    # and the two long-context runs; those with segment ids all come from
-    # phase 5f. Times, bounds and the plain and library times
-    # are those at the long-context shapes (phase 3c); "s512" keeps the
+    # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run and
+    # phase 10's shard_map runs) and the two long-context runs; those with
+    # segment ids all come from phase 5f. Times, bounds and the plain and
+    # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
     # kernel on this card, its launches are those of phase 6b's micro-step
     # with FUSED_BWD forced on, and say so.
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
+                + coll_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

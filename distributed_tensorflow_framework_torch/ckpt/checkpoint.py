@@ -8,8 +8,10 @@ A checkpoint is a step directory, committed by its integrity manifest
       state.pt        — torch.save of the model's tensors (BatchNorm
                         running statistics included), the optimizer
                         (its inner torch optimizer's state_dict), the
-                        dropout generator's state and the parameter EMA
-                        when there is one; read back with
+                        dropout generator's state, the parameter EMA
+                        when there is one and every rank's row of the
+                        collective error-feedback residual when there is
+                        one; read back with
                         ``torch.load(weights_only=True)``
       meta.json       — the step, the generator's device type and the
                         model's parameter names
@@ -50,6 +52,15 @@ keeps its freshly seeded stream (with a warning) when it has not. The
 data-state record carries the process count, and ``check_restore_data``
 gates a change of it.
 
+The int8 error-feedback residual (train/state.py) is one f32 row per
+rank: at each save the chief collects every rank's (one ``broadcast`` per
+rank of the rows laid end to end) and stores them as ``(n, *shape)``
+tensors. A restore follows the JAX package's rules: the same rank count
+restores each rank's own row; another count folds the rows, keeping each
+leaf's sum (ckpt/reshard.py); a checkpoint without one gives zeros, with
+a warning; a run that does not use one drops the stored one, with a
+warning. Export reads the model's tensors alone, so it never sees it.
+
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
 and the host copy); ``ckpt_save_total_ms`` is from ``save`` to the landed
@@ -69,6 +80,7 @@ import torch
 
 from distributed_tensorflow_framework_torch.ckpt import manifest as mf
 from distributed_tensorflow_framework_torch.ckpt.async_saver import AsyncSaver
+from distributed_tensorflow_framework_torch.ckpt.reshard import fold_residual
 from distributed_tensorflow_framework_torch.core import faults, telemetry
 from distributed_tensorflow_framework_torch.core.config import CheckpointConfig
 from distributed_tensorflow_framework_torch.data import shard as data_shard
@@ -173,7 +185,7 @@ class CheckpointManager:
         os.makedirs(step_dir)
         tensors = {k: host_state[k] for k in
                    ("model", "optimizer", "dropout_generator",
-                    "dropout_generators", "ema")
+                    "dropout_generators", "ema", "collective_residual")
                    if k in host_state}
         _write_durable(os.path.join(step_dir, STATE_FILE),
                        lambda fh: torch.save(tensors, fh))
@@ -225,6 +237,7 @@ class CheckpointManager:
         chief writes (the others return False)."""
         t0 = time.perf_counter()
         generators = self._gather_generators(state)
+        residual = self._gather_residual(state)
         if not self.is_chief:
             return False
         self._drain()  # a new save waits for the previous commit
@@ -241,9 +254,13 @@ class CheckpointManager:
                 log.warning("infeed watermark probe failed", exc_info=True)
         # A real copy taken at the step boundary: the loop updates the
         # live tensors in place from the next step on.
-        host_state = host_copy(state.state_dict())
+        live = state.state_dict()
+        live.pop("collective_residual", None)  # every rank's rows below
+        host_state = host_copy(live)
         if generators is not None:
             host_state["dropout_generators"] = generators
+        if residual is not None:
+            host_state["collective_residual"] = residual
         ds_state = (None if dataset_state is None
                     else json.loads(json.dumps(dataset_state)))
         if self._saver is None:
@@ -272,6 +289,36 @@ class CheckpointManager:
                    else torch.empty_like(mine)).to(rt.collective_device)
             out.append(rt.broadcast_(buf, src=rank).cpu())
         return out if self.is_chief else None
+
+    def _gather_residual(self, state: TrainState
+                         ) -> dict[str, torch.Tensor] | None:
+        """Every rank's residual row as ``(n, *shape)`` host tensors, on
+        the chief (None on the others, and when the run keeps none): rank
+        r broadcasts its rows laid end to end."""
+        own = state.collective_residual
+        if not own:
+            return None
+        rt = self._runtime
+        flat = torch.cat([t.reshape(-1) for t in own.values()])
+        rows = []
+        for rank in range(self.process_count):
+            buf = flat if rank == self._rank else torch.empty_like(flat)
+            if self.process_count > 1:
+                buf = rt.broadcast_(buf.to(rt.collective_device), src=rank)
+            rows.append(buf.to("cpu", copy=True))
+        if not self.is_chief:
+            return None
+        stacked = torch.stack(rows)
+        out, off = {}, 0
+        for key, t in own.items():
+            out[key] = stacked[:, off:off + t.numel()].reshape(
+                (self.process_count,) + tuple(t.shape)).clone()
+            off += t.numel()
+        return out
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self._runtime is None else self._runtime.process_index
 
     # -------------------------------------------------------- listings --
     def all_steps(self) -> list[int]:
@@ -412,6 +459,7 @@ class CheckpointManager:
                 resume_strict=self._data_resume_strict)
             if plan is not None:
                 self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
+        tensors = self._own_residual(state, step, tensors)
         state.load_state_dict({
             **tensors, "step": meta["step"],
             "generator_device": meta["generator_device"],
@@ -419,6 +467,39 @@ class CheckpointManager:
         if data_state is not None:
             dataset.restore(data_state)
         return step
+
+    def _own_residual(self, state: TrainState, step: int,
+                      tensors: dict) -> dict:
+        """``tensors`` with the stored residual rows replaced by this
+        rank's row: its own at the same rank count, else from the rows
+        folded onto this count (sum-preserving); dropped, with a warning,
+        when this run keeps no residual. Without stored rows the run's
+        residual starts at zero (``TrainState.load_state_dict``), with a
+        warning."""
+        tensors = dict(tensors)
+        rows = tensors.pop("collective_residual", None)
+        want = bool(state.collective_residual)
+        if rows is None:
+            if want:
+                log.warning("Checkpoint at step %d has no collective "
+                            "residual (quantized collectives enabled after "
+                            "it was saved) — starting from a zero residual",
+                            step)
+            return tensors
+        if not want:
+            log.warning("Checkpoint at step %d carries a collective "
+                        "error-feedback residual but quantized collectives "
+                        "are now off — dropping it", step)
+            return tensors
+        n_saved = next(iter(rows.values())).shape[0]
+        if n_saved != self.process_count:
+            rows = fold_residual(rows, self.process_count)
+            log.warning("collective_residual folded %d -> %d replica rows "
+                        "(sum-preserving) across the restore", n_saved,
+                        self.process_count)
+        tensors["collective_residual"] = {k: v[self._rank]
+                                          for k, v in rows.items()}
+        return tensors
 
     def _own_generator(self, state: TrainState, meta: dict,
                        tensors: dict) -> torch.Tensor:

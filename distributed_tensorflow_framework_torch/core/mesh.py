@@ -21,8 +21,20 @@ product must equal the world size, else :class:`MeshSizeError`, which
 ``fsdp``/``model`` (A10), ``seq`` (A11), ``pipe`` (A12) and ``expert``
 (A8) raise NotImplementedError naming their ROADMAP.md item.
 
-Across ranks the port uses two collectives only, ``all_reduce`` and
-``broadcast``: gloo carries no other on CUDA tensors.
+:class:`MeshRuntime` carries the collectives the port uses across ranks:
+``all_reduce``, ``broadcast`` and, for the explicit collectives of
+parallel/collectives.py, ``all_to_all``, ``all_gather`` and
+``reduce_scatter``. NCCL, and gloo on CPU tensors, run the last three as
+the native ops (``all_to_all_single``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``). Gloo carries only ``all_reduce`` and
+``broadcast`` on CUDA tensors, which is how two ranks share one card
+(NCCL refuses two ranks on one device), so there the three are built
+from ``all_reduce``: each rank writes its bytes into its own slot of a
+zero-filled buffer viewed as int32, and the integer sum, every other slot
+being zero, carries them exactly (a float sum would turn −0.0 into +0.0);
+the reduce-scatter is an ``all_reduce`` of the whole input, of which a
+rank keeps its chunk. The transport is chosen by backend and device only
+(:meth:`MeshRuntime.collective_transport`); NCCL never takes the second.
 """
 
 from __future__ import annotations
@@ -134,12 +146,70 @@ def max_over_ranks(value: int) -> int:
     return int(value)
 
 
+TRANSPORT_NATIVE = "native"
+TRANSPORT_ALL_REDUCE = "all_reduce"
+
+
+def _byte_rows(rows: int, nbytes: int, device) -> torch.Tensor:
+    """A zero (rows, words) int32 buffer with room for ``nbytes`` bytes a
+    row."""
+    return torch.zeros((rows, -(-nbytes // 4)), dtype=torch.int32,
+                       device=device)
+
+
+def _bytes_of(tensor: torch.Tensor) -> torch.Tensor:
+    return tensor.contiguous().view(-1).view(torch.uint8)
+
+
+def all_gather_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
+                             runtime: "MeshRuntime") -> torch.Tensor:
+    """``all_gather_`` from one ``all_reduce``: rank r's bytes in slot r of
+    a zero-filled int32 buffer, summed over the ranks (exact: every other
+    slot is zero)."""
+    n, src = runtime.process_count, _bytes_of(input)
+    buf = _byte_rows(n, src.numel(), input.device)
+    buf[runtime.process_index].view(torch.uint8)[:src.numel()].copy_(src)
+    dist.all_reduce(buf)
+    _bytes_of(output).view(n, -1).copy_(
+        buf.view(torch.uint8).view(n, -1)[:, :src.numel()])
+    return output
+
+
+def all_to_all_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
+                             runtime: "MeshRuntime") -> torch.Tensor:
+    """``all_to_all_`` from one ``all_reduce`` over an (n senders, n
+    receivers) grid of zero-filled int32 slots: rank r fills row r, and
+    rank p reads column p."""
+    n, rank = runtime.process_count, runtime.process_index
+    src = _bytes_of(input).view(n, -1)
+    chunk = src.shape[1]
+    buf = _byte_rows(n * n, chunk, input.device).view(n, n, -1)
+    buf[rank].view(torch.uint8).view(n, -1)[:, :chunk].copy_(src)
+    dist.all_reduce(buf)
+    _bytes_of(output).view(n, -1).copy_(
+        buf[:, rank].contiguous().view(torch.uint8).view(n, -1)[:, :chunk])
+    return output
+
+
+def reduce_scatter_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
+                                 runtime: "MeshRuntime") -> torch.Tensor:
+    """``reduce_scatter_`` from one ``all_reduce`` of the whole input, of
+    which rank r keeps chunk r."""
+    total = input.clone()
+    dist.all_reduce(total)
+    return output.copy_(total.chunk(runtime.process_count)[
+        runtime.process_index])
+
+
 @dataclasses.dataclass
 class MeshRuntime:
     """This process's view of the runtime. ``backend`` is the process
     group's (``"nccl"`` or ``"gloo"``), None when no group was formed.
-    The collectives below act on the default group and do nothing at a
-    world of 1, so the single-rank arithmetic stays today's."""
+    The collectives below act on the default group. ``all_reduce_`` and
+    ``broadcast_`` do nothing at a world of 1, so the single-rank
+    arithmetic stays today's; ``all_to_all_``, ``all_gather_`` and
+    ``reduce_scatter_`` copy when no group was formed and run the
+    collective in a group of any size, one rank included."""
 
     sizes: dict[str, int]
     process_index: int
@@ -179,6 +249,49 @@ class MeshRuntime:
         if self.process_count > 1:
             dist.broadcast(tensor, src=src)
         return tensor
+
+    def collective_transport(self, device: torch.device | str) -> str:
+        """How ``all_to_all_``, ``all_gather_`` and ``reduce_scatter_``
+        move tensors on ``device``: ``"all_reduce"`` for gloo with CUDA
+        tensors, else ``"native"`` (NCCL, gloo on the CPU, or no group)."""
+        if self.backend == "gloo" and torch.device(device).type == "cuda":
+            return TRANSPORT_ALL_REDUCE
+        return TRANSPORT_NATIVE
+
+    def all_to_all_(self, output: torch.Tensor,
+                    input: torch.Tensor) -> torch.Tensor:
+        """Split ``input`` into ``process_count`` equal chunks along dim 0
+        and send chunk p to rank p; ``output`` (input's shape) receives
+        rank r's chunk as its chunk r. Returns ``output``."""
+        if self.backend is None:
+            return output.copy_(input)
+        if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
+            return all_to_all_by_all_reduce(output, input, self)
+        dist.all_to_all_single(output, input.contiguous())
+        return output
+
+    def all_gather_(self, output: torch.Tensor,
+                    input: torch.Tensor) -> torch.Tensor:
+        """``output`` (``process_count`` × input's dim 0) becomes every
+        rank's ``input`` concatenated in rank order. Returns it."""
+        if self.backend is None:
+            return output.copy_(input)
+        if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
+            return all_gather_by_all_reduce(output, input, self)
+        dist.all_gather_into_tensor(output, input.contiguous())
+        return output
+
+    def reduce_scatter_(self, output: torch.Tensor,
+                        input: torch.Tensor) -> torch.Tensor:
+        """Sum ``input`` over the ranks and give rank r chunk r of the sum
+        (along dim 0, ``process_count`` equal chunks) in ``output``.
+        Returns it."""
+        if self.backend is None:
+            return output.copy_(input)
+        if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
+            return reduce_scatter_by_all_reduce(output, input, self)
+        dist.reduce_scatter_tensor(output, input.contiguous())
+        return output
 
     def broadcast_int(self, value: int | None, src: int = 0) -> int | None:
         """Rank ``src``'s value on every rank (None travels as -1)."""

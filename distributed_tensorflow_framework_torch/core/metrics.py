@@ -50,7 +50,8 @@ class MetricWriter:
             path, process_id=process_index if process_count > 1 else None)
 
     def write(self, step: int, values: Mapping[str, Any], *,
-              kind: str = telemetry.KIND_TRAIN_STEP) -> None:
+              kind: str = telemetry.KIND_TRAIN_STEP,
+              collectives: Mapping[str, Any] | None = None) -> None:
         if not self._enabled:
             return
         scalars = {k: telemetry._to_scalar(v) for k, v in values.items()}
@@ -60,7 +61,8 @@ class MetricWriter:
         metrics, phases, throughput = telemetry.split_metrics(scalars)
         self.telemetry.emit(kind, step=step, metrics=metrics or None,
                             phases=phases or None,
-                            throughput=throughput or None)
+                            throughput=throughput or None,
+                            collectives=collectives)
 
     def close(self) -> None:
         self.telemetry.close()

@@ -121,7 +121,8 @@ class LoggingHook(BaseHook):
         if self.throughput is not None:
             out.update(self.throughput.rates())
             self.throughput.meter.reset()
-        self.writer.write(step, out)
+        self.writer.write(step, out, collectives=getattr(
+            trainer, "collectives_summary", None))
 
 
 class EvalHook(BaseHook):

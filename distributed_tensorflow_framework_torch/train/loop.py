@@ -40,7 +40,11 @@ Refused: the profile window and compiled-memory analysis (ROADMAP.md queue
 A item A16) and the XLA compilation cache (``train.compilation_cache_dir``,
 no eager counterpart). Left out because they only write events and change
 no result: tracing spans, the goodput ledger, memory sampling, the flight
-recorder and the collective tally. Evaluation is exact, as in the JAX
+recorder. The first step runs inside the collective tally
+(parallel/collectives.py), whose summary rides every logged
+``train_step`` event as its ``collectives`` field (a DDP run's is empty:
+DDP owns its reduction, as XLA does under the JAX package's ``jit``).
+Evaluation is exact, as in the JAX
 trainer: a finite eval stream (TFRecords) is walked once in full, every
 record once, the padded tail weighted out; an infinite one (the synthetic
 fallback) gives ``train.eval_steps`` batches. Across ranks each rank
@@ -85,6 +89,7 @@ from distributed_tensorflow_framework_torch.data.infeed import (
     prefetch_to_device,
     to_device,
 )
+from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.train import anomaly as anomaly_lib
 from distributed_tensorflow_framework_torch.train import hooks as hooks_lib
 from distributed_tensorflow_framework_torch.train import schedules
@@ -150,6 +155,9 @@ class Trainer:
         self._startup_emitted = False
         self._eval_ds = None
         self._eval_start: dict = {}
+        # The first step's collective tally (the trainer's
+        # ``collectives_summary`` in the JAX package).
+        self.collectives_summary: dict | None = None
         # Iterator snapshot paired with host_step (data/infeed.py).
         self.data_ckpt_state: dict = self.dataset.state()
 
@@ -163,7 +171,11 @@ class Trainer:
             global_batch_size=cfg.data.global_batch_size,
             mesh=rt.sizes, process_count=rt.process_count,
             process_index=rt.process_index, device=str(self.device),
-            process_group=rt.backend, ddp=self.state.ddp is not None)
+            process_group=rt.backend, ddp=self.state.ddp is not None,
+            collective_dtype=self.builder.wire,
+            collective_block_size=cfg.parallel.collective_block_size,
+            error_feedback=self.builder.use_residual,
+            collective_transport=self.builder.collective_transport)
         self.writer.telemetry.emit(
             telemetry.KIND_DATA_SHARD, step=self.host_step,
             shard=data_shard.shard_plan(
@@ -297,8 +309,14 @@ class Trainer:
                     with timer.phase("backpressure"):
                         float(pending.popleft()["loss"])
                 with timer.phase("compile" if first else "dispatch"):
-                    metrics = self.builder.train_step(self.state, batch,
-                                                      fault_scale=scale)
+                    if self.collectives_summary is None:
+                        with coll.tally() as tly:
+                            metrics = self.builder.train_step(
+                                self.state, batch, fault_scale=scale)
+                        self.collectives_summary = tly.summary()
+                    else:
+                        metrics = self.builder.train_step(
+                            self.state, batch, fault_scale=scale)
                 first = False
                 if cfg.dispatch_ahead > 0:
                     pending.append(metrics)

@@ -5,15 +5,18 @@ The step counter, the parameters and the BatchNorm running statistics
 (the model: the JAX state's ``params`` and ``batch_stats``), the optimizer
 and its state, the dropout generator (the JAX state's ``rng``) and the
 parameter EMA (``ema_params``: f32 copies on the device, empty unless
-``optimizer.ema_decay > 0``). PyTorch updates the parameters and optimizer
+``optimizer.ema_decay > 0``) and the collective error-feedback residual
+(``collective_residual``: this rank's f32 row, one tensor per parameter,
+empty unless ``train.spmd_mode: shard_map`` runs the int8 wire with
+``parallel.error_feedback``). PyTorch updates the parameters and optimizer
 slots in place, so the state is a mutable record rather than a pytree that
 each step replaces.
 
 ``state_dict``/``load_state_dict`` are what a checkpoint and a rollback
 snapshot hold: the step, the model's tensors (BN buffers included), the
 optimizer (the inner torch optimizer's slots and ``Optimizer.count``), the
-dropout generator's state with the device type it belongs to, and the
-EMA when there is one. ``state_dict``
+dropout generator's state with the device type it belongs to, the EMA
+when there is one and the residual when there is one. ``state_dict``
 returns the LIVE tensors: anything kept past the next step takes
 :func:`host_copy` of it, since on the CPU ``tensor.to("cpu")`` is the
 same tensor and the next ``optimizer.step`` would overwrite it.
@@ -51,6 +54,10 @@ class TrainState:
     dropout_generator: torch.Generator
     # Parameter name → its f32 moving average; {} when the EMA is off.
     ema_params: dict[str, torch.Tensor] = field(default_factory=dict)
+    # Parameter name → this rank's f32 error-feedback residual of the int8
+    # gradient all-reduce (parallel/collectives.py); {} when unused.
+    collective_residual: dict[str, torch.Tensor] = field(
+        default_factory=dict)
     # The DistributedDataParallel wrapper of ``model`` that the train step
     # runs forward through when a process group exists; not state: it
     # holds no tensor of its own, and a checkpoint names the model's.
@@ -71,6 +78,8 @@ class TrainState:
         }
         if self.ema_params:
             out["ema"] = dict(self.ema_params)
+        if self.collective_residual:
+            out["collective_residual"] = dict(self.collective_residual)
         return out
 
     def load_state_dict(self, state: dict) -> None:
@@ -79,7 +88,9 @@ class TrainState:
         holds. The EMA follows ``optimizer.ema_decay`` across a restart,
         as in the JAX trainer: a saved EMA is copied into this state's,
         re-seeded from the restored parameters when none was saved, and
-        dropped when this run keeps none.
+        dropped when this run keeps none. The residual follows the same
+        rule: copied when saved, zero when not, dropped when this run has
+        none (ckpt/checkpoint.py picks or folds the rank's row first).
         A generator state from another device type is refused — a CUDA
         generator's state does not fit a CPU generator, nor the reverse,
         and re-seeding would silently change the dropout stream."""
@@ -99,6 +110,11 @@ class TrainState:
                 if key in self.ema_params:
                     self.ema_params[key].copy_(
                         state["ema"][key] if "ema" in state else p)
+            for key, r in self.collective_residual.items():
+                if "collective_residual" in state:
+                    r.copy_(state["collective_residual"][key])
+                else:
+                    r.zero_()
         self.dropout_generator.set_state(
             state["dropout_generator"].to("cpu"))
         self.step = int(state["step"])

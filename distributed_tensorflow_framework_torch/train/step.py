@@ -18,7 +18,8 @@ micro-batch. Then the optimizer applies one update, and with
 (1 − d)·p``, ``d = min(decay, (1 + t)/(10 + t))`` at the step t before
 the increment).
 
-Across ranks the model runs under ``DistributedDataParallel``
+Across ranks, under ``train.spmd_mode: jit`` (the default), the model
+runs under ``DistributedDataParallel``
 (``gradient_as_bucket_view``, no buffer broadcast: the BatchNorm
 statistics are already global, models/layers.py; ``no_sync`` on every
 micro-batch but the last), and each rank feeds its block of the global
@@ -34,20 +35,38 @@ shards are equal, so the mean of the ranks' means is the global mean.
 Each rank's dropout stream is its own ((seed, dropout, rank)); at a world
 of 1 it is the single-device stream.
 
+Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
+per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
+rank runs the micro-steps as a single device would, its micro-batches
+weighted by its OWN masked tokens, so the MLM gradient is the mean of the
+ranks' means; then parallel/collectives.py reduces the gradients on the
+configured wire (``parallel.collective_dtype``: "" the f32 mean,
+``bfloat16`` with ``train.grad_allreduce_accum`` float32 or wire, ``int8``
+block-scaled, with the error-feedback residual
+``state.collective_residual`` when ``parallel.error_feedback``), the
+metrics become their plain mean over the ranks, and the BatchNorm running
+statistics their mean after the step. BatchNorm's batch statistics span
+every rank with ``model.bn_cross_replica`` (the default) and each rank's
+own batch without it (the reference's per-GPU BN). The ranks start from
+rank 0's parameters and buffers (one ``broadcast`` each). At a world of 1
+with no wire the step is the single-device step bit for bit.
+
 Step metrics: ``loss`` and ``mlm_acc`` or ``top1``/``top5``,
 ``grad_norm`` (the global norm of the reduced gradients BEFORE clipping)
 and ``learning_rate`` (the schedule at the step before the increment).
 They stay on the device; the trainer syncs only when it logs, and above
-one rank reduces the task metrics there into global weighted means
-(:meth:`StepBuilder.global_metrics`). The eval step runs in ``eval()``
-mode (BN on its running statistics, no dropout), on the EMA parameters
-when ``train.eval_use_ema`` and the EMA is on.
+one rank under DDP reduces the task metrics there into global weighted
+means (:meth:`StepBuilder.global_metrics`). The eval step runs in
+``eval()`` mode (BN on its running statistics, no dropout), on the EMA
+parameters when ``train.eval_use_ema`` and the EMA is on.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
 naming its ROADMAP.md item when it is not at its off value: mesh axes
-other than ``data``, ``spmd_mode: shard_map``, ZeRO/FSDP, compressed
-collectives, the fused update and the selective remat policies.
-``model.remat`` (per-layer checkpointing) is carried by the model.
+other than ``data`` (FSDP under either mode included), ZeRO, the fused
+update and the selective remat policies. ``model.remat`` (per-layer
+checkpointing) is carried by the model. A wire dtype under ``jit`` and a
+``train.grad_allreduce_accum`` other than float32 or wire raise the JAX
+package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -64,8 +83,10 @@ from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import get_model
 from distributed_tensorflow_framework_torch.models.layers import (
+    BatchNorm,
     use_cross_rank_bn,
 )
+from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
     ema_update_,
@@ -102,21 +123,33 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet — ROADMAP.md queue A item {item}")
 
 
-def check_data_parallel_jit(config: ExperimentConfig, world: int = 1) -> None:
-    """Raise for every setting the data-parallel jit path over ``world``
-    ranks does not carry: MeshSizeError when ``mesh.data`` is neither -1
-    nor the world, NotImplementedError for the rest."""
+def check_step_config(config: ExperimentConfig, world: int = 1) -> None:
+    """Raise for every setting the data-parallel step over ``world`` ranks
+    does not carry: MeshSizeError when ``mesh.data`` is neither -1 nor the
+    world, ValueError for the JAX package's refusals (a wire dtype under
+    ``jit``, a bad ``train.grad_allreduce_accum``), NotImplementedError for
+    what is not ported (an axis other than ``data``, so FSDP under
+    ``shard_map`` too, and ZeRO: A10)."""
     mesh_lib.resolve_mesh(config.mesh, world)
-    if config.train.spmd_mode != "jit":
-        raise _not_ported(f"train.spmd_mode={config.train.spmd_mode!r} "
-                          f"(explicit collectives)", "A9")
+    tcfg = config.train
+    if tcfg.spmd_mode not in ("jit", "shard_map"):
+        raise ValueError(f"train.spmd_mode must be 'jit' or 'shard_map', "
+                         f"got {tcfg.spmd_mode!r}")
+    if ((config.parallel.collective_dtype or tcfg.grad_allreduce_dtype)
+            and tcfg.spmd_mode != "shard_map"):
+        raise ValueError(
+            "parallel.collective_dtype (and the deprecated "
+            "train.grad_allreduce_dtype) only applies to the explicit "
+            "collective path — set train.spmd_mode='shard_map' (under "
+            "'jit' DDP owns the gradient reduction wire format)")
+    if tcfg.grad_allreduce_accum not in ("float32", "wire"):
+        raise ValueError(
+            "train.grad_allreduce_accum must be 'float32' or 'wire', "
+            f"got {tcfg.grad_allreduce_accum!r}")
     opt = config.optimizer
     if opt.zero_sharding != "off" or opt.shard_opt_state:
         raise _not_ported("ZeRO weight-update sharding "
                           "(optimizer.zero_sharding)", "A10")
-    if config.parallel.collective_dtype or config.train.grad_allreduce_dtype:
-        raise _not_ported("compressed collectives "
-                          "(parallel.collective_dtype)", "A9")
     precision = config.precision
     if precision.fused_update:
         raise _not_ported("precision.fused_update", "A13")
@@ -139,7 +172,7 @@ class StepBuilder:
                  runtime: mesh_lib.MeshRuntime | None = None):
         self.runtime = runtime
         self.world = 1 if runtime is None else runtime.process_count
-        check_data_parallel_jit(config, self.world)
+        check_step_config(config, self.world)
         self.config = config
         self.device = (resolve_device(device) if runtime is None
                        else runtime.device)
@@ -155,22 +188,54 @@ class StepBuilder:
                 f"represent. Shrink data.vocab_size or grow "
                 f"model.vocab_size.")
         self.accum = max(1, config.train.grad_accum_steps)
+        self.shard_map = config.train.spmd_mode == "shard_map"
+        # The ranks a step's loss denominator spans: every rank under DDP
+        # (the JAX jit step's global weight), the rank alone under
+        # shard_map (each replica's own mean).
+        self.weight_world = 1 if self.shard_map else self.world
+        # The explicit collectives' wire: parallel.collective_dtype, with
+        # the deprecated train.grad_allreduce_dtype honoured for configs
+        # built without load_config's shim.
+        self.wire = (config.parallel.collective_dtype
+                     or config.train.grad_allreduce_dtype)
+        self.block = config.parallel.collective_block_size
+        self.use_residual = (self.shard_map and self.wire == "int8"
+                             and config.parallel.error_feedback)
+
+    @property
+    def collective_transport(self) -> str | None:
+        """How the explicit collectives travel (core/mesh.py), None under
+        DDP."""
+        if not self.shard_map:
+            return None
+        if self.runtime is None:
+            return mesh_lib.TRANSPORT_NATIVE
+        return self.runtime.collective_transport(self.device)
 
     def init_state(self, seed: int) -> TrainState:
         """Parameters drawn from the (seed, init) stream, the optimizer
         over them, the (seed, dropout) generator — (seed, dropout, rank)
         above one rank — and, with ``optimizer.ema_decay > 0``, the EMA
         starting at the parameters; model in train(). With a process group
-        the model is wrapped in DDP (which broadcasts rank 0's parameters),
-        and above one rank its BatchNorms take global statistics."""
+        under ``jit`` the model is wrapped in DDP (which broadcasts rank
+        0's parameters), and above one rank its BatchNorms take global
+        statistics. Under ``shard_map`` rank 0's parameters and buffers
+        are broadcast, the BatchNorms are global above one rank only with
+        ``model.bn_cross_replica``, and with the int8 error-feedback wire
+        the residual starts at zero."""
         model = get_model(
             self.config.model, device=self.device,
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
                                            self.device),
             in_channels=(None if self.task == "mlm"
                          else self.config.data.channels))
-        if self.world > 1:
+        if self.world > 1 and (not self.shard_map
+                               or self.config.model.bn_cross_replica):
             use_cross_rank_bn(model)
+        if self.shard_map and self.world > 1:
+            with torch.no_grad():
+                for t in model.state_dict().values():
+                    self.runtime.broadcast_(t)
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model)
         self.base_schedule = self.schedule
@@ -179,7 +244,8 @@ class StepBuilder:
                if self.config.optimizer.ema_decay > 0 else {})
         rank = () if self.world == 1 else (self.runtime.process_index,)
         ddp = None
-        if self.runtime is not None and self.runtime.backend is not None:
+        if (not self.shard_map and self.runtime is not None
+                and self.runtime.backend is not None):
             ddp = DistributedDataParallel(
                 model, device_ids=(None if self.device.type == "cpu"
                                    else [self.device.index]),
@@ -188,7 +254,11 @@ class StepBuilder:
             step=0, model=model.train(), optimizer=optimizer,
             dropout_generator=prng.torch_generator(
                 seed, prng.ROLE_DROPOUT, self.device, *rank),
-            ema_params=ema, ddp=ddp)
+            ema_params=ema, ddp=ddp,
+            collective_residual=(
+                {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in model.named_parameters()}
+                if self.use_residual else {}))
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -251,8 +321,8 @@ class StepBuilder:
         return out
 
     def _global_weight(self, local: torch.Tensor) -> torch.Tensor:
-        """The step's loss denominator over every rank's batch."""
-        if self.world == 1:
+        """The step's loss denominator over the ranks it spans."""
+        if self.weight_world == 1:
             return local
         return self.runtime.all_reduce_(local.clone())
 
@@ -261,20 +331,22 @@ class StepBuilder:
                    ) -> dict[str, torch.Tensor | float]:
         """One optimizer step on ``batch`` (this rank's block, tensors on
         the device). Updates ``state`` in place and returns the step's
-        metrics, unsynced; above one rank the task metrics are this
-        rank's, with their weight under ``_weight``
-        (:meth:`global_metrics`). ``fault_scale`` multiplies the loss, its
+        metrics, unsynced; above one rank under DDP the task metrics are
+        this rank's, with their weight under ``_weight``
+        (:meth:`global_metrics`); under ``shard_map`` they are the ranks'
+        plain mean already. ``fault_scale`` multiplies the loss, its
         gradients and the reported loss: NaN for the ``nan_grads`` drills,
         1e4 for ``loss_spike`` (core/faults.py); the default 1.0 leaves
         the step untouched."""
         state.model.train()
         state.optimizer.zero_grad()
+        world = self.weight_world
         if self.accum == 1:
             scale, weight = 1.0, None
-            if self.world > 1:
+            if world > 1:
                 weight = self._microbatch_weight(batch)
                 if self.task == "mlm":
-                    scale = (weight.clamp(min=1.0) * self.world
+                    scale = (weight.clamp(min=1.0) * world
                              / self._global_weight(weight).clamp(min=1.0))
             metrics = self._micro_step(state, batch, scale, fault_scale)
         else:
@@ -291,14 +363,15 @@ class StepBuilder:
                     m = self._micro_step(state, mb, w, fault_scale)
                 for k, v in m.items():
                     sums[k] = sums.get(k, 0.0) + w * v
-            inv = self.world / total.clamp(min=1e-9)
+            inv = world / total.clamp(min=1e-9)
             grads = [p.grad for p in state.model.parameters()]
             torch._foreach_mul_(grads, inv)
-            local_inv = inv if self.world == 1 else 1.0 / weight.clamp(
-                min=1e-9)
+            local_inv = inv if world == 1 else 1.0 / weight.clamp(min=1e-9)
             metrics = {k: v * local_inv for k, v in sums.items()}
-        if self.world > 1:
+        if world > 1:
             metrics["_weight"] = weight
+        if self.shard_map:
+            metrics = self._explicit_collectives(state, metrics)
         grad_norm = global_norm([p.grad for p in state.model.parameters()])
         state.optimizer.step(grad_norm)
         if state.ema_params:
@@ -308,6 +381,35 @@ class StepBuilder:
         metrics["grad_norm"] = grad_norm
         metrics["learning_rate"] = self.schedule(state.step)
         state.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def _explicit_collectives(self, state: TrainState,
+                              metrics: dict) -> dict:
+        """The shard_map step's collectives, in the JAX order: the
+        gradients' mean on the configured wire (with the residual, which
+        is replaced by the new one), the metrics' plain mean, and the mean
+        of the BatchNorm running statistics. Returns the metrics."""
+        rt = self.runtime
+        named = list(state.model.named_parameters())
+        grads = {k: p.grad for k, p in named}
+        if self.use_residual:
+            grads, residual = coll.allreduce_gradients_ef(
+                grads, state.collective_residual, rt, block_size=self.block)
+            state.collective_residual.update(residual)
+        else:
+            grads = coll.allreduce_gradients(
+                grads, rt, compute_dtype=self.wire or None,
+                accumulate_f32=(
+                    self.config.train.grad_allreduce_accum == "float32"),
+                block_size=self.block)
+        for k, p in named:
+            p.grad = grads[k]
+        metrics = coll.pmean(metrics, rt)
+        stats = [t for m in state.model.modules() if isinstance(m, BatchNorm)
+                 for t in (m.running_mean, m.running_var)]
+        if stats:
+            torch._foreach_copy_(stats, coll.pmean(stats, rt))
         return metrics
 
     def global_metrics(self, metrics: dict) -> dict:

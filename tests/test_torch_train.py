@@ -449,7 +449,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
     ("mesh.fsdp=2", "A10"),
-    ("train.spmd_mode=shard_map", "A9"),
+    ("optimizer.zero_sharding=shard_map", "A10"),
     ("precision.remat_policy=save_nothing", "A13"),
     ("model.num_experts=4", "A8"),
     ("precision.matmul_dtype=int8", "A13"),
