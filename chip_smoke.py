@@ -247,13 +247,39 @@ Phases (any failure raises and the script exits non-zero):
      run, and 5 steps, a save, a restore and 5 more under
      ``torch.use_deterministic_algorithms`` bit-equal to 10 straight steps
      (parameters, momentum and residual). Prints the phase's seconds.
+  11. ZeRO and FSDP (``optimizer.zero_sharding``, ``mesh.fsdp``;
+     parallel/zero.py, parallel/sharding.py), two child ranks of a gloo
+     group on the card. 11a: ``configs/bert_base_mlm.yaml`` at full depth
+     and width through the Trainer, 10 steps of 32 x 512 (16 rows a rank,
+     synthetic), ZERO_OVERRIDES (clipping off so that every mode runs the
+     same config), in three modes: (i) the replicated shard_map step, (ii)
+     ZeRO on the f32 wire, (iii) ZeRO on the int8 error-feedback wire.
+     (ii)'s losses and step-10 parameters must equal (i)'s (bit for bit
+     expected; else within ZERO_LOSS_RTOL and the run's largest lr times
+     its steps, the first differing leaf named); (iii)'s losses within
+     COLL_LOSS_TOL of (ii)'s; the tally's ``zero_*`` wire bytes at least
+     3x fewer on int8; (ii)'s checkpoint slots stacked as (2, chunk) rows;
+     each rank's slots halved; the attention kernels launched 12 x 10
+     times a kernel by each rank in each mode. Prints per rank the bytes
+     of the parameters, slots and residual at rest, the peak memory, and
+     the ms/step (gloo moves CUDA tensors through the host: not a scaling
+     figure). 11b: 8c's cut (2 layers, f32) under deterministic
+     algorithms: explicit FSDP against the replicated shard_map step, jit
+     FSDP and ZeRO-1 against DDP at ``mesh.data=2``, each bit-equal,
+     parameters (FSDP) or slots (ZeRO-1) halved at rest. 11c: ZeRO on the
+     int8 wire at that cut, 2 steps, a save, a restore into a state from
+     another seed and 2 more, bit-equal to 4 straight steps (parameters,
+     slots, residual). ``--only 11`` runs the kernels' build and phase 11
+     alone, a development run that prints no kernels line and no last
+     line.
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
-exported runs, the packed and unpacked runs, the runs of 8a, 10a and
-10a', whose children set and read their own counts) and read just after;
-launches made to compare or time a kernel do not count. The record's
-``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a and 10a', and its
+exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a'
+and 11a, whose children set and read their own counts) and read just
+after; launches made to compare or time a kernel do not count. The
+record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a' and
+11a, and its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -3442,10 +3468,11 @@ def run_children(specs: list[dict], workdir: str, name: str,
 
 
 def child_main(spec_path: str) -> int:
-    """One child of phases 8 and 10: ``cli`` runs ``cli.train.main`` with
-    the launch counts set to 0 just before and read just after (under
+    """One child of phases 8, 10 and 11: ``cli`` runs ``cli.train.main``
+    with the launch counts set to 0 just before and read just after (under
     ``torch.use_deterministic_algorithms`` when asked), and its peak
-    device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b.
+    device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
+    ``zero`` one rank of 11a and ``zero_parity`` one of 11b and 11c.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3472,6 +3499,10 @@ def child_main(spec_path: str) -> int:
                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     elif spec["kind"] == "coll":
         result = coll_rank(torch, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "zero":
+        result = zero_trainer_rank(torch, fa, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "zero_parity":
+        result = zero_parity_rank(torch, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4085,6 +4116,378 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
     return counts
 
 
+# --------------------------------------------------------------- phase 11
+
+# 11a: configs/bert_base_mlm.yaml at its full depth and width (12 layers,
+# bf16, fused QKV, the flash kernels, dropout 0.1) on two gloo ranks of the
+# one card, through the Trainer, each rank taking 16 of the global batch's
+# 32 rows of 512 tokens (the synthetic stream), 10 steps, in three modes:
+# (i) the replicated shard_map step (phase 10's path at two ranks), (ii)
+# ZeRO on the f32 wire, (iii) ZeRO on the int8 error-feedback wire. Every
+# run of the phase takes optimizer.grad_clip_norm=0, so that each mode can
+# run the same config: ZeRO and explicit FSDP refuse clipping (their update
+# sees only shards). The ladder is off and the eval skipped; the final save
+# at step 10 holds the parameters held here. gloo moves CUDA tensors
+# through the host, so the ms/step says nothing about scaling.
+ZERO_CONFIG = "configs/bert_base_mlm.yaml"
+ZERO_OVERRIDES = ("data.global_batch_size=32", "train.total_steps=10",
+                  "train.log_interval=5", "train.eval_steps=0",
+                  "train.eval_interval=0", "optimizer.grad_clip_norm=0",
+                  "resilience.rollback=false", "train.spmd_mode=shard_map")
+ZERO_MODES = {
+    "replicated": (),
+    "zero_f32": ("optimizer.zero_sharding=shard_map",),
+    "zero_int8": ("optimizer.zero_sharding=shard_map",
+                  "parallel.collective_dtype=int8")}
+ZERO_STEPS = 10
+# (ii) against (i): the same parameters and losses bit for bit are
+# expected at two ranks (the update is elementwise, the shards are cut
+# from the same reduced gradients). Written before the first run, should
+# they differ: the losses within 1e-6 relative and the parameters within
+# the largest learning rate of the run times the steps (an AdamW step
+# moves a cell by about lr at most).
+ZERO_LOSS_RTOL = 1e-6
+# 11b: 8c's cut (2 layers, full width, f32, dropout 0, 2 x (4 x 512), no
+# warmup) with clipping off, DP_STEPS steps under deterministic
+# algorithms: explicit FSDP (shard_map, mesh.fsdp=2) against the
+# replicated shard_map step, jit FSDP (mesh.fsdp=2) and ZeRO-1
+# (optimizer.zero_sharding=jit, mesh.fsdp=2) against DDP at mesh.data=2;
+# each pair bit for bit (exact gathers, elementwise updates on the parts).
+ZERO_CUT = (*DP_BERT[1], "optimizer.grad_clip_norm=0")
+FSDP2 = ("mesh.data=1", "mesh.fsdp=2")
+ZERO_CUT_MODES = {
+    "replicated": ("train.spmd_mode=shard_map",),
+    "fsdp_explicit": ("train.spmd_mode=shard_map", *FSDP2),
+    "ddp": (),
+    "fsdp_jit": FSDP2,
+    "zero1": (*FSDP2, "optimizer.zero_sharding=jit")}
+ZERO_CUT_PAIRS = (("fsdp_explicit", "replicated"), ("fsdp_jit", "ddp"),
+                  ("zero1", "ddp"))
+# 11c: ZeRO on the int8 wire at that cut, 4 steps straight against 2, a
+# save by the chief, a restore into a state built from another seed and 2
+# more (deterministic algorithms): every tensor bit-equal.
+ZERO_RESUME = ("train.spmd_mode=shard_map", "optimizer.zero_sharding=shard_map",
+               "parallel.collective_dtype=int8", "checkpoint.async_save=false")
+ZERO_RESUME_STEPS, ZERO_RESUME_SPLIT = 4, 2
+
+
+def state_bytes(torch, state) -> dict:
+    """This rank's bytes at rest: the model's parameters (FSDP's parts
+    under FSDP), the optimizer slots (ZeRO's and ZeRO-1's parts), the
+    error-feedback residual."""
+    slots = [t for s in state.optimizer.inner.state.values()
+             for t in s.values() if torch.is_tensor(t) and t.dim() >= 1]
+    return {"params": sum(p.numel() * p.element_size()
+                          for p in state.model.parameters()),
+            "slots": sum(t.numel() * t.element_size() for t in slots),
+            "residual": sum(t.numel() * t.element_size() for t in
+                            state.collective_residual.values())}
+
+
+def zero_trainer_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of 11a: a gloo group on the card; the three modes in turn
+    through the Trainer, each with the launch counts set to 0 just before
+    and read just after, its peak memory and its bytes at rest."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    base = load_config(ZERO_CONFIG, overrides=list(ZERO_OVERRIDES))
+    runtime = initialize_runtime(base.mesh, "cuda", backend="gloo")
+    out = {"rank": runtime.process_index, "backend": runtime.backend,
+           "modes": {}}
+    try:
+        for name, extra in ZERO_MODES.items():
+            ckpt = os.path.join(out_dir, f"zero_{name}")
+            cfg = load_config(ZERO_CONFIG, overrides=[
+                *ZERO_OVERRIDES, *extra, f"checkpoint.directory={ckpt}"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fa)
+            trainer = Trainer(cfg, log_dir=ckpt + "_logs", runtime=runtime)
+            t0 = time.perf_counter()
+            try:
+                trainer.train()
+            finally:
+                if trainer._ckpt_manager is not None:
+                    trainer._ckpt_manager.close()
+                trainer.writer.close()
+            out["modes"][name] = {
+                "counts": read_counts(fa), "s": time.perf_counter() - t0,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "bytes": state_bytes(torch, trainer.state),
+                "ckpt": ckpt, "logs": ckpt + "_logs"}
+            del trainer
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def zero_cut_case(torch, overrides, runtime, steps: int,
+                  seed: int = SEED, state=None, builder=None,
+                  skip: int = 0) -> dict:
+    """``steps`` steps of 11b's cut (or ``state`` onward, after ``skip``
+    batches) on this rank's blocks of the global batches: the losses, the
+    whole tensors after them, the bytes at rest."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.parallel.sharding import (
+        DimSharding,
+    )
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg = load_config(ZERO_CONFIG, overrides=list(overrides))
+    if builder is None:
+        builder = StepBuilder(cfg, device="cuda", runtime=runtime)
+        state = builder.init_state(seed)
+    ds = get_dataset(cfg.data)
+    b = cfg.data.global_batch_size // runtime.process_count
+    r = runtime.process_index
+    losses = []
+    for i in range(skip + steps):
+        batch = next(ds)
+        if i < skip:
+            continue
+        block = {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
+        m = builder.global_metrics(builder.train_step(
+            state, to_device(block, builder.device)))
+        losses.append(float(m["loss"]))
+    whole = contextlib.nullcontext()
+    if isinstance(state.layout, DimSharding):
+        whole = state.layout.whole_params(state.model)
+    with whole:
+        tensors = {k: v.detach().cpu().clone()
+                   for k, v in state.model.state_dict().items()}
+    return {"losses": losses, "tensors": tensors,
+            "bytes": state_bytes(torch, state), "builder": builder,
+            "state": state}
+
+
+def zero_resume(torch, runtime, out_dir: str) -> dict:
+    """11c on one rank: ZeRO on the int8 wire, straight and around a save
+    and a restore."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+
+    over = (*ZERO_CUT, *ZERO_RESUME)
+    straight = zero_cut_case(torch, over, runtime, ZERO_RESUME_STEPS)
+    legs = zero_cut_case(torch, over, runtime, ZERO_RESUME_SPLIT)
+    manager = CheckpointManager(dataclasses.replace(
+        legs["builder"].config.checkpoint,
+        directory=os.path.join(out_dir, "zero_resume")), runtime=runtime)
+    manager.save(ZERO_RESUME_SPLIT, legs["state"])
+    fresh = zero_cut_case(torch, over, runtime, 0, seed=SEED + 1)
+    restored = manager.restore(fresh["state"])
+    manager.close()
+    tail = zero_cut_case(
+        torch, over, runtime, ZERO_RESUME_STEPS - ZERO_RESUME_SPLIT,
+        state=fresh["state"], builder=fresh["builder"],
+        skip=ZERO_RESUME_SPLIT)
+    a, b = straight["state"], tail["state"]
+    want, got = (list(tensor_leaves(x.state_dict())) for x in (a, b))
+    return {"restored": restored,
+            "losses_equal": tail["losses"] == straight["losses"][
+                ZERO_RESUME_SPLIT:],
+            "tensors": len(want),
+            "equal": sum(torch.equal(x, y) for x, y in zip(got, want)),
+            "residual_nonzero": any(bool(v.any()) for v in
+                                    a.collective_residual.values())}
+
+
+def zero_parity_rank(torch, out_dir: str) -> dict:
+    """One rank of 11b and 11c: a gloo group on the card."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
+    try:
+        out = {"rank": runtime.process_index, "modes": {}}
+        t0 = time.perf_counter()
+        for name, extra in ZERO_CUT_MODES.items():
+            res = zero_cut_case(torch, (*ZERO_CUT, *extra), runtime,
+                                DP_STEPS)
+            path = os.path.join(
+                out_dir, f"zero_cut_{name}_rank{runtime.process_index}.pt")
+            torch.save(res["tensors"], path)
+            out["modes"][name] = {"losses": res["losses"],
+                                  "bytes": res["bytes"], "tensors": path}
+            del res
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["resume"] = zero_resume(torch, runtime, out_dir)
+        out["s"] = {"11b": t1 - t0, "11c": time.perf_counter() - t1}
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def gb(nbytes: float) -> str:
+    return f"{nbytes / 1e9:.3f} GB"
+
+
+def zero_phase(torch, workdir: str, smi: str) -> dict:
+    """Phase 11: 11a (BERT-base, two gloo ranks, the Trainer: replicated,
+    ZeRO f32, ZeRO int8) and 11b/11c (FSDP and ZeRO-1 at 8c's cut, a ZeRO
+    resume). Returns 11a's attention-kernel launches, both ranks and the
+    three modes (main-path runs)."""
+    t0 = time.perf_counter()
+    ranks = run_children([{"kind": "zero", "env": gang_env(port, 2, r)}
+                          for port in [free_port()] for r in range(2)],
+                         workdir, "zero_ranks", timeout=900)
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"11a: backends {ranks}")
+    runs = {}
+    for name in ZERO_MODES:
+        mode = ranks[0]["modes"][name]
+        events = read_events(mode["logs"])
+        train = [e for e in events if e["kind"] == "train_step"]
+        runs[name] = {
+            "meta": next(e for e in events if e["kind"] == "run_meta")[
+                "extra"],
+            "losses": {e["step"]: e["metrics"]["loss"] for e in train},
+            "lrs": [e["metrics"]["learning_rate"] for e in train],
+            "tally": train[-1]["collectives"], "ms": steady_ms(events),
+            "zero_update": next((e["extra"] for e in events
+                                 if e["kind"] == "zero_update"), None),
+            "state": torch.load(os.path.join(mode["ckpt"], str(ZERO_STEPS),
+                                             "state.pt"), map_location="cpu",
+                                weights_only=True, mmap=True)}
+        per_rank = "; ".join(
+            f"rank {r['rank']}: parameters {gb(r['modes'][name]['bytes']['params'])}"
+            f", slots {gb(r['modes'][name]['bytes']['slots'])}, residual "
+            f"{gb(r['modes'][name]['bytes']['residual'])}, peak "
+            f"{r['modes'][name]['peak_gb']:.2f} GB, launches "
+            f"{r['modes'][name]['counts']}" for r in ranks)
+        meta = runs[name]["meta"]
+        log(f"11a bert-base {name}, 2 gloo ranks on the card, {ZERO_STEPS} "
+            f"steps of 32x512: zero_sharding {meta['zero_sharding']}, wire "
+            f"{meta['collective_dtype']!r}, transport "
+            f"{meta['collective_transport']}, buckets "
+            f"{meta['zero_buckets']}; losses "
+            + ", ".join(f"step {k} {v!r}" for k, v in
+                        sorted(runs[name]["losses"].items()))
+            + f"; {runs[name]['ms']:.1f} ms/step (steps 6-10; gloo through "
+            f"the host, not a scaling figure); {per_rank} [{smi}]")
+    rep, z32, z8 = (runs[k] for k in ZERO_MODES)
+    log(f"11a zero_update event (f32): {z32['zero_update']}; tally per step "
+        f"f32: " + ", ".join(f"{k} {v}" for k, v in z32["tally"].items()
+                             if k.startswith("zero_"))
+        + "; int8: " + ", ".join(f"{k} {v}" for k, v in z8["tally"].items()
+                                 if k.startswith("zero_")))
+    # (ii) against (i): the parameters of the step-10 checkpoints.
+    a, b = rep["state"]["model"], z32["state"]["model"]
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max(((a[k].float() - b[k].float()).abs().max().item(), k)
+                for k in a)
+    param_atol = max(rep["lrs"]) * ZERO_STEPS
+    log(f"11a (ii) ZeRO f32 vs (i) replicated: losses equal "
+        f"{z32['losses'] == rep['losses']}; {len(a) - len(differ)} of "
+        f"{len(a)} parameter tensors bit-equal"
+        + (f", first differing {differ[0]}, worst |diff| {worst[0]:.3e} "
+           f"({worst[1]}; tol {param_atol:.3e})" if differ else ""))
+    if differ or z32["losses"] != rep["losses"]:
+        if (worst[0] > param_atol or any(
+                abs(z32["losses"][k] - v) > ZERO_LOSS_RTOL * abs(v)
+                for k, v in rep["losses"].items())):
+            raise AssertionError("11a: ZeRO f32 differs from the replicated "
+                                 "step beyond the tolerance")
+    slots = z32["state"]["optimizer"]["inner"]["state"]
+    stacked = all(t.dim() == 2 and t.shape[0] == 2 for s in slots.values()
+                  for t in s.values() if t.dim())
+    gap = max(abs(z8["losses"][k] - v) - COLL_LOSS_TOL["rtol"] * abs(v)
+              for k, v in z32["losses"].items())
+    raw = max(abs(z8["losses"][k] - v) for k, v in z32["losses"].items())
+    ratio = {k: z32["tally"][f"zero_{k}_bytes"] / z8["tally"][
+        f"zero_{k}_bytes"] for k in ("reduce_scatter", "all_gather")}
+    log(f"11a (iii) int8 vs (ii) f32: largest |gap| {raw:.3e}, worst "
+        f"|gap| - rtol|f32| {gap:.3e} "
+        f"(tol atol {COLL_LOSS_TOL['atol']}); zero_* wire bytes f32/int8 "
+        f"{ratio}; checkpoint slots stacked (2, chunk): {stacked}")
+    if (gap > COLL_LOSS_TOL["atol"] or min(ratio.values()) < 3
+            or not stacked or set(rep["losses"]) != {5, 10}
+            or not all(math.isfinite(v) for v in z8["losses"].values())):
+        raise AssertionError("11a: the int8 run, the tally or the stacked "
+                             "slots miss their checks")
+    halves = {}
+    for r in ranks:
+        m = r["modes"]
+        halves[r["rank"]] = (m["zero_f32"]["bytes"]["slots"]
+                             / m["replicated"]["bytes"]["slots"])
+    log(f"11a slots per rank, ZeRO over replicated: "
+        + ", ".join(f"rank {k} {v:.4f}" for k, v in halves.items()))
+    if any(not 0.49 < v <= 0.5 + 1e-3 for v in halves.values()):
+        raise AssertionError("11a: ZeRO did not halve the slots per rank")
+    want = {"fwd": 12 * ZERO_STEPS, "dq": 12 * ZERO_STEPS,
+            "dkv": 12 * ZERO_STEPS, "fused": 0}
+    counts = {k: 0 for k in want}
+    for r in ranks:
+        for name in ZERO_MODES:
+            got = r["modes"][name]["counts"]
+            if got != want:
+                raise AssertionError(f"11a: rank {r['rank']} {name} "
+                                     f"launches {got}, expected {want}")
+            counts = {k: counts[k] + got[k] for k in counts}
+    t1 = time.perf_counter()
+    # 11b and 11c.
+    torch.cuda.empty_cache()
+    parity = run_children([{"kind": "zero_parity", "env": gang_env(port, 2, r),
+                            "deterministic": True}
+                           for port in [free_port()] for r in range(2)],
+                          workdir, "zero_parity", timeout=600)
+    bad = []
+    for r in parity:
+        modes = r["modes"]
+        for got, ref in ZERO_CUT_PAIRS:
+            x = torch.load(modes[got]["tensors"], weights_only=True)
+            y = torch.load(modes[ref]["tensors"], weights_only=True)
+            equal = sum(torch.equal(x[k], y[k]) for k in y)
+            same = modes[got]["losses"] == modes[ref]["losses"]
+            log(f"11b rank {r['rank']} {got} vs {ref} ({DP_STEPS} steps, "
+                f"2 layers, f32): losses equal {same}, {equal} of {len(y)} "
+                f"tensors bit-equal; parameters at rest "
+                f"{gb(modes[got]['bytes']['params'])} against "
+                f"{gb(modes[ref]['bytes']['params'])}, slots "
+                f"{gb(modes[got]['bytes']['slots'])} against "
+                f"{gb(modes[ref]['bytes']['slots'])}")
+            if not same or equal != len(y):
+                bad.append((r["rank"], got))
+        rb = modes
+        if not (rb["fsdp_explicit"]["bytes"]["params"]
+                < 0.51 * rb["replicated"]["bytes"]["params"]
+                and rb["fsdp_jit"]["bytes"]["params"]
+                < 0.51 * rb["ddp"]["bytes"]["params"]
+                and rb["zero1"]["bytes"]["slots"]
+                < 0.51 * rb["ddp"]["bytes"]["slots"]):
+            bad.append((r["rank"], "bytes at rest"))
+        res = r["resume"]
+        log(f"11c rank {r['rank']} ZeRO int8 resume (deterministic "
+            f"algorithms): restored step {res['restored']}; losses after the "
+            f"restore equal {res['losses_equal']}; {res['equal']} of "
+            f"{res['tensors']} tensors (parameters, slots, residual) "
+            f"bit-equal to {ZERO_RESUME_STEPS} straight steps; 11b "
+            f"{r['s']['11b']:.1f} s, 11c {r['s']['11c']:.1f} s")
+        if not (res["restored"] == ZERO_RESUME_SPLIT and res["losses_equal"]
+                and res["equal"] == res["tensors"]
+                and res["residual_nonzero"]):
+            bad.append((r["rank"], "resume"))
+    if bad:
+        raise AssertionError(f"11b/11c: {bad}")
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s (11a "
+        f"{t1 - t0:.1f} s)")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4120,6 +4523,14 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
         f"matmul and cuDNN")
 
+    if only == "11":
+        # A development run of phase 11 alone (``--only 11``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zero_") as wd:
+            zero_phase(torch, wd, gpu)
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -4207,9 +4618,19 @@ def main() -> int:
             "ranks on the card (10b)")
         coll_counts = collectives_phase(torch, workdir, full, ms_8a, gpu)
 
+    # Phase 11: ZeRO and FSDP. 11a runs BERT-base through the attention
+    # kernels on two ranks in three modes, so its launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zero_") as workdir:
+        log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the card"
+            " through the Trainer, replicated, ZeRO f32 and ZeRO int8 (11a);"
+            " FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO resume (11c)")
+        zero_counts = zero_phase(torch, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
-    # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run and
-    # phase 10's shard_map runs) and the two long-context runs; those with
+    # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
+    # phase 10's shard_map runs and phase 11a's two-rank runs, both ranks
+    # of each) and the two long-context runs; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -4217,7 +4638,7 @@ def main() -> int:
     # with FUSED_BWD forced on, and say so.
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
-                + coll_counts[name]
+                + coll_counts[name] + zero_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

@@ -13,8 +13,9 @@ A checkpoint is a step directory, committed by its integrity manifest
                         collective error-feedback residual when there is
                         one; read back with
                         ``torch.load(weights_only=True)``
-      meta.json       — the step, the generator's device type and the
-                        model's parameter names
+      meta.json       — the step, the generator's device type, the
+                        model's parameter names and, under ZeRO, the
+                        row count of the stacked slots (``zero_rows``)
       data_iter.json  — the data iterator's state (when given)
       manifest.json   — sha256 and size of each file above, plus the
                         data-state commit record (data/shard.py); written
@@ -61,6 +62,20 @@ leaf's sum (ckpt/reshard.py); a checkpoint without one gives zeros, with
 a warning; a run that does not use one drops the stored one, with a
 warning. Export reads the model's tensors alone, so it never sees it.
 
+A sharded state (train/state.py ``layout``) is written in the whole,
+global layout the JAX package's orbax checkpoints hold, so that a
+checkpoint does not depend on how the run that wrote it was sharded:
+FSDP's parameters, slots and EMA and ZeRO-1's slots are gathered whole
+(exact f32), and ZeRO's slots are stacked as ``(n, chunk)`` rows, row i
+rank i's (every rank takes part in the gathers; the chief writes). A
+restore cuts each rank's part back out: its slice of a whole tensor, or
+its row of the stacked slots — refolded first (ckpt/reshard.py
+``refold_zero_opt_state``) when another rank count saved them. FSDP,
+ZeRO-1 and replicated checkpoints restore into one another; switching ZeRO
+``shard_map`` on or off across a resume is refused with the JAX package's
+ValueError, since the stacked and the whole slot layouts are different
+optimizers' states.
+
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
 and the host copy); ``ckpt_save_total_ms`` is from ``save`` to the landed
@@ -80,10 +95,14 @@ import torch
 
 from distributed_tensorflow_framework_torch.ckpt import manifest as mf
 from distributed_tensorflow_framework_torch.ckpt.async_saver import AsyncSaver
-from distributed_tensorflow_framework_torch.ckpt.reshard import fold_residual
+from distributed_tensorflow_framework_torch.ckpt.reshard import (
+    fold_residual,
+    refold_zero_opt_state,
+)
 from distributed_tensorflow_framework_torch.core import faults, telemetry
 from distributed_tensorflow_framework_torch.core.config import CheckpointConfig
 from distributed_tensorflow_framework_torch.data import shard as data_shard
+from distributed_tensorflow_framework_torch.parallel.zero import ZeroUpdate
 from distributed_tensorflow_framework_torch.train.state import (
     TrainState,
     host_copy,
@@ -193,7 +212,9 @@ class CheckpointManager:
             "schema": CKPT_SCHEMA, "step": int(host_state["step"]),
             "generator_device": host_state["generator_device"],
             "process_count": self.process_count,
-            "params": list(host_state["model"])})
+            "params": list(host_state["model"]),
+            **({"zero_rows": host_state["zero_rows"]}
+               if "zero_rows" in host_state else {})})
         extra = None
         if dataset_state is not None:
             _write_json(os.path.join(step_dir, DATA_FILE), dataset_state)
@@ -238,6 +259,9 @@ class CheckpointManager:
         t0 = time.perf_counter()
         generators = self._gather_generators(state)
         residual = self._gather_residual(state)
+        live = state.state_dict()
+        if state.layout is not None:
+            live = state.layout.global_state(live, state.optimizer.names)
         if not self.is_chief:
             return False
         self._drain()  # a new save waits for the previous commit
@@ -254,9 +278,10 @@ class CheckpointManager:
                 log.warning("infeed watermark probe failed", exc_info=True)
         # A real copy taken at the step boundary: the loop updates the
         # live tensors in place from the next step on.
-        live = state.state_dict()
         live.pop("collective_residual", None)  # every rank's rows below
         host_state = host_copy(live)
+        if isinstance(state.layout, ZeroUpdate):
+            host_state["zero_rows"] = state.layout.n
         if generators is not None:
             host_state["dropout_generators"] = generators
         if residual is not None:
@@ -460,6 +485,7 @@ class CheckpointManager:
             if plan is not None:
                 self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
         tensors = self._own_residual(state, step, tensors)
+        tensors = self._own_parts(state, step, meta, tensors)
         state.load_state_dict({
             **tensors, "step": meta["step"],
             "generator_device": meta["generator_device"],
@@ -500,6 +526,36 @@ class CheckpointManager:
         tensors["collective_residual"] = {k: v[self._rank]
                                           for k, v in rows.items()}
         return tensors
+
+    def _own_parts(self, state: TrainState, step: int, meta: dict,
+                   tensors: dict) -> dict:
+        """``tensors`` (the whole layout) cut to this rank's parts of a
+        sharded state; ZeRO's stacked slots refolded first when another
+        rank count saved them. A ZeRO toggle across the resume is
+        refused."""
+        stored = meta.get("zero_rows")
+        zero = isinstance(state.layout, ZeroUpdate)
+        if (stored is not None) != zero:
+            saved = (f"ZeRO-stacked over {stored} rows" if stored is not None
+                     else "whole")
+            raise ValueError(
+                f"checkpoint step {step} in {self._path} stores an "
+                f"optimizer state whose slot layout does not match this "
+                f"run's: toggling optimizer.zero_sharding between "
+                f"'shard_map' and another mode across a resume is "
+                f"unsupported (replicated and ZeRO-stacked slot layouts "
+                f"are incompatible) — restore with the settings the "
+                f"checkpoint was saved under (its slots are {saved})")
+        if state.layout is None:
+            return tensors
+        names = state.optimizer.names
+        if zero and stored != self.process_count:
+            tensors = {**tensors, "optimizer": refold_zero_opt_state(
+                tensors["optimizer"], names, state.layout.sizes,
+                self.process_count)}
+            log.warning("ZeRO optimizer slots refolded %d -> %d rows "
+                        "across the restore", stored, self.process_count)
+        return state.layout.local_state(tensors, names)
 
     def _own_generator(self, state: TrainState, meta: dict,
                        tensors: dict) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Moving state across a change of the replica count: the port's copy of
-``ckpt/reshard.py``'s :func:`fold_residual` (the rest of that module, the
-elastic reshard, is ROADMAP.md queue A item A17)."""
+"""Moving state across a change of the replica count: the port's copies
+of ``ckpt/reshard.py``'s :func:`fold_residual` and
+:func:`refold_zero_opt_state` (the rest of that module, the elastic
+reshard, is ROADMAP.md queue A item A17)."""
 
 from __future__ import annotations
 
 import torch
+
+from distributed_tensorflow_framework_torch.parallel.sharding import map_slots
+from distributed_tensorflow_framework_torch.parallel.zero import refold_rows
 
 
 def fold_residual(rows: dict[str, torch.Tensor],
@@ -32,3 +36,17 @@ def fold_residual(rows: dict[str, torch.Tensor],
         return out
 
     return {k: fold(v) for k, v in rows.items()}
+
+
+def refold_zero_opt_state(stored: dict, names: list[str],
+                          sizes: dict[str, int], n_new: int) -> dict:
+    """Re-chunk ZeRO-stacked optimizer slots (an ``Optimizer.state_dict()``
+    whose slots are ``(n_old, ceil(size/n_old))`` rows, as a checkpoint
+    stores them) for ``n_new`` replicas: each slot flattened, truncated to
+    its parameter's true ``size`` (``sizes`` by key; ``names`` maps the
+    optimizer's indices to keys) and re-padded to ``(n_new,
+    ceil(size/n_new))``. The padding is inert (zero gradient and zero
+    parameter give a zero update under every rule ZeRO allows), so the
+    refold changes no real cell; the step counters pass through."""
+    return map_slots(lambda t, key: refold_rows(t, sizes[key], n_new),
+                     stored, names)

@@ -17,33 +17,47 @@ stands in for the mesh's ``data`` axis:
 
 The mesh's sizes resolve as in the JAX package (one axis may be -1, the
 product must equal the world size, else :class:`MeshSizeError`, which
-``cli/train.py`` maps to rc 84). Only the ``data`` axis may exceed 1:
-``fsdp``/``model`` (A10), ``seq`` (A11), ``pipe`` (A12) and ``expert``
-(A8) raise NotImplementedError naming their ROADMAP.md item.
+``cli/train.py`` maps to rc 84). The ``data`` and ``fsdp`` axes may
+exceed 1; ``model`` (A10's tensor-parallel half), ``seq`` (A11), ``pipe``
+(A12) and ``expert`` (A8) raise NotImplementedError naming their
+ROADMAP.md item. Rank r sits at the coordinates of r in the row-major
+order of ``MESH_AXES`` (``data`` outermost): with data and fsdp,
+``r = data_idx · fsdp + fsdp_idx``, which is what JAX's
+``linear_axis_index(("data", "fsdp"))`` gives.
 
 :class:`MeshRuntime` carries the collectives the port uses across ranks:
 ``all_reduce``, ``broadcast`` and, for the explicit collectives of
 parallel/collectives.py, ``all_to_all``, ``all_gather`` and
-``reduce_scatter``. NCCL, and gloo on CPU tensors, run the last three as
-the native ops (``all_to_all_single``, ``all_gather_into_tensor``,
+``reduce_scatter``. All but ``broadcast`` act on every rank, or on an
+:class:`AxisGroup`: the ranks along some mesh axes that share this
+rank's other coordinates (:meth:`MeshRuntime.axis_group`; explicit FSDP
+gathers over ``fsdp`` alone, while ZeRO and the gradient reduction span
+data × fsdp, every rank). The subgroups are formed by every rank at the
+same point: in :func:`initialize_runtime`, or in
+:meth:`MeshRuntime.remesh` for another mesh over the same ranks. NCCL,
+and gloo on CPU tensors, run
+``all_to_all``, ``all_gather`` and ``reduce_scatter`` as the native ops
+(``all_to_all_single``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``). Gloo carries only ``all_reduce`` and
 ``broadcast`` on CUDA tensors, which is how two ranks share one card
 (NCCL refuses two ranks on one device), so there the three are built
-from ``all_reduce``: each rank writes its bytes into its own slot of a
-zero-filled buffer viewed as int32, and the integer sum, every other slot
-being zero, carries them exactly (a float sum would turn −0.0 into +0.0);
-the reduce-scatter is an ``all_reduce`` of the whole input, of which a
-rank keeps its chunk. The transport is chosen by backend and device only
-(:meth:`MeshRuntime.collective_transport`); NCCL never takes the second.
+from ``all_reduce`` over the same group: each rank writes its bytes into
+its own slot of a zero-filled buffer viewed as int32, and the integer
+sum, every other slot being zero, carries them exactly (a float sum
+would turn −0.0 into +0.0); the reduce-scatter is an ``all_reduce`` of
+the whole input, of which a rank keeps its chunk. The transport is chosen
+by backend and device only (:meth:`MeshRuntime.collective_transport`);
+NCCL never takes the second.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import math
 import os
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 import torch.distributed as dist
@@ -55,8 +69,8 @@ from distributed_tensorflow_framework_torch.core.device import resolve_device
 log = logging.getLogger(__name__)
 
 MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
-# The ROADMAP.md queue A item that ports each axis other than ``data``.
-_AXIS_ITEMS = {"fsdp": "A10 (FSDP)", "model": "A10 (tensor parallel)",
+# The ROADMAP.md queue A item that ports each axis not ported yet.
+_AXIS_ITEMS = {"model": "A10 (tensor parallel)",
                "seq": "A11 (sequence parallel)", "pipe": "A12 (pipeline)",
                "expert": "A8 (expert parallel)"}
 
@@ -96,13 +110,14 @@ def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
-                f"queue A item {item}; the port runs data parallel only")
+                f"queue A item {item}; the port runs the data and fsdp "
+                f"axes only")
 
 
 def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
     """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
-    an axis other than ``data`` above 1, MeshSizeError when the sizes do
-    not fit the ranks."""
+    an axis other than ``data`` and ``fsdp`` above 1, MeshSizeError when
+    the sizes do not fit the ranks."""
     _refuse_unported_axes(config.axis_sizes())
     sizes = _resolve_axis_sizes(config, world)
     _refuse_unported_axes(sizes)
@@ -162,50 +177,97 @@ def _bytes_of(tensor: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
-                             runtime: "MeshRuntime") -> torch.Tensor:
-    """``all_gather_`` from one ``all_reduce``: rank r's bytes in slot r of
-    a zero-filled int32 buffer, summed over the ranks (exact: every other
-    slot is zero)."""
-    n, src = runtime.process_count, _bytes_of(input)
+                             group: "AxisGroup") -> torch.Tensor:
+    """``all_gather_`` from one ``all_reduce`` over ``group``: member i's
+    bytes in slot i of a zero-filled int32 buffer, summed over the members
+    (exact: every other slot is zero)."""
+    n, src = group.size, _bytes_of(input)
     buf = _byte_rows(n, src.numel(), input.device)
-    buf[runtime.process_index].view(torch.uint8)[:src.numel()].copy_(src)
-    dist.all_reduce(buf)
+    buf[group.index].view(torch.uint8)[:src.numel()].copy_(src)
+    dist.all_reduce(buf, group=group.group)
     _bytes_of(output).view(n, -1).copy_(
         buf.view(torch.uint8).view(n, -1)[:, :src.numel()])
     return output
 
 
 def all_to_all_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
-                             runtime: "MeshRuntime") -> torch.Tensor:
-    """``all_to_all_`` from one ``all_reduce`` over an (n senders, n
-    receivers) grid of zero-filled int32 slots: rank r fills row r, and
-    rank p reads column p."""
-    n, rank = runtime.process_count, runtime.process_index
+                             group: "AxisGroup") -> torch.Tensor:
+    """``all_to_all_`` from one ``all_reduce`` over ``group``'s (n
+    senders, n receivers) grid of zero-filled int32 slots: member r fills
+    row r, and member p reads column p."""
+    n, rank = group.size, group.index
     src = _bytes_of(input).view(n, -1)
     chunk = src.shape[1]
     buf = _byte_rows(n * n, chunk, input.device).view(n, n, -1)
     buf[rank].view(torch.uint8).view(n, -1)[:, :chunk].copy_(src)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group.group)
     _bytes_of(output).view(n, -1).copy_(
         buf[:, rank].contiguous().view(torch.uint8).view(n, -1)[:, :chunk])
     return output
 
 
 def reduce_scatter_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
-                                 runtime: "MeshRuntime") -> torch.Tensor:
-    """``reduce_scatter_`` from one ``all_reduce`` of the whole input, of
-    which rank r keeps chunk r."""
+                                 group: "AxisGroup") -> torch.Tensor:
+    """``reduce_scatter_`` from one ``all_reduce`` over ``group`` of the
+    whole input, of which member r keeps chunk r."""
     total = input.clone()
-    dist.all_reduce(total)
-    return output.copy_(total.chunk(runtime.process_count)[
-        runtime.process_index])
+    dist.all_reduce(total, group=group.group)
+    return output.copy_(total.chunk(group.size)[group.index])
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks along ``axes`` that share this rank's coordinates on
+    every other axis: how many (``size``), this rank's place among them
+    (``index``, the linear index over ``axes``, first axis major) and the
+    torch process group that joins them (None: the default group, which
+    is every rank, or no group at all when ``size`` is 1)."""
+
+    axes: tuple[str, ...]
+    size: int
+    index: int
+    group: Any = None
+
+
+def _coords(sizes: Mapping[str, int], rank: int) -> dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis, row-major over MESH_AXES."""
+    out = {}
+    for axis in reversed(MESH_AXES):
+        rank, out[axis] = divmod(rank, sizes[axis])
+    return out
+
+
+def _rank_of(sizes: Mapping[str, int], coords: Mapping[str, int]) -> int:
+    rank = 0
+    for axis in MESH_AXES:
+        rank = rank * sizes[axis] + coords[axis]
+    return rank
+
+
+def _canon_axes(axes) -> tuple[str, ...]:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for axis in axes:
+        if axis not in MESH_AXES:
+            raise ValueError(f"unknown mesh axis {axis!r} (one of "
+                             f"{MESH_AXES})")
+    return tuple(a for a in MESH_AXES if a in axes)
+
+
+def _subgroup_axes(sizes: Mapping[str, int]) -> list[tuple[str, ...]]:
+    """Every proper, non-empty subset of the axes above 1, in a fixed
+    order: the subgroups a runtime forms (the whole set is the default
+    group)."""
+    big = [a for a in MESH_AXES if sizes[a] > 1]
+    return [combo for k in range(1, len(big))
+            for combo in itertools.combinations(big, k)]
 
 
 @dataclasses.dataclass
 class MeshRuntime:
     """This process's view of the runtime. ``backend`` is the process
     group's (``"nccl"`` or ``"gloo"``), None when no group was formed.
-    The collectives below act on the default group. ``all_reduce_`` and
+    ``broadcast_`` acts on every rank; the other collectives on every rank
+    or on the :class:`AxisGroup` they are given. ``all_reduce_`` and
     ``broadcast_`` do nothing at a world of 1, so the single-rank
     arithmetic stays today's; ``all_to_all_``, ``all_gather_`` and
     ``reduce_scatter_`` copy when no group was formed and run the
@@ -216,6 +278,10 @@ class MeshRuntime:
     process_count: int
     device: torch.device
     backend: str | None = None
+    # (axes, the other axes' coordinates) → the process group of that
+    # subgroup, for the subgroups this rank belongs to
+    # (:func:`initialize_runtime` forms them).
+    subgroups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def is_chief(self) -> bool:
@@ -238,10 +304,51 @@ class MeshRuntime:
         tensors only, gloo takes host ones."""
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
-    def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Sum ``tensor`` over the ranks in place; returns it."""
-        if self.process_count > 1:
-            dist.all_reduce(tensor)
+    @property
+    def world_group(self) -> AxisGroup:
+        """Every rank."""
+        return AxisGroup(tuple(a for a in MESH_AXES if self.sizes[a] > 1),
+                         self.process_count, self.process_index)
+
+    def axis_group(self, axes) -> AxisGroup:
+        """The ranks along ``axes`` (a name or names of MESH_AXES) that
+        share this rank's other coordinates."""
+        axes = _canon_axes(axes)
+        size = math.prod(self.sizes[a] for a in axes)
+        coords = _coords(self.sizes, self.process_index)
+        index = 0
+        for axis in axes:
+            index = index * self.sizes[axis] + coords[axis]
+        if size == self.process_count:
+            return dataclasses.replace(self.world_group, axes=axes)
+        if size == 1:
+            return AxisGroup(axes, 1, 0)
+        big = tuple(a for a in axes if self.sizes[a] > 1)
+        key = (big, tuple(coords[a] for a in MESH_AXES if a not in big))
+        return AxisGroup(axes, size, index, self.subgroups[key])
+
+    def remesh(self, sizes: Mapping[str, int]) -> "MeshRuntime":
+        """This runtime over the same ranks with the mesh ``sizes`` (whose
+        product must be the world), its subgroups formed anew: every rank
+        must call it at the same point, as ``new_group`` requires."""
+        sizes = dict(sizes)
+        if math.prod(sizes.values()) != self.process_count:
+            raise MeshSizeError(sizes, math.prod(sizes.values()),
+                                self.process_count)
+        groups = ({} if self.backend is None
+                  else _form_subgroups(sizes, self.process_index))
+        return dataclasses.replace(self, sizes=sizes, subgroups=groups)
+
+    def _group(self, group: AxisGroup | None) -> AxisGroup:
+        return self.world_group if group is None else group
+
+    def all_reduce_(self, tensor: torch.Tensor,
+                    group: AxisGroup | None = None) -> torch.Tensor:
+        """Sum ``tensor`` over the ranks (of ``group``) in place; returns
+        it."""
+        g = self._group(group)
+        if g.size > 1:
+            dist.all_reduce(tensor, group=g.group)
         return tensor
 
     def broadcast_(self, tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -258,39 +365,44 @@ class MeshRuntime:
             return TRANSPORT_ALL_REDUCE
         return TRANSPORT_NATIVE
 
-    def all_to_all_(self, output: torch.Tensor,
-                    input: torch.Tensor) -> torch.Tensor:
-        """Split ``input`` into ``process_count`` equal chunks along dim 0
-        and send chunk p to rank p; ``output`` (input's shape) receives
-        rank r's chunk as its chunk r. Returns ``output``."""
-        if self.backend is None:
+    def all_to_all_(self, output: torch.Tensor, input: torch.Tensor,
+                    group: AxisGroup | None = None) -> torch.Tensor:
+        """Split ``input`` into as many equal chunks along dim 0 as the
+        group has members and send chunk p to member p; ``output``
+        (input's shape) receives member r's chunk as its chunk r. Returns
+        ``output``."""
+        g = self._group(group)
+        if self.backend is None or g.size == 1:
             return output.copy_(input)
         if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
-            return all_to_all_by_all_reduce(output, input, self)
-        dist.all_to_all_single(output, input.contiguous())
+            return all_to_all_by_all_reduce(output, input, g)
+        dist.all_to_all_single(output, input.contiguous(), group=g.group)
         return output
 
-    def all_gather_(self, output: torch.Tensor,
-                    input: torch.Tensor) -> torch.Tensor:
-        """``output`` (``process_count`` × input's dim 0) becomes every
-        rank's ``input`` concatenated in rank order. Returns it."""
-        if self.backend is None:
+    def all_gather_(self, output: torch.Tensor, input: torch.Tensor,
+                    group: AxisGroup | None = None) -> torch.Tensor:
+        """``output`` (the group's size × input's dim 0) becomes every
+        member's ``input`` concatenated in member order. Returns it."""
+        g = self._group(group)
+        if self.backend is None or g.size == 1:
             return output.copy_(input)
         if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
-            return all_gather_by_all_reduce(output, input, self)
-        dist.all_gather_into_tensor(output, input.contiguous())
+            return all_gather_by_all_reduce(output, input, g)
+        dist.all_gather_into_tensor(output, input.contiguous(),
+                                    group=g.group)
         return output
 
-    def reduce_scatter_(self, output: torch.Tensor,
-                        input: torch.Tensor) -> torch.Tensor:
-        """Sum ``input`` over the ranks and give rank r chunk r of the sum
-        (along dim 0, ``process_count`` equal chunks) in ``output``.
-        Returns it."""
-        if self.backend is None:
+    def reduce_scatter_(self, output: torch.Tensor, input: torch.Tensor,
+                        group: AxisGroup | None = None) -> torch.Tensor:
+        """Sum ``input`` over the group's members and give member r chunk
+        r of the sum (along dim 0, one equal chunk per member) in
+        ``output``. Returns it."""
+        g = self._group(group)
+        if self.backend is None or g.size == 1:
             return output.copy_(input)
         if self.collective_transport(input.device) == TRANSPORT_ALL_REDUCE:
-            return reduce_scatter_by_all_reduce(output, input, self)
-        dist.reduce_scatter_tensor(output, input.contiguous())
+            return reduce_scatter_by_all_reduce(output, input, g)
+        dist.reduce_scatter_tensor(output, input.contiguous(), group=g.group)
         return output
 
     def broadcast_int(self, value: int | None, src: int = 0) -> int | None:
@@ -309,6 +421,25 @@ class MeshRuntime:
             self.backend = None
 
 
+def _form_subgroups(sizes: Mapping[str, int], rank: int) -> dict:
+    """Form every subgroup of :func:`_subgroup_axes` (each rank must call
+    ``new_group`` for every group, in the same order) and keep those this
+    rank belongs to, keyed as :meth:`MeshRuntime.axis_group` reads them."""
+    mine = _coords(sizes, rank)
+    out = {}
+    for axes in _subgroup_axes(sizes):
+        others = [a for a in MESH_AXES if a not in axes]
+        for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+            ranks = [_rank_of(sizes, {**dict(zip(others, fixed)),
+                                      **dict(zip(axes, inner))})
+                     for inner in itertools.product(
+                         *(range(sizes[a]) for a in axes))]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                out[(axes, fixed)] = group
+    return out
+
+
 def initialize_runtime(config: MeshConfig | None = None,
                        device: str | torch.device = "cuda",
                        backend: str | None = None, *,
@@ -316,8 +447,8 @@ def initialize_runtime(config: MeshConfig | None = None,
                        ) -> MeshRuntime:
     """Resolve the mesh against the gang and form the process group.
     ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
-    tensors runs two ranks on one card). Raises NotImplementedError for a
-    non-data axis above 1, MeshSizeError when the mesh does not fit the
+    tensors runs two ranks on one card). Raises NotImplementedError for an
+    axis other than data and fsdp above 1, MeshSizeError when the mesh does not fit the
     ranks, DeviceUnavailableError for CUDA without a card."""
     config = config or MeshConfig()
     gang = gang_from_env(environ)
@@ -336,6 +467,7 @@ def initialize_runtime(config: MeshConfig | None = None,
         if not dist.is_initialized():
             dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                     world_size=world, rank=rank)
-        runtime = MeshRuntime(sizes, rank, world, dev, dist.get_backend())
+        runtime = MeshRuntime(sizes, rank, world, dev, dist.get_backend(),
+                              _form_subgroups(sizes, rank))
     log.info("Mesh runtime: %s", runtime.describe())
     return runtime

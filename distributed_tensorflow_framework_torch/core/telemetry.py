@@ -7,7 +7,8 @@ Only the kinds the port emits so far are defined here: the serve kinds;
 the train-step, eval, failure, health, run-meta, startup and data-shard
 kinds of the trainer; the checkpoint kinds (save, quarantine, restore
 fallback, data state); the recovery-ladder kinds (anomaly, rollback,
-skipped batches, infeed stall); and the packing census. The summary rollup of
+skipped batches, infeed stall); the packing census; and the ZeRO plan
+(``zero_update``). The summary rollup of
 ``summarize_events`` is ROADMAP.md queue A item A16.
 """
 
@@ -55,6 +56,14 @@ KIND_DATA_PACKING = "data_packing"
 KIND_STARTUP = "startup"
 # This rank's slice of every global batch (data/shard.py:shard_plan).
 KIND_DATA_SHARD = "data_shard"
+# One per ZeRO-sharded run (optimizer.zero_sharding="shard_map",
+# parallel/zero.py): the static shard/bucket plan — bucket count, shard
+# (replica) count, per-shard elements, reduce-scatter vs all-gather wire
+# bytes per step, the structural overlap bound (B-1)/B and its
+# nominal-rate estimate of hidden milliseconds. Analytic from the plan;
+# the measured bytes ride the train_step events' tally
+# (zero_reduce_scatter / zero_all_gather).
+KIND_ZERO_UPDATE = "zero_update"
 # The in-process recovery ladder (train/anomaly.py) and the infeed
 # watchdog (data/infeed.py).
 KIND_ANOMALY = "anomaly_detected"

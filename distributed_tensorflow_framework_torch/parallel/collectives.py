@@ -4,10 +4,14 @@ counterpart of ``parallel/collectives.py``.
 The JAX package places these inside ``shard_map`` over the mesh's data
 axes; the port runs one process per GPU, so each function takes the
 :class:`~distributed_tensorflow_framework_torch.core.mesh.MeshRuntime`
-(``None``: a single process, where every collective is the identity) in
-place of the axis names, and the replica index is the rank
-(:func:`linear_axis_index`). Each takes a tensor or a nest of dicts, lists
-and tuples of tensors and returns the same nest.
+(``None``: a single process, where every collective is the identity) and
+the mesh axes it spans, ``axes``: None for every rank (data × fsdp, the
+JAX package's ``DATA_AXES``), or names such as ``"fsdp"`` for the ranks
+along those axes that share this rank's other coordinates
+(``MeshRuntime.axis_group``). The replica index over them is
+:func:`linear_axis_index` (the rank, over every rank). Each takes a
+tensor or a nest of dicts, lists and tuples of tensors and returns the
+same nest.
 
 Wire formats (``parallel.collective_dtype``): ``bfloat16`` casts the
 payload; ``int8`` runs the EQuARX block-scaled protocol of
@@ -179,54 +183,67 @@ def _like(tree: Any, leaves: list[torch.Tensor]) -> Any:
 
 # -------------------------------------------------------------- the group --
 
-def _size(runtime) -> int:
-    return 1 if runtime is None else runtime.process_count
+def _group(runtime, axes=None):
+    """The ``AxisGroup`` of ``axes`` (every rank for None); None without a
+    runtime."""
+    if runtime is None:
+        return None
+    return runtime.world_group if axes is None else runtime.axis_group(axes)
 
 
-def linear_axis_index(runtime) -> int:
-    """This replica's index over the data axis: the rank (0 without a
-    group)."""
-    return 0 if runtime is None else runtime.process_index
+def _size(runtime, axes=None) -> int:
+    g = _group(runtime, axes)
+    return 1 if g is None else g.size
 
 
-def _all_reduce(flat: torch.Tensor, runtime) -> torch.Tensor:
-    return flat if runtime is None else runtime.all_reduce_(flat)
+def linear_axis_index(runtime, axes=None) -> int:
+    """This replica's linear index over ``axes`` (first axis major; every
+    rank for None, where it is the rank); 0 without a group."""
+    g = _group(runtime, axes)
+    return 0 if g is None else g.index
 
 
-def _all_to_all(x: torch.Tensor, runtime) -> torch.Tensor:
+def _all_reduce(flat: torch.Tensor, runtime, axes=None) -> torch.Tensor:
+    return flat if runtime is None else runtime.all_reduce_(
+        flat, _group(runtime, axes))
+
+
+def _all_to_all(x: torch.Tensor, runtime, axes=None) -> torch.Tensor:
     return x if runtime is None else runtime.all_to_all_(
-        torch.empty_like(x), x)
+        torch.empty_like(x), x, _group(runtime, axes))
 
 
-def _all_gather(x: torch.Tensor, runtime) -> torch.Tensor:
-    """Every rank's flat ``x``, stacked: (n, x.numel())."""
+def _all_gather(x: torch.Tensor, runtime, axes=None) -> torch.Tensor:
+    """Every member's flat ``x``, stacked: (n, x.numel())."""
     x = x.reshape(-1)
     if runtime is None:
         return x[None]
-    out = x.new_empty((runtime.process_count * x.numel(),))
-    return runtime.all_gather_(out, x).view(runtime.process_count, -1)
+    g = _group(runtime, axes)
+    out = x.new_empty((g.size * x.numel(),))
+    return runtime.all_gather_(out, x, g).view(g.size, -1)
 
 
-def _reduce_scatter(x: torch.Tensor, runtime) -> torch.Tensor:
-    """Sum of ``x`` over the ranks, this rank's chunk of dim 0."""
+def _reduce_scatter(x: torch.Tensor, runtime, axes=None) -> torch.Tensor:
+    """Sum of ``x`` over the members, this member's chunk of dim 0."""
     if runtime is None:
         return x
-    out = x.new_empty((x.shape[0] // runtime.process_count,) + x.shape[1:])
-    return runtime.reduce_scatter_(out, x.contiguous())
+    g = _group(runtime, axes)
+    out = x.new_empty((x.shape[0] // g.size,) + x.shape[1:])
+    return runtime.reduce_scatter_(out, x.contiguous(), g)
 
 
-def _reduce_leaves(leaves: list[torch.Tensor], runtime, *,
-                   mean: bool) -> list[torch.Tensor]:
+def _reduce_leaves(leaves: list[torch.Tensor], runtime, *, mean: bool,
+                   axes=None) -> list[torch.Tensor]:
     """psum (or pmean) of every leaf: one ``all_reduce`` per dtype over
     the leaves laid end to end."""
-    n = _size(runtime)
+    n = _size(runtime, axes)
     out: list[torch.Tensor | None] = [None] * len(leaves)
     groups: dict[tuple, list[int]] = {}
     for i, t in enumerate(leaves):
         groups.setdefault((t.dtype, t.device), []).append(i)
     for idx in groups.values():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        flat = _all_reduce(flat, runtime)
+        flat = _all_reduce(flat, runtime, axes)
         if mean:
             flat = flat / n
         for i, part in zip(idx, flat.split([leaves[i].numel()
@@ -295,7 +312,8 @@ def _sum_dequantized(q: torch.Tensor, scales: torch.Tensor, n: int,
 
 def allreduce_gradients(grads: Any, runtime, *, compute_dtype: Any = None,
                         accumulate_f32: bool = True,
-                        block_size: int = DEFAULT_BLOCK_SIZE) -> Any:
+                        block_size: int = DEFAULT_BLOCK_SIZE,
+                        axes=None) -> Any:
     """Mean-reduce gradients across the data-parallel ranks.
 
     No ``compute_dtype``: the f32 mean (``pmean``). A narrow
@@ -309,22 +327,23 @@ def allreduce_gradients(grads: Any, runtime, *, compute_dtype: Any = None,
     wire = _canon_wire(compute_dtype)
     if wire == torch.int8:
         means, _ = allreduce_gradients_ef(grads, None, runtime,
-                                          block_size=block_size)
+                                          block_size=block_size, axes=axes)
         return means
     leaves = _leaves(grads)
     if wire is None:
         for g in leaves:
             _record("allreduce_grads_pmean", g.numel(), g.dtype,
                     multiplier=2)
-        return _like(grads, _reduce_leaves(leaves, runtime, mean=True))
+        return _like(grads, _reduce_leaves(leaves, runtime, mean=True,
+                                           axes=axes))
     if not accumulate_f32:
         for g in leaves:
             _record("allreduce_grads_pmean_narrow", g.numel(), g.dtype,
                     wire_dtype=wire, multiplier=2)
         means = _reduce_leaves([g.to(wire) for g in leaves], runtime,
-                               mean=True)
+                               mean=True, axes=axes)
         return _like(grads, [m.to(g.dtype) for m, g in zip(means, leaves)])
-    n = _size(runtime)
+    n = _size(runtime, axes)
     layout = _Chunks(leaves, n, n)
     for s, c in zip(layout.sizes, layout.chunks):
         # Exact f32 adds on the scatter; the only lossy step is the
@@ -333,14 +352,14 @@ def allreduce_gradients(grads: Any, runtime, *, compute_dtype: Any = None,
         _record("allreduce_grads_gather_narrow", c, wire,
                 logical_dtype=torch.float32, multiplier=n)
     rows = layout.pack([g.float().reshape(-1) for g in leaves])
-    shard = _reduce_scatter(rows.view(-1), runtime) / n
-    full = _all_gather(shard.to(wire), runtime)
+    shard = _reduce_scatter(rows.view(-1), runtime, axes) / n
+    full = _all_gather(shard.to(wire), runtime, axes)
     return _like(grads, [m.to(g.dtype) for m, g in
                          zip(layout.unpack(full), leaves)])
 
 
 def allreduce_gradients_ef(grads: Any, residuals: Any | None, runtime, *,
-                           block_size: int = DEFAULT_BLOCK_SIZE
+                           block_size: int = DEFAULT_BLOCK_SIZE, axes=None
                            ) -> tuple[Any, Any | None]:
     """Block-scaled int8 all-reduce-mean with error feedback.
 
@@ -360,7 +379,7 @@ def allreduce_gradients_ef(grads: Any, residuals: Any | None, runtime, *,
     step's update missed. ``residuals=None`` gives the single-shot mean and
     None. Returns (means, new residuals in f32), in the nests given."""
     leaves = _leaves(grads)
-    n, idx = _size(runtime), linear_axis_index(runtime)
+    n, idx = _size(runtime, axes), linear_axis_index(runtime, axes)
     layout = _Chunks(leaves, n, n * block_size)
     flats = [g.float().reshape(-1) for g in leaves]
     if residuals is not None:
@@ -376,10 +395,11 @@ def allreduce_gradients_ef(grads: Any, residuals: Any | None, runtime, *,
     rows = layout.pack(flats).view(-1)
     q, scales = quantize_blockwise(rows, block_size)
     # Rank p receives row p of every rank: all the partials of chunk p.
-    qx, sx = _all_to_all(q, runtime), _all_to_all(scales, runtime)
+    qx = _all_to_all(q, runtime, axes)
+    sx = _all_to_all(scales, runtime, axes)
     mean_chunk = _sum_dequantized(qx, sx, n, block_size) / n
     q2, s2 = quantize_blockwise(mean_chunk, block_size)
-    qg, sg = _all_gather(q2, runtime), _all_gather(s2, runtime)
+    qg, sg = _all_gather(q2, runtime, axes), _all_gather(s2, runtime, axes)
     mean_full = dequantize_blockwise(qg.reshape(-1), sg.reshape(-1),
                                      block_size).view(n, -1)
     means = [m.to(g.dtype) for m, g in zip(layout.unpack(mean_full),
@@ -397,37 +417,37 @@ def allreduce_gradients_ef(grads: Any, residuals: Any | None, runtime, *,
 
 # -------------------------------------------------------- other wrappers --
 
-def psum(x: Any, runtime) -> Any:
+def psum(x: Any, runtime, axes=None) -> Any:
     leaves = _leaves(x)
     for v in leaves:
         _record("psum", v.numel(), v.dtype, multiplier=2)
-    return _like(x, _reduce_leaves(leaves, runtime, mean=False))
+    return _like(x, _reduce_leaves(leaves, runtime, mean=False, axes=axes))
 
 
-def pmean(x: Any, runtime) -> Any:
+def pmean(x: Any, runtime, axes=None) -> Any:
     leaves = _leaves(x)
     for v in leaves:
         _record("pmean", v.numel(), v.dtype, multiplier=2)
-    return _like(x, _reduce_leaves(leaves, runtime, mean=True))
+    return _like(x, _reduce_leaves(leaves, runtime, mean=True, axes=axes))
 
 
 def all_gather(x: torch.Tensor, runtime, *, axis: int = 0,
                tiled: bool = True, wire_dtype: Any = None,
                block_size: int = DEFAULT_BLOCK_SIZE,
-               kind: str = "all_gather") -> torch.Tensor:
+               kind: str = "all_gather", axes=None) -> torch.Tensor:
     """All-gather along ``axis`` with an optional narrow wire: ``bfloat16``
     casts the payload (lossy for f32 operands), ``int8`` ships
     block-scaled int8 and dequantizes on arrival. ``tiled`` concatenates
     the ranks' tensors along ``axis``; otherwise they are stacked on a new
     ``axis``."""
     wire = _canon_wire(wire_dtype)
-    n = _size(runtime)
+    n = _size(runtime, axes)
     if wire is None or wire == x.dtype:
         _record(kind, x.numel(), x.dtype, multiplier=n)
-        stacked = _all_gather(x, runtime)
+        stacked = _all_gather(x, runtime, axes)
     elif wire != torch.int8:
         _record(kind, x.numel(), x.dtype, wire_dtype=wire, multiplier=n)
-        stacked = _all_gather(x.to(wire), runtime).to(x.dtype)
+        stacked = _all_gather(x.to(wire), runtime, axes).to(x.dtype)
     else:
         flat = x.float().reshape(-1)
         flat = F.pad(flat, (0, (-flat.numel()) % block_size))
@@ -435,7 +455,8 @@ def all_gather(x: torch.Tensor, runtime, *, axis: int = 0,
         _record(kind, x.numel(), x.dtype, wire_dtype=torch.int8,
                 multiplier=n,
                 overhead_bytes=n * scales.numel() * SCALE_BYTES)
-        qg, sg = _all_gather(q, runtime), _all_gather(scales, runtime)
+        qg = _all_gather(q, runtime, axes)
+        sg = _all_gather(scales, runtime, axes)
         deq = dequantize_blockwise(qg.reshape(-1), sg.reshape(-1),
                                    block_size).view(n, -1)
         stacked = deq[:, :x.numel()].to(x.dtype)
@@ -451,14 +472,14 @@ def all_gather(x: torch.Tensor, runtime, *, axis: int = 0,
 def reduce_scatter(x: torch.Tensor, runtime, *, scatter_axis: int = 0,
                    wire_dtype: Any = None,
                    block_size: int = DEFAULT_BLOCK_SIZE,
-                   kind: str = "reduce_scatter") -> torch.Tensor:
+                   kind: str = "reduce_scatter", axes=None) -> torch.Tensor:
     """Reduce-scatter (sum) along ``scatter_axis`` with an optional narrow
     wire. ``bfloat16`` narrows the wire and the adds; ``int8`` quantizes
     each destination's chunk on its own (its scales travel with it), routes
     the chunks with one ``all_to_all`` and adds the dequantized partials
     in f32."""
     wire = _canon_wire(wire_dtype)
-    n = _size(runtime)
+    n = _size(runtime, axes)
     if x.shape[scatter_axis] % n:
         raise ValueError(
             f"reduce_scatter axis {scatter_axis} of shape {tuple(x.shape)} "
@@ -466,17 +487,18 @@ def reduce_scatter(x: torch.Tensor, runtime, *, scatter_axis: int = 0,
     moved = x.movedim(scatter_axis, 0).contiguous()
     if wire is None or wire == x.dtype:
         _record(kind, x.numel(), x.dtype)
-        out = _reduce_scatter(moved, runtime)
+        out = _reduce_scatter(moved, runtime, axes)
     elif wire != torch.int8:
         _record(kind, x.numel(), x.dtype, wire_dtype=wire)
-        out = _reduce_scatter(moved.to(wire), runtime).to(x.dtype)
+        out = _reduce_scatter(moved.to(wire), runtime, axes).to(x.dtype)
     else:
         rows = moved.float().reshape(n, -1)      # row p: rank p's chunk
         rows = F.pad(rows, (0, (-rows.shape[1]) % block_size))
         q, scales = quantize_blockwise(rows.reshape(-1), block_size)
         _record(kind, x.numel(), x.dtype, wire_dtype=torch.int8,
                 overhead_bytes=scales.numel() * SCALE_BYTES)
-        qx, sx = _all_to_all(q, runtime), _all_to_all(scales, runtime)
+        qx = _all_to_all(q, runtime, axes)
+        sx = _all_to_all(scales, runtime, axes)
         summed = _sum_dequantized(qx, sx, n, block_size)[
             :moved.numel() // n]
         out = summed.view((moved.shape[0] // n,) + moved.shape[1:]).to(

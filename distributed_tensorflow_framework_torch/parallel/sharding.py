@@ -1,0 +1,313 @@
+"""FSDP's parameter layout: the port's copy of the fsdp half of
+``parallel/sharding.py``.
+
+The JAX package gives every parameter leaf a ``PartitionSpec``; with the
+mesh's ``fsdp`` axis above 1 the leaf's largest dim that ``fsdp``
+divides (the trailing one among equals, :func:`pick_fsdp_dim`) is
+sharded over it, and a leaf with no such dim stays replicated. The same
+rule serves the optimizer slots (which mirror the parameters) and the
+EMA. The port applies it to the Flax shape of each of its parameters
+(models/convert.py ``flax_layout``), so it shards the dim JAX shards,
+and maps that dim onto the port's tensor: a Dense kernel (in, *out) is
+the port's (prod(out), in) weight, viewed as (*out, in) so that the fused
+QKV's (H, 3, H) kernel keeps its last dim whole; a Conv kernel (kh, kw,
+cin, cout) is the port's (cout, cin, kh, kw) weight; every other leaf
+has the Flax shape. :class:`FsdpLeaf` holds that view and its sharded
+dim, and cuts and joins along it.
+
+:class:`DimSharding` keeps a run's tensors in that layout over the fsdp
+axis of the mesh (the ranks of one ``fsdp`` subgroup, core/mesh.py):
+
+  * FSDP (``mesh.fsdp > 1`` without ZeRO-1): between steps each rank
+    holds its part of every sharded parameter (the model's parameter is
+    the part itself), of its optimizer slots and of its EMA. A step
+    gathers the whole parameters first — under ``shard_map`` by the
+    tallied all-gather of parallel/collectives.py on the configured wire
+    (the JAX package's hand-placed, optionally quantized gather), under
+    ``jit`` exactly and untallied, as XLA gathers there — and the update
+    runs on the parts, after which the whole parameters are dropped;
+  * ZeRO-1 (``optimizer.zero_sharding: jit``, the deprecated
+    ``optimizer.shard_opt_state``): the parameters and the EMA stay whole
+    and replicated; the optimizer runs on each rank's part of them (views
+    into the whole parameters), so its slots are parts, and after the
+    update every rank's part is gathered into the whole parameters
+    (exact f32).
+
+The BatchNorm running statistics (buffers) stay whole. A checkpoint holds
+the whole tensors (:meth:`DimSharding.global_state`, every rank takes
+part); a restore cuts each rank's part back out
+(:meth:`DimSharding.local_state`).
+
+The tensor-parallel rules (``TP_RULES``) are ROADMAP.md queue A item A10's
+other half and the MoE rules (``MOE_RULES``) item A8; neither is here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Iterator
+
+import torch
+from torch import nn
+
+from distributed_tensorflow_framework_torch.models.convert import flax_layout
+from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel.quantization import (
+    DEFAULT_BLOCK_SIZE,
+)
+
+
+def pick_fsdp_dim(shape: tuple[int, ...], fsdp: int,
+                  taken: tuple = ()) -> int:
+    """Dim index to shard over fsdp, or -1 if none qualifies.
+
+    The LARGEST still-unsharded dim divisible by ``fsdp`` wins; among
+    equal-size candidates the TRAILING dim wins (deterministic: a square
+    kernel shards its last dim). ``taken`` marks already-sharded dims
+    (per-dim axis entries; None = free)."""
+    axes = tuple(taken) + (None,) * (len(shape) - len(tuple(taken)))
+    best, best_size = -1, 0
+    for i, (dim, axis) in enumerate(zip(shape, axes)):
+        if axis is None and dim and dim % fsdp == 0 and dim >= best_size:
+            best, best_size = i, dim
+    return best
+
+
+def infer_fsdp_dims(model: nn.Module, fsdp: int) -> dict[str, int]:
+    """Each parameter's state_dict key → the dim of its FLAX leaf that the
+    JAX package's ``infer_param_specs`` shards over ``fsdp`` (-1:
+    replicated; every leaf is replicated when ``fsdp`` is 1)."""
+    if fsdp <= 1:
+        return {key: -1 for key, _ in model.named_parameters()}
+    return {key: pick_fsdp_dim(shape, fsdp)
+            for key, (_, shape) in flax_layout(model).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpLeaf:
+    """How one parameter is sharded: the port tensor ``.view(view)`` is
+    cut into ``fsdp`` equal parts along ``dim``; ``shape`` is the tensor's
+    own (unsharded) shape."""
+
+    shape: tuple[int, ...]
+    view: tuple[int, ...]
+    dim: int
+    fsdp: int
+
+    @property
+    def shard_view(self) -> tuple[int, ...]:
+        """The shape of one part (the view with ``dim`` cut)."""
+        out = list(self.view)
+        out[self.dim] //= self.fsdp
+        return tuple(out)
+
+    def shard(self, full: torch.Tensor, index: int) -> torch.Tensor:
+        """Part ``index`` of ``full`` (a view into it, not a copy)."""
+        size = self.view[self.dim] // self.fsdp
+        return full.reshape(self.view).narrow(self.dim, index * size, size)
+
+    def unshard(self, parts: torch.Tensor) -> torch.Tensor:
+        """``fsdp`` parts stacked on a new dim 0 → the full tensor."""
+        moved = parts.movedim(0, self.dim)
+        shape = list(self.shard_view)
+        shape[self.dim] = self.view[self.dim]
+        return moved.reshape(shape).reshape(self.shape)
+
+
+def _torch_dim(path: tuple[str, ...], flax_shape: tuple[int, ...],
+               dim: int) -> tuple[tuple[int, ...], int]:
+    """(the view of the port tensor whose dims are the Flax leaf's dims in
+    another order, the view's dim that is Flax dim ``dim``)."""
+    if path[-1] == "kernel" and len(flax_shape) == 4:  # Conv, OIHW
+        kh, kw, cin, cout = flax_shape
+        return (cout, cin, kh, kw), (2, 3, 1, 0)[dim]
+    if path[-1] == "kernel":  # Dense: (in, *out) → (*out, in)
+        view = (*flax_shape[1:], flax_shape[0])
+        return view, (len(view) - 1 if dim == 0 else dim - 1)
+    return tuple(flax_shape), dim
+
+
+def fsdp_layout(model: nn.Module, fsdp: int) -> dict[str, FsdpLeaf | None]:
+    """Each parameter's state_dict key → its :class:`FsdpLeaf`, or None
+    for a replicated leaf."""
+    out: dict[str, FsdpLeaf | None] = {}
+    params = dict(model.named_parameters())
+    dims = infer_fsdp_dims(model, fsdp)
+    for key, (path, flax_shape) in flax_layout(model).items():
+        if dims[key] < 0:
+            out[key] = None
+            continue
+        view, dim = _torch_dim(path, flax_shape, dims[key])
+        out[key] = FsdpLeaf(tuple(params[key].shape), view, dim, fsdp)
+    return out
+
+
+def map_slots(fn, opt_state: dict, names: list[str]) -> dict:
+    """``opt_state`` (``Optimizer.state_dict()``) with ``fn(slot, name)``
+    applied to every slot tensor that mirrors a parameter (ndim >= 1; the
+    per-parameter step counters pass through), where ``name`` is that
+    parameter's key (``Optimizer.names``). A new nest; what is not mapped
+    is shared."""
+    inner = opt_state["inner"]
+    state = {i: {k: (fn(v, names[i]) if isinstance(v, torch.Tensor)
+                     and v.dim() >= 1 else v) for k, v in slots.items()}
+             for i, slots in inner["state"].items()}
+    return {**opt_state, "inner": {**inner, "state": state}}
+
+
+class DimSharding:
+    """FSDP (``at_rest``) or ZeRO-1 over the fsdp axis of ``runtime`` (see
+    the module docstring). ``params`` maps each parameter's key to the
+    tensor the optimizer updates: this rank's part of a sharded leaf, the
+    parameter itself for a replicated one. ``wire`` and ``block_size``
+    are the gather's under ``shard_map`` (``tally``: it is the explicit,
+    tallied collective); None gathers exactly."""
+
+    def __init__(self, model: nn.Module, runtime, *, at_rest: bool,
+                 tally: bool = False, wire=None,
+                 block_size: int = DEFAULT_BLOCK_SIZE):
+        self.runtime = runtime
+        self.group = runtime.axis_group("fsdp")
+        self.leaves = fsdp_layout(model, self.group.size)
+        self.at_rest = at_rest
+        self.tally, self.wire, self.block_size = tally, wire, block_size
+        self.params: dict[str, torch.Tensor] = {}
+        for key, p in model.named_parameters():
+            leaf, t = self.leaves[key], p.detach()
+            if leaf is not None:
+                t = leaf.shard(t, self.group.index)
+                if at_rest:
+                    t = t.contiguous().clone()
+                    p.data = t
+            self.params[key] = t
+
+    def _part(self, key: str, full: torch.Tensor) -> torch.Tensor:
+        leaf = self.leaves[key]
+        return full if leaf is None else leaf.shard(full, self.group.index)
+
+    def _gather(self, key: str, part: torch.Tensor, *,
+                explicit: bool = False) -> torch.Tensor:
+        """The whole leaf from every member's ``part``; ``explicit``: the
+        step's tallied gather on the wire, else an exact untallied one."""
+        leaf = self.leaves[key]
+        if leaf is None:
+            return part
+        if explicit:
+            return coll.all_gather(
+                part, self.runtime, axis=leaf.dim, tiled=True,
+                wire_dtype=self.wire, block_size=self.block_size,
+                axes="fsdp").reshape(leaf.shape)
+        rows = coll._all_gather(part.contiguous(), self.runtime, "fsdp")
+        return leaf.unshard(rows.view((leaf.fsdp,) + leaf.shard_view))
+
+    # --------------------------------------------------------- the step --
+    def begin_step_(self, model: nn.Module) -> None:
+        """FSDP: every sharded parameter becomes the whole leaf."""
+        if not self.at_rest:
+            return
+        for key, p in model.named_parameters():
+            if self.leaves[key] is not None:
+                p.data = self._gather(key, self.params[key],
+                                      explicit=self.tally)
+
+    def shard_grads_(self, model: nn.Module) -> None:
+        """Each part's gradient: its cells of the whole reduced
+        gradient."""
+        for key, p in model.named_parameters():
+            self.params[key].grad = self._part(key, p.grad)
+
+    @torch.no_grad()
+    def finish_step_(self, model: nn.Module) -> None:
+        """After the update. FSDP: drop the whole parameters (the model's
+        parameters are the updated parts again); ZeRO-1: gather the
+        updated parts into the whole parameters."""
+        for key, p in model.named_parameters():
+            if self.leaves[key] is None:
+                continue
+            p.grad = None
+            if self.at_rest:
+                p.data = self.params[key]
+            else:
+                p.copy_(self._gather(key, self.params[key]))
+
+    def ema_sources(self, model: nn.Module) -> list[torch.Tensor]:
+        """What the EMA averages, in parameter order: the parts under
+        FSDP, the whole parameters under ZeRO-1."""
+        if self.at_rest:
+            return list(self.params.values())
+        return [p for _, p in model.named_parameters()]
+
+    def ema_init(self, model: nn.Module) -> dict[str, torch.Tensor]:
+        return {k: t.float().clone() for k, t in zip(
+            self.params, self.ema_sources(model))}
+
+    @contextlib.contextmanager
+    def whole_params(self, model: nn.Module) -> Iterator[None]:
+        """The model with its whole parameters (exactly gathered) inside,
+        its parts again after; for the eval step."""
+        if not self.at_rest:
+            yield
+            return
+        for key, p in model.named_parameters():
+            if self.leaves[key] is not None:
+                p.data = self._gather(key, self.params[key])
+        try:
+            yield
+        finally:
+            for key, p in model.named_parameters():
+                if self.leaves[key] is not None:
+                    p.data = self.params[key]
+
+    def whole(self, tensors: dict[str, torch.Tensor]
+              ) -> dict[str, torch.Tensor]:
+        """Parts (key → tensor) gathered whole, exactly."""
+        return {k: self._gather(k, t) for k, t in tensors.items()}
+
+    def whole_norms(self):
+        """LARS's ``whole_norms``: a part's norm → the whole leaf's, the
+        square root of the sum over the members of the parts' squared
+        norms (one all_reduce; a replicated leaf's norm is already
+        whole)."""
+        sharded = {id(self.params[k]) for k, leaf in self.leaves.items()
+                   if leaf is not None}
+
+        def fn(params, norms):
+            mask = torch.tensor([id(p) in sharded for p in params],
+                                device=norms.device)
+            sq = torch.where(mask, norms.square(), torch.zeros_like(norms))
+            total = coll._all_reduce(sq.clone(), self.runtime, "fsdp")
+            return torch.where(mask, total.sqrt(), norms)
+        return fn
+
+    # ------------------------------------------------------- checkpoints --
+    def global_state(self, state: dict, names: list[str]) -> dict:
+        """``TrainState.state_dict()`` with every part gathered whole
+        (parameters and EMA under FSDP, slots under both). Every rank of
+        the group calls it."""
+        out = dict(state)
+        if self.at_rest:
+            out["model"] = {k: (self._gather(k, v) if k in self.leaves
+                                else v) for k, v in state["model"].items()}
+            if "ema" in state:
+                out["ema"] = self.whole(state["ema"])
+        out["optimizer"] = map_slots(lambda t, k: self._gather(k, t),
+                                     state["optimizer"], names)
+        return out
+
+    def local_state(self, state: dict, names: list[str]) -> dict:
+        """The inverse of :meth:`global_state`: this rank's parts (copies)
+        of whole tensors."""
+        out = dict(state)
+
+        def cut(key, t):
+            return self._part(key, t).clone()
+
+        if self.at_rest:
+            out["model"] = {k: (cut(k, v) if k in self.leaves else v)
+                            for k, v in state["model"].items()}
+            if "ema" in state:
+                out["ema"] = {k: cut(k, v) for k, v in state["ema"].items()}
+        out["optimizer"] = map_slots(lambda t, k: cut(k, t),
+                                     state["optimizer"], names)
+        return out

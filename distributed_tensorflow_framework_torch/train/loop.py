@@ -43,7 +43,11 @@ no result: tracing spans, the goodput ledger, memory sampling, the flight
 recorder. The first step runs inside the collective tally
 (parallel/collectives.py), whose summary rides every logged
 ``train_step`` event as its ``collectives`` field (a DDP run's is empty:
-DDP owns its reduction, as XLA does under the JAX package's ``jit``).
+DDP owns its reduction, as XLA does under the JAX package's ``jit``;
+a ZeRO run's holds the ``zero_reduce_scatter`` and ``zero_all_gather``
+kinds). A ZeRO run writes its static plan once as a ``zero_update`` event
+(parallel/zero.py ``plan_summary``), and ``run_meta`` names
+``zero_sharding``, the mesh's ``fsdp`` and the bucket count.
 Evaluation is exact, as in the JAX
 trainer: a finite eval stream (TFRecords) is walked once in full, every
 record once, the padded tail weighted out; an infinite one (the synthetic
@@ -90,10 +94,14 @@ from distributed_tensorflow_framework_torch.data.infeed import (
     to_device,
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel import zero
 from distributed_tensorflow_framework_torch.train import anomaly as anomaly_lib
 from distributed_tensorflow_framework_torch.train import hooks as hooks_lib
 from distributed_tensorflow_framework_torch.train import schedules
-from distributed_tensorflow_framework_torch.train.step import StepBuilder
+from distributed_tensorflow_framework_torch.train.step import (
+    StepBuilder,
+    zero_mode,
+)
 
 log = logging.getLogger(__name__)
 
@@ -164,6 +172,8 @@ class Trainer:
     def build(self) -> None:
         cfg, rt = self.config, self.runtime
         self.state = self.builder.init_state(cfg.train.seed)
+        layout = self.state.layout
+        plan = getattr(layout, "plan", None)
         self.writer.telemetry.emit_run_meta(
             argv=list(sys.argv), config_name=cfg.name,
             spmd_mode=cfg.train.spmd_mode, model=cfg.model.name,
@@ -175,7 +185,16 @@ class Trainer:
             collective_dtype=self.builder.wire,
             collective_block_size=cfg.parallel.collective_block_size,
             error_feedback=self.builder.use_residual,
-            collective_transport=self.builder.collective_transport)
+            collective_transport=self.builder.collective_transport,
+            zero_sharding=zero_mode(cfg), fsdp=rt.sizes["fsdp"],
+            zero_buckets=None if plan is None else plan.num_buckets)
+        if plan is not None:
+            # One record of the static shard/bucket plan, so that byte and
+            # step-time rollups read against the plan that produced them.
+            self.writer.telemetry.emit(
+                telemetry.KIND_ZERO_UPDATE, **zero.plan_summary(
+                    plan, wire_dtype=self.builder.wire or None,
+                    block_size=cfg.parallel.collective_block_size))
         self.writer.telemetry.emit(
             telemetry.KIND_DATA_SHARD, step=self.host_step,
             shard=data_shard.shard_plan(

@@ -33,6 +33,18 @@ the Flax names and shapes that models/convert.py gives each parameter:
 rank ≥ 2 kernels (dense and conv), ``embed/embedding`` and
 ``pos_embedding`` decay; every ``bias``, ``scale`` and BatchNorm leaf, and
 ``mlm_bias``, do not.
+
+The optimizer runs on the model's parameters, or on tensors cut from them
+(``params``, keyed by the same names): ZeRO's flattened 1-D shards and
+FSDP's parts (parallel/zero.py, parallel/sharding.py). Such a shard has
+lost the rank and the name the mask rule reads, so the mask is computed
+once from the model's real parameters, as the JAX step precomputes its
+``decay_mask_ref``. Every rule here is elementwise but LARS's per-leaf
+norms, so an update on a shard equals the same cells of the update on the
+whole tensor, and the padding cells of a ZeRO shard (zero gradient, zero
+parameter) stay zero: zero moments, zero decay, zero update (RMSProp's ν
+starts at 1 there and its update is still 0 · (ν + ε)^-½). LARS on FSDP
+parts takes whole-tensor norms from ``whole_norms``.
 """
 
 from __future__ import annotations
@@ -126,13 +138,16 @@ class RMSProp(torch.optim.Optimizer):
 class LARS(torch.optim.Optimizer):
     """optax ``lars(trust_coefficient=0.001, eps=0, nesterov=False)`` with
     the weight-decay mask as the parameter groups (see the module
-    docstring)."""
+    docstring). ``whole_norms(params, norms)``, when given, turns the
+    norms of the tensors held into those of the whole leaves they were
+    cut from."""
 
     def __init__(self, groups, *, momentum: float,
-                 trust_coefficient: float = 0.001):
+                 trust_coefficient: float = 0.001, whole_norms=None):
         super().__init__(groups, dict(lr=0.0, weight_decay=0.0,
                                       momentum=momentum,
                                       trust_coefficient=trust_coefficient))
+        self.whole_norms = whole_norms
 
     @torch.no_grad()
     def step(self):
@@ -142,6 +157,9 @@ class LARS(torch.optim.Optimizer):
                 continue
             p_norm = torch.stack(torch._foreach_norm(params))
             u_norm = torch.stack(torch._foreach_norm(grads))
+            if self.whole_norms is not None:
+                p_norm = self.whole_norms(params, p_norm)
+                u_norm = self.whole_norms(params, u_norm)
             ratio = group["trust_coefficient"] * p_norm / u_norm
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(ratio), ratio)
@@ -151,7 +169,7 @@ class LARS(torch.optim.Optimizer):
             torch._foreach_add_(params, updates)
 
 
-def _inner(config: OptimizerConfig, groups: list[dict]
+def _inner(config: OptimizerConfig, groups: list[dict], whole_norms=None
            ) -> torch.optim.Optimizer:
     name = config.name.lower()
     if name == "adamw":
@@ -170,27 +188,36 @@ def _inner(config: OptimizerConfig, groups: list[dict]
         return RMSProp(groups, decay=config.rms_decay, eps=config.eps,
                        momentum=config.momentum)
     if name == "lars":
-        return LARS(groups, momentum=config.momentum)
+        return LARS(groups, momentum=config.momentum,
+                    whole_norms=whole_norms)
     raise ValueError(f"Unknown optimizer {config.name!r}")
 
 
 class Optimizer:
     """The config's optax chain with global-norm clipping, on a model's
-    parameters. ``step(grad_norm)`` takes the pre-clip global norm of the
-    gradients held in ``.grad`` and applies one update with the learning
-    rate ``schedule(count)``."""
+    parameters or on ``params`` (state_dict key → a tensor cut from that
+    parameter; see the module docstring). ``step(grad_norm)`` takes the
+    pre-clip global norm of the whole gradient and applies one update to
+    the tensors' ``.grad`` with the learning rate ``schedule(count)``.
+    ``names`` lists the keys in torch.optim's parameter order (the state's
+    integer indices)."""
 
     def __init__(self, config: OptimizerConfig, schedule: Schedule,
-                 model: nn.Module):
+                 model: nn.Module,
+                 params: dict[str, torch.Tensor] | None = None,
+                 whole_norms=None):
         mask = decay_mask(model)
-        params = dict(model.named_parameters())
+        if params is None:
+            params = dict(model.named_parameters())
+        self.names = ([k for k in params if mask[k]]
+                      + [k for k in params if not mask[k]])
         groups = [
             {"params": [p for k, p in params.items() if mask[k]],
              "weight_decay": config.weight_decay},
             {"params": [p for k, p in params.items() if not mask[k]],
              "weight_decay": 0.0},
         ]
-        self.inner = _inner(config, groups)
+        self.inner = _inner(config, groups, whole_norms)
         self.params = list(params.values())
         self.clip_norm = config.grad_clip_norm
         self.schedule = schedule
@@ -227,10 +254,13 @@ class Optimizer:
 
 
 def make_optimizer(config: OptimizerConfig, total_steps: int,
-                   model: nn.Module) -> tuple[Optimizer, Schedule]:
-    """The optimizer over ``model``'s parameters and its schedule."""
+                   model: nn.Module,
+                   params: dict[str, torch.Tensor] | None = None,
+                   whole_norms=None) -> tuple[Optimizer, Schedule]:
+    """The optimizer over ``model``'s parameters (or over ``params`` cut
+    from them) and its schedule."""
     schedule = make_schedule(config, total_steps)
-    return Optimizer(config, schedule, model), schedule
+    return Optimizer(config, schedule, model, params, whole_norms), schedule
 
 
 def ema_decay_at(decay: float, step: int) -> np.float32:

@@ -12,6 +12,17 @@ empty unless ``train.spmd_mode: shard_map`` runs the int8 wire with
 slots in place, so the state is a mutable record rather than a pytree that
 each step replaces.
 
+Sharded across ranks (``layout``: parallel/zero.py ``ZeroUpdate``,
+parallel/sharding.py ``DimSharding``) each rank holds its own part: under
+ZeRO the optimizer slots are this rank's ``(chunk,)`` row of the stacked
+``(n, chunk)`` layout; under FSDP the parameters, the slots and the EMA
+are this rank's parts between steps (the model's parameters are the parts
+themselves); under ZeRO-1 the slots are parts. The int8 residual keeps
+the full parameter shape in every mode. ``state_dict`` and
+``load_state_dict`` carry these parts as they are (a rollback snapshot of
+one rank restores into the same rank); ckpt/checkpoint.py turns them into
+the whole layout and back.
+
 ``state_dict``/``load_state_dict`` are what a checkpoint and a rollback
 snapshot hold: the step, the model's tensors (BN buffers included), the
 optimizer (the inner torch optimizer's slots and ``Optimizer.count``), the
@@ -62,6 +73,11 @@ class TrainState:
     # runs forward through when a process group exists; not state: it
     # holds no tensor of its own, and a checkpoint names the model's.
     ddp: nn.Module | None = None
+    # How the state is sharded across ranks (ZeroUpdate or DimSharding),
+    # None when it is replicated; not state: it holds the shards the
+    # optimizer updates, which it re-cuts or which the model's
+    # parameters are.
+    layout: Any = None
 
     @property
     def train_module(self) -> nn.Module:

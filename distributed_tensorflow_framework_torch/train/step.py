@@ -60,13 +60,45 @@ means (:meth:`StepBuilder.global_metrics`). The eval step runs in
 ``eval()`` mode (BN on its running statistics, no dropout), on the EMA
 parameters when ``train.eval_use_ema`` and the EMA is on.
 
+Sharded state (ROADMAP.md A10's ZeRO and FSDP halves; the layouts live in
+parallel/zero.py and parallel/sharding.py):
+
+  * ``optimizer.zero_sharding: shard_map`` (under ``shard_map``, over
+    data × fsdp > 1 ranks; the JAX ``_zero_train_step_replica``): the
+    micro-steps as above, then a bucketed mean reduce-scatter of the
+    gradients on the wire (int8 with the error-feedback residual), the
+    optimizer on this rank's 1/n of every flattened leaf, and a bucketed
+    all-gather into every rank's whole parameters; ``grad_norm`` from the
+    shards (``shard_global_norm``). The parameters, the EMA and the
+    BatchNorm statistics stay replicated. At two ranks on the f32 wire the
+    parameters and losses are the replicated ``shard_map`` step's bit for
+    bit.
+  * ``mesh.fsdp > 1`` under ``shard_map`` (explicit FSDP, the JAX
+    ``_train_step_replica``'s fsdp branch): the parameters, slots and EMA
+    are sharded at rest; a step gathers the parameters over ``fsdp`` on
+    the wire, runs the micro-steps, reduces the gradients over every rank
+    on the wire, takes ``grad_norm`` of the whole gradient, then slices
+    each rank's part for the update.
+  * ``mesh.fsdp > 1`` under ``jit`` (FSDP) and ``optimizer.zero_sharding:
+    jit`` (ZeRO-1, ``mesh.fsdp > 1``): the jit step's numbers — DDP over
+    the whole (gathered) parameters, the global masked-token weight,
+    clipping on the whole gradient's norm, LARS's norms over whole leaves,
+    BatchNorm allowed — with only the at-rest layout changed: FSDP holds
+    the parameters, slots and EMA as parts between steps, ZeRO-1 the
+    slots. Both equal the DDP step at the same world.
+
+The JAX package's refusals hold: ZeRO ``shard_map`` needs ``shard_map``
+and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
+(the update sees only shards); explicit FSDP refuses both as well and
+BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
+
 Every knob whose JAX machinery is not ported raises NotImplementedError
 naming its ROADMAP.md item when it is not at its off value: mesh axes
-other than ``data`` (FSDP under either mode included), ZeRO, the fused
-update and the selective remat policies. ``model.remat`` (per-layer
-checkpointing) is carried by the model. A wire dtype under ``jit`` and a
-``train.grad_allreduce_accum`` other than float32 or wire raise the JAX
-package's ValueErrors.
+other than ``data`` and ``fsdp`` (``model``, A10's tensor-parallel half),
+the fused update and the selective remat policies. ``model.remat``
+(per-layer checkpointing) is carried by the model. A wire dtype under
+``jit`` and a ``train.grad_allreduce_accum`` other than float32 or wire
+raise the JAX package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -87,6 +119,10 @@ from distributed_tensorflow_framework_torch.models.layers import (
     use_cross_rank_bn,
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel import zero
+from distributed_tensorflow_framework_torch.parallel.sharding import (
+    DimSharding,
+)
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
     ema_update_,
@@ -123,14 +159,26 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet — ROADMAP.md queue A item {item}")
 
 
-def check_step_config(config: ExperimentConfig, world: int = 1) -> None:
+def zero_mode(config: ExperimentConfig) -> str:
+    """``optimizer.zero_sharding``, with the deprecated
+    ``optimizer.shard_opt_state`` honoured as "jit" for configs built
+    without load_config's shim."""
+    zs = config.optimizer.zero_sharding
+    if config.optimizer.shard_opt_state and zs == "off":
+        zs = "jit"
+    return zs
+
+
+def check_step_config(config: ExperimentConfig, world: int = 1
+                      ) -> dict[str, int]:
     """Raise for every setting the data-parallel step over ``world`` ranks
-    does not carry: MeshSizeError when ``mesh.data`` is neither -1 nor the
-    world, ValueError for the JAX package's refusals (a wire dtype under
-    ``jit``, a bad ``train.grad_allreduce_accum``), NotImplementedError for
-    what is not ported (an axis other than ``data``, so FSDP under
-    ``shard_map`` too, and ZeRO: A10)."""
-    mesh_lib.resolve_mesh(config.mesh, world)
+    does not carry: MeshSizeError when the mesh does not fit the world,
+    ValueError for the JAX package's refusals (a wire dtype under ``jit``,
+    a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
+    their update cannot run), NotImplementedError for what is not ported
+    (an axis other than ``data`` and ``fsdp``). Returns the mesh's
+    sizes."""
+    sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
     if tcfg.spmd_mode not in ("jit", "shard_map"):
         raise ValueError(f"train.spmd_mode must be 'jit' or 'shard_map', "
@@ -147,9 +195,58 @@ def check_step_config(config: ExperimentConfig, world: int = 1) -> None:
             "train.grad_allreduce_accum must be 'float32' or 'wire', "
             f"got {tcfg.grad_allreduce_accum!r}")
     opt = config.optimizer
-    if opt.zero_sharding != "off" or opt.shard_opt_state:
-        raise _not_ported("ZeRO weight-update sharding "
-                          "(optimizer.zero_sharding)", "A10")
+    zs = zero_mode(config)
+    shard_map = tcfg.spmd_mode == "shard_map"
+    if zs == "shard_map":
+        if not shard_map:
+            raise ValueError(
+                "optimizer.zero_sharding='shard_map' is the explicit "
+                "bucketed reduce-scatter path and needs "
+                "train.spmd_mode='shard_map'; under spmd_mode='jit' use "
+                "optimizer.zero_sharding='jit'")
+        zero_n = sizes["data"] * sizes["fsdp"]
+        if zero_n <= 1:
+            raise ValueError(
+                "optimizer.zero_sharding='shard_map' shards the weight "
+                "update over the data×fsdp replicas — this mesh has "
+                f"{zero_n}, so it would be a silent no-op")
+        if opt.name == "lars":
+            raise ValueError(
+                "optimizer.name='lars' needs full per-layer param/update "
+                "norms, but zero_sharding='shard_map' updates flattened "
+                "parameter SHARDS — use zero_sharding='jit' for lars")
+        if opt.grad_clip_norm > 0:
+            raise ValueError(
+                "optimizer.grad_clip_norm>0 computes the global grad norm "
+                "inside the optimizer, which under zero_sharding="
+                "'shard_map' sees only gradient SHARDS — use "
+                "zero_sharding='jit' for clipped training")
+    if shard_map and sizes["fsdp"] > 1 and zs != "shard_map":
+        if opt.name == "lars":
+            raise ValueError(
+                "optimizer.name='lars' needs full per-layer param/update "
+                "norms, but explicit fsdp (spmd_mode='shard_map' with "
+                "mesh.fsdp>1) updates parameter SHARDS — use "
+                "spmd_mode='jit' for lars+fsdp")
+        if opt.grad_clip_norm > 0:
+            raise ValueError(
+                "optimizer.grad_clip_norm>0 computes the global grad norm "
+                "inside the optimizer, which under explicit fsdp "
+                "(spmd_mode='shard_map' with mesh.fsdp>1) sees only "
+                "gradient SHARDS — use spmd_mode='jit' for clipped fsdp "
+                "training")
+    if zs == "jit":
+        if shard_map:
+            raise ValueError(
+                "optimizer.zero_sharding='jit' (and the deprecated "
+                "optimizer.shard_opt_state) needs spmd_mode='jit'; the "
+                "explicit path is optimizer.zero_sharding='shard_map'")
+        if sizes["fsdp"] <= 1:
+            raise ValueError(
+                "optimizer.zero_sharding='jit' (and the deprecated "
+                "optimizer.shard_opt_state) shards over the fsdp mesh axis "
+                "— set mesh.fsdp > 1 (it would be a silent no-op on this "
+                "mesh)")
     precision = config.precision
     if precision.fused_update:
         raise _not_ported("precision.fused_update", "A13")
@@ -159,6 +256,7 @@ def check_step_config(config: ExperimentConfig, world: int = 1) -> None:
     if precision.activation_dtype or precision.matmul_dtype:
         raise _not_ported("the precision pack (precision.activation_dtype, "
                           "precision.matmul_dtype)", "A13")
+    return sizes
 
 
 class StepBuilder:
@@ -170,9 +268,14 @@ class StepBuilder:
     def __init__(self, config: ExperimentConfig, *,
                  device: str | torch.device = "cuda",
                  runtime: mesh_lib.MeshRuntime | None = None):
-        self.runtime = runtime
         self.world = 1 if runtime is None else runtime.process_count
-        check_step_config(config, self.world)
+        sizes = check_step_config(config, self.world)
+        if runtime is not None and runtime.sizes != sizes:
+            # A runtime formed for another mesh over the same ranks (one
+            # process group serving several configs): its subgroups are
+            # formed for this config's mesh.
+            runtime = runtime.remesh(sizes)
+        self.runtime = runtime
         self.config = config
         self.device = (resolve_device(device) if runtime is None
                        else runtime.device)
@@ -201,6 +304,12 @@ class StepBuilder:
         self.block = config.parallel.collective_block_size
         self.use_residual = (self.shard_map and self.wire == "int8"
                              and config.parallel.error_feedback)
+        # The sharded layouts (module docstring). Under ZeRO shard_map the
+        # fsdp axis folds into the shard count: no parameter gathers.
+        zs = zero_mode(config)
+        self.zero = zs == "shard_map"
+        self.zero_jit = zs == "jit"
+        self.fsdp = sizes["fsdp"] > 1 and not (self.zero or self.zero_jit)
 
     @property
     def collective_transport(self) -> str | None:
@@ -222,7 +331,9 @@ class StepBuilder:
         statistics. Under ``shard_map`` rank 0's parameters and buffers
         are broadcast, the BatchNorms are global above one rank only with
         ``model.bn_cross_replica``, and with the int8 error-feedback wire
-        the residual starts at zero."""
+        the residual starts at zero. A sharded run's layout (ZeRO, FSDP or
+        ZeRO-1) is cut from the replicated start, after DDP's broadcast,
+        and the optimizer and the EMA run on its shards."""
         model = get_model(
             self.config.model, device=self.device,
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
@@ -236,13 +347,13 @@ class StepBuilder:
             with torch.no_grad():
                 for t in model.state_dict().values():
                     self.runtime.broadcast_(t)
-        optimizer, self.schedule = make_optimizer(
-            self.config.optimizer, self.config.train.total_steps, model)
-        self.base_schedule = self.schedule
-        ema = ({k: p.detach().float().clone()
-                for k, p in model.named_parameters()}
-               if self.config.optimizer.ema_decay > 0 else {})
-        rank = () if self.world == 1 else (self.runtime.process_index,)
+        if (self.fsdp and self.shard_map
+                and any(isinstance(m, BatchNorm) for m in model.modules())):
+            raise ValueError(
+                "explicit fsdp (spmd_mode='shard_map' with mesh.fsdp>1) "
+                "does not support BN models: running stats would be "
+                "updated from gathered params on every replica — use "
+                "spmd_mode='jit' or a BN-free model")
         ddp = None
         if (not self.shard_map and self.runtime is not None
                 and self.runtime.backend is not None):
@@ -250,15 +361,39 @@ class StepBuilder:
                 model, device_ids=(None if self.device.type == "cpu"
                                    else [self.device.index]),
                 broadcast_buffers=False, gradient_as_bucket_view=True)
+        # At the whole parameters' shapes, whatever the layout.
+        residual = ({k: torch.zeros_like(p, dtype=torch.float32)
+                     for k, p in model.named_parameters()}
+                    if self.use_residual else {})
+        layout, whole_norms = None, None
+        if self.zero:
+            layout = zero.ZeroUpdate(
+                model, self.runtime,
+                bucket_mb=self.config.optimizer.zero_bucket_mb,
+                wire=self.wire or None, block_size=self.block)
+        elif self.fsdp or self.zero_jit:
+            layout = DimSharding(model, self.runtime, at_rest=self.fsdp,
+                                 tally=self.shard_map,
+                                 wire=self.wire or None,
+                                 block_size=self.block)
+            whole_norms = layout.whole_norms()
+        optimizer, self.schedule = make_optimizer(
+            self.config.optimizer, self.config.train.total_steps, model,
+            params=None if layout is None else layout.params,
+            whole_norms=whole_norms)
+        self.base_schedule = self.schedule
+        ema = {}
+        if self.config.optimizer.ema_decay > 0:
+            ema = (layout.ema_init(model) if isinstance(layout, DimSharding)
+                   else {k: p.detach().float().clone()
+                         for k, p in model.named_parameters()})
+        rank = () if self.world == 1 else (self.runtime.process_index,)
         return TrainState(
             step=0, model=model.train(), optimizer=optimizer,
             dropout_generator=prng.torch_generator(
                 seed, prng.ROLE_DROPOUT, self.device, *rank),
-            ema_params=ema, ddp=ddp,
-            collective_residual=(
-                {k: torch.zeros_like(p, dtype=torch.float32)
-                 for k, p in model.named_parameters()}
-                if self.use_residual else {}))
+            ema_params=ema, ddp=ddp, layout=layout,
+            collective_residual=residual)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -339,7 +474,12 @@ class StepBuilder:
         1e4 for ``loss_spike`` (core/faults.py); the default 1.0 leaves
         the step untouched."""
         state.model.train()
+        layout = state.layout
         state.optimizer.zero_grad()
+        if layout is not None:
+            state.model.zero_grad(set_to_none=True)
+            if isinstance(layout, DimSharding):
+                layout.begin_step_(state.model)
         world = self.weight_world
         if self.accum == 1:
             scale, weight = 1.0, None
@@ -370,13 +510,22 @@ class StepBuilder:
             metrics = {k: v * local_inv for k, v in sums.items()}
         if world > 1:
             metrics["_weight"] = weight
+        grad_norm = None
         if self.shard_map:
-            metrics = self._explicit_collectives(state, metrics)
-        grad_norm = global_norm([p.grad for p in state.model.parameters()])
+            metrics, grad_norm = self._explicit_collectives(state, metrics)
+        if grad_norm is None:
+            grad_norm = global_norm([p.grad
+                                     for p in state.model.parameters()])
+        if isinstance(layout, DimSharding):
+            layout.shard_grads_(state.model)
         state.optimizer.step(grad_norm)
+        if layout is not None:
+            layout.finish_step_(state.model)
         if state.ema_params:
             ema_update_(list(state.ema_params.values()),
-                        [p for _, p in state.model.named_parameters()],
+                        (layout.ema_sources(state.model)
+                         if isinstance(layout, DimSharding)
+                         else [p for _, p in state.model.named_parameters()]),
                         self.config.optimizer.ema_decay, state.step)
         metrics["grad_norm"] = grad_norm
         metrics["learning_rate"] = self.schedule(state.step)
@@ -384,14 +533,24 @@ class StepBuilder:
         return metrics
 
     @torch.no_grad()
-    def _explicit_collectives(self, state: TrainState,
-                              metrics: dict) -> dict:
+    def _explicit_collectives(self, state: TrainState, metrics: dict
+                              ) -> tuple[dict, torch.Tensor | None]:
         """The shard_map step's collectives, in the JAX order: the
         gradients' mean on the configured wire (with the residual, which
-        is replaced by the new one), the metrics' plain mean, and the mean
-        of the BatchNorm running statistics. Returns the metrics."""
+        is replaced by the new one) — under ZeRO the bucketed
+        reduce-scatter onto the shards — the metrics' plain mean, and the
+        mean of the BatchNorm running statistics. Returns the metrics and,
+        under ZeRO, the mean gradient's norm from its shards (else None:
+        the whole reduced gradients are in ``.grad``)."""
         rt = self.runtime
         named = list(state.model.named_parameters())
+        if self.zero:
+            grad_norm, residual = state.layout.scatter_(
+                state.model, state.collective_residual if self.use_residual
+                else None)
+            if residual is not None:
+                state.collective_residual.update(residual)
+            return self._mean_metrics_and_stats(state, metrics), grad_norm
         grads = {k: p.grad for k, p in named}
         if self.use_residual:
             grads, residual = coll.allreduce_gradients_ef(
@@ -405,6 +564,13 @@ class StepBuilder:
                 block_size=self.block)
         for k, p in named:
             p.grad = grads[k]
+        return self._mean_metrics_and_stats(state, metrics), None
+
+    def _mean_metrics_and_stats(self, state: TrainState,
+                                metrics: dict) -> dict:
+        """The metrics' plain mean over the ranks, and the BatchNorm
+        running statistics' mean in place."""
+        rt = self.runtime
         metrics = coll.pmean(metrics, rt)
         stats = [t for m in state.model.modules() if isinstance(m, BatchNorm)
                  for t in (m.running_mean, m.running_var)]
@@ -437,15 +603,21 @@ class StepBuilder:
         """Weighted metric sums for one eval batch, in ``eval()`` mode (no
         dropout; BN on its running statistics), with the EMA parameters
         when ``train.eval_use_ema`` and the EMA is on. Batches without a
-        ``weight`` key weight every example 1."""
+        ``weight`` key weight every example 1. Under FSDP the parameters
+        (or the EMA) are gathered whole, exactly, for the call."""
         inputs = model_inputs(self.task, batch)
+        fsdp = state.layout if isinstance(state.layout, DimSharding) else None
         state.model.eval()
         try:
             if state.ema_params and self.config.train.eval_use_ema:
-                logits = torch.func.functional_call(
-                    state.model, state.ema_params, inputs)
+                ema = state.ema_params
+                if fsdp is not None and fsdp.at_rest:
+                    ema = fsdp.whole(ema)
+                logits = torch.func.functional_call(state.model, ema, inputs)
             else:
-                logits = state.model(*inputs)
+                with (fsdp.whole_params(state.model) if fsdp is not None
+                      else contextlib.nullcontext()):
+                    logits = state.model(*inputs)
         finally:
             state.model.train()
         labels = batch["targets" if self.task == "mlm" else "label"]

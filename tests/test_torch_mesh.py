@@ -4,7 +4,8 @@ the JAX package's, on the CPU.
 Mirrors ``tests/test_mesh.py`` and the stdlib half of
 ``tests/test_cluster.py``: the mesh's axis sizes and ``MeshSizeError`` from
 the same ``MeshConfig`` at the same device count as the JAX
-``_resolve_axis_sizes``; the refusals of every axis other than ``data``;
+``_resolve_axis_sizes``; the refusals of every axis other than ``data``
+and ``fsdp`` (tests/test_torch_fsdp.py holds the subgroups);
 the gang environment (the discovery triple of ``worker_env``, the
 heartbeat names, the exit barrier); a run without the environment is one
 rank with no process group; and ``cli.train`` exits with rc 84 when the
@@ -74,6 +75,18 @@ def test_axis_sizes_match_jax(sizes, n):
     ("fsdp", "A10"), ("model", "A10"), ("seq", "A11"), ("pipe", "A12"),
     ("expert", "A8")])
 def test_non_data_axes_name_their_item(axis, item):
+    """An axis not ported yet is refused naming its item; fsdp, ported by
+    A10's FSDP half, resolves above 1 (fixed or free) as the JAX mesh
+    does."""
+    if axis == "fsdp":
+        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=2), 2)["fsdp"] == 2
+        assert mesh.resolve_mesh(MeshConfig(data=2, fsdp=2), 4) == \
+            jax_resolve(JaxMeshConfig(data=2, fsdp=2), 4)
+        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=-1), 2)["fsdp"] == 2
+        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=-1), 1)["fsdp"] == 1
+        return
+    if axis == "model":
+        item = "A10 \\(tensor parallel\\)"
     with pytest.raises(NotImplementedError, match=item):
         mesh.resolve_mesh(MeshConfig(**{axis: 2}), 2)
     # A free non-data axis resolves above 1 across ranks and is refused

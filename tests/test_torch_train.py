@@ -448,8 +448,8 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
 @pytest.mark.parametrize("override, item", [
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
-    ("mesh.fsdp=2", "A10"),
-    ("optimizer.zero_sharding=shard_map", "A10"),
+    ("mesh.pipe=2", "A12"),
+    ("mesh.model=2", "A10 \\(tensor parallel\\)"),
     ("precision.remat_policy=save_nothing", "A13"),
     ("model.num_experts=4", "A8"),
     ("precision.matmul_dtype=int8", "A13"),
