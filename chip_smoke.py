@@ -272,14 +272,35 @@ Phases (any failure raises and the script exits non-zero):
      slots, residual). ``--only 11`` runs the kernels' build and phase 11
      alone, a development run that prints no kernels line and no last
      line.
+  12. tensor parallelism (``mesh.model``; parallel/tensor_parallel.py),
+     two child ranks of a gloo group on the card at ``{data: 1, model:
+     2}``, both on the same rows. 12a: ``configs/bert_base_mlm.yaml`` as
+     written (12 layers, bf16, the flash kernels, fused QKV, dropout 0.1,
+     clipping 1.0) through the Trainer, TP_STEPS steps of 16 x 512: the
+     losses finite and equal on both ranks at every step; every replicated
+     leaf (LayerNorms, biases, ``pos_embedding``, the MLM head) bit-equal
+     across the ranks after the last step (the data and the dropout masks
+     are shared); each split leaf at its part's shape; each attention
+     kernel launched 12 x TP_STEPS times by each rank, on 6 heads. Prints
+     per rank the parameter and slot bytes at rest (against one
+     process's), the peak memory and the ms/step (gloo through the host,
+     not a scaling figure). 12b: 12a at dropout 0 against one process
+     without TP on the same batches, losses and grad_norm at every step
+     within TP_LOSS_TOL, the leaf that differs most at the last step
+     named. 12c: 8c's cut (2 layers, f32) under deterministic algorithms:
+     TP against one process within TP_F32_RTOL; 2 steps, a save, a
+     restore into a state from another seed and 2 more, bit-equal to 4
+     straight steps; the checkpoint read by one process gives the
+     gathered whole parameters bit for bit. ``--only 12`` runs the
+     kernels' build and phase 12 alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
-exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a'
-and 11a, whose children set and read their own counts) and read just
+exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
+11a and 12a, whose children set and read their own counts) and read just
 after; launches made to compare or time a kernel do not count. The
-record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a' and
-11a, and its
+record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a
+and 12a, and its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -1379,7 +1400,7 @@ def batchnorm_variant(torch, which: str):
         if not self.training:
             return saved(self, x)
         y, mean, var = layers._CrossRankBatchNorm.apply(
-            x, self.weight, self.bias, self.eps)
+            x, self.weight, self.bias, self.eps, self.group)
         with torch.no_grad():
             keep = self.momentum
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
@@ -3468,11 +3489,12 @@ def run_children(specs: list[dict], workdir: str, name: str,
 
 
 def child_main(spec_path: str) -> int:
-    """One child of phases 8, 10 and 11: ``cli`` runs ``cli.train.main``
+    """One child of phases 8, 10, 11 and 12: ``cli`` runs ``cli.train.main``
     with the launch counts set to 0 just before and read just after (under
     ``torch.use_deterministic_algorithms`` when asked), and its peak
     device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
-    ``zero`` one rank of 11a and ``zero_parity`` one of 11b and 11c.
+    ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c and
+    ``tp`` one of phase 12.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3503,6 +3525,8 @@ def child_main(spec_path: str) -> int:
         result = zero_trainer_rank(torch, fa, os.path.dirname(spec["out"]))
     elif spec["kind"] == "zero_parity":
         result = zero_parity_rank(torch, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "tp":
+        result = tp_rank(torch, fa, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4247,9 +4271,13 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         builder = StepBuilder(cfg, device="cuda", runtime=runtime)
         state = builder.init_state(seed)
     ds = get_dataset(cfg.data)
-    b = cfg.data.global_batch_size // runtime.process_count
-    r = runtime.process_index
-    losses = []
+    # Each data-parallel rank takes its block; the ranks along mesh.model
+    # take the same one.
+    dp = (1, 0) if runtime is None else (runtime.data_group.size,
+                                         runtime.data_group.index)
+    b = cfg.data.global_batch_size // dp[0]
+    r = dp[1]
+    losses, grad_norms = [], []
     for i in range(skip + steps):
         batch = next(ds)
         if i < skip:
@@ -4258,13 +4286,16 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         m = builder.global_metrics(builder.train_step(
             state, to_device(block, builder.device)))
         losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
     whole = contextlib.nullcontext()
     if isinstance(state.layout, DimSharding):
         whole = state.layout.whole_params(state.model)
     with whole:
-        tensors = {k: v.detach().cpu().clone()
-                   for k, v in state.model.state_dict().items()}
-    return {"losses": losses, "tensors": tensors,
+        tensors = state.model.state_dict()
+        if state.tp is not None:
+            tensors = state.tp.whole(tensors)  # every rank of the group
+        tensors = {k: v.detach().cpu().clone() for k, v in tensors.items()}
+    return {"losses": losses, "grad_norms": grad_norms, "tensors": tensors,
             "bytes": state_bytes(torch, state), "builder": builder,
             "state": state}
 
@@ -4487,6 +4518,340 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
         f"{t1 - t0:.1f} s)")
     return counts
 
+# --------------------------------------------------------------- phase 12
+
+# Phase 12: tensor parallelism (mesh.model=2; parallel/tensor_parallel.py)
+# on two gloo ranks of the one card at {data: 1, model: 2}, so both ranks
+# take the same rows. 12a: configs/bert_base_mlm.yaml as written (12
+# layers, bf16, the flash kernels, fused QKV, dropout 0.1, clipping 1.0)
+# through the Trainer, TP_STEPS steps of 16 x 512 (the synthetic stream).
+# gloo moves CUDA tensors through the host, so the ms/step says nothing
+# about scaling.
+TP_CONFIG = "configs/bert_base_mlm.yaml"
+TP_MESH = ("mesh.data=1", "mesh.model=2")
+TP_STEPS = 10
+TP_OVERRIDES = ("data.global_batch_size=16", f"train.total_steps={TP_STEPS}",
+                "train.log_interval=1", "train.eval_steps=0",
+                "train.eval_interval=0", "resilience.rollback=false",
+                "checkpoint.directory=")
+# 12b: 12a at dropout 0 (TP_STEPS steps of the StepBuilder) against one
+# process without TP on the same batches. In bf16 a row-parallel output is
+# the sum of two bf16-rounded partials, rounded again, where one process
+# rounds one product; at the config's warmup the parameters barely move
+# in 10 steps, so the losses differ by the forward's rounding. Written
+# before the first run: the losses within 2e-3 and grad_norm within 2e-2,
+# relative, at every step.
+TP_LOSS_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
+# 12c: 8c's cut (2 layers, full width, f32, dropout 0, 8 rows, no warmup,
+# clipping 1.0) under deterministic algorithms. TP against one process
+# over DP_STEPS steps: the row-parallel sums reorder f32 additions, so
+# bit-equality is not expected. Written before the first run, as DP_TOL
+# holds two data-parallel ranks: losses within 1e-5 and grad_norm within
+# 1e-4, relative; the parameters within 5e-2 x lr (AdamW divides a
+# gradient by its root mean square, so a gradient that is zero in exact
+# arithmetic moves by its noise).
+TP_F32_RTOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 5e-2}
+TP_CUT = DP_BERT[1]
+TP_RESUME = ("checkpoint.async_save=false",)
+TP_RESUME_STEPS, TP_RESUME_SPLIT = 4, 2
+
+
+class StepRecord:
+    """A trainer hook that keeps the loss and grad_norm of every logged
+    step."""
+
+    def __init__(self):
+        self.steps = {}
+
+    def on_start(self, trainer) -> None:
+        pass
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if metrics is not None:
+            self.steps[step] = {"loss": metrics["loss"],
+                                "grad_norm": metrics["grad_norm"]}
+
+    def on_end(self, trainer) -> None:
+        pass
+
+
+def heads_seen(fn, seen: set):
+    """``fn`` (an attention function), noting the head count of each
+    call's q in ``seen``."""
+    def wrapped(q, k, v, **kwargs):
+        seen.add(int(q.shape[2]))
+        return fn(q, k, v, **kwargs)
+    return wrapped
+
+
+def tp_trainer_run(torch, fa, runtime, out_dir: str) -> dict:
+    """12a on one rank: the Trainer with the launch counts set to 0 just
+    before and read just after, the heads each attention call saw, the
+    replicated leaves after the last step, the parts' shapes, the bytes
+    at rest and the peak memory."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models.bert import (
+        MultiHeadAttention,
+    )
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    logs = os.path.join(out_dir, "tp_logs")
+    cfg = load_config(TP_CONFIG, overrides=[*TP_OVERRIDES, *TP_MESH])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, log_dir=logs, runtime=runtime)
+    trainer.build()
+    heads = set()
+    for module in trainer.state.model.modules():
+        if isinstance(module, MultiHeadAttention):
+            module.attention_fn = heads_seen(module.attention_fn, heads)
+    record = StepRecord()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(hooks=trainer.default_hooks() + [record])
+    finally:
+        trainer.writer.close()
+    counts = read_counts(fa)
+    seconds = time.perf_counter() - t0
+    state = trainer.state
+    named = dict(state.model.named_parameters())
+    path = os.path.join(out_dir,
+                        f"tp_replicated_rank{runtime.process_index}.pt")
+    torch.save({k: p.detach().cpu() for k, p in named.items()
+                if state.tp.leaves[k] is None}, path)
+    return {"counts": counts, "heads": sorted(heads), "steps": record.steps,
+            "s": seconds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "bytes": state_bytes(torch, state), "replicated": path,
+            "parts": {k: [list(named[k].shape), list(leaf.part_shape)]
+                      for k, leaf in state.tp.leaves.items()
+                      if leaf is not None},
+            "logs": logs}
+
+
+def tp_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of phase 12: a gloo group on the card at {data: 1,
+    model: 2}; 12a, the TP legs of 12b and 12c, and 12c's resume."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(data=1, model=2), "cuda",
+                                 backend="gloo")
+    rank = runtime.process_index
+    try:
+        out = {"rank": rank, "backend": runtime.backend, "s": {}}
+        t0 = time.perf_counter()
+        out["12a"] = tp_trainer_run(torch, fa, runtime, out_dir)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        b = zero_cut_case(torch, (*TP_OVERRIDES, *TP_MESH,
+                                  "model.dropout_rate=0.0"), runtime,
+                          TP_STEPS)
+        path = os.path.join(out_dir, f"tp_b_rank{rank}.pt")
+        torch.save(b["tensors"], path)
+        out["12b"] = {"losses": b["losses"], "grad_norms": b["grad_norms"],
+                      "tensors": path}
+        del b
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        c = zero_cut_case(torch, (*TP_CUT, *TP_MESH), runtime, DP_STEPS)
+        path = os.path.join(out_dir, f"tp_c_rank{rank}.pt")
+        torch.save(c["tensors"], path)
+        out["12c"] = {"losses": c["losses"], "grad_norms": c["grad_norms"],
+                      "tensors": path}
+        del c
+        over = (*TP_CUT, *TP_MESH, *TP_RESUME)
+        straight = zero_cut_case(torch, over, runtime, TP_RESUME_STEPS)
+        legs = zero_cut_case(torch, over, runtime, TP_RESUME_SPLIT)
+        ckpt = os.path.join(out_dir, "tp_resume")
+        manager = CheckpointManager(dataclasses.replace(
+            legs["builder"].config.checkpoint, directory=ckpt),
+            runtime=runtime)
+        manager.save(TP_RESUME_SPLIT, legs["state"])
+        whole = os.path.join(out_dir, f"tp_saved_whole_rank{rank}.pt")
+        torch.save(legs["tensors"], whole)
+        fresh = zero_cut_case(torch, over, runtime, 0, seed=SEED + 1)
+        restored = manager.restore(fresh["state"])
+        manager.close()
+        tail = zero_cut_case(
+            torch, over, runtime, TP_RESUME_STEPS - TP_RESUME_SPLIT,
+            state=fresh["state"], builder=fresh["builder"],
+            skip=TP_RESUME_SPLIT)
+        want, got = (list(tensor_leaves(x["state"].state_dict()))
+                     for x in (straight, tail))
+        out["resume"] = {
+            "restored": restored, "ckpt": ckpt, "whole": whole,
+            "losses_equal": tail["losses"] == straight["losses"][
+                TP_RESUME_SPLIT:],
+            "tensors": len(want),
+            "equal": sum(torch.equal(x, y) for x, y in zip(got, want))}
+        out["s"] = {"12a": t1 - t0, "12b": t2 - t1,
+                    "12c": time.perf_counter() - t2}
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+        runtime.shutdown()
+
+
+def worst_leaf(torch, got: dict, want: dict) -> tuple[float, str]:
+    """The largest |got − want| over the leaves, and its leaf."""
+    return max(((got[k].float() - v.float()).abs().max().item(), k)
+               for k, v in want.items())
+
+
+def tp_phase(torch, workdir: str, smi: str) -> dict:
+    """Phase 12: 12a (BERT-base through the Trainer, two gloo ranks at
+    {data: 1, model: 2}), 12b (12a at dropout 0 against one process) and
+    12c (8c's cut in f32 against one process, a resume, the checkpoint
+    read by one process). Returns 12a's attention-kernel launches, both
+    ranks (main-path runs)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t0 = time.perf_counter()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 12c's determinism
+    ranks = run_children([{"kind": "tp", "env": {**gang_env(port, 2, r),
+                                                 **env}}
+                          for port in [free_port()] for r in range(2)],
+                         workdir, "tp_ranks", timeout=900)
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"12a: backends {ranks}")
+    bad = []
+    # 12a.
+    a0, a1 = (r["12a"] for r in ranks)
+    events = read_events(a0["logs"])
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    ms = steady_ms(events)
+    losses = {int(k): v["loss"] for k, v in a0["steps"].items()}
+    same = a0["steps"] == a1["steps"]
+    finite = (sorted(losses) == list(range(1, TP_STEPS + 1))
+              and all(math.isfinite(v["loss"]) and math.isfinite(
+                  v["grad_norm"]) for v in a0["steps"].values()))
+    x, y = (torch.load(a["replicated"], weights_only=True) for a in (a0, a1))
+    equal = sum(torch.equal(x[k], y[k]) for k in x)
+    parts_ok = all(got == want for a in (a0, a1)
+                   for got, want in a["parts"].values())
+    log(f"12a bert-base, mesh {meta['mesh']}, {meta['tp_sharded_leaves']} "
+        f"leaves split over model, 2 gloo ranks on the card, {TP_STEPS} "
+        f"steps of 16x512 (dropout 0.1, clipping 1.0), both ranks on the "
+        f"same rows: losses " + ", ".join(
+            f"step {k} {v!r}" for k, v in sorted(losses.items()))
+        + f"; losses and grad_norm equal on both ranks {same}, finite "
+        f"{finite}; {equal} of {len(x)} replicated leaves bit-equal across "
+        f"the ranks after step {TP_STEPS}; every split leaf at its part's "
+        f"shape {parts_ok} [{smi}]")
+    want = {"fwd": 12 * TP_STEPS, "dq": 12 * TP_STEPS,
+            "dkv": 12 * TP_STEPS, "fused": 0}
+    counts = {k: 0 for k in want}
+    for r in ranks:
+        a = r["12a"]
+        log(f"12a rank {r['rank']}: parameters {gb(a['bytes']['params'])}, "
+            f"slots {gb(a['bytes']['slots'])} at rest, peak "
+            f"{a['peak_gb']:.2f} GB, attention on {a['heads']} heads, "
+            f"launches {a['counts']}; {ms:.1f} ms/step (steps 2-10, "
+            f"chief's clock; gloo through the host, not a scaling figure); "
+            f"12a {r['s']['12a']:.1f} s, 12b {r['s']['12b']:.1f} s, 12c "
+            f"{r['s']['12c']:.1f} s [{smi}]")
+        if a["counts"] != want or a["heads"] != [6]:
+            bad.append((r["rank"], "12a launches or heads"))
+        counts = {k: counts[k] + a["counts"][k] for k in counts}
+    if not (same and finite and equal == len(x) and parts_ok):
+        bad.append(("12a", same, finite, equal, parts_ok))
+    # 12b: one process without TP on the same batches.
+    torch.cuda.empty_cache()
+    ref = zero_cut_case(torch, (*TP_OVERRIDES, "model.dropout_rate=0.0"),
+                        None, TP_STEPS)
+    whole = state_bytes(torch, ref["state"])
+    for r in ranks:
+        a = r["12a"]
+        log(f"12a rank {r['rank']} at rest over one process's: parameters "
+            f"{a['bytes']['params'] / whole['params']:.4f}, slots "
+            f"{a['bytes']['slots'] / whole['slots']:.4f} (one process: "
+            f"{gb(whole['params'])}, {gb(whole['slots'])})")
+        if not (a["bytes"]["params"] < 0.52 * whole["params"]
+                and a["bytes"]["slots"] < 0.52 * whole["slots"]):
+            bad.append((r["rank"], "12a bytes at rest"))
+    b = ranks[0]["12b"]
+    gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(b[name], ref[name]))
+            for key, name in (("loss", "losses"),
+                              ("grad_norm", "grad_norms"))}
+    tensors = torch.load(b["tensors"], weights_only=True)
+    diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+    log(f"12b bert-base bf16 dropout 0, TP on 2 ranks vs one process, "
+        f"{TP_STEPS} steps of 16x512: losses {b['losses']} vs "
+        f"{ref['losses']}; grad_norm {b['grad_norms']} vs "
+        f"{ref['grad_norms']}; largest relative gap loss "
+        f"{gaps['loss']:.3e}, grad_norm {gaps['grad_norm']:.3e} (tol "
+        f"{TP_LOSS_TOL}); the leaf that differs most at step {TP_STEPS}: "
+        f"{leaf} ({diff:.3e})")
+    if any(gaps[k] > TP_LOSS_TOL[k] for k in gaps) or \
+            ranks[1]["12b"]["losses"] != b["losses"]:
+        bad.append(("12b", gaps))
+    del ref, tensors
+    torch.cuda.empty_cache()
+    # 12c: f32 against one process, the resume, the checkpoint read whole.
+    ref = zero_cut_case(torch, TP_CUT, None, DP_STEPS)
+    c = ranks[0]["12c"]
+    lr = load_config(TP_CONFIG, overrides=list(TP_CUT)).optimizer.learning_rate
+    gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(c[name], ref[name]))
+            for key, name in (("loss", "losses"),
+                              ("grad_norm", "grad_norms"))}
+    tensors = torch.load(c["tensors"], weights_only=True)
+    diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+    log(f"12c 2 layers f32, TP on 2 ranks vs one process, {DP_STEPS} "
+        f"steps of 8x512: largest relative gap loss {gaps['loss']:.3e}, "
+        f"grad_norm {gaps['grad_norm']:.3e}; worst parameter |diff| "
+        f"{diff:.3e} = {diff / lr:.3e} x lr ({leaf}); tol {TP_F32_RTOL}")
+    if (gaps["loss"] > TP_F32_RTOL["loss"]
+            or gaps["grad_norm"] > TP_F32_RTOL["grad_norm"]
+            or diff > TP_F32_RTOL["params"] * lr):
+        bad.append(("12c parity", gaps, diff))
+    for r in ranks:
+        res = r["resume"]
+        log(f"12c rank {r['rank']} TP resume (deterministic algorithms): "
+            f"restored step {res['restored']}; losses after the restore "
+            f"equal {res['losses_equal']}; {res['equal']} of "
+            f"{res['tensors']} tensors (parameter and slot parts) bit-equal "
+            f"to {TP_RESUME_STEPS} straight steps")
+        if not (res["restored"] == TP_RESUME_SPLIT and res["losses_equal"]
+                and res["equal"] == res["tensors"]):
+            bad.append((r["rank"], "12c resume"))
+    res = ranks[0]["resume"]
+    cfg = load_config(TP_CONFIG, overrides=[*TP_CUT, *TP_RESUME])
+    one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(
+        cfg.checkpoint, directory=res["ckpt"]))
+    restored = manager.restore(one)
+    manager.close()
+    saved = torch.load(res["whole"], weights_only=True)
+    loaded = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    equal = sum(torch.equal(loaded[k], v) for k, v in saved.items())
+    log(f"12c the TP checkpoint read by one process: restored step "
+        f"{restored}; {equal} of {len(saved)} model tensors bit-equal to "
+        f"the parts gathered whole at the save")
+    if restored != TP_RESUME_SPLIT or equal != len(saved):
+        bad.append(("12c one-process restore", restored, equal))
+    if bad:
+        raise AssertionError(f"phase 12: {bad}")
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
 
 def main() -> int:
     try:
@@ -4530,6 +4895,14 @@ def main() -> int:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_zero_") as wd:
             zero_phase(torch, wd, gpu)
+        return 0
+    if only == "12":
+        # A development run of phase 12 alone (``--only 12``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as wd:
+            tp_phase(torch, wd, gpu)
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -4627,10 +5000,21 @@ def main() -> int:
             " FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO resume (11c)")
         zero_counts = zero_phase(torch, workdir, gpu)
 
+    # Phase 12: tensor parallelism. 12a runs BERT-base through the
+    # attention kernels on two ranks, each on 6 of the 12 heads, so its
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as workdir:
+        log("phase 12 tensor parallelism: BERT-base split over two gloo "
+            "ranks of the card at {data: 1, model: 2} through the Trainer "
+            "(12a); against one process in bf16 (12b) and f32 at 8c's cut "
+            "with a resume (12c)")
+        tp_counts = tp_phase(torch, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
-    # phase 10's shard_map runs and phase 11a's two-rank runs, both ranks
-    # of each) and the two long-context runs; those with
+    # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
+    # ranks of each) and the two long-context runs; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -4638,7 +5022,7 @@ def main() -> int:
     # with FUSED_BWD forced on, and say so.
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
-                + coll_counts[name] + zero_counts[name]
+                + coll_counts[name] + zero_counts[name] + tp_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

@@ -66,12 +66,16 @@ A sharded state (train/state.py ``layout``) is written in the whole,
 global layout the JAX package's orbax checkpoints hold, so that a
 checkpoint does not depend on how the run that wrote it was sharded:
 FSDP's parameters, slots and EMA and ZeRO-1's slots are gathered whole
-(exact f32), and ZeRO's slots are stacked as ``(n, chunk)`` rows, row i
-rank i's (every rank takes part in the gathers; the chief writes). A
-restore cuts each rank's part back out: its slice of a whole tensor, or
-its row of the stacked slots — refolded first (ckpt/reshard.py
-``refold_zero_opt_state``) when another rank count saved them. FSDP,
-ZeRO-1 and replicated checkpoints restore into one another; switching ZeRO
+(exact f32), and so are the tensor-parallel parts of the parameters, the
+slots and the EMA, as orbax writes global arrays; ZeRO's slots are
+stacked as ``(n, chunk)`` rows, row i data-parallel rank i's (every rank
+takes part in the gathers; the chief writes). A restore cuts each rank's
+part back out: its tensor-parallel part, its slice of that, or its row of
+the stacked slots — refolded first (ckpt/reshard.py
+``refold_zero_opt_state``) when another rank count saved them. So a
+checkpoint resumes at any ``mesh.model``, in one process too. FSDP,
+ZeRO-1, tensor-parallel and replicated checkpoints restore into one
+another; switching ZeRO
 ``shard_map`` on or off across a resume is refused with the JAX package's
 ValueError, since the stacked and the whole slot layouts are different
 optimizers' states.
@@ -153,6 +157,9 @@ class CheckpointManager:
         self._runtime = runtime
         self.is_chief = runtime is None or runtime.is_chief
         self.process_count = 1 if runtime is None else runtime.process_count
+        # The data state is the data-parallel ranks' (the ranks along
+        # mesh.model read the same batches).
+        self.data_count = 1 if runtime is None else runtime.data_group.size
         self._path = os.path.abspath(config.directory)
         os.makedirs(self._path, exist_ok=True)
         self._saver = AsyncSaver() if config.async_save else None
@@ -219,7 +226,7 @@ class CheckpointManager:
         if dataset_state is not None:
             _write_json(os.path.join(step_dir, DATA_FILE), dataset_state)
             extra = {data_shard.DATA_RECORD_KEY: data_shard.data_state_record(
-                dataset_state, process_count=self.process_count,
+                dataset_state, process_count=self.data_count,
                 repartition=self._data_repartition, watermark=watermark)}
         # A crash_in_save fault here leaves a written directory with no
         # manifest: the uncommitted step restore must refuse.
@@ -262,6 +269,8 @@ class CheckpointManager:
         live = state.state_dict()
         if state.layout is not None:
             live = state.layout.global_state(live, state.optimizer.names)
+        if state.tp is not None:
+            live = state.tp.global_state(live, state.optimizer.names)
         if not self.is_chief:
             return False
         self._drain()  # a new save waits for the previous commit
@@ -480,7 +489,7 @@ class CheckpointManager:
             manifest = mf.read_manifest(self._step_dir(step)) or {}
             plan = data_shard.check_restore_data(
                 manifest.get(data_shard.DATA_RECORD_KEY), data_state,
-                process_count=self.process_count,
+                process_count=self.data_count,
                 resume_strict=self._data_resume_strict)
             if plan is not None:
                 self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
@@ -530,8 +539,9 @@ class CheckpointManager:
     def _own_parts(self, state: TrainState, step: int, meta: dict,
                    tensors: dict) -> dict:
         """``tensors`` (the whole layout) cut to this rank's parts of a
-        sharded state; ZeRO's stacked slots refolded first when another
-        rank count saved them. A ZeRO toggle across the resume is
+        sharded state: its tensor-parallel parts first, then its FSDP or
+        ZeRO-1 parts of those; ZeRO's stacked slots refolded first when
+        another rank count saved them. A ZeRO toggle across the resume is
         refused."""
         stored = meta.get("zero_rows")
         zero = isinstance(state.layout, ZeroUpdate)
@@ -546,15 +556,17 @@ class CheckpointManager:
                 f"unsupported (replicated and ZeRO-stacked slot layouts "
                 f"are incompatible) — restore with the settings the "
                 f"checkpoint was saved under (its slots are {saved})")
+        names = state.optimizer.names
+        if state.tp is not None:
+            tensors = state.tp.local_state(tensors, names)
         if state.layout is None:
             return tensors
-        names = state.optimizer.names
-        if zero and stored != self.process_count:
+        if zero and stored != state.layout.n:
             tensors = {**tensors, "optimizer": refold_zero_opt_state(
                 tensors["optimizer"], names, state.layout.sizes,
-                self.process_count)}
+                state.layout.n)}
             log.warning("ZeRO optimizer slots refolded %d -> %d rows "
-                        "across the restore", stored, self.process_count)
+                        "across the restore", stored, state.layout.n)
         return state.layout.local_state(tensors, names)
 
     def _own_generator(self, state: TrainState, meta: dict,

@@ -4,7 +4,7 @@
 The JAX package builds one ``jax.sharding.Mesh`` over every device of the
 gang and lets XLA insert the collectives. The port runs one process per
 GPU (the JAX package: one per host) and a ``torch.distributed`` group
-stands in for the mesh's ``data`` axis:
+stands in for the mesh:
 
   * with the gang environment of ``core/cluster.py`` set
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
@@ -17,13 +17,18 @@ stands in for the mesh's ``data`` axis:
 
 The mesh's sizes resolve as in the JAX package (one axis may be -1, the
 product must equal the world size, else :class:`MeshSizeError`, which
-``cli/train.py`` maps to rc 84). The ``data`` and ``fsdp`` axes may
-exceed 1; ``model`` (A10's tensor-parallel half), ``seq`` (A11), ``pipe``
-(A12) and ``expert`` (A8) raise NotImplementedError naming their
-ROADMAP.md item. Rank r sits at the coordinates of r in the row-major
-order of ``MESH_AXES`` (``data`` outermost): with data and fsdp,
-``r = data_idx · fsdp + fsdp_idx``, which is what JAX's
-``linear_axis_index(("data", "fsdp"))`` gives.
+``cli/train.py`` maps to rc 84). The ``data``, ``fsdp`` and ``model``
+axes may exceed 1; ``seq`` (A11), ``pipe`` (A12) and ``expert`` (A8)
+raise NotImplementedError naming their ROADMAP.md item. Rank r sits at
+the coordinates of r in the row-major order of ``MESH_AXES`` (``data``
+outermost, ``model`` innermost, so the ranks of one tensor-parallel group
+are adjacent, as Megatron places them): ``r = (data_idx · fsdp +
+fsdp_idx) · model + model_idx``, and the data-parallel index
+``data_idx · fsdp + fsdp_idx`` is what JAX's
+``linear_axis_index(("data", "fsdp"))`` gives. The ranks along ``model``
+share a data-parallel index: they read the same batch, draw the same
+dropout masks and reduce nothing over one another but the tensor-parallel
+layers' activations (:attr:`MeshRuntime.data_group`).
 
 :class:`MeshRuntime` carries the collectives the port uses across ranks:
 ``all_reduce``, ``broadcast`` and, for the explicit collectives of
@@ -31,8 +36,9 @@ parallel/collectives.py, ``all_to_all``, ``all_gather`` and
 ``reduce_scatter``. All but ``broadcast`` act on every rank, or on an
 :class:`AxisGroup`: the ranks along some mesh axes that share this
 rank's other coordinates (:meth:`MeshRuntime.axis_group`; explicit FSDP
-gathers over ``fsdp`` alone, while ZeRO and the gradient reduction span
-data × fsdp, every rank). The subgroups are formed by every rank at the
+gathers over ``fsdp`` alone, tensor parallelism reduces over ``model``,
+while ZeRO, the gradient reduction, the loss weight and the metrics span
+data × fsdp, ``DATA_AXES``). The subgroups are formed by every rank at the
 same point: in :func:`initialize_runtime`, or in
 :meth:`MeshRuntime.remesh` for another mesh over the same ranks. NCCL,
 and gloo on CPU tensors, run
@@ -69,9 +75,11 @@ from distributed_tensorflow_framework_torch.core.device import resolve_device
 log = logging.getLogger(__name__)
 
 MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
+# The axes a batch is split over and the gradients are reduced over: the
+# JAX package's DATA_AXES (train/step.py).
+DATA_AXES = ("data", "fsdp")
 # The ROADMAP.md queue A item that ports each axis not ported yet.
-_AXIS_ITEMS = {"model": "A10 (tensor parallel)",
-               "seq": "A11 (sequence parallel)", "pipe": "A12 (pipeline)",
+_AXIS_ITEMS = {"seq": "A11 (sequence parallel)", "pipe": "A12 (pipeline)",
                "expert": "A8 (expert parallel)"}
 
 
@@ -110,14 +118,14 @@ def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
-                f"queue A item {item}; the port runs the data and fsdp "
-                f"axes only")
+                f"queue A item {item}; the port runs the data, fsdp and "
+                f"model axes only")
 
 
 def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
     """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
-    an axis other than ``data`` and ``fsdp`` above 1, MeshSizeError when
-    the sizes do not fit the ranks."""
+    ``seq``, ``pipe`` or ``expert`` above 1, MeshSizeError when the sizes
+    do not fit the ranks."""
     _refuse_unported_axes(config.axis_sizes())
     sizes = _resolve_axis_sizes(config, world)
     _refuse_unported_axes(sizes)
@@ -293,6 +301,15 @@ class MeshRuntime:
     def data_parallel_size(self) -> int:
         return self.sizes["data"] * self.sizes["fsdp"] * self.sizes["expert"]
 
+    @property
+    def data_group(self) -> AxisGroup:
+        """The ranks along ``DATA_AXES`` that share this rank's ``model``
+        coordinate: ``index`` is this rank's data-parallel index (which
+        block of the global batch it reads, which dropout stream it
+        draws), ``size`` the data-parallel count. At ``model`` 1 it is
+        every rank, its index the rank."""
+        return self.axis_group(DATA_AXES)
+
     def describe(self) -> str:
         return (f"rank {self.process_index}/{self.process_count} on "
                 f"{self.device}, group {self.backend or 'none'}, mesh "
@@ -447,9 +464,10 @@ def initialize_runtime(config: MeshConfig | None = None,
                        ) -> MeshRuntime:
     """Resolve the mesh against the gang and form the process group.
     ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
-    tensors runs two ranks on one card). Raises NotImplementedError for an
-    axis other than data and fsdp above 1, MeshSizeError when the mesh does not fit the
-    ranks, DeviceUnavailableError for CUDA without a card."""
+    tensors runs two ranks on one card). Raises NotImplementedError for
+    ``seq``, ``pipe`` or ``expert`` above 1, MeshSizeError when the mesh
+    does not fit the ranks, DeviceUnavailableError for CUDA without a
+    card."""
     config = config or MeshConfig()
     gang = gang_from_env(environ)
     if gang is None:

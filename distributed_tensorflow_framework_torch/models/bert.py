@@ -21,6 +21,12 @@ the activation dtype, as Flax's ``nn.Dropout`` does.
 ``attention_impl``: "pallas" runs ops/flash_attention.py (the CUDA kernel on
 the card), "xla" the plain :func:`dot_product_attention`.
 
+Under tensor parallelism (parallel/tensor_parallel.py) the projections
+are split over the mesh's ``model`` axis: ``tp_size`` of the attention is
+the axis's size, and its ``nh / tp_size`` heads are this rank's; the
+embedding table is held as this rank's H-part and gathered whole once per
+forward (``Embed.table``).
+
 ``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``, the
 counterpart of ``nn.remat(EncoderLayer)``): the backward recomputes a
 layer's activations from its input instead of keeping them, so activation
@@ -86,6 +92,8 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.fused_qkv = fused_qkv
+        # The tensor-parallel split of the heads (1: every head here).
+        self.tp_size = 1
         # A plain attribute, so a caller can hold the model against the
         # kernel's plain version by swapping it (chip_smoke.py does).
         self.attention_fn = (
@@ -103,16 +111,18 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, mask=None, segment_ids=None):
         b, s, h = x.shape
-        heads = (b, s, self.num_heads, h // self.num_heads)
+        nh = self.num_heads // self.tp_size
+        width = nh * (h // self.num_heads)
+        heads = (b, s, nh, h // self.num_heads)
         if self.fused_qkv:
-            qkv = self.qkv(x).view(b, s, 3, h)
+            qkv = self.qkv(x).view(b, s, 3, width)
             q, k, v = (qkv[:, :, i, :].reshape(heads) for i in range(3))
         else:
             q = self.query(x).reshape(heads)
             k = self.key(x).reshape(heads)
             v = self.value(x).reshape(heads)
         out = self.attention_fn(q, k, v, mask=mask, segment_ids=segment_ids)
-        return self.attn_out(out.reshape(b, s, h))
+        return self.attn_out(out.reshape(b, s, width))
 
 
 class EncoderLayer(nn.Module):
@@ -170,12 +180,19 @@ def remat_layer(layer: nn.Module, x, mask, segment_ids, generator):
 
 
 class Embed(nn.Module):
-    """Flax ``nn.Embed`` parameter holder (``embedding`` → ``weight``)."""
+    """Flax ``nn.Embed`` parameter holder (``embedding`` → ``weight``).
+    Under tensor parallelism ``weight`` is this rank's part and ``tp``
+    gathers the whole table."""
 
     def __init__(self, num: int, features: int, *, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             num, features, dtype=torch.float32, device=device))
+        self.tp = None
+
+    def table(self) -> torch.Tensor:
+        """The whole table."""
+        return self.weight if self.tp is None else self.tp(self.weight)
 
 
 class BertEmbed(nn.Module):
@@ -193,7 +210,7 @@ class BertEmbed(nn.Module):
         self.embed_ln = LayerNorm(hidden, device=device)
 
     def forward(self, input_ids, position_ids=None, generator=None):
-        table = self.embed.weight
+        table = self.embed.table()
         x = F.embedding(input_ids, table).to(self.dtype)
         if position_ids is None:
             pos = self.pos_embedding[None, :input_ids.shape[1], :]

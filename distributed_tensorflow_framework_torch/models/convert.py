@@ -18,6 +18,14 @@ with these layout rules:
 
 Trees are nested dicts of numpy arrays, as ``jax.device_get`` of the Flax
 params (and ``batch_stats``) gives them and as serve/export.py stores them.
+
+Under tensor parallelism (parallel/tensor_parallel.py) a rank holds the
+part of a leaf that the JAX package's ``PartitionSpec`` gives its
+``model`` coordinate: the Flax leaf cut into equal blocks along one dim
+(:func:`leaf_part`, and :func:`leaf_whole` the inverse). A part maps onto
+the port's layout by the same rules as a whole leaf (:func:`torch_shape`):
+the fused ``qkv`` kernel's part (H, 3, H/m) is a (3H/m, H) weight whose
+rows ``i·H/m + o`` hold the whole weight's rows ``i·H + r·H/m + o``.
 """
 
 from __future__ import annotations
@@ -162,3 +170,32 @@ def batch_stats_to_flax(model: nn.Module) -> dict[str, Any]:
     return unflatten_tree({
         path: state[key].detach().to("cpu", torch.float32).numpy().copy()
         for key, path in flax_stats_layout(model).items()})
+
+
+def torch_shape(path: tuple[str, ...], flax_shape: tuple[int, ...]
+                ) -> tuple[int, ...]:
+    """The shape of the port tensor that holds a Flax leaf (or a part of
+    one) of ``flax_shape`` at ``path``: a Dense kernel (in, *out) is a
+    (prod(out), in) weight, a Conv kernel (kh, kw, cin, cout) a (cout, cin,
+    kh, kw) weight, a Dense bias (*out) flat, everything else as it is."""
+    if path[-1] == "kernel" and len(flax_shape) == 4:
+        kh, kw, cin, cout = flax_shape
+        return (cout, cin, kh, kw)
+    if path[-1] == "kernel":
+        return (int(np.prod(flax_shape[1:])), flax_shape[0])
+    if path[-1] == "bias":
+        return (int(np.prod(flax_shape)),)
+    return tuple(flax_shape)
+
+
+def leaf_part(leaf: np.ndarray, dim: int, count: int,
+              index: int) -> np.ndarray:
+    """Block ``index`` of ``count`` equal blocks of a Flax leaf along
+    ``dim``: the part a ``PartitionSpec`` naming one axis of size
+    ``count`` on ``dim`` gives the member at coordinate ``index``."""
+    return np.split(np.asarray(leaf), count, axis=dim)[index]
+
+
+def leaf_whole(parts, dim: int) -> np.ndarray:
+    """The Flax leaf from its :func:`leaf_part` blocks, in member order."""
+    return np.concatenate([np.asarray(p) for p in parts], axis=dim)

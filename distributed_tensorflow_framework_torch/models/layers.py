@@ -53,12 +53,16 @@ def normal_(weight: torch.Tensor, std: float,
 class Dense(nn.Module):
     """``y = x @ W.T + b`` with f32 parameters, computed in ``dtype``:
     Flax's Dense casts the input, kernel and bias to the compute dtype, so
-    the product rounds once and the bias add rounds again."""
+    the product rounds once and the bias add rounds again. Under tensor
+    parallelism ``tp`` (parallel/tensor_parallel.py ``ColumnParallel`` or
+    ``RowParallel``) computes the layer from this rank's part of the
+    weight and its collectives; None computes it whole."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = None
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.empty(
@@ -70,6 +74,8 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp(x, self.weight, self.bias, self.dtype)
         return dense(x, self.weight, self.bias, self.dtype)
 
 
@@ -238,16 +244,17 @@ class Conv(nn.Module):
                         stride=self.strides, padding=symmetric)
 
 
-def _all_reduce(t: torch.Tensor) -> None:
-    """Sum ``t`` over the ranks of the default process group in place; a
-    no-op without a group (one device)."""
+def _all_reduce(t: torch.Tensor, group=None) -> None:
+    """Sum ``t`` over the ranks of ``group`` (None: the default process
+    group) in place; a no-op without a process group (one device)."""
     if dist.is_available() and dist.is_initialized():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
 
 
 class _CrossRankBatchNorm(torch.autograd.Function):
-    """Training-mode BatchNorm over the batch of every rank of the default
-    process group, in f32: ``(x, weight, bias, eps) -> (y, mean, var)``.
+    """Training-mode BatchNorm over the batch of every rank of a process
+    group (the data-parallel ranks, :func:`use_cross_rank_bn`), in f32:
+    ``(x, weight, bias, eps, group) -> (y, mean, var)``.
 
     Forward: one ``all_reduce`` of the per-channel ``[Σx, Σx², n]``, then
     Flax's statistics, ``mean = E[x]`` and the biased
@@ -260,13 +267,14 @@ class _CrossRankBatchNorm(torch.autograd.Function):
     rank's own: Flax's statistics on one device."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
+        ctx.group = group
         xf = x.float()
         dims, c = (0, 2, 3), x.shape[1]
         count = torch.full((1,), xf.numel() // c, dtype=torch.float32,
                            device=x.device)
         stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
-        _all_reduce(stats)
+        _all_reduce(stats, group)
         n = stats[2 * c]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp(min=0.0)
@@ -285,12 +293,12 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
         local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
         dbias, dweight = local[:c].clone(), local[c:].clone()
-        _all_reduce(local)
+        _all_reduce(local, ctx.group)
         mean_dy = (local[:c] / n)[:, None, None]
         mean_dy_xhat = (local[c:] / n)[:, None, None]
         dx = ((dy - mean_dy - xhat * mean_dy_xhat)
               * (invstd * weight)[:, None, None])
-        return dx.to(x.dtype), dweight, dbias, None
+        return dx.to(x.dtype), dweight, dbias, None, None
 
 
 class BatchNorm(nn.Module):
@@ -310,10 +318,12 @@ class BatchNorm(nn.Module):
     last BN of a residual block).
 
     ``cross_rank`` (:func:`use_cross_rank_bn`, which the trainer calls
-    when the world is above 1) takes the training statistics over the
-    batch of every rank (:class:`_CrossRankBatchNorm`): under the JAX
-    package's ``jit`` the batch is one global array, so its BN statistics
-    are global whatever ``model.bn_cross_replica`` says. At one rank the
+    when the data-parallel ranks are more than one) takes the training
+    statistics over the batch of every rank of ``group``, the data × fsdp
+    ranks (:class:`_CrossRankBatchNorm`): under the JAX package's ``jit``
+    the batch is one global array, so its BN statistics are global
+    whatever ``model.bn_cross_replica`` says, and the ranks along
+    ``model`` hold the same batch. At one data-parallel rank the
     single-device path above runs unchanged."""
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
@@ -325,6 +335,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.zero_init_gamma = zero_init_gamma
         self.cross_rank = False
+        self.group = None
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.empty(features, **f32))
         self.bias = nn.Parameter(torch.empty(features, **f32))
@@ -346,8 +357,8 @@ class BatchNorm(nn.Module):
             return y.to(self.dtype)
         keep = self.momentum
         if self.cross_rank:
-            y, mean, var = _CrossRankBatchNorm.apply(x, self.weight,
-                                                     self.bias, self.eps)
+            y, mean, var = _CrossRankBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.group)
             with torch.no_grad():
                 self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
                 self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
@@ -364,12 +375,14 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def use_cross_rank_bn(model: nn.Module) -> int:
-    """Switch every BatchNorm of ``model`` to statistics over all ranks of
-    the default process group; returns how many there are."""
+def use_cross_rank_bn(model: nn.Module, group=None) -> int:
+    """Switch every BatchNorm of ``model`` to statistics over the ranks of
+    ``group`` (a torch process group; None: the default one); returns how
+    many there are."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for bn in bns:
         bn.cross_rank = True
+        bn.group = group
     return len(bns)
 
 

@@ -5,11 +5,12 @@ The JAX package places these inside ``shard_map`` over the mesh's data
 axes; the port runs one process per GPU, so each function takes the
 :class:`~distributed_tensorflow_framework_torch.core.mesh.MeshRuntime`
 (``None``: a single process, where every collective is the identity) and
-the mesh axes it spans, ``axes``: None for every rank (data × fsdp, the
-JAX package's ``DATA_AXES``), or names such as ``"fsdp"`` for the ranks
-along those axes that share this rank's other coordinates
+the mesh axes it spans, ``axes``: None for data × fsdp (the JAX
+package's ``DATA_AXES``; every rank unless ``mesh.model`` exceeds 1, whose
+ranks repeat the data-parallel step), or names such as ``"fsdp"`` for the
+ranks along those axes that share this rank's other coordinates
 (``MeshRuntime.axis_group``). The replica index over them is
-:func:`linear_axis_index` (the rank, over every rank). Each takes a
+:func:`linear_axis_index` (the data-parallel index for None). Each takes a
 tensor or a nest of dicts, lists and tuples of tensors and returns the
 same nest.
 
@@ -184,11 +185,11 @@ def _like(tree: Any, leaves: list[torch.Tensor]) -> Any:
 # -------------------------------------------------------------- the group --
 
 def _group(runtime, axes=None):
-    """The ``AxisGroup`` of ``axes`` (every rank for None); None without a
-    runtime."""
+    """The ``AxisGroup`` of ``axes`` (data × fsdp for None); None without
+    a runtime."""
     if runtime is None:
         return None
-    return runtime.world_group if axes is None else runtime.axis_group(axes)
+    return runtime.data_group if axes is None else runtime.axis_group(axes)
 
 
 def _size(runtime, axes=None) -> int:
@@ -197,8 +198,8 @@ def _size(runtime, axes=None) -> int:
 
 
 def linear_axis_index(runtime, axes=None) -> int:
-    """This replica's linear index over ``axes`` (first axis major; every
-    rank for None, where it is the rank); 0 without a group."""
+    """This replica's linear index over ``axes`` (first axis major; the
+    data-parallel index for None); 0 without a group."""
     g = _group(runtime, axes)
     return 0 if g is None else g.index
 

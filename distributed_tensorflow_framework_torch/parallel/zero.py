@@ -365,8 +365,9 @@ def plan_summary(plan: ZeroPlan, *, wire_dtype=None,
 
 
 class ZeroUpdate:
-    """The ZeRO step's state and collectives for one model over every
-    rank of ``runtime`` (see the module docstring). ``params`` maps each
+    """The ZeRO step's state and collectives for one model over the
+    data × fsdp ranks of ``runtime`` (every rank unless ``mesh.model``
+    exceeds 1; see the module docstring). ``params`` maps each
     parameter's key to this rank's ``(chunk,)`` shard, the tensor the
     optimizer updates (so its slots are born at the shard's shape); the
     model's parameters stay whole and replicated. The shards hold memory
@@ -376,7 +377,8 @@ class ZeroUpdate:
     def __init__(self, model: nn.Module, runtime, *, bucket_mb: float,
                  wire=None, block_size: int = DEFAULT_BLOCK_SIZE):
         self.runtime = runtime
-        self.n, self.row = runtime.process_count, runtime.process_index
+        group = runtime.data_group
+        self.n, self.row = group.size, group.index
         self.plan = build_plan(flax_layout(model), self.n, bucket_mb)
         self.wire = coll._canon_wire(wire)
         self.block_size = block_size

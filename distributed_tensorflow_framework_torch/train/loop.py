@@ -3,11 +3,13 @@
 
 build → maybe-restore → step loop with hooks → final save, on one device
 or on every rank of a gang (``runtime``, core/mesh.py: one process per
-GPU, the model under DDP, train/step.py). Each rank reads its block of
-every global batch (``get_dataset`` with its process index and count,
-the layout in a ``data_shard`` event); at log steps the task metrics are
-reduced to the global batch's, so every rank sees the same values and the
-recovery ladder decides alike everywhere. Metrics go to the console and
+GPU, the model under DDP, train/step.py). Each data-parallel rank reads
+its block of every global batch (``get_dataset`` with its data-parallel
+index and count, ``MeshRuntime.data_group``; the ranks along
+``mesh.model`` read the same block; the layout in a ``data_shard``
+event); at log steps the task metrics are reduced to the global batch's,
+so every rank sees the same values and the recovery ladder decides alike
+everywhere. Metrics go to the console and
 ``events.jsonl`` from the chief only; rank i keeps ``events-p<i>.jsonl``
 and ``heartbeat-p<i>.json``. The chief writes the checkpoints, and after
 the final one every rank waits at the exit barrier for its commit record
@@ -47,13 +49,16 @@ DDP owns its reduction, as XLA does under the JAX package's ``jit``;
 a ZeRO run's holds the ``zero_reduce_scatter`` and ``zero_all_gather``
 kinds). A ZeRO run writes its static plan once as a ``zero_update`` event
 (parallel/zero.py ``plan_summary``), and ``run_meta`` names
-``zero_sharding``, the mesh's ``fsdp`` and the bucket count.
+``zero_sharding``, the mesh's ``fsdp`` and the bucket count, the mesh's
+``model`` and how many leaves tensor parallelism splits
+(``tp_sharded_leaves``).
 Evaluation is exact, as in the JAX
 trainer: a finite eval stream (TFRecords) is walked once in full, every
 record once, the padded tail weighted out; an infinite one (the synthetic
 fallback) gives ``train.eval_steps`` batches. Across ranks each rank
 evaluates its shard (the same number of batches everywhere,
-data/tfdata.py) and the metric sums are added over the ranks. At each
+data/tfdata.py) and the metric sums are added over the data-parallel
+ranks. At each
 metrics fetch the sequence-packing census of the train stream's state is
 written as a ``data_packing`` event.
 """
@@ -142,12 +147,15 @@ class Trainer:
         self._init_t = time.perf_counter()
         check_trainer_config(config)
         self.config = config
-        self.runtime = runtime or initialize_runtime(config.mesh, device)
-        rt = self.runtime
+        rt = runtime or initialize_runtime(config.mesh, device)
         self.builder = StepBuilder(config, runtime=rt)
+        # The builder's runtime: a runtime formed for another mesh over
+        # the same ranks comes back with this config's subgroups.
+        rt = self.runtime = self.builder.runtime
         self.device = self.builder.device
-        self.dataset = get_dataset(config.data, process_index=rt.process_index,
-                                   process_count=rt.process_count)
+        dp = rt.data_group
+        self.dataset = get_dataset(config.data, process_index=dp.index,
+                                   process_count=dp.size)
         self.writer = MetricWriter(log_dir or config.checkpoint.directory
                                    or None, is_chief=rt.is_chief,
                                    process_index=rt.process_index,
@@ -187,7 +195,10 @@ class Trainer:
             error_feedback=self.builder.use_residual,
             collective_transport=self.builder.collective_transport,
             zero_sharding=zero_mode(cfg), fsdp=rt.sizes["fsdp"],
-            zero_buckets=None if plan is None else plan.num_buckets)
+            zero_buckets=None if plan is None else plan.num_buckets,
+            model_parallel=rt.sizes["model"],
+            tp_sharded_leaves=(0 if self.state.tp is None
+                               else self.state.tp.sharded))
         if plan is not None:
             # One record of the static shard/bucket plan, so that byte and
             # step-time rollups read against the plan that produced them.
@@ -198,8 +209,8 @@ class Trainer:
         self.writer.telemetry.emit(
             telemetry.KIND_DATA_SHARD, step=self.host_step,
             shard=data_shard.shard_plan(
-                data_shard.ShardAssignment(rt.process_index,
-                                           rt.process_count),
+                data_shard.ShardAssignment(rt.data_group.index,
+                                           rt.data_group.size),
                 global_batch=cfg.data.global_batch_size,
                 data_parallel=rt.data_parallel_size,
                 shard_mode=cfg.data.shard_mode))
@@ -483,10 +494,10 @@ class Trainer:
         """Build the eval stream once (``eval_data``, else ``data``) and
         remember its start, so every evaluation reads the same batches."""
         if self._eval_ds is None:
+            dp = self.runtime.data_group
             self._eval_ds = get_dataset(
                 self.config.eval_data or self.config.data,
-                process_index=self.runtime.process_index,
-                process_count=self.runtime.process_count, train=False)
+                process_index=dp.index, process_count=dp.size, train=False)
             self._eval_start = self._eval_ds.state()
         return self._eval_ds
 
@@ -524,11 +535,12 @@ class Trainer:
                                        to_device(next(ds), self.device))
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
-        if self.runtime.process_count > 1:
+        if self.runtime.data_group.size > 1:
             keys = sorted(totals)
             summed = self.runtime.all_reduce_(torch.tensor(
                 [totals[k] for k in keys], dtype=torch.float64,
-                device=self.runtime.collective_device))
+                device=self.runtime.collective_device),
+                self.runtime.data_group)
             totals = dict(zip(keys, summed.tolist()))
         weight = totals.pop("weight_sum", 0.0)
         results = {f"eval_{k[:-len('_sum')]}": v / max(weight, 1e-9)

@@ -39,12 +39,14 @@ The optimizer runs on the model's parameters, or on tensors cut from them
 FSDP's parts (parallel/zero.py, parallel/sharding.py). Such a shard has
 lost the rank and the name the mask rule reads, so the mask is computed
 once from the model's real parameters, as the JAX step precomputes its
-``decay_mask_ref``. Every rule here is elementwise but LARS's per-leaf
+``decay_mask_ref`` (a tensor-parallel part keeps its leaf's rank, so the
+rule reads it as it stands). Every rule here is elementwise but LARS's per-leaf
 norms, so an update on a shard equals the same cells of the update on the
 whole tensor, and the padding cells of a ZeRO shard (zero gradient, zero
 parameter) stay zero: zero moments, zero decay, zero update (RMSProp's ν
 starts at 1 there and its update is still 0 · (ν + ε)^-½). LARS on FSDP
-parts takes whole-tensor norms from ``whole_norms``.
+or tensor-parallel parts takes whole-tensor norms from ``whole_norms``
+(the parts' squared norms summed over ``fsdp``, then over ``model``).
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ ZeRO the optimizer slots are this rank's ``(chunk,)`` row of the stacked
 ``(n, chunk)`` layout; under FSDP the parameters, the slots and the EMA
 are this rank's parts between steps (the model's parameters are the parts
 themselves); under ZeRO-1 the slots are parts. The int8 residual keeps
-the full parameter shape in every mode. ``state_dict`` and
+the full parameter shape in every mode. Under tensor parallelism
+(``tp``) the parameters, the slots and the EMA are this rank's
+tensor-parallel parts, which FSDP and ZeRO-1 may cut further.
+``state_dict`` and
 ``load_state_dict`` carry these parts as they are (a rollback snapshot of
 one rank restores into the same rank); ckpt/checkpoint.py turns them into
 the whole layout and back.
@@ -78,6 +81,10 @@ class TrainState:
     # optimizer updates, which it re-cuts or which the model's
     # parameters are.
     layout: Any = None
+    # The tensor-parallel split of the model (parallel/tensor_parallel.py
+    # ``TensorParallel``), None without one; not state: the model's
+    # parameters are its parts.
+    tp: Any = None
 
     @property
     def train_module(self) -> nn.Module:

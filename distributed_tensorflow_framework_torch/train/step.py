@@ -19,21 +19,39 @@ micro-batch. Then the optimizer applies one update, and with
 the increment).
 
 Across ranks, under ``train.spmd_mode: jit`` (the default), the model
-runs under ``DistributedDataParallel``
-(``gradient_as_bucket_view``, no buffer broadcast: the BatchNorm
+runs under ``DistributedDataParallel`` over the data × fsdp ranks
+(``MeshRuntime.data_group``: every rank unless ``mesh.model`` exceeds 1;
+``gradient_as_bucket_view``, no buffer broadcast: the BatchNorm
 statistics are already global, models/layers.py; ``no_sync`` on every
-micro-batch but the last), and each rank feeds its block of the global
-batch. DDP averages the ranks' gradients, while the JAX MLM loss divides
-by the masked tokens of the GLOBAL batch; so before any forward one
-``all_reduce`` sums the step's masked count W, and each rank's gradient
-is scaled so that the average is the global one: at one micro-batch the
-rank back-propagates its Σce · world / W; with accumulation it sums its
-micro-batches' Σce and the reduced gradient is multiplied by world / W.
-At a world of 1 both factors are exactly today's (1 and 1 / ΣW), so the
-single-rank step is bit for bit the single-device one. Classification
-shards are equal, so the mean of the ranks' means is the global mean.
-Each rank's dropout stream is its own ((seed, dropout, rank)); at a world
-of 1 it is the single-device stream.
+micro-batch but the last), and each data-parallel rank feeds its block of
+the global batch. DDP averages the ranks' gradients, while the JAX MLM
+loss divides by the masked tokens of the GLOBAL batch; so before any
+forward one ``all_reduce`` sums the step's masked count W, and each
+rank's gradient is scaled so that the average is the global one: at one
+micro-batch the rank back-propagates its Σce · n / W (n the
+data-parallel ranks); with accumulation it sums its micro-batches' Σce
+and the reduced gradient is multiplied by n / W. At n = 1 both factors
+are exactly today's (1 and 1 / ΣW), so the single-rank step is bit for
+bit the single-device one. Classification shards are equal, so the mean
+of the ranks' means is the global mean. Each data-parallel rank's dropout
+stream is its own ((seed, dropout, data-parallel index)); at n = 1 it is
+the single-device stream.
+
+Tensor parallelism (``mesh.model > 1`` under ``jit``; the JAX package's
+GSPMD layout of ``TP_RULES``): the model is built whole from the seed on
+every rank and parallel/tensor_parallel.py cuts it Megatron-style, so
+each rank computes its heads and its MLP columns and the ranks along
+``model`` reduce the row-parallel outputs. They share a data-parallel
+index, so they read the same batch and draw the same dropout masks, and
+the replicated leaves get the same gradients on every one of them.
+``grad_norm`` (and the clipping) is the whole gradient's: the split
+leaves' squared norms summed over ``model``, a replicated leaf counted
+once. DDP runs over data × fsdp only, and not at all when that is one
+rank. FSDP and ZeRO-1 cut the tensor-parallel parts further, along a dim
+``model`` left free (parallel/sharding.py). Under ``shard_map`` there is
+no tensor parallelism, as in the JAX package (its ``shard_map`` step
+replicates every leaf): the ranks along ``model`` repeat the data × fsdp
+step on the same batch and every collective spans data × fsdp.
 
 Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
 per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
@@ -93,9 +111,10 @@ and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
 BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: mesh axes
-other than ``data`` and ``fsdp`` (``model``, A10's tensor-parallel half),
-the fused update and the selective remat policies. ``model.remat``
+naming its ROADMAP.md item when it is not at its off value: the ``seq``,
+``pipe`` and ``expert`` mesh axes, a split fused QKV whose heads
+``mesh.model`` does not divide, the fused update and the selective remat
+policies. ``model.remat``
 (per-layer checkpointing) is carried by the model. A wire dtype under
 ``jit`` and a ``train.grad_allreduce_accum`` other than float32 or wire
 raise the JAX package's ValueErrors.
@@ -122,6 +141,9 @@ from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import zero
 from distributed_tensorflow_framework_torch.parallel.sharding import (
     DimSharding,
+)
+from distributed_tensorflow_framework_torch.parallel.tensor_parallel import (
+    TensorParallel,
 )
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
@@ -176,7 +198,7 @@ def check_step_config(config: ExperimentConfig, world: int = 1
     ValueError for the JAX package's refusals (a wire dtype under ``jit``,
     a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
     their update cannot run), NotImplementedError for what is not ported
-    (an axis other than ``data`` and ``fsdp``). Returns the mesh's
+    (``seq``, ``pipe`` or ``expert`` above 1). Returns the mesh's
     sizes."""
     sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
@@ -279,6 +301,13 @@ class StepBuilder:
         self.config = config
         self.device = (resolve_device(device) if runtime is None
                        else runtime.device)
+        # The data-parallel ranks (data × fsdp) and the tensor-parallel
+        # split (``model`` under jit; under shard_map the ranks along
+        # ``model`` repeat the step).
+        self.data_group = None if runtime is None else runtime.data_group
+        self.dp_world = 1 if runtime is None else self.data_group.size
+        self.tensor_parallel = (config.train.spmd_mode == "jit"
+                                and sizes["model"] > 1)
         self.task = task_for_model(config.model.name)
         if (self.task == "mlm"
                 and config.data.vocab_size > config.model.vocab_size):
@@ -292,10 +321,10 @@ class StepBuilder:
                 f"model.vocab_size.")
         self.accum = max(1, config.train.grad_accum_steps)
         self.shard_map = config.train.spmd_mode == "shard_map"
-        # The ranks a step's loss denominator spans: every rank under DDP
-        # (the JAX jit step's global weight), the rank alone under
-        # shard_map (each replica's own mean).
-        self.weight_world = 1 if self.shard_map else self.world
+        # The ranks a step's loss denominator spans: the data-parallel
+        # ranks under DDP (the JAX jit step's global weight), the rank
+        # alone under shard_map (each replica's own mean).
+        self.weight_world = 1 if self.shard_map else self.dp_world
         # The explicit collectives' wire: parallel.collective_dtype, with
         # the deprecated train.grad_allreduce_dtype honoured for configs
         # built without load_config's shim.
@@ -323,13 +352,16 @@ class StepBuilder:
 
     def init_state(self, seed: int) -> TrainState:
         """Parameters drawn from the (seed, init) stream, the optimizer
-        over them, the (seed, dropout) generator — (seed, dropout, rank)
-        above one rank — and, with ``optimizer.ema_decay > 0``, the EMA
-        starting at the parameters; model in train(). With a process group
-        under ``jit`` the model is wrapped in DDP (which broadcasts rank
-        0's parameters), and above one rank its BatchNorms take global
-        statistics. Under ``shard_map`` rank 0's parameters and buffers
-        are broadcast, the BatchNorms are global above one rank only with
+        over them, the (seed, dropout) generator — (seed, dropout,
+        data-parallel index) above one data-parallel rank — and, with
+        ``optimizer.ema_decay > 0``, the EMA starting at the parameters;
+        model in train(). Under tensor parallelism the whole model is cut
+        into this rank's parts first. With a process group under ``jit``
+        the model is wrapped in DDP over the data-parallel ranks (which
+        broadcasts their first rank's parameters), and above one
+        data-parallel rank its BatchNorms take their statistics over them.
+        Under ``shard_map`` rank 0's parameters and buffers are broadcast,
+        the BatchNorms are global above one data-parallel rank only with
         ``model.bn_cross_replica``, and with the int8 error-feedback wire
         the residual starts at zero. A sharded run's layout (ZeRO, FSDP or
         ZeRO-1) is cut from the replicated start, after DDP's broadcast,
@@ -340,9 +372,11 @@ class StepBuilder:
                                            self.device),
             in_channels=(None if self.task == "mlm"
                          else self.config.data.channels))
-        if self.world > 1 and (not self.shard_map
-                               or self.config.model.bn_cross_replica):
-            use_cross_rank_bn(model)
+        tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
+              else None)
+        if self.dp_world > 1 and (not self.shard_map
+                                  or self.config.model.bn_cross_replica):
+            use_cross_rank_bn(model, self.data_group.group)
         if self.shard_map and self.world > 1:
             with torch.no_grad():
                 for t in model.state_dict().values():
@@ -356,11 +390,15 @@ class StepBuilder:
                 "spmd_mode='jit' or a BN-free model")
         ddp = None
         if (not self.shard_map and self.runtime is not None
-                and self.runtime.backend is not None):
+                and self.runtime.backend is not None
+                and (self.dp_world > 1 or self.world == 1)):
+            # No DDP when only the ranks along ``model`` are there: they
+            # share one data-parallel index.
             ddp = DistributedDataParallel(
                 model, device_ids=(None if self.device.type == "cpu"
                                    else [self.device.index]),
-                broadcast_buffers=False, gradient_as_bucket_view=True)
+                broadcast_buffers=False, gradient_as_bucket_view=True,
+                process_group=self.data_group.group)
         # At the whole parameters' shapes, whatever the layout.
         residual = ({k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in model.named_parameters()}
@@ -375,8 +413,13 @@ class StepBuilder:
             layout = DimSharding(model, self.runtime, at_rest=self.fsdp,
                                  tally=self.shard_map,
                                  wire=self.wire or None,
-                                 block_size=self.block)
+                                 block_size=self.block,
+                                 taken=None if tp is None else tp.flax_dims)
             whole_norms = layout.whole_norms()
+        if tp is not None:
+            whole_norms = tp.whole_norms(
+                dict(model.named_parameters()) if layout is None
+                else layout.params, whole_norms)
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model,
             params=None if layout is None else layout.params,
@@ -387,13 +430,13 @@ class StepBuilder:
             ema = (layout.ema_init(model) if isinstance(layout, DimSharding)
                    else {k: p.detach().float().clone()
                          for k, p in model.named_parameters()})
-        rank = () if self.world == 1 else (self.runtime.process_index,)
+        rank = () if self.dp_world == 1 else (self.data_group.index,)
         return TrainState(
             step=0, model=model.train(), optimizer=optimizer,
             dropout_generator=prng.torch_generator(
                 seed, prng.ROLE_DROPOUT, self.device, *rank),
             ema_params=ema, ddp=ddp, layout=layout,
-            collective_residual=residual)
+            collective_residual=residual, tp=tp)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -459,7 +502,7 @@ class StepBuilder:
         """The step's loss denominator over the ranks it spans."""
         if self.weight_world == 1:
             return local
-        return self.runtime.all_reduce_(local.clone())
+        return self.runtime.all_reduce_(local.clone(), self.data_group)
 
     def train_step(self, state: TrainState, batch: dict, *,
                    fault_scale: float = 1.0
@@ -513,7 +556,10 @@ class StepBuilder:
         grad_norm = None
         if self.shard_map:
             metrics, grad_norm = self._explicit_collectives(state, metrics)
-        if grad_norm is None:
+        if grad_norm is None and state.tp is not None:
+            grad_norm = state.tp.global_norm(
+                {k: p.grad for k, p in state.model.named_parameters()})
+        elif grad_norm is None:
             grad_norm = global_norm([p.grad
                                      for p in state.model.parameters()])
         if isinstance(layout, DimSharding):
@@ -580,11 +626,11 @@ class StepBuilder:
 
     def global_metrics(self, metrics: dict) -> dict:
         """The step's metrics with its task metrics as weighted means over
-        every rank's batch (one ``all_reduce``; the JAX loss over the
-        global batch): each rank's mean times its weight, summed, over the
-        summed weight, at least 1 as in ``mlm_loss``. Called at log steps,
-        which are the same on every rank. Single-rank metrics pass as
-        they are."""
+        every data-parallel rank's batch (one ``all_reduce``; the JAX loss
+        over the global batch): each rank's mean times its weight, summed,
+        over the summed weight, at least 1 as in ``mlm_loss``. Called at
+        log steps, which are the same on every rank. Single-rank metrics
+        pass as they are."""
         if "_weight" not in metrics:
             return metrics
         out = dict(metrics)
@@ -592,7 +638,7 @@ class StepBuilder:
         keys = [k for k in out if k not in ("grad_norm", "learning_rate")]
         sums = torch.stack([out[k].float() * weight for k in keys]
                            + [weight.float()])
-        self.runtime.all_reduce_(sums)
+        self.runtime.all_reduce_(sums, self.data_group)
         total = sums[-1].clamp(min=1.0)
         out.update({k: sums[i] / total for i, k in enumerate(keys)})
         return out

@@ -691,14 +691,14 @@ def test_explicit_fsdp_refuses_lars_and_clipping(extra, match):
     assert sizes["fsdp"] == 2
 
 
-def test_model_axis_still_names_a10():
+def test_check_step_config_accepts_fsdp_with_model_under_jit():
     from distributed_tensorflow_framework_torch.train.step import (
         check_step_config,
     )
 
-    with pytest.raises(NotImplementedError, match="A10 \\(tensor parallel\\)"):
-        check_step_config(port_config(overrides=LENET + ["mesh.model=2",
-                                                         "mesh.data=1"]), 2)
+    sizes = check_step_config(port_config(overrides=LENET + [
+        "mesh.data=1", "mesh.fsdp=2", "mesh.model=2"]), 4)
+    assert (sizes["data"], sizes["fsdp"], sizes["model"]) == (1, 2, 2)
 
 
 if __name__ == "__main__":

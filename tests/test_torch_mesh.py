@@ -75,18 +75,19 @@ def test_axis_sizes_match_jax(sizes, n):
     ("fsdp", "A10"), ("model", "A10"), ("seq", "A11"), ("pipe", "A12"),
     ("expert", "A8")])
 def test_non_data_axes_name_their_item(axis, item):
-    """An axis not ported yet is refused naming its item; fsdp, ported by
-    A10's FSDP half, resolves above 1 (fixed or free) as the JAX mesh
-    does."""
-    if axis == "fsdp":
-        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=2), 2)["fsdp"] == 2
-        assert mesh.resolve_mesh(MeshConfig(data=2, fsdp=2), 4) == \
-            jax_resolve(JaxMeshConfig(data=2, fsdp=2), 4)
-        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=-1), 2)["fsdp"] == 2
-        assert mesh.resolve_mesh(MeshConfig(data=1, fsdp=-1), 1)["fsdp"] == 1
+    """An axis not ported yet is refused naming its item; fsdp and model,
+    ported by A10's FSDP and tensor-parallel halves, resolve above 1
+    (fixed or free) as the JAX mesh does."""
+    if axis in ("fsdp", "model"):
+        assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: 2}), 2)[
+            axis] == 2
+        assert mesh.resolve_mesh(MeshConfig(data=2, **{axis: 2}), 4) == \
+            jax_resolve(JaxMeshConfig(data=2, **{axis: 2}), 4)
+        assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: -1}), 2)[
+            axis] == 2
+        assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: -1}), 1)[
+            axis] == 1
         return
-    if axis == "model":
-        item = "A10 \\(tensor parallel\\)"
     with pytest.raises(NotImplementedError, match=item):
         mesh.resolve_mesh(MeshConfig(**{axis: 2}), 2)
     # A free non-data axis resolves above 1 across ranks and is refused

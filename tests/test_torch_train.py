@@ -449,7 +449,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
     ("mesh.pipe=2", "A12"),
-    ("mesh.model=2", "A10 \\(tensor parallel\\)"),
+    ("mesh.seq=2", "A11 \\(sequence parallel\\)"),
     ("precision.remat_policy=save_nothing", "A13"),
     ("model.num_experts=4", "A8"),
     ("precision.matmul_dtype=int8", "A13"),
