@@ -294,13 +294,41 @@ Phases (any failure raises and the script exits non-zero):
      gathered whole parameters bit for bit. ``--only 12`` runs the
      kernels' build and phase 12 alone (no kernels line, no last line).
 
+  13. sequence parallelism (``mesh.seq``, ``attention_impl: ring``;
+     parallel/ring.py), children of gloo groups on the card. 13a: the
+     kernels where the ring puts an lse cotangent, at (1,12,2048,64) and
+     (1,12,8192,64), bf16 and f32: q's segment ids from one chunk of a
+     packed row and the keys' from the chunk before (most query rows see
+     no key), a key bias, a random dO and dlse; the forward kernel against
+     its plain version, the pair (whole-K at 2048, streaming at 8192) and
+     the fused kernel against the plain backward, phase 3b's tolerances.
+     13b: ``configs/bert_long_ring.yaml`` as written (12 layers, bf16,
+     remat, dropout 0.1, ring at ``mesh.seq`` 8: 2048-token chunks)
+     through the Trainer on eight ranks, RING_STEPS steps of 8 rows, one
+     row per micro-batch: losses finite and equal on every rank, the
+     parameters bit-equal across the ranks after the last step (a digest
+     each), each rank's attention kernels launched 12 layers x 8 chunks x
+     the micro-batches times (twice for the forward: the remat
+     recompute); per rank the peak memory and step times (gloo through
+     the host, not a scaling figure). 13c: ``{data: 1, seq: 2}`` at 16384
+     (8192-token chunks), 4 layers, dropout 0, against one process (seq 1,
+     pallas) within RING_LOSS_TOL, the leaf that differs most named. 13d:
+     four ranks at ``{data: 2, seq: 2}``, 8c's cut in f32 with ring
+     attention, packed 4:1 from a corpus of data/progression.py, under
+     deterministic algorithms, on the kernel route (FLASH_CHUNK_MIN 0) and
+     the plain chain, each against one process within DP_TOL; 2 steps, a
+     save, a restore into another seed's state and 2 more, bit-equal to 4
+     straight steps; the checkpoint read by one process bit for bit.
+     ``--only 13`` runs the kernels' build and phase 13 alone (no kernels
+     line, no last line).
+
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a and 12a, whose children set and read their own counts) and read just
-after; launches made to compare or time a kernel do not count. The
-record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a
-and 12a, and its
+11a, 12a and 13b, whose children set and read their own counts) and read
+just after; launches made to compare or time a kernel do not count. The
+record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a,
+12a and 13b, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -3493,8 +3521,8 @@ def child_main(spec_path: str) -> int:
     with the launch counts set to 0 just before and read just after (under
     ``torch.use_deterministic_algorithms`` when asked), and its peak
     device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
-    ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c and
-    ``tp`` one of phase 12.
+    ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c,
+    ``tp`` one of phase 12 and ``ring`` one of 13b, 13c or 13d.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3527,6 +3555,8 @@ def child_main(spec_path: str) -> int:
         result = zero_parity_rank(torch, os.path.dirname(spec["out"]))
     elif spec["kind"] == "tp":
         result = tp_rank(torch, fa, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "ring":
+        result = ring_rank(torch, fa, spec)
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4254,10 +4284,12 @@ def zero_trainer_rank(torch, fa, out_dir: str) -> dict:
 
 def zero_cut_case(torch, overrides, runtime, steps: int,
                   seed: int = SEED, state=None, builder=None,
-                  skip: int = 0) -> dict:
+                  skip: int = 0, config_path: str = ZERO_CONFIG) -> dict:
     """``steps`` steps of 11b's cut (or ``state`` onward, after ``skip``
-    batches) on this rank's blocks of the global batches: the losses, the
-    whole tensors after them, the bytes at rest."""
+    batches; of ``config_path`` with ``overrides``) on this rank's blocks
+    of the global batches (the ranks along ``seq`` take the same block and
+    split its rows): the losses, the whole tensors after them, the bytes
+    at rest."""
     from distributed_tensorflow_framework_torch.core.config import load_config
     from distributed_tensorflow_framework_torch.data import get_dataset
     from distributed_tensorflow_framework_torch.data.infeed import to_device
@@ -4266,7 +4298,7 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
     )
     from distributed_tensorflow_framework_torch.train.step import StepBuilder
 
-    cfg = load_config(ZERO_CONFIG, overrides=list(overrides))
+    cfg = load_config(config_path, overrides=list(overrides))
     if builder is None:
         builder = StepBuilder(cfg, device="cuda", runtime=runtime)
         state = builder.init_state(seed)
@@ -4558,15 +4590,16 @@ TP_RESUME_STEPS, TP_RESUME_SPLIT = 4, 2
 
 class StepRecord:
     """A trainer hook that keeps the loss and grad_norm of every logged
-    step."""
+    step, and the host clock at the start and at each step's end."""
 
     def __init__(self):
-        self.steps = {}
+        self.steps, self.ends = {}, []
 
     def on_start(self, trainer) -> None:
-        pass
+        self.ends = [time.perf_counter()]
 
     def after_step(self, trainer, step, metrics) -> None:
+        self.ends.append(time.perf_counter())
         if metrics is not None:
             self.steps[step] = {"loss": metrics["loss"],
                                 "grad_norm": metrics["grad_norm"]}
@@ -4853,6 +4886,461 @@ def tp_phase(torch, workdir: str, smi: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 13
+
+# Phase 13: sequence parallelism with ring attention (mesh.seq,
+# attention_impl: ring; parallel/ring.py). The card is one, so the ranks
+# are gloo children on it, and every K/V rotation goes through the host:
+# the ms/step says nothing about scaling.
+# 13a: the kernels with an lse cotangent, where the ring's merge puts one:
+# at each shape and dtype, q's segment ids from one chunk of a packed
+# row and the keys' from the chunk before it (a document crosses the
+# boundary, so most query rows see no key at all: lse ~ NEG_INF), a key
+# bias that masks the chunk's last eighth, a random dO and a random dlse.
+# The forward kernel against its plain version, then the pair (whole-K at
+# 2048, streaming at 8192) and the fused kernel against the plain
+# backward with phase 3b's tolerances.
+RING_SHAPES = ((1, 12, 2048, 64), (1, 12, 8192, 64))
+# 13b: configs/bert_long_ring.yaml as written (12 layers, bf16, remat,
+# dropout 0.1, ring attention at mesh.seq 8: 2048-token chunks) through
+# the Trainer on eight ranks, 3 steps of its 8 rows, one row per
+# micro-batch as phase 6 takes them; no checkpoint directory (13d holds
+# the checkpoints).
+RING_RANKS = 8
+RING_STEPS = 3
+RING_OVERRIDES = ("train.grad_accum_steps=8", f"train.total_steps={RING_STEPS}",
+                  "train.log_interval=1", "train.eval_steps=0",
+                  "resilience.rollback=false", "checkpoint.directory=")
+# 13c: 13b at {data: 1, seq: 2} (8192-token chunks: the forward kernel on
+# the streaming lengths and, on a listed card, the fused backward) at
+# dropout 0, against one process without the ring (phase 6's cut: seq 1,
+# pallas) on the same batches; depth cut to 4 layers to keep the phase's
+# time. Written before the first run: the ring rounds each chunk's o to
+# bf16 before the f32 merge, where one process rounds one o, so the
+# losses within 2e-3 and grad_norm within 2e-2, relative, as 12b holds
+# tensor parallelism.
+RING_PAIR = ("mesh.data=1", "mesh.seq=2", "model.num_layers=4",
+             "model.dropout_rate=0.0")
+RING_PAIR_ONE = ("mesh.seq=1", "model.attention_impl=pallas",
+                 "model.num_layers=4", "model.dropout_rate=0.0")
+RING_LOSS_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
+# 13d: four ranks at {data: 2, seq: 2}: configs/bert_base_mlm.yaml at 8c's
+# cut (2 layers, full width, f32, dropout 0, 8 rows, clipping 1.0) with
+# ring attention, packed 4:1 from a corpus of data/progression.py (the
+# documents cross the 256-token chunks), under deterministic algorithms.
+# Once with FLASH_CHUNK_MIN = 0 (the kernels take the chunks) and once at
+# its default (the plain chain), each against one process with the same
+# attention on the same batches, within DP_TOL's BERT tolerances (f32
+# sums in other orders). Then 2 steps, a save, a restore into a state
+# from another seed and 2 more, bit-equal to 4 straight steps, and the
+# checkpoint read by one process bit for bit.
+RING_CORPUS = ("--seq-len", "512", "--train-seqs", "512", "--eval-seqs",
+               "8", "--shards", "2", "--min-doc", "32", "--max-doc", "224",
+               "--seed", str(SEED))
+RING_F32 = (*DP_BERT[1], "model.attention_impl=ring",
+            "checkpoint.async_save=false")
+RING_F32_MESH = ("mesh.data=2", "mesh.seq=2")
+RING_RESUME_STEPS, RING_RESUME_SPLIT = 4, 2
+
+
+def ring_kernel_parity(torch, fa) -> dict:
+    """13a. Returns the worst absolute error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "fused": 0.0}
+    for b, h, s, d in RING_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            dlse = torch.randn(b, s, h, 1, device="cuda", generator=gen)
+            row = torch.zeros(b, 2 * s, device="cuda")
+            row[:, s // 2:] = 1
+            row[:, s + s // 4:] = 2
+            q_seg, kv_seg = row[:, s:], row[:, :s]
+            bias = torch.zeros(b, s, device="cuda")
+            bias[:, s - s // 8:] = fa.NEG_INF
+            plain = (fa.flash_attention_reference if s <= fa.MAX_SEQ_VMEM
+                     else fa.flash_attention_kb_reference)
+            o, lse = plain(q, k, v, bias, q_seg, kv_seg)
+            ko, klse = fa.flash_attention_kernel(q, k, v, bias, q_seg,
+                                                 kv_seg)
+            torch.cuda.synchronize()
+            empty = int((lse < fa.NEG_INF / 2).sum())
+            o_rel = rel_err(ko, o)
+            lse_err = ((klse - lse).abs()
+                       / lse.abs().clamp(min=1.0)).max().item()
+            ok = (bool(torch.isfinite(ko).all()) and o_rel <= O_RTOL[name]
+                  and lse_err <= LSE_RTOL and empty > 0)
+            worst["fwd"] = max(worst["fwd"],
+                               (ko.float() - o.float()).abs().max().item())
+            pair = "whole-K" if s <= fa.MAX_SEQ_VMEM else "streaming"
+            what = f"13a {name} (B,H,S,D)=({b},{h},{s},{d})"
+            log(f"{what} forward, q and kv segment ids from different "
+                f"chunks ({empty} of {b * s * h} query rows see no key): o "
+                f"{o_rel:.3e} of max|o| (tol {O_RTOL[name]}), lse rel err "
+                f"{lse_err:.3e} (tol {LSE_RTOL}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{what}: forward kernel disagrees")
+            args = (q, k, v, bias, q_seg, kv_seg, lse, do,
+                    fa.attention_delta(o, do, dlse))
+            check_bwd(torch, bwd_results(torch, fa, args), do, name,
+                      f"dlse != 0 (max|dlse| "
+                      f"{dlse.abs().max().item():.2f})",
+                      f"{what} {pair} pair and fused backward", worst)
+            del q, k, v, do, dlse, args, o, lse, ko, klse
+            torch.cuda.empty_cache()
+    return worst
+
+
+def digest(torch, tensors: dict) -> str:
+    """One sha256 over the tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(tensors):
+        t = tensors[key].detach().contiguous().cpu()
+        h.update(key.encode())
+        h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def ring_trainer_rank(torch, fa, runtime, out_dir: str) -> dict:
+    """13b on one rank: the Trainer with the launch counts set to 0 just
+    before and read just after, the step clock, the peak memory and a
+    digest of the parameters after the last step."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    logs = os.path.join(out_dir, "ring_logs")
+    cfg = load_config(LONG_CONFIG, overrides=list(RING_OVERRIDES))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, log_dir=logs, runtime=runtime)
+    trainer.build()
+    clock = StepRecord()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(hooks=trainer.default_hooks() + [clock])
+    finally:
+        trainer.writer.close()
+    counts = read_counts(fa)
+    steps = [1e3 * (b - a) for a, b in zip(clock.ends, clock.ends[1:])]
+    return {"counts": counts, "steps": clock.steps, "step_ms": steps,
+            "s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "digest": digest(torch, dict(trainer.state.model.named_parameters())),
+            "seq": trainer.builder.seq_parallel,
+            "transport": runtime.p2p_transport(trainer.device),
+            "logs": logs}
+
+
+def ring_f32_rank(torch, fa, runtime, out_dir: str, corpus: str) -> dict:
+    """13d on one rank: both chunk routes at 8c's cut, then the resume."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.parallel import ring
+
+    rank = runtime.process_index
+    over = (*RING_F32, *RING_F32_MESH, f"data.data_dir={corpus}/train")
+    out = {"routes": {}}
+    default = ring.FLASH_CHUNK_MIN
+    torch.use_deterministic_algorithms(True)
+    try:
+        for route, chunk_min in (("kernels", 0), ("plain", default)):
+            ring.FLASH_CHUNK_MIN = chunk_min
+            reset_counts(fa)
+            res = zero_cut_case(torch, over, runtime, DP_STEPS,
+                                config_path=DP_BERT[0])
+            path = os.path.join(out_dir, f"ring_d_{route}_rank{rank}.pt")
+            torch.save(res["tensors"], path)
+            out["routes"][route] = {"losses": res["losses"],
+                                    "grad_norms": res["grad_norms"],
+                                    "counts": read_counts(fa),
+                                    "segmented": read_segmented(fa),
+                                    "tensors": path}
+            del res
+        ring.FLASH_CHUNK_MIN = 0
+        kw = {"config_path": DP_BERT[0]}
+        straight = zero_cut_case(torch, over, runtime, RING_RESUME_STEPS,
+                                 **kw)
+        legs = zero_cut_case(torch, over, runtime, RING_RESUME_SPLIT, **kw)
+        ckpt = os.path.join(out_dir, "ring_resume")
+        manager = CheckpointManager(dataclasses.replace(
+            legs["builder"].config.checkpoint, directory=ckpt),
+            runtime=runtime)
+        manager.save(RING_RESUME_SPLIT, legs["state"])
+        whole = os.path.join(out_dir, f"ring_saved_rank{rank}.pt")
+        torch.save(legs["tensors"], whole)
+        fresh = zero_cut_case(torch, over, runtime, 0, seed=SEED + 1, **kw)
+        restored = manager.restore(fresh["state"])
+        manager.close()
+        tail = zero_cut_case(
+            torch, over, runtime, RING_RESUME_STEPS - RING_RESUME_SPLIT,
+            state=fresh["state"], builder=fresh["builder"],
+            skip=RING_RESUME_SPLIT, **kw)
+        want, got = (list(tensor_leaves(x["state"].state_dict()))
+                     for x in (straight, tail))
+        out["resume"] = {
+            "restored": restored, "ckpt": ckpt, "whole": whole,
+            "losses_equal": tail["losses"] == straight["losses"][
+                RING_RESUME_SPLIT:],
+            "tensors": len(want),
+            "equal": sum(torch.equal(x, y) for x, y in zip(got, want))}
+        return out
+    finally:
+        ring.FLASH_CHUNK_MIN = default
+        torch.use_deterministic_algorithms(False)
+
+
+def ring_rank(torch, fa, spec: dict) -> dict:
+    """One rank of phase 13: 13b (``part`` "b"), 13c ("c") or 13d ("d"),
+    in a gloo group on the card."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    out_dir = os.path.dirname(spec["out"])
+    runtime = initialize_runtime(MeshConfig(**spec["mesh"]), "cuda",
+                                 backend="gloo")
+    t0 = time.perf_counter()
+    try:
+        out = {"rank": runtime.process_index, "backend": runtime.backend,
+               "seq": [runtime.seq_group.index, runtime.seq_group.size]}
+        if spec["part"] == "b":
+            out["b"] = ring_trainer_rank(torch, fa, runtime, out_dir)
+        elif spec["part"] == "c":
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fa)
+            res = zero_cut_case(torch, (*RING_OVERRIDES, *RING_PAIR),
+                                runtime, RING_STEPS, config_path=LONG_CONFIG)
+            path = os.path.join(out_dir,
+                                f"ring_c_rank{runtime.process_index}.pt")
+            torch.save(res["tensors"], path)
+            out["c"] = {"losses": res["losses"],
+                        "grad_norms": res["grad_norms"],
+                        "counts": read_counts(fa), "tensors": path,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        else:
+            out["d"] = ring_f32_rank(torch, fa, runtime, out_dir,
+                                     spec["corpus"])
+        out["s"] = time.perf_counter() - t0
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
+    """Phase 13. Returns 13a's worst errors and 13b's attention-kernel
+    launches, every rank's (main-path runs)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import progression
+    from distributed_tensorflow_framework_torch.parallel import ring
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t0 = time.perf_counter()
+    bad = []
+    # 13a.
+    worst = ring_kernel_parity(torch, fa)
+    t1 = time.perf_counter()
+    log(f"13a took {t1 - t0:.1f} s")
+
+    # 13b.
+    cfg = load_config(LONG_CONFIG, overrides=list(RING_OVERRIDES))
+    m = cfg.model
+    if (m.num_layers, m.hidden_size, m.num_heads, m.dtype, m.remat,
+            m.dropout_rate, m.attention_impl, cfg.mesh.seq,
+            cfg.data.seq_len) != (12, 768, 12, "bfloat16", True, 0.1, "ring",
+                                  RING_RANKS, 16384):
+        raise AssertionError(f"{LONG_CONFIG} is no longer the 16k ring "
+                             f"recipe at seq {RING_RANKS}: {cfg}")
+    chunk = cfg.data.seq_len // RING_RANKS
+    route = fa.backward_route(*(torch.empty(1, chunk, 1, 64, device="cuda",
+                                            dtype=torch.bfloat16),) * 2)
+    micro = RING_STEPS * cfg.train.grad_accum_steps
+    calls = m.num_layers * RING_RANKS * micro
+    fused = route == "fused"
+    want = {"fwd": 2 * calls, "dq": 0 if fused else calls,
+            "dkv": 0 if fused else calls, "fused": calls if fused else 0}
+    ranks = run_children([{"kind": "ring", "part": "b",
+                           "mesh": {"data": -1, "seq": RING_RANKS},
+                           "env": gang_env(port, RING_RANKS, r)}
+                          for port in [free_port()]
+                          for r in range(RING_RANKS)],
+                         workdir, "ring_b", timeout=900)
+    b0 = ranks[0]["b"]
+    losses = {int(k): v["loss"] for k, v in b0["steps"].items()}
+    same = all(r["b"]["steps"] == b0["steps"] for r in ranks)
+    finite = (sorted(losses) == list(range(1, RING_STEPS + 1))
+              and all(math.isfinite(v["loss"]) and math.isfinite(
+                  v["grad_norm"]) for v in b0["steps"].values()))
+    equal = sum(r["b"]["digest"] == b0["digest"] for r in ranks)
+    events = read_events(b0["logs"])
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    ms = steady_ms(events)
+    tally = next(e for e in events if e["kind"] == "train_step").get(
+        "collectives") or {}
+    log(f"13b {LONG_CONFIG} as written: mesh {meta['mesh']}, "
+        f"sequence_parallel {meta['sequence_parallel']}, {RING_RANKS} gloo "
+        f"ranks on the card ({meta['p2p_transport']} transport), "
+        f"{chunk}-token chunks, {RING_STEPS} steps of 8x16384 (one row per "
+        f"micro-batch, remat, dropout 0.1, {route} backward): losses "
+        + ", ".join(f"step {k} {v!r}" for k, v in sorted(losses.items()))
+        + f"; equal on every rank {same}, finite {finite}; parameters "
+        f"bit-equal across the ranks after step {RING_STEPS}: {equal} of "
+        f"{len(ranks)}; {ms:.1f} ms/step (steps 2-{RING_STEPS}, chief's "
+        f"clock; gloo through the host, not a scaling figure); the first "
+        f"step's ppermute tally a rank (forward and recompute, the "
+        f"backward's returns not tallied): {tally.get('ppermute_calls')} "
+        f"leaves, {tally.get('ppermute_bytes')} bytes [{smi}]")
+    counts = {k: 0 for k in want}
+    for r in ranks:
+        b = r["b"]
+        log(f"13b rank {r['rank']} (seq index {r['seq'][0]} of "
+            f"{r['seq'][1]}): peak {b['peak_gb']:.2f} GB (phase 6, one "
+            f"process at 16384: 11.09 GB), step times "
+            + ", ".join(f"{x:.0f}" for x in b["step_ms"])
+            + f" ms, launches {b['counts']} (expected {want}), "
+            f"{b['s']:.1f} s [{smi}]")
+        if b["counts"] != want or not b["seq"]:
+            bad.append((r["rank"], "13b launches", b["counts"]))
+        counts = {k: counts[k] + b["counts"][k] for k in counts}
+    if not (same and finite and equal == len(ranks)
+            and meta["sequence_parallel"] == RING_RANKS):
+        bad.append(("13b", same, finite, equal))
+    t2 = time.perf_counter()
+    log(f"13b took {t2 - t1:.1f} s")
+
+    # 13c.
+    ranks = run_children([{"kind": "ring", "part": "c",
+                           "mesh": {"data": 1, "seq": 2},
+                           "env": gang_env(port, 2, r)}
+                          for port in [free_port()] for r in range(2)],
+                         workdir, "ring_c", timeout=600)
+    torch.cuda.empty_cache()
+    ref = zero_cut_case(torch, (*RING_OVERRIDES, *RING_PAIR_ONE), None,
+                        RING_STEPS, config_path=LONG_CONFIG)
+    c = ranks[0]["c"]
+    gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(c[name], ref[name]))
+            for key, name in (("loss", "losses"),
+                              ("grad_norm", "grad_norms"))}
+    tensors = torch.load(c["tensors"], weights_only=True)
+    diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+    lr = load_config(LONG_CONFIG).optimizer.learning_rate
+    log(f"13c ring at {{data: 1, seq: 2}} (8192-token chunks, 4 of 12 "
+        f"layers, dropout 0) vs one process (seq 1, pallas), {RING_STEPS} "
+        f"steps of 8x16384: losses {c['losses']} vs {ref['losses']}; "
+        f"grad_norm {c['grad_norms']} vs {ref['grad_norms']}; largest "
+        f"relative gap loss {gaps['loss']:.3e}, grad_norm "
+        f"{gaps['grad_norm']:.3e} (tol {RING_LOSS_TOL}); the leaf that "
+        f"differs most at step {RING_STEPS}: {leaf} ({diff:.3e} = "
+        f"{diff / lr:.3e} x lr); launches per rank "
+        f"{[r['c']['counts'] for r in ranks]}, peak "
+        f"{[round(r['c']['peak_gb'], 2) for r in ranks]} GB [{smi}]")
+    if (any(gaps[k] > RING_LOSS_TOL[k] for k in gaps)
+            or ranks[1]["c"]["losses"] != c["losses"]
+            or not ranks[0]["c"]["counts"]["fwd"]):
+        bad.append(("13c", gaps))
+    del ref, tensors
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log(f"13c took {t3 - t2:.1f} s")
+
+    # 13d.
+    corpus = os.path.join(workdir, "ring_corpus")
+    progression.main([corpus, *RING_CORPUS])
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ranks = run_children([{"kind": "ring", "part": "d",
+                           "mesh": {"data": 2, "seq": 2}, "corpus": corpus,
+                           "env": {**gang_env(port, 4, r), **env}}
+                          for port in [free_port()] for r in range(4)],
+                         workdir, "ring_d", timeout=600)
+    default = ring.FLASH_CHUNK_MIN
+    one_over = (*RING_F32, f"data.data_dir={corpus}/train")
+    lr = load_config(DP_BERT[0], overrides=list(one_over)) \
+        .optimizer.learning_rate
+    tol = DP_TOL["bert"]
+    try:
+        for route, chunk_min in (("kernels", 0), ("plain", default)):
+            ring.FLASH_CHUNK_MIN = chunk_min
+            reset_counts(fa)
+            ref = zero_cut_case(torch, one_over, None, DP_STEPS,
+                                config_path=DP_BERT[0])
+            one_counts = read_counts(fa)
+            d = ranks[0]["d"]["routes"][route]
+            gaps = {key: max(abs(g - w) / abs(w)
+                             for g, w in zip(d[name], ref[name]))
+                    for key, name in (("loss", "losses"),
+                                      ("grad_norm", "grad_norms"))}
+            tensors = torch.load(d["tensors"], weights_only=True)
+            diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+            same = all(r["d"]["routes"][route]["losses"] == d["losses"]
+                       for r in ranks)
+            log(f"13d {route} route (FLASH_CHUNK_MIN {chunk_min}), 2 layers "
+                f"f32 packed 4:1, ring at {{data: 2, seq: 2}} (256-token "
+                f"chunks) vs one process, {DP_STEPS} steps of 8x512: "
+                f"losses {d['losses']} vs {ref['losses']}; largest relative "
+                f"gap loss {gaps['loss']:.3e}, grad_norm "
+                f"{gaps['grad_norm']:.3e}; worst parameter |diff| "
+                f"{diff:.3e} = {diff / lr:.3e} x lr ({leaf}); tol {tol}; "
+                f"equal on every rank {same}; launches rank 0 {d['counts']}"
+                f" (segment ids {d['segmented']}), one process "
+                f"{one_counts}")
+            kernels = d["counts"]["fwd"] > 0 and d["segmented"]["fwd"] > 0
+            if (gaps["loss"] > tol["loss"] or gaps["grad_norm"] > tol[
+                    "grad_norm"] or diff > tol["params"] * lr or not same
+                    or kernels != (route == "kernels")):
+                bad.append(("13d", route, gaps, diff, kernels))
+            del ref, tensors
+    finally:
+        ring.FLASH_CHUNK_MIN = default
+    for r in ranks:
+        res = r["d"]["resume"]
+        log(f"13d rank {r['rank']} resume (deterministic algorithms, "
+            f"kernel route): restored step {res['restored']}; losses after "
+            f"the restore equal {res['losses_equal']}; {res['equal']} of "
+            f"{res['tensors']} tensors (parameters, slots, dropout stream) "
+            f"bit-equal to {RING_RESUME_STEPS} straight steps")
+        if not (res["restored"] == RING_RESUME_SPLIT and res["losses_equal"]
+                and res["equal"] == res["tensors"]):
+            bad.append((r["rank"], "13d resume"))
+    res = ranks[0]["d"]["resume"]
+    cfg = load_config(DP_BERT[0], overrides=list(one_over))
+    one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
+                                                    directory=res["ckpt"]))
+    restored = manager.restore(one)
+    manager.close()
+    saved = torch.load(res["whole"], weights_only=True)
+    loaded = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    equal = sum(torch.equal(loaded[k], v) for k, v in saved.items())
+    log(f"13d the seq checkpoint read by one process: restored step "
+        f"{restored}; {equal} of {len(saved)} model tensors bit-equal to "
+        f"the ranks' at the save")
+    if restored != RING_RESUME_SPLIT or equal != len(saved):
+        bad.append(("13d one-process restore", restored, equal))
+    t4 = time.perf_counter()
+    log(f"13d took {t4 - t3:.1f} s")
+    if bad:
+        raise AssertionError(f"phase 13: {bad}")
+    log(f"phase 13 took {t4 - t0:.1f} s (13a {t1 - t0:.1f}, 13b "
+        f"{t2 - t1:.1f}, 13c {t3 - t2:.1f}, 13d {t4 - t3:.1f})")
+    return worst, counts
+
+
 def main() -> int:
     try:
         import torch
@@ -4903,6 +5391,14 @@ def main() -> int:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as wd:
             tp_phase(torch, wd, gpu)
+        return 0
+    if only == "13":
+        # A development run of phase 13 alone (``--only 13``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as wd:
+            ring_phase(torch, fa, wd, gpu)
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -5011,10 +5507,22 @@ def main() -> int:
             "with a resume (12c)")
         tp_counts = tp_phase(torch, workdir, gpu)
 
+    # Phase 13: sequence parallelism. 13b runs the long-context recipe as
+    # written through the attention kernels on eight ranks, so its
+    # launches join the record, and 13a's errors its max_abs_err.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as workdir:
+        log("phase 13 sequence parallelism: the kernels with an lse "
+            "cotangent (13a); configs/bert_long_ring.yaml as written on "
+            "eight gloo ranks of the card (13b); seq 2 at 16384 against one "
+            "process (13c); four ranks at {data: 2, seq: 2} in f32, packed, "
+            "both chunk routes, with a resume (13d)")
+        ring_worst, ring_counts = ring_phase(torch, fa, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
-    # ranks of each) and the two long-context runs; those with
+    # ranks of each), the two long-context runs and 13b's eight ranks; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -5023,6 +5531,7 @@ def main() -> int:
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
+                + ring_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
@@ -5037,7 +5546,8 @@ def main() -> int:
                   "CUDA cores",
          "replaces": REPLACES[name], "launches": launched[name],
          "segmented_launches": packed_counts["segmented"][name],
-         "max_abs_err": max(worst[name], long_worst[name]),
+         "max_abs_err": max(worst[name], long_worst[name],
+                            ring_worst[name]),
          **long_timing[name],
          **({"s512": short[name]} if name in short else {}),
          **extra.get(name, {})}

@@ -22,8 +22,10 @@ Started N times with the gang environment of ``core/cluster.py``
 ``JAX_PROCESS_ID=i``), the processes form one ``torch.distributed`` group
 (NCCL on CUDA, gloo with ``--device cpu``; rank i on GPU i modulo the
 visible count) and train one model data parallel, each rank feeding its
-block of the global batch (core/mesh.py, train/step.py). Without it the
-run is a single process.
+block of the global batch (core/mesh.py, train/step.py); the ranks along
+``mesh.seq`` split each row of one block between them under ring
+attention (parallel/ring.py), as ``configs/bert_long_ring.yaml`` asks.
+Without it the run is a single process.
 
 Exit codes: 0 done; 83 (``GRACEFUL_PREEMPT_RC``) after a SIGTERM, which
 stops at the next step boundary and saves a checkpoint; 84

@@ -17,18 +17,29 @@ stands in for the mesh:
 
 The mesh's sizes resolve as in the JAX package (one axis may be -1, the
 product must equal the world size, else :class:`MeshSizeError`, which
-``cli/train.py`` maps to rc 84). The ``data``, ``fsdp`` and ``model``
-axes may exceed 1; ``seq`` (A11), ``pipe`` (A12) and ``expert`` (A8)
-raise NotImplementedError naming their ROADMAP.md item. Rank r sits at
-the coordinates of r in the row-major order of ``MESH_AXES`` (``data``
+``cli/train.py`` maps to rc 84). The ``data``, ``fsdp``, ``seq`` and
+``model`` axes may exceed 1; ``pipe`` (A12) and ``expert`` (A8) raise
+NotImplementedError naming their ROADMAP.md item. Rank r sits at the
+coordinates of r in the row-major order of ``MESH_AXES`` (``data``
 outermost, ``model`` innermost, so the ranks of one tensor-parallel group
-are adjacent, as Megatron places them): ``r = (data_idx · fsdp +
-fsdp_idx) · model + model_idx``, and the data-parallel index
-``data_idx · fsdp + fsdp_idx`` is what JAX's
-``linear_axis_index(("data", "fsdp"))`` gives. The ranks along ``model``
-share a data-parallel index: they read the same batch, draw the same
-dropout masks and reduce nothing over one another but the tensor-parallel
-layers' activations (:attr:`MeshRuntime.data_group`).
+are adjacent, as Megatron places them): ``r = ((data_idx · fsdp +
+fsdp_idx) · seq + seq_idx) · model + model_idx``, and the data-parallel
+index ``data_idx · fsdp + fsdp_idx`` is what JAX's
+``linear_axis_index(("data", "fsdp"))`` gives. The ranks along ``seq``
+and ``model`` share a data-parallel index: they read the same batch and
+draw the same dropout masks (:attr:`MeshRuntime.data_group`); the ranks
+along ``seq`` then keep their own part of each row (parallel/ring.py).
+
+Ring attention moves K/V chunks between the ranks along ``seq`` with
+:meth:`MeshRuntime.ppermute_` on a process group of their own
+(:attr:`MeshRuntime.seq_group`), formed for the ring alone even where it
+spans every rank, so that no other collective (DDP's bucketed
+all-reduces fire from autograd hooks while the ring's backward sends)
+ever shares it. NCCL, and gloo on CPU tensors, send and receive natively
+(``batch_isend_irecv``, both directions in one batch); gloo's ``send`` and
+``recv`` take a tensor's raw pointer without checking its device, so CUDA
+tensors there go through the host (:meth:`p2p_transport`), packed into
+one pinned buffer each way.
 
 :class:`MeshRuntime` carries the collectives the port uses across ranks:
 ``all_reduce``, ``broadcast`` and, for the explicit collectives of
@@ -79,8 +90,7 @@ MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
 # JAX package's DATA_AXES (train/step.py).
 DATA_AXES = ("data", "fsdp")
 # The ROADMAP.md queue A item that ports each axis not ported yet.
-_AXIS_ITEMS = {"seq": "A11 (sequence parallel)", "pipe": "A12 (pipeline)",
-               "expert": "A8 (expert parallel)"}
+_AXIS_ITEMS = {"pipe": "A12 (pipeline)", "expert": "A8 (expert parallel)"}
 
 
 class MeshSizeError(ValueError):
@@ -118,13 +128,13 @@ def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
-                f"queue A item {item}; the port runs the data, fsdp and "
-                f"model axes only")
+                f"queue A item {item}; the port runs the data, fsdp, seq "
+                f"and model axes only")
 
 
 def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
     """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
-    ``seq``, ``pipe`` or ``expert`` above 1, MeshSizeError when the sizes
+    ``pipe`` or ``expert`` above 1, MeshSizeError when the sizes
     do not fit the ranks."""
     _refuse_unported_axes(config.axis_sizes())
     sizes = _resolve_axis_sizes(config, world)
@@ -171,6 +181,7 @@ def max_over_ranks(value: int) -> int:
 
 TRANSPORT_NATIVE = "native"
 TRANSPORT_ALL_REDUCE = "all_reduce"
+TRANSPORT_HOST = "host"
 
 
 def _byte_rows(rows: int, nbytes: int, device) -> torch.Tensor:
@@ -221,6 +232,30 @@ def reduce_scatter_by_all_reduce(output: torch.Tensor, input: torch.Tensor,
     total = input.clone()
     dist.all_reduce(total, group=group.group)
     return output.copy_(total.chunk(group.size)[group.index])
+
+
+def _pack_bytes(tensors: list[torch.Tensor]
+                ) -> tuple[torch.Tensor, list[tuple[int, int]]]:
+    """The tensors' bytes side by side in one uint8 tensor on their
+    device, each starting at a 16-byte boundary; and each one's (offset,
+    bytes)."""
+    spans, offset = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        spans.append((offset, n))
+        offset += -(-n // 16) * 16
+    packed = torch.empty(offset, dtype=torch.uint8, device=tensors[0].device)
+    for t, (o, n) in zip(tensors, spans):
+        packed[o:o + n].copy_(_bytes_of(t.detach()))
+    return packed, spans
+
+
+def _unpack_bytes(packed: torch.Tensor, spans, like: list[torch.Tensor]
+                  ) -> list[torch.Tensor]:
+    """The tensors of :func:`_pack_bytes`, each at its ``like``'s dtype
+    and shape."""
+    return [packed[o:o + n].view(t.dtype).view(t.shape)
+            for (o, n), t in zip(spans, like)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,6 +325,9 @@ class MeshRuntime:
     # subgroup, for the subgroups this rank belongs to
     # (:func:`initialize_runtime` forms them).
     subgroups: dict = dataclasses.field(default_factory=dict)
+    # The ring's own process group over this rank's ``seq`` line (None:
+    # no group, or ``seq`` is 1).
+    ring_group: Any = None
 
     @property
     def is_chief(self) -> bool:
@@ -303,12 +341,26 @@ class MeshRuntime:
 
     @property
     def data_group(self) -> AxisGroup:
-        """The ranks along ``DATA_AXES`` that share this rank's ``model``
-        coordinate: ``index`` is this rank's data-parallel index (which
-        block of the global batch it reads, which dropout stream it
-        draws), ``size`` the data-parallel count. At ``model`` 1 it is
-        every rank, its index the rank."""
+        """The ranks along ``DATA_AXES`` that share this rank's ``seq`` and
+        ``model`` coordinates: ``index`` is this rank's data-parallel
+        index (which block of the global batch it reads, which dropout
+        stream it draws), ``size`` the data-parallel count. At ``seq`` and
+        ``model`` 1 it is every rank, its index the rank."""
         return self.axis_group(DATA_AXES)
+
+    @property
+    def seq_group(self) -> AxisGroup:
+        """The ranks along ``seq`` that share this rank's other
+        coordinates, on the ring's own process group: ``index`` is this
+        rank's place in the ring (which part of each row it keeps)."""
+        group = self.axis_group("seq")
+        return dataclasses.replace(group, group=self.ring_group)
+
+    def seq_member_rank(self, index: int) -> int:
+        """The global rank of member ``index`` of this rank's ``seq``
+        line."""
+        coords = _coords(self.sizes, self.process_index)
+        return _rank_of(self.sizes, {**coords, "seq": index})
 
     def describe(self) -> str:
         return (f"rank {self.process_index}/{self.process_count} on "
@@ -352,9 +404,11 @@ class MeshRuntime:
         if math.prod(sizes.values()) != self.process_count:
             raise MeshSizeError(sizes, math.prod(sizes.values()),
                                 self.process_count)
-        groups = ({} if self.backend is None
-                  else _form_subgroups(sizes, self.process_index))
-        return dataclasses.replace(self, sizes=sizes, subgroups=groups)
+        groups, ring = ({}, None) if self.backend is None else (
+            _form_subgroups(sizes, self.process_index),
+            _form_ring_group(sizes, self.process_index))
+        return dataclasses.replace(self, sizes=sizes, subgroups=groups,
+                                   ring_group=ring)
 
     def _group(self, group: AxisGroup | None) -> AxisGroup:
         return self.world_group if group is None else group
@@ -381,6 +435,55 @@ class MeshRuntime:
         if self.backend == "gloo" and torch.device(device).type == "cuda":
             return TRANSPORT_ALL_REDUCE
         return TRANSPORT_NATIVE
+
+    def p2p_transport(self, device: torch.device | str) -> str:
+        """How ``ppermute_`` moves tensors on ``device``: ``"host"`` (a
+        copy to the host and back) for gloo with CUDA tensors, else
+        ``"native"``."""
+        if self.backend == "gloo" and torch.device(device).type == "cuda":
+            return TRANSPORT_HOST
+        return TRANSPORT_NATIVE
+
+    def ppermute_(self, outputs: list[torch.Tensor],
+                  inputs: list[torch.Tensor], shift: int = 1
+                  ) -> list[torch.Tensor]:
+        """Send each of ``inputs`` to the member ``shift`` places on along
+        this rank's ``seq`` line and receive the member ``shift`` places
+        back's into ``outputs`` (each at its input's shape): ``lax.ppermute``
+        with ``(j, j + shift mod n)``, every tensor in one
+        ``batch_isend_irecv`` on the ring's process group. Returns
+        ``outputs``."""
+        group = self.axis_group("seq")
+        n, i = group.size, group.index
+        if self.backend is None or n == 1 or shift % n == 0:
+            for out, x in zip(outputs, inputs):
+                out.copy_(x)
+            return outputs
+        dst = self.seq_member_rank((i + shift) % n)
+        src = self.seq_member_rank((i - shift) % n)
+        if self.p2p_transport(inputs[0].device) == TRANSPORT_HOST:
+            # One pinned host buffer each way: one copy off the card, one
+            # send and one receive, one copy back.
+            packed, spans = _pack_bytes(inputs)
+            pinned = {"dtype": torch.uint8,
+                      "pin_memory": torch.cuda.is_available()}
+            sends = [torch.empty(packed.numel(), **pinned).copy_(packed)]
+            recvs = [torch.empty(packed.numel(), **pinned)]
+        else:
+            sends = [x.detach().contiguous() for x in inputs]
+            recvs = [torch.empty_like(x) for x in sends]
+        ops = []
+        for tag, (x, y) in enumerate(zip(sends, recvs)):
+            ops.append(dist.P2POp(dist.isend, x, dst, self.ring_group, tag))
+            ops.append(dist.P2POp(dist.irecv, y, src, self.ring_group, tag))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if len(recvs) != len(outputs):
+            recvs = _unpack_bytes(recvs[0].to(outputs[0].device), spans,
+                                  inputs)
+        for out, y in zip(outputs, recvs):
+            out.copy_(y)
+        return outputs
 
     def all_to_all_(self, output: torch.Tensor, input: torch.Tensor,
                     group: AxisGroup | None = None) -> torch.Tensor:
@@ -457,6 +560,23 @@ def _form_subgroups(sizes: Mapping[str, int], rank: int) -> dict:
     return out
 
 
+def _form_ring_group(sizes: Mapping[str, int], rank: int) -> Any:
+    """A process group for each ``seq`` line (every rank calls
+    ``new_group`` for each, in the same order), used by the ring alone;
+    returns this rank's, or None when ``seq`` is 1."""
+    if sizes["seq"] == 1:
+        return None
+    others = [a for a in MESH_AXES if a != "seq"]
+    mine = None
+    for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+        ranks = [_rank_of(sizes, {**dict(zip(others, fixed)), "seq": j})
+                 for j in range(sizes["seq"])]
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
 def initialize_runtime(config: MeshConfig | None = None,
                        device: str | torch.device = "cuda",
                        backend: str | None = None, *,
@@ -465,7 +585,7 @@ def initialize_runtime(config: MeshConfig | None = None,
     """Resolve the mesh against the gang and form the process group.
     ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
     tensors runs two ranks on one card). Raises NotImplementedError for
-    ``seq``, ``pipe`` or ``expert`` above 1, MeshSizeError when the mesh
+    ``pipe`` or ``expert`` above 1, MeshSizeError when the mesh
     does not fit the ranks, DeviceUnavailableError for CUDA without a
     card."""
     config = config or MeshConfig()
@@ -486,6 +606,7 @@ def initialize_runtime(config: MeshConfig | None = None,
             dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                     world_size=world, rank=rank)
         runtime = MeshRuntime(sizes, rank, world, dev, dist.get_backend(),
-                              _form_subgroups(sizes, rank))
+                              _form_subgroups(sizes, rank),
+                              _form_ring_group(sizes, rank))
     log.info("Mesh runtime: %s", runtime.describe())
     return runtime

@@ -6,8 +6,10 @@ Port of ``models/__init__.py``'s name dispatch: ``bert`` (BERT-base MLM),
 ``inception_v3``. The JAX package's validation errors on
 ``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept. Every
 configuration the port cannot build yet raises NotImplementedError naming
-the ROADMAP.md item that ports it (MoE, pipelined and ring-attention BERT,
-ResNet and Inception remat); ``register_model`` is item A19.
+the ROADMAP.md item that ports it (MoE and pipelined BERT, ResNet and
+Inception remat); ``register_model`` is item A19. Ring attention builds
+here and runs under ``train.spmd_mode: jit`` only
+(:func:`check_ring_mode`).
 """
 
 from __future__ import annotations
@@ -64,8 +66,6 @@ def model_kwargs(config: ModelConfig) -> dict:
         raise _not_ported("MoE encoder layers (model.num_experts>0)", "A8")
     if config.pipeline_stages > 1:
         raise _not_ported("pipelined BERT (model.pipeline_stages>1)", "A12")
-    if config.attention_impl == "ring":
-        raise _not_ported("attention_impl='ring'", "A11 (sequence parallel)")
     return dict(
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
@@ -73,6 +73,21 @@ def model_kwargs(config: ModelConfig) -> dict:
         dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype],
         attention_impl=config.attention_impl, fused_qkv=config.fused_qkv,
         remat=config.remat)
+
+
+def check_ring_mode(config: ModelConfig, spmd_mode: str) -> None:
+    """Refuse ring attention under ``train.spmd_mode: shard_map``: the JAX
+    package fails there (its ``ring_attention_sharded`` nests a
+    ``shard_map`` inside the step's own ``shard_map``), so the port raises
+    the same cause as a ValueError."""
+    if (spmd_mode == "shard_map" and config.attention_impl == "ring"
+            and config.name.lower() in BERT_NAMES):
+        raise ValueError(
+            "model.attention_impl='ring' runs under train.spmd_mode='jit' "
+            "only: under 'shard_map' the JAX package's ring_attention_sharded "
+            "nests a shard_map inside the step's own shard_map and fails "
+            "with \"ValueError: The context mesh AbstractMesh(...Manual...) "
+            "should match the mesh passed to shard_map Mesh(...Auto...)\"")
 
 
 def build_model(config: ModelConfig, *, device: torch.device,

@@ -19,7 +19,18 @@ it), never from the global RNG; kept values are scaled by 1/keep_prob in
 the activation dtype, as Flax's ``nn.Dropout`` does.
 
 ``attention_impl``: "pallas" runs ops/flash_attention.py (the CUDA kernel on
-the card), "xla" the plain :func:`dot_product_attention`.
+the card), "xla" the plain :func:`dot_product_attention`, "ring"
+parallel/ring.py's ring attention over the mesh's ``seq`` ranks.
+
+Under sequence parallelism (:meth:`BertForMLM.shard_sequence`, ring
+attention at ``mesh.seq > 1``) the model takes whole rows and each rank
+of ``seq`` keeps its part of every row, ``[r·S/n, (r+1)·S/n)``, through
+the embedding, every encoder layer and the MLM head, whose logits are
+this part's: activations are O(S/n · D) a rank. Positions are the part's
+(packed rows: ``segment_positions`` of the whole row, then this part),
+and dropout draws each mask at the whole row's shape from the same
+generator and keeps this part, so the masks, and the generator's state
+after each draw, are those of one process at ``seq = 1``.
 
 Under tensor parallelism (parallel/tensor_parallel.py) the projections
 are split over the mesh's ``model`` axis: ``tp_size`` of the attention is
@@ -56,6 +67,7 @@ from distributed_tensorflow_framework_torch.models.layers import (
 from distributed_tensorflow_framework_torch.ops.flash_attention import (
     flash_attention,
 )
+from distributed_tensorflow_framework_torch.parallel import ring
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -79,7 +91,7 @@ def dot_product_attention(q, k, v, *, mask=None, segment_ids=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-ATTENTION_IMPLS = ("pallas", "xla")
+ATTENTION_IMPLS = ("pallas", "xla", "ring")
 
 
 class MultiHeadAttention(nn.Module):
@@ -94,11 +106,18 @@ class MultiHeadAttention(nn.Module):
         self.fused_qkv = fused_qkv
         # The tensor-parallel split of the heads (1: every head here).
         self.tp_size = 1
+        # The ring's runtime (core/mesh.py) under sequence parallelism;
+        # None: a ring of one rank.
+        self.seq_runtime = None
         # A plain attribute, so a caller can hold the model against the
         # kernel's plain version by swapping it (chip_smoke.py does).
-        self.attention_fn = (
-            flash_attention if attention_impl == "pallas"
-            else functools.partial(dot_product_attention, dtype=dtype))
+        if attention_impl == "pallas":
+            self.attention_fn = flash_attention
+        elif attention_impl == "ring":
+            self.attention_fn = self._ring_attention
+        else:
+            self.attention_fn = functools.partial(dot_product_attention,
+                                                  dtype=dtype)
         if fused_qkv:
             # One (H -> 3H) projection; the Flax kernel is (H, 3, H) and
             # the split below is its qkv[..., i, :].
@@ -108,6 +127,11 @@ class MultiHeadAttention(nn.Module):
             self.key = Dense(hidden, hidden, dtype=dtype, device=device)
             self.value = Dense(hidden, hidden, dtype=dtype, device=device)
         self.attn_out = Dense(hidden, hidden, dtype=dtype, device=device)
+
+    def _ring_attention(self, q, k, v, *, mask=None, segment_ids=None):
+        return ring.ring_attention_masked(q, k, v, mask=mask,
+                                          segment_ids=segment_ids,
+                                          runtime=self.seq_runtime)
 
     def forward(self, x, mask=None, segment_ids=None):
         b, s, h = x.shape
@@ -131,6 +155,8 @@ class EncoderLayer(nn.Module):
                  dropout_rate: float = 0.0, device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
+        # (this rank's index, the seq ranks) under sequence parallelism.
+        self.seq_part = None
         self.attn = MultiHeadAttention(
             hidden, num_heads, dtype=dtype, attention_impl=attention_impl,
             fused_qkv=fused_qkv, device=device)
@@ -141,10 +167,11 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x, mask=None, segment_ids=None, generator=None):
         attn = dropout(self.attn(x, mask, segment_ids), self.dropout_rate,
-                       generator, self.training)
+                       generator, self.training, self.seq_part)
         x = self.ln1(x + attn)
         y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
-        y = dropout(y, self.dropout_rate, generator, self.training)
+        y = dropout(y, self.dropout_rate, generator, self.training,
+                    self.seq_part)
         return self.ln2(x + y)
 
 
@@ -204,21 +231,27 @@ class BertEmbed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.dropout_rate = dropout_rate
+        self.seq_part = None
         self.embed = Embed(vocab_size, hidden, device=device)
         self.pos_embedding = nn.Parameter(torch.empty(
             max_seq_len, hidden, dtype=torch.float32, device=device))
         self.embed_ln = LayerNorm(hidden, device=device)
 
-    def forward(self, input_ids, position_ids=None, generator=None):
+    def forward(self, input_ids, position_ids=None, generator=None,
+                offset: int = 0):
+        """``offset``: the first position of ``input_ids`` in its row
+        (this rank's part under sequence parallelism), when
+        ``position_ids`` is None."""
         table = self.embed.table()
         x = F.embedding(input_ids, table).to(self.dtype)
         if position_ids is None:
-            pos = self.pos_embedding[None, :input_ids.shape[1], :]
+            pos = self.pos_embedding[None, offset:offset + input_ids.shape[1]]
         else:
             # Packed rows: per-document positions, reset at each segment.
             pos = self.pos_embedding[position_ids]
         x = self.embed_ln(x + pos.to(self.dtype))
-        x = dropout(x, self.dropout_rate, generator, self.training)
+        x = dropout(x, self.dropout_rate, generator, self.training,
+                    self.seq_part)
         return x.to(self.dtype), table
 
 
@@ -263,6 +296,8 @@ class BertForMLM(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
+        # The ring's runtime under sequence parallelism (shard_sequence).
+        self.seq_runtime = None
         self.embed_block = BertEmbed(vocab_size, hidden_size, max_seq_len,
                                      dtype=dtype, dropout_rate=dropout_rate,
                                      device=device)
@@ -288,14 +323,39 @@ class BertForMLM(nn.Module):
         with torch.no_grad():
             self.head.mlm_bias.zero_()
 
+    def shard_sequence(self, runtime) -> None:
+        """Sequence parallelism over ``runtime``'s ``seq`` ranks (ring
+        attention): from here on ``forward`` takes whole rows and returns
+        the logits of this rank's part of each."""
+        group = runtime.axis_group("seq")
+        part = (group.index, group.size)
+        self.seq_runtime = runtime
+        self.embed_block.seq_part = part
+        for i in range(self.num_layers):
+            layer = getattr(self, f"layer{i}")
+            layer.seq_part = part
+            layer.attn.seq_runtime = runtime
+
     def forward(self, input_ids, attention_mask=None, segment_ids=None, *,
                 dropout_generator: torch.Generator | None = None):
-        """Logits (B, S, vocab) f32. ``dropout_generator`` feeds the dropout
-        masks in ``train()`` mode; ``eval()`` mode ignores it."""
+        """Logits (B, S, vocab) f32 — under sequence parallelism those of
+        this rank's part of each row, (B, S/n, vocab). ``dropout_generator``
+        feeds the dropout masks in ``train()`` mode; ``eval()`` mode
+        ignores it."""
         position_ids = (None if segment_ids is None
                         else segment_positions(segment_ids))
+        offset = 0
+        if self.seq_runtime is not None:
+            part = ring.seq_part(self.seq_runtime, input_ids.shape[1])
+            offset = part.start
+            input_ids = input_ids[:, part]
+            if attention_mask is not None:
+                attention_mask = attention_mask[:, part]
+            if segment_ids is not None:
+                segment_ids = segment_ids[:, part]
+                position_ids = position_ids[:, part]
         x, table = self.embed_block(input_ids, position_ids,
-                                    dropout_generator)
+                                    dropout_generator, offset)
         mask = (None if attention_mask is None
                 else attention_mask[:, None, None, :].bool())
         remat = self.remat and torch.is_grad_enabled()

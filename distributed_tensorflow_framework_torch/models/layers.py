@@ -86,18 +86,29 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            training: bool) -> torch.Tensor:
+            training: bool, part: tuple[int, int] | None = None
+            ) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep each element with probability 1 − rate
     and scale it by 1/(1 − rate), computed in x's dtype; the identity when
-    not training or at rate 0."""
+    not training or at rate 0. ``part`` = (r, n): ``x`` is part r of n
+    equal parts of a whole along dim 1 (sequence parallelism), so the
+    mask is drawn at the whole's shape and part r of it kept — the mask
+    one process draws for the whole, and the same draw from
+    ``generator``."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train() mode needs a dropout_generator "
                          "(the port never draws from the global RNG)")
     keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+    shape = list(x.shape)
+    if part is not None:
+        shape[1] *= part[1]
+    keep = torch.empty(shape, device=x.device).bernoulli_(
         keep_prob, generator=generator).bool()
+    if part is not None:
+        c = x.shape[1]
+        keep = keep[:, part[0] * c:(part[0] + 1) * c]
     # Flax divides by keep_prob rounded to x's dtype (0.8984375 in bf16);
     # rounding it here on the host keeps the division free of a copy to
     # the device.

@@ -29,7 +29,10 @@ Public functions keep the JAX package's layout and guards:
     ``(B, S, H, D)`` in q's dtype.
   * :func:`flash_attention_with_lse` — the ``flash_attention_chunk``
     counterpart: additive ``(B, Sk)`` key bias, separate q/kv segment ids,
-    returns ``(o, lse)`` with lse ``(B, S, H, 1)`` f32.
+    returns ``(o, lse)`` with lse ``(B, S, H, 1)`` f32;
+    :func:`flash_attention_chunk` is the same under the JAX name, with
+    its guards and messages, for the ring (parallel/ring.py), and
+    :func:`chunk_supported` says which ring chunks it takes.
 
 Both are differentiable through :class:`FlashAttention`, the counterpart of
 ``_make_fused``'s custom VJPs: the forward saves q, k, v, bias, the segment
@@ -654,3 +657,30 @@ def flash_attention_with_lse(q, k, v, bias, q_seg=None, kv_seg=None):
     if q_seg is not None:
         q_seg, kv_seg = q_seg.to(torch.float32), kv_seg.to(torch.float32)
     return _attention(q, k, v, bias, q_seg, kv_seg)
+
+
+def chunk_supported(s: int) -> bool:
+    """Whether a ring chunk of per-rank length ``s`` fits the kernels'
+    constraints (the ones :func:`flash_attention_chunk` enforces): the
+    JAX package's test for choosing the kernel over the plain chain
+    (parallel/ring.py). No upper bound: long chunks stream."""
+    return s > 0 and s % min(BLOCK_Q, s) == 0
+
+
+def flash_attention_chunk(q, k, v, bias, q_seg=None, kv_seg=None):
+    """One ring chunk through the kernels, under the JAX package's name:
+    :func:`flash_attention_with_lse` behind the JAX function's guards
+    (equal-length shards; a chunk that is a BLOCK_Q multiple or shorter
+    than BLOCK_Q), raised with its messages. ``o`` is normalised within
+    the chunk; the ring merges chunks by their lse."""
+    s_q, s_k = q.shape[1], k.shape[1]
+    if s_q != s_k or v.shape[1] != s_k:
+        raise ValueError(
+            f"flash_attention_chunk needs equal-length q/k/v shards, got "
+            f"q={s_q} k={s_k} v={v.shape[1]}")
+    if s_q % min(BLOCK_Q, s_q):
+        raise ValueError(
+            f"chunk len {s_q} must be a multiple of {BLOCK_Q} (or smaller "
+            f"than {BLOCK_Q}) — pick mesh.seq so the per-shard chunk "
+            f"seq/ring_shards is a {BLOCK_Q}-multiple")
+    return flash_attention_with_lse(q, k, v, bias, q_seg, kv_seg)

@@ -22,6 +22,9 @@ requantized for the gather); :func:`allreduce_gradients_ef` adds the
 error-feedback residual that carries the compression error into the next
 step.
 
+:func:`ppermute_shift` is ring attention's move (parallel/ring.py): a
+differentiable ring shift along ``seq`` on the ring's own process group.
+
 The tally (:func:`tally`) records one entry per leaf under the JAX
 package's kind names and byte conventions, each leaf padded as JAX pads
 it, so one step's ``summary()`` is the dict JAX's gives for the same model
@@ -430,6 +433,51 @@ def pmean(x: Any, runtime, axes=None) -> Any:
     for v in leaves:
         _record("pmean", v.numel(), v.dtype, multiplier=2)
     return _like(x, _reduce_leaves(leaves, runtime, mean=True, axes=axes))
+
+
+class _Ppermute(torch.autograd.Function):
+    """``lax.ppermute`` of a list of tensors by ``shift`` along the
+    ``seq`` line, in one batch of sends and receives; its transpose sends
+    the cotangents back by ``-shift``, also in one batch. Outputs of
+    inputs that need no gradient are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, runtime, shift, *xs):
+        ctx.runtime, ctx.shift = runtime, shift
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        outs = runtime.ppermute_([torch.empty_like(x) for x in xs],
+                                 list(xs), shift)
+        need = ctx.needs_input_grad[2:]
+        ctx.mark_non_differentiable(
+            *(o for o, n in zip(outs, need) if not n))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        send = [torch.zeros(shape, dtype=dtype, device=device) if g is None
+                else g for g, n, (shape, dtype, device)
+                in zip(grads, need, ctx.like) if n]
+        back = iter(ctx.runtime.ppermute_(
+            [torch.empty_like(g) for g in send], send, -ctx.shift)
+            if send else [])
+        return (None, None, *(next(back) if n else None for n in need))
+
+
+def ppermute_shift(x: Any, runtime, shift: int = 1) -> Any:
+    """Ring shift along ``seq``: every leaf of ``x`` goes to the member
+    ``(i + shift) mod n`` of this rank's ``seq`` line, in one batch of
+    point-to-point operations on the ring's own process group
+    (``MeshRuntime.ppermute_``); differentiable, the cotangents travelling
+    back by ``-shift``. The identity without a runtime. Tallies
+    ``"ppermute"`` per leaf, as the JAX wrapper does, at each forward call
+    (a remat recompute calls it again)."""
+    leaves = _leaves(x)
+    for v in leaves:
+        _record("ppermute", v.numel(), v.dtype)
+    if runtime is None:
+        return x
+    return _like(x, list(_Ppermute.apply(runtime, shift, *leaves)))
 
 
 def all_gather(x: torch.Tensor, runtime, *, axis: int = 0,

@@ -58,7 +58,11 @@ record once, the padded tail weighted out; an infinite one (the synthetic
 fallback) gives ``train.eval_steps`` batches. Across ranks each rank
 evaluates its shard (the same number of batches everywhere,
 data/tfdata.py) and the metric sums are added over the data-parallel
-ranks. At each
+ranks, and under sequence parallelism over the ``seq`` ranks too, each of
+which scores its part of every row (``StepBuilder.reduce_group``). The
+throughput counts the global batch once, whatever ranks share its rows;
+``run_meta`` names ``sequence_parallel`` (the ``seq`` ranks a row is
+split over, 1 when it is not) and the ring's ``p2p_transport``. At each
 metrics fetch the sequence-packing census of the train stream's state is
 written as a ``data_packing`` event.
 """
@@ -198,7 +202,11 @@ class Trainer:
             zero_buckets=None if plan is None else plan.num_buckets,
             model_parallel=rt.sizes["model"],
             tp_sharded_leaves=(0 if self.state.tp is None
-                               else self.state.tp.sharded))
+                               else self.state.tp.sharded),
+            sequence_parallel=(rt.sizes["seq"] if self.builder.seq_parallel
+                               else 1),
+            p2p_transport=(rt.p2p_transport(self.device)
+                           if self.builder.seq_parallel else None))
         if plan is not None:
             # One record of the static shard/bucket plan, so that byte and
             # step-time rollups read against the plan that produced them.
@@ -535,12 +543,12 @@ class Trainer:
                                        to_device(next(ds), self.device))
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
-        if self.runtime.data_group.size > 1:
+        group = self.builder.reduce_group
+        if group.size > 1:
             keys = sorted(totals)
             summed = self.runtime.all_reduce_(torch.tensor(
                 [totals[k] for k in keys], dtype=torch.float64,
-                device=self.runtime.collective_device),
-                self.runtime.data_group)
+                device=self.runtime.collective_device), group)
             totals = dict(zip(keys, summed.tolist()))
         weight = totals.pop("weight_sum", 0.0)
         results = {f"eval_{k[:-len('_sum')]}": v / max(weight, 1e-9)

@@ -20,7 +20,8 @@ the increment).
 
 Across ranks, under ``train.spmd_mode: jit`` (the default), the model
 runs under ``DistributedDataParallel`` over the data × fsdp ranks
-(``MeshRuntime.data_group``: every rank unless ``mesh.model`` exceeds 1;
+(``MeshRuntime.data_group``: every rank unless ``mesh.seq`` or
+``mesh.model`` exceeds 1; data × fsdp × seq under sequence parallelism;
 ``gradient_as_bucket_view``, no buffer broadcast: the BatchNorm
 statistics are already global, models/layers.py; ``no_sync`` on every
 micro-batch but the last), and each data-parallel rank feeds its block of
@@ -52,6 +53,22 @@ rank. FSDP and ZeRO-1 cut the tensor-parallel parts further, along a dim
 no tensor parallelism, as in the JAX package (its ``shard_map`` step
 replicates every leaf): the ranks along ``model`` repeat the data × fsdp
 step on the same batch and every collective spans data × fsdp.
+
+Sequence parallelism (``mesh.seq > 1`` with ``attention_impl: ring``
+under ``jit``; ROADMAP.md A11): the ranks along ``seq`` share a
+data-parallel index, so they read the same rows and draw the same
+dropout masks; each keeps its part of every row (models/bert.py
+``shard_sequence``, parallel/ring.py) and of the targets. The parameters
+are replicated over ``seq`` and each rank's gradient is the sum over its
+tokens, so the gradient reduction (DDP's process group), the masked-token
+weight, the task metrics and the exact eval's sums all span data × fsdp
+× seq (:attr:`StepBuilder.reduce_group`), while ``data_group`` keeps its
+meaning. With ``mesh.seq > 1`` and another attention, or another model,
+the ranks along ``seq`` repeat the data-parallel step on the same batch,
+as GSPMD replicates it. Ring attention under ``shard_map`` raises the
+JAX package's failure as a ValueError (models/__init__.py); ``seq`` with
+``fsdp``, ``model`` or ZeRO raises NotImplementedError naming "A11 (seq
+with fsdp/model/ZeRO)".
 
 Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
 per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
@@ -111,10 +128,10 @@ and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
 BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: the ``seq``,
-``pipe`` and ``expert`` mesh axes, a split fused QKV whose heads
-``mesh.model`` does not divide, the fused update and the selective remat
-policies. ``model.remat``
+naming its ROADMAP.md item when it is not at its off value: the ``pipe``
+and ``expert`` mesh axes, ``seq`` beside ``fsdp``, ``model`` or ZeRO, a
+split fused QKV whose heads ``mesh.model`` does not divide, the fused
+update and the selective remat policies. ``model.remat``
 (per-layer checkpointing) is carried by the model. A wire dtype under
 ``jit`` and a ``train.grad_allreduce_accum`` other than float32 or wire
 raise the JAX package's ValueErrors.
@@ -132,12 +149,17 @@ from distributed_tensorflow_framework_torch.core import mesh as mesh_lib
 from distributed_tensorflow_framework_torch.core import prng
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
-from distributed_tensorflow_framework_torch.models import get_model
+from distributed_tensorflow_framework_torch.models import (
+    BERT_NAMES,
+    check_ring_mode,
+    get_model,
+)
 from distributed_tensorflow_framework_torch.models.layers import (
     BatchNorm,
     use_cross_rank_bn,
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel import ring
 from distributed_tensorflow_framework_torch.parallel import zero
 from distributed_tensorflow_framework_torch.parallel.sharding import (
     DimSharding,
@@ -191,20 +213,40 @@ def zero_mode(config: ExperimentConfig) -> str:
     return zs
 
 
+def sequence_parallel(config: ExperimentConfig,
+                      sizes: dict[str, int]) -> bool:
+    """Whether the step splits each row over the ``seq`` ranks: ring
+    attention in BERT at ``mesh.seq > 1``."""
+    return (sizes["seq"] > 1 and config.model.attention_impl == "ring"
+            and config.model.name.lower() in BERT_NAMES)
+
+
 def check_step_config(config: ExperimentConfig, world: int = 1
                       ) -> dict[str, int]:
     """Raise for every setting the data-parallel step over ``world`` ranks
     does not carry: MeshSizeError when the mesh does not fit the world,
     ValueError for the JAX package's refusals (a wire dtype under ``jit``,
     a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
-    their update cannot run), NotImplementedError for what is not ported
-    (``seq``, ``pipe`` or ``expert`` above 1). Returns the mesh's
-    sizes."""
+    their update cannot run, ring attention under ``shard_map``, a row
+    the ring cannot split), NotImplementedError for what is not ported
+    (``pipe`` or ``expert`` above 1, ``seq`` beside ``fsdp``, ``model``
+    or ZeRO). Returns the mesh's sizes."""
     sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
     if tcfg.spmd_mode not in ("jit", "shard_map"):
         raise ValueError(f"train.spmd_mode must be 'jit' or 'shard_map', "
                          f"got {tcfg.spmd_mode!r}")
+    check_ring_mode(config.model, tcfg.spmd_mode)
+    if sequence_parallel(config, sizes):
+        if (sizes["fsdp"] > 1 or sizes["model"] > 1
+                or zero_mode(config) != "off"):
+            raise _not_ported(
+                f"mesh.seq={sizes['seq']} beside mesh.fsdp={sizes['fsdp']}, "
+                f"mesh.model={sizes['model']} or optimizer.zero_sharding="
+                f"{zero_mode(config)!r}", "A11 (seq with fsdp/model/ZeRO)")
+        for data in (config.data, config.eval_data):
+            if data is not None:
+                ring.check_ring_shape(data.seq_len, sizes["seq"])
     if ((config.parallel.collective_dtype or tcfg.grad_allreduce_dtype)
             and tcfg.spmd_mode != "shard_map"):
         raise ValueError(
@@ -308,6 +350,16 @@ class StepBuilder:
         self.dp_world = 1 if runtime is None else self.data_group.size
         self.tensor_parallel = (config.train.spmd_mode == "jit"
                                 and sizes["model"] > 1)
+        # Sequence parallelism: the ranks the gradients, the loss weight
+        # and the metrics reduce over are data × fsdp × seq.
+        self.seq_parallel = (runtime is not None
+                             and sequence_parallel(config, sizes))
+        self.reduce_group = (
+            None if runtime is None
+            else runtime.axis_group(mesh_lib.DATA_AXES + ("seq",))
+            if self.seq_parallel else self.data_group)
+        self.reduce_world = (1 if runtime is None
+                             else self.reduce_group.size)
         self.task = task_for_model(config.model.name)
         if (self.task == "mlm"
                 and config.data.vocab_size > config.model.vocab_size):
@@ -322,9 +374,10 @@ class StepBuilder:
         self.accum = max(1, config.train.grad_accum_steps)
         self.shard_map = config.train.spmd_mode == "shard_map"
         # The ranks a step's loss denominator spans: the data-parallel
-        # ranks under DDP (the JAX jit step's global weight), the rank
-        # alone under shard_map (each replica's own mean).
-        self.weight_world = 1 if self.shard_map else self.dp_world
+        # ranks (and the seq ranks of a split row) under DDP (the JAX jit
+        # step's global weight), the rank alone under shard_map (each
+        # replica's own mean).
+        self.weight_world = 1 if self.shard_map else self.reduce_world
         # The explicit collectives' wire: parallel.collective_dtype, with
         # the deprecated train.grad_allreduce_dtype honoured for configs
         # built without load_config's shim.
@@ -374,6 +427,8 @@ class StepBuilder:
                          else self.config.data.channels))
         tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
               else None)
+        if self.seq_parallel:
+            model.shard_sequence(self.runtime)
         if self.dp_world > 1 and (not self.shard_map
                                   or self.config.model.bn_cross_replica):
             use_cross_rank_bn(model, self.data_group.group)
@@ -391,14 +446,22 @@ class StepBuilder:
         ddp = None
         if (not self.shard_map and self.runtime is not None
                 and self.runtime.backend is not None
-                and (self.dp_world > 1 or self.world == 1)):
-            # No DDP when only the ranks along ``model`` are there: they
-            # share one data-parallel index.
+                and (self.reduce_world > 1 or self.world == 1)):
+            # No DDP when only the ranks along ``model`` (or along a
+            # repeating ``seq``) are there: they share one data-parallel
+            # index.
+            # Under sequence parallelism DDP keeps its first bucket order
+            # (find_unused_parameters stops the rebuild after the first
+            # backward): a ring all-reduce over more than two ranks sums
+            # an element in an order set by its place in the bucket, so a
+            # rebuilt order would make a resumed run's sums differ in the
+            # last bit from a straight run's.
             ddp = DistributedDataParallel(
                 model, device_ids=(None if self.device.type == "cpu"
                                    else [self.device.index]),
                 broadcast_buffers=False, gradient_as_bucket_view=True,
-                process_group=self.data_group.group)
+                process_group=self.reduce_group.group,
+                find_unused_parameters=self.seq_parallel)
         # At the whole parameters' shapes, whatever the layout.
         residual = ({k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in model.named_parameters()}
@@ -454,7 +517,8 @@ class StepBuilder:
             logits = state.train_module(
                 *model_inputs(self.task, batch),
                 dropout_generator=state.dropout_generator)
-            loss, metrics = losses.mlm_loss(logits, batch["targets"])
+            loss, metrics = losses.mlm_loss(logits,
+                                            self._targets(batch["targets"]))
         else:
             # Inception draws its dropout from the trainer's stream and, in
             # train mode, returns its aux head's logits too.
@@ -484,8 +548,15 @@ class StepBuilder:
         masked tokens for MLM, 1 for the per-example mean of
         classification."""
         if self.task == "mlm":
-            return losses.mlm_mask(mb["targets"]).sum()
+            return losses.mlm_mask(self._targets(mb["targets"])).sum()
         return torch.ones((), device=mb["label"].device)
+
+    def _targets(self, targets: torch.Tensor) -> torch.Tensor:
+        """The MLM targets of this rank's tokens: its part of each row
+        under sequence parallelism, else all of them."""
+        if not self.seq_parallel:
+            return targets
+        return targets[:, ring.seq_part(self.runtime, targets.shape[1])]
 
     def _split(self, batch: dict) -> list[dict]:
         out = []
@@ -502,7 +573,7 @@ class StepBuilder:
         """The step's loss denominator over the ranks it spans."""
         if self.weight_world == 1:
             return local
-        return self.runtime.all_reduce_(local.clone(), self.data_group)
+        return self.runtime.all_reduce_(local.clone(), self.reduce_group)
 
     def train_step(self, state: TrainState, batch: dict, *,
                    fault_scale: float = 1.0
@@ -626,8 +697,9 @@ class StepBuilder:
 
     def global_metrics(self, metrics: dict) -> dict:
         """The step's metrics with its task metrics as weighted means over
-        every data-parallel rank's batch (one ``all_reduce``; the JAX loss
-        over the global batch): each rank's mean times its weight, summed,
+        every data-parallel rank's batch, and every seq rank's part of it
+        (one ``all_reduce`` over :attr:`reduce_group`; the JAX loss over
+        the global batch): each rank's mean times its weight, summed,
         over the summed weight, at least 1 as in ``mlm_loss``. Called at
         log steps, which are the same on every rank. Single-rank metrics
         pass as they are."""
@@ -638,7 +710,7 @@ class StepBuilder:
         keys = [k for k in out if k not in ("grad_norm", "learning_rate")]
         sums = torch.stack([out[k].float() * weight for k in keys]
                            + [weight.float()])
-        self.runtime.all_reduce_(sums, self.data_group)
+        self.runtime.all_reduce_(sums, self.reduce_group)
         total = sums[-1].clamp(min=1.0)
         out.update({k: sums[i] / total for i, k in enumerate(keys)})
         return out
@@ -666,7 +738,8 @@ class StepBuilder:
                     logits = state.model(*inputs)
         finally:
             state.model.train()
-        labels = batch["targets" if self.task == "mlm" else "label"]
+        labels = (self._targets(batch["targets"]) if self.task == "mlm"
+                  else batch["label"])
         weight = batch.get("weight")
         if weight is None:
             weight = torch.ones(labels.shape[0], device=labels.device)

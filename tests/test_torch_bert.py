@@ -171,7 +171,7 @@ def test_init_distributions_match_flax(jax_params):
     ({"name": "resnet50", "remat": True}, "A18"),
     ({"num_experts": 4}, "A8"),
     ({"pipeline_stages": 2}, "A12"),
-    ({"attention_impl": "ring"}, "A11"),
+    ({"name": "resnet18_cifar", "remat": True}, "A18"),
 ])
 def test_unported_configs_name_their_roadmap_item(override, match):
     cfg = PortModelConfig(**dict(TINY, **override))

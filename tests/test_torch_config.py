@@ -53,3 +53,33 @@ def test_bad_overrides_raise_like_jax(override, match):
     for mod in (pc, jc):
         with pytest.raises(ValueError, match=match):
             mod.load_config(CONFIGS[0], overrides=[override])
+
+
+@pytest.mark.parametrize("overrides, world", [
+    ([], 8),
+    (["mesh.seq=2"], 4),
+    (["mesh.seq=4", "data.seq_len=8192", "model.max_seq_len=8192"], 4),
+])
+def test_long_ring_config_passes_the_step_checks_as_written(overrides,
+                                                            world):
+    """configs/bert_long_ring.yaml (``mesh.seq: 8``, ring attention) loads
+    and resolves as the JAX mesh resolves it, and the port's step accepts
+    it: every rank's chunk is one the kernels take (2048 tokens at seq 8,
+    8192 at seq 2)."""
+    from distributed_tensorflow_framework_torch.core import mesh as pm
+    from distributed_tensorflow_framework_torch.train.step import (
+        check_step_config,
+        sequence_parallel,
+    )
+    from distributed_tensorflow_framework_tpu.core.mesh import (
+        _resolve_axis_sizes,
+    )
+
+    path = CONFIGS[0].parent / "bert_long_ring.yaml"
+    cfg = pc.load_config(path, overrides=overrides)
+    assert cfg.model.attention_impl == "ring"
+    sizes = check_step_config(cfg, world)
+    assert sizes == _resolve_axis_sizes(
+        jc.load_config(path, overrides=overrides).mesh, world)
+    assert sequence_parallel(cfg, sizes)
+    assert sizes == pm.resolve_mesh(cfg.mesh, world)

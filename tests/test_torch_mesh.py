@@ -76,9 +76,9 @@ def test_axis_sizes_match_jax(sizes, n):
     ("expert", "A8")])
 def test_non_data_axes_name_their_item(axis, item):
     """An axis not ported yet is refused naming its item; fsdp and model,
-    ported by A10's FSDP and tensor-parallel halves, resolve above 1
-    (fixed or free) as the JAX mesh does."""
-    if axis in ("fsdp", "model"):
+    ported by A10's FSDP and tensor-parallel halves, and seq, ported by
+    A11, resolve above 1 (fixed or free) as the JAX mesh does."""
+    if axis in ("fsdp", "model", "seq"):
         assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: 2}), 2)[
             axis] == 2
         assert mesh.resolve_mesh(MeshConfig(data=2, **{axis: 2}), 4) == \
@@ -141,9 +141,9 @@ def test_mesh_data_2_in_one_process_exits_84(no_gang, caplog):
 
 
 def test_a_non_data_axis_raises_in_the_cli(no_gang):
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A12"):
         port_cli.main(["--device", "cpu", "--set", "mesh.data=1",
-                       "--set", "mesh.seq=2"])
+                       "--set", "mesh.pipe=2"])
 
 
 @pytest.mark.parametrize("index, count", [(0, 1), (0, 2), (1, 2), (3, 4)])
@@ -215,3 +215,27 @@ def test_runtime_is_a_plain_record():
     assert rt.collective_device == cpu
     assert "rank 2/4" in rt.describe()
     assert dataclasses.replace(rt, process_index=0).is_chief
+
+
+def test_seq_coordinates_and_the_ring_transport():
+    """Rank order with ``seq`` (inside data × fsdp, outside model), the
+    global rank of each member of a seq line, and how ``ppermute_`` moves
+    tensors: natively on NCCL and on gloo's CPU tensors, through the host
+    for gloo's CUDA tensors; without a group it copies."""
+    sizes = {"data": 2, "fsdp": 1, "expert": 1, "pipe": 1, "model": 2,
+             "seq": 2}
+    for rank in range(8):
+        coords = mesh._coords(sizes, rank)
+        assert rank == ((coords["data"] * 2 + coords["seq"]) * 2
+                        + coords["model"])
+    rt = mesh.MeshRuntime(sizes, 5, 8, torch.device("cpu"), "gloo")
+    assert [rt.seq_member_rank(j) for j in range(2)] == [5, 7]
+    assert rt.p2p_transport("cpu") == mesh.TRANSPORT_NATIVE
+    assert rt.p2p_transport("cuda") == mesh.TRANSPORT_HOST
+    nccl = dataclasses.replace(rt, backend="nccl")
+    assert nccl.p2p_transport("cuda") == mesh.TRANSPORT_NATIVE
+    one = mesh.MeshRuntime({**sizes, "data": 1, "model": 1, "seq": 1}, 0,
+                           1, torch.device("cpu"))
+    x = torch.arange(4.0)
+    out = torch.empty(4)
+    assert one.ppermute_([out], [x])[0] is out and torch.equal(out, x)
