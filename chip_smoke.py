@@ -128,8 +128,9 @@ Phases (any failure raises and the script exits non-zero):
      8 x 512 step's gradients through the segmented kernels against their
      plain versions, every leaf within MODEL_GRAD_RTOL.
   6. long-context training — ``cli/train.py``'s ``main`` on
-     ``configs/bert_long_ring.yaml`` at its width and depth (12 x 768,
-     remat, dropout 0.1, bf16) on one card: ``mesh.seq=1`` and
+     ``configs/bert_long_ring.yaml`` at its width (768, remat, dropout
+     0.1, bf16), its depth cut from 12 layers to LONG_LAYERS (since PR 16,
+     the script's time limit), on one card: ``mesh.seq=1`` and
      ``attention_impl pallas`` (ring attention is not ported), the
      config's checkpoint and resilience sections live (the directory in
      the workdir), 3 steps of the config's 8 rows in 8 micro-batches of
@@ -137,8 +138,9 @@ Phases (any failure raises and the script exits non-zero):
      at S = 16384 (above FUSED_BWD_MAX), and at S = 8192 the fused kernel
      on a card listed in FUSED_BWD_VERIFIED_DEVICES (the H100 80GB HBM3
      is), else the two-pass kernels. Checks rc 0, finite metrics and the
-     launch counts per micro-batch: forward 24 (forward and recompute), dQ
-     and dK/dV 12 or fused 12. Prints the steady step time, tokens/s, peak
+     launch counts per micro-batch: forward twice a layer (forward and
+     recompute), dQ and dK/dV or fused once a layer. Prints the steady
+     step time, tokens/s, peak
      memory, the final save's costs and one profiled step by kernel class.
   6b. fused vs two-pass at S = 8192 — one micro-step's gradients (dropout
      and remat on) with the fused backward forced on against the two-pass
@@ -249,12 +251,13 @@ Phases (any failure raises and the script exits non-zero):
      (parameters, momentum and residual). Prints the phase's seconds.
   11. ZeRO and FSDP (``optimizer.zero_sharding``, ``mesh.fsdp``;
      parallel/zero.py, parallel/sharding.py), two child ranks of a gloo
-     group on the card. 11a: ``configs/bert_base_mlm.yaml`` at full depth
-     and width through the Trainer, 10 steps of 32 x 512 (16 rows a rank,
-     synthetic), ZERO_OVERRIDES (clipping off so that every mode runs the
-     same config), in three modes: (i) the replicated shard_map step, (ii)
-     ZeRO on the f32 wire, (iii) ZeRO on the int8 error-feedback wire.
-     (ii)'s losses and step-10 parameters must equal (i)'s (bit for bit
+     group on the card. 11a: ``configs/bert_base_mlm.yaml`` at full width,
+     its depth cut to ZERO_LAYERS, through the Trainer, ZERO_STEPS steps
+     of 32 x 512 (16 rows a rank, synthetic), ZERO_OVERRIDES (clipping off
+     so that every mode runs the same config), in three modes: (i) the
+     replicated shard_map step, (ii) ZeRO on the f32 wire, (iii) ZeRO on
+     the int8 error-feedback wire. (ii)'s losses and last-step parameters
+     must equal (i)'s (bit for bit
      expected; else within ZERO_LOSS_RTOL and the run's largest lr times
      its steps, the first differing leaf named); (iii)'s losses within
      COLL_LOSS_TOL of (ii)'s; the tally's ``zero_*`` wire bytes at least
@@ -275,13 +278,15 @@ Phases (any failure raises and the script exits non-zero):
   12. tensor parallelism (``mesh.model``; parallel/tensor_parallel.py),
      two child ranks of a gloo group on the card at ``{data: 1, model:
      2}``, both on the same rows. 12a: ``configs/bert_base_mlm.yaml`` as
-     written (12 layers, bf16, the flash kernels, fused QKV, dropout 0.1,
-     clipping 1.0) through the Trainer, TP_STEPS steps of 16 x 512: the
+     written (bf16, the flash kernels, fused QKV, dropout 0.1, clipping
+     1.0) but for its depth, cut to TP_LAYERS, through the Trainer,
+     TP_STEPS steps of 16 x 512: the
      losses finite and equal on both ranks at every step; every replicated
      leaf (LayerNorms, biases, ``pos_embedding``, the MLM head) bit-equal
      across the ranks after the last step (the data and the dropout masks
      are shared); each split leaf at its part's shape; each attention
-     kernel launched 12 x TP_STEPS times by each rank, on 6 heads. Prints
+     kernel launched TP_LAYERS x TP_STEPS times by each rank, on 6 heads.
+     Prints
      per rank the parameter and slot bytes at rest (against one
      process's), the peak memory and the ms/step (gloo through the host,
      not a scaling figure). 12b: 12a at dropout 0 against one process
@@ -302,12 +307,13 @@ Phases (any failure raises and the script exits non-zero):
      no key), a key bias, a random dO and dlse; the forward kernel against
      its plain version, the pair (whole-K at 2048, streaming at 8192) and
      the fused kernel against the plain backward, phase 3b's tolerances.
-     13b: ``configs/bert_long_ring.yaml`` as written (12 layers, bf16,
-     remat, dropout 0.1, ring at ``mesh.seq`` 8: 2048-token chunks)
-     through the Trainer on eight ranks, RING_STEPS steps of 8 rows, one
-     row per micro-batch: losses finite and equal on every rank, the
-     parameters bit-equal across the ranks after the last step (a digest
-     each), each rank's attention kernels launched 12 layers x 8 chunks x
+     13b: ``configs/bert_long_ring.yaml`` as written (bf16, remat,
+     dropout 0.1, ring at ``mesh.seq`` 8: 2048-token chunks) but for its
+     depth, cut from 12 layers to RING_LAYERS, through the Trainer on
+     eight ranks, RING_STEPS steps of 8 rows, one row per micro-batch:
+     losses finite and equal on every rank, the parameters bit-equal
+     across the ranks after the last step (a digest each), each rank's
+     attention kernels launched the layers x 8 chunks x
      the micro-batches times (twice for the forward: the remat
      recompute); per rank the peak memory and step times (gloo through
      the host, not a scaling figure). 13c: ``{data: 1, seq: 2}`` at 16384
@@ -321,14 +327,34 @@ Phases (any failure raises and the script exits non-zero):
      straight steps; the checkpoint read by one process bit for bit.
      ``--only 13`` runs the kernels' build and phase 13 alone (no kernels
      line, no last line).
+  14. pipeline parallelism (``mesh.pipe``, ``model.pipeline_stages``;
+     parallel/pipeline.py), four children of one gloo group on the card.
+     14a: ``configs/bert_base_mlm.yaml`` at full width (12 layers, bf16,
+     pallas, fused QKV) at ``{data: 1, pipe: 4}``, 8 microbatches of the
+     32-row global batch, dropout 0, through the Trainer for PIPE_STEPS
+     steps under gpipe, 1f1b and interleaved (v 3, one layer a chunk):
+     losses finite and equal on the four ranks and across the schedules
+     at the first step, the embedding and head bit-equal across the ranks
+     after the last step (a digest each), each rank's launches as
+     predicted (3 layers x 8 microbatches a step of the forward, twice
+     under 1f1b for the recompute, and of dQ and dK/dV), the first step's
+     loss within PIPE_LOSS_TOL of one process's ``BertForMLM`` on the same
+     weights and batch; per rank the peak memory and ms/step (gloo through
+     the host, not a scaling figure). 14b: f32 at ``{data: 2, pipe: 2}``,
+     8c's cut (2 layers, one a stage), 4 microbatches, gpipe and 1f1b
+     against one process within DP_TOL; a 1f1b run with dropout 0.1 under
+     deterministic algorithms: 2 steps, a save, a restore into another
+     seed's state and 2 more, bit-equal to 4 straight steps; the checkpoint
+     read by one process bit for bit. ``--only 14`` runs the kernels'
+     build and phase 14 alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a and 13b, whose children set and read their own counts) and read
-just after; launches made to compare or time a kernel do not count. The
-record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a,
-12a and 13b, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
+11a, 12a, 13b and 14a, whose children set and read their own counts) and
+read just after; launches made to compare or time a kernel do not count.
+The record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
+11a, 12a, 13b and 14a, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -463,6 +489,11 @@ LONG_CONFIG = "configs/bert_long_ring.yaml"
 LONG_OVERRIDES = (
     "mesh.seq=1", "model.attention_impl=pallas", "train.grad_accum_steps=8",
     "train.total_steps=3", "train.log_interval=1", "train.eval_steps=0")
+# Phases 6 and 6b run the config at this depth, cut from its 12 layers in
+# PR 16 to keep the script inside its time limit (their runs and four
+# profiled steps took ~130 s at 12 layers); long_config checks the config
+# as written.
+LONG_LAYERS = 4
 # Phase 6's sequence lengths. Both runs leave FUSED_BWD on auto, the choice
 # users get: the two-pass pair at 16384 (above FUSED_BWD_MAX), and at 8192
 # the fused kernel on a card listed in FUSED_BWD_VERIFIED_DEVICES, else the
@@ -484,12 +515,17 @@ CIFAR_SIZES = (5, 2048, 2000)         # train batches x images, test
 # 7a runs config 1 whole (2,000 steps). 7b runs config 2 as written but for
 # the run length (30 of 20,000 steps) and a log every 10 steps (when the
 # host syncs; the steady window needs more than one). 7c cuts config 3's
-# pod-wide global batch of 4,096 to 256 and runs 20 steps on its synthetic
-# fallback, with the s2d stem as written and with the 7x7 stem beside it.
+# pod-wide global batch of 4,096 to 256 and runs 10 steps on its synthetic
+# fallback (IMAGENET_SYNTH_OVERRIDES), with the s2d stem as written and
+# with the 7x7 stem beside it; 9c's record runs take 20.
 CIFAR_OVERRIDES = ("train.total_steps=30", "train.log_interval=10")
 CIFAR_RESUME_SPLIT = 15
 IMAGENET_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
                       "train.log_interval=10")
+# 7c's synthetic runs, cut in PR 16 to 10 steps (logged every 5) and a
+# 2-batch eval, to keep the script inside its time limit.
+IMAGENET_SYNTH_OVERRIDES = (*IMAGENET_OVERRIDES, "train.total_steps=10",
+                            "train.log_interval=5", "train.eval_steps=2")
 # 7a: the trainer's exact eval against a CPU replay of the same weights
 # over the same 1,000 images, f32 on both sides (TF32 is off): the loss
 # within 1e-4 relative (cuDNN and the CPU sum the products in other
@@ -2742,20 +2778,20 @@ def packed_phase(torch, fa, workdir: str) -> dict:
 
 def long_config(torch, seq: int, extra=()):
     """``configs/bert_long_ring.yaml`` at ``seq`` tokens on one card, with
-    its width and depth checked."""
+    its width and depth checked, cut to LONG_LAYERS layers."""
     from distributed_tensorflow_framework_torch.core.config import load_config
 
     over = list(LONG_OVERRIDES) + list(extra)
     if seq != 16384:
         over += [f"model.max_seq_len={seq}", f"data.seq_len={seq}"]
-    cfg = load_config(LONG_CONFIG, overrides=over)
-    m = cfg.model
+    m = load_config(LONG_CONFIG, overrides=over).model
     if (m.name, m.num_layers, m.hidden_size, m.num_heads, m.mlp_dim,
             m.vocab_size, m.dtype, m.remat, m.dropout_rate) != (
             "bert", 12, 768, 12, 3072, 30522, "bfloat16", True, 0.1):
         raise AssertionError(f"{LONG_CONFIG} is no longer long-context "
                              f"BERT-base with remat: {m}")
-    return cfg, over
+    over.append(f"model.num_layers={LONG_LAYERS}")
+    return load_config(LONG_CONFIG, overrides=over), over
 
 
 @contextlib.contextmanager
@@ -2862,8 +2898,10 @@ def long_fused_parity_phase(torch, fa) -> tuple[dict, int]:
         with fused_bwd(fa, fused):
             builder._micro_step(state, batch, 1.0)
         counts = read_counts(fa)
-        want = {"fwd": 24, "dq": 0 if fused else 12,
-                "dkv": 0 if fused else 12, "fused": 12 if fused else 0}
+        layers = cfg.model.num_layers
+        want = {"fwd": 2 * layers, "dq": 0 if fused else layers,
+                "dkv": 0 if fused else layers,
+                "fused": layers if fused else 0}
         if counts != want:
             raise AssertionError(f"fused={fused}: launched {counts}, "
                                  f"expected {want}")
@@ -3294,7 +3332,7 @@ def steady_ms(events: list[dict]) -> float:
 def imagenet_phase(torch, workdir: str, smi: str) -> None:
     """7c: config 3's model (ResNet-50 at 224, the s2d stem, label
     smoothing 0.1, the staircase schedule, bf16 images) on its synthetic
-    fallback, 20 steps of 256 (cut from 4,096), beside the same with the
+    fallback, 10 steps of 256 (cut from 4,096), beside the same with the
     7x7 stem; then the step alone on a resident batch, the two stems in
     turns, each profiled once."""
     from distributed_tensorflow_framework_torch.core.config import load_config
@@ -3304,7 +3342,7 @@ def imagenet_phase(torch, workdir: str, smi: str) -> None:
     for stem, extra in stems.items():
         over = [f"checkpoint.directory="
                 f"{os.path.join(workdir, 'ckpt_imagenet_' + stem)}",
-                *IMAGENET_OVERRIDES, *extra]
+                *IMAGENET_SYNTH_OVERRIDES, *extra]
         cfg = load_config(IMAGENET_CONFIG, overrides=over)
         m, d, o = cfg.model, cfg.data, cfg.optimizer
         got = (m.name, m.num_classes, m.dtype, d.image_size, d.image_dtype,
@@ -3522,7 +3560,8 @@ def child_main(spec_path: str) -> int:
     ``torch.use_deterministic_algorithms`` when asked), and its peak
     device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
     ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c,
-    ``tp`` one of phase 12 and ``ring`` one of 13b, 13c or 13d.
+    ``tp`` one of phase 12, ``ring`` one of 13b, 13c or 13d and ``pipe``
+    one of phase 14.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3557,6 +3596,8 @@ def child_main(spec_path: str) -> int:
         result = tp_rank(torch, fa, os.path.dirname(spec["out"]))
     elif spec["kind"] == "ring":
         result = ring_rank(torch, fa, spec)
+    elif spec["kind"] == "pipe":
+        result = pipe_rank(torch, fa, spec)
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4172,20 +4213,28 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
 
 # --------------------------------------------------------------- phase 11
 
-# 11a: configs/bert_base_mlm.yaml at its full depth and width (12 layers,
-# bf16, fused QKV, the flash kernels, dropout 0.1) on two gloo ranks of the
+# 11a: configs/bert_base_mlm.yaml at its full width (bf16, fused QKV, the
+# flash kernels, dropout 0.1), its depth cut to ZERO_LAYERS (12 until PR
+# 16, the script's time limit), on two gloo ranks of the
 # one card, through the Trainer, each rank taking 16 of the global batch's
-# 32 rows of 512 tokens (the synthetic stream), 10 steps, in three modes:
+# 32 rows of 512 tokens (the synthetic stream), ZERO_STEPS steps (cut from
+# 10 in PR 16, to keep the script inside its time limit), in three modes:
 # (i) the replicated shard_map step (phase 10's path at two ranks), (ii)
 # ZeRO on the f32 wire, (iii) ZeRO on the int8 error-feedback wire. Every
 # run of the phase takes optimizer.grad_clip_norm=0, so that each mode can
 # run the same config: ZeRO and explicit FSDP refuse clipping (their update
 # sees only shards). The ladder is off and the eval skipped; the final save
-# at step 10 holds the parameters held here. gloo moves CUDA tensors
+# at the last step holds the parameters held here. gloo moves CUDA tensors
 # through the host, so the ms/step says nothing about scaling.
 ZERO_CONFIG = "configs/bert_base_mlm.yaml"
-ZERO_OVERRIDES = ("data.global_batch_size=32", "train.total_steps=10",
-                  "train.log_interval=5", "train.eval_steps=0",
+ZERO_STEPS = 4
+# 11a's depth, cut from 12 layers in PR 16 (the script's time limit).
+ZERO_LAYERS = 4
+ZERO_OVERRIDES = ("data.global_batch_size=32",
+                  f"model.num_layers={ZERO_LAYERS}",
+                  f"train.total_steps={ZERO_STEPS}",
+                  f"train.log_interval={ZERO_STEPS // 2}",
+                  "train.eval_steps=0",
                   "train.eval_interval=0", "optimizer.grad_clip_norm=0",
                   "resilience.rollback=false", "train.spmd_mode=shard_map")
 ZERO_MODES = {
@@ -4193,7 +4242,6 @@ ZERO_MODES = {
     "zero_f32": ("optimizer.zero_sharding=shard_map",),
     "zero_int8": ("optimizer.zero_sharding=shard_map",
                   "parallel.collective_dtype=int8")}
-ZERO_STEPS = 10
 # (ii) against (i): the same parameters and losses bit for bit are
 # expected at two ranks (the update is elementwise, the shards are cut
 # from the same reduced gradients). Written before the first run, should
@@ -4326,6 +4374,8 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         tensors = state.model.state_dict()
         if state.tp is not None:
             tensors = state.tp.whole(tensors)  # every rank of the group
+        if state.pipe is not None:
+            tensors = state.pipe.whole(tensors)  # every stage of the line
         tensors = {k: v.detach().cpu().clone() for k, v in tensors.items()}
     return {"losses": losses, "grad_norms": grad_norms, "tensors": tensors,
             "bytes": state_bytes(torch, state), "builder": builder,
@@ -4440,7 +4490,8 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
             f"{meta['zero_buckets']}; losses "
             + ", ".join(f"step {k} {v!r}" for k, v in
                         sorted(runs[name]["losses"].items()))
-            + f"; {runs[name]['ms']:.1f} ms/step (steps 6-10; gloo through "
+            + f"; {runs[name]['ms']:.1f} ms/step (steps "
+            f"{ZERO_STEPS // 2 + 1}-{ZERO_STEPS}; gloo through "
             f"the host, not a scaling figure); {per_rank} [{smi}]")
     rep, z32, z8 = (runs[k] for k in ZERO_MODES)
     log(f"11a zero_update event (f32): {z32['zero_update']}; tally per step "
@@ -4478,7 +4529,8 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
         f"(tol atol {COLL_LOSS_TOL['atol']}); zero_* wire bytes f32/int8 "
         f"{ratio}; checkpoint slots stacked (2, chunk): {stacked}")
     if (gap > COLL_LOSS_TOL["atol"] or min(ratio.values()) < 3
-            or not stacked or set(rep["losses"]) != {5, 10}
+            or not stacked
+            or set(rep["losses"]) != {ZERO_STEPS // 2, ZERO_STEPS}
             or not all(math.isfinite(v) for v in z8["losses"].values())):
         raise AssertionError("11a: the int8 run, the tally or the stacked "
                              "slots miss their checks")
@@ -4491,8 +4543,8 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
         + ", ".join(f"rank {k} {v:.4f}" for k, v in halves.items()))
     if any(not 0.49 < v <= 0.5 + 1e-3 for v in halves.values()):
         raise AssertionError("11a: ZeRO did not halve the slots per rank")
-    want = {"fwd": 12 * ZERO_STEPS, "dq": 12 * ZERO_STEPS,
-            "dkv": 12 * ZERO_STEPS, "fused": 0}
+    want = {"fwd": ZERO_LAYERS * ZERO_STEPS, "dq": ZERO_LAYERS * ZERO_STEPS,
+            "dkv": ZERO_LAYERS * ZERO_STEPS, "fused": 0}
     counts = {k: 0 for k in want}
     for r in ranks:
         for name in ZERO_MODES:
@@ -4561,8 +4613,10 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
 # about scaling.
 TP_CONFIG = "configs/bert_base_mlm.yaml"
 TP_MESH = ("mesh.data=1", "mesh.model=2")
-TP_STEPS = 10
-TP_OVERRIDES = ("data.global_batch_size=16", f"train.total_steps={TP_STEPS}",
+TP_STEPS = 5  # cut from 10 in PR 16, to keep the script inside its limit
+TP_LAYERS = 4  # cut from 12 in PR 16, for the same reason
+TP_OVERRIDES = ("data.global_batch_size=16", f"model.num_layers={TP_LAYERS}",
+                f"train.total_steps={TP_STEPS}",
                 "train.log_interval=1", "train.eval_steps=0",
                 "train.eval_interval=0", "resilience.rollback=false",
                 "checkpoint.directory=")
@@ -4789,15 +4843,15 @@ def tp_phase(torch, workdir: str, smi: str) -> dict:
         f"{finite}; {equal} of {len(x)} replicated leaves bit-equal across "
         f"the ranks after step {TP_STEPS}; every split leaf at its part's "
         f"shape {parts_ok} [{smi}]")
-    want = {"fwd": 12 * TP_STEPS, "dq": 12 * TP_STEPS,
-            "dkv": 12 * TP_STEPS, "fused": 0}
+    want = {"fwd": TP_LAYERS * TP_STEPS, "dq": TP_LAYERS * TP_STEPS,
+            "dkv": TP_LAYERS * TP_STEPS, "fused": 0}
     counts = {k: 0 for k in want}
     for r in ranks:
         a = r["12a"]
         log(f"12a rank {r['rank']}: parameters {gb(a['bytes']['params'])}, "
             f"slots {gb(a['bytes']['slots'])} at rest, peak "
             f"{a['peak_gb']:.2f} GB, attention on {a['heads']} heads, "
-            f"launches {a['counts']}; {ms:.1f} ms/step (steps 2-10, "
+            f"launches {a['counts']}; {ms:.1f} ms/step (steps 2-{TP_STEPS}, "
             f"chief's clock; gloo through the host, not a scaling figure); "
             f"12a {r['s']['12a']:.1f} s, 12b {r['s']['12b']:.1f} s, 12c "
             f"{r['s']['12c']:.1f} s [{smi}]")
@@ -4901,16 +4955,20 @@ def tp_phase(torch, workdir: str, smi: str) -> dict:
 # 2048, streaming at 8192) and the fused kernel against the plain
 # backward with phase 3b's tolerances.
 RING_SHAPES = ((1, 12, 2048, 64), (1, 12, 8192, 64))
-# 13b: configs/bert_long_ring.yaml as written (12 layers, bf16, remat,
-# dropout 0.1, ring attention at mesh.seq 8: 2048-token chunks) through
-# the Trainer on eight ranks, 3 steps of its 8 rows, one row per
-# micro-batch as phase 6 takes them; no checkpoint directory (13d holds
-# the checkpoints).
+# 13b: configs/bert_long_ring.yaml as written (bf16, remat, dropout 0.1,
+# ring attention at mesh.seq 8: 2048-token chunks), its depth cut to
+# RING_LAYERS, through the Trainer on eight ranks, RING_STEPS steps of its
+# 8 rows, one row per micro-batch as phase 6 takes them; no checkpoint
+# directory (13d holds the checkpoints).
 RING_RANKS = 8
-RING_STEPS = 3
+RING_STEPS = 2
 RING_OVERRIDES = ("train.grad_accum_steps=8", f"train.total_steps={RING_STEPS}",
                   "train.log_interval=1", "train.eval_steps=0",
                   "resilience.rollback=false", "checkpoint.directory=")
+# 13b's depth, cut from the recipe's 12 layers in PR 16 (with RING_STEPS
+# from 3), to keep the script inside its time limit: 13b took 93-164 s
+# at full depth, the rotations through the host dominating it.
+RING_LAYERS = ("model.num_layers=4",)
 # 13c: 13b at {data: 1, seq: 2} (8192-token chunks: the forward kernel on
 # the streaming lengths and, on a listed card, the fused backward) at
 # dropout 0, against one process without the ring (phase 6's cut: seq 1,
@@ -5015,7 +5073,7 @@ def ring_trainer_rank(torch, fa, runtime, out_dir: str) -> dict:
     from distributed_tensorflow_framework_torch.train.loop import Trainer
 
     logs = os.path.join(out_dir, "ring_logs")
-    cfg = load_config(LONG_CONFIG, overrides=list(RING_OVERRIDES))
+    cfg = load_config(LONG_CONFIG, overrides=[*RING_OVERRIDES, *RING_LAYERS])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5171,7 +5229,9 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     route = fa.backward_route(*(torch.empty(1, chunk, 1, 64, device="cuda",
                                             dtype=torch.bfloat16),) * 2)
     micro = RING_STEPS * cfg.train.grad_accum_steps
-    calls = m.num_layers * RING_RANKS * micro
+    layers = load_config(LONG_CONFIG, overrides=[
+        *RING_OVERRIDES, *RING_LAYERS]).model.num_layers
+    calls = layers * RING_RANKS * micro
     fused = route == "fused"
     want = {"fwd": 2 * calls, "dq": 0 if fused else calls,
             "dkv": 0 if fused else calls, "fused": calls if fused else 0}
@@ -5196,7 +5256,8 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     log(f"13b {LONG_CONFIG} as written: mesh {meta['mesh']}, "
         f"sequence_parallel {meta['sequence_parallel']}, {RING_RANKS} gloo "
         f"ranks on the card ({meta['p2p_transport']} transport), "
-        f"{chunk}-token chunks, {RING_STEPS} steps of 8x16384 (one row per "
+        f"{chunk}-token chunks, depth cut to {layers} of 12 layers, "
+        f"{RING_STEPS} steps of 8x16384 (one row per "
         f"micro-batch, remat, dropout 0.1, {route} backward): losses "
         + ", ".join(f"step {k} {v!r}" for k, v in sorted(losses.items()))
         + f"; equal on every rank {same}, finite {finite}; parameters "
@@ -5341,6 +5402,335 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     return worst, counts
 
 
+# --------------------------------------------------------------- phase 14
+
+# Phase 14: pipeline parallelism (mesh.pipe, model.pipeline_stages;
+# parallel/pipeline.py). The card is one, so the stages are gloo children
+# on it, and every activation and gradient hop goes through the host: the
+# ms/step says nothing about scaling.
+# 14a: configs/bert_base_mlm.yaml at full width through the Trainer on
+# four stages of three layers, 8 microbatches of 4 rows; dropout 0, so
+# that the first step's loss compares with one process's BertForMLM on
+# the same weights and batch (bf16: the stages run 4-row GEMMs where one
+# process runs 32-row ones, so the loss within 2e-3 relative, as 12b holds
+# tensor parallelism).
+PIPE_CONFIG = "configs/bert_base_mlm.yaml"
+PIPE_RANKS = 4
+PIPE_STEPS = 3
+PIPE_MICRO = 8
+PIPE_MESH = ("mesh.data=1", f"mesh.pipe={PIPE_RANKS}",
+             f"model.pipeline_stages={PIPE_RANKS}",
+             f"model.pipeline_microbatches={PIPE_MICRO}")
+PIPE_OVERRIDES = ("data.global_batch_size=32",
+                  f"train.total_steps={PIPE_STEPS}",
+                  "train.log_interval=1", "train.eval_steps=0",
+                  "train.eval_interval=0", "resilience.rollback=false",
+                  "checkpoint.directory=", "model.dropout_rate=0.0")
+PIPE_SCHEDULES = (("gpipe", 0), ("1f1b", 0), ("interleaved", 3))
+PIPE_LOSS_TOL = 2e-3
+# 14b: 8c's cut in f32 (2 layers, one a stage, 8 rows, clipping 1.0) at
+# {data: 2, pipe: 2} with 4 microbatches of one row, against one process
+# within DP_TOL's BERT tolerances; the resume under 1f1b with dropout 0.1.
+PIPE_F32_MESH = ("mesh.data=2", "mesh.pipe=2", "model.pipeline_stages=2",
+                 "model.pipeline_microbatches=4")
+PIPE_F32_STEPS = 2
+PIPE_RESUME = ("model.dropout_rate=0.1", "checkpoint.async_save=false",
+               "model.pipeline_schedule=1f1b")
+PIPE_RESUME_STEPS, PIPE_RESUME_SPLIT = 4, 2
+
+
+def pipe_schedule(name: str, v: int) -> tuple:
+    return (f"model.pipeline_schedule={name}",
+            f"model.pipeline_virtual_stages={v}")
+
+
+def pipe_trainer_run(torch, fa, runtime, out_dir: str, name: str,
+                     v: int) -> dict:
+    """14a on one rank under one schedule: the Trainer with the launch
+    counts set to 0 just before and read just after, the step clock, the
+    peak memory and a digest of the embedding and head after the last
+    step."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    logs = os.path.join(out_dir, f"pipe_logs_{name}")
+    cfg = load_config(PIPE_CONFIG, overrides=[
+        *PIPE_OVERRIDES, *PIPE_MESH, *pipe_schedule(name, v)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, log_dir=logs, runtime=runtime)
+    trainer.build()
+    clock = StepRecord()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(hooks=trainer.default_hooks() + [clock])
+    finally:
+        trainer.writer.close()
+    counts = read_counts(fa)
+    model = trainer.state.model
+    steps = [1e3 * (b - a) for a, b in zip(clock.ends, clock.ends[1:])]
+    out = {"counts": counts, "steps": clock.steps, "step_ms": steps,
+           "s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "digest": digest(torch, {k: p for k, p in model.named_parameters()
+                                    if not model.is_stage_key(k)}),
+           "layers": model.layer_ids, "stage": model.stage,
+           "bytes": state_bytes(torch, trainer.state), "logs": logs}
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_f32_rank(torch, runtime, out_dir: str) -> dict:
+    """14b on one rank: gpipe and 1f1b at 8c's cut, then the resume."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+
+    rank = runtime.process_index
+    out = {"schedules": {}}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("gpipe", "1f1b"):
+            res = zero_cut_case(torch, (*DP_BERT[1], *PIPE_F32_MESH,
+                                        *pipe_schedule(name, 0)),
+                                runtime, PIPE_F32_STEPS,
+                                config_path=DP_BERT[0])
+            path = os.path.join(out_dir, f"pipe_b_{name}_rank{rank}.pt")
+            torch.save(res["tensors"], path)
+            out["schedules"][name] = {"losses": res["losses"],
+                                      "grad_norms": res["grad_norms"],
+                                      "tensors": path}
+            del res
+        over = (*DP_BERT[1], *PIPE_F32_MESH, *PIPE_RESUME)
+        kw = {"config_path": DP_BERT[0]}
+        straight = zero_cut_case(torch, over, runtime, PIPE_RESUME_STEPS,
+                                 **kw)
+        legs = zero_cut_case(torch, over, runtime, PIPE_RESUME_SPLIT, **kw)
+        ckpt = os.path.join(out_dir, "pipe_resume")
+        manager = CheckpointManager(dataclasses.replace(
+            legs["builder"].config.checkpoint, directory=ckpt),
+            runtime=runtime)
+        manager.save(PIPE_RESUME_SPLIT, legs["state"])
+        whole = os.path.join(out_dir, f"pipe_saved_rank{rank}.pt")
+        torch.save(legs["tensors"], whole)
+        fresh = zero_cut_case(torch, over, runtime, 0, seed=SEED + 1, **kw)
+        restored = manager.restore(fresh["state"])
+        manager.close()
+        tail = zero_cut_case(
+            torch, over, runtime, PIPE_RESUME_STEPS - PIPE_RESUME_SPLIT,
+            state=fresh["state"], builder=fresh["builder"],
+            skip=PIPE_RESUME_SPLIT, **kw)
+        want, got = (list(tensor_leaves(x["state"].state_dict()))
+                     for x in (straight, tail))
+        out["resume"] = {
+            "restored": restored, "ckpt": ckpt, "whole": whole,
+            "losses_equal": tail["losses"] == straight["losses"][
+                PIPE_RESUME_SPLIT:],
+            "tensors": len(want),
+            "equal": sum(torch.equal(x, y) for x, y in zip(got, want))}
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def pipe_rank(torch, fa, spec: dict) -> dict:
+    """One rank of phase 14: a gloo group of four on the card; 14a under
+    each schedule at {data: 1, pipe: 4}, then 14b at {data: 2, pipe: 2}
+    (the builders re-form the subgroups)."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    out_dir = os.path.dirname(spec["out"])
+    runtime = initialize_runtime(MeshConfig(data=1, pipe=PIPE_RANKS), "cuda",
+                                 backend="gloo")
+    try:
+        out = {"rank": runtime.process_index, "backend": runtime.backend,
+               "a": {}, "s": {}}
+        for name, v in PIPE_SCHEDULES:
+            t0 = time.perf_counter()
+            out["a"][name] = pipe_trainer_run(torch, fa, runtime, out_dir,
+                                              name, v)
+            out["s"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = pipe_f32_rank(torch, runtime, out_dir)
+        out["s"]["14b"] = time.perf_counter() - t0
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def pipe_phase(torch, workdir: str, smi: str) -> dict:
+    """Phase 14: 14a (BERT-base through the Trainer on four stages under
+    gpipe, 1f1b and interleaved, against one process at the first step)
+    and 14b (8c's cut in f32 at {data: 2, pipe: 2} against one process, a
+    resume, the checkpoint read by one process). Returns 14a's
+    attention-kernel launches, every rank under every schedule (main-path
+    runs)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t0 = time.perf_counter()
+    cfg = load_config(PIPE_CONFIG, overrides=[*PIPE_OVERRIDES, *PIPE_MESH])
+    m = cfg.model
+    if (m.num_layers, m.hidden_size, m.num_heads, m.dtype, m.attention_impl,
+            m.fused_qkv, cfg.data.seq_len) != (12, 768, 12, "bfloat16",
+                                               "pallas", True, 512):
+        raise AssertionError(f"{PIPE_CONFIG} is no longer BERT-base at 512: "
+                             f"{cfg}")
+    layers = m.num_layers // PIPE_RANKS
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 14b's determinism
+    ranks = run_children([{"kind": "pipe", "env": {
+                              **gang_env(port, PIPE_RANKS, r), **env}}
+                          for port in [free_port()]
+                          for r in range(PIPE_RANKS)],
+                         workdir, "pipe_ranks", timeout=900)
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"14: backends {ranks}")
+    t1 = time.perf_counter()
+    bad = []
+    # 14a.
+    torch.cuda.empty_cache()
+    # The Trainer draws its weights from train.seed: so does the reference.
+    ref = zero_cut_case(torch, PIPE_OVERRIDES, None, 1, seed=cfg.train.seed,
+                        config_path=PIPE_CONFIG)
+    one_loss = ref["losses"][0]
+    del ref
+    torch.cuda.empty_cache()
+    counts = {k: 0 for k in KERNEL_NAMES}
+    firsts = {}
+    for name, v in PIPE_SCHEDULES:
+        a0 = ranks[0]["a"][name]
+        events = read_events(a0["logs"])
+        meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+        sched_event = next(e for e in events
+                           if e["kind"] == "pipeline_schedule")["extra"]
+        ms = steady_ms(events)
+        losses = {int(k): x["loss"] for k, x in a0["steps"].items()}
+        same = all(r["a"][name]["steps"] == a0["steps"] for r in ranks)
+        finite = (sorted(losses) == list(range(1, PIPE_STEPS + 1))
+                  and all(math.isfinite(x["loss"]) and math.isfinite(
+                      x["grad_norm"]) for x in a0["steps"].values()))
+        equal = sum(r["a"][name]["digest"] == a0["digest"] for r in ranks)
+        firsts[name] = losses.get(1, float("nan"))
+        gap = abs(firsts[name] - one_loss) / abs(one_loss)
+        factor = 2 if name == "1f1b" else 1
+        want = {"fwd": factor * layers * PIPE_MICRO * PIPE_STEPS,
+                "dq": layers * PIPE_MICRO * PIPE_STEPS,
+                "dkv": layers * PIPE_MICRO * PIPE_STEPS, "fused": 0}
+        log(f"14a {PIPE_CONFIG} {name} (virtual stages "
+            f"{sched_event['virtual_stages']}, bubble "
+            f"{sched_event['bubble_frac']:.4f}, peak in flight "
+            f"{sched_event['peak_inflight']}), mesh {meta['mesh']}, "
+            f"{PIPE_RANKS} gloo ranks on the card ({meta['p2p_transport']} "
+            f"transport), {PIPE_STEPS} steps of 32x512 in {PIPE_MICRO} "
+            f"microbatches (dropout 0, clipping 1.0): losses "
+            + ", ".join(f"step {k} {x!r}" for k, x in sorted(losses.items()))
+            + f"; equal on every rank {same}, finite {finite}; embedding and "
+            f"head bit-equal across the ranks after step {PIPE_STEPS}: "
+            f"{equal} of {len(ranks)}; the first step's loss vs one "
+            f"process's BertForMLM {one_loss!r}: relative gap {gap:.3e} "
+            f"(tol {PIPE_LOSS_TOL}); {ms:.1f} ms/step (steps 2-"
+            f"{PIPE_STEPS}, chief's clock; gloo through the host, not a "
+            f"scaling figure) [{smi}]")
+        for r in ranks:
+            a = r["a"][name]
+            log(f"14a {name} rank {r['rank']} (stage {a['stage']}, layers "
+                f"{a['layers']}): parameters {gb(a['bytes']['params'])}, "
+                f"slots {gb(a['bytes']['slots'])} at rest, peak "
+                f"{a['peak_gb']:.2f} GB, step times "
+                + ", ".join(f"{x:.0f}" for x in a["step_ms"])
+                + f" ms, launches {a['counts']} (expected {want}), "
+                f"{r['s'][name]:.1f} s [{smi}]")
+            if a["counts"] != want:
+                bad.append((r["rank"], name, "14a launches", a["counts"]))
+            counts = {k: counts[k] + a["counts"][k] for k in counts}
+        if not (same and finite and equal == len(ranks)
+                and gap <= PIPE_LOSS_TOL and meta["mesh"]["pipe"] == 4):
+            bad.append(("14a", name, same, finite, equal, gap))
+    if len(set(firsts.values())) != 1:
+        bad.append(("14a first-step losses across the schedules", firsts))
+    t2 = time.perf_counter()
+    # 14b: one process on the same batches.
+    lr = load_config(DP_BERT[0], overrides=list(DP_BERT[1])) \
+        .optimizer.learning_rate
+    tol = DP_TOL["bert"]
+    ref = zero_cut_case(torch, DP_BERT[1], None, PIPE_F32_STEPS,
+                        config_path=DP_BERT[0])
+    for name in ("gpipe", "1f1b"):
+        b = ranks[0]["b"]["schedules"][name]
+        gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(b[k], ref[k]))
+                for key, k in (("loss", "losses"),
+                               ("grad_norm", "grad_norms"))}
+        tensors = torch.load(b["tensors"], weights_only=True)
+        diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+        same = all(r["b"]["schedules"][name]["losses"] == b["losses"]
+                   for r in ranks)
+        log(f"14b {name} 2 layers f32 at {{data: 2, pipe: 2}} (one layer a "
+            f"stage, 4 microbatches) vs one process, {PIPE_F32_STEPS} steps "
+            f"of 8x512: losses {b['losses']} vs {ref['losses']}; largest "
+            f"relative gap loss {gaps['loss']:.3e}, grad_norm "
+            f"{gaps['grad_norm']:.3e}; worst parameter |diff| {diff:.3e} = "
+            f"{diff / lr:.3e} x lr ({leaf}); tol {tol}; equal on every rank "
+            f"{same}")
+        if (gaps["loss"] > tol["loss"] or gaps["grad_norm"] > tol[
+                "grad_norm"] or diff > tol["params"] * lr or not same):
+            bad.append(("14b", name, gaps, diff))
+        del tensors
+    del ref
+    for r in ranks:
+        res = r["b"]["resume"]
+        log(f"14b rank {r['rank']} 1f1b resume with dropout 0.1 "
+            f"(deterministic algorithms): restored step {res['restored']}; "
+            f"losses after the restore equal {res['losses_equal']}; "
+            f"{res['equal']} of {res['tensors']} tensors (parameters, "
+            f"slots, dropout stream) bit-equal to {PIPE_RESUME_STEPS} "
+            f"straight steps")
+        if not (res["restored"] == PIPE_RESUME_SPLIT and res["losses_equal"]
+                and res["equal"] == res["tensors"]):
+            bad.append((r["rank"], "14b resume"))
+    res = ranks[0]["b"]["resume"]
+    over = [o for o in (*DP_BERT[1], *PIPE_RESUME)
+            if not o.startswith("model.pipeline")]
+    one_cfg = load_config(DP_BERT[0], overrides=over)
+    one = StepBuilder(one_cfg, device="cuda").init_state(SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(
+        one_cfg.checkpoint, directory=res["ckpt"]))
+    restored = manager.restore(one)
+    manager.close()
+    saved = torch.load(res["whole"], weights_only=True)
+    loaded = {k: x.cpu() for k, x in one.model.state_dict().items()}
+    equal = sum(torch.equal(loaded[k], x) for k, x in saved.items())
+    log(f"14b the pipelined checkpoint read by one process: restored step "
+        f"{restored}; {equal} of {len(saved)} model tensors bit-equal to "
+        f"the stages' gathered whole at the save; its optimizer at count "
+        f"{one.optimizer.count}")
+    if (restored != PIPE_RESUME_SPLIT or equal != len(saved)
+            or set(saved) != set(loaded)):
+        bad.append(("14b one-process restore", restored, equal))
+    t3 = time.perf_counter()
+    if bad:
+        raise AssertionError(f"phase 14: {bad}")
+    log(f"phase 14 took {t3 - t0:.1f} s (children {t1 - t0:.1f}: "
+        + ", ".join(f"{k} {x:.1f}" for k, x in ranks[0]["s"].items())
+        + f"; the parent's 14a {t2 - t1:.1f}, 14b {t3 - t2:.1f})")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5399,6 +5789,14 @@ def main() -> int:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as wd:
             ring_phase(torch, fa, wd, gpu)
+        return 0
+    if only == "14":
+        # A development run of phase 14 alone (``--only 14``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as wd:
+            pipe_phase(torch, wd, gpu)
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -5519,10 +5917,22 @@ def main() -> int:
             "both chunk routes, with a resume (13d)")
         ring_worst, ring_counts = ring_phase(torch, fa, workdir, gpu)
 
+    # Phase 14: pipeline parallelism. 14a runs BERT-base through the
+    # attention kernels on four stages under three schedules, so its
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as workdir:
+        log("phase 14 pipeline parallelism: BERT-base on four gloo stages "
+            "of the card at {data: 1, pipe: 4} through the Trainer under "
+            "gpipe, 1f1b and interleaved (14a); f32 at {data: 2, pipe: 2} "
+            "against one process with a resume (14b)")
+        pipe_counts = pipe_phase(torch, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
-    # ranks of each), the two long-context runs and 13b's eight ranks; those with
+    # ranks of each), the two long-context runs, 13b's eight ranks and
+    # 14a's four stages under each schedule; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -5531,7 +5941,7 @@ def main() -> int:
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
-                + ring_counts[name]
+                + ring_counts[name] + pipe_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

@@ -73,7 +73,12 @@ takes part in the gathers; the chief writes). A restore cuts each rank's
 part back out: its tensor-parallel part, its slice of that, or its row of
 the stacked slots — refolded first (ckpt/reshard.py
 ``refold_zero_opt_state``) when another rank count saved them. So a
-checkpoint resumes at any ``mesh.model``, in one process too. FSDP,
+checkpoint resumes at any ``mesh.model``, in one process too. A
+pipelined state (train/state.py ``pipe``) is written whole as well: every
+stage's layers, slots and EMA gathered over ``pipe`` into a whole
+BERT's layout, in the natural layer order whatever the schedule, so one
+process, another schedule or another stage count reads it; a restore
+keeps the rank's stage. FSDP,
 ZeRO-1, tensor-parallel and replicated checkpoints restore into one
 another; switching ZeRO
 ``shard_map`` on or off across a resume is refused with the JAX package's
@@ -271,6 +276,8 @@ class CheckpointManager:
             live = state.layout.global_state(live, state.optimizer.names)
         if state.tp is not None:
             live = state.tp.global_state(live, state.optimizer.names)
+        if state.pipe is not None:
+            live = state.pipe.global_state(live, state.optimizer.names)
         if not self.is_chief:
             return False
         self._drain()  # a new save waits for the previous commit
@@ -539,7 +546,8 @@ class CheckpointManager:
     def _own_parts(self, state: TrainState, step: int, meta: dict,
                    tensors: dict) -> dict:
         """``tensors`` (the whole layout) cut to this rank's parts of a
-        sharded state: its tensor-parallel parts first, then its FSDP or
+        sharded state: its tensor-parallel parts or its pipeline stage
+        first, then its FSDP or
         ZeRO-1 parts of those; ZeRO's stacked slots refolded first when
         another rank count saved them. A ZeRO toggle across the resume is
         refused."""
@@ -559,6 +567,8 @@ class CheckpointManager:
         names = state.optimizer.names
         if state.tp is not None:
             tensors = state.tp.local_state(tensors, names)
+        if state.pipe is not None:
+            tensors = state.pipe.local_state(tensors, names)
         if state.layout is None:
             return tensors
         if zero and stored != state.layout.n:

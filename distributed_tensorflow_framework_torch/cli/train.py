@@ -24,8 +24,11 @@ Started N times with the gang environment of ``core/cluster.py``
 visible count) and train one model data parallel, each rank feeding its
 block of the global batch (core/mesh.py, train/step.py); the ranks along
 ``mesh.seq`` split each row of one block between them under ring
-attention (parallel/ring.py), as ``configs/bert_long_ring.yaml`` asks.
-Without it the run is a single process.
+attention (parallel/ring.py), as ``configs/bert_long_ring.yaml`` asks,
+and the ranks along ``mesh.pipe`` (with ``model.pipeline_stages`` equal
+to it) each hold one stage of BERT's encoder stack, the activations
+passed stage to stage under ``model.pipeline_schedule``
+(parallel/pipeline.py). Without it the run is a single process.
 
 Exit codes: 0 done; 83 (``GRACEFUL_PREEMPT_RC``) after a SIGTERM, which
 stops at the next step boundary and saves a checkpoint; 84

@@ -17,9 +17,9 @@ stands in for the mesh:
 
 The mesh's sizes resolve as in the JAX package (one axis may be -1, the
 product must equal the world size, else :class:`MeshSizeError`, which
-``cli/train.py`` maps to rc 84). The ``data``, ``fsdp``, ``seq`` and
-``model`` axes may exceed 1; ``pipe`` (A12) and ``expert`` (A8) raise
-NotImplementedError naming their ROADMAP.md item. Rank r sits at the
+``cli/train.py`` maps to rc 84). The ``data``, ``fsdp``, ``pipe``,
+``seq`` and ``model`` axes may exceed 1; ``expert`` (A8) raises
+NotImplementedError naming its ROADMAP.md item. Rank r sits at the
 coordinates of r in the row-major order of ``MESH_AXES`` (``data``
 outermost, ``model`` innermost, so the ranks of one tensor-parallel group
 are adjacent, as Megatron places them): ``r = ((data_idx · fsdp +
@@ -30,13 +30,17 @@ and ``model`` share a data-parallel index: they read the same batch and
 draw the same dropout masks (:attr:`MeshRuntime.data_group`); the ranks
 along ``seq`` then keep their own part of each row (parallel/ring.py).
 
-Ring attention moves K/V chunks between the ranks along ``seq`` with
-:meth:`MeshRuntime.ppermute_` on a process group of their own
-(:attr:`MeshRuntime.seq_group`), formed for the ring alone even where it
+Ring attention moves K/V chunks between the ranks along ``seq``, and the
+pipeline moves activations and their gradients between the stages along
+``pipe``, with :meth:`MeshRuntime.ppermute_` on a process group of each
+line's own (:meth:`MeshRuntime.line_group`; :attr:`MeshRuntime.seq_group`,
+:attr:`MeshRuntime.pipe_group`), formed for that line alone even where it
 spans every rank, so that no other collective (DDP's bucketed
-all-reduces fire from autograd hooks while the ring's backward sends)
-ever shares it. NCCL, and gloo on CPU tensors, send and receive natively
-(``batch_isend_irecv``, both directions in one batch); gloo's ``send`` and
+all-reduces fire from autograd hooks while the ring's or the pipeline's
+backward sends) ever shares it; the pipeline's broadcasts from one stage
+(:meth:`MeshRuntime.line_broadcast_`) take the same group. NCCL, and gloo
+on CPU tensors, send and receive natively (``batch_isend_irecv``, both
+directions in one batch); gloo's ``send`` and
 ``recv`` take a tensor's raw pointer without checking its device, so CUDA
 tensors there go through the host (:meth:`p2p_transport`), packed into
 one pinned buffer each way.
@@ -90,7 +94,9 @@ MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
 # JAX package's DATA_AXES (train/step.py).
 DATA_AXES = ("data", "fsdp")
 # The ROADMAP.md queue A item that ports each axis not ported yet.
-_AXIS_ITEMS = {"pipe": "A12 (pipeline)", "expert": "A8 (expert parallel)"}
+_AXIS_ITEMS = {"expert": "A8 (expert parallel)"}
+# The axes whose lines get a point-to-point process group of their own.
+LINE_AXES = ("pipe", "seq")
 
 
 class MeshSizeError(ValueError):
@@ -128,14 +134,14 @@ def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
-                f"queue A item {item}; the port runs the data, fsdp, seq "
-                f"and model axes only")
+                f"queue A item {item}; the port runs the data, fsdp, pipe, "
+                f"seq and model axes only")
 
 
 def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
     """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
-    ``pipe`` or ``expert`` above 1, MeshSizeError when the sizes
-    do not fit the ranks."""
+    ``expert`` above 1, MeshSizeError when the sizes do not fit the
+    ranks."""
     _refuse_unported_axes(config.axis_sizes())
     sizes = _resolve_axis_sizes(config, world)
     _refuse_unported_axes(sizes)
@@ -325,9 +331,9 @@ class MeshRuntime:
     # subgroup, for the subgroups this rank belongs to
     # (:func:`initialize_runtime` forms them).
     subgroups: dict = dataclasses.field(default_factory=dict)
-    # The ring's own process group over this rank's ``seq`` line (None:
-    # no group, or ``seq`` is 1).
-    ring_group: Any = None
+    # Axis of LINE_AXES → the own process group of this rank's line along
+    # it (absent: no group, or the axis is 1).
+    line_groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def is_chief(self) -> bool:
@@ -348,19 +354,30 @@ class MeshRuntime:
         ``model`` 1 it is every rank, its index the rank."""
         return self.axis_group(DATA_AXES)
 
+    def line_group(self, axis: str) -> AxisGroup:
+        """The ranks along ``axis`` (one of LINE_AXES) that share this
+        rank's other coordinates, on that line's own process group."""
+        group = self.axis_group(axis)
+        return dataclasses.replace(group, group=self.line_groups.get(axis))
+
     @property
     def seq_group(self) -> AxisGroup:
-        """The ranks along ``seq`` that share this rank's other
-        coordinates, on the ring's own process group: ``index`` is this
-        rank's place in the ring (which part of each row it keeps)."""
-        group = self.axis_group("seq")
-        return dataclasses.replace(group, group=self.ring_group)
+        """This rank's ``seq`` line, on the ring's own process group:
+        ``index`` is this rank's place in the ring (which part of each row
+        it keeps)."""
+        return self.line_group("seq")
 
-    def seq_member_rank(self, index: int) -> int:
-        """The global rank of member ``index`` of this rank's ``seq``
-        line."""
+    @property
+    def pipe_group(self) -> AxisGroup:
+        """This rank's ``pipe`` line, on the pipeline's own process group:
+        ``index`` is this rank's stage."""
+        return self.line_group("pipe")
+
+    def member_rank(self, axis: str, index: int) -> int:
+        """The global rank of member ``index`` of this rank's line along
+        ``axis``."""
         coords = _coords(self.sizes, self.process_index)
-        return _rank_of(self.sizes, {**coords, "seq": index})
+        return _rank_of(self.sizes, {**coords, axis: index})
 
     def describe(self) -> str:
         return (f"rank {self.process_index}/{self.process_count} on "
@@ -404,11 +421,11 @@ class MeshRuntime:
         if math.prod(sizes.values()) != self.process_count:
             raise MeshSizeError(sizes, math.prod(sizes.values()),
                                 self.process_count)
-        groups, ring = ({}, None) if self.backend is None else (
+        groups, lines = ({}, {}) if self.backend is None else (
             _form_subgroups(sizes, self.process_index),
-            _form_ring_group(sizes, self.process_index))
+            _form_line_groups(sizes, self.process_index))
         return dataclasses.replace(self, sizes=sizes, subgroups=groups,
-                                   ring_group=ring)
+                                   line_groups=lines)
 
     def _group(self, group: AxisGroup | None) -> AxisGroup:
         return self.world_group if group is None else group
@@ -428,6 +445,17 @@ class MeshRuntime:
             dist.broadcast(tensor, src=src)
         return tensor
 
+    def line_broadcast_(self, tensor: torch.Tensor, axis: str,
+                        member: int) -> torch.Tensor:
+        """Overwrite ``tensor`` with member ``member``'s of this rank's line
+        along ``axis`` (one of LINE_AXES), on the line's own process group,
+        in place; returns it. Gloo and NCCL both broadcast CUDA tensors."""
+        group = self.line_group(axis)
+        if self.backend is not None and group.size > 1:
+            dist.broadcast(tensor, src=self.member_rank(axis, member),
+                           group=group.group)
+        return tensor
+
     def collective_transport(self, device: torch.device | str) -> str:
         """How ``all_to_all_``, ``all_gather_`` and ``reduce_scatter_``
         move tensors on ``device``: ``"all_reduce"`` for gloo with CUDA
@@ -445,23 +473,24 @@ class MeshRuntime:
         return TRANSPORT_NATIVE
 
     def ppermute_(self, outputs: list[torch.Tensor],
-                  inputs: list[torch.Tensor], shift: int = 1
-                  ) -> list[torch.Tensor]:
+                  inputs: list[torch.Tensor], shift: int = 1,
+                  axis: str = "seq") -> list[torch.Tensor]:
         """Send each of ``inputs`` to the member ``shift`` places on along
-        this rank's ``seq`` line and receive the member ``shift`` places
-        back's into ``outputs`` (each at its input's shape): ``lax.ppermute``
-        with ``(j, j + shift mod n)``, every tensor in one
-        ``batch_isend_irecv`` on the ring's process group. Returns
-        ``outputs``."""
-        group = self.axis_group("seq")
+        this rank's line along ``axis`` (one of LINE_AXES) and receive the
+        member ``shift`` places back's into ``outputs`` (each at its
+        input's shape): ``lax.ppermute`` with ``(j, j + shift mod n)``,
+        every tensor in one ``batch_isend_irecv`` on the line's own process
+        group. Returns ``outputs``."""
+        group = self.line_group(axis)
         n, i = group.size, group.index
         if self.backend is None or n == 1 or shift % n == 0:
             for out, x in zip(outputs, inputs):
                 out.copy_(x)
             return outputs
-        dst = self.seq_member_rank((i + shift) % n)
-        src = self.seq_member_rank((i - shift) % n)
-        if self.p2p_transport(inputs[0].device) == TRANSPORT_HOST:
+        dst = self.member_rank(axis, (i + shift) % n)
+        src = self.member_rank(axis, (i - shift) % n)
+        host = self.p2p_transport(inputs[0].device) == TRANSPORT_HOST
+        if host:
             # One pinned host buffer each way: one copy off the card, one
             # send and one receive, one copy back.
             packed, spans = _pack_bytes(inputs)
@@ -474,11 +503,11 @@ class MeshRuntime:
             recvs = [torch.empty_like(x) for x in sends]
         ops = []
         for tag, (x, y) in enumerate(zip(sends, recvs)):
-            ops.append(dist.P2POp(dist.isend, x, dst, self.ring_group, tag))
-            ops.append(dist.P2POp(dist.irecv, y, src, self.ring_group, tag))
+            ops.append(dist.P2POp(dist.isend, x, dst, group.group, tag))
+            ops.append(dist.P2POp(dist.irecv, y, src, group.group, tag))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        if len(recvs) != len(outputs):
+        if host:
             recvs = _unpack_bytes(recvs[0].to(outputs[0].device), spans,
                                   inputs)
         for out, y in zip(outputs, recvs):
@@ -560,20 +589,22 @@ def _form_subgroups(sizes: Mapping[str, int], rank: int) -> dict:
     return out
 
 
-def _form_ring_group(sizes: Mapping[str, int], rank: int) -> Any:
-    """A process group for each ``seq`` line (every rank calls
-    ``new_group`` for each, in the same order), used by the ring alone;
-    returns this rank's, or None when ``seq`` is 1."""
-    if sizes["seq"] == 1:
-        return None
-    others = [a for a in MESH_AXES if a != "seq"]
-    mine = None
-    for fixed in itertools.product(*(range(sizes[a]) for a in others)):
-        ranks = [_rank_of(sizes, {**dict(zip(others, fixed)), "seq": j})
-                 for j in range(sizes["seq"])]
-        group = dist.new_group(ranks)
-        if rank in ranks:
-            mine = group
+def _form_line_groups(sizes: Mapping[str, int], rank: int) -> dict:
+    """A process group for each line along each axis of LINE_AXES above 1
+    (every rank calls ``new_group`` for each, in the same order), used by
+    that line's point-to-point moves alone (the ring's along ``seq``, the
+    pipeline's along ``pipe``); returns this rank's, by axis."""
+    mine = {}
+    for axis in LINE_AXES:
+        if sizes[axis] == 1:
+            continue
+        others = [a for a in MESH_AXES if a != axis]
+        for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+            ranks = [_rank_of(sizes, {**dict(zip(others, fixed)), axis: j})
+                     for j in range(sizes[axis])]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine[axis] = group
     return mine
 
 
@@ -585,7 +616,7 @@ def initialize_runtime(config: MeshConfig | None = None,
     """Resolve the mesh against the gang and form the process group.
     ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
     tensors runs two ranks on one card). Raises NotImplementedError for
-    ``pipe`` or ``expert`` above 1, MeshSizeError when the mesh
+    ``expert`` above 1, MeshSizeError when the mesh
     does not fit the ranks, DeviceUnavailableError for CUDA without a
     card."""
     config = config or MeshConfig()
@@ -607,6 +638,6 @@ def initialize_runtime(config: MeshConfig | None = None,
                                     world_size=world, rank=rank)
         runtime = MeshRuntime(sizes, rank, world, dev, dist.get_backend(),
                               _form_subgroups(sizes, rank),
-                              _form_ring_group(sizes, rank))
+                              _form_line_groups(sizes, rank))
     log.info("Mesh runtime: %s", runtime.describe())
     return runtime

@@ -64,6 +64,12 @@ KIND_DATA_SHARD = "data_shard"
 # the measured bytes ride the train_step events' tally
 # (zero_reduce_scatter / zero_all_gather).
 KIND_ZERO_UPDATE = "zero_update"
+# One per pipelined run (parallel/pipeline.py): the resolved pipeline
+# schedule — name, stages/microbatches/virtual stages, analytic bubble
+# fraction and peak activation residency — so a trace or step-time rollup
+# can be read against the schedule that produced it. The per-step
+# ``pipe_bubble_frac`` metric rides in ordinary train_step events.
+KIND_PIPELINE = "pipeline_schedule"
 # The in-process recovery ladder (train/anomaly.py) and the infeed
 # watchdog (data/infeed.py).
 KIND_ANOMALY = "anomaly_detected"

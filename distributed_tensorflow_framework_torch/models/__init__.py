@@ -6,10 +6,14 @@ Port of ``models/__init__.py``'s name dispatch: ``bert`` (BERT-base MLM),
 ``inception_v3``. The JAX package's validation errors on
 ``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept. Every
 configuration the port cannot build yet raises NotImplementedError naming
-the ROADMAP.md item that ports it (MoE and pipelined BERT, ResNet and
-Inception remat); ``register_model`` is item A19. Ring attention builds
-here and runs under ``train.spmd_mode: jit`` only
-(:func:`check_ring_mode`).
+the ROADMAP.md item that ports it (MoE BERT, ResNet and Inception remat);
+``register_model`` is item A19. Ring attention builds here and runs under
+``train.spmd_mode: jit`` only (:func:`check_ring_mode`). With
+``model.pipeline_stages > 1`` BERT is built whole from the seed and
+parallel/pipeline.py's ``PipelinedBert`` keeps this rank's stage of it,
+which needs the mesh runtime; the JAX package's refusals beside the
+pipeline are kept with its exception types (MoE, checked before MoE's own
+refusal; ``model.remat``; ring attention).
 """
 
 from __future__ import annotations
@@ -47,6 +51,10 @@ def _check_common(config: ModelConfig, name: str) -> None:
             f"model.remat_policy={config.remat_policy!r} requires "
             f"model.remat=true on a resnet model (the conv_saved policy "
             f"keys on the ConvBN conv_out tag)")
+    if config.remat and config.pipeline_stages > 1:
+        raise ValueError(
+            "model.remat inside the pipelined stack is unsupported — the "
+            "GPipe stage body manages its own activation lifetime")
     if config.space_to_depth_stem and not is_resnet:
         raise ValueError(
             f"model.space_to_depth_stem is a ResNet ImageNet-stem "
@@ -62,10 +70,19 @@ def model_kwargs(config: ModelConfig) -> dict:
     if config.name.lower() not in BERT_NAMES:
         raise ValueError(f"{config.name!r} is not a BERT model")
     _check_common(config, config.name.lower())
+    if config.pipeline_stages > 1:
+        if config.num_experts > 0:
+            raise ValueError(
+                "MoE inside the pipelined stack is unsupported "
+                "(num_experts>0 with pipeline_stages>1) — the stage "
+                "shard_map would need manual expert collectives")
+        if config.attention_impl == "ring":
+            raise ValueError(
+                "attention_impl='ring' nests a shard_map inside the "
+                "pipeline shard_map — unsupported; use 'xla' or 'pallas' "
+                "with PP")
     if config.num_experts > 0:
         raise _not_ported("MoE encoder layers (model.num_experts>0)", "A8")
-    if config.pipeline_stages > 1:
-        raise _not_ported("pipelined BERT (model.pipeline_stages>1)", "A12")
     return dict(
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
@@ -92,9 +109,10 @@ def check_ring_mode(config: ModelConfig, spmd_mode: str) -> None:
 
 def build_model(config: ModelConfig, *, device: torch.device,
                 in_channels: int | None = None) -> nn.Module:
-    """The uninitialised module for ``config`` on ``device``.
-    ``in_channels`` (the data's ``channels``) defaults to 1 for LeNet and
-    3 for ResNet and Inception."""
+    """The uninitialised module for ``config`` on ``device`` (BERT whole,
+    whatever ``model.pipeline_stages``). ``in_channels`` (the data's
+    ``channels``) defaults to 1 for LeNet and 3 for ResNet and
+    Inception."""
     name = config.name.lower()
     if name in BERT_NAMES:
         from distributed_tensorflow_framework_torch.models.bert import (
@@ -139,12 +157,14 @@ def build_model(config: ModelConfig, *, device: torch.device,
 
 def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
               generator: torch.Generator | None = None,
-              in_channels: int | None = None) -> nn.Module:
+              in_channels: int | None = None, runtime=None) -> nn.Module:
     """Build the model on ``device`` (default CUDA; raises when CUDA is
     absent unless ``device="cpu"``) with its parameters drawn from
     ``generator`` (default: seed 0 on that device). Eval mode: the
     trainer switches it to ``train()``. Image models on a CUDA device are
-    laid out channels_last."""
+    laid out channels_last. With ``model.pipeline_stages > 1`` the whole
+    BERT so drawn is cut to ``runtime``'s stage (``PipelinedBert``; a
+    ValueError without a runtime, as the JAX package's needs the mesh)."""
     dev = resolve_device(device)
     model = build_model(config, device=dev, in_channels=in_channels)
     if generator is None:
@@ -152,4 +172,15 @@ def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
     model.init_weights(generator)
     if dev.type == "cuda" and config.name.lower() not in BERT_NAMES:
         model = model.to(memory_format=torch.channels_last)
+    if config.name.lower() in BERT_NAMES and config.pipeline_stages > 1:
+        from distributed_tensorflow_framework_torch.parallel.pipeline import (
+            PipelinedBert,
+        )
+
+        model = PipelinedBert(
+            model, runtime, num_stages=config.pipeline_stages,
+            num_microbatches=config.pipeline_microbatches,
+            schedule=config.pipeline_schedule,
+            virtual_stages=config.pipeline_virtual_stages,
+            model_kwargs=model_kwargs(config))
     return model.eval()

@@ -26,6 +26,19 @@ part of a leaf that the JAX package's ``PartitionSpec`` gives its
 the port's layout by the same rules as a whole leaf (:func:`torch_shape`):
 the fused ``qkv`` kernel's part (H, 3, H/m) is a (3H/m, H) weight whose
 rows ``i·H/m + o`` hold the whole weight's rows ``i·H + r·H/m + o``.
+
+The JAX package's pipelined BERT (parallel/pipeline.py) keeps its
+encoder layers stacked: ``{embed_block, pipeline_layers, head}``, every
+leaf of ``pipeline_layers`` with a leading dim of L, row g layer g.
+:func:`unstack_pipeline` turns that tree into the whole BERT tree
+(``layer{g}``), which maps onto a ``BertForMLM`` or, key for key, onto
+the stages of the port's ``PipelinedBert`` (which keep the whole model's
+names), and :func:`stack_pipeline` is its inverse. :func:`pipeline_part`
+is a stage's part of the stack: the rows the JAX package places on
+``pipe`` coordinate s, its ``L/S`` contiguous rows, or under the
+interleaved schedule its v round-robin chunks (the rows permuted by
+``_interleave_perm`` first). Whatever the schedule, the stored layer
+order is the natural one.
 """
 
 from __future__ import annotations
@@ -199,3 +212,50 @@ def leaf_part(leaf: np.ndarray, dim: int, count: int,
 def leaf_whole(parts, dim: int) -> np.ndarray:
     """The Flax leaf from its :func:`leaf_part` blocks, in member order."""
     return np.concatenate([np.asarray(p) for p in parts], axis=dim)
+
+
+PIPELINE_STACK = "pipeline_layers"
+
+
+def unstack_pipeline(tree: dict[str, Any]) -> dict[str, Any]:
+    """A pipelined Flax tree ``{embed_block, pipeline_layers, head}`` →
+    the whole BERT tree, stack row g as ``layer{g}``."""
+    out = {k: v for k, v in tree.items() if k != PIPELINE_STACK}
+    flat = flatten_tree(tree[PIPELINE_STACK])
+    rows = len(next(iter(flat.values())))
+    for g in range(rows):
+        out[f"layer{g}"] = unflatten_tree(
+            {path: np.asarray(leaf)[g] for path, leaf in flat.items()})
+    return out
+
+
+def stack_pipeline(tree: dict[str, Any]) -> dict[str, Any]:
+    """The inverse of :func:`unstack_pipeline`: the ``layer{g}`` subtrees
+    of a whole BERT tree stacked on a leading dim, row g layer g."""
+    layers = sorted((k for k in tree if k.startswith("layer")),
+                    key=lambda k: int(k[len("layer"):]))
+    out = {k: v for k, v in tree.items() if not k.startswith("layer")}
+    flats = [flatten_tree(tree[k]) for k in layers]
+    out[PIPELINE_STACK] = unflatten_tree({
+        path: np.stack([np.asarray(f[path]) for f in flats])
+        for path in flats[0]})
+    return out
+
+
+def pipeline_part(stack: dict[str, Any], stages: int, virtual: int,
+                  index: int) -> tuple[list[int], dict[str, Any]]:
+    """Stage ``index``'s part of a stacked ``pipeline_layers`` tree (as the
+    JAX package places it: the rows permuted by ``_interleave_perm`` under
+    the interleaved schedule, then block ``index`` of ``stages``): the
+    global layers of its rows, in row order, and those rows."""
+    from distributed_tensorflow_framework_torch.parallel.pipeline import (
+        interleave_perm,
+    )
+
+    flat = flatten_tree(stack)
+    rows = len(next(iter(flat.values())))
+    per = rows // stages
+    layers = interleave_perm(rows, stages, virtual)[
+        index * per:(index + 1) * per]
+    return layers, unflatten_tree({
+        path: np.asarray(leaf)[layers] for path, leaf in flat.items()})

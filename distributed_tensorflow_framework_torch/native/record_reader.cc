@@ -231,7 +231,14 @@ void ReadLoop(Reader* r) {
       if (!r->error.empty()) break;
     }
   }
-  r->done = true;
+  {
+    // Set done under the lock, as the destructor sets stop: a consumer in
+    // PopRecord checks its predicate holding mu, so an unlocked store +
+    // notify can land between that check and its sleep (lost wakeup: the
+    // consumer sleeps forever at EOF).
+    std::lock_guard<std::mutex> lock(r->mu);
+    r->done = true;
+  }
   r->cv_pop.notify_all();
 }
 

@@ -23,7 +23,13 @@ error-feedback residual that carries the compression error into the next
 step.
 
 :func:`ppermute_shift` is ring attention's move (parallel/ring.py): a
-differentiable ring shift along ``seq`` on the ring's own process group.
+differentiable ring shift along a line (``seq`` for the ring) on that
+line's own process group. :func:`take_member` and :func:`from_member` are
+the pipeline's ends (parallel/pipeline.py): the last stage's output
+reaching every stage, its cotangent going back to that stage alone (JAX's
+``shard_map(...)[-1]``), and the embedding's output entering stage 0,
+whose cotangent every stage then receives (JAX's ``psum`` over ``pipe``
+of a cotangent that only stage 0 holds).
 
 The tally (:func:`tally`) records one entry per leaf under the JAX
 package's kind names and byte conventions, each leaf padded as JAX pads
@@ -436,48 +442,103 @@ def pmean(x: Any, runtime, axes=None) -> Any:
 
 
 class _Ppermute(torch.autograd.Function):
-    """``lax.ppermute`` of a list of tensors by ``shift`` along the
-    ``seq`` line, in one batch of sends and receives; its transpose sends
+    """``lax.ppermute`` of a list of tensors by ``shift`` along the line
+    along ``axis``, in one batch of sends and receives; its transpose sends
     the cotangents back by ``-shift``, also in one batch. Outputs of
     inputs that need no gradient are not differentiable."""
 
     @staticmethod
-    def forward(ctx, runtime, shift, *xs):
-        ctx.runtime, ctx.shift = runtime, shift
+    def forward(ctx, runtime, shift, axis, *xs):
+        ctx.runtime, ctx.shift, ctx.axis = runtime, shift, axis
         ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
         outs = runtime.ppermute_([torch.empty_like(x) for x in xs],
-                                 list(xs), shift)
-        need = ctx.needs_input_grad[2:]
+                                 list(xs), shift, axis)
+        need = ctx.needs_input_grad[3:]
         ctx.mark_non_differentiable(
             *(o for o, n in zip(outs, need) if not n))
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         send = [torch.zeros(shape, dtype=dtype, device=device) if g is None
                 else g for g, n, (shape, dtype, device)
                 in zip(grads, need, ctx.like) if n]
         back = iter(ctx.runtime.ppermute_(
-            [torch.empty_like(g) for g in send], send, -ctx.shift)
+            [torch.empty_like(g) for g in send], send, -ctx.shift, ctx.axis)
             if send else [])
-        return (None, None, *(next(back) if n else None for n in need))
+        return (None, None, None,
+                *(next(back) if n else None for n in need))
 
 
-def ppermute_shift(x: Any, runtime, shift: int = 1) -> Any:
-    """Ring shift along ``seq``: every leaf of ``x`` goes to the member
-    ``(i + shift) mod n`` of this rank's ``seq`` line, in one batch of
-    point-to-point operations on the ring's own process group
-    (``MeshRuntime.ppermute_``); differentiable, the cotangents travelling
-    back by ``-shift``. The identity without a runtime. Tallies
-    ``"ppermute"`` per leaf, as the JAX wrapper does, at each forward call
-    (a remat recompute calls it again)."""
+def ppermute_shift(x: Any, runtime, shift: int = 1, axis: str = "seq") -> Any:
+    """Ring shift along ``axis`` (``seq`` for ring attention): every leaf
+    of ``x`` goes to the member ``(i + shift) mod n`` of this rank's line,
+    in one batch of point-to-point operations on the line's own process
+    group (``MeshRuntime.ppermute_``); differentiable, the cotangents
+    travelling back by ``-shift``. The identity without a runtime.
+    Tallies ``"ppermute"`` per leaf, as the JAX wrapper does, at each
+    forward call (a remat recompute calls it again)."""
     leaves = _leaves(x)
     for v in leaves:
         _record("ppermute", v.numel(), v.dtype)
     if runtime is None:
         return x
-    return _like(x, list(_Ppermute.apply(runtime, shift, *leaves)))
+    return _like(x, list(_Ppermute.apply(runtime, shift, axis, *leaves)))
+
+
+class _TakeMember(torch.autograd.Function):
+    """Member ``member``'s ``x`` on every member of the line along
+    ``axis`` (a broadcast on the line's own group); the cotangent goes to
+    that member alone, each member's being the same one (the ranks along
+    the line compute what follows identically)."""
+
+    @staticmethod
+    def forward(ctx, runtime, axis, member, x):
+        ctx.mine = runtime.line_group(axis).index == member
+        return runtime.line_broadcast_(x.detach().clone(), axis, member)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, None, grad if ctx.mine else torch.zeros_like(grad)
+
+
+class _FromMember(torch.autograd.Function):
+    """The identity on a value every member of the line along ``axis``
+    holds alike, whose cotangent only member ``member`` holds: the
+    backward broadcasts that member's cotangent to the others."""
+
+    @staticmethod
+    def forward(ctx, runtime, axis, member, x):
+        ctx.runtime, ctx.axis, ctx.member = runtime, axis, member
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, None, ctx.runtime.line_broadcast_(
+            grad.contiguous().clone(), ctx.axis, ctx.member)
+
+
+def take_member(x: torch.Tensor, runtime, axis: str,
+                member: int) -> torch.Tensor:
+    """Member ``member``'s ``x`` along ``axis``, on every member:
+    differentiable, the cotangent reaching member ``member`` alone (the
+    JAX package's ``mapped(...)[-1]`` over a stacked ``pipe`` output). The
+    identity without a runtime."""
+    if runtime is None:
+        return x
+    return _TakeMember.apply(runtime, axis, member, x)
+
+
+def from_member(x: torch.Tensor, runtime, axis: str,
+                member: int) -> torch.Tensor:
+    """``x`` itself (the same on every member along ``axis``), whose
+    cotangent is member ``member``'s on every member: the mirror of
+    :func:`take_member` (the JAX package's ``psum`` over ``pipe`` of a
+    cotangent only stage 0 holds). The identity without a runtime."""
+    if runtime is None:
+        return x
+    return _FromMember.apply(runtime, axis, member, x)
 
 
 def all_gather(x: torch.Tensor, runtime, *, axis: int = 0,

@@ -47,6 +47,11 @@ axis of the mesh (the ranks of one ``fsdp`` subgroup, core/mesh.py):
     update every rank's part is gathered into the whole parameters
     (exact f32).
 
+Under pipeline parallelism (parallel/pipeline.py) a stage's encoder layers
+stay whole (``whole``), under FSDP and ZeRO-1 alike: the JAX package
+shards the stacked leaves over ``pipe`` only, never over ``fsdp``; the
+embedding and the MLM head keep their FSDP dims.
+
 The BatchNorm running statistics (buffers) stay whole. A checkpoint holds
 the whole tensors (:meth:`DimSharding.global_state`, every rank takes
 part); a restore cuts each rank's part back out
@@ -255,15 +260,17 @@ def tp_layout(model: nn.Module, count: int) -> dict[str, TpLeaf | None]:
 
 
 def fsdp_layout(model: nn.Module, fsdp: int,
-                taken: Mapping[str, int] | None = None
-                ) -> dict[str, FsdpLeaf | None]:
+                taken: Mapping[str, int] | None = None,
+                whole=()) -> dict[str, FsdpLeaf | None]:
     """Each parameter's state_dict key → its :class:`FsdpLeaf`, or None
-    for a replicated leaf; ``taken`` as in :func:`infer_fsdp_dims`."""
+    for a replicated leaf; ``taken`` as in :func:`infer_fsdp_dims`; the
+    keys in ``whole`` (a pipelined stage's layers) stay whole."""
     out: dict[str, FsdpLeaf | None] = {}
     params = dict(model.named_parameters())
     dims = infer_fsdp_dims(model, fsdp, taken)
+    whole = set(whole)
     for key, (path, flax_shape) in flax_layout(model).items():
-        if dims[key] < 0:
+        if dims[key] < 0 or key in whole:
             out[key] = None
             continue
         view, dim = _torch_dim(path, flax_shape, dims[key])
@@ -347,16 +354,17 @@ class DimSharding(PartLayout):
     are the gather's under ``shard_map`` (``tally``: it is the explicit,
     tallied collective); None gathers exactly. ``taken``: the Flax dim of
     each leaf that tensor parallelism split (``model`` holds the parts;
-    :func:`fsdp_layout`)."""
+    :func:`fsdp_layout`); ``whole``: the keys that stay whole (a pipelined
+    stage's layers)."""
 
     def __init__(self, model: nn.Module, runtime, *, at_rest: bool,
                  tally: bool = False, wire=None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 taken: Mapping[str, int] | None = None):
+                 taken: Mapping[str, int] | None = None, whole=()):
         self.runtime, self.axes = runtime, "fsdp"
         self.group = runtime.axis_group("fsdp")
         self.index = self.group.index
-        self.leaves = fsdp_layout(model, self.group.size, taken)
+        self.leaves = fsdp_layout(model, self.group.size, taken, whole)
         self.at_rest = at_rest
         self.tally, self.wire, self.block_size = tally, wire, block_size
         self.params: dict[str, torch.Tensor] = {}

@@ -175,7 +175,16 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     restore) into a serving artifact at ``output_dir``. The model is built
     from ``config.model`` on ``device`` (default CUDA, which it needs
     unless ``device="cpu"``); only its tensors are read, so a checkpoint
-    trained on either device exports on either."""
+    trained on either device exports on either. A pipelined model is
+    refused with the JAX package's ValueError (a pipelined run's
+    checkpoint holds the whole layout: export it with
+    ``model.pipeline_stages`` 1)."""
+    if config.model.pipeline_stages > 1:
+        raise ValueError(
+            "export of pipelined models (model.pipeline_stages>1) is not "
+            "supported yet — multi-stage serving is the 1F1B slot-table "
+            "follow-up (ROADMAP item 3); export from a stage-merged "
+            "checkpoint instead")
     if not config.checkpoint.directory:
         raise ValueError("checkpoint.directory must name the trained run "
                          "to export")

@@ -62,7 +62,12 @@ ranks, and under sequence parallelism over the ``seq`` ranks too, each of
 which scores its part of every row (``StepBuilder.reduce_group``). The
 throughput counts the global batch once, whatever ranks share its rows;
 ``run_meta`` names ``sequence_parallel`` (the ``seq`` ranks a row is
-split over, 1 when it is not) and the ring's ``p2p_transport``. At each
+split over, 1 when it is not) and the ring's ``p2p_transport``. A
+pipelined run (parallel/pipeline.py) writes its resolved schedule once as
+a ``pipeline_schedule`` event (stages, microbatches, virtual stages, the
+analytic bubble and the peak activation residency, parallel/schedule.py),
+as the JAX trainer does, and ``run_meta`` names ``pipeline_schedule`` and
+``pipeline_stages``. At each
 metrics fetch the sequence-packing census of the train stream's state is
 written as a ``data_packing`` event.
 """
@@ -103,6 +108,7 @@ from distributed_tensorflow_framework_torch.data.infeed import (
     to_device,
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel import schedule as sched
 from distributed_tensorflow_framework_torch.parallel import zero
 from distributed_tensorflow_framework_torch.train import anomaly as anomaly_lib
 from distributed_tensorflow_framework_torch.train import hooks as hooks_lib
@@ -206,7 +212,11 @@ class Trainer:
             sequence_parallel=(rt.sizes["seq"] if self.builder.seq_parallel
                                else 1),
             p2p_transport=(rt.p2p_transport(self.device)
-                           if self.builder.seq_parallel else None))
+                           if self.builder.seq_parallel
+                           or self.builder.pipelined else None),
+            pipeline_stages=cfg.model.pipeline_stages,
+            pipeline_schedule=(cfg.model.pipeline_schedule
+                               if self.builder.pipelined else None))
         if plan is not None:
             # One record of the static shard/bucket plan, so that byte and
             # step-time rollups read against the plan that produced them.
@@ -214,6 +224,19 @@ class Trainer:
                 telemetry.KIND_ZERO_UPDATE, **zero.plan_summary(
                     plan, wire_dtype=self.builder.wire or None,
                     block_size=cfg.parallel.collective_block_size))
+        stages = cfg.model.pipeline_stages
+        if self.builder.pipelined:
+            # One record of the resolved schedule, so that step-time
+            # rollups read against the right bubble.
+            name = cfg.model.pipeline_schedule
+            micro = cfg.model.pipeline_microbatches or stages
+            virtual = self.state.model.virtual_stages
+            self.writer.telemetry.emit(
+                telemetry.KIND_PIPELINE, schedule=name, stages=stages,
+                microbatches=micro, virtual_stages=virtual,
+                bubble_frac=sched.bubble_frac(name, stages, micro, virtual),
+                peak_inflight=sched.peak_inflight(name, stages, micro,
+                                                  virtual))
         self.writer.telemetry.emit(
             telemetry.KIND_DATA_SHARD, step=self.host_step,
             shard=data_shard.shard_plan(

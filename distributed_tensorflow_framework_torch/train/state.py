@@ -20,7 +20,9 @@ are this rank's parts between steps (the model's parameters are the parts
 themselves); under ZeRO-1 the slots are parts. The int8 residual keeps
 the full parameter shape in every mode. Under tensor parallelism
 (``tp``) the parameters, the slots and the EMA are this rank's
-tensor-parallel parts, which FSDP and ZeRO-1 may cut further.
+tensor-parallel parts, which FSDP and ZeRO-1 may cut further. Under
+pipeline parallelism (``pipe``) the model, its slots and its EMA are
+this rank's stage (and the embedding and head).
 ``state_dict`` and
 ``load_state_dict`` carry these parts as they are (a rollback snapshot of
 one rank restores into the same rank); ckpt/checkpoint.py turns them into
@@ -85,6 +87,10 @@ class TrainState:
     # ``TensorParallel``), None without one; not state: the model's
     # parameters are its parts.
     tp: Any = None
+    # A pipelined model's stage layout (parallel/pipeline.py
+    # ``StageLayout``), None without a pipeline; not state: the model
+    # holds this rank's stage.
+    pipe: Any = None
 
     @property
     def train_module(self) -> nn.Module:

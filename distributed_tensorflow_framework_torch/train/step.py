@@ -70,6 +70,24 @@ JAX package's failure as a ValueError (models/__init__.py); ``seq`` with
 ``fsdp``, ``model`` or ZeRO raises NotImplementedError naming "A11 (seq
 with fsdp/model/ZeRO)".
 
+Pipeline parallelism (``mesh.pipe > 1`` with ``model.pipeline_stages``
+equal to it, BERT under ``jit``; ROADMAP.md A12): each rank along
+``pipe`` holds one stage of the encoder stack and the embedding and MLM
+head whole (parallel/pipeline.py ``PipelinedBert``, under the gpipe, 1f1b
+or interleaved schedule). The ranks along ``pipe`` share a data-parallel
+index: they read the same batch, draw from the same dropout stream and
+compute the same loss, which is counted once (the weight, the metrics
+and DDP's reduction span data × fsdp, the stage parameters over the
+replicas of the rank's own stage). The embedding and head take the same
+gradients on every stage, and ``grad_norm`` (and the clipping) is the
+whole gradient's: the stacks' squares summed over ``pipe``, the
+replicated leaves counted once. FSDP keeps sharding the embedding and
+head, never the stage layers (parallel/sharding.py), and so does ZeRO-1
+with their slots. The step's metrics gain ``pipe_bubble_frac``, the
+schedule's analytic bubble. The JAX package's refusals hold (stages
+equal to ``pipe``, BERT only, ``jit`` only, beside ``data`` and ``fsdp``
+only).
+
 Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
 per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
 rank runs the micro-steps as a single device would, its micro-batches
@@ -128,10 +146,10 @@ and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
 BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: the ``pipe``
-and ``expert`` mesh axes, ``seq`` beside ``fsdp``, ``model`` or ZeRO, a
-split fused QKV whose heads ``mesh.model`` does not divide, the fused
-update and the selective remat policies. ``model.remat``
+naming its ROADMAP.md item when it is not at its off value: the
+``expert`` mesh axis, ``seq`` beside ``fsdp``, ``model`` or ZeRO, a split
+fused QKV whose heads ``mesh.model`` does not divide, the fused update
+and the selective remat policies. ``model.remat``
 (per-layer checkpointing) is carried by the model. A wire dtype under
 ``jit`` and a ``train.grad_allreduce_accum`` other than float32 or wire
 raise the JAX package's ValueErrors.
@@ -153,6 +171,7 @@ from distributed_tensorflow_framework_torch.models import (
     BERT_NAMES,
     check_ring_mode,
     get_model,
+    model_kwargs,
 )
 from distributed_tensorflow_framework_torch.models.layers import (
     BatchNorm,
@@ -160,7 +179,11 @@ from distributed_tensorflow_framework_torch.models.layers import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import ring
+from distributed_tensorflow_framework_torch.parallel import schedule as sched
 from distributed_tensorflow_framework_torch.parallel import zero
+from distributed_tensorflow_framework_torch.parallel.pipeline import (
+    StageLayout,
+)
 from distributed_tensorflow_framework_torch.parallel.sharding import (
     DimSharding,
 )
@@ -221,6 +244,39 @@ def sequence_parallel(config: ExperimentConfig,
             and config.model.name.lower() in BERT_NAMES)
 
 
+def check_pipeline(config: ExperimentConfig, sizes: dict[str, int]) -> None:
+    """The JAX StepBuilder's pipeline checks (ValueErrors, the schedule's
+    among them) and the model's refusals beside the pipeline."""
+    mcfg = config.model
+    pipe, stages = sizes["pipe"], mcfg.pipeline_stages
+    if not (pipe > 1 or stages > 1 or mcfg.pipeline_microbatches > 0):
+        return
+    if stages <= 1:
+        raise ValueError("pipeline_microbatches / mesh.pipe>1 require "
+                         "model.pipeline_stages>1")
+    if "bert" not in mcfg.name.lower():
+        raise ValueError(
+            "pipeline parallelism is only wired for the transformer (bert) "
+            "models (parallel/pipeline.py)")
+    if stages != pipe:
+        raise ValueError(f"model.pipeline_stages={stages} must equal the "
+                         f"mesh's pipe axis size {pipe}")
+    if config.train.spmd_mode == "shard_map":
+        raise ValueError(
+            "pipeline parallelism runs under spmd_mode='jit' (the stage "
+            "schedule is its own nested shard_map)")
+    if (sizes["model"] > 1 or sizes["seq"] > 1 or sizes["expert"] > 1
+            or mcfg.num_experts > 0):
+        raise ValueError(
+            "v1 pipeline scope: pipe composes with data/fsdp only — "
+            "TP/seq/expert parallelism inside the pipelined stack needs "
+            "manual-mode collectives in the stage body")
+    sched.resolve_virtual(
+        mcfg.pipeline_schedule, stages, mcfg.pipeline_microbatches or stages,
+        mcfg.pipeline_virtual_stages, mcfg.num_layers)
+    model_kwargs(mcfg)
+
+
 def check_step_config(config: ExperimentConfig, world: int = 1
                       ) -> dict[str, int]:
     """Raise for every setting the data-parallel step over ``world`` ranks
@@ -228,14 +284,15 @@ def check_step_config(config: ExperimentConfig, world: int = 1
     ValueError for the JAX package's refusals (a wire dtype under ``jit``,
     a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
     their update cannot run, ring attention under ``shard_map``, a row
-    the ring cannot split), NotImplementedError for what is not ported
-    (``pipe`` or ``expert`` above 1, ``seq`` beside ``fsdp``, ``model``
-    or ZeRO). Returns the mesh's sizes."""
+    the ring cannot split, a pipeline it cannot run), NotImplementedError
+    for what is not ported (``expert`` above 1, ``seq`` beside ``fsdp``,
+    ``model`` or ZeRO). Returns the mesh's sizes."""
     sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
     if tcfg.spmd_mode not in ("jit", "shard_map"):
         raise ValueError(f"train.spmd_mode must be 'jit' or 'shard_map', "
                          f"got {tcfg.spmd_mode!r}")
+    check_pipeline(config, sizes)
     check_ring_mode(config.model, tcfg.spmd_mode)
     if sequence_parallel(config, sizes):
         if (sizes["fsdp"] > 1 or sizes["model"] > 1
@@ -360,6 +417,8 @@ class StepBuilder:
             if self.seq_parallel else self.data_group)
         self.reduce_world = (1 if runtime is None
                              else self.reduce_group.size)
+        # Pipeline parallelism: this rank is one stage of the stack.
+        self.pipelined = config.model.pipeline_stages > 1
         self.task = task_for_model(config.model.name)
         if (self.task == "mlm"
                 and config.data.vocab_size > config.model.vocab_size):
@@ -419,14 +478,17 @@ class StepBuilder:
         the residual starts at zero. A sharded run's layout (ZeRO, FSDP or
         ZeRO-1) is cut from the replicated start, after DDP's broadcast,
         and the optimizer and the EMA run on its shards."""
+        # Only a pipelined model takes the runtime (its stage).
+        stage = {"runtime": self.runtime} if self.pipelined else {}
         model = get_model(
             self.config.model, device=self.device,
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
                                            self.device),
             in_channels=(None if self.task == "mlm"
-                         else self.config.data.channels))
+                         else self.config.data.channels), **stage)
         tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
               else None)
+        pipe = StageLayout(model) if self.pipelined else None
         if self.seq_parallel:
             model.shard_sequence(self.runtime)
         if self.dp_world > 1 and (not self.shard_map
@@ -477,7 +539,10 @@ class StepBuilder:
                                  tally=self.shard_map,
                                  wire=self.wire or None,
                                  block_size=self.block,
-                                 taken=None if tp is None else tp.flax_dims)
+                                 taken=None if tp is None else tp.flax_dims,
+                                 whole=() if pipe is None else [
+                                     k for k, _ in model.named_parameters()
+                                     if model.is_stage_key(k)])
             whole_norms = layout.whole_norms()
         if tp is not None:
             whole_norms = tp.whole_norms(
@@ -499,7 +564,7 @@ class StepBuilder:
             dropout_generator=prng.torch_generator(
                 seed, prng.ROLE_DROPOUT, self.device, *rank),
             ema_params=ema, ddp=ddp, layout=layout,
-            collective_residual=residual, tp=tp)
+            collective_residual=residual, tp=tp, pipe=pipe)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -630,6 +695,9 @@ class StepBuilder:
         if grad_norm is None and state.tp is not None:
             grad_norm = state.tp.global_norm(
                 {k: p.grad for k, p in state.model.named_parameters()})
+        elif grad_norm is None and state.pipe is not None:
+            grad_norm = state.pipe.global_norm(
+                {k: p.grad for k, p in state.model.named_parameters()})
         elif grad_norm is None:
             grad_norm = global_norm([p.grad
                                      for p in state.model.parameters()])
@@ -646,6 +714,8 @@ class StepBuilder:
                         self.config.optimizer.ema_decay, state.step)
         metrics["grad_norm"] = grad_norm
         metrics["learning_rate"] = self.schedule(state.step)
+        if self.pipelined:
+            metrics["pipe_bubble_frac"] = state.model.bubble_frac
         state.step += 1
         return metrics
 
@@ -707,7 +777,8 @@ class StepBuilder:
             return metrics
         out = dict(metrics)
         weight = out.pop("_weight")
-        keys = [k for k in out if k not in ("grad_norm", "learning_rate")]
+        keys = [k for k in out if k not in ("grad_norm", "learning_rate",
+                                            "pipe_bubble_frac")]
         sums = torch.stack([out[k].float() * weight for k in keys]
                            + [weight.float()])
         self.runtime.all_reduce_(sums, self.reduce_group)

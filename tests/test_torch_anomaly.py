@@ -52,6 +52,7 @@ from distributed_tensorflow_framework_tpu.core.mesh import initialize_runtime
 from distributed_tensorflow_framework_tpu.train import Trainer as JaxTrainer
 from distributed_tensorflow_framework_tpu.train import loop as jax_loop
 from tests.test_torch_ckpt import TINY, losses_of, train_run
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -13,6 +13,7 @@ import sys
 import pytest
 
 from distributed_tensorflow_framework_torch.ops import _build
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 FAKE_NVCC = f"""#!{sys.executable}
 import sys

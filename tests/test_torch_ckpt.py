@@ -58,6 +58,7 @@ from distributed_tensorflow_framework_tpu.core.config import (
 from distributed_tensorflow_framework_tpu.core.mesh import initialize_runtime
 from distributed_tensorflow_framework_tpu.data import shard as jax_shard
 from distributed_tensorflow_framework_tpu.train import Trainer as JaxTrainer
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 TINY = [
     "model.name=bert", "model.vocab_size=512", "model.hidden_size=64",

@@ -41,6 +41,7 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import quantization as qz
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))

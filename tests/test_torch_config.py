@@ -1,5 +1,8 @@
 """The port's config system reads every shipped YAML exactly as the JAX
-package's does: same dataclasses, same values, same validation."""
+package's does: same dataclasses, same values, same validation. And each
+image config builds its trainer and steps as written (the helper is in
+tests/test_torch_train_image.py; it runs here, in a file of many tests,
+which xdist's ``--dist loadfile`` hands out early)."""
 
 import dataclasses
 import pathlib
@@ -8,6 +11,8 @@ import pytest
 
 from distributed_tensorflow_framework_torch.core import config as pc
 from distributed_tensorflow_framework_tpu.core import config as jc
+from tests.test_torch_train_image import _image_config_builds_and_steps
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 CONFIGS = sorted(
     (pathlib.Path(__file__).resolve().parent.parent / "configs").glob(
@@ -83,3 +88,13 @@ def test_long_ring_config_passes_the_step_checks_as_written(overrides,
         jc.load_config(path, overrides=overrides).mesh, world)
     assert sequence_parallel(cfg, sizes)
     assert sizes == pm.resolve_mesh(cfg.mesh, world)
+
+
+@pytest.mark.parametrize("name", ["lenet_mnist", "resnet50_cifar10",
+                                  "resnet50_imagenet", "inception_v3"])
+def test_image_configs_build_and_step_as_written(tmp_path, name):
+    """Each image config builds its trainer with no override but
+    ``checkpoint.directory`` (mesh.data -1 is one device; the datasets
+    fall back to synthetic data) and takes one step on two images of its
+    shape and dtype."""
+    _image_config_builds_and_steps(tmp_path, name)

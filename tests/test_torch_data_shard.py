@@ -33,6 +33,7 @@ from distributed_tensorflow_framework_tpu.data import (
     get_dataset as jax_dataset,
 )
 from distributed_tensorflow_framework_tpu.data import shard as jax_shard
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 
 def _error(fn, *args, **kwargs):

@@ -54,6 +54,7 @@ from distributed_tensorflow_framework_torch.data import get_dataset
 from distributed_tensorflow_framework_torch.data.infeed import to_device
 from distributed_tensorflow_framework_torch.models.resnet import ResNet
 from distributed_tensorflow_framework_torch.train import step as port_step
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))

@@ -25,6 +25,7 @@ from distributed_tensorflow_framework_torch.core import faults
 from distributed_tensorflow_framework_torch.data.pipeline import HostDataset
 from distributed_tensorflow_framework_tpu.core import faults as jax_faults
 from tests.test_torch_ckpt import train_run
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -23,6 +23,7 @@ import torch
 from distributed_tensorflow_framework_torch.ops import _build
 from distributed_tensorflow_framework_torch.ops import flash_attention as pt
 from distributed_tensorflow_framework_tpu.ops import flash_attention as jx
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)

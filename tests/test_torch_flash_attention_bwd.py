@@ -26,6 +26,7 @@ import torch
 
 from distributed_tensorflow_framework_torch.ops import flash_attention as pt
 from distributed_tensorflow_framework_tpu.ops import flash_attention as jx
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),

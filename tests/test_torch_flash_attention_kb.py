@@ -30,6 +30,8 @@ import torch
 
 from distributed_tensorflow_framework_torch.ops import flash_attention as pt
 from distributed_tensorflow_framework_tpu.ops import flash_attention as jx
+from tests.test_torch_flash_knobs import TILE_KNOBS, _knob_case
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -274,3 +276,13 @@ def test_streaming_plain_forward_equals_whole_k_in_f32(small_tiles):
     o, lse = pt.flash_attention_reference(*args, *segs)
     torch.testing.assert_close(o_kb, o, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(lse_kb, lse, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("knob", TILE_KNOBS)
+def test_knob_steers_the_port_as_the_jax_package(knob):
+    """The tile knobs (``FLASH_BLOCK_Q_KB``, ``FLASH_BLOCK_K_KB``), each
+    set in a fresh interpreter: the two packages' globals and routes agree
+    and the port's tiled CPU forward and gradients match the JAX kernels
+    (tests/test_torch_flash_knobs.py's ``_knob_case``, with its
+    tolerances; it runs the other knobs)."""
+    _knob_case(knob)

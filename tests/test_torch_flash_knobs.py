@@ -41,6 +41,7 @@ import torch
 
 from distributed_tensorflow_framework_torch.ops import flash_attention as pt
 from distributed_tensorflow_framework_tpu.ops import flash_attention as jx
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 KNOBS = {
@@ -219,8 +220,22 @@ def check_knob(knob):
     print(json.dumps(res))
 
 
-@pytest.mark.parametrize("knob", sorted(KNOBS))
+# The tile knobs' cases (FLASH_BLOCK_*) run from
+# tests/test_torch_flash_attention_kb.py, the key-blocked kernels' file,
+# which holds many tests: xdist's ``--dist loadfile`` hands out the files
+# with the fewest tests last, and this file's ~3 minutes held the end of
+# the suite's run. Both files run ``_knob_case``.
+TILE_KNOBS = sorted(k for k in KNOBS if k.startswith("FLASH_BLOCK"))
+
+
+@pytest.mark.parametrize("knob", sorted(set(KNOBS) - set(TILE_KNOBS)))
 def test_knob_steers_the_port_as_the_jax_package(knob):
+    _knob_case(knob)
+
+
+def _knob_case(knob):
+    """One knob set in a fresh interpreter (``check_knob``), and the
+    checks on what it prints."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("FLASH_")}
     env.update({knob: KNOBS[knob], "JAX_PLATFORMS": "cpu"})
     code = ("import sys, jax\n"

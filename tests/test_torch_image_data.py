@@ -41,6 +41,7 @@ from distributed_tensorflow_framework_tpu.core.config import (
 from distributed_tensorflow_framework_tpu.data import (
     get_dataset as jax_dataset,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 
 def _write_mnist(root, n_train=40, n_test=10, seed=0):

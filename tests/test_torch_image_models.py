@@ -1,4 +1,6 @@
-"""The port's image models (LeNet-5, ResNet) against the JAX package's.
+"""The port's image models (LeNet-5, ResNet; Inception-v3 and the image
+StepBuilder steps at the end, from helpers in test_torch_inception.py and
+test_torch_train_image.py) against the JAX package's.
 
 The same numpy inputs and the same weights (carried by models/convert.py)
 go through the Flax module and the port's. A small ResNet
@@ -65,6 +67,15 @@ from distributed_tensorflow_framework_tpu.train import losses as jax_losses
 from distributed_tensorflow_framework_tpu.train import (
     optimizers as jax_optimizers,
 )
+from tests.test_torch_inception import (
+    _three_steps_with_the_aux_loss_match_the_jax_step_builder,
+    _train_and_eval_match_flax,
+)
+from tests.test_torch_train_image import (  # small_resnet: a fixture
+    _three_steps_match_the_jax_step_builder,
+    small_resnet,  # noqa: F401
+)
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 STEMS = {"cifar": dict(cifar_stem=True), "7x7": {},
          "s2d": dict(space_to_depth_stem=True)}
@@ -401,3 +412,37 @@ def test_build_model_dispatches_like_jax(name, cifar, blocks):
     if cifar is not None:
         assert model.cifar_stem == cifar
         assert len(model.block_names) == blocks
+
+
+# Inception-v3 against Flax and the image StepBuilder steps against the
+# JAX StepBuilder: the helpers, and their tolerances, are in
+# tests/test_torch_inception.py and tests/test_torch_train_image.py. They
+# run from this file, which holds many tests, because xdist's
+# ``--dist loadfile`` hands out the files with the fewest tests last, and
+# these ~10 minutes of work, run from files of a few tests, held the end of
+# the suite's run.
+
+
+@pytest.mark.parametrize("size, batch", [(75, 4), (139, 3), (299, 2)])
+def test_train_and_eval_match_flax(size, batch):
+    """Inception-v3 in train mode: logits, aux logits, the updated
+    batch_stats and every gradient of a loss on both heads, against Flax
+    in f64 beside Flax in f32; eval mode: the logits (no aux head) against
+    Flax's f32."""
+    _train_and_eval_match_flax(size, batch)
+
+
+def test_three_steps_with_the_aux_loss_match_the_jax_step_builder(
+        monkeypatch):
+    """Inception-v3 with config 4's optimizer and label smoothing at 75 x
+    75: the port's StepBuilder against the JAX StepBuilder in f64, beside
+    the JAX StepBuilder in f32, from the same initial variables."""
+    _three_steps_with_the_aux_loss_match_the_jax_step_builder(monkeypatch)
+
+
+@pytest.mark.parametrize("model, accum", [("lenet", 1), ("resnet", 1),
+                                          ("resnet", 2)])
+def test_three_steps_match_the_jax_step_builder(request, model, accum):
+    """LeNet-5 and the small ResNet: three StepBuilder steps against the
+    JAX StepBuilder's (SGD with momentum, label smoothing, accumulation)."""
+    _three_steps_match_the_jax_step_builder(request, model, accum)

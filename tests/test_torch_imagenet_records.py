@@ -49,6 +49,7 @@ from distributed_tensorflow_framework_tpu.core.config import (
     DataConfig as JaxDataConfig,
 )
 from distributed_tensorflow_framework_tpu.data import imagenet as jax_in
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 tf = pytest.importorskip("tensorflow")
 

@@ -26,6 +26,12 @@ and grad_norm at every step, and the parameters and statistics after three
 steps, against the JAX StepBuilder run in f64, beside the JAX StepBuilder
 in f32; and ``total_loss`` is ``loss + 0.4 aux_loss`` (rtol 1e-6). The
 parameter count and the convert round trip are exact.
+
+The train/eval comparison at the three sizes and the StepBuilder's steps
+are run by tests/test_torch_image_models.py from the helpers here: a file
+with few tests is handed out last under xdist's ``--dist loadfile``
+(files go out most tests first), and these ~6 minutes of work ended the
+suite's run minutes after every other file.
 """
 
 import functools
@@ -66,6 +72,7 @@ from distributed_tensorflow_framework_tpu.models.inception import (
 from distributed_tensorflow_framework_tpu.train.step import (
     StepBuilder as JaxStepBuilder,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 CLASSES = 10
 EVAL_TOL = 1e-5
@@ -177,11 +184,11 @@ def _flax_run(variables, x, w, dtype) -> dict:
                   "stats": stats, "grads": grads, "eval": evals})
 
 
-@pytest.mark.parametrize("size, batch", [(75, 4), (139, 3), (299, 2)])
-def test_train_and_eval_match_flax(size, batch):
+def _train_and_eval_match_flax(size, batch):
     """Train mode: logits, aux logits, the updated batch_stats and every
     gradient of a loss on both heads, against Flax in f64 beside Flax in
-    f32; eval mode: the logits (no aux head) against Flax's f32."""
+    f32; eval mode: the logits (no aux head) against Flax's f32
+    (tests/test_torch_image_models.py runs it at each size)."""
     jm, pm = _models()
     rng = np.random.default_rng(size)
     x = rng.standard_normal((batch, size, size, 3)).astype(np.float32)
@@ -300,7 +307,7 @@ def _step_distance(got: dict, truth: dict) -> dict:
     return out
 
 
-def test_three_steps_with_the_aux_loss_match_the_jax_step_builder(
+def _three_steps_with_the_aux_loss_match_the_jax_step_builder(
         monkeypatch):
     """Config 4's optimizer (RMSProp, eps 1.0) and label smoothing at 75 x
     75: the port's StepBuilder against the JAX StepBuilder in f64, beside

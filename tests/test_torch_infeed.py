@@ -25,6 +25,7 @@ from distributed_tensorflow_framework_torch.data.infeed import (
     prefetch_to_device,
 )
 from tests.test_torch_ckpt import tiny_config, train_run
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -38,6 +38,7 @@ from distributed_tensorflow_framework_tpu.core.mesh import (
 from distributed_tensorflow_framework_tpu.core.mesh import (
     _resolve_axis_sizes as jax_resolve,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 GANG_VARS = (cluster.ENV_COORDINATOR, cluster.ENV_NUM_PROCESSES,
              cluster.ENV_PROCESS_ID)
@@ -76,9 +77,10 @@ def test_axis_sizes_match_jax(sizes, n):
     ("expert", "A8")])
 def test_non_data_axes_name_their_item(axis, item):
     """An axis not ported yet is refused naming its item; fsdp and model,
-    ported by A10's FSDP and tensor-parallel halves, and seq, ported by
-    A11, resolve above 1 (fixed or free) as the JAX mesh does."""
-    if axis in ("fsdp", "model", "seq"):
+    ported by A10's FSDP and tensor-parallel halves, seq, ported by A11,
+    and pipe, ported by A12, resolve above 1 (fixed or free) as the JAX
+    mesh does."""
+    if axis in ("fsdp", "model", "seq", "pipe"):
         assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: 2}), 2)[
             axis] == 2
         assert mesh.resolve_mesh(MeshConfig(data=2, **{axis: 2}), 4) == \
@@ -141,9 +143,9 @@ def test_mesh_data_2_in_one_process_exits_84(no_gang, caplog):
 
 
 def test_a_non_data_axis_raises_in_the_cli(no_gang):
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A8"):
         port_cli.main(["--device", "cpu", "--set", "mesh.data=1",
-                       "--set", "mesh.pipe=2"])
+                       "--set", "mesh.expert=2"])
 
 
 @pytest.mark.parametrize("index, count", [(0, 1), (0, 2), (1, 2), (3, 4)])
@@ -229,7 +231,7 @@ def test_seq_coordinates_and_the_ring_transport():
         assert rank == ((coords["data"] * 2 + coords["seq"]) * 2
                         + coords["model"])
     rt = mesh.MeshRuntime(sizes, 5, 8, torch.device("cpu"), "gloo")
-    assert [rt.seq_member_rank(j) for j in range(2)] == [5, 7]
+    assert [rt.member_rank("seq", j) for j in range(2)] == [5, 7]
     assert rt.p2p_transport("cpu") == mesh.TRANSPORT_NATIVE
     assert rt.p2p_transport("cuda") == mesh.TRANSPORT_HOST
     nccl = dataclasses.replace(rt, backend="nccl")
@@ -239,3 +241,32 @@ def test_seq_coordinates_and_the_ring_transport():
     x = torch.arange(4.0)
     out = torch.empty(4)
     assert one.ppermute_([out], [x])[0] is out and torch.equal(out, x)
+
+
+def test_pipe_coordinates_and_the_line_groups():
+    """Rank order with ``pipe`` (inside data × fsdp, outside seq and
+    model), the global rank of each stage of a pipe line, this rank's
+    stage, and ``ppermute_`` along ``pipe`` without a group (a copy)."""
+    sizes = {"data": 2, "fsdp": 1, "expert": 1, "pipe": 4, "seq": 1,
+             "model": 1}
+    for rank in range(8):
+        coords = mesh._coords(sizes, rank)
+        assert rank == coords["data"] * 4 + coords["pipe"]
+    rt = mesh.MeshRuntime(sizes, 6, 8, torch.device("cpu"), "gloo")
+    assert [rt.member_rank("pipe", j) for j in range(4)] == [4, 5, 6, 7]
+    assert rt.data_parallel_size == 2
+    # A pipe line over every rank: the default group's coordinates, and no
+    # line group formed here.
+    line = mesh.MeshRuntime({**sizes, "data": 1}, 2, 4,
+                            torch.device("cpu"), "gloo")
+    assert (line.pipe_group.index, line.pipe_group.size) == (2, 4)
+    assert line.pipe_group.group is None and line.seq_group.group is None
+    assert (line.data_group.index, line.data_group.size) == (0, 1)
+    assert mesh.LINE_AXES == ("pipe", "seq")
+    one = mesh.MeshRuntime({**sizes, "data": 1, "pipe": 1}, 0, 1,
+                           torch.device("cpu"))
+    x = torch.arange(4.0)
+    out = torch.empty(4)
+    assert one.ppermute_([out], [x], 1, "pipe")[0] is out
+    assert torch.equal(out, x)
+    assert torch.equal(one.line_broadcast_(x.clone(), "pipe", 0), x)

@@ -63,6 +63,7 @@ from distributed_tensorflow_framework_tpu.train import Trainer as JaxTrainer
 from distributed_tensorflow_framework_tpu.train.step import (
     StepBuilder as JaxStepBuilder,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 SEQ = 32
 

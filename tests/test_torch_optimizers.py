@@ -45,6 +45,7 @@ from distributed_tensorflow_framework_tpu.core.config import (
 from distributed_tensorflow_framework_tpu.train import (
     optimizers as jax_optimizers,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 BASE = ["model.name=lenet5", "model.dtype=float32",
         "optimizer.learning_rate=0.1", "optimizer.schedule=cosine",

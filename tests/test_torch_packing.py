@@ -18,6 +18,7 @@ from distributed_tensorflow_framework_tpu.core import (
     telemetry as jax_telemetry,
 )
 from distributed_tensorflow_framework_tpu.data import packing as jax_packing
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 
 def _docs(seed, n, s, lo, hi, empty_every=0):

@@ -28,6 +28,7 @@ from distributed_tensorflow_framework_torch.data import (
 from distributed_tensorflow_framework_torch.data.native_reader import (
     NativeRecordReader,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -43,6 +43,7 @@ from distributed_tensorflow_framework_tpu.serve.engine import (
     InferenceEngine as JaxEngine,
 )
 from distributed_tensorflow_framework_tpu.serve.engine import serving_mesh
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = {"name": "bert", "vocab_size": 1000, "hidden_size": 128,

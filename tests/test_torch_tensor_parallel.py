@@ -55,6 +55,7 @@ from distributed_tensorflow_framework_torch.core.config import (
     load_config as port_config,
 )
 from distributed_tensorflow_framework_torch.parallel import sharding as shd
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))

@@ -75,6 +75,7 @@ from distributed_tensorflow_framework_tpu.train import schedules as jax_sched
 from distributed_tensorflow_framework_tpu.train.step import (
     StepBuilder as JaxStepBuilder,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 TINY_BERT = [
     "model.name=bert", "model.vocab_size=512", "model.hidden_size=64",
@@ -448,7 +449,7 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
 @pytest.mark.parametrize("override, item", [
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
-    ("mesh.pipe=2", "A12"),
+    ("train.memory_analysis=true", "A16"),
     ("mesh.expert=2", "A8 \\(expert parallel\\)"),
     ("precision.remat_policy=save_nothing", "A13"),
     ("model.num_experts=4", "A8"),

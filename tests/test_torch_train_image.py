@@ -19,6 +19,11 @@ Tolerances, with their reasons (f32):
     their largest (tests/test_torch_image_models.py);
   * BN running statistics: within 1e-5 of each leaf's largest value;
   * resume: bit-equal (the same CPU kernels on the same inputs).
+
+The three StepBuilder steps run in tests/test_torch_image_models.py and
+the four configs in tests/test_torch_config.py, from the helpers here: a
+file with few tests is handed out last under xdist's ``--dist
+loadfile``, and this one's ~4 minutes ended the suite's run.
 """
 
 import json
@@ -61,6 +66,7 @@ from distributed_tensorflow_framework_tpu.models.resnet import (
 from distributed_tensorflow_framework_tpu.train.step import (
     StepBuilder as JaxStepBuilder,
 )
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 CONFIGS = pathlib.Path(__file__).resolve().parents[1] / "configs"
 
@@ -103,9 +109,9 @@ def _close(got, ref, scale, what):
     assert err <= scale, f"{what}: {err:.2e} > {scale:.2e}"
 
 
-@pytest.mark.parametrize("model, accum", [("lenet", 1), ("resnet", 1),
-                                          ("resnet", 2)])
-def test_three_steps_match_the_jax_step_builder(request, model, accum):
+def _three_steps_match_the_jax_step_builder(request, model, accum):
+    """Three StepBuilder steps against the JAX StepBuilder's
+    (tests/test_torch_image_models.py runs it for each case)."""
     over = TRAIN + (LENET if model == "lenet" else SMALL_RESNET) + [
         f"train.grad_accum_steps={accum}"]
     pcfg, jcfg = port_config(overrides=over), jax_config(overrides=over)
@@ -198,13 +204,12 @@ def test_cli_trains_the_lenet_config_on_cpu(tmp_path):
     assert sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) == [4, 8]
 
 
-@pytest.mark.parametrize("name", ["lenet_mnist", "resnet50_cifar10",
-                                  "resnet50_imagenet", "inception_v3"])
-def test_image_configs_build_and_step_as_written(tmp_path, name):
+def _image_config_builds_and_steps(tmp_path, name):
     """Each image config builds its trainer with no override but
     ``checkpoint.directory`` (mesh.data -1 is one device; the datasets
     fall back to synthetic data) and takes one step on two images of its
-    shape and dtype."""
+    shape and dtype (tests/test_torch_config.py runs it for each
+    config)."""
     cfg = port_config(str(CONFIGS / f"{name}.yaml"),
                       overrides=[f"checkpoint.directory={tmp_path}"])
     trainer = Trainer(cfg, device="cpu")

@@ -62,6 +62,7 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import zero as port_zero
+from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))
