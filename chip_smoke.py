@@ -129,8 +129,8 @@ Phases (any failure raises and the script exits non-zero):
      plain versions, every leaf within MODEL_GRAD_RTOL.
   6. long-context training — ``cli/train.py``'s ``main`` on
      ``configs/bert_long_ring.yaml`` at its width (768, remat, dropout
-     0.1, bf16), its depth cut from 12 layers to LONG_LAYERS (since PR 16,
-     the script's time limit), on one card: ``mesh.seq=1`` and
+     0.1, bf16), its depth cut from 12 layers to LONG_LAYERS (the
+     script's time limit), on one card: ``mesh.seq=1`` and
      ``attention_impl pallas`` (ring attention is not ported), the
      config's checkpoint and resilience sections live (the directory in
      the workdir), 3 steps of the config's 8 rows in 8 micro-batches of
@@ -317,7 +317,7 @@ Phases (any failure raises and the script exits non-zero):
      the micro-batches times (twice for the forward: the remat
      recompute); per rank the peak memory and step times (gloo through
      the host, not a scaling figure). 13c: ``{data: 1, seq: 2}`` at 16384
-     (8192-token chunks), 4 layers, dropout 0, against one process (seq 1,
+     (8192-token chunks), 2 layers, dropout 0, against one process (seq 1,
      pallas) within RING_LOSS_TOL, the leaf that differs most named. 13d:
      four ranks at ``{data: 2, seq: 2}``, 8c's cut in f32 with ring
      attention, packed 4:1 from a corpus of data/progression.py, under
@@ -347,14 +347,40 @@ Phases (any failure raises and the script exits non-zero):
      seed's state and 2 more, bit-equal to 4 straight steps; the checkpoint
      read by one process bit for bit. ``--only 14`` runs the kernels'
      build and phase 14 alone (no kernels line, no last line).
+  15. Mixture-of-Experts (``model.num_experts``, ``mesh.expert``;
+     models/moe.py, parallel/expert.py): ``configs/bert_base_mlm.yaml`` at
+     full width with MOE (4 experts in layers 1, 3, ..., 11, top-2,
+     capacity 1.25, the sorted dispatch). 15a: an artifact from the seed
+     served through ``cli/serve.py``'s main, one 512-token request: 12
+     forward launches a batch, its logits against the same model with the
+     kernel's plain version (tokens whose route, every MoE layer's two
+     choices and their placement, is the same on both sides within the
+     serving tolerances; the share of tokens routed otherwise at most
+     MOE_ROUTE_FLIPS). 15b: ``cli/train.py``'s main at full width and
+     depth, 32 x 512, dropout 0.1, MOE_STEPS steps with the ladder and the
+     prefetcher live: rc 0, finite losses, ``moe_aux_loss`` and
+     ``moe_drop_frac`` in [0, 1], the launches, the MoE collapse hook
+     armed; the steady ms/step, tokens/s, peak memory and one profiled
+     step by kernel class with the dispatch's sort, gather and scatter
+     kernels in a class of their own. 15c: 2 layers in f32, one step's
+     gradients through the kernels against their plain versions (every
+     leaf within MODEL_GRAD_RTOL), the sorted and dense dispatchers at
+     (8, 512) giving the same tables and the same layer output, the router
+     z-loss armed once. 15d: two gloo children at ``{data: 1, expert: 2}``:
+     MOE_EP_LAYERS layers in bf16 through the Trainer, each rank holding
+     two of every MoE layer's four experts (bytes at rest, peak, ms/step,
+     the ranks' losses equal); then 8c's cut in f32 against one process
+     within DP_TOL, and its checkpoint (written at ``expert: 2``) read by
+     one process bit for bit. ``--only 15`` runs the kernels' build and
+     phase 15 alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b and 14a, whose children set and read their own counts) and
-read just after; launches made to compare or time a kernel do not count.
-The record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
-11a, 12a, 13b and 14a, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
+11a, 12a, 13b, 14a, 15a, 15b and 15d, whose children set and read their
+own counts) and read just after; launches made to compare or time a
+kernel do not count. The record's ``launches`` are those of phases 4, 5,
+5f, 6, 8a, 10a, 10a', 11a, 12a, 13b, 14a, 15a, 15b and 15d, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -489,11 +515,11 @@ LONG_CONFIG = "configs/bert_long_ring.yaml"
 LONG_OVERRIDES = (
     "mesh.seq=1", "model.attention_impl=pallas", "train.grad_accum_steps=8",
     "train.total_steps=3", "train.log_interval=1", "train.eval_steps=0")
-# Phases 6 and 6b run the config at this depth, cut from its 12 layers in
-# PR 16 to keep the script inside its time limit (their runs and four
-# profiled steps took ~130 s at 12 layers); long_config checks the config
-# as written.
-LONG_LAYERS = 4
+# Phases 6 and 6b run the config at this depth, cut from its 12 layers to
+# keep the script inside its time limit (their runs and four profiled
+# steps took ~130 s at 12 layers); long_config checks the config as
+# written.
+LONG_LAYERS = 2
 # Phase 6's sequence lengths. Both runs leave FUSED_BWD on auto, the choice
 # users get: the two-pass pair at 16384 (above FUSED_BWD_MAX), and at 8192
 # the fused kernel on a card listed in FUSED_BWD_VERIFIED_DEVICES, else the
@@ -517,15 +543,15 @@ CIFAR_SIZES = (5, 2048, 2000)         # train batches x images, test
 # host syncs; the steady window needs more than one). 7c cuts config 3's
 # pod-wide global batch of 4,096 to 256 and runs 10 steps on its synthetic
 # fallback (IMAGENET_SYNTH_OVERRIDES), with the s2d stem as written and
-# with the 7x7 stem beside it; 9c's record runs take 20.
+# with the 7x7 stem beside it; 9c's record runs take 12.
 CIFAR_OVERRIDES = ("train.total_steps=30", "train.log_interval=10")
 CIFAR_RESUME_SPLIT = 15
 IMAGENET_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
                       "train.log_interval=10")
-# 7c's synthetic runs, cut in PR 16 to 10 steps (logged every 5) and a
-# 2-batch eval, to keep the script inside its time limit.
-IMAGENET_SYNTH_OVERRIDES = (*IMAGENET_OVERRIDES, "train.total_steps=10",
-                            "train.log_interval=5", "train.eval_steps=2")
+# 7c's synthetic runs, cut to 6 steps (logged every 3) with a 2-batch
+# eval, to keep the script inside its time limit.
+IMAGENET_SYNTH_OVERRIDES = (*IMAGENET_OVERRIDES, "train.total_steps=6",
+                            "train.log_interval=3", "train.eval_steps=2")
 # 7a: the trainer's exact eval against a CPU replay of the same weights
 # over the same 1,000 images, f32 on both sides (TF32 is off): the loss
 # within 1e-4 relative (cuDNN and the CPU sum the products in other
@@ -1335,10 +1361,12 @@ class HttpClient(threading.Thread):
     ``POST /predict`` requests, reads ``/healthz``, then SIGTERMs this
     process so ``cli.serve.main`` drains and returns."""
 
-    def __init__(self, log_dir: str, vocab: int):
+    def __init__(self, log_dir: str, vocab: int,
+                 lengths: tuple = HTTP_LENGTHS):
         super().__init__(name="chip-smoke-client", daemon=True)
         self.log_dir = log_dir
         self.vocab = vocab
+        self.lengths = lengths
         self.results: dict = {}
         self.error: BaseException | None = None
 
@@ -1370,7 +1398,7 @@ class HttpClient(threading.Thread):
             url = self._endpoint()
             rng = np.random.default_rng(SEED)
             reqs = [rng.integers(0, self.vocab, n).tolist()
-                    for n in HTTP_LENGTHS]
+                    for n in self.lengths]
             replies: list = [None] * len(reqs)
 
             def send(i):
@@ -1388,7 +1416,7 @@ class HttpClient(threading.Thread):
             for i, reply in enumerate(replies):
                 if not isinstance(reply, tuple):
                     raise RuntimeError(
-                        f"/predict of {HTTP_LENGTHS[i]} tokens failed: "
+                        f"/predict of {self.lengths[i]} tokens failed: "
                         f"{reply!r}")
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
@@ -1546,12 +1574,12 @@ RECORD_CORPUS = ("--train-images", "4096", "--validation-images", "1000",
                  "--num-classes", "1000", "--seed", str(SEED))
 RECORD_EVAL_IMAGES = 1000
 # 9c/9d: configs 3 and 4 as written from the corpus, the global batch cut
-# to 256 (config 3: 4,096 on the pod; config 4: 2,048) and the run to 20
-# steps, a log every 10; each ends with its exact eval over the 1,000
-# validation images (the eval_steps of both configs exceed the 4 batches,
-# so the whole set).
-RECORD_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
-                    "train.log_interval=10")
+# to 256 (config 3: 4,096 on the pod; config 4: 2,048) and the run to 12
+# steps (cut from 20 for the script's time limit), a log every 6; each
+# ends with its exact eval over the 1,000 validation images (the
+# eval_steps of both configs exceed the 4 batches, so the whole set).
+RECORD_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=12",
+                    "train.log_interval=6")
 INCEPTION_CONFIG = "configs/inception_v3.yaml"
 # 9b: batches timed per reader path and thread count, and of config 3's
 # pipeline (an epoch of the corpus is 16 batches).
@@ -2086,7 +2114,8 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 
 # ---------------------------------------------------------------- phase 5
 
-def train_breakdown(torch, config, warmup: int = 2, steps: int = 5) -> None:
+def train_breakdown(torch, config, warmup: int = 2, steps: int = 5,
+                    classify=None) -> None:
     """One training step at a main-path run's shape, after the launch
     counts are read: step time over ``steps`` synced steps after
     ``warmup`` (host clock), then one profiled step summed by kernel class;
@@ -2114,7 +2143,7 @@ def train_breakdown(torch, config, warmup: int = 2, steps: int = 5) -> None:
         torch.cuda.synchronize()
     log(f"train step {config.data.global_batch_size}x{config.data.seq_len} "
         f"bf16: {step_ms:.3f} ms (host clock, {steps} synced steps)")
-    total = log_profile(prof, "one train step", top=12)
+    total = log_profile(prof, "one train step", top=12, classify=classify)
     if total:
         log(f"train step device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
             f" of the step")
@@ -2555,7 +2584,8 @@ def train_parity_phase(torch, fa) -> None:
             f"below {LEARN_RATIO} x the loss at step 1 ({trajectory[0]:.4f})")
 
 
-def gradient_parity(torch, fa, builder, batch, what: str) -> None:
+def gradient_parity(torch, fa, builder, batch, what: str,
+                    layers: int = 12) -> None:
     """One step's gradients on ``batch`` through the kernels against the
     same model, weights and dropout stream with their plain versions:
     every leaf within MODEL_GRAD_RTOL of its largest gradient, and a
@@ -2566,7 +2596,6 @@ def gradient_parity(torch, fa, builder, batch, what: str) -> None:
         MultiHeadAttention,
     )
 
-    layers = 12
     packed = "segment_ids" in batch
     grads = {}
     for route in ("kernel", "plain"):
@@ -3560,8 +3589,8 @@ def child_main(spec_path: str) -> int:
     ``torch.use_deterministic_algorithms`` when asked), and its peak
     device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
     ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c,
-    ``tp`` one of phase 12, ``ring`` one of 13b, 13c or 13d and ``pipe``
-    one of phase 14.
+    ``tp`` one of phase 12, ``ring`` one of 13b, 13c or 13d, ``pipe``
+    one of phase 14 and ``moe`` one of 15d.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3598,6 +3627,8 @@ def child_main(spec_path: str) -> int:
         result = ring_rank(torch, fa, spec)
     elif spec["kind"] == "pipe":
         result = pipe_rank(torch, fa, spec)
+    elif spec["kind"] == "moe":
+        result = moe_rank(torch, fa, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4228,8 +4259,8 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
 # through the host, so the ms/step says nothing about scaling.
 ZERO_CONFIG = "configs/bert_base_mlm.yaml"
 ZERO_STEPS = 4
-# 11a's depth, cut from 12 layers in PR 16 (the script's time limit).
-ZERO_LAYERS = 4
+# 11a's depth, cut from 12 layers (the script's time limit).
+ZERO_LAYERS = 2
 ZERO_OVERRIDES = ("data.global_batch_size=32",
                   f"model.num_layers={ZERO_LAYERS}",
                   f"train.total_steps={ZERO_STEPS}",
@@ -4374,6 +4405,8 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         tensors = state.model.state_dict()
         if state.tp is not None:
             tensors = state.tp.whole(tensors)  # every rank of the group
+        if state.ep is not None:
+            tensors = state.ep.whole(tensors)  # every rank of the line
         if state.pipe is not None:
             tensors = state.pipe.whole(tensors)  # every stage of the line
         tensors = {k: v.detach().cpu().clone() for k, v in tensors.items()}
@@ -4613,8 +4646,8 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
 # about scaling.
 TP_CONFIG = "configs/bert_base_mlm.yaml"
 TP_MESH = ("mesh.data=1", "mesh.model=2")
-TP_STEPS = 5  # cut from 10 in PR 16, to keep the script inside its limit
-TP_LAYERS = 4  # cut from 12 in PR 16, for the same reason
+TP_STEPS = 3  # cut from 10, to keep the script inside its time limit
+TP_LAYERS = 2  # cut from 12, for the same reason
 TP_OVERRIDES = ("data.global_batch_size=16", f"model.num_layers={TP_LAYERS}",
                 f"train.total_steps={TP_STEPS}",
                 "train.log_interval=1", "train.eval_steps=0",
@@ -4965,22 +4998,22 @@ RING_STEPS = 2
 RING_OVERRIDES = ("train.grad_accum_steps=8", f"train.total_steps={RING_STEPS}",
                   "train.log_interval=1", "train.eval_steps=0",
                   "resilience.rollback=false", "checkpoint.directory=")
-# 13b's depth, cut from the recipe's 12 layers in PR 16 (with RING_STEPS
-# from 3), to keep the script inside its time limit: 13b took 93-164 s
-# at full depth, the rotations through the host dominating it.
-RING_LAYERS = ("model.num_layers=4",)
+# 13b's depth, cut from the recipe's 12 layers (with RING_STEPS from 3)
+# to keep the script inside its time limit: 13b took 93-164 s at full
+# depth, the rotations through the host dominating it.
+RING_LAYERS = ("model.num_layers=2",)
 # 13c: 13b at {data: 1, seq: 2} (8192-token chunks: the forward kernel on
 # the streaming lengths and, on a listed card, the fused backward) at
 # dropout 0, against one process without the ring (phase 6's cut: seq 1,
-# pallas) on the same batches; depth cut to 4 layers to keep the phase's
+# pallas) on the same batches; depth cut to 2 layers to keep the phase's
 # time. Written before the first run: the ring rounds each chunk's o to
 # bf16 before the f32 merge, where one process rounds one o, so the
 # losses within 2e-3 and grad_norm within 2e-2, relative, as 12b holds
 # tensor parallelism.
-RING_PAIR = ("mesh.data=1", "mesh.seq=2", "model.num_layers=4",
+RING_PAIR = ("mesh.data=1", "mesh.seq=2", "model.num_layers=2",
              "model.dropout_rate=0.0")
 RING_PAIR_ONE = ("mesh.seq=1", "model.attention_impl=pallas",
-                 "model.num_layers=4", "model.dropout_rate=0.0")
+                 "model.num_layers=2", "model.dropout_rate=0.0")
 RING_LOSS_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
 # 13d: four ranks at {data: 2, seq: 2}: configs/bert_base_mlm.yaml at 8c's
 # cut (2 layers, full width, f32, dropout 0, 8 rows, clipping 1.0) with
@@ -5301,8 +5334,10 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     tensors = torch.load(c["tensors"], weights_only=True)
     diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
     lr = load_config(LONG_CONFIG).optimizer.learning_rate
-    log(f"13c ring at {{data: 1, seq: 2}} (8192-token chunks, 4 of 12 "
-        f"layers, dropout 0) vs one process (seq 1, pallas), {RING_STEPS} "
+    pair_layers = load_config(LONG_CONFIG, overrides=list(
+        RING_PAIR)).model.num_layers
+    log(f"13c ring at {{data: 1, seq: 2}} (8192-token chunks, {pair_layers} "
+        f"of 12 layers, dropout 0) vs one process (seq 1, pallas), {RING_STEPS} "
         f"steps of 8x16384: losses {c['losses']} vs {ref['losses']}; "
         f"grad_norm {c['grad_norms']} vs {ref['grad_norms']}; largest "
         f"relative gap loss {gaps['loss']:.3e}, grad_norm "
@@ -5731,6 +5766,537 @@ def pipe_phase(torch, workdir: str, smi: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 15
+
+# Phase 15: Mixture-of-Experts. configs/bert_base_mlm.yaml at full width
+# with the slice's MoE overrides: 4 experts in every second layer (1, 3,
+# ..., 11), top-2, capacity 1.25 (C = 320 slots per expert and 512-token
+# row), the sorted dispatch.
+MOE_CONFIG = "configs/bert_base_mlm.yaml"
+MOE = ("model.num_experts=4", "model.moe_every=2", "model.expert_topk=2",
+       "model.capacity_factor=1.25", "model.moe_dispatch=sorted")
+MOE_LAYERS = (1, 3, 5, 7, 9, 11)
+# 15a: the served logits against the plain-attention model, both in bf16.
+# A token whose gate probabilities nearly tie can take another expert when
+# the attention output moves by a bf16 rounding, and its logits then move
+# wholesale; such tokens are counted (their share at most
+# MOE_ROUTE_FLIPS), the others held to the serving tolerances. Written
+# before the first run.
+MOE_ROUTE_FLIPS = 0.05
+# 15b: phase 5's run with MoE layers, MOE_STEPS steps (20 of them: the
+# script's time limit), the eval of 2 batches.
+MOE_STEPS = 20
+MOE_TRAIN = (*MOE, "data.global_batch_size=32",
+             f"train.total_steps={MOE_STEPS}", "train.log_interval=10",
+             "train.eval_steps=2", "train.eval_interval=0")
+# 15c: 2 layers (layer 1 MoE) in f32, dropout 0, 8 x 512.
+MOE_CUT = (*MOE, "model.num_layers=2", "model.dtype=float32",
+           "model.dropout_rate=0.0", "data.global_batch_size=8")
+# 15d: two gloo ranks at {data: 1, expert: 2}; the Trainer at 4 layers
+# (the fewest with 2 MoE layers), bf16, dropout 0.1, clipping 1.0,
+# MOE_EP_STEPS steps of 32 x 512 (16 rows a rank); then 8c's cut (2
+# layers, f32, dropout 0, 8 rows, no warmup) with MOE against one process
+# within DP_TOL["bert"], and its checkpoint read by one process.
+MOE_EP_MESH = ("mesh.data=1", "mesh.expert=2")
+MOE_EP_LAYERS = 4
+MOE_EP_STEPS = 4
+MOE_EP_OVERRIDES = (*MOE, "data.global_batch_size=32",
+                    f"model.num_layers={MOE_EP_LAYERS}",
+                    f"train.total_steps={MOE_EP_STEPS}",
+                    "train.log_interval=1", "train.eval_steps=0",
+                    "train.eval_interval=0", "resilience.rollback=false",
+                    "checkpoint.directory=")
+MOE_DP_CUT = (*DP_BERT[1], *MOE, "checkpoint.async_save=false")
+
+
+def moe_kernel_class(name: str) -> str:
+    """:func:`kernel_class`, with the MoE dispatch's sort, gather and
+    scatter kernels (the argsort, the index tables, the token gather and
+    its scatter-add backward, the combine's gather) as ``dispatch``."""
+    low = name.lower()
+    if any(t in low for t in ("sort", "gather", "scatter", "index")):
+        return "dispatch"
+    return kernel_class(name)
+
+
+@contextlib.contextmanager
+def moe_routes(seen: list):
+    """Inside, every MoE layer's sorted dispatch appends (its choices
+    (B, K, S), which of them were placed) to ``seen``."""
+    from distributed_tensorflow_framework_torch.models import moe as moe_mod
+
+    tables = moe_mod.sorted_tables
+
+    def recorded(probs, expert_a, topk, capacity):
+        out = tables(probs, expert_a, topk, capacity)
+        seen.append((expert_a.cpu(), (out[3] > 0).cpu()))
+        return out
+
+    moe_mod.sorted_tables = recorded
+    try:
+        yield
+    finally:
+        moe_mod.sorted_tables = tables
+
+
+def token_routes(torch, seen: list) -> "torch.Tensor":
+    """(B, S, layers x K x 2): each token's route through every MoE layer
+    of the last forward recorded by :func:`moe_routes`."""
+    return torch.cat([torch.stack([c, p.long()], -1).permute(0, 2, 1, 3)
+                      .flatten(2) for c, p in seen[-len(MOE_LAYERS):]], -1)
+
+
+def moe_check(torch, ref_model, ids: list, got, routes, bucket: int,
+              what: str) -> None:
+    """Served logits (len, vocab) and their routes against the
+    plain-attention model on the same padded row (15a's criterion)."""
+    n = len(ids)
+    pad = torch.zeros(1, bucket, dtype=torch.int64, device="cuda")
+    pad[0, :n] = torch.tensor(ids, device="cuda")
+    mask = torch.zeros_like(pad)
+    mask[0, :n] = 1
+    seen: list = []
+    with torch.inference_mode(), moe_routes(seen):
+        ref = ref_model(pad, mask)["logits"][0, :n].float().cpu()
+    got = torch.as_tensor(got, dtype=torch.float32).reshape(ref.shape)
+    same = (token_routes(torch, seen) == routes).all(-1)[0, :n]
+    diff = (got - ref).abs()
+    flips = 1.0 - same.float().mean().item()
+    kept = diff[same].max().item() if same.any() else float("nan")
+    log(f"{what}: logits vs the plain-attention model on the same "
+        f"{bucket}-token row: {int((~same).sum())} of {n} tokens routed "
+        f"otherwise in some MoE layer (share {flips:.4f}, tol "
+        f"{MOE_ROUTE_FLIPS}); max|err| over the others {kept:.4e} (tol "
+        f"{LOGIT_MAX_ATOL}), over all {diff.max().item():.4e}; mean|err| "
+        f"{diff.mean().item():.4e} (tol {LOGIT_MEAN_ATOL}); ref std "
+        f"{ref.std().item():.4f}")
+    if not (flips <= MOE_ROUTE_FLIPS and kept <= LOGIT_MAX_ATOL
+            and diff.mean().item() <= LOGIT_MEAN_ATOL):
+        raise AssertionError(f"{what}: served MoE logits disagree with the "
+                             f"plain-attention model")
+
+
+def moe_serve(torch, fa, workdir: str, smi: str) -> int:
+    """15a: the MoE artifact through cli/serve.py's main (a 32-token
+    request over HTTP, in the 128 bucket), then a 512-token request
+    through the engine (over HTTP its JSON body, 512 x 30522 floats, takes
+    ~30 s to write and read); returns their forward launches."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.cli import serve as cli_serve
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.models.convert import to_flax
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        input_spec_for,
+        load_artifact,
+        save_artifact,
+    )
+
+    logs = os.path.join(workdir, "moe_serve_logs")
+    overrides = [*MOE, "serve.port=0", "serve.seq_buckets=[128,512]",
+                 f"serve.log_dir={logs}"]
+    cfg = load_config(MOE_CONFIG, overrides=overrides)
+    m = cfg.model
+    model = get_model(m, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    if model.moe_layers != list(MOE_LAYERS):
+        raise AssertionError(f"15a: MoE layers {model.moe_layers}")
+    params = sum(p.numel() for p in model.parameters())
+    artifact_dir = os.path.join(workdir, "moe_artifact")
+    save_artifact(artifact_dir, model_config=m, task="mlm",
+                  params=to_flax(model), step=0,
+                  input_spec=input_spec_for(cfg, "mlm"),
+                  source={"seed": SEED, "made_by": "chip_smoke.py"})
+    del model
+    client = HttpClient(logs, m.vocab_size, lengths=(32,))
+    http_seen: list = []
+    reset_counts(fa)
+    client.start()
+    with moe_routes(http_seen):
+        rc = cli_serve.main(["--artifact", artifact_dir, "--config",
+                             MOE_CONFIG, "--device", "cuda", *sum(
+                                 (["--set", o] for o in overrides), [])])
+    http_launches = read_counts(fa, serving=True)["fwd"]
+    client.join(60)
+    if client.error is not None:
+        raise client.error
+    res = client.results
+    status, payload, ms = res["replies"][0]
+    http_batches = res["health"]["engine"]["batches"]
+    out = payload["outputs"]
+    log(f"15a serve MoE bert-base ({params / 1e6:.1f} M parameters, MoE "
+        f"layers {list(MOE_LAYERS)}) through cli/serve.py: rc {rc}, HTTP "
+        f"{status}, one 32-token request in {ms:.1f} ms, batches "
+        f"{http_batches}, kernel launches {http_launches} [{smi}]")
+    if (rc != 0 or status != 200 or http_batches != 1
+            or http_launches != 12 * http_batches
+            or (len(out), len(out[0]), len(out[0][0])) != (
+                1, 32, m.vocab_size)):
+        raise AssertionError(f"15a http: rc {rc}, HTTP {status}, launches "
+                             f"{http_launches}, batches {http_batches}")
+    artifact = load_artifact(artifact_dir)
+    engine = InferenceEngine(artifact, cfg.serve, device="cuda")
+    ids = np.random.default_rng(SEED + 15).integers(
+        0, m.vocab_size, 512).tolist()
+    seen: list = []
+    reset_counts(fa)
+    with moe_routes(seen):
+        got = engine.predict({"input_ids": ids}, timeout=600)
+    launches = read_counts(fa, serving=True)["fwd"]
+    batches = engine.stats()["batches"]
+    engine.drain(60)
+    log(f"15a engine.predict of 512 tokens: batches {batches}, kernel "
+        f"launches {launches}, finite {bool(np.isfinite(got).all())}")
+    if (got.shape != (1, 512, m.vocab_size) or not np.isfinite(got).all()
+            or launches != 12 * batches or batches != 1):
+        raise AssertionError(f"15a engine: {got.shape}, launches {launches}")
+    ref_model = reference_model(torch, fa, m, artifact.state_dict)
+    moe_check(torch, ref_model, res["requests"][0], out[0],
+              token_routes(torch, http_seen), 128, "15a http 32 tokens")
+    moe_check(torch, ref_model, ids, got[0], token_routes(torch, seen), 512,
+              "15a engine 512 tokens")
+    del ref_model, engine
+    torch.cuda.empty_cache()
+    return http_launches + launches
+
+
+def moe_train(torch, fa, workdir: str, smi: str) -> dict:
+    """15b: cli/train.py's main at full width and depth; returns the
+    launch counts."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train import hooks as hooks_lib
+
+    ckpt = os.path.join(workdir, "moe_ckpt")
+    logs = os.path.join(workdir, "moe_train_logs")
+    overrides = [*MOE_TRAIN, f"checkpoint.directory={ckpt}"]
+    cfg = load_config(MOE_CONFIG, overrides=overrides)
+    armed = []
+    hook_cls = hooks_lib.MoECollapseHook
+
+    class Armed(hook_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            armed.append(self)
+
+    hooks_lib.MoECollapseHook = Armed
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        rc = run_cli_train(MOE_CONFIG, overrides, "--log-dir", logs)
+    finally:
+        hooks_lib.MoECollapseHook = hook_cls
+    counts = read_counts(fa)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = read_events(logs)
+    train = [e for e in events if e["kind"] == "train_step"]
+    evals = [e for e in events if e["kind"] == "eval"]
+    for e in train:
+        log(f"15b train step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    for e in evals:
+        log(f"15b eval at step {e['step']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in e["metrics"].items()))
+    want = {"fwd": 12 * (MOE_STEPS + cfg.train.eval_steps),
+            "dq": 12 * MOE_STEPS, "dkv": 12 * MOE_STEPS, "fused": 0}
+    b = cfg.data.global_batch_size
+    eps = [e["throughput"]["examples_per_sec"] for e in train[1:]]
+    rate = statistics.mean(eps) if eps else float("nan")
+    log(f"15b MoE bert-base train: rc {rc}, {MOE_STEPS} steps of {b}x"
+        f"{cfg.data.seq_len} in {wall:.1f} s; steady (steps "
+        f"{train[0]['step'] + 1}-{MOE_STEPS}) {1e3 * b / rate:.2f} ms/step, "
+        f"{rate * cfg.data.seq_len:.0f} tokens/s (first window "
+        f"{1e3 * b / train[0]['throughput']['examples_per_sec']:.2f} "
+        f"ms/step); peak memory {peak_gb:.2f} GB; kernel launches {counts} "
+        f"(expected {want}); MoE collapse hooks armed {len(armed)} [{smi}]")
+    metrics = [e["metrics"] for e in train]
+    ok = (rc == 0 and len(train) == MOE_STEPS // 10 and len(evals) == 1
+          and all(math.isfinite(x[k]) for x in metrics
+                  for k in ("loss", "moe_aux_loss", "total_loss",
+                            "moe_drop_frac", "grad_norm"))
+          and all(0.0 <= x["moe_drop_frac"] <= 1.0 for x in metrics)
+          and len(armed) == 1 and counts == want)
+    if not ok:
+        raise AssertionError(f"15b: rc {rc}, metrics {metrics}, launches "
+                             f"{counts}, hooks {len(armed)}")
+    log_saves(events, "15b")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train_breakdown(torch, cfg, classify=moe_kernel_class)
+    return counts
+
+
+def moe_correctness(torch, fa) -> None:
+    """15c: gradients through the kernels against their plain versions at
+    2 layers in f32, the two dispatchers on the card, the z-loss armed."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.models import moe as moe_mod
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    cfg = load_config(MOE_CONFIG, overrides=list(MOE_CUT))
+    builder = StepBuilder(cfg, device="cuda")
+    batch = to_device(next(get_dataset(cfg.data)), torch.device("cuda"))
+    gradient_parity(torch, fa, builder, batch, "15c MoE 2 layers f32",
+                    layers=2)
+    # The two dispatchers at the slice's shape.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    b, s, e, k = 8, 512, 4, 2
+    cap = moe_mod.capacity_for(s, e, k, 1.25)
+    logits = torch.randn(b, s, e, device="cuda", generator=gen)
+    table, valid, expert_a, pos_a, comb_w, aux_s = \
+        moe_mod.topk_dispatch_sorted(logits, k, cap)
+    dispatch, combine, aux_d = moe_mod.topk_dispatch(logits, k, cap)
+    rebuilt = torch.zeros_like(dispatch)
+    bi, ei, ci = valid.nonzero(as_tuple=True)
+    rebuilt[bi, table[bi, ei, ci], ei, ci] = 1.0
+    comb = torch.zeros_like(combine)
+    for r in range(k):
+        w = comb_w[:, r]
+        bb, ss = (w > 0).nonzero(as_tuple=True)
+        comb[bb, ss, expert_a[:, r][bb, ss], pos_a[:, r][bb, ss]] = w[bb, ss]
+    layers = {}
+    for impl in ("sorted", "dense"):
+        layers[impl] = moe_mod.MoEMlp(768, e, 3072, dispatch_impl=impl,
+                                      dtype=torch.float32, device="cuda")
+    layers["sorted"].reset_parameters(gen)
+    layers["sorted"].gate.reset_parameters(gen)
+    layers["dense"].load_state_dict(layers["sorted"].state_dict())
+    x = torch.randn(b, s, 768, device="cuda", generator=gen)
+    with torch.no_grad():
+        (o_s, a_s), (o_d, a_d) = (layers[i](x) for i in ("sorted", "dense"))
+    out_err = rel_err(o_s, o_d)
+    tables_equal = torch.equal(rebuilt, dispatch)
+    comb_err = (comb - combine).abs().max().item()
+    log(f"15c dispatchers at ({b}, {s}) E {e} top-{k} C {cap}: sorted tables "
+        f"rebuilt equal the dense one-hots {tables_equal} ({int(valid.sum())}"
+        f" of {b * s * k} placed), combine max|diff| {comb_err:.3e}, aux "
+        f"{aux_s.item():.7f} vs {aux_d.item():.7f}; the layer (768 -> 3072, "
+        f"f32): outputs {out_err:.3e} of the largest, aux_loss "
+        f"{a_s['aux_loss'].item():.7f} vs {a_d['aux_loss'].item():.7f}, "
+        f"drop_frac {a_s['drop_frac'].item():.5f} vs "
+        f"{a_d['drop_frac'].item():.5f}")
+    if not (tables_equal and comb_err <= 1e-6 and out_err <= 1e-5
+            and abs(aux_s.item() - aux_d.item()) <= 1e-6
+            and a_s["drop_frac"].item() == a_d["drop_frac"].item()):
+        raise AssertionError("15c: the sorted and dense dispatchers differ")
+    del layers, x
+    # The router z-loss, armed.
+    cfg = load_config(MOE_CONFIG, overrides=[*MOE_CUT,
+                                             "model.moe_zloss_weight=0.1"])
+    builder = StepBuilder(cfg, device="cuda")
+    state = builder.init_state(SEED)
+    state.optimizer.zero_grad()
+    m = builder._micro_step(state, batch, 1.0)
+    total = m["loss"] + cfg.train.moe_aux_weight * m["moe_aux_loss"]
+    log(f"15c z-loss armed (weight 0.1): moe_zloss {m['moe_zloss'].item():.6f},"
+        f" moe_aux_loss {m['moe_aux_loss'].item():.6f}, total_loss "
+        f"{m['total_loss'].item():.6f} (loss + {cfg.train.moe_aux_weight} x "
+        f"aux {total.item():.6f})")
+    if not (m["moe_zloss"].item() > 0 and math.isfinite(
+            m["moe_zloss"].item()) and abs(
+            m["total_loss"].item() - total.item()) <= 1e-5):
+        raise AssertionError("15c: z-loss")
+    torch.cuda.empty_cache()
+
+
+def moe_trainer_run(torch, fa, runtime, out_dir: str) -> dict:
+    """15d on one rank: the Trainer with the launch counts set to 0 just
+    before and read just after, the experts it holds, the bytes at rest
+    and the peak memory."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    logs = os.path.join(out_dir, "moe_logs")
+    cfg = load_config(MOE_CONFIG, overrides=[*MOE_EP_OVERRIDES,
+                                             *MOE_EP_MESH])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, log_dir=logs, runtime=runtime)
+    trainer.build()
+    record = StepRecord()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(hooks=trainer.default_hooks() + [record])
+    finally:
+        trainer.writer.close()
+    counts = read_counts(fa)
+    state = trainer.state
+    named = dict(state.model.named_parameters())
+    return {"counts": counts, "steps": record.steps,
+            "s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "bytes": state_bytes(torch, state), "logs": logs,
+            "parts": {k: list(named[k].shape) for k in state.ep.part_keys()},
+            "experts": sum(named[k].numel() * named[k].element_size()
+                           for k in state.ep.part_keys())}
+
+
+def moe_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of 15d: a gloo group on the card at {data: 1, expert:
+    2}."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(data=1, expert=2), "cuda",
+                                 backend="gloo")
+    rank = runtime.process_index
+    try:
+        out = {"rank": rank, "backend": runtime.backend, "s": {}}
+        t0 = time.perf_counter()
+        out["a"] = moe_trainer_run(torch, fa, runtime, out_dir)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        c = zero_cut_case(torch, (*MOE_DP_CUT, *MOE_EP_MESH), runtime,
+                          DP_STEPS, config_path=MOE_CONFIG)
+        ckpt = os.path.join(out_dir, "moe_ckpt")
+        manager = CheckpointManager(dataclasses.replace(
+            c["builder"].config.checkpoint, directory=ckpt), runtime=runtime)
+        manager.save(DP_STEPS, c["state"])
+        manager.close()
+        path = os.path.join(out_dir, f"moe_c_rank{rank}.pt")
+        torch.save(c["tensors"], path)
+        out["b"] = {"losses": c["losses"], "grad_norms": c["grad_norms"],
+                    "tensors": path, "ckpt": ckpt, "bytes": c["bytes"],
+                    "parts": {k: list(p.shape) for k, p in
+                              c["state"].model.named_parameters()
+                              if ".moe.w" in k}}
+        out["s"] = {"a": t1 - t0, "b": time.perf_counter() - t1}
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def moe_phase(torch, fa, workdir: str, smi: str) -> dict:
+    """Phase 15: 15a (serve), 15b (train at full depth), 15c (f32
+    correctness), 15d (expert parallel on two gloo ranks). Returns the
+    attention-kernel launches of 15a, 15b and both ranks of 15d's
+    Trainer run (main-path runs)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t0 = time.perf_counter()
+    serve_launches = moe_serve(torch, fa, workdir, smi)
+    t1 = time.perf_counter()
+    counts = moe_train(torch, fa, workdir, smi)
+    counts = {**counts, "fwd": counts["fwd"] + serve_launches}
+    t2 = time.perf_counter()
+    moe_correctness(torch, fa)
+    t3 = time.perf_counter()
+    ranks = run_children([{"kind": "moe", "env": gang_env(port, 2, r)}
+                          for port in [free_port()] for r in range(2)],
+                         workdir, "moe_ranks", timeout=900)
+    bad = []
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        bad.append(("15d backends", ranks))
+    a0, a1 = (r["a"] for r in ranks)
+    events = read_events(a0["logs"])
+    meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+    ms = steady_ms(events)
+    losses = {int(k): v["loss"] for k, v in a0["steps"].items()}
+    same = a0["steps"] == a1["steps"]
+    finite = (sorted(losses) == list(range(1, MOE_EP_STEPS + 1))
+              and all(math.isfinite(v["loss"]) and math.isfinite(
+                  v["grad_norm"]) for v in a0["steps"].values()))
+    log(f"15d MoE bert-base {MOE_EP_LAYERS} layers bf16, mesh {meta['mesh']}"
+        f", {meta['ep_sharded_leaves']} leaves split over expert, 2 gloo "
+        f"ranks on the card, {MOE_EP_STEPS} steps of 32x512 (16 rows a "
+        f"rank; dropout 0.1, clipping 1.0): losses " + ", ".join(
+            f"step {k} {v!r}" for k, v in sorted(losses.items()))
+        + f"; equal on both ranks {same}, finite {finite}; {ms:.1f} ms/step "
+        f"(steps 2-{MOE_EP_STEPS}, chief's clock; gloo through the host, "
+        f"not a scaling figure) [{smi}]")
+    want = {"fwd": MOE_EP_LAYERS * MOE_EP_STEPS,
+            "dq": MOE_EP_LAYERS * MOE_EP_STEPS,
+            "dkv": MOE_EP_LAYERS * MOE_EP_STEPS, "fused": 0}
+    for r in ranks:
+        a = r["a"]
+        log(f"15d rank {r['rank']}: experts held {a['parts']} (2 of each "
+            f"layer's 4), parameters {gb(a['bytes']['params'])} at rest (of "
+            f"them the expert parts {gb(a['experts'])}, half of the "
+            f"layers' {gb(2 * a['experts'])}), slots "
+            f"{gb(a['bytes']['slots'])}, peak {a['peak_gb']:.2f} GB, "
+            f"launches {a['counts']}; 15d Trainer {r['s']['a']:.1f} s, "
+            f"f32 cut {r['s']['b']:.1f} s [{smi}]")
+        if a["counts"] != want or sorted(a["parts"]) != [
+                f"layer{i}.moe.{w}" for i in (1, 3) for w in ("wi", "wo")
+                ] or any(v[0] != 2 for v in a["parts"].values()):
+            bad.append((r["rank"], "15d launches or parts", a["counts"],
+                        a["parts"]))
+        counts = {k: counts[k] + a["counts"][k] for k in counts}
+    if not (same and finite and meta["mesh"]["expert"] == 2
+            and meta["ep_sharded_leaves"] == 2 * (MOE_EP_LAYERS // 2)):
+        bad.append(("15d", same, finite, meta["mesh"]))
+    # The f32 cut against one process on the same batches.
+    torch.cuda.empty_cache()
+    ref = zero_cut_case(torch, MOE_DP_CUT, None, DP_STEPS,
+                        config_path=MOE_CONFIG)
+    one_bytes = ref["bytes"]
+    b = ranks[0]["b"]
+    lr = load_config(MOE_CONFIG, overrides=list(MOE_DP_CUT)) \
+        .optimizer.learning_rate
+    tol = DP_TOL["bert"]
+    gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(b[k], ref[k]))
+            for key, k in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+    tensors = torch.load(b["tensors"], weights_only=True)
+    diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+    log(f"15d f32 2 layers at {{data: 1, expert: 2}} vs one process, "
+        f"{DP_STEPS} steps of 8x512: losses {b['losses']} vs "
+        f"{ref['losses']}; largest relative gap loss {gaps['loss']:.3e}, "
+        f"grad_norm {gaps['grad_norm']:.3e}; worst parameter |diff| "
+        f"{diff:.3e} = {diff / lr:.3e} x lr ({leaf}); tol {tol}; "
+        f"parameters at rest per rank {gb(b['bytes']['params'])} against "
+        f"one process's {gb(one_bytes['params'])} (expert parts "
+        f"{b['parts']})")
+    if (gaps["loss"] > tol["loss"] or gaps["grad_norm"] > tol["grad_norm"]
+            or diff > tol["params"] * lr
+            or ranks[1]["b"]["losses"] != b["losses"]):
+        bad.append(("15d f32 vs one process", gaps, diff))
+    del ref
+    # The checkpoint written at expert 2, read by one process (expert 1).
+    cfg = load_config(MOE_CONFIG, overrides=list(MOE_DP_CUT))
+    one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
+                                                    directory=b["ckpt"]))
+    restored = manager.restore(one)
+    manager.close()
+    loaded = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    equal = sum(torch.equal(loaded[k], v) for k, v in tensors.items())
+    log(f"15d the checkpoint written at expert 2 read by one process: "
+        f"restored step {restored}; {equal} of {len(tensors)} model tensors "
+        f"bit-equal to the experts gathered whole at the save "
+        f"(layer1.moe.wi {list(loaded['layer1.moe.wi'].shape)})")
+    if restored != DP_STEPS or equal != len(tensors):
+        bad.append(("15d one-process restore", restored, equal))
+    if bad:
+        raise AssertionError(f"phase 15: {bad}")
+    t4 = time.perf_counter()
+    log(f"phase 15 took {t4 - t0:.1f} s (15a {t1 - t0:.1f}, 15b "
+        f"{t2 - t1:.1f}, 15c {t3 - t2:.1f}, 15d {t4 - t3:.1f})")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -5797,6 +6363,14 @@ def main() -> int:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as wd:
             pipe_phase(torch, wd, gpu)
+        return 0
+    if only == "15":
+        # A development run of phase 15 alone (``--only 15``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as wd:
+            moe_phase(torch, fa, wd, gpu)
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -5928,11 +6502,23 @@ def main() -> int:
             "against one process with a resume (14b)")
         pipe_counts = pipe_phase(torch, workdir, gpu)
 
+    # Phase 15: Mixture-of-Experts. 15a serves, 15b trains BERT-base with
+    # MoE layers through the attention kernels, and 15d's two ranks run
+    # the Trainer expert-parallel, so their launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as workdir:
+        log("phase 15 Mixture-of-Experts: BERT-base with 4 experts in every"
+            " second layer, top-2, served (15a) and trained at full depth "
+            "(15b); f32 correctness at 2 layers (15c); expert parallel on "
+            "two gloo ranks of the card at {data: 1, expert: 2} (15d)")
+        moe_counts = moe_phase(torch, fa, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
     # ranks of each), the two long-context runs, 13b's eight ranks and
-    # 14a's four stages under each schedule; those with
+    # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks;
+    # those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -5941,7 +6527,7 @@ def main() -> int:
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
-                + ring_counts[name] + pipe_counts[name]
+                + ring_counts[name] + pipe_counts[name] + moe_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0

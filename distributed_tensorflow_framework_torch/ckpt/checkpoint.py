@@ -73,7 +73,11 @@ takes part in the gathers; the chief writes). A restore cuts each rank's
 part back out: its tensor-parallel part, its slice of that, or its row of
 the stacked slots — refolded first (ckpt/reshard.py
 ``refold_zero_opt_state``) when another rank count saved them. So a
-checkpoint resumes at any ``mesh.model``, in one process too. A
+checkpoint resumes at any ``mesh.model``, in one process too. The
+expert parts (train/state.py ``ep``) are gathered into whole (E, ...)
+tensors the same way, their slots and EMA with them, and a restore cuts
+each rank's experts back out, so a checkpoint resumes at any
+``mesh.expert``. A
 pipelined state (train/state.py ``pipe``) is written whole as well: every
 stage's layers, slots and EMA gathered over ``pipe`` into a whole
 BERT's layout, in the natural layer order whatever the schedule, so one
@@ -276,6 +280,8 @@ class CheckpointManager:
             live = state.layout.global_state(live, state.optimizer.names)
         if state.tp is not None:
             live = state.tp.global_state(live, state.optimizer.names)
+        if state.ep is not None:
+            live = state.ep.global_state(live, state.optimizer.names)
         if state.pipe is not None:
             live = state.pipe.global_state(live, state.optimizer.names)
         if not self.is_chief:
@@ -546,8 +552,8 @@ class CheckpointManager:
     def _own_parts(self, state: TrainState, step: int, meta: dict,
                    tensors: dict) -> dict:
         """``tensors`` (the whole layout) cut to this rank's parts of a
-        sharded state: its tensor-parallel parts or its pipeline stage
-        first, then its FSDP or
+        sharded state: its tensor-parallel parts, its experts or its
+        pipeline stage first, then its FSDP or
         ZeRO-1 parts of those; ZeRO's stacked slots refolded first when
         another rank count saved them. A ZeRO toggle across the resume is
         refused."""
@@ -567,6 +573,8 @@ class CheckpointManager:
         names = state.optimizer.names
         if state.tp is not None:
             tensors = state.tp.local_state(tensors, names)
+        if state.ep is not None:
+            tensors = state.ep.local_state(tensors, names)
         if state.pipe is not None:
             tensors = state.pipe.local_state(tensors, names)
         if state.layout is None:

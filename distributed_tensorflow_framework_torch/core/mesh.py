@@ -17,33 +17,39 @@ stands in for the mesh:
 
 The mesh's sizes resolve as in the JAX package (one axis may be -1, the
 product must equal the world size, else :class:`MeshSizeError`, which
-``cli/train.py`` maps to rc 84). The ``data``, ``fsdp``, ``pipe``,
-``seq`` and ``model`` axes may exceed 1; ``expert`` (A8) raises
-NotImplementedError naming its ROADMAP.md item. Rank r sits at the
-coordinates of r in the row-major order of ``MESH_AXES`` (``data``
-outermost, ``model`` innermost, so the ranks of one tensor-parallel group
-are adjacent, as Megatron places them): ``r = ((data_idx · fsdp +
-fsdp_idx) · seq + seq_idx) · model + model_idx``, and the data-parallel
-index ``data_idx · fsdp + fsdp_idx`` is what JAX's
-``linear_axis_index(("data", "fsdp"))`` gives. The ranks along ``seq``
-and ``model`` share a data-parallel index: they read the same batch and
-draw the same dropout masks (:attr:`MeshRuntime.data_group`); the ranks
-along ``seq`` then keep their own part of each row (parallel/ring.py).
+``cli/train.py`` maps to rc 84); every axis of ``MESH_AXES`` may exceed 1.
+Rank r sits at the coordinates of r in the row-major order of
+``MESH_AXES`` (``data`` outermost, ``model`` innermost, so the ranks of
+one tensor-parallel group are adjacent, as Megatron places them):
+``r = ((((data_idx · fsdp + fsdp_idx) · expert + expert_idx) · pipe +
+pipe_idx) · seq + seq_idx) · model + model_idx``. The batch is split
+over ``DATA_AXES`` (data × fsdp × expert, the JAX package's
+``batch_spec``), and the data-parallel index ``(data_idx · fsdp +
+fsdp_idx) · expert + expert_idx`` is what JAX's
+``linear_axis_index(("data", "fsdp", "expert"))`` gives. The ranks along
+``pipe``, ``seq`` and ``model`` share a data-parallel index: they read
+the same batch and draw the same dropout masks
+(:attr:`MeshRuntime.data_group`); the ranks along ``seq`` then keep their
+own part of each row (parallel/ring.py).
 
-Ring attention moves K/V chunks between the ranks along ``seq``, and the
+Ring attention moves K/V chunks between the ranks along ``seq``, the
 pipeline moves activations and their gradients between the stages along
-``pipe``, with :meth:`MeshRuntime.ppermute_` on a process group of each
+``pipe``, and the MoE dispatch exchanges expert buffers between the ranks
+along ``expert`` (parallel/expert.py), each on a process group of its
 line's own (:meth:`MeshRuntime.line_group`; :attr:`MeshRuntime.seq_group`,
-:attr:`MeshRuntime.pipe_group`), formed for that line alone even where it
-spans every rank, so that no other collective (DDP's bucketed
-all-reduces fire from autograd hooks while the ring's or the pipeline's
-backward sends) ever shares it; the pipeline's broadcasts from one stage
-(:meth:`MeshRuntime.line_broadcast_`) take the same group. NCCL, and gloo
-on CPU tensors, send and receive natively (``batch_isend_irecv``, both
-directions in one batch); gloo's ``send`` and
-``recv`` take a tensor's raw pointer without checking its device, so CUDA
-tensors there go through the host (:meth:`p2p_transport`), packed into
-one pinned buffer each way.
+:attr:`MeshRuntime.pipe_group`, :attr:`MeshRuntime.expert_group`), formed
+for that line alone even where it spans every rank, so that no other
+collective (DDP's bucketed all-reduces fire from autograd hooks while the
+ring's, the pipeline's or the dispatch's backward sends) ever shares it;
+the pipeline's broadcasts from one stage (:meth:`MeshRuntime.line_broadcast_`)
+take the same group. The MoE router's balance statistics are summed over
+the data-parallel ranks inside the forward and the backward as well, so
+the line along ``DATA_AXES`` has a group of its own too
+(:attr:`MeshRuntime.router_group`). NCCL, and gloo on CPU tensors, send
+and receive natively (``batch_isend_irecv``, both directions in one
+batch); gloo's ``send`` and ``recv`` take a tensor's raw pointer without
+checking its device, so CUDA tensors there go through the host
+(:meth:`p2p_transport`), packed into one pinned buffer each way.
 
 :class:`MeshRuntime` carries the collectives the port uses across ranks:
 ``all_reduce``, ``broadcast`` and, for the explicit collectives of
@@ -53,7 +59,7 @@ parallel/collectives.py, ``all_to_all``, ``all_gather`` and
 rank's other coordinates (:meth:`MeshRuntime.axis_group`; explicit FSDP
 gathers over ``fsdp`` alone, tensor parallelism reduces over ``model``,
 while ZeRO, the gradient reduction, the loss weight and the metrics span
-data × fsdp, ``DATA_AXES``). The subgroups are formed by every rank at the
+data × fsdp × expert, ``DATA_AXES``). The subgroups are formed by every rank at the
 same point: in :func:`initialize_runtime`, or in
 :meth:`MeshRuntime.remesh` for another mesh over the same ranks. NCCL,
 and gloo on CPU tensors, run
@@ -90,13 +96,12 @@ from distributed_tensorflow_framework_torch.core.device import resolve_device
 log = logging.getLogger(__name__)
 
 MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
-# The axes a batch is split over and the gradients are reduced over: the
-# JAX package's DATA_AXES (train/step.py).
-DATA_AXES = ("data", "fsdp")
-# The ROADMAP.md queue A item that ports each axis not ported yet.
-_AXIS_ITEMS = {"expert": "A8 (expert parallel)"}
-# The axes whose lines get a point-to-point process group of their own.
-LINE_AXES = ("pipe", "seq")
+# The axes a batch is split over and the (non-expert) gradients are
+# reduced over: the JAX package's ``batch_spec`` (core/mesh.py).
+DATA_AXES = ("data", "fsdp", "expert")
+# The lines that get a process group of their own (see the module
+# docstring): one axis each, and the data-parallel line.
+LINE_AXES = (("expert",), ("pipe",), ("seq",), DATA_AXES)
 
 
 class MeshSizeError(ValueError):
@@ -129,23 +134,10 @@ def _resolve_axis_sizes(config: MeshConfig, n: int) -> dict[str, int]:
     return sizes
 
 
-def _refuse_unported_axes(sizes: Mapping[str, int]) -> None:
-    for axis, item in _AXIS_ITEMS.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"mesh.{axis}={sizes[axis]} is not ported yet — ROADMAP.md "
-                f"queue A item {item}; the port runs the data, fsdp, pipe, "
-                f"seq and model axes only")
-
-
 def resolve_mesh(config: MeshConfig, world: int) -> dict[str, int]:
-    """The mesh's axis sizes at ``world`` ranks: NotImplementedError for
-    ``expert`` above 1, MeshSizeError when the sizes do not fit the
-    ranks."""
-    _refuse_unported_axes(config.axis_sizes())
-    sizes = _resolve_axis_sizes(config, world)
-    _refuse_unported_axes(sizes)
-    return sizes
+    """The mesh's axis sizes at ``world`` ranks; MeshSizeError when they
+    do not fit the ranks."""
+    return _resolve_axis_sizes(config, world)
 
 
 def gang_from_env(environ: Mapping[str, str] | None = None
@@ -331,8 +323,8 @@ class MeshRuntime:
     # subgroup, for the subgroups this rank belongs to
     # (:func:`initialize_runtime` forms them).
     subgroups: dict = dataclasses.field(default_factory=dict)
-    # Axis of LINE_AXES → the own process group of this rank's line along
-    # it (absent: no group, or the axis is 1).
+    # Axes of LINE_AXES → the own process group of this rank's line along
+    # them (absent: no group, or the line is one rank).
     line_groups: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -347,18 +339,34 @@ class MeshRuntime:
 
     @property
     def data_group(self) -> AxisGroup:
-        """The ranks along ``DATA_AXES`` that share this rank's ``seq`` and
-        ``model`` coordinates: ``index`` is this rank's data-parallel
-        index (which block of the global batch it reads, which dropout
-        stream it draws), ``size`` the data-parallel count. At ``seq`` and
-        ``model`` 1 it is every rank, its index the rank."""
+        """The ranks along ``DATA_AXES`` that share this rank's ``pipe``,
+        ``seq`` and ``model`` coordinates: ``index`` is this rank's
+        data-parallel index (which block of the global batch it reads,
+        which dropout stream it draws), ``size`` the data-parallel count.
+        At ``pipe``, ``seq`` and ``model`` 1 it is every rank, its index
+        the rank."""
         return self.axis_group(DATA_AXES)
 
-    def line_group(self, axis: str) -> AxisGroup:
-        """The ranks along ``axis`` (one of LINE_AXES) that share this
-        rank's other coordinates, on that line's own process group."""
-        group = self.axis_group(axis)
-        return dataclasses.replace(group, group=self.line_groups.get(axis))
+    def line_group(self, axes) -> AxisGroup:
+        """The ranks along ``axes`` (a line of LINE_AXES: one axis name, or
+        ``DATA_AXES``) that share this rank's other coordinates, on that
+        line's own process group."""
+        axes = _canon_axes(axes)
+        group = self.axis_group(axes)
+        return dataclasses.replace(group, group=self.line_groups.get(axes))
+
+    @property
+    def expert_group(self) -> AxisGroup:
+        """This rank's ``expert`` line, on the MoE dispatch's own process
+        group: ``index`` says which experts of each MoE layer it holds."""
+        return self.line_group("expert")
+
+    @property
+    def router_group(self) -> AxisGroup:
+        """This rank's data-parallel line (the ranks of
+        :attr:`data_group`) on a process group of its own, for the MoE
+        router's statistics."""
+        return self.line_group(DATA_AXES)
 
     @property
     def seq_group(self) -> AxisGroup:
@@ -448,7 +456,7 @@ class MeshRuntime:
     def line_broadcast_(self, tensor: torch.Tensor, axis: str,
                         member: int) -> torch.Tensor:
         """Overwrite ``tensor`` with member ``member``'s of this rank's line
-        along ``axis`` (one of LINE_AXES), on the line's own process group,
+        along ``axis`` (``pipe`` or ``seq``), on the line's own process group,
         in place; returns it. Gloo and NCCL both broadcast CUDA tensors."""
         group = self.line_group(axis)
         if self.backend is not None and group.size > 1:
@@ -476,7 +484,7 @@ class MeshRuntime:
                   inputs: list[torch.Tensor], shift: int = 1,
                   axis: str = "seq") -> list[torch.Tensor]:
         """Send each of ``inputs`` to the member ``shift`` places on along
-        this rank's line along ``axis`` (one of LINE_AXES) and receive the
+        this rank's line along ``axis`` (``pipe`` or ``seq``) and receive the
         member ``shift`` places back's into ``outputs`` (each at its
         input's shape): ``lax.ppermute`` with ``(j, j + shift mod n)``,
         every tensor in one ``batch_isend_irecv`` on the line's own process
@@ -590,21 +598,25 @@ def _form_subgroups(sizes: Mapping[str, int], rank: int) -> dict:
 
 
 def _form_line_groups(sizes: Mapping[str, int], rank: int) -> dict:
-    """A process group for each line along each axis of LINE_AXES above 1
+    """A process group for each line of LINE_AXES of more than one rank
     (every rank calls ``new_group`` for each, in the same order), used by
-    that line's point-to-point moves alone (the ring's along ``seq``, the
-    pipeline's along ``pipe``); returns this rank's, by axis."""
+    that line's own collectives alone (the MoE dispatch's along
+    ``expert``, the pipeline's along ``pipe``, the ring's along ``seq``,
+    the MoE router's along ``DATA_AXES``); returns this rank's, by
+    axes."""
     mine = {}
-    for axis in LINE_AXES:
-        if sizes[axis] == 1:
+    for axes in LINE_AXES:
+        if math.prod(sizes[a] for a in axes) == 1:
             continue
-        others = [a for a in MESH_AXES if a != axis]
+        others = [a for a in MESH_AXES if a not in axes]
         for fixed in itertools.product(*(range(sizes[a]) for a in others)):
-            ranks = [_rank_of(sizes, {**dict(zip(others, fixed)), axis: j})
-                     for j in range(sizes[axis])]
+            ranks = [_rank_of(sizes, {**dict(zip(others, fixed)),
+                                      **dict(zip(axes, inner))})
+                     for inner in itertools.product(
+                         *(range(sizes[a]) for a in axes))]
             group = dist.new_group(ranks)
             if rank in ranks:
-                mine[axis] = group
+                mine[axes] = group
     return mine
 
 
@@ -615,9 +627,8 @@ def initialize_runtime(config: MeshConfig | None = None,
                        ) -> MeshRuntime:
     """Resolve the mesh against the gang and form the process group.
     ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
-    tensors runs two ranks on one card). Raises NotImplementedError for
-    ``expert`` above 1, MeshSizeError when the mesh
-    does not fit the ranks, DeviceUnavailableError for CUDA without a
+    tensors runs two ranks on one card). Raises MeshSizeError when the
+    mesh does not fit the ranks, DeviceUnavailableError for CUDA without a
     card."""
     config = config or MeshConfig()
     gang = gang_from_env(environ)

@@ -6,14 +6,15 @@ Port of ``models/__init__.py``'s name dispatch: ``bert`` (BERT-base MLM),
 ``inception_v3``. The JAX package's validation errors on
 ``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept. Every
 configuration the port cannot build yet raises NotImplementedError naming
-the ROADMAP.md item that ports it (MoE BERT, ResNet and Inception remat);
+the ROADMAP.md item that ports it (ResNet and Inception remat);
 ``register_model`` is item A19. Ring attention builds here and runs under
 ``train.spmd_mode: jit`` only (:func:`check_ring_mode`). With
 ``model.pipeline_stages > 1`` BERT is built whole from the seed and
 parallel/pipeline.py's ``PipelinedBert`` keeps this rank's stage of it,
 which needs the mesh runtime; the JAX package's refusals beside the
-pipeline are kept with its exception types (MoE, checked before MoE's own
-refusal; ``model.remat``; ring attention).
+pipeline are kept with its exception types (MoE; ``model.remat``; ring
+attention). BERT with ``model.num_experts > 0`` takes MoE FFN layers
+(models/moe.py).
 """
 
 from __future__ import annotations
@@ -81,15 +82,17 @@ def model_kwargs(config: ModelConfig) -> dict:
                 "attention_impl='ring' nests a shard_map inside the "
                 "pipeline shard_map — unsupported; use 'xla' or 'pallas' "
                 "with PP")
-    if config.num_experts > 0:
-        raise _not_ported("MoE encoder layers (model.num_experts>0)", "A8")
     return dict(
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
         mlp_dim=config.mlp_dim, max_seq_len=config.max_seq_len,
         dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype],
         attention_impl=config.attention_impl, fused_qkv=config.fused_qkv,
-        remat=config.remat)
+        remat=config.remat, num_experts=config.num_experts,
+        moe_every=config.moe_every, expert_topk=config.expert_topk,
+        capacity_factor=config.capacity_factor,
+        moe_dispatch=config.moe_dispatch,
+        moe_zloss_weight=config.moe_zloss_weight)
 
 
 def check_ring_mode(config: ModelConfig, spmd_mode: str) -> None:

@@ -38,6 +38,15 @@ the axis's size, and its ``nh / tp_size`` heads are this rank's; the
 embedding table is held as this rank's H-part and gathered whole once per
 forward (``Embed.table``).
 
+Mixture-of-Experts (``num_experts > 0``; models/moe.py): every
+``moe_every``-th layer (layers ``moe_every − 1``, ``2·moe_every − 1``, ...)
+takes a ``moe`` FFN (Flax ``layer{i}/moe/{gate/kernel, wi, wo}``) in
+place of ``mlp_in``/``mlp_out``. Every layer returns ``(x, aux)``, the
+MoE layer's aux dict or zeros, and the model returns ``{"logits",
+"moe_aux_loss", "moe_drop_frac"[, "moe_zloss"]}``, each the mean over
+its MoE layers (``moe_zloss`` only when ``moe_zloss_weight`` is set), as
+the Flax model does.
+
 ``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``, the
 counterpart of ``nn.remat(EncoderLayer)``): the backward recomputes a
 layer's activations from its input instead of keeping them, so activation
@@ -64,6 +73,7 @@ from distributed_tensorflow_framework_torch.models.layers import (
     dropout,
     normal_,
 )
+from distributed_tensorflow_framework_torch.models.moe import MoEMlp
 from distributed_tensorflow_framework_torch.ops.flash_attention import (
     flash_attention,
 )
@@ -149,10 +159,20 @@ class MultiHeadAttention(nn.Module):
         return self.attn_out(out.reshape(b, s, width))
 
 
+# The keys of an encoder layer's aux dict (models/moe.py).
+AUX_KEYS = ("aux_loss", "zloss", "drop_frac")
+
+
 class EncoderLayer(nn.Module):
+    """Attention and the FFN: the dense MLP, or with ``num_experts > 0``
+    the MoE FFN (``moe``; ``moe_kwargs`` are MoEMlp's options). Returns
+    ``(x, aux)``: the MoE FFN's aux dict, or f32 zeros under the same
+    keys."""
+
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int, *,
                  dtype: torch.dtype, attention_impl: str, fused_qkv: bool,
-                 dropout_rate: float = 0.0, device=None):
+                 dropout_rate: float = 0.0, num_experts: int = 0,
+                 moe_kwargs: dict | None = None, device=None):
         super().__init__()
         self.dropout_rate = dropout_rate
         # (this rank's index, the seq ranks) under sequence parallelism.
@@ -161,18 +181,28 @@ class EncoderLayer(nn.Module):
             hidden, num_heads, dtype=dtype, attention_impl=attention_impl,
             fused_qkv=fused_qkv, device=device)
         self.ln1 = LayerNorm(hidden, device=device)
-        self.mlp_in = Dense(hidden, mlp_dim, dtype=dtype, device=device)
-        self.mlp_out = Dense(mlp_dim, hidden, dtype=dtype, device=device)
+        self.moe = None
+        if num_experts > 0:
+            self.moe = MoEMlp(hidden, num_experts, mlp_dim, dtype=dtype,
+                              device=device, **(moe_kwargs or {}))
+        else:
+            self.mlp_in = Dense(hidden, mlp_dim, dtype=dtype, device=device)
+            self.mlp_out = Dense(mlp_dim, hidden, dtype=dtype, device=device)
         self.ln2 = LayerNorm(hidden, device=device)
 
     def forward(self, x, mask=None, segment_ids=None, generator=None):
         attn = dropout(self.attn(x, mask, segment_ids), self.dropout_rate,
                        generator, self.training, self.seq_part)
         x = self.ln1(x + attn)
-        y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        if self.moe is not None:
+            y, aux = self.moe(x)
+        else:
+            y = self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+            zero = x.new_zeros((), dtype=torch.float32)
+            aux = dict.fromkeys(AUX_KEYS, zero)
         y = dropout(y, self.dropout_rate, generator, self.training,
                     self.seq_part)
-        return self.ln2(x + y)
+        return self.ln2(x + y), aux
 
 
 @contextlib.contextmanager
@@ -188,7 +218,9 @@ def _replaying(generator: torch.Generator, state: torch.Tensor):
 
 
 def remat_layer(layer: nn.Module, x, mask, segment_ids, generator):
-    """``layer(x, mask, segment_ids, generator)`` under a per-layer
+    """``layer(x, mask, segment_ids, generator)`` (its ``(x, aux)``, the
+    aux dict carried through as ``nn.remat`` carries return values) under
+    a per-layer
     activation checkpoint. ``preserve_rng_state`` covers only the default
     generators, and dropout draws from ``generator``, so the recompute
     would draw other masks and give wrong gradients without an error. So
@@ -292,10 +324,22 @@ class BertForMLM(nn.Module):
                  dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "xla", fused_qkv: bool = False,
-                 remat: bool = False, device=None):
+                 remat: bool = False, num_experts: int = 0,
+                 moe_every: int = 2, expert_topk: int = 2,
+                 capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
+                 moe_zloss_weight: float = 0.0, device=None):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
+        self.num_experts = num_experts
+        self.moe_zloss_weight = moe_zloss_weight
+        every = max(moe_every, 1)
+        # The layers that take the MoE FFN (the Flax model's choice).
+        self.moe_layers = [i for i in range(num_layers) if num_experts > 0
+                           and i % every == every - 1]
+        moe_kwargs = dict(topk=expert_topk, capacity_factor=capacity_factor,
+                          dispatch_impl=moe_dispatch,
+                          zloss_weight=moe_zloss_weight)
         # The ring's runtime under sequence parallelism (shard_sequence).
         self.seq_runtime = None
         self.embed_block = BertEmbed(vocab_size, hidden_size, max_seq_len,
@@ -305,16 +349,18 @@ class BertForMLM(nn.Module):
             self.add_module(f"layer{i}", EncoderLayer(
                 hidden_size, num_heads, mlp_dim, dtype=dtype,
                 attention_impl=attention_impl, fused_qkv=fused_qkv,
-                dropout_rate=dropout_rate, device=device))
+                dropout_rate=dropout_rate,
+                num_experts=num_experts if i in self.moe_layers else 0,
+                moe_kwargs=moe_kwargs, device=device))
         self.head = MLMHead(vocab_size, hidden_size, dtype=dtype,
                             device=device)
 
     def init_weights(self, generator: torch.Generator | None) -> None:
         """Draw every parameter as the Flax initialisers would: dense
-        kernels variance-scaled, embedding tables normal(0.02), biases
-        zero, LayerNorm scales one."""
+        kernels and the experts variance-scaled, embedding tables
+        normal(0.02), biases zero, LayerNorm scales one."""
         for module in self.modules():
-            if isinstance(module, Dense):
+            if isinstance(module, (Dense, MoEMlp)):
                 module.reset_parameters(generator)
             elif isinstance(module, LayerNorm):
                 module.reset_parameters()
@@ -339,7 +385,8 @@ class BertForMLM(nn.Module):
     def forward(self, input_ids, attention_mask=None, segment_ids=None, *,
                 dropout_generator: torch.Generator | None = None):
         """Logits (B, S, vocab) f32 — under sequence parallelism those of
-        this rank's part of each row, (B, S/n, vocab). ``dropout_generator``
+        this rank's part of each row, (B, S/n, vocab) — or, with MoE
+        layers, the dict of the module docstring. ``dropout_generator``
         feeds the dropout masks in ``train()`` mode; ``eval()`` mode
         ignores it."""
         position_ids = (None if segment_ids is None
@@ -359,11 +406,26 @@ class BertForMLM(nn.Module):
         mask = (None if attention_mask is None
                 else attention_mask[:, None, None, :].bool())
         remat = self.remat and torch.is_grad_enabled()
+        totals = None
         for i in range(self.num_layers):
             layer = getattr(self, f"layer{i}")
             if remat:
-                x = remat_layer(layer, x, mask, segment_ids,
-                                dropout_generator)
+                x, aux = remat_layer(layer, x, mask, segment_ids,
+                                     dropout_generator)
             else:
-                x = layer(x, mask, segment_ids, dropout_generator)
-        return self.head(x, table)
+                x, aux = layer(x, mask, segment_ids, dropout_generator)
+            if i in self.moe_layers:
+                totals = aux if totals is None else {
+                    k: totals[k] + aux[k] for k in AUX_KEYS}
+        logits = self.head(x, table)
+        if not self.num_experts:
+            return logits
+        if totals is None:
+            totals = dict.fromkeys(AUX_KEYS, logits.new_zeros(()))
+        n = max(len(self.moe_layers), 1)
+        out = {"logits": logits,
+               "moe_aux_loss": totals["aux_loss"] / n,
+               "moe_drop_frac": totals["drop_frac"] / n}
+        if self.moe_zloss_weight:
+            out["moe_zloss"] = totals["zloss"] / n
+        return out

@@ -13,8 +13,10 @@ with these layout rules:
   * a ConvBN's ``BatchNorm_0/bn`` → the port's ``bn`` module, and the
     Flax ``batch_stats`` tree's ``mean``/``var`` → its ``running_mean``/
     ``running_var`` buffers;
-  * everything else (``pos_embedding``, ``mlm_bias``, biases) keeps its
-    name and shape.
+  * everything else (``pos_embedding``, ``mlm_bias``, biases, and a MoE
+    layer's ``moe/wi`` (E, H, F) and ``moe/wo`` (E, F, H), which are not
+    Dense kernels and keep the Flax layout) keeps its name and shape; the
+    MoE gate is a Dense without bias (``moe/gate/kernel`` (H, E) → (E, H)).
 
 Trees are nested dicts of numpy arrays, as ``jax.device_get`` of the Flax
 params (and ``batch_stats``) gives them and as serve/export.py stores them.
@@ -26,6 +28,9 @@ part of a leaf that the JAX package's ``PartitionSpec`` gives its
 the port's layout by the same rules as a whole leaf (:func:`torch_shape`):
 the fused ``qkv`` kernel's part (H, 3, H/m) is a (3H/m, H) weight whose
 rows ``i·H/m + o`` hold the whole weight's rows ``i·H + r·H/m + o``.
+Under expert parallelism (parallel/expert.py) the part of ``wi``/``wo``
+at ``expert`` coordinate r is ``leaf_part(leaf, 0, n, r)``, experts
+``[r·E/n, (r+1)·E/n)``, in the same layout as the whole leaf.
 
 The JAX package's pipelined BERT (parallel/pipeline.py) keeps its
 encoder layers stacked: ``{embed_block, pipeline_layers, head}``, every

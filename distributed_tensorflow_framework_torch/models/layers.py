@@ -56,22 +56,25 @@ class Dense(nn.Module):
     the product rounds once and the bias add rounds again. Under tensor
     parallelism ``tp`` (parallel/tensor_parallel.py ``ColumnParallel`` or
     ``RowParallel``) computes the layer from this rank's part of the
-    weight and its collectives; None computes it whole."""
+    weight and its collectives; None computes it whole. ``use_bias=False``
+    (Flax's ``use_bias``) leaves the bias out: ``bias`` is None."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, use_bias: bool = True, device=None):
         super().__init__()
         self.dtype = dtype
         self.tp = None
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.empty(
+        self.bias = (nn.Parameter(torch.empty(
             out_features, dtype=torch.float32, device=device))
+            if use_bias else None)
 
     def reset_parameters(self, generator: torch.Generator | None) -> None:
         variance_scaling_fan_in_(self.weight, self.weight.shape[1], generator)
-        with torch.no_grad():
-            self.bias.zero_()
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
@@ -79,10 +82,10 @@ class Dense(nn.Module):
         return dense(x, self.weight, self.bias, self.dtype)
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
           dtype: torch.dtype) -> torch.Tensor:
     y = F.linear(x.to(dtype), weight.to(dtype))
-    return y + bias.to(dtype)
+    return y if bias is None else y + bias.to(dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,

@@ -5,8 +5,8 @@ The JAX package places these inside ``shard_map`` over the mesh's data
 axes; the port runs one process per GPU, so each function takes the
 :class:`~distributed_tensorflow_framework_torch.core.mesh.MeshRuntime`
 (``None``: a single process, where every collective is the identity) and
-the mesh axes it spans, ``axes``: None for data × fsdp (the JAX
-package's ``DATA_AXES``; every rank unless ``mesh.model`` exceeds 1, whose
+the mesh axes it spans, ``axes``: None for data × fsdp × expert (the JAX
+package's ``batch_spec`` axes; every rank unless ``mesh.model`` exceeds 1, whose
 ranks repeat the data-parallel step), or names such as ``"fsdp"`` for the
 ranks along those axes that share this rank's other coordinates
 (``MeshRuntime.axis_group``). The replica index over them is
@@ -194,7 +194,7 @@ def _like(tree: Any, leaves: list[torch.Tensor]) -> Any:
 # -------------------------------------------------------------- the group --
 
 def _group(runtime, axes=None):
-    """The ``AxisGroup`` of ``axes`` (data × fsdp for None); None without
+    """The ``AxisGroup`` of ``axes`` (data × fsdp × expert for None); None without
     a runtime."""
     if runtime is None:
         return None

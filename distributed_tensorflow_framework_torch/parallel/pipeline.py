@@ -190,7 +190,8 @@ class _Stack:
             if self.base is not None:
                 gen = self.model.layer_generator(x.device)
                 gen.manual_seed(layer_seed(self.base, mb, g))
-            x = getattr(self.model, f"layer{g}")(x, self.masks[mb], None, gen)
+            x, _ = getattr(self.model, f"layer{g}")(x, self.masks[mb], None,
+                                                   gen)
         return x
 
     def hop(self, buf: torch.Tensor, shift: int) -> torch.Tensor:

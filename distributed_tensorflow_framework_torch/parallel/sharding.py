@@ -57,8 +57,11 @@ the whole tensors (:meth:`DimSharding.global_state`, every rank takes
 part); a restore cuts each rank's part back out
 (:meth:`DimSharding.local_state`).
 
-The MoE rules (``MOE_RULES``) are ROADMAP.md queue A item A8 and are not
-here.
+The MoE rules (``MOE_RULES``) come before the TP rules, as in the JAX
+package: a MoE layer's ``wi`` (E, H, F) and ``wo`` (E, F, H) put their
+leading E over the ``expert`` axis (and F over ``model``, which the port
+refuses beside MoE); parallel/expert.py holds each rank's contiguous block
+of E/n experts, its slots and EMA alike.
 """
 
 from __future__ import annotations
@@ -95,6 +98,15 @@ TP_RULES: list[tuple[str, tuple[str | None, ...]]] = [
     (r".*mlp_in/kernel$", (None, "model")),
     (r".*mlp_out/kernel$", ("model", None)),
     (r".*embed/embedding$", (None, "model")),
+]
+
+# MoE expert weights (models/moe.py): the leading num_experts dim over
+# ``expert``, the hidden dims split over ``model`` (column-parallel wi,
+# row-parallel wo); the gate stays replicated. The JAX package's MOE_RULES,
+# applied whenever the pattern matches (a trivial axis is dropped).
+MOE_RULES: list[tuple[str, tuple[str | None, ...]]] = [
+    (r".*moe/wi$", ("expert", None, "model")),
+    (r".*moe/wo$", ("expert", "model", None)),
 ]
 
 
@@ -138,14 +150,14 @@ def infer_param_specs(model: nn.Module, sizes: Mapping[str, int]
                       ) -> dict[str, tuple[str | None, ...]]:
     """Each parameter's state_dict key → the JAX package's
     ``PartitionSpec`` of its Flax leaf on a mesh of ``sizes`` (one axis
-    name or None per Flax dim): ``TP_RULES`` first when ``model`` exceeds
-    1, then the fsdp dim among those still free when ``fsdp`` exceeds 1.
-    ``model`` holds its whole parameters."""
+    name or None per Flax dim): ``MOE_RULES`` first, then ``TP_RULES``
+    when ``model`` exceeds 1, then the fsdp dim among those still free
+    when ``fsdp`` exceeds 1. ``model`` holds its whole parameters."""
     out = {}
     fsdp = sizes.get("fsdp", 1)
     for key, (path, shape) in flax_layout(model).items():
-        spec = None
-        if sizes.get("model", 1) > 1:
+        spec = _match_rules("/".join(path), shape, sizes, MOE_RULES)
+        if spec is None and sizes.get("model", 1) > 1:
             spec = _match_rules("/".join(path), shape, sizes, TP_RULES)
         spec = spec or (None,) * len(shape)
         if fsdp > 1:

@@ -369,6 +369,8 @@ class InferenceEngine:
         t0 = time.monotonic()
         with torch.inference_mode():
             logits = self.model(*model_inputs(self.task, placed))
+            if isinstance(logits, dict):  # MoE: the logits beside the aux
+                logits = logits["logits"]
             logits = logits.cpu().numpy()  # waits for the device
         compute_ms = (time.monotonic() - t0) * 1e3
         if first_use:

@@ -1,5 +1,5 @@
 """Training hooks: the port's copy of ``train/hooks.py``'s NaN guard,
-throughput, logging, eval, checkpoint and heartbeat hooks.
+throughput, logging, eval, checkpoint, heartbeat and MoE collapse hooks.
 
 Hooks only ever see host-side metric values the trainer already fetched,
 so they never force an extra device sync. Across ranks every rank runs
@@ -7,13 +7,14 @@ the same hooks at the same steps, as in the JAX trainer: the logging hook
 writes through the chief-only ``MetricWriter``, the checkpoint hook's
 manager writes on the chief alone (core/metrics.py, ckpt/checkpoint.py),
 and each rank beats its own heartbeat file (``heartbeat-p<i>.json``,
-core/cluster.py). The profile and MoE hooks are not ported (ROADMAP.md
-queue A items A16 and A8).
+core/cluster.py). The profile hook is not ported (ROADMAP.md queue A item
+A16).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import time
@@ -25,6 +26,8 @@ from distributed_tensorflow_framework_torch.core.metrics import (
 from distributed_tensorflow_framework_torch.train.anomaly import (
     PersistentAnomalyError,
 )
+
+log = logging.getLogger(__name__)
 
 
 class BaseHook:
@@ -212,3 +215,53 @@ class HeartbeatHook(BaseHook):
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, self.path)
+
+
+class MoECollapseHook(BaseHook):
+    """Detects expert-routing collapse from the fetched step metrics:
+    ``moe_drop_frac`` above ``drop_frac_threshold`` (tokens racing to one
+    expert, the rest dropped by capacity) or ``moe_aux_loss`` above
+    ``aux_loss_threshold`` (balanced routing gives ~1.0). Once a threshold
+    holds for ``patience`` consecutive fetches it logs a structured
+    warning and emits a ``health`` event with each violation's
+    ``*_value``; it never stops the run."""
+
+    def __init__(self, *, drop_frac_threshold: float = 0.35,
+                 aux_loss_threshold: float = 2.0, patience: int = 2):
+        self.drop_frac_threshold = drop_frac_threshold
+        self.aux_loss_threshold = aux_loss_threshold
+        self.patience = max(1, patience)
+        self._streak = 0
+        self.fired_steps: list[int] = []
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if metrics is None:
+            return
+        drop = metrics.get("moe_drop_frac")
+        aux = metrics.get("moe_aux_loss")
+        if drop is None and aux is None:
+            return
+        violations = {}
+        if drop is not None and float(drop) > self.drop_frac_threshold:
+            violations["moe_drop_frac"] = {
+                "value": float(drop), "threshold": self.drop_frac_threshold}
+        if aux is not None and float(aux) > self.aux_loss_threshold:
+            violations["moe_aux_loss"] = {
+                "value": float(aux), "threshold": self.aux_loss_threshold}
+        if not violations:
+            self._streak = 0
+            return
+        self._streak += 1
+        if self._streak < self.patience:
+            return
+        self.fired_steps.append(step)
+        payload = {"warning": "moe_collapse", "step": step,
+                   "streak": self._streak, "violations": violations}
+        log.warning("MOE COLLAPSE SUSPECTED %s", json.dumps(payload))
+        writer = getattr(trainer, "writer", None)
+        if writer is not None and hasattr(writer, "telemetry"):
+            writer.telemetry.emit(
+                telemetry.KIND_HEALTH, step=step,
+                health={"warning": "moe_collapse", "streak": self._streak,
+                        **{f"{k}_value": v["value"]
+                           for k, v in violations.items()}})

@@ -51,7 +51,9 @@ kinds). A ZeRO run writes its static plan once as a ``zero_update`` event
 (parallel/zero.py ``plan_summary``), and ``run_meta`` names
 ``zero_sharding``, the mesh's ``fsdp`` and the bucket count, the mesh's
 ``model`` and how many leaves tensor parallelism splits
-(``tp_sharded_leaves``).
+(``tp_sharded_leaves``), the mesh's ``expert`` and how many leaves expert
+parallelism splits (``ep_sharded_leaves``). A MoE model arms the MoE
+collapse hook, as the JAX trainer does.
 Evaluation is exact, as in the JAX
 trainer: a finite eval stream (TFRecords) is walked once in full, every
 record once, the padded tail weighted out; an infinite one (the synthetic
@@ -209,6 +211,9 @@ class Trainer:
             model_parallel=rt.sizes["model"],
             tp_sharded_leaves=(0 if self.state.tp is None
                                else self.state.tp.sharded),
+            expert_parallel=rt.sizes["expert"],
+            ep_sharded_leaves=(0 if self.state.ep is None
+                               else self.state.ep.sharded),
             sequence_parallel=(rt.sizes["seq"] if self.builder.seq_parallel
                                else 1),
             p2p_transport=(rt.p2p_transport(self.device)
@@ -291,6 +296,8 @@ class Trainer:
                                            cfg.train.log_interval, tp)]
         if cfg.train.nan_guard:
             hooks.append(hooks_lib.NaNGuardHook())
+        if cfg.model.num_experts > 0:
+            hooks.append(hooks_lib.MoECollapseHook())
         if self._ckpt_manager is not None:
             hooks.append(hooks_lib.HeartbeatHook(
                 cluster.heartbeat_path(self._ckpt_manager.directory,

@@ -8,7 +8,8 @@ than 5 classes; ties in ``topk`` may order differently than in
 masked (predicted) positions and -1 elsewhere; the denominator of the
 training loss is ``max(#masked, 1)``. The ``*_metrics_sums`` functions
 give the weighted sums of exact evaluation, which the eval loop adds over
-batches and divides by ``weight_sum``.
+batches and divides by ``weight_sum``. A MoE model's aux outputs join the
+MLM loss through :func:`add_moe_terms`.
 """
 
 from __future__ import annotations
@@ -94,3 +95,18 @@ def mlm_metrics_sums(logits: torch.Tensor, targets: torch.Tensor,
         "mlm_acc_sum": (correct * mask).sum(),
         "weight_sum": mask.sum(),
     }
+
+
+def add_moe_terms(loss: torch.Tensor, metrics: dict, out: dict,
+                  aux_weight: float) -> torch.Tensor:
+    """The MoE terms of the JAX step's MLM loss: ``loss`` plus
+    ``aux_weight`` times the model's ``moe_aux_loss``, with the metrics
+    ``moe_aux_loss``, ``total_loss``, ``moe_drop_frac`` and (armed only)
+    ``moe_zloss`` added to ``metrics`` in place; returns the total."""
+    total = loss + aux_weight * out["moe_aux_loss"]
+    metrics["moe_aux_loss"] = out["moe_aux_loss"]
+    metrics["total_loss"] = total
+    metrics["moe_drop_frac"] = out["moe_drop_frac"]
+    if "moe_zloss" in out:
+        metrics["moe_zloss"] = out["moe_zloss"]
+    return total

@@ -21,6 +21,8 @@ themselves); under ZeRO-1 the slots are parts. The int8 residual keeps
 the full parameter shape in every mode. Under tensor parallelism
 (``tp``) the parameters, the slots and the EMA are this rank's
 tensor-parallel parts, which FSDP and ZeRO-1 may cut further. Under
+expert parallelism (``ep``) the MoE layers' ``wi``/``wo``, their slots and
+their EMA are this rank's experts. Under
 pipeline parallelism (``pipe``) the model, its slots and its EMA are
 this rank's stage (and the embedding and head).
 ``state_dict`` and
@@ -87,6 +89,10 @@ class TrainState:
     # ``TensorParallel``), None without one; not state: the model's
     # parameters are its parts.
     tp: Any = None
+    # The expert-parallel split of the MoE layers (parallel/expert.py
+    # ``ExpertParallel``), None without one; not state: the model's
+    # expert parameters are its parts.
+    ep: Any = None
     # A pipelined model's stage layout (parallel/pipeline.py
     # ``StageLayout``), None without a pipeline; not state: the model
     # holds this rank's stage.

@@ -88,6 +88,28 @@ schedule's analytic bubble. The JAX package's refusals hold (stages
 equal to ``pipe``, BERT only, ``jit`` only, beside ``data`` and ``fsdp``
 only).
 
+Mixture-of-Experts (BERT with ``model.num_experts > 0``; ROADMAP.md A8):
+the model returns its logits with the MoE layers' aux outputs, and the
+micro-step's loss is the MLM loss plus ``train.moe_aux_weight`` times
+``moe_aux_loss`` (JAX ``_microbatch_grads``), with the metrics
+``moe_aux_loss``, ``total_loss``, ``moe_drop_frac`` and, when the router
+z-loss is armed, ``moe_zloss``; the eval step keeps the logits. Under
+``jit`` across ranks the router's statistics are the global batch's
+(parallel/expert.py ``RouterStats``), so the loss, the metrics and the
+gradients are the JAX ``jit`` step's. With ``mesh.expert > 1`` the batch
+is split over data × fsdp × expert (core/mesh.py ``DATA_AXES``) and each
+rank along ``expert`` holds ``num_experts / mesh.expert`` of every MoE
+layer's experts (parallel/expert.py ``ExpertParallel``): DDP reduces
+every other leaf over data × fsdp × expert and leaves the expert parts
+out, whose gradients one all-reduce over data × fsdp carries;
+``grad_norm`` (and the clipping) is the whole gradient's. The JAX
+package's refusals hold: ``mesh.expert > 1`` under ``shard_map``, MoE or
+``expert`` beside ``pipe``. ``mesh.expert > 1`` beside ``fsdp``,
+``model`` or ``seq``, and MoE beside tensor or sequence parallelism,
+raise NotImplementedError naming "A8 (experts beside fsdp/model/seq)".
+Under ``shard_map`` (``expert`` 1) each rank routes its own rows, as the
+JAX ``shard_map`` step's replicas do.
+
 Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
 per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
 rank runs the micro-steps as a single device would, its micro-batches
@@ -146,8 +168,9 @@ and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
 BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
 
 Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: the
-``expert`` mesh axis, ``seq`` beside ``fsdp``, ``model`` or ZeRO, a split
+naming its ROADMAP.md item when it is not at its off value: experts
+beside ``fsdp``, ``model`` or ``seq``, ``seq`` beside ``fsdp``, ``model``
+or ZeRO, a split
 fused QKV whose heads ``mesh.model`` does not divide, the fused update
 and the selective remat policies. ``model.remat``
 (per-layer checkpointing) is carried by the model. A wire dtype under
@@ -178,6 +201,7 @@ from distributed_tensorflow_framework_torch.models.layers import (
     use_cross_rank_bn,
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
+from distributed_tensorflow_framework_torch.parallel import expert as ep_lib
 from distributed_tensorflow_framework_torch.parallel import ring
 from distributed_tensorflow_framework_torch.parallel import schedule as sched
 from distributed_tensorflow_framework_torch.parallel import zero
@@ -277,6 +301,24 @@ def check_pipeline(config: ExperimentConfig, sizes: dict[str, int]) -> None:
     model_kwargs(mcfg)
 
 
+def check_experts(config: ExperimentConfig, sizes: dict[str, int]) -> None:
+    """What expert parallelism and MoE do not compose with yet."""
+    moe = (config.model.num_experts > 0
+           and config.model.name.lower() in BERT_NAMES)
+    beside = ([a for a in ("fsdp", "model", "seq") if sizes[a] > 1]
+              if sizes["expert"] > 1 else [])
+    if moe and sizes["model"] > 1 and "model" not in beside:
+        beside.append("model")
+    if moe and sequence_parallel(config, sizes) and "seq" not in beside:
+        beside.append("seq")
+    if beside:
+        raise _not_ported(
+            f"{'MoE' if moe else 'mesh.expert'} beside "
+            + ", ".join(f"mesh.{a}={sizes[a]}" for a in beside)
+            + f" (mesh.expert={sizes['expert']})",
+            "A8 (experts beside fsdp/model/seq)")
+
+
 def check_step_config(config: ExperimentConfig, world: int = 1
                       ) -> dict[str, int]:
     """Raise for every setting the data-parallel step over ``world`` ranks
@@ -284,16 +326,22 @@ def check_step_config(config: ExperimentConfig, world: int = 1
     ValueError for the JAX package's refusals (a wire dtype under ``jit``,
     a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
     their update cannot run, ring attention under ``shard_map``, a row
-    the ring cannot split, a pipeline it cannot run), NotImplementedError
-    for what is not ported (``expert`` above 1, ``seq`` beside ``fsdp``,
-    ``model`` or ZeRO). Returns the mesh's sizes."""
+    the ring cannot split, a pipeline it cannot run, expert parallelism
+    under ``shard_map``), NotImplementedError for what is not ported
+    (experts beside ``fsdp``, ``model`` or ``seq``, ``seq`` beside
+    ``fsdp``, ``model`` or ZeRO). Returns the mesh's sizes."""
     sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
     if tcfg.spmd_mode not in ("jit", "shard_map"):
         raise ValueError(f"train.spmd_mode must be 'jit' or 'shard_map', "
                          f"got {tcfg.spmd_mode!r}")
+    if tcfg.spmd_mode == "shard_map" and sizes["expert"] > 1:
+        raise ValueError(
+            "spmd_mode='shard_map' is the pure-DP reference-parity path; "
+            "expert parallelism (mesh.expert>1) requires spmd_mode='jit'")
     check_pipeline(config, sizes)
     check_ring_mode(config.model, tcfg.spmd_mode)
+    check_experts(config, sizes)
     if sequence_parallel(config, sizes):
         if (sizes["fsdp"] > 1 or sizes["model"] > 1
                 or zero_mode(config) != "off"):
@@ -407,6 +455,10 @@ class StepBuilder:
         self.dp_world = 1 if runtime is None else self.data_group.size
         self.tensor_parallel = (config.train.spmd_mode == "jit"
                                 and sizes["model"] > 1)
+        # Expert parallelism: each rank along ``expert`` holds its block
+        # of every MoE layer's experts.
+        self.expert_parallel = (runtime is not None and sizes["expert"] > 1
+                                and config.train.spmd_mode == "jit")
         # Sequence parallelism: the ranks the gradients, the loss weight
         # and the metrics reduce over are data × fsdp × seq.
         self.seq_parallel = (runtime is not None
@@ -488,6 +540,14 @@ class StepBuilder:
                          else self.config.data.channels), **stage)
         tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
               else None)
+        ep = (ep_lib.ExpertParallel(model, self.runtime)
+              if self.expert_parallel else None)
+        if ep is not None and not ep.sharded:
+            ep = None
+        if not self.shard_map:
+            # The JAX jit step routes the global batch: the balance
+            # statistics are summed over the data-parallel ranks.
+            ep_lib.attach_router_stats(model, self.runtime)
         pipe = StageLayout(model) if self.pipelined else None
         if self.seq_parallel:
             model.shard_sequence(self.runtime)
@@ -518,6 +578,11 @@ class StepBuilder:
             # an element in an order set by its place in the bucket, so a
             # rebuilt order would make a resumed run's sums differ in the
             # last bit from a straight run's.
+            if ep is not None:
+                # The expert parts reduce over data × fsdp alone
+                # (ExpertParallel.reduce_grads_).
+                DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(  # noqa: E501
+                    model, ep.part_keys())
             ddp = DistributedDataParallel(
                 model, device_ids=(None if self.device.type == "cpu"
                                    else [self.device.index]),
@@ -548,6 +613,8 @@ class StepBuilder:
             whole_norms = tp.whole_norms(
                 dict(model.named_parameters()) if layout is None
                 else layout.params, whole_norms)
+        if ep is not None:
+            whole_norms = ep.whole_norms(dict(model.named_parameters()))
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model,
             params=None if layout is None else layout.params,
@@ -564,7 +631,7 @@ class StepBuilder:
             dropout_generator=prng.torch_generator(
                 seed, prng.ROLE_DROPOUT, self.device, *rank),
             ema_params=ema, ddp=ddp, layout=layout,
-            collective_residual=residual, tp=tp, pipe=pipe)
+            collective_residual=residual, tp=tp, ep=ep, pipe=pipe)
 
     def set_schedule_wrapper(self, state: TrainState, wrapper) -> None:
         """Apply ``wrapper`` to the config's schedule for the optimizer and
@@ -579,11 +646,15 @@ class StepBuilder:
         the gradients add into ``.grad``. ``fault_scale`` multiplies the
         loss itself (see ``train_step``)."""
         if self.task == "mlm":
-            logits = state.train_module(
+            out = state.train_module(
                 *model_inputs(self.task, batch),
                 dropout_generator=state.dropout_generator)
+            logits = out["logits"] if isinstance(out, dict) else out
             loss, metrics = losses.mlm_loss(logits,
                                             self._targets(batch["targets"]))
+            if isinstance(out, dict):
+                loss = losses.add_moe_terms(
+                    loss, metrics, out, self.config.train.moe_aux_weight)
         else:
             # Inception draws its dropout from the trainer's stream and, in
             # train mode, returns its aux head's logits too.
@@ -692,6 +763,10 @@ class StepBuilder:
         grad_norm = None
         if self.shard_map:
             metrics, grad_norm = self._explicit_collectives(state, metrics)
+        if state.ep is not None:
+            state.ep.reduce_grads_(state.model, self.reduce_world)
+            grad_norm = state.ep.global_norm(
+                {k: p.grad for k, p in state.model.named_parameters()})
         if grad_norm is None and state.tp is not None:
             grad_norm = state.tp.global_norm(
                 {k: p.grad for k, p in state.model.named_parameters()})
@@ -809,6 +884,8 @@ class StepBuilder:
                     logits = state.model(*inputs)
         finally:
             state.model.train()
+        if isinstance(logits, dict):  # MoE: the logits beside the aux
+            logits = logits["logits"]
         labels = (self._targets(batch["targets"]) if self.task == "mlm"
                   else batch["label"])
         weight = batch.get("weight")

@@ -170,7 +170,7 @@ def test_init_distributions_match_flax(jax_params):
 @pytest.mark.parametrize("override,match", [
     ({"name": "inception_v3", "remat": True}, "A18"),
     ({"name": "resnet50", "remat": True}, "A18"),
-    ({"num_experts": 4}, "A8"),
+    ({"name": "resnet101", "remat": True}, "A18"),
     ({"name": "inception-v3", "remat": True}, "A18"),
     ({"name": "resnet18_cifar", "remat": True}, "A18"),
 ])

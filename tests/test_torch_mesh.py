@@ -76,11 +76,10 @@ def test_axis_sizes_match_jax(sizes, n):
     ("fsdp", "A10"), ("model", "A10"), ("seq", "A11"), ("pipe", "A12"),
     ("expert", "A8")])
 def test_non_data_axes_name_their_item(axis, item):
-    """An axis not ported yet is refused naming its item; fsdp and model,
-    ported by A10's FSDP and tensor-parallel halves, seq, ported by A11,
-    and pipe, ported by A12, resolve above 1 (fixed or free) as the JAX
-    mesh does."""
-    if axis in ("fsdp", "model", "seq", "pipe"):
+    """Every axis is ported now (fsdp and model by A10's FSDP and
+    tensor-parallel halves, seq by A11, pipe by A12, expert by A8): each
+    resolves above 1 (fixed or free) as the JAX mesh does."""
+    if axis in ("fsdp", "model", "seq", "pipe", "expert"):
         assert mesh.resolve_mesh(MeshConfig(data=1, **{axis: 2}), 2)[
             axis] == 2
         assert mesh.resolve_mesh(MeshConfig(data=2, **{axis: 2}), 4) == \
@@ -142,10 +141,14 @@ def test_mesh_data_2_in_one_process_exits_84(no_gang, caplog):
     assert "needs 2 devices but 1 are available" in caplog.text
 
 
-def test_a_non_data_axis_raises_in_the_cli(no_gang):
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_cli.main(["--device", "cpu", "--set", "mesh.data=1",
-                       "--set", "mesh.expert=2"])
+def test_a_non_data_axis_raises_in_the_cli(no_gang, caplog):
+    """``expert`` is a valid axis: a mesh of two expert ranks in one
+    process does not fit, which is the elastic rc 84."""
+    rc = port_cli.main(["--device", "cpu", "--set", "mesh.data=1",
+                        "--set", "mesh.expert=2",
+                        "--set", "checkpoint.directory="])
+    assert rc == supervision.ELASTIC_RESHARD_RC == 84
+    assert "needs 2 devices but 1 are available" in caplog.text
 
 
 @pytest.mark.parametrize("index, count", [(0, 1), (0, 2), (1, 2), (3, 4)])
@@ -262,7 +265,10 @@ def test_pipe_coordinates_and_the_line_groups():
     assert (line.pipe_group.index, line.pipe_group.size) == (2, 4)
     assert line.pipe_group.group is None and line.seq_group.group is None
     assert (line.data_group.index, line.data_group.size) == (0, 1)
-    assert mesh.LINE_AXES == ("pipe", "seq")
+    assert mesh.LINE_AXES == (("expert",), ("pipe",), ("seq",),
+                              ("data", "fsdp", "expert"))
+    assert line.expert_group.group is None
+    assert line.router_group.group is None
     one = mesh.MeshRuntime({**sizes, "data": 1, "pipe": 1}, 0, 1,
                            torch.device("cpu"))
     x = torch.arange(4.0)

@@ -801,7 +801,7 @@ def test_refusals_match_jax(case, devices):
 
 def test_model_refusals_keep_jax_types():
     """remat and MoE beside the pipeline raise the JAX package's
-    ValueErrors at model build (MoE's before its own A8 refusal); a
+    ValueErrors at model build; a
     pipelined model without a runtime and a pipelined export are
     refused; ZeRO-1 beside the pipeline is not."""
     from distributed_tensorflow_framework_torch.models import (
