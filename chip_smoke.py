@@ -184,19 +184,25 @@ Phases (any failure raises and the script exits non-zero):
      kernels must have launched as in phase 5; its steady ms/step is
      printed beside phase 5's (DDP's cost at one rank). 8b: the same for
      7d's deterministic ResNet-50/CIFAR-10 run, whose losses it must equal
-     bit for bit. 8c: two child ranks of a gloo group on the one card
-     (gloo carries all_reduce and broadcast of CUDA tensors), each feeding
-     its block of the global batch, against one process taking the whole
-     batch: ResNet-50 with the CIFAR stem in f32 at 2 x 128 (the only run
-     of the cross-rank BatchNorm on the card) and BERT at full width, 2
-     layers, f32, dropout 0, at 2 x (4 x 512) with different masked-token
-     counts in the two blocks; losses and grad_norm at every step within
+     bit for bit, after 8a in the same child (a group of its own, under
+     deterministic algorithms). 8c: two child ranks of a gloo group on
+     the one card (gloo carries all_reduce and broadcast of CUDA tensors),
+     each feeding its block of the global batch, against one process
+     taking the whole batch: ResNet-50 with the CIFAR stem in f32 at
+     2 x 128 (the only run of the cross-rank BatchNorm on the card) and
+     BERT at full width, 2 layers, f32, dropout 0, at 2 x (4 x 512) with
+     different masked-token counts in the two blocks; losses and
+     grad_norm at every step within
      DP_TOL; BERT's parameters after 3 steps within DP_TOL of the one
      process's; ResNet's parameters and running statistics after step 1
      no further from an f64 step of the same batch than DP_F64_RATIO
      times the one process's (the f32 step is itself ~6e-4 of its
      largest gradient from exact). The children are this script run as
      ``chip_smoke.py --child SPEC``; a child that fails fails the phase.
+     Each wave of children logs its seconds: the slowest child's start-up
+     (imports, CUDA), its work, and the rest (interpreter start and exit).
+     The children of 8c, 10b, 13c and 13d start up held while the work
+     before them in their phase runs, and start their own when released.
 
   9. ImageNet from records and Inception-v3 (no attention kernel on this
      path). First the JPEG toolchain (``jpeglib.h``, ``libjpeg.so*``,
@@ -239,7 +245,8 @@ Phases (any failure raises and the script exits non-zero):
      phase 5's and 8a's, its peak memory and the residual's size (4 bytes
      a parameter, read from its step-30 checkpoint), then the same step in
      this process profiled by kernel class. 10a': the same for 10
-     steps with no wire, whose losses must be phase 5's bit for bit. 10b:
+     steps with no wire, whose losses must be phase 5's bit for bit, after
+     10a in the same child. 10b:
      two child ranks of a gloo group on the card run every function of
      parallel/collectives.py in every wire mode on seeded tensors of
      BERT-base leaf shapes, on CUDA tensors (gloo's all_reduce transport)
@@ -262,13 +269,14 @@ Phases (any failure raises and the script exits non-zero):
      its steps, the first differing leaf named); (iii)'s losses within
      COLL_LOSS_TOL of (ii)'s; the tally's ``zero_*`` wire bytes at least
      3x fewer on int8; (ii)'s checkpoint slots stacked as (2, chunk) rows;
-     each rank's slots halved; the attention kernels launched 12 x 10
-     times a kernel by each rank in each mode. Prints per rank the bytes
-     of the parameters, slots and residual at rest, the peak memory, and
-     the ms/step (gloo moves CUDA tensors through the host: not a scaling
-     figure). 11b: 8c's cut (2 layers, f32) under deterministic
-     algorithms: explicit FSDP against the replicated shard_map step, jit
-     FSDP and ZeRO-1 against DDP at ``mesh.data=2``, each bit-equal,
+     each rank's slots halved; the attention kernels launched
+     ZERO_LAYERS x ZERO_STEPS times a kernel by each rank in each mode.
+     Prints per rank the bytes of the parameters, slots and residual at
+     rest, the peak memory, and the ms/step (gloo moves CUDA tensors
+     through the host: not a scaling figure). 11b, in the same children
+     after 11a: 8c's cut (2 layers, f32) under deterministic algorithms:
+     explicit FSDP against the replicated shard_map step, jit FSDP and
+     ZeRO-1 against DDP at ``mesh.data=2``, each bit-equal,
      parameters (FSDP) or slots (ZeRO-1) halved at rest. 11c: ZeRO on the
      int8 wire at that cut, 2 steps, a save, a restore into a state from
      another seed and 2 more, bit-equal to 4 straight steps (parameters,
@@ -373,14 +381,45 @@ Phases (any failure raises and the script exits non-zero):
      within DP_TOL, and its checkpoint (written at ``expert: 2``) read by
      one process bit for bit. ``--only 15`` runs the kernels' build and
      phase 15 alone (no kernels line, no last line).
+  16. precision and remat (``precision.*``, ``model.remat``;
+     models/remat.py, models/layers.py's int8 codec, parallel/zero.py's
+     fused walk), through the StepBuilder on synthetic streams of each
+     config's shapes. 16a: ``configs/bert_base_mlm.yaml`` at full width
+     and depth, 32 x 512, without remat and with ``model.remat`` under
+     ``precision.remat_policy`` none, save_nothing and dots_saveable:
+     one step under deterministic algorithms, whose parameters must equal
+     the no-remat arm's bit for bit, then REMAT_STEPS steps timed (ms/step
+     and peak memory per arm), the launches as predicted (the forward
+     twice a layer under remat). 16a': ``activation_dtype: f32`` over the
+     bf16 config at 2 layers, the compute in f32 and the f32 kernels
+     launched. 16b: ``configs/bert_long_ring.yaml`` as written at 8192
+     (12 layers, remat, one row a micro-batch), its remat against
+     dots_saveable, peak and step time. 16c: ResNet-50/CIFAR-10 (config
+     2, 1024 rows, bf16) without remat, full, conv_saved and save_nothing:
+     two deterministic steps whose parameters and BatchNorm statistics
+     must equal the no-remat arm's bit for bit, then timed steps. 16d:
+     ``quantized_matmul`` on the card against the same function on the
+     CPU (its plain version: the forward bit for bit, the gradients within
+     INT8_GRAD_RTOL) and its forward time beside a bf16 matmul; LeNet-5
+     (config 1) and ResNet-50/CIFAR-10 at INT8_RESNET_ROWS
+     rows with ``matmul_dtype: int8`` beside the same runs in bf16:
+     finite losses, f32 masters, ms/step and peak. 16e (two children of
+     its own): at 11a's cut, ZeRO unfused
+     and fused on the f32 and int8 wires (FUSED_STEPS steps), the fused
+     parameters and slots bit-equal to the unfused on f32 (the int8 gap
+     printed), and a fused checkpoint restored into an unfused run
+     refused. ``--only 16`` runs the
+     kernels' build and phase 16 alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b and 15d, whose children set and read their
-own counts) and read just after; launches made to compare or time a
-kernel do not count. The record's ``launches`` are those of phases 4, 5,
-5f, 6, 8a, 10a, 10a', 11a, 12a, 13b, 14a, 15a, 15b and 15d, and its ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b and 16e, whose
+children set and read their own counts) and read just after; launches
+made to compare or time a kernel do not count. The record's
+``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a, 12a,
+13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b and 16e, and its
+``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -567,8 +606,13 @@ IMAGE_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 IMAGE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1.5e-1}
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the report, after the seconds since the script started
+    (where the time limit goes)."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -3260,6 +3304,23 @@ def cifar_phase(torch, workdir: str, smi: str) -> tuple[str, float]:
     return data, 1e3 * d.global_batch_size / run["rate"]
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms for the block (with cuBLAS's
+    fixed workspace), then back as it was."""
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+
+
 def cifar_resume_phase(torch, workdir: str, data: str) -> dict:
     """7d, resume: phase 7b's run under torch.use_deterministic_algorithms
     — 30 steps straight, and 15 steps saved, restored and trained to 30.
@@ -3290,10 +3351,7 @@ def cifar_resume_phase(torch, workdir: str, data: str) -> dict:
         return [i for i, (x, y) in enumerate(zip(a, b))
                 if not torch.equal(x, y)], len(a)
 
-    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic(torch):
         for name, steps in (("det_straight", total),
                             ("det_resumed", CIFAR_RESUME_SPLIT)):
             if run_cli_train(CIFAR_CONFIG, over(name, steps)) != 0:
@@ -3319,12 +3377,6 @@ def cifar_resume_phase(torch, workdir: str, data: str) -> dict:
         del trainer, host_state
         if run_cli_train(CIFAR_CONFIG, over("det_resumed", total)) != 0:
             raise AssertionError("resume leg 2 failed")
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if saved_env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
     losses = {}
     for name in ("det_straight", "det_resumed"):
         losses[name] = {e["step"]: e["metrics"]["loss"]
@@ -3533,26 +3585,59 @@ def gang_env(port: int, world: int, rank: int) -> dict:
             "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank)}
 
 
-def run_children(specs: list[dict], workdir: str, name: str,
-                 timeout: float = 600.0) -> list[dict]:
+# Waves of children spawned and not yet joined: a failure on the way to
+# their phase stops them with the script.
+_WAVES: list[dict] = []
+
+
+def spawn_children(specs: list[dict], workdir: str, name: str,
+                   hold: bool = False) -> dict:
     """Start ``python chip_smoke.py --child <spec>`` once per spec, all
-    together, each with its own environment and log file; wait for all
-    and return what each wrote. A child that fails or times out fails the
-    phase, with the end of every child's log; every child is stopped on
-    the way out."""
-    procs = []
+    together, each with its own environment and log file. With ``hold``
+    each child stops after its start-up (imports, CUDA) until
+    :func:`join_children` releases it, so that the start-up overlaps the
+    work before it."""
+    wave = {"name": name, "procs": [], "hold": hold,
+            "t0": time.perf_counter()}
+    _WAVES.append(wave)
+    for i, spec in enumerate(specs):
+        path = os.path.join(workdir, f"{name}_{i}.json")
+        spec = {**spec, "out": path, "hold": hold, "parent": os.getpid()}
+        env = spec.pop("env")
+        with open(path + ".spec", "w") as fh:
+            json.dump(spec, fh)
+        logf = open(os.path.join(workdir, f"{name}_{i}.log"), "w")
+        wave["procs"].append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child",
+             path + ".spec"], env=env, stdout=logf,
+            stderr=subprocess.STDOUT), logf, path))
+    return wave
+
+
+def stop_children(wave: dict) -> None:
+    """Kill what is left of ``wave`` and close its logs."""
+    for proc, logf, _ in wave["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+    if wave in _WAVES:
+        _WAVES.remove(wave)
+
+
+def join_children(wave: dict, timeout: float = 600.0) -> list[dict]:
+    """Release ``wave`` if it was held, wait for every child and return
+    what each wrote. A child that fails or times out fails the phase,
+    with the end of every child's log; every child is stopped on the way
+    out. Logs where the wave's time went: the slowest child's start-up
+    (imports, CUDA), wait for its release and work on its own clock, and
+    the rest of its life (the interpreter's start and exit)."""
+    name, procs = wave["name"], wave["procs"]
+    t0, ended = time.perf_counter(), {}
     try:
-        for i, spec in enumerate(specs):
-            path = os.path.join(workdir, f"{name}_{i}.json")
-            spec = {**spec, "out": path}
-            env = spec.pop("env")
-            with open(path + ".spec", "w") as fh:
-                json.dump(spec, fh)
-            logf = open(os.path.join(workdir, f"{name}_{i}.log"), "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--child",
-                 path + ".spec"], env=env, stdout=logf,
-                stderr=subprocess.STDOUT), logf, path))
+        for _, _, path in procs:
+            if wave["hold"]:
+                open(path + ".go", "w").close()
         # Poll them all: a rank that fails leaves its peers blocked in a
         # collective, so the first failure stops the rest.
         deadline = time.monotonic() + timeout
@@ -3561,13 +3646,12 @@ def run_children(specs: list[dict], workdir: str, name: str,
                     or any(proc.poll() not in (None, 0)
                            for proc, _, _ in procs)):
                 break
-            time.sleep(0.5)
+            for i, (proc, _, _) in enumerate(procs):
+                if proc.poll() is not None:
+                    ended.setdefault(i, time.perf_counter() - wave["t0"])
+            time.sleep(0.1)
     finally:
-        for proc, logf, _ in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            logf.close()
+        stop_children(wave)
     codes = [proc.returncode for proc, _, _ in procs]
     if any(codes) or not all(os.path.exists(path) for _, _, path in procs):
         for i, (_, logf, _) in enumerate(procs):
@@ -3576,21 +3660,63 @@ def run_children(specs: list[dict], workdir: str, name: str,
                       file=sys.stderr)
         raise AssertionError(f"{name} children exited {codes} (a child "
                              f"killed after a peer failed shows -9)")
-    out = []
-    for _, _, path in procs:
+    out, clocks = [], []
+    for i, (_, _, path) in enumerate(procs):
         with open(path) as fh:
             out.append(json.load(fh))
+        with open(path + ".t") as fh:
+            clocks.append(json.load(fh))
+        clocks[-1]["life"] = ended.get(i, time.perf_counter() - wave["t0"])
+    slow = max(clocks, key=lambda c: c["life"])
+    log(f"{name}: {len(procs)} children in {time.perf_counter() - t0:.1f} s"
+        + (f" from their release ({t0 - wave['t0']:.1f} s after their "
+           f"start)" if wave["hold"] else "")
+        + f"; the slowest: start-up {slow['ready']:.1f} s, held "
+        f"{slow['start'] - slow['ready']:.1f} s, work "
+        f"{slow['done'] - slow['start']:.1f} s, the rest "
+        f"{slow['life'] - slow['done']:.1f} s")
     return out
 
 
-def child_main(spec_path: str) -> int:
-    """One child of phases 8, 10, 11 and 12: ``cli`` runs ``cli.train.main``
-    with the launch counts set to 0 just before and read just after (under
+def run_children(specs: list[dict], workdir: str, name: str,
+                 timeout: float = 600.0) -> list[dict]:
+    """:func:`spawn_children` and :func:`join_children` in one."""
+    return join_children(spawn_children(specs, workdir, name), timeout)
+
+
+def cli_runs(*runs: tuple[list, bool]) -> dict:
+    """The spec of a ``cli`` child that runs ``cli.train.main`` once for
+    each (argv, deterministic) in turn, each in a world of 1 of its own."""
+    return {"kind": "cli", "env": gang_env(free_port(), 1, 0),
+            "runs": [{"argv": argv, "deterministic": det,
+                      "port": free_port()} for argv, det in runs]}
+
+
+def cli_run(torch, fa, run: dict) -> dict:
+    """One run of a ``cli`` child: ``cli.train.main`` on the gang port of
+    its own (the run forms its group and shuts it down), with the launch
+    counts set to 0 just before and read just after (under
     ``torch.use_deterministic_algorithms`` when asked), and its peak
-    device memory; ``rank`` is one rank of 8c, ``coll`` one rank of 10b,
-    ``zero`` one rank of 11a, ``zero_parity`` one of 11b and 11c,
+    device memory."""
+    from distributed_tensorflow_framework_torch.cli import train as cli_train
+
+    os.environ["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{run['port']}"
+    reset_counts(fa)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with (deterministic(torch) if run["deterministic"]
+          else contextlib.nullcontext()):
+        rc = cli_train.main(run["argv"])
+    return {"rc": rc, "counts": read_counts(fa),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def child_main(spec_path: str) -> int:
+    """One child of phases 8 and 10-16: ``cli`` runs ``cli.train.main``
+    once or more (:func:`cli_run`); ``rank`` is one rank of 8c, ``coll``
+    one rank of 10b, ``zero`` one rank of 11a, 11b and 11c,
     ``tp`` one of phase 12, ``ring`` one of 13b, 13c or 13d, ``pipe``
-    one of phase 14 and ``moe`` one of 15d.
+    one of phase 14, ``moe`` one of 15d and ``fused`` one of 16e.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -3600,27 +3726,25 @@ def child_main(spec_path: str) -> int:
 
     with open(spec_path) as fh:
         spec = json.load(fh)
+    torch.cuda.init()
+    ready = time.perf_counter() - _START
+    go = spec["out"] + ".go"
+    while spec["hold"] and not os.path.exists(go):
+        if os.getppid() != spec["parent"]:
+            return 1  # the script is gone: nothing will release this child
+        time.sleep(0.05)
+    start = time.perf_counter() - _START
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if spec.get("deterministic"):
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
         torch.use_deterministic_algorithms(True)
     if spec["kind"] == "cli":
-        from distributed_tensorflow_framework_torch.cli import (
-            train as cli_train,
-        )
-
-        reset_counts(fa)
-        torch.cuda.reset_peak_memory_stats()
-        rc = cli_train.main(spec["argv"])
-        result = {"rc": rc, "counts": read_counts(fa),
-                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        result = [cli_run(torch, fa, run) for run in spec["runs"]]
     elif spec["kind"] == "coll":
         result = coll_rank(torch, os.path.dirname(spec["out"]))
     elif spec["kind"] == "zero":
-        result = zero_trainer_rank(torch, fa, os.path.dirname(spec["out"]))
-    elif spec["kind"] == "zero_parity":
-        result = zero_parity_rank(torch, os.path.dirname(spec["out"]))
+        result = zero_rank(torch, fa, os.path.dirname(spec["out"]))
     elif spec["kind"] == "tp":
         result = tp_rank(torch, fa, os.path.dirname(spec["out"]))
     elif spec["kind"] == "ring":
@@ -3629,10 +3753,15 @@ def child_main(spec_path: str) -> int:
         result = pipe_rank(torch, fa, spec)
     elif spec["kind"] == "moe":
         result = moe_rank(torch, fa, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "fused":
+        result = fused_rank(torch, fa, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
         json.dump(result, fh)
+    with open(spec["out"] + ".t", "w") as fh:
+        json.dump({"ready": ready, "start": start,
+                   "done": time.perf_counter() - _START}, fh)
     return 0
 
 
@@ -3799,22 +3928,34 @@ def dp_compare(torch, name: str, ranks: list[dict], ref: dict,
 
 def data_parallel_phase(torch, fa, workdir: str, full: dict,
                         cifar: dict, cifar_ms: float, smi: str) -> dict:
-    """Phase 8: 8a and 8b run ``cli.train`` in a child process with the
-    gang environment of a world of 1 (an NCCL group, the model under DDP)
-    at phase 5's and phase 7d's cuts, whose losses must be phase 5's and
-    the deterministic 7d run's bit for bit; 8c runs two gloo ranks on the
-    one card against one process. Returns 8a's launch counts (the main
-    path's run of this phase) and its steady ms/step."""
-    # 8a: BERT-base at world 1 over NCCL, phase 5's cut.
+    """Phase 8: 8a and 8b run ``cli.train`` one after the other in a child
+    process, each with the gang environment of a world of 1 (an NCCL
+    group, the model under DDP), at phase 5's and phase 7d's cuts, whose
+    losses must be phase 5's and the deterministic 7d run's bit for bit;
+    8c runs two gloo ranks on the one card against one process. Returns
+    8a's launch counts (the main path's run of this phase) and its steady
+    ms/step."""
+    # 8c's ranks start up while 8a and 8b run.
+    dp_ranks = spawn_children([{"kind": "rank", "env": gang_env(port, 2, r)}
+                               for port in [free_port()] for r in range(2)],
+                              workdir, "dp_ranks", hold=True)
+    # 8a: BERT-base at world 1 over NCCL, phase 5's cut; 8b: ResNet-50/
+    # CIFAR-10 at world 1 over NCCL, 7d's deterministic cut.
     log_dir = os.path.join(workdir, "dp_bert_logs")
     argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
             log_dir, *sum((["--set", o] for o in (
                 *TRAIN_OVERRIDES,
                 f"checkpoint.directory={os.path.join(workdir, 'dp_bert')}")),
                 [])]
-    (res,) = run_children([{"kind": "cli", "argv": argv,
-                            "env": gang_env(free_port(), 1, 0)}],
-                          workdir, "dp_bert")
+    cifar_dir = os.path.join(workdir, "dp_cifar")
+    over = [o for o in cifar["overrides"]
+            if not o.startswith("checkpoint.directory=")]
+    cifar_argv = ["--config", CIFAR_CONFIG, "--device", "cuda", *sum(
+        (["--set", o] for o in (*over, f"checkpoint.directory={cifar_dir}")),
+        [])]
+    (runs,) = run_children([cli_runs((argv, False), (cifar_argv, True))],
+                           workdir, "dp_world1")
+    res = runs[0]
     events = read_events(log_dir)
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     losses = {e["step"]: e["metrics"]["loss"] for e in events
@@ -3832,17 +3973,8 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
             or losses != full["losses"] or res["counts"] != full["want"]):
         raise AssertionError("8a: the world-1 NCCL run differs from phase 5")
     counts = res["counts"]
-    # 8b: ResNet-50/CIFAR-10 at world 1 over NCCL, 7d's deterministic cut.
-    log_dir = os.path.join(workdir, "dp_cifar")
-    over = [o for o in cifar["overrides"]
-            if not o.startswith("checkpoint.directory=")]
-    argv = ["--config", CIFAR_CONFIG, "--device", "cuda", *sum(
-        (["--set", o] for o in (*over, f"checkpoint.directory={log_dir}")),
-        [])]
-    (res,) = run_children([{"kind": "cli", "argv": argv,
-                            "env": gang_env(free_port(), 1, 0),
-                            "deterministic": True}], workdir, "dp_cifar")
-    events = read_events(log_dir)
+    res = runs[1]
+    events = read_events(cifar_dir)
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     losses = {e["step"]: e["metrics"]["loss"] for e in events
               if e["kind"] == "train_step"}
@@ -3867,9 +3999,7 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
         torch.cuda.empty_cache()
     truth = dp_f64_step(torch, *DP_RESNET)
     torch.cuda.empty_cache()
-    port = free_port()
-    ranks = run_children([{"kind": "rank", "env": gang_env(port, 2, r)}
-                          for r in range(2)], workdir, "dp_ranks")
+    ranks = join_children(dp_ranks)
     if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
         raise AssertionError(f"8c: backends {ranks}")
     masked = ranks[0]["bert"]["masked"]
@@ -4072,22 +4202,26 @@ def coll_rank(torch, out_dir: str) -> dict:
         runtime.shutdown()
 
 
-def coll_cli_run(workdir: str, full: dict, name: str, extra) -> tuple:
-    """``cli.train.main`` in a child with the gang environment of a world
-    of 1 (NCCL) at phase 5's cut plus ``extra``: (result, events,
-    checkpoint directory)."""
-    log_dir = os.path.join(workdir, f"{name}_logs")
-    ckpt = os.path.join(workdir, name)
-    argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
-            log_dir, *sum((["--set", o] for o in (
-                *TRAIN_OVERRIDES, *extra,
-                f"checkpoint.directory={ckpt}")), [])]
-    (res,) = run_children([{"kind": "cli", "argv": argv,
-                            "env": gang_env(free_port(), 1, 0)}],
-                          workdir, name)
-    if res["rc"] != 0:
-        raise AssertionError(f"{name}: cli.train.main returned {res['rc']}")
-    return res, read_events(log_dir), ckpt
+def coll_cli_runs(workdir: str, full: dict, **runs) -> dict:
+    """``cli.train.main`` at phase 5's cut plus each run's extra
+    overrides, one after the other in a child, each in a world of 1
+    (NCCL): {name: (result, events, checkpoint directory)}."""
+    argvs, dirs = [], {}
+    for name, extra in runs.items():
+        log_dir, ckpt = dirs[name] = (os.path.join(workdir, f"{name}_logs"),
+                                      os.path.join(workdir, name))
+        over = (*TRAIN_OVERRIDES, *extra, f"checkpoint.directory={ckpt}")
+        argvs.append((["--config", full["config"], "--device", "cuda",
+                       "--log-dir", log_dir,
+                       *sum((["--set", o] for o in over), [])], False))
+    (results,) = run_children([cli_runs(*argvs)], workdir, "coll_world1")
+    out = {}
+    for (name, (log_dir, ckpt)), res in zip(dirs.items(), results):
+        if res["rc"] != 0:
+            raise AssertionError(f"{name}: cli.train.main returned "
+                                 f"{res['rc']}")
+        out[name] = (res, read_events(log_dir), ckpt)
+    return out
 
 
 def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
@@ -4096,9 +4230,18 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
     int8 and no wire) and 10b (two gloo ranks on the card). Returns the
     attention kernels' launches of 10a and 10a' (main-path runs)."""
     t0 = time.perf_counter()
-    # 10a: the int8 error-feedback wire at full width.
-    res, events, ckpt = coll_cli_run(workdir, full, "coll_int8",
-                                     COLL_OVERRIDES)
+    # 10b's ranks start up while 10a and 10a' run.
+    coll_ranks = spawn_children([{"kind": "coll", "env": gang_env(port, 2, r),
+                                  "deterministic": True}
+                                 for port in [free_port()] for r in range(2)],
+                                workdir, "coll_ranks", hold=True)
+    # 10a: the int8 error-feedback wire at full width; 10a': shard_map with
+    # no wire, bit-equal to phase 5's first steps. One child runs both.
+    world1 = coll_cli_runs(
+        workdir, full, coll_int8=COLL_OVERRIDES,
+        coll_plain=("train.spmd_mode=shard_map",
+                    f"train.total_steps={COLL_PLAIN_STEPS}"))
+    res, events, ckpt = world1["coll_int8"]
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     train = [e for e in events if e["kind"] == "train_step"]
     losses = {e["step"]: e["metrics"]["loss"] for e in train}
@@ -4160,10 +4303,8 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
     train_breakdown(torch, load_config(full["config"], overrides=[
         *TRAIN_OVERRIDES, *COLL_OVERRIDES]))
     torch.cuda.empty_cache()
-    # 10a': shard_map with no wire, bit-equal to phase 5's first steps.
-    res, events, _ = coll_cli_run(
-        workdir, full, "coll_plain",
-        ("train.spmd_mode=shard_map", f"train.total_steps={COLL_PLAIN_STEPS}"))
+    # 10a'.
+    res, events, _ = world1["coll_plain"]
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     train = [e for e in events if e["kind"] == "train_step"]
     losses = {e["step"]: e["metrics"]["loss"] for e in train}
@@ -4188,10 +4329,7 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
     counts = {k: counts[k] + res["counts"][k] for k in counts}
     # 10b: two gloo ranks on the one card.
     torch.cuda.empty_cache()
-    port = free_port()
-    ranks = run_children([{"kind": "coll", "env": gang_env(port, 2, r),
-                           "deterministic": True} for r in range(2)],
-                         workdir, "coll_ranks")
+    ranks = join_children(coll_ranks)
     for r in ranks:
         if r["backend"] != "gloo" or r["transport"] != {
                 "cuda": "all_reduce", "cpu": "native"}:
@@ -4308,8 +4446,8 @@ def state_bytes(torch, state) -> dict:
     """This rank's bytes at rest: the model's parameters (FSDP's parts
     under FSDP), the optimizer slots (ZeRO's and ZeRO-1's parts), the
     error-feedback residual."""
-    slots = [t for s in state.optimizer.inner.state.values()
-             for t in s.values() if torch.is_tensor(t) and t.dim() >= 1]
+    slots = [t for s in slot_tensors(torch, state).values()
+             for t in s.values()]
     return {"params": sum(p.numel() * p.element_size()
                           for p in state.model.parameters()),
             "slots": sum(t.numel() * t.element_size() for t in slots),
@@ -4317,48 +4455,62 @@ def state_bytes(torch, state) -> dict:
                             state.collective_residual.values())}
 
 
-def zero_trainer_rank(torch, fa, out_dir: str) -> dict:
-    """One rank of 11a: a gloo group on the card; the three modes in turn
-    through the Trainer, each with the launch counts set to 0 just before
-    and read just after, its peak memory and its bytes at rest."""
-    import gc
-
-    from distributed_tensorflow_framework_torch.core.config import load_config
+def zero_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of phase 11, a gloo group on the card: 11a
+    (:func:`zero_trainer_rank`), then 11b and 11c under deterministic
+    algorithms (:func:`zero_parity_rank`)."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
     from distributed_tensorflow_framework_torch.core.mesh import (
         initialize_runtime,
     )
-    from distributed_tensorflow_framework_torch.train.loop import Trainer
 
-    base = load_config(ZERO_CONFIG, overrides=list(ZERO_OVERRIDES))
-    runtime = initialize_runtime(base.mesh, "cuda", backend="gloo")
-    out = {"rank": runtime.process_index, "backend": runtime.backend,
-           "modes": {}}
+    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
     try:
-        for name, extra in ZERO_MODES.items():
-            ckpt = os.path.join(out_dir, f"zero_{name}")
-            cfg = load_config(ZERO_CONFIG, overrides=[
-                *ZERO_OVERRIDES, *extra, f"checkpoint.directory={ckpt}"])
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts(fa)
-            trainer = Trainer(cfg, log_dir=ckpt + "_logs", runtime=runtime)
-            t0 = time.perf_counter()
-            try:
-                trainer.train()
-            finally:
-                if trainer._ckpt_manager is not None:
-                    trainer._ckpt_manager.close()
-                trainer.writer.close()
-            out["modes"][name] = {
-                "counts": read_counts(fa), "s": time.perf_counter() - t0,
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "bytes": state_bytes(torch, trainer.state),
-                "ckpt": ckpt, "logs": ckpt + "_logs"}
-            del trainer
+        t0 = time.perf_counter()
+        out = zero_trainer_rank(torch, fa, runtime, out_dir)
+        out["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        with deterministic(torch):
+            out["parity"] = zero_parity_rank(torch, runtime, out_dir)
         return out
     finally:
         runtime.shutdown()
+
+
+def zero_trainer_rank(torch, fa, runtime, out_dir: str) -> dict:
+    """11a on one rank: the three modes in turn through the Trainer, each
+    with the launch counts set to 0 just before and read just after, its
+    peak memory and its bytes at rest."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    out = {"rank": runtime.process_index, "backend": runtime.backend,
+           "modes": {}}
+    for name, extra in ZERO_MODES.items():
+        ckpt = os.path.join(out_dir, f"zero_{name}")
+        cfg = load_config(ZERO_CONFIG, overrides=[
+            *ZERO_OVERRIDES, *extra, f"checkpoint.directory={ckpt}"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)
+        trainer = Trainer(cfg, log_dir=ckpt + "_logs", runtime=runtime)
+        t0 = time.perf_counter()
+        try:
+            trainer.train()
+        finally:
+            if trainer._ckpt_manager is not None:
+                trainer._ckpt_manager.close()
+            trainer.writer.close()
+        out["modes"][name] = {
+            "counts": read_counts(fa), "s": time.perf_counter() - t0,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "bytes": state_bytes(torch, trainer.state),
+            "ckpt": ckpt, "logs": ckpt + "_logs"}
+        del trainer
+    return out
 
 
 def zero_cut_case(torch, overrides, runtime, steps: int,
@@ -4449,33 +4601,24 @@ def zero_resume(torch, runtime, out_dir: str) -> dict:
                                     a.collective_residual.values())}
 
 
-def zero_parity_rank(torch, out_dir: str) -> dict:
-    """One rank of 11b and 11c: a gloo group on the card."""
-    from distributed_tensorflow_framework_torch.core.config import MeshConfig
-    from distributed_tensorflow_framework_torch.core.mesh import (
-        initialize_runtime,
-    )
-
-    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
-    try:
-        out = {"rank": runtime.process_index, "modes": {}}
-        t0 = time.perf_counter()
-        for name, extra in ZERO_CUT_MODES.items():
-            res = zero_cut_case(torch, (*ZERO_CUT, *extra), runtime,
-                                DP_STEPS)
-            path = os.path.join(
-                out_dir, f"zero_cut_{name}_rank{runtime.process_index}.pt")
-            torch.save(res["tensors"], path)
-            out["modes"][name] = {"losses": res["losses"],
-                                  "bytes": res["bytes"], "tensors": path}
-            del res
-            torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        out["resume"] = zero_resume(torch, runtime, out_dir)
-        out["s"] = {"11b": t1 - t0, "11c": time.perf_counter() - t1}
-        return out
-    finally:
-        runtime.shutdown()
+def zero_parity_rank(torch, runtime, out_dir: str) -> dict:
+    """11b and 11c on one rank."""
+    out = {"rank": runtime.process_index, "modes": {}}
+    t0 = time.perf_counter()
+    for name, extra in ZERO_CUT_MODES.items():
+        res = zero_cut_case(torch, (*ZERO_CUT, *extra), runtime,
+                            DP_STEPS)
+        path = os.path.join(
+            out_dir, f"zero_cut_{name}_rank{runtime.process_index}.pt")
+        torch.save(res["tensors"], path)
+        out["modes"][name] = {"losses": res["losses"],
+                              "bytes": res["bytes"], "tensors": path}
+        del res
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["resume"] = zero_resume(torch, runtime, out_dir)
+    out["s"] = {"11b": t1 - t0, "11c": time.perf_counter() - t1}
+    return out
 
 
 def gb(nbytes: float) -> str:
@@ -4483,10 +4626,11 @@ def gb(nbytes: float) -> str:
 
 
 def zero_phase(torch, workdir: str, smi: str) -> dict:
-    """Phase 11: 11a (BERT-base, two gloo ranks, the Trainer: replicated,
-    ZeRO f32, ZeRO int8) and 11b/11c (FSDP and ZeRO-1 at 8c's cut, a ZeRO
-    resume). Returns 11a's attention-kernel launches, both ranks and the
-    three modes (main-path runs)."""
+    """Phase 11 on two gloo ranks: 11a (BERT-base, the Trainer:
+    replicated, ZeRO f32, ZeRO int8), then 11b/11c (FSDP and ZeRO-1 at
+    8c's cut, a ZeRO resume) in the same children. Returns 11a's
+    attention-kernel launches, both ranks and the three modes (main-path
+    runs)."""
     t0 = time.perf_counter()
     ranks = run_children([{"kind": "zero", "env": gang_env(port, 2, r)}
                           for port in [free_port()] for r in range(2)],
@@ -4586,13 +4730,8 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
                 raise AssertionError(f"11a: rank {r['rank']} {name} "
                                      f"launches {got}, expected {want}")
             counts = {k: counts[k] + got[k] for k in counts}
-    t1 = time.perf_counter()
     # 11b and 11c.
-    torch.cuda.empty_cache()
-    parity = run_children([{"kind": "zero_parity", "env": gang_env(port, 2, r),
-                            "deterministic": True}
-                           for port in [free_port()] for r in range(2)],
-                          workdir, "zero_parity", timeout=600)
+    parity = [r["parity"] for r in ranks]
     bad = []
     for r in parity:
         modes = r["modes"]
@@ -4632,7 +4771,7 @@ def zero_phase(torch, workdir: str, smi: str) -> dict:
     if bad:
         raise AssertionError(f"11b/11c: {bad}")
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s (11a "
-        f"{t1 - t0:.1f} s)")
+        f"{max(r['s'] for r in ranks):.1f} s in the children)")
     return counts
 
 # --------------------------------------------------------------- phase 12
@@ -5244,6 +5383,19 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
 
     t0 = time.perf_counter()
     bad = []
+    # 13c's and 13d's ranks start up while 13a and 13b run.
+    ring_c = spawn_children([{"kind": "ring", "part": "c",
+                              "mesh": {"data": 1, "seq": 2},
+                              "env": gang_env(port, 2, r)}
+                             for port in [free_port()] for r in range(2)],
+                            workdir, "ring_c", hold=True)
+    corpus = os.path.join(workdir, "ring_corpus")
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ring_d = spawn_children([{"kind": "ring", "part": "d",
+                              "mesh": {"data": 2, "seq": 2}, "corpus": corpus,
+                              "env": {**gang_env(port, 4, r), **env}}
+                             for port in [free_port()] for r in range(4)],
+                            workdir, "ring_d", hold=True)
     # 13a.
     worst = ring_kernel_parity(torch, fa)
     t1 = time.perf_counter()
@@ -5319,11 +5471,7 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     log(f"13b took {t2 - t1:.1f} s")
 
     # 13c.
-    ranks = run_children([{"kind": "ring", "part": "c",
-                           "mesh": {"data": 1, "seq": 2},
-                           "env": gang_env(port, 2, r)}
-                          for port in [free_port()] for r in range(2)],
-                         workdir, "ring_c", timeout=600)
+    ranks = join_children(ring_c)
     torch.cuda.empty_cache()
     ref = zero_cut_case(torch, (*RING_OVERRIDES, *RING_PAIR_ONE), None,
                         RING_STEPS, config_path=LONG_CONFIG)
@@ -5356,14 +5504,8 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
     log(f"13c took {t3 - t2:.1f} s")
 
     # 13d.
-    corpus = os.path.join(workdir, "ring_corpus")
     progression.main([corpus, *RING_CORPUS])
-    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    ranks = run_children([{"kind": "ring", "part": "d",
-                           "mesh": {"data": 2, "seq": 2}, "corpus": corpus,
-                           "env": {**gang_env(port, 4, r), **env}}
-                          for port in [free_port()] for r in range(4)],
-                         workdir, "ring_d", timeout=600)
+    ranks = join_children(ring_d)
     default = ring.FLASH_CHUNK_MIN
     one_over = (*RING_F32, f"data.data_dir={corpus}/train")
     lr = load_config(DP_BERT[0], overrides=list(one_over)) \
@@ -6297,6 +6439,560 @@ def moe_phase(torch, fa, workdir: str, smi: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 16
+
+# 16a: configs/bert_base_mlm.yaml at full width and depth (bf16, fused QKV,
+# the flash kernels, dropout 0.1, AdamW, clipping), 32 x 512 on a
+# synthetic stream, without remat and with model.remat under
+# precision.remat_policy none (the per-layer checkpoint that keeps
+# nothing), save_nothing and dots_saveable. Each arm: one step from the
+# seed under torch.use_deterministic_algorithms, whose parameters must
+# equal the arm without remat's bit for bit (the recompute runs the same
+# kernels on the same inputs, and the two-pass kernels at 512 have no
+# atomics), a warm-up step, REMAT_STEPS steps timed (host clock, synced)
+# with the peak memory of those steps, and one step profiled.
+REMAT_CONFIG = "configs/bert_base_mlm.yaml"
+REMAT_BASE = ("data.global_batch_size=32", "checkpoint.directory=",
+              "resilience.rollback=false")
+REMAT_ARMS = {
+    "no_remat": (),
+    "remat": ("model.remat=true",),
+    "save_nothing": ("model.remat=true",
+                     "precision.remat_policy=save_nothing"),
+    "dots_saveable": ("model.remat=true",
+                      "precision.remat_policy=dots_saveable")}
+REMAT_STEPS = 5
+# The arms profiled (kernel time by class, idle share): one that replays
+# the whole layer, one that keeps the products. 16c profiles its two
+# ResNet arms of each kind; 16b none (its traces take the longest).
+REMAT_PROFILED = ("remat", "dots_saveable")
+IMAGE_REMAT_PROFILED = ("full", "conv_saved")
+# 16a': precision.activation_dtype=f32 over the bf16 config: the flash
+# kernels' f32 variants, at 2 layers (the depth changes nothing the f32
+# route exercises), a warm-up step and F32_STEPS timed.
+F32_ACTIVATIONS = ("precision.activation_dtype=f32", "model.num_layers=2")
+F32_STEPS = 3
+# 16b: configs/bert_long_ring.yaml as written (12 layers, remat, dropout
+# 0.1) at 8192 tokens on one card (mesh.seq 1, pallas), the config's 8
+# rows in 8 micro-batches of one: its remat (no policy) against
+# dots_saveable, a warm-up step and LONG_REMAT_STEPS timed.
+# FUSED_BWD on auto.
+LONG_REMAT_SEQ = 8192
+LONG_REMAT_STEPS = 3
+LONG_REMAT_ARMS = {"remat": (),
+                   "dots_saveable": ("precision.remat_policy=dots_saveable",)}
+# 16c: configs/resnet50_cifar10.yaml as written (1024 rows, bf16, SGD with
+# momentum) on a resident synthetic batch of its shape, without remat,
+# with model.remat (full and conv_saved) and with precision.remat_policy
+# save_nothing: IMAGE_REMAT_STEPS steps under deterministic algorithms,
+# whose parameters and BatchNorm statistics must equal the arm without
+# remat's bit for bit, then a warm-up step (cuDNN plans its
+# non-deterministic algorithms) and IMAGE_REMAT_TIMED steps timed.
+IMAGE_REMAT_ARMS = {
+    "no_remat": (),
+    "full": ("model.remat=true",),
+    "conv_saved": ("model.remat=true", "model.remat_policy=conv_saved"),
+    "save_nothing": ("model.remat=true",
+                     "precision.remat_policy=save_nothing")}
+IMAGE_REMAT_STEPS = 2
+IMAGE_REMAT_TIMED = 5
+SYNTHETIC = ("data.name=synthetic_images", "checkpoint.directory=",
+             "resilience.rollback=false")
+# 16d: the int8 products. quantized_matmul on the card at shapes of the
+# int8 paths below (LeNet's fc1 and fc2, a ResNet-50 3x3 conv's patches
+# at 256 rows) against the same function on the CPU: the forward bit for
+# bit (exact integer block sums, the same rescale) and the gradients
+# within INT8_GRAD_RTOL of their largest (the backward sums over N and M
+# in other orders on the two devices). Then LeNet-5 config 1 on its
+# synthetic fallback with activation_dtype bf16 and with int8 beside it
+# (JAX's own pairing), INT8_LENET_STEPS steps timed after a warm-up; and
+# ResNet-50/CIFAR-10 at INT8_RESNET_ROWS rows, cut from 1024 (its im2col
+# path holds about 8.6 M padded patch elements and 6.4 M block sums an
+# image, ~70 GB at 1024), INT8_RESNET_STEPS steps timed.
+INT8_SHAPES = ((128, 400, 120), (128, 120, 84), (256 * 16 * 16, 128 * 9, 128))
+INT8_GRAD_RTOL = 1e-5
+INT8_LENET_STEPS = 30
+INT8_RESNET_ROWS = 256
+INT8_RESNET_STEPS = 3
+INT8 = ("precision.activation_dtype=bf16", "precision.matmul_dtype=int8")
+# 16e: ZeRO shard_map on two gloo ranks at 11a's cut (BERT-base, 2 layers,
+# 32 x 512, bf16), FUSED_STEPS steps: the fused update against the
+# unfused one on the f32 wire (parameters and slots bit for bit) and the
+# int8 wire (the gap stated), then a resume that toggles
+# precision.fused_update, which must be refused. Two children of its own,
+# under deterministic algorithms.
+FUSED_STEPS = 2
+FUSED_MODES = {
+    "zero_f32": (),
+    "fused_f32": ("precision.fused_update=true",),
+    "zero_int8": ("parallel.collective_dtype=int8",),
+    "fused_int8": ("parallel.collective_dtype=int8",
+                   "precision.fused_update=true")}
+
+
+def precision_arm(torch, fa, cfg, det_steps: int, steps: int,
+                  profile: str | None = None, classify=None) -> dict:
+    """One arm of 16a-16d on the card through the StepBuilder: a builder
+    from the seed, ``det_steps`` steps under deterministic algorithms
+    (the whole tensors after them on the host), one step to warm up
+    (cuDNN plans its non-deterministic algorithms, the allocator grows),
+    then ``steps`` steps timed one by one (host clock, synced after each;
+    ``ms`` their median, ``step_ms`` each) with their peak memory, and
+    with ``profile`` one more step profiled by kernel class
+    (``classify``) beside its idle share. Returns the launch counts of
+    all of them, every loss and the model's int8 layers (``quant``)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from distributed_tensorflow_framework_torch.data import get_dataset
+    from distributed_tensorflow_framework_torch.data.infeed import to_device
+    from distributed_tensorflow_framework_torch.models import layers as L
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts(fa)
+    builder = StepBuilder(cfg, device="cuda")
+    state = builder.init_state(SEED)
+    ds = get_dataset(cfg.data)
+    dev = torch.device("cuda")
+    losses, tensors = [], None
+
+    def step(batch):
+        losses.append(builder.train_step(state, batch)["loss"])
+
+    if det_steps:
+        with deterministic(torch):
+            for _ in range(det_steps):
+                step(to_device(next(ds), dev))
+        tensors = {k: v.detach().cpu().clone()
+                   for k, v in state.model.state_dict().items()}
+    step(to_device(next(ds), dev))
+    batches = [to_device(next(ds), dev) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(step_ms)
+    out = {"ms": ms, "step_ms": step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile is not None:
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            step(batches[steps])
+            torch.cuda.synchronize()
+        total = log_profile(prof, profile, top=6, classify=classify)
+        out["kernel_ms"] = total
+        if total:
+            log(f"{profile}: device idle {100 * max(0.0, 1 - total / ms):.1f}"
+                f"% of the {ms:.3f} ms step")
+    out.update(
+        counts=read_counts(fa), losses=[float(x) for x in losses],
+        tensors=tensors,
+        params={str(p.dtype) for p in state.model.parameters()},
+        quant=sum(isinstance(m, (L.QuantDense, L.QuantConv))
+                  for m in state.model.modules()),
+        compute=sorted({str(m.dtype) for m in state.model.modules()
+                        if isinstance(getattr(m, "dtype", None),
+                                      torch.dtype)}))
+    del builder, state, batches
+    return out
+
+
+def spread(run: dict) -> str:
+    """An arm's step time: the median and the range of its timed steps."""
+    t = run["step_ms"]
+    return (f"{run['ms']:.2f} ms/step (median of {len(t)} steps, "
+            f"{min(t):.2f}-{max(t):.2f})")
+
+
+def tensor_gap(torch, got: dict, want: dict) -> tuple[int, float, str]:
+    """How many of ``want``'s tensors ``got`` equals bit for bit, and the
+    largest difference with the leaf that holds it (:func:`worst_leaf`)."""
+    equal = sum(torch.equal(got[k], v) for k, v in want.items())
+    return (equal, *worst_leaf(torch, got, want))
+
+
+def remat_bert_phase(torch, fa, smi: str) -> dict:
+    """16a and 16a'. Returns the launch counts of their runs."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    runs = {}
+    for name, extra in REMAT_ARMS.items():
+        cfg = load_config(REMAT_CONFIG, overrides=[*REMAT_BASE, *extra])
+        m = cfg.model
+        if (m.num_layers, m.hidden_size, m.dtype, m.attention_impl,
+                m.dropout_rate) != (12, 768, "bfloat16", "pallas", 0.1):
+            raise AssertionError(f"{REMAT_CONFIG} is no longer BERT-base: "
+                                 f"{m}")
+        profile = name in REMAT_PROFILED
+        run = precision_arm(torch, fa, cfg, 1, REMAT_STEPS,
+                            profile=f"16a {name}" if profile else None)
+        steps = 2 + REMAT_STEPS + profile  # deterministic, warm-up, timed
+        want = {"fwd": 12 * steps * (2 if m.remat else 1),
+                "dq": 12 * steps, "dkv": 12 * steps, "fused": 0}
+        if run["counts"] != want:
+            raise AssertionError(f"16a {name}: launches {run['counts']}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"16a {name}: losses {run['losses']}")
+        for k in total:
+            total[k] += run["counts"][k]
+        if name == "no_remat":
+            ref = run["tensors"]
+            gap = "the reference"
+        else:
+            equal, worst, where = tensor_gap(torch, run["tensors"], ref)
+            gap = (f"{equal} of {len(ref)} tensors bit-equal to no_remat's"
+                   + (f", largest gap {worst:.3e} at {where}"
+                      if equal != len(ref) else ""))
+            if equal != len(ref):
+                raise AssertionError(f"16a {name}: {gap}")
+        runs[name] = run
+        log(f"16a bert-base 32x512 {name}: losses "
+            + ", ".join(f"{x:.6f}" for x in run["losses"])
+            + f"; {spread(run)}, peak "
+            f"memory {run['peak_gb']:.2f} GB; launches {run['counts']}; "
+            f"after one deterministic step {gap} [{smi}]")
+    base = runs["no_remat"]
+    log("16a peak memory " + ", ".join(
+        f"{k} {r['peak_gb']:.2f} GB ({r['peak_gb'] / base['peak_gb']:.3f}x)"
+        for k, r in runs.items()) + "; ms/step " + ", ".join(
+        f"{k} {r['ms']:.2f} ({r['ms'] / base['ms']:.3f}x)"
+        for k, r in runs.items()))
+    cfg = load_config(REMAT_CONFIG, overrides=[*REMAT_BASE,
+                                               *F32_ACTIVATIONS])
+    run = precision_arm(torch, fa, cfg, 0, F32_STEPS)
+    steps = 1 + F32_STEPS
+    want = {"fwd": 2 * steps, "dq": 2 * steps, "dkv": 2 * steps, "fused": 0}
+    if (run["counts"] != want or run["compute"] != ["torch.float32"]
+            or not all(math.isfinite(x) for x in run["losses"])):
+        raise AssertionError(f"16a' f32 activations: {run['counts']} "
+                             f"(expected {want}), compute dtypes "
+                             f"{run['compute']}, losses {run['losses']}")
+    log(f"16a' activation_dtype f32 over the bf16 config, 2 layers: losses "
+        + ", ".join(f"{x:.6f}" for x in run["losses"])
+        + f"; compute dtypes {run['compute']} (model.dtype "
+        f"{cfg.model.dtype}); the f32 kernels launched {run['counts']}; "
+        f"{spread(run)}, peak {run['peak_gb']:.2f} GB [{smi}]")
+    for k in total:
+        total[k] += run["counts"][k]
+    return total
+
+
+def remat_long_phase(torch, fa, smi: str) -> dict:
+    """16b. Returns the launch counts of its runs."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    runs = {}
+    seq = LONG_REMAT_SEQ
+    for name, extra in LONG_REMAT_ARMS.items():
+        cfg = load_config(LONG_CONFIG, overrides=[
+            *LONG_OVERRIDES, f"model.max_seq_len={seq}", f"data.seq_len={seq}",
+            "checkpoint.directory=", "resilience.rollback=false", *extra])
+        m = cfg.model
+        if (m.num_layers, m.remat, m.dtype) != (12, True, "bfloat16"):
+            raise AssertionError(f"{LONG_CONFIG} is no longer 12 layers with "
+                                 f"remat: {m}")
+        run = precision_arm(torch, fa, cfg, 0, LONG_REMAT_STEPS)
+        micro = 8 * (1 + LONG_REMAT_STEPS)  # warm-up, timed
+        fused = fa.fused_bwd_enabled("cuda")
+        want = {"fwd": 2 * 12 * micro, "dq": 0 if fused else 12 * micro,
+                "dkv": 0 if fused else 12 * micro,
+                "fused": 12 * micro if fused else 0}
+        if (run["counts"] != want
+                or not all(math.isfinite(x) for x in run["losses"])):
+            raise AssertionError(f"16b {name}: launches {run['counts']} "
+                                 f"(expected {want}), losses "
+                                 f"{run['losses']}")
+        for k in total:
+            total[k] += run["counts"][k]
+        runs[name] = run
+        log(f"16b bert_long_ring S={seq} 12 layers {name}: losses "
+            + ", ".join(f"{x:.6f}" for x in run["losses"])
+            + f"; {spread(run)}, peak "
+            f"{run['peak_gb']:.2f} GB; launches {run['counts']} [{smi}]")
+    a, b = runs["remat"], runs["dots_saveable"]
+    log(f"16b dots_saveable over remat: peak {b['peak_gb'] / a['peak_gb']:.3f}"
+        f"x, ms/step {b['ms'] / a['ms']:.3f}x")
+    return total
+
+
+def remat_image_phase(torch, fa, smi: str) -> None:
+    """16c (no attention kernel on this path: its runs must launch
+    none)."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    runs = {}
+    for name, extra in IMAGE_REMAT_ARMS.items():
+        cfg = load_config(CIFAR_CONFIG, overrides=[*SYNTHETIC, *extra])
+        if (cfg.model.name, cfg.data.global_batch_size, cfg.model.dtype) != (
+                "resnet50_cifar", 1024, "bfloat16"):
+            raise AssertionError(f"{CIFAR_CONFIG} is no longer config 2")
+        run = precision_arm(
+            torch, fa, cfg, IMAGE_REMAT_STEPS, IMAGE_REMAT_TIMED,
+            profile=(f"16c {name}" if name in IMAGE_REMAT_PROFILED
+                     else None), classify=image_kernel_class)
+        if (not all(math.isfinite(x) for x in run["losses"])
+                or any(run["counts"].values())):
+            raise AssertionError(f"16c {name}: losses {run['losses']}, "
+                                 f"launches {run['counts']}")
+        if name == "no_remat":
+            ref, gap = run["tensors"], "the reference"
+        else:
+            equal, worst, where = tensor_gap(torch, run["tensors"], ref)
+            gap = (f"{equal} of {len(ref)} tensors (parameters, BN "
+                   f"statistics) bit-equal to no_remat's"
+                   + (f", largest gap {worst:.3e} at {where}"
+                      if equal != len(ref) else ""))
+            if equal != len(ref):
+                raise AssertionError(f"16c {name}: {gap}")
+        runs[name] = run
+        log(f"16c resnet50-cifar10 1024 {name}: losses "
+            + ", ".join(f"{x:.6f}" for x in run["losses"])
+            + f"; {spread(run)}, "
+            f"peak {run['peak_gb']:.2f} GB; after {IMAGE_REMAT_STEPS} "
+            f"deterministic steps {gap} [{smi}]")
+    base = runs["no_remat"]
+    log("16c peak memory " + ", ".join(
+        f"{k} {r['peak_gb']:.2f} GB ({r['peak_gb'] / base['peak_gb']:.3f}x)"
+        for k, r in runs.items()) + "; ms/step " + ", ".join(
+        f"{k} {r['ms']:.2f} ({r['ms'] / base['ms']:.3f}x)"
+        for k, r in runs.items()))
+
+
+def int8_products_phase(torch, smi: str) -> None:
+    """16d (i): quantized_matmul on the card against its plain version,
+    the same function on the CPU."""
+    from distributed_tensorflow_framework_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(SEED)
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn(m, k, generator=gen)
+        w = torch.randn(k, n, generator=gen) * 0.05
+        g = torch.randn(m, n, generator=gen)
+        results = {}
+        for dev in ("cuda", "cpu"):
+            xt = x.to(dev).requires_grad_()
+            wt = w.to(dev).requires_grad_()
+            y = L.quantized_matmul(xt, wt)
+            (y * g.to(dev)).sum().backward()
+            results[dev] = [t.detach().cpu() for t in (y, xt.grad, wt.grad)]
+        card, cpu = results["cuda"], results["cpu"]
+        same = torch.equal(card[0], cpu[0])
+        grad_gap = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(card[1:], cpu[1:]))
+        nnz = (card[1] != 0).sum(1).float().mean().item()
+        log(f"16d quantized_matmul ({m}x{k}) @ ({k}x{n}), the card vs the "
+            f"CPU: y equal {same}, gradients within {grad_gap:.2e} of their "
+            f"largest; dx nonzero per row {nnz:.2f} ({-(-k // 256)} blocks)")
+        if not same or grad_gap > INT8_GRAD_RTOL:
+            raise AssertionError("16d: quantized_matmul on the card differs "
+                                 "from its plain version")
+    x = torch.randn(INT8_SHAPES[2][:2], device="cuda")
+    w = torch.randn(INT8_SHAPES[2][1:], device="cuda")
+    q = time_ms(torch, lambda: L.quantized_matmul(x, w), iters=5, warmup=2)
+    b = time_ms(torch, lambda: x.bfloat16() @ w.bfloat16(), iters=5,
+                warmup=2)
+    log(f"16d quantized_matmul forward at {INT8_SHAPES[2]}: {q:.3f} ms, a "
+        f"plain bf16 matmul {b:.3f} ms (CUDA events) [{smi}]")
+
+
+def int8_models_phase(torch, fa, smi: str) -> None:
+    """16d (ii) and (iii): LeNet-5 config 1 and ResNet-50/CIFAR-10 at 256
+    rows, with and without int8."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+
+    cases = (("lenet", LENET_CONFIG, (), INT8_LENET_STEPS),
+             ("resnet50-cifar10", CIFAR_CONFIG,
+              (f"data.global_batch_size={INT8_RESNET_ROWS}",),
+              INT8_RESNET_STEPS))
+    for what, path, cut, steps in cases:
+        runs = {}
+        for arm, extra in (("bf16", INT8[:1]), ("int8", INT8)):
+            cfg = load_config(path, overrides=[*SYNTHETIC, *cut, *extra])
+            run = precision_arm(torch, fa, cfg, 0, steps)
+            if (not all(math.isfinite(x) for x in run["losses"])
+                    or run["params"] != {"torch.float32"}
+                    or any(run["counts"].values())
+                    or (run["quant"] > 0) != (arm == "int8")):
+                raise AssertionError(f"16d {what} {arm}: losses "
+                                     f"{run['losses']}, {run['quant']} int8 "
+                                     f"layers, params {run['params']}")
+            runs[arm] = run
+            log(f"16d {what} {arm} ({cfg.data.global_batch_size} rows): "
+                f"losses {run['losses'][0]:.6f} -> {run['losses'][-1]:.6f}; "
+                f"{spread(run)}, peak {run['peak_gb']:.2f} GB; "
+                f"{run['quant']} int8 layers; masters {run['params']} "
+                f"[{smi}]")
+        a, b = runs["bf16"], runs["int8"]
+        log(f"16d {what} int8 over bf16: {b['ms'] / a['ms']:.2f}x the "
+            f"ms/step, {b['peak_gb'] / a['peak_gb']:.2f}x the peak")
+
+
+def slot_tensors(torch, state) -> dict:
+    """The optimizer's slots by parameter key, {key: {slot: tensor}},
+    whether one optimizer holds them or one a ZeRO bucket."""
+    sd = state.optimizer.state_dict()
+    parts, names = ((sd["buckets"], state.optimizer.names)
+                    if "buckets" in sd else ([sd], [state.optimizer.names]))
+    return {part_names[i]: {k: v for k, v in slots.items()
+                            if torch.is_tensor(v) and v.dim() >= 1}
+            for part, part_names in zip(parts, names)
+            for i, slots in part["inner"]["state"].items()}
+
+
+def fused_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of 16e: a gloo group on the card and
+    :func:`fused_cases`."""
+    from distributed_tensorflow_framework_torch.core.config import MeshConfig
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+    )
+
+    runtime = initialize_runtime(MeshConfig(), "cuda", backend="gloo")
+    try:
+        return fused_cases(torch, fa, runtime, out_dir)
+    finally:
+        runtime.shutdown()
+
+
+def fused_cases(torch, fa, runtime, out_dir: str) -> dict:
+    """16e on one rank of a gloo group: the four modes through the
+    StepBuilder, each with its launch counts, the fused modes held to the
+    unfused ones, then the toggle across a resume."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+
+    out = {"rank": runtime.process_index, "modes": {}}
+    kept = {}
+    for name, extra in FUSED_MODES.items():
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        res = zero_cut_case(torch, (*ZERO_OVERRIDES,
+                                    "optimizer.zero_sharding=shard_map",
+                                    *extra), runtime, FUSED_STEPS)
+        slots = {k: {s: t.detach().cpu().clone() for s, t in v.items()}
+                 for k, v in slot_tensors(torch, res["state"]).items()}
+        out["modes"][name] = {"losses": res["losses"],
+                              "counts": read_counts(fa),
+                              "s": time.perf_counter() - t0}
+        kept[name] = (res["tensors"], slots, res)
+        if name.startswith("fused"):
+            t_base, s_base, _ = kept[name.replace("fused", "zero")]
+            t_eq, t_gap, t_where = tensor_gap(torch, res["tensors"],
+                                              t_base)
+            s_flat = {f"{k}.{s}": t for k, v in slots.items()
+                      for s, t in v.items()}
+            b_flat = {f"{k}.{s}": t for k, v in s_base.items()
+                      for s, t in v.items()}
+            s_eq, s_gap, s_where = tensor_gap(torch, s_flat, b_flat)
+            out["modes"][name].update(
+                params=[t_eq, len(t_base), t_gap, t_where],
+                slots=[s_eq, len(b_flat), s_gap, s_where],
+                buckets=len(res["state"].optimizer.opts))
+        if name != "fused_int8":
+            del kept[name][2]["state"], kept[name][2]["builder"]
+    state = kept["fused_int8"][2]["state"]
+    config = kept["fused_int8"][2]["builder"].config
+    manager = CheckpointManager(dataclasses.replace(
+        config.checkpoint, directory=os.path.join(out_dir, "fused_ck"),
+        async_save=False), runtime=runtime)
+    manager.save(FUSED_STEPS, state)
+    manager.close()
+    target = zero_cut_case(torch, (*ZERO_OVERRIDES,
+                                   "optimizer.zero_sharding=shard_map",
+                                   *FUSED_MODES["zero_int8"]),
+                           runtime, 0, seed=SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(
+        config.checkpoint, directory=os.path.join(out_dir, "fused_ck"),
+        async_save=False), runtime=runtime)
+    try:
+        manager.restore(target["state"])
+        out["toggle"] = None
+    except ValueError as e:
+        out["toggle"] = str(e)
+    finally:
+        manager.close()
+    return out
+
+
+def fused_phase(torch, workdir: str, smi: str) -> dict:
+    """16e on two children, under deterministic algorithms. Returns the
+    launch counts of both ranks' runs."""
+    ranks = run_children([{"kind": "fused", "env": gang_env(port, 2, r),
+                           "deterministic": True}
+                          for port in [free_port()] for r in range(2)],
+                         workdir, "fused_ranks")
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    want = {"fwd": 2 * FUSED_STEPS, "dq": 2 * FUSED_STEPS,
+            "dkv": 2 * FUSED_STEPS, "fused": 0}
+    for r in ranks:
+        for name, mode in r["modes"].items():
+            if mode["counts"] != want:
+                raise AssertionError(f"16e rank {r['rank']} {name}: launches "
+                                     f"{mode['counts']}, expected {want}")
+            for k in total:
+                total[k] += mode["counts"][k]
+        for wire in ("f32", "int8"):
+            f, z = r["modes"][f"fused_{wire}"], r["modes"][f"zero_{wire}"]
+            p, s = f["params"], f["slots"]
+            log(f"16e rank {r['rank']} {wire} wire: fused losses "
+                f"{f['losses']} (unfused {z['losses']}); {p[0]} of {p[1]} "
+                f"parameter tensors and {s[0]} of {s[1]} slot tensors "
+                f"bit-equal to the unfused update's"
+                + (f" (largest gaps {p[2]:.3e} at {p[3]}, {s[2]:.3e} at "
+                   f"{s[3]})" if p[0] != p[1] or s[0] != s[1] else "")
+                + f"; {f['buckets']} buckets; {f['s']:.1f} s against "
+                f"{z['s']:.1f} s through the host, each mode's build and "
+                f"steps [{smi}]")
+            if wire == "f32" and (p[0] != p[1] or s[0] != s[1]
+                                  or f["losses"] != z["losses"]):
+                raise AssertionError("16e: the fused update differs from "
+                                     "the unfused one on the f32 wire")
+        if not r["toggle"] or "precision.fused_update" not in r["toggle"]:
+            raise AssertionError(f"16e: a fused checkpoint restored into an "
+                                 f"unfused run: {r['toggle']}")
+    log(f"16e a fused checkpoint into an unfused ZeRO run: refused "
+        f"(ValueError: {ranks[0]['toggle'][:120]}...)")
+    return total
+
+
+def precision_phase(torch, fa, workdir: str, smi: str) -> dict:
+    """Phase 16: 16a-16e. Returns the attention kernels' launches of 16a,
+    16a', 16b and both ranks of 16e (main-path runs)."""
+    t0 = time.perf_counter()
+    parts = []
+
+    def part(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        parts.append(f"{name} {time.perf_counter() - t:.1f}")
+        return out
+
+    counts = [part("16a", remat_bert_phase, torch, fa, smi),
+              part("16b", remat_long_phase, torch, fa, smi)]
+    part("16c", remat_image_phase, torch, fa, smi)
+    part("16d", lambda: (int8_products_phase(torch, smi),
+                         int8_models_phase(torch, fa, smi)))
+    counts.append(part("16e", fused_phase, torch, workdir, smi))
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(parts) + ")")
+    return {k: sum(c[k] for c in counts) for k in KERNEL_NAMES}
+
+
 def main() -> int:
     try:
         import torch
@@ -6308,7 +7004,13 @@ def main() -> int:
               "drives the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--child"]:
-        return child_main(sys.argv[2])
+        # A child ends as soon as its result is written: its process
+        # groups are shut down and its files closed, and the interpreter's
+        # exit (CUDA's teardown) would only hold up its wave.
+        rc = child_main(sys.argv[2])
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     try:
         from distributed_tensorflow_framework_torch.core.device import (
             gpu_name_and_power_limit,
@@ -6372,6 +7074,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as wd:
             moe_phase(torch, fa, wd, gpu)
         return 0
+    if only == "16":
+        # A development run of phase 16 alone (``--only 16``), after the
+        # kernels' build: no kernels line and no last line.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as wd:
+            precision_phase(torch, fa, wd, gpu)
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -6389,6 +7099,14 @@ def main() -> int:
         report.update(build_report(_build, result))
     fused_beside_pair(report)
 
+    stamp = time.perf_counter()
+
+    def took(what: str) -> None:
+        nonlocal stamp
+        now = time.perf_counter()
+        log(f"{what} took {now - stamp:.1f} s")
+        stamp = now
+
     log("phase 3 kernel parity")
     parity = kernel_parity(torch, fa)
     timing = kernel_timing(torch, fa)
@@ -6398,6 +7116,7 @@ def main() -> int:
     log("phase 3c long-context kernel parity")
     long_worst = long_kernel_parity(torch, fa)
     long_timing = long_kernel_timing(torch, fa)
+    took("phases 2-3c")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         log("phase 4 serve")
@@ -6405,6 +7124,7 @@ def main() -> int:
         log(f"serve summary: {served['requests']} HTTP requests + 2 engine "
             f"requests, {served['batches']} batches, {launches} kernel "
             f"launches")
+        took("phase 4")
         log("phase 5 train")
         train_counts, full = train_phase(torch, fa, workdir)
         log("phase 5b training parity and learning")
@@ -6416,13 +7136,16 @@ def main() -> int:
         log("phase 5e export to serve")
         export_phase(torch, fa, workdir, full)
         shutil.rmtree(full["ckpt"])
+        took("phases 5-5e")
         log("phase 5f packed training from records")
         packed_counts = packed_phase(torch, fa, workdir)
+        took("phase 5f")
         log("phase 6 long-context training")
         long_counts = [long_train_phase(torch, fa, workdir, seq, route)
                        for seq, route in long_runs(torch, fa)]
     log("phase 6b fused vs two-pass backward at S=8192")
     step_8192, forced_launches = long_fused_parity_phase(torch, fa)
+    took("phases 6-6b")
 
     # Phase 7: image classification. No attention kernel lies on this
     # path; its convolutions, BatchNorm and GEMMs are cuDNN and cuBLAS.
@@ -6439,16 +7162,19 @@ def main() -> int:
         log("phase 7d image models on the card vs the CPU, and resume")
         image_parity_phase(torch)
         cifar_det = cifar_resume_phase(torch, workdir, cifar_data)
+        took("phase 7")
         log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
             "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
         dp_counts, ms_8a = data_parallel_phase(torch, fa, workdir, full,
                                                cifar_det, cifar_ms, gpu)
+        took("phase 8")
 
     # Phase 9: ImageNet from records, Inception-v3, the one-device BN. No
     # attention kernel lies on this path either.
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as workdir:
         image_records_phase(torch, workdir, gpu, "abcdef")
+    took("phase 9")
 
     # Phase 10: explicit collectives. 10a and 10a' run BERT-base through
     # the attention kernels, so their launches join the record.
@@ -6513,12 +7239,25 @@ def main() -> int:
             "two gloo ranks of the card at {data: 1, expert: 2} (15d)")
         moe_counts = moe_phase(torch, fa, workdir, gpu)
 
+    # Phase 16: the precision pack and remat. 16a, 16a' and 16b train
+    # BERT through the attention kernels (16a' on their f32 variants), and
+    # 16e's two ranks run ZeRO with and without the fused update, so their
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as workdir:
+        log("phase 16 precision and remat: BERT-base under remat policies "
+            "(16a) and f32 activations (16a'); the long-context config at "
+            "8192 with dots_saveable (16b); ResNet-50/CIFAR-10 under remat "
+            "(16c); the int8 products, LeNet-5 and ResNet-50 on them (16d); "
+            "the fused ZeRO update on two gloo ranks (16e)")
+        prec_counts = precision_phase(torch, fa, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
     # ranks of each), the two long-context runs, 13b's eight ranks and
-    # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks;
-    # those with
+    # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
+    # 16a, 16a', 16b and 16e's two ranks; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -6528,7 +7267,7 @@ def main() -> int:
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
                 + ring_counts[name] + pipe_counts[name] + moe_counts[name]
-                for name in KERNEL_NAMES}
+                + prec_counts[name] for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
     if forced:
@@ -6563,4 +7302,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for wave in list(_WAVES):
+            stop_children(wave)
+    sys.exit(code)

@@ -16,6 +16,8 @@ A checkpoint is a step directory, committed by its integrity manifest
       meta.json       — the step, the generator's device type, the
                         model's parameter names and, under ZeRO, the
                         row count of the stacked slots (``zero_rows``)
+                        and whether they are grouped per bucket
+                        (``zero_fused``)
       data_iter.json  — the data iterator's state (when given)
       manifest.json   — sha256 and size of each file above, plus the
                         data-state commit record (data/shard.py); written
@@ -87,7 +89,12 @@ ZeRO-1, tensor-parallel and replicated checkpoints restore into one
 another; switching ZeRO
 ``shard_map`` on or off across a resume is refused with the JAX package's
 ValueError, since the stacked and the whole slot layouts are different
-optimizers' states.
+optimizers' states, and so is switching ``precision.fused_update``,
+whose slots are grouped per ZeRO bucket (``{"buckets": [...]}``,
+meta.json ``zero_fused``), even though the bytes are the same. The other
+precision levers leave the checkpoint alone: the parameters are f32
+masters under any ``activation_dtype`` or ``matmul_dtype``, and restore
+without a ``precision`` block.
 
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
@@ -116,6 +123,9 @@ from distributed_tensorflow_framework_torch.core import faults, telemetry
 from distributed_tensorflow_framework_torch.core.config import CheckpointConfig
 from distributed_tensorflow_framework_torch.data import shard as data_shard
 from distributed_tensorflow_framework_torch.parallel.zero import ZeroUpdate
+from distributed_tensorflow_framework_torch.train.optimizers import (
+    BucketOptimizers,
+)
 from distributed_tensorflow_framework_torch.train.state import (
     TrainState,
     host_copy,
@@ -229,7 +239,8 @@ class CheckpointManager:
             "generator_device": host_state["generator_device"],
             "process_count": self.process_count,
             "params": list(host_state["model"]),
-            **({"zero_rows": host_state["zero_rows"]}
+            **({"zero_rows": host_state["zero_rows"],
+                "zero_fused": host_state["zero_fused"]}
                if "zero_rows" in host_state else {})})
         extra = None
         if dataset_state is not None:
@@ -304,6 +315,8 @@ class CheckpointManager:
         host_state = host_copy(live)
         if isinstance(state.layout, ZeroUpdate):
             host_state["zero_rows"] = state.layout.n
+            host_state["zero_fused"] = isinstance(state.optimizer,
+                                                  BucketOptimizers)
         if generators is not None:
             host_state["dropout_generators"] = generators
         if residual is not None:
@@ -559,17 +572,22 @@ class CheckpointManager:
         refused."""
         stored = meta.get("zero_rows")
         zero = isinstance(state.layout, ZeroUpdate)
-        if (stored is not None) != zero:
-            saved = (f"ZeRO-stacked over {stored} rows" if stored is not None
-                     else "whole")
+        stored_fused = bool(meta.get("zero_fused", False))
+        fused = isinstance(state.optimizer, BucketOptimizers)
+        if (stored is not None) != zero or stored_fused != fused:
+            saved = ("whole" if stored is None
+                     else f"ZeRO-stacked over {stored} rows"
+                     + (", grouped per bucket" if stored_fused else ""))
             raise ValueError(
                 f"checkpoint step {step} in {self._path} stores an "
                 f"optimizer state whose slot layout does not match this "
                 f"run's: toggling optimizer.zero_sharding between "
-                f"'shard_map' and another mode across a resume is "
-                f"unsupported (replicated and ZeRO-stacked slot layouts "
-                f"are incompatible) — restore with the settings the "
-                f"checkpoint was saved under (its slots are {saved})")
+                f"'shard_map' and another mode (or precision.fused_update, "
+                f"which regroups the slots per ZeRO bucket) across a "
+                f"resume is unsupported (replicated, ZeRO-stacked and "
+                f"per-bucket slot layouts are incompatible) — restore with "
+                f"the settings the checkpoint was saved under (its slots "
+                f"are {saved})")
         names = state.optimizer.names
         if state.tp is not None:
             tensors = state.tp.local_state(tensors, names)

@@ -4,17 +4,30 @@ Port of ``models/__init__.py``'s name dispatch: ``bert`` (BERT-base MLM),
 ``lenet``/``lenet5``/``lenet-5``, ``resnet-?N(_cifar|-cifar)?``
 (ResNet-18 to 152; the ``_cifar`` suffix takes the CIFAR stem) and
 ``inception_v3``. The JAX package's validation errors on
-``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept. Every
-configuration the port cannot build yet raises NotImplementedError naming
-the ROADMAP.md item that ports it (ResNet and Inception remat);
-``register_model`` is item A19. Ring attention builds here and runs under
-``train.spmd_mode: jit`` only (:func:`check_ring_mode`). With
-``model.pipeline_stages > 1`` BERT is built whole from the seed and
-parallel/pipeline.py's ``PipelinedBert`` keeps this rank's stage of it,
-which needs the mesh runtime; the JAX package's refusals beside the
-pipeline are kept with its exception types (MoE; ``model.remat``; ring
-attention). BERT with ``model.num_experts > 0`` takes MoE FFN layers
-(models/moe.py).
+``space_to_depth_stem``, ``remat`` and ``remat_policy`` are kept.
+``model.remat`` checkpoints BERT's encoder layers, ResNet's residual
+blocks (``model.remat_policy`` full or conv_saved) and Inception-v3's
+mixed and reduction blocks (models/remat.py).
+
+``precision`` (the config's ``PrecisionConfig``; the trainer passes it,
+serving does not, as in the JAX package) threads the precision pack into
+the builders: ``activation_dtype`` (f32 or bf16) overrides
+``model.dtype`` for the compute casts, the parameters staying f32;
+``matmul_dtype: int8`` runs LeNet's dense body and every ResNet ConvBN on
+the int8 block codec (models/layers.py); ``remat_policy``
+(save_nothing or dots_saveable) is the save policy of the per-block
+checkpoint, and of the pipeline stages' per-layer one. The JAX package's
+refusals are kept with its exception types and messages
+(:func:`check_precision`). ``register_model`` and the refusal of the
+precision pack on a custom model are item A19.
+
+Ring attention builds here and runs under ``train.spmd_mode: jit`` only
+(:func:`check_ring_mode`). With ``model.pipeline_stages > 1`` BERT is
+built whole from the seed and parallel/pipeline.py's ``PipelinedBert``
+keeps this rank's stage of it, which needs the mesh runtime; the JAX
+package's refusals beside the pipeline are kept with its exception types
+(MoE; ``model.remat``; ring attention). BERT with ``model.num_experts >
+0`` takes MoE FFN layers (models/moe.py).
 """
 
 from __future__ import annotations
@@ -34,9 +47,46 @@ _RESNET = re.compile(r"resnet-?(\d+)(_cifar|-cifar)?")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet — ROADMAP.md queue A item {item}")
+_ACTIVATION_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def check_precision(config: ModelConfig, precision=None) -> None:
+    """The JAX ``get_model``'s refusals of the precision pack, in its
+    order: a ``precision.remat_policy`` beside ``model.remat_policy !=
+    full`` or without ``model.remat`` (pipeline stages exempt), and
+    ``precision.matmul_dtype`` on a model other than LeNet and ResNet."""
+    if precision is None:
+        return
+    name = config.name.lower()
+    if precision.remat_policy != "none":
+        if config.remat_policy != "full":
+            raise ValueError(
+                "precision.remat_policy conflicts with "
+                f"model.remat_policy={config.remat_policy!r} — pick one "
+                "spelling (the precision block is the cross-model one)")
+        if not config.remat and config.pipeline_stages <= 1:
+            raise ValueError(
+                "precision.remat_policy requires model.remat=true (the "
+                "policy selects WHAT the per-block checkpoint saves; "
+                "pipeline stages checkpoint their own layer applies and "
+                "are exempt)")
+    if precision.matmul_dtype and not (
+            name in LENET_NAMES or name.startswith("resnet")):
+        raise ValueError(
+            f"precision.matmul_dtype='int8' is wired for the dense/conv "
+            f"image models (lenet, resnet), not {config.name!r}")
+
+
+def _dtype(config: ModelConfig, precision) -> torch.dtype:
+    if precision is not None and precision.activation_dtype:
+        return _ACTIVATION_DTYPES[precision.activation_dtype]
+    return _DTYPES[config.dtype]
+
+
+def _ckpt_policy(precision) -> str | None:
+    if precision is None or precision.remat_policy == "none":
+        return None
+    return precision.remat_policy
 
 
 def _check_common(config: ModelConfig, name: str) -> None:
@@ -65,11 +115,12 @@ def _check_common(config: ModelConfig, name: str) -> None:
                          f"{sorted(_DTYPES)}")
 
 
-def model_kwargs(config: ModelConfig) -> dict:
-    """BertForMLM constructor arguments for ``config``; raises for what the
-    port does not support yet."""
+def model_kwargs(config: ModelConfig, precision=None) -> dict:
+    """BertForMLM constructor arguments for ``config`` under
+    ``precision``; raises for what the JAX package refuses."""
     if config.name.lower() not in BERT_NAMES:
         raise ValueError(f"{config.name!r} is not a BERT model")
+    check_precision(config, precision)
     _check_common(config, config.name.lower())
     if config.pipeline_stages > 1:
         if config.num_experts > 0:
@@ -86,9 +137,10 @@ def model_kwargs(config: ModelConfig) -> dict:
         vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         num_layers=config.num_layers, num_heads=config.num_heads,
         mlp_dim=config.mlp_dim, max_seq_len=config.max_seq_len,
-        dropout_rate=config.dropout_rate, dtype=_DTYPES[config.dtype],
+        dropout_rate=config.dropout_rate, dtype=_dtype(config, precision),
         attention_impl=config.attention_impl, fused_qkv=config.fused_qkv,
-        remat=config.remat, num_experts=config.num_experts,
+        remat=config.remat, ckpt_policy=_ckpt_policy(precision),
+        num_experts=config.num_experts,
         moe_every=config.moe_every, expert_topk=config.expert_topk,
         capacity_factor=config.capacity_factor,
         moe_dispatch=config.moe_dispatch,
@@ -111,9 +163,10 @@ def check_ring_mode(config: ModelConfig, spmd_mode: str) -> None:
 
 
 def build_model(config: ModelConfig, *, device: torch.device,
-                in_channels: int | None = None) -> nn.Module:
+                in_channels: int | None = None, precision=None) -> nn.Module:
     """The uninitialised module for ``config`` on ``device`` (BERT whole,
-    whatever ``model.pipeline_stages``). ``in_channels`` (the data's
+    whatever ``model.pipeline_stages``) under ``precision`` (None: the
+    model as configured, the serving path). ``in_channels`` (the data's
     ``channels``) defaults to 1 for LeNet and 3 for ResNet and
     Inception."""
     name = config.name.lower()
@@ -122,20 +175,18 @@ def build_model(config: ModelConfig, *, device: torch.device,
             BertForMLM,
         )
 
-        return BertForMLM(**model_kwargs(config), device=device)
+        return BertForMLM(**model_kwargs(config, precision), device=device)
+    check_precision(config, precision)
     _check_common(config, name)
-    dtype = _DTYPES[config.dtype]
+    dtype = _dtype(config, precision)
+    matmul_dtype = "" if precision is None else precision.matmul_dtype
     if name in LENET_NAMES:
         from distributed_tensorflow_framework_torch.models.lenet import LeNet5
 
         return LeNet5(config.num_classes, in_channels=in_channels or 1,
-                      dtype=dtype, device=device)
+                      dtype=dtype, matmul_dtype=matmul_dtype, device=device)
     m = _RESNET.fullmatch(name)
     if m:
-        if config.remat:
-            raise _not_ported(
-                "model.remat on a ResNet (torch.utils.checkpoint replays "
-                "each BN's running-statistics update)", "A18")
         from distributed_tensorflow_framework_torch.models.resnet import (
             make_resnet,
         )
@@ -143,33 +194,39 @@ def build_model(config: ModelConfig, *, device: torch.device,
         return make_resnet(int(m.group(1)), config.num_classes, dtype=dtype,
                            cifar_stem=m.group(2) is not None,
                            space_to_depth_stem=config.space_to_depth_stem,
-                           in_channels=in_channels or 3, device=device)
+                           in_channels=in_channels or 3, remat=config.remat,
+                           remat_policy=config.remat_policy,
+                           ckpt_policy=_ckpt_policy(precision),
+                           matmul_dtype=matmul_dtype, device=device)
     if name in INCEPTION_NAMES:
-        if config.remat:
-            raise _not_ported(
-                "model.remat on Inception-v3 (torch.utils.checkpoint replays "
-                "each BN's running-statistics update)", "A18")
         from distributed_tensorflow_framework_torch.models.inception import (
             InceptionV3,
         )
 
         return InceptionV3(config.num_classes, in_channels=in_channels or 3,
-                           dtype=dtype, device=device)
+                           remat=config.remat,
+                           ckpt_policy=_ckpt_policy(precision), dtype=dtype,
+                           device=device)
     raise ValueError(f"Unknown model {config.name!r}")
 
 
 def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
               generator: torch.Generator | None = None,
-              in_channels: int | None = None, runtime=None) -> nn.Module:
+              in_channels: int | None = None, runtime=None,
+              precision=None) -> nn.Module:
     """Build the model on ``device`` (default CUDA; raises when CUDA is
-    absent unless ``device="cpu"``) with its parameters drawn from
-    ``generator`` (default: seed 0 on that device). Eval mode: the
-    trainer switches it to ``train()``. Image models on a CUDA device are
-    laid out channels_last. With ``model.pipeline_stages > 1`` the whole
-    BERT so drawn is cut to ``runtime``'s stage (``PipelinedBert``; a
-    ValueError without a runtime, as the JAX package's needs the mesh)."""
+    absent unless ``device="cpu"``) under ``precision`` (the config's
+    ``PrecisionConfig``, or None) with its parameters drawn from
+    ``generator`` (default: seed 0 on that device), in f32 whatever the
+    precision. Eval mode: the trainer switches it to ``train()``. Image
+    models on a CUDA device are laid out channels_last. With
+    ``model.pipeline_stages > 1`` the whole BERT so drawn is cut to
+    ``runtime``'s stage (``PipelinedBert``, each layer checkpointed with
+    ``precision.remat_policy`` when set; a ValueError without a runtime,
+    as the JAX package's needs the mesh)."""
     dev = resolve_device(device)
-    model = build_model(config, device=dev, in_channels=in_channels)
+    model = build_model(config, device=dev, in_channels=in_channels,
+                        precision=precision)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(generator)
@@ -185,5 +242,6 @@ def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
             num_microbatches=config.pipeline_microbatches,
             schedule=config.pipeline_schedule,
             virtual_stages=config.pipeline_virtual_stages,
-            model_kwargs=model_kwargs(config))
+            model_kwargs=model_kwargs(config, precision),
+            ckpt_policy=_ckpt_policy(precision))
     return model.eval()

@@ -47,26 +47,27 @@ MoE layer's aux dict or zeros, and the model returns ``{"logits",
 its MoE layers (``moe_zloss`` only when ``moe_zloss_weight`` is set), as
 the Flax model does.
 
-``remat`` checkpoints each encoder layer (``torch.utils.checkpoint``, the
-counterpart of ``nn.remat(EncoderLayer)``): the backward recomputes a
-layer's activations from its input instead of keeping them, so activation
-memory holds one layer's worth at a time. The recompute replays the
-layer's dropout masks from the same ``dropout_generator`` state and then
-puts the generator back, so the gradients and the generator's state are
-those of the model without remat (:func:`remat_layer`).
+``remat`` checkpoints each encoder layer (models/remat.py, the
+counterpart of ``nn.remat(EncoderLayer, policy=...)``): the backward
+recomputes a layer's activations from its input instead of keeping them,
+so activation memory holds one layer's worth at a time, or with
+``ckpt_policy="dots_saveable"`` (``precision.remat_policy``) the layer's
+matrix-product outputs besides. The recompute replays the layer's dropout
+masks from the same ``dropout_generator`` state and then puts the
+generator back, so the gradients and the generator's state are those of
+the model without remat (:func:`remat_layer`).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 from torch import nn
 
+from distributed_tensorflow_framework_torch.models import remat
 from distributed_tensorflow_framework_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -205,37 +206,21 @@ class EncoderLayer(nn.Module):
         return self.ln2(x + y), aux
 
 
-@contextlib.contextmanager
-def _replaying(generator: torch.Generator, state: torch.Tensor):
-    """Run the body with ``generator`` set to ``state``, then return it to
-    where it stood before the body."""
-    after = generator.get_state()
-    generator.set_state(state)
-    try:
-        yield
-    finally:
-        generator.set_state(after)
-
-
-def remat_layer(layer: nn.Module, x, mask, segment_ids, generator):
+def remat_layer(layer: nn.Module, x, mask, segment_ids, generator,
+                policy: str | None = None):
     """``layer(x, mask, segment_ids, generator)`` (its ``(x, aux)``, the
     aux dict carried through as ``nn.remat`` carries return values) under
-    a per-layer
-    activation checkpoint. ``preserve_rng_state`` covers only the default
-    generators, and dropout draws from ``generator``, so the recompute
-    would draw other masks and give wrong gradients without an error. So
-    the forward's generator state is captured as it starts, the recompute
-    runs from that state, and the generator is then put back where the
-    forward left it."""
-    def contexts():
-        if generator is None:
-            return contextlib.nullcontext(), contextlib.nullcontext()
-        return (contextlib.nullcontext(),
-                _replaying(generator, generator.get_state()))
-
-    return torch.utils.checkpoint.checkpoint(
-        layer, x, mask, segment_ids, generator, use_reentrant=False,
-        preserve_rng_state=False, context_fn=contexts)
+    a per-layer activation checkpoint that keeps what ``policy`` names
+    (models/remat.py: None or "save_nothing" keeps nothing,
+    "dots_saveable" the matrix products' outputs).
+    ``preserve_rng_state`` covers only the default generators, and
+    dropout draws from ``generator``, so the recompute would draw other
+    masks and give wrong gradients without an error. So the forward's
+    generator state is captured as it starts, the recompute runs from
+    that state, and the generator is then put back where the forward
+    left it."""
+    return remat.checkpoint(layer, x, mask, segment_ids, generator,
+                            policy=policy, generator=generator)
 
 
 class Embed(nn.Module):
@@ -324,13 +309,15 @@ class BertForMLM(nn.Module):
                  dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "xla", fused_qkv: bool = False,
-                 remat: bool = False, num_experts: int = 0,
+                 remat: bool = False, ckpt_policy: str | None = None,
+                 num_experts: int = 0,
                  moe_every: int = 2, expert_topk: int = 2,
                  capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
                  moe_zloss_weight: float = 0.0, device=None):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
+        self.ckpt_policy = ckpt_policy
         self.num_experts = num_experts
         self.moe_zloss_weight = moe_zloss_weight
         every = max(moe_every, 1)
@@ -411,7 +398,7 @@ class BertForMLM(nn.Module):
             layer = getattr(self, f"layer{i}")
             if remat:
                 x, aux = remat_layer(layer, x, mask, segment_ids,
-                                     dropout_generator)
+                                     dropout_generator, self.ckpt_policy)
             else:
                 x, aux = layer(x, mask, segment_ids, dropout_generator)
             if i in self.moe_layers:

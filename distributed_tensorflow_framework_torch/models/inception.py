@@ -27,8 +27,10 @@ As in the JAX model:
 
 Parameters and BN statistics are f32; convolutions run in ``dtype``. The
 NHWC input is permuted once at entry; on the card the body runs
-channels_last. ``model.remat`` is refused (models/__init__.py): the same
-BN replay as ResNet's (ROADMAP.md queue A item A18).
+channels_last. ``remat`` checkpoints each mixed and reduction block
+(models/remat.py), with ``ckpt_policy`` (``precision.remat_policy``)
+selecting what the checkpoint keeps; the replay leaves the BatchNorm
+running statistics alone.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_tensorflow_framework_torch.models import remat as remat_lib
 from distributed_tensorflow_framework_torch.models.layers import (
     ConvBN,
     Dense,
@@ -173,10 +176,13 @@ class InceptionC(nn.Module):
 
 class InceptionV3(nn.Module):
     def __init__(self, num_classes: int = 1000, *, dropout_rate: float = 0.2,
-                 in_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 in_channels: int = 3, remat: bool = False,
+                 ckpt_policy: str | None = None,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
+        self.ckpt_policy = ckpt_policy
         self.dropout_rate = dropout_rate
         kw = dict(dtype=dtype, device=device)
         self.stem1 = _C(in_channels, 32, (3, 3), (2, 2), "VALID", **kw)
@@ -232,8 +238,11 @@ class InceptionV3(nn.Module):
         x = F.max_pool2d(x, 3, 2)
         x = F.max_pool2d(self.stem5(self.stem4(x)), 3, 2)
         aux = None
+        remat = self.remat and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = (remat_lib.checkpoint(block, x, policy=self.ckpt_policy)
+                 if remat else block(x))
             if name == "mixed7" and self.training:
                 aux = self._aux(x)
         x = dropout(x.mean(dim=(2, 3)), self.dropout_rate, dropout_generator,

@@ -18,6 +18,14 @@ reproduce Flax's dtype flow (``param_dtype=float32``, compute in
 ``dtype``; normalisation statistics in f32) so the bf16 rounding points
 line up with the JAX model's. The image half (conv, BatchNorm, ConvBN,
 space-to-depth, SAME max-pool) is below its own heading.
+
+``precision.matmul_dtype: int8`` (:func:`quantized_matmul`,
+:class:`QuantDense`, :class:`QuantConv`) runs the products of LeNet's
+dense body and of every ResNet ConvBN on the int8 block codec of
+parallel/quantization.py, as the JAX package's layers do; the parameters
+stay the f32 ``Dense``/``Conv`` ones. In a checkpointed block's
+recompute (models/remat.py) BatchNorm leaves its running statistics
+alone, as JAX's ``nn.remat`` drops the replay's update.
 """
 
 from __future__ import annotations
@@ -28,6 +36,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from distributed_tensorflow_framework_torch.models import remat
+from distributed_tensorflow_framework_torch.parallel.quantization import (
+    DEFAULT_BLOCK_SIZE,
+)
 
 # Std of a unit normal truncated to [-2, 2]; Flax divides by it so the
 # truncated draw has the requested variance.
@@ -117,6 +130,84 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
     # the device.
     rounded = torch.tensor(keep_prob, dtype=x.dtype).item()
     return torch.where(keep, x / rounded, 0.0)
+
+
+# 1/127 rounded to f32: XLA compiles the JAX package's ``amax / 127.0``
+# as a multiplication by it (parallel/quantization.py).
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def _block_scales(amax: torch.Tensor) -> torch.Tensor:
+    return torch.where(amax > 0.0, amax * _INV_127, 1.0)
+
+
+def block_products(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact per-block integer products of :func:`quantized_matmul`:
+    ``xq`` (M, nb, bs) and ``wq`` (nb, bs, N), integer-valued f32 in
+    ±127, → (M, nb, N) f32, ``acc[m, b, n] = Σ_k xq[m, b, k]·wq[b, k, n]``,
+    as one f32 ``bmm`` on every device. Exact: |sum| ≤ bs·127² =
+    4,129,024 < 2²⁴ at bs = 256, and TF32 holds ±127 exactly."""
+    return torch.bmm(xq.transpose(0, 1), wq).transpose(0, 1)
+
+
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
+                     block_size: int = DEFAULT_BLOCK_SIZE) -> torch.Tensor:
+    """Block-scaled int8 ``x @ w`` (``precision.matmul_dtype: int8``), the
+    JAX package's ``quantized_matmul``: ``x`` (..., K), ``w`` (K, N) →
+    (..., N) f32.
+
+    Both operands are quantized along K in blocks of ``block_size`` (K
+    zero-padded to whole blocks) with one f32 scale per block, max-abs ×
+    f32(1/127) (1.0 for an all-zero block); round half to even, clamp to
+    ±127; the exact integer block products (:func:`block_products`)
+    rescaled as ``(acc·xs)·ws`` and summed over the blocks in order, each
+    block's rescale fused into the sum as XLA fuses it (one FMA), so the
+    result is the jitted JAX function's bit for bit.
+
+    The gradient is the one ``jax.grad`` takes of that function: the
+    rounding and the int8 casts carry none, so it flows through the
+    scales alone, into the block max-abs elements of ``x`` and ``w``
+    (``amax`` shares it among ties as JAX's ``reduce_max`` does). It is
+    not a straight-through estimator."""
+    *lead, k = x.shape
+    if w.shape[0] != k:
+        raise ValueError(f"quantized_matmul: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    n = w.shape[1]
+    xf = x.float().reshape(-1, k)
+    wf = w.float()
+    pad = (-k) % block_size
+    if pad:
+        xf = F.pad(xf, (0, pad))
+        wf = F.pad(wf, (0, 0, 0, pad))
+    nb = (k + pad) // block_size
+    xb = xf.view(-1, nb, block_size)
+    wb = wf.view(nb, block_size, n)
+    xs = _block_scales(xb.abs().amax(dim=2))
+    ws = _block_scales(wb.abs().amax(dim=1))
+    with torch.no_grad():
+        xq = torch.round(xb / xs[:, :, None]).clamp_(-127, 127)
+        wq = torch.round(wb / ws[:, None, :]).clamp_(-127, 127)
+        acc = block_products(xq, wq)
+    # XLA fuses the rescale into the block sum as one FMA per block,
+    # out ← fma(acc·xs, ws, out) from zero; addcmul is that FMA.
+    part = acc * xs[:, :, None]
+    out = part[:, 0] * ws[0]
+    for b in range(1, nb):
+        out = torch.addcmul(out, part[:, b], ws[b])
+    return out.reshape(*lead, n)
+
+
+class QuantDense(Dense):
+    """``Dense`` whose product runs on :func:`quantized_matmul` (the JAX
+    ``QuantDense``): the same f32 parameters, the product and the bias add
+    in f32, the result cast to ``dtype`` at the end."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = quantized_matmul(x, self.weight.t())
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -258,6 +349,35 @@ class Conv(nn.Module):
                         stride=self.strides, padding=symmetric)
 
 
+class QuantConv(Conv):
+    """``Conv`` (no bias) whose contraction runs on :func:`quantized_matmul`
+    in im2col form (the JAX ``QuantConv``): the f32 input's patches in
+    (cin, kh, kw) order, which ``F.unfold`` of the NCHW input gives and
+    ``conv_general_dilated_patches`` gives JAX, times the weight as a
+    (cin·kh·kw, cout) matrix, so the quantization blocks fall on the same
+    elements; the result cast to ``dtype``. The pads are the layer's
+    (XLA's asymmetric SAME, VALID or explicit pairs)."""
+
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
+        if self.bias is not None:
+            raise ValueError("QuantConv takes no bias (the JAX QuantConv "
+                             "has none)")
+        pads = _pad_pairs(x, self.kernel_size, self.strides,
+                          self.padding if padding is None else padding)
+        xp = pad_nchw(x.float().contiguous(), pads)
+        n = x.shape[0]
+        cout, cin, kh, kw = self.weight.shape
+        oh = (xp.shape[2] - kh) // self.strides[0] + 1
+        ow = (xp.shape[3] - kw) // self.strides[1] + 1
+        patches = F.unfold(xp, (kh, kw), stride=self.strides)
+        y = quantized_matmul(patches.transpose(1, 2),
+                             self.weight.reshape(cout, cin * kh * kw).t())
+        y = y.view(n, oh, ow, cout).permute(0, 3, 1, 2)
+        if x.is_contiguous(memory_format=torch.channels_last):
+            y = y.contiguous(memory_format=torch.channels_last)
+        return y.to(self.dtype)
+
+
 def _all_reduce(t: torch.Tensor, group=None) -> None:
     """Sum ``t`` over the ranks of ``group`` (None: the default process
     group) in place; a no-op without a process group (one device)."""
@@ -331,6 +451,10 @@ class BatchNorm(nn.Module):
     back by (n−1)/n. ``zero_init_gamma`` starts the scale at zero (the
     last BN of a residual block).
 
+    In the recompute of a checkpointed block (models/remat.py
+    ``replaying``) the running statistics stay as they are: the forward
+    has moved them once already.
+
     ``cross_rank`` (:func:`use_cross_rank_bn`, which the trainer calls
     when the data-parallel ranks are more than one) takes the training
     statistics over the batch of every rank of ``group``, the data × fsdp
@@ -373,6 +497,8 @@ class BatchNorm(nn.Module):
         if self.cross_rank:
             y, mean, var = _CrossRankBatchNorm.apply(
                 x, self.weight, self.bias, self.eps, self.group)
+            if remat.replaying():
+                return y.to(self.dtype)
             with torch.no_grad():
                 self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
                 self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
@@ -381,6 +507,8 @@ class BatchNorm(nn.Module):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias,
                          training=True, momentum=1.0, eps=self.eps)
+        if remat.replaying():
+            return y.to(self.dtype)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
@@ -404,17 +532,23 @@ class ConvBN(nn.Module):
     """Conv (no bias, He init) → BatchNorm → optional ReLU: the JAX
     ``ConvBN``, whose Flax tree is ``conv/kernel`` and
     ``BatchNorm_0/bn/{scale,bias}`` (models/convert.py maps ``bn`` onto
-    ``BatchNorm_0/bn``)."""
+    ``BatchNorm_0/bn``). ``matmul_dtype="int8"`` takes a
+    :class:`QuantConv` under the same parameter. The ``conv_saved`` remat
+    policy (models/remat.py) keeps the conv's output, JAX's ``conv_out``,
+    by keeping every ``aten.convolution``."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: tuple[int, int], *,
                  strides: tuple[int, int] = (1, 1), padding="SAME",
                  use_relu: bool = True, zero_init_gamma: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, matmul_dtype: str = "",
+                 device=None):
         super().__init__()
         self.use_relu = use_relu
-        self.conv = Conv(in_features, features, kernel_size, strides=strides,
-                         padding=padding, dtype=dtype, device=device)
+        conv_cls = QuantConv if matmul_dtype == "int8" else Conv
+        self.conv = conv_cls(in_features, features, kernel_size,
+                             strides=strides, padding=padding, dtype=dtype,
+                             device=device)
         self.bn = BatchNorm(features, dtype=dtype,
                             zero_init_gamma=zero_init_gamma, device=device)
 

@@ -11,6 +11,10 @@ The input is the NHWC batch; the body runs NCHW (models/layers.py). Before
 ``fc1`` the activations go back to NHWC and are flattened in (h, w, c)
 order, as the JAX model flattens them, so ``fc1``'s 400 inputs are in the
 Flax kernel's row order and models/convert.py carries it unchanged.
+
+``matmul_dtype="int8"`` (``precision.matmul_dtype``) runs ``fc1`` and
+``fc2`` as :class:`~.layers.QuantDense` under the same parameters; the
+``logits`` layer stays f32, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -22,21 +26,24 @@ from torch import nn
 from distributed_tensorflow_framework_torch.models.layers import (
     Conv,
     Dense,
+    QuantDense,
     nhwc_to_nchw,
 )
 
 
 class LeNet5(nn.Module):
     def __init__(self, num_classes: int = 10, *, in_channels: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, matmul_dtype: str = "",
+                 device=None):
         super().__init__()
         self.dtype = dtype
+        body = QuantDense if matmul_dtype == "int8" else Dense
         self.conv1 = Conv(in_channels, 6, (5, 5), padding="SAME",
                           use_bias=True, dtype=dtype, device=device)
         self.conv2 = Conv(6, 16, (5, 5), padding="VALID", use_bias=True,
                           dtype=dtype, device=device)
-        self.fc1 = Dense(400, 120, dtype=dtype, device=device)
-        self.fc2 = Dense(120, 84, dtype=dtype, device=device)
+        self.fc1 = body(400, 120, dtype=dtype, device=device)
+        self.fc2 = body(120, 84, dtype=dtype, device=device)
         self.logits = Dense(84, num_classes, dtype=torch.float32,
                             device=device)
 

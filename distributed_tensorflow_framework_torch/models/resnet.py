@@ -15,10 +15,18 @@ Parameters and BN statistics are f32; convolutions run in ``dtype``
 (bf16 in the configs). The NHWC input is permuted once at entry; on the
 card the body runs channels_last (models/layers.py).
 
-``model.remat`` is refused: ``torch.utils.checkpoint`` replays a block's
-forward in ``train()`` mode, so every BN would move its running
-statistics twice per step, where JAX's ``nn.remat`` drops the replay's
-update (ROADMAP.md queue A item A18).
+``matmul_dtype="int8"`` (``precision.matmul_dtype``) runs every ConvBN's
+contraction on the int8 block codec (models/layers.py ``QuantConv``);
+the classifier is never quantized.
+
+``remat`` checkpoints each residual block (models/remat.py): with
+``remat_policy`` "full" the backward replays the whole block, with
+"conv_saved" it keeps each ConvBN's convolution output and replays only
+the BatchNorm, ReLU and residual tail; ``ckpt_policy``
+(``precision.remat_policy``: "save_nothing" or "dots_saveable") wins
+over ``remat_policy`` when set. The replay leaves the BatchNorm running
+statistics alone, so a step's parameters and statistics are those
+without remat.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_tensorflow_framework_torch.models import remat as remat_lib
 from distributed_tensorflow_framework_torch.models.layers import (
     ConvBN,
     Dense,
@@ -36,6 +45,13 @@ from distributed_tensorflow_framework_torch.models.layers import (
     nhwc_to_nchw,
     space_to_depth,
 )
+
+
+REMAT_POLICIES = ("full", "conv_saved")
+
+
+def _remat_policy_error(got: str) -> str:
+    return f"remat_policy must be one of {REMAT_POLICIES}, got {got!r}"
 
 
 class Bottleneck(nn.Module):
@@ -48,10 +64,10 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, features: int, strides=(1, 1), *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, matmul_dtype: str = "", device=None):
         super().__init__()
         out = self.expansion * features
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, matmul_dtype=matmul_dtype, device=device)
         self.conv1 = ConvBN(in_features, features, (1, 1), **kw)
         self.conv2 = ConvBN(features, features, (3, 3), strides=strides,
                             **kw)
@@ -75,9 +91,9 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_features: int, features: int, strides=(1, 1), *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, matmul_dtype: str = "", device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, matmul_dtype=matmul_dtype, device=device)
         self.conv1 = ConvBN(in_features, features, (3, 3), strides=strides,
                             **kw)
         self.conv2 = ConvBN(features, features, (3, 3), use_relu=False,
@@ -98,15 +114,25 @@ class ResNet(nn.Module):
                  *, width: int = 64, cifar_stem: bool = False,
                  basic_block: bool = False,
                  space_to_depth_stem: bool = False, in_channels: int = 3,
+                 remat: bool = False, remat_policy: str = "full",
+                 ckpt_policy: str | None = None, matmul_dtype: str = "",
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         if cifar_stem and space_to_depth_stem:
             raise ValueError("space_to_depth_stem only applies to the "
                              "ImageNet stem (cifar_stem=False)")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(_remat_policy_error(remat_policy))
         self.dtype = dtype
         self.cifar_stem = cifar_stem
         self.space_to_depth_stem = space_to_depth_stem
-        kw = dict(dtype=dtype, device=device)
+        self.remat = remat
+        # The block checkpoint's save policy (models/remat.py): the
+        # precision one wins, "full" keeps nothing.
+        self.block_policy = (ckpt_policy if ckpt_policy is not None
+                             else "conv_saved" if remat_policy == "conv_saved"
+                             else None)
+        kw = dict(dtype=dtype, matmul_dtype=matmul_dtype, device=device)
         if cifar_stem:
             self.stem = ConvBN(in_channels, width, (3, 3), **kw)
         elif space_to_depth_stem:
@@ -148,8 +174,11 @@ class ResNet(nn.Module):
             x = max_pool_same(self.stem_s2d(x), 3, 2)
         else:
             x = max_pool_same(self.stem(x), 3, 2)
+        remat = self.remat and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = (remat_lib.checkpoint(block, x, policy=self.block_policy)
+                 if remat else block(x))
         x = x.mean(dim=(2, 3))
         return self.classifier(x.float())
 
@@ -167,7 +196,9 @@ RESNET_DEPTHS: dict[int, tuple[tuple[int, ...], bool]] = {
 def make_resnet(depth: int, num_classes: int = 1000, *,
                 dtype: torch.dtype = torch.bfloat16,
                 cifar_stem: bool = False, space_to_depth_stem: bool = False,
-                in_channels: int = 3, device=None) -> ResNet:
+                in_channels: int = 3, remat: bool = False,
+                remat_policy: str = "full", ckpt_policy: str | None = None,
+                matmul_dtype: str = "", device=None) -> ResNet:
     if depth not in RESNET_DEPTHS:
         raise ValueError(
             f"resnet depth {depth} not in {sorted(RESNET_DEPTHS)}")
@@ -175,4 +206,6 @@ def make_resnet(depth: int, num_classes: int = 1000, *,
     return ResNet(stages, num_classes, basic_block=basic,
                   cifar_stem=cifar_stem,
                   space_to_depth_stem=space_to_depth_stem,
-                  in_channels=in_channels, dtype=dtype, device=device)
+                  in_channels=in_channels, remat=remat,
+                  remat_policy=remat_policy, ckpt_policy=ckpt_policy,
+                  matmul_dtype=matmul_dtype, dtype=dtype, device=device)

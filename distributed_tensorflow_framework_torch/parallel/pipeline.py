@@ -61,6 +61,15 @@ back: a checkpoint holds the whole stack in the natural layer order
 (every stage's layers gathered over ``pipe``), which one process (a
 ``BertForMLM``) or a run under another schedule reads.
 
+With ``ckpt_policy`` (``precision.remat_policy``, the JAX
+``_stage_apply``'s per-layer ``jax.checkpoint``) every layer a stage runs
+with grad enabled is checkpointed under that policy (models/bert.py
+``remat_layer``, its dropout stream replayed): the gpipe and interleaved
+forwards keep each slot's graph with the layers' activations
+recomputed in the backward, and 1f1b's recompute, which runs inside the
+slot's backward, checkpoints the layers again, so their activations are
+rebuilt inside ``torch.autograd.grad`` of that slot.
+
 Packed rows (segment ids) are refused with a TypeError, as the JAX
 ``PipelinedBert.apply`` takes no segment ids.
 """
@@ -79,6 +88,7 @@ from distributed_tensorflow_framework_torch.core.mesh import (
     _pack_bytes,
     _unpack_bytes,
 )
+from distributed_tensorflow_framework_torch.models.bert import remat_layer
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import schedule as sched
 
@@ -190,8 +200,12 @@ class _Stack:
             if self.base is not None:
                 gen = self.model.layer_generator(x.device)
                 gen.manual_seed(layer_seed(self.base, mb, g))
-            x, _ = getattr(self.model, f"layer{g}")(x, self.masks[mb], None,
-                                                   gen)
+            layer = getattr(self.model, f"layer{g}")
+            if self.model.ckpt_policy is not None and torch.is_grad_enabled():
+                x, _ = remat_layer(layer, x, self.masks[mb], None, gen,
+                                   self.model.ckpt_policy)
+            else:
+                x, _ = layer(x, self.masks[mb], None, gen)
         return x
 
     def hop(self, buf: torch.Tensor, shift: int) -> torch.Tensor:
@@ -346,12 +360,14 @@ class PipelinedBert(nn.Module):
     drops), with the embedding and the MLM head replicated on every
     stage. ``schedule`` and ``virtual_stages`` select the stage schedule
     (parallel/schedule.py; ``virtual_stages`` 0 resolves as there);
-    ``num_microbatches`` 0 means ``num_stages``. The parameters keep the
+    ``num_microbatches`` 0 means ``num_stages``; ``ckpt_policy`` checkpoints
+    each layer under that save policy (models/remat.py). The parameters keep the
     whole model's names, so a state_dict is a part of the whole one."""
 
     def __init__(self, whole: nn.Module, runtime, *, num_stages: int,
                  num_microbatches: int = 0, schedule: str = "gpipe",
-                 virtual_stages: int = 0, model_kwargs: dict | None = None):
+                 virtual_stages: int = 0, model_kwargs: dict | None = None,
+                 ckpt_policy: str | None = None):
         super().__init__()
         if runtime is None:
             raise ValueError("PipelinedBert needs the mesh runtime (the "
@@ -378,6 +394,7 @@ class PipelinedBert(nn.Module):
                                    self.virtual_stages, self.stage)
         self.layer_ids = [g for chunk in self.chunks for g in chunk]
         self.model_kwargs = dict(model_kwargs or {})
+        self.ckpt_policy = ckpt_policy
         self.dropout_rate = whole.embed_block.dropout_rate
         self.embed_block = whole.embed_block
         for g in sorted(self.layer_ids):

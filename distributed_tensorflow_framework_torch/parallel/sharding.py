@@ -295,7 +295,13 @@ def map_slots(fn, opt_state: dict, names: list[str]) -> dict:
     applied to every slot tensor that mirrors a parameter (ndim >= 1; the
     per-parameter step counters pass through), where ``name`` is that
     parameter's key (``Optimizer.names``). A new nest; what is not mapped
-    is shared."""
+    is shared. A per-bucket state (train/optimizers.py
+    ``BucketOptimizers``: ``{"buckets": [...]}`` with one name list per
+    bucket) is mapped bucket by bucket."""
+    if "buckets" in opt_state:
+        return {**opt_state, "buckets": [
+            map_slots(fn, part, part_names)
+            for part, part_names in zip(opt_state["buckets"], names)]}
     inner = opt_state["inner"]
     state = {i: {k: (fn(v, names[i]) if isinstance(v, torch.Tensor)
                      and v.dim() >= 1 else v) for k, v in slots.items()}

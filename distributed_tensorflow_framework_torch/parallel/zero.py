@@ -52,8 +52,19 @@ state and of the update's work) and all-gathers the result:
 
 The tally records ``zero_reduce_scatter`` and ``zero_all_gather`` under
 the JAX package's byte conventions; :func:`plan_summary` is the static
-estimate of the ``zero_update`` event. ``precision.fused_update`` (JAX's
-``fused_update_walk``) is ROADMAP.md queue A item A13.
+estimate of the ``zero_update`` event.
+
+``precision.fused_update`` (:meth:`ZeroUpdate.fused_walk_`, JAX's
+``fused_update_walk``) runs the same collectives bucket by bucket, in the
+same reverse layer order: the bucket's reduce-scatter (with error
+feedback on the int8 wire), the update of its shards by its own optimizer
+(train/optimizers.py ``BucketOptimizers``), its all-gather (the updated
+shards on the f32 wire, ``new − old`` on a lossy one, as above) and the
+apply to its whole parameters, so each leaf is read and written once
+while its gradient is at hand. The collectives per bucket and the tally
+are the unfused path's, and so are the parameters and the slots, bit for
+bit on the f32 wire; ``grad_norm`` is the square root of the all-reduced
+sum of the shards' squares.
 """
 
 from __future__ import annotations
@@ -247,6 +258,36 @@ def _all_gather_bucket(vec: torch.Tensor, runtime, *, wire,
     return full.view(-1, vec.shape[0])
 
 
+def _scatter_leaves(bucket: tuple[LeafChunk, ...],
+                    grads: Mapping[str, torch.Tensor], runtime, n: int, *,
+                    wire, block_size: int,
+                    residual: Mapping[str, torch.Tensor] | None
+                    ) -> tuple[dict, dict]:
+    """One bucket of :func:`bucketed_reduce_scatter`: its leaves' slices of
+    the mean gradient and, with ``residual`` on the int8 wire, their new
+    errors."""
+    mats = []
+    for lc in bucket:
+        g = grads[lc.name].float()
+        if residual is not None:
+            g = g + residual[lc.name].float()
+        mats.append(stack_rows(g, lc.chunk, n))
+    mat = torch.cat(mats, dim=1) if len(mats) > 1 else mats[0]
+    own, e1 = _reduce_scatter_bucket(
+        mat, runtime, wire=wire, block_size=block_size,
+        paths=tuple(lc.path for lc in bucket))
+    mean_own = own / n
+    shards, new_res = {}, {}
+    off = 0
+    for lc in bucket:
+        shards[lc.name] = mean_own[off:off + lc.chunk]
+        if e1 is not None and residual is not None:
+            new_res[lc.name] = (e1[:, off:off + lc.chunk].reshape(-1)
+                                [:lc.size].view_as(grads[lc.name]))
+        off += lc.chunk
+    return shards, new_res
+
+
 def bucketed_reduce_scatter(plan: ZeroPlan, grads: Mapping[str, torch.Tensor],
                             runtime, *, wire_dtype=None,
                             block_size: int = DEFAULT_BLOCK_SIZE,
@@ -262,31 +303,35 @@ def bucketed_reduce_scatter(plan: ZeroPlan, grads: Mapping[str, torch.Tensor],
     Error feedback: ``residual`` is this replica's last-step error at
     parameter shape, added to the gradients before quantizing; summed
     over the replicas, the new error is what the scattered mean missed."""
-    n = plan.n
     wire = coll._canon_wire(wire_dtype)
     use_ef = wire == torch.int8 and residual is not None
     shards: dict[str, torch.Tensor] = {}
     new_res: dict[str, torch.Tensor] = {}
     for bucket in plan.buckets:
-        mats = []
-        for lc in bucket:
-            g = grads[lc.name].float()
-            if use_ef:
-                g = g + residual[lc.name].float()
-            mats.append(stack_rows(g, lc.chunk, n))
-        mat = torch.cat(mats, dim=1) if len(mats) > 1 else mats[0]
-        own, e1 = _reduce_scatter_bucket(
-            mat, runtime, wire=wire, block_size=block_size,
-            paths=tuple(lc.path for lc in bucket))
-        mean_own = own / n
-        off = 0
-        for lc in bucket:
-            shards[lc.name] = mean_own[off:off + lc.chunk]
-            if e1 is not None and use_ef:
-                new_res[lc.name] = (e1[:, off:off + lc.chunk].reshape(-1)
-                                    [:lc.size].view_as(grads[lc.name]))
-            off += lc.chunk
+        got, res = _scatter_leaves(bucket, grads, runtime, plan.n,
+                                   wire=wire, block_size=block_size,
+                                   residual=residual if use_ef else None)
+        shards.update(got)
+        new_res.update(res)
     return shards, (new_res if use_ef else None)
+
+
+def _gather_leaves(bucket: tuple[LeafChunk, ...],
+                   shards: Mapping[str, torch.Tensor], runtime, n: int, *,
+                   wire, block_size: int) -> dict[str, torch.Tensor]:
+    """One bucket of :func:`bucketed_all_gather`: its leaves whole,
+    flattened to ``(size,)``."""
+    vec = torch.cat([shards[lc.name].float().reshape(-1) for lc in bucket])
+    rows = _all_gather_bucket(vec, runtime, wire=wire, block_size=block_size,
+                              paths=tuple(lc.path for lc in bucket))
+    if rows.shape[0] != n:
+        raise AssertionError(f"gathered {rows.shape[0]} rows, plan has {n}")
+    out = {}
+    off = 0
+    for lc in bucket:
+        out[lc.name] = rows[:, off:off + lc.chunk].reshape(-1)[:lc.size]
+        off += lc.chunk
+    return out
 
 
 def bucketed_all_gather(plan: ZeroPlan, shards: Mapping[str, torch.Tensor],
@@ -299,18 +344,8 @@ def bucketed_all_gather(plan: ZeroPlan, shards: Mapping[str, torch.Tensor],
     wire = coll._canon_wire(wire_dtype)
     out: dict[str, torch.Tensor] = {}
     for bucket in plan.buckets:
-        vec = torch.cat([shards[lc.name].float().reshape(-1)
-                         for lc in bucket])
-        rows = _all_gather_bucket(vec, runtime, wire=wire,
-                                  block_size=block_size,
-                                  paths=tuple(lc.path for lc in bucket))
-        if rows.shape[0] != plan.n:
-            raise AssertionError(f"gathered {rows.shape[0]} rows, plan has "
-                                 f"{plan.n}")
-        off = 0
-        for lc in bucket:
-            out[lc.name] = rows[:, off:off + lc.chunk].reshape(-1)[:lc.size]
-            off += lc.chunk
+        out.update(_gather_leaves(bucket, shards, runtime, plan.n,
+                                  wire=wire, block_size=block_size))
     return out
 
 
@@ -410,25 +445,71 @@ class ZeroUpdate:
                 new_res)
 
     @torch.no_grad()
-    def finish_step_(self, model: nn.Module) -> None:
-        """Gather the update into every rank's whole parameters: the
-        updated shards on the f32 wire, ``new − old`` on a lossy one."""
-        named = dict(model.named_parameters())
+    def _gather_bucket_(self, bucket, named: dict) -> None:
+        """Gather one bucket's update into every rank's whole parameters
+        (the updated shards on the f32 wire, ``new − old`` on a lossy
+        one) and empty its shards."""
         if self.wire is None:
-            full = bucketed_all_gather(self.plan, self.params, self.runtime)
-            for key, v in full.items():
-                named[key].copy_(v.view_as(named[key]))
+            vals = {lc.name: self.params[lc.name] for lc in bucket}
         else:
-            updates = {k: t - self._own(k, named[k].detach())
-                       for k, t in self.params.items()}
-            full = bucketed_all_gather(self.plan, updates, self.runtime,
-                                       wire_dtype=self.wire,
-                                       block_size=self.block_size)
-            for key, v in full.items():
-                named[key].add_(v.view_as(named[key]))
-        for shard in self.params.values():
+            vals = {lc.name: self.params[lc.name]
+                    - self._own(lc.name, named[lc.name].detach())
+                    for lc in bucket}
+        full = _gather_leaves(bucket, vals, self.runtime, self.n,
+                              wire=self.wire, block_size=self.block_size)
+        for lc in bucket:
+            p = named[lc.name]
+            if self.wire is None:
+                p.copy_(full[lc.name].view_as(p))
+            else:
+                p.add_(full[lc.name].view_as(p))
+            shard = self.params[lc.name]
             shard.grad = None
             shard.data = shard.new_empty(0)
+
+    def finish_step_(self, model: nn.Module) -> None:
+        """Gather the update into every rank's whole parameters, bucket by
+        bucket."""
+        named = dict(model.named_parameters())
+        for bucket in self.plan.buckets:
+            self._gather_bucket_(bucket, named)
+
+    def bucket_params(self) -> list[dict[str, torch.Tensor]]:
+        """The shards of each bucket, in the plan's order (the fused
+        update's optimizers, one a bucket)."""
+        return [{lc.name: self.params[lc.name] for lc in bucket}
+                for bucket in self.plan.buckets]
+
+    @torch.no_grad()
+    def fused_walk_(self, model: nn.Module, optimizers, residual=None
+                    ) -> tuple[torch.Tensor, dict | None]:
+        """The fused update (module docstring): for each bucket in plan
+        order its reduce-scatter, its shards' update by ``optimizers``'s
+        optimizer of that bucket, its all-gather and the apply. Returns
+        (the mean gradient's global norm, the new residual or None)."""
+        named = dict(model.named_parameters())
+        use_ef = self.wire == torch.int8 and residual is not None
+        new_res: dict[str, torch.Tensor] = {}
+        sq_sum = None
+        for bucket, opt in zip(self.plan.buckets, optimizers.opts):
+            shards, res = _scatter_leaves(
+                bucket, {lc.name: named[lc.name].grad for lc in bucket},
+                self.runtime, self.n, wire=self.wire,
+                block_size=self.block_size,
+                residual=residual if use_ef else None)
+            new_res.update(res)
+            for lc in bucket:
+                shard = self.params[lc.name]
+                shard.data = self._own(lc.name, named[lc.name].detach()
+                                       ).clone()
+                shard.grad = shards[lc.name]
+                named[lc.name].grad = None
+                sq = shard.grad.square().sum()
+                sq_sum = sq if sq_sum is None else sq_sum + sq
+            opt.step(None)
+            self._gather_bucket_(bucket, named)
+        return (torch.sqrt(coll.psum(sq_sum, self.runtime)),
+                new_res if use_ef else None)
 
     def global_state(self, state: dict, names: list[str]) -> dict:
         """``TrainState.state_dict()`` with the slots stacked over the

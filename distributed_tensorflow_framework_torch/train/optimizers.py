@@ -255,6 +255,56 @@ class Optimizer:
         self.count = int(state["count"])
 
 
+class BucketOptimizers:
+    """``precision.fused_update``'s optimizer (the JAX step's
+    ``_ensure_fused_txs``): one :class:`Optimizer` per ZeRO bucket
+    (parallel/zero.py), each over that bucket's shards (``buckets``: one
+    dict of state_dict key → shard per bucket, in the plan's order) with
+    the bucket's subset of the decay mask. Every rule ZeRO allows is
+    elementwise, and each bucket's optimizer is the same torch.optim class
+    on the same kind of tensors as the whole-tree one, so the same
+    single-tensor or foreach kernels run, and the update is the whole-tree
+    one's bit for bit. The slots are grouped per bucket: ``state_dict``
+    holds ``{"buckets": [...]}``, one ``Optimizer.state_dict()`` each,
+    and ``names`` one key list per bucket."""
+
+    def __init__(self, config: OptimizerConfig, schedule: Schedule,
+                 model: nn.Module, buckets: list[dict[str, torch.Tensor]]):
+        self.opts = [Optimizer(config, schedule, model, params=bucket)
+                     for bucket in buckets]
+        self.names = [opt.names for opt in self.opts]
+        self._schedule = schedule
+
+    @property
+    def schedule(self) -> Schedule:
+        return self._schedule
+
+    @schedule.setter
+    def schedule(self, schedule: Schedule) -> None:
+        self._schedule = schedule
+        for opt in self.opts:
+            opt.schedule = schedule
+
+    @property
+    def count(self) -> int:
+        return self.opts[0].count
+
+    def zero_grad(self) -> None:
+        for opt in self.opts:
+            opt.zero_grad()
+
+    def state_dict(self) -> dict:
+        return {"buckets": [opt.state_dict() for opt in self.opts]}
+
+    def load_state_dict(self, state: dict) -> None:
+        if "buckets" not in state or len(state["buckets"]) != len(self.opts):
+            raise ValueError(
+                "the stored optimizer state is not grouped into this run's "
+                f"{len(self.opts)} ZeRO buckets (precision.fused_update)")
+        for opt, part in zip(self.opts, state["buckets"]):
+            opt.load_state_dict(part)
+
+
 def make_optimizer(config: OptimizerConfig, total_steps: int,
                    model: nn.Module,
                    params: dict[str, torch.Tensor] | None = None,

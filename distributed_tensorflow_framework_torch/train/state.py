@@ -15,7 +15,8 @@ each step replaces.
 Sharded across ranks (``layout``: parallel/zero.py ``ZeroUpdate``,
 parallel/sharding.py ``DimSharding``) each rank holds its own part: under
 ZeRO the optimizer slots are this rank's ``(chunk,)`` row of the stacked
-``(n, chunk)`` layout; under FSDP the parameters, the slots and the EMA
+``(n, chunk)`` layout, grouped per bucket under ``precision.fused_update``
+(train/optimizers.py ``BucketOptimizers``, one optimizer a bucket); under FSDP the parameters, the slots and the EMA
 are this rank's parts between steps (the model's parameters are the parts
 themselves); under ZeRO-1 the slots are parts. The int8 residual keeps
 the full parameter shape in every mode. Under tensor parallelism
@@ -48,7 +49,10 @@ from typing import Any
 import torch
 from torch import nn
 
-from distributed_tensorflow_framework_torch.train.optimizers import Optimizer
+from distributed_tensorflow_framework_torch.train.optimizers import (
+    BucketOptimizers,
+    Optimizer,
+)
 
 
 def host_copy(tree: Any) -> Any:
@@ -68,7 +72,7 @@ def host_copy(tree: Any) -> Any:
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: Optimizer
+    optimizer: Optimizer | BucketOptimizers
     dropout_generator: torch.Generator
     # Parameter name → its f32 moving average; {} when the EMA is off.
     ema_params: dict[str, torch.Tensor] = field(default_factory=dict)

@@ -167,15 +167,22 @@ and more than one replica and refuses ``lars`` and ``grad_clip_norm > 0``
 (the update sees only shards); explicit FSDP refuses both as well and
 BatchNorm models; ZeRO ``jit`` needs ``jit`` and ``mesh.fsdp > 1``.
 
+The precision pack (``precision.*``; ROADMAP.md A13) is carried by the
+model and the update: ``activation_dtype``, ``matmul_dtype`` and
+``remat_policy`` go to ``get_model`` (models/__init__.py, with the JAX
+package's refusals), ``model.remat`` (per-block checkpointing) is carried
+by the model, and ``fused_update`` (ZeRO ``shard_map`` only, a
+ValueError otherwise) runs parallel/zero.py's fused walk: per bucket the
+reduce-scatter, the update by that bucket's optimizer
+(``BucketOptimizers``), the all-gather and the apply, in place of the
+three whole-tree passes.
+
 Every knob whose JAX machinery is not ported raises NotImplementedError
 naming its ROADMAP.md item when it is not at its off value: experts
 beside ``fsdp``, ``model`` or ``seq``, ``seq`` beside ``fsdp``, ``model``
-or ZeRO, a split
-fused QKV whose heads ``mesh.model`` does not divide, the fused update
-and the selective remat policies. ``model.remat``
-(per-layer checkpointing) is carried by the model. A wire dtype under
-``jit`` and a ``train.grad_allreduce_accum`` other than float32 or wire
-raise the JAX package's ValueErrors.
+or ZeRO, a split fused QKV whose heads ``mesh.model`` does not divide. A
+wire dtype under ``jit`` and a ``train.grad_allreduce_accum`` other than
+float32 or wire raise the JAX package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -192,6 +199,7 @@ from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import (
     BERT_NAMES,
+    check_precision,
     check_ring_mode,
     get_model,
     model_kwargs,
@@ -216,6 +224,7 @@ from distributed_tensorflow_framework_torch.parallel.tensor_parallel import (
 )
 from distributed_tensorflow_framework_torch.train import losses
 from distributed_tensorflow_framework_torch.train.optimizers import (
+    BucketOptimizers,
     ema_update_,
     global_norm,
     make_optimizer,
@@ -416,15 +425,12 @@ def check_step_config(config: ExperimentConfig, world: int = 1
                 "optimizer.shard_opt_state) shards over the fsdp mesh axis "
                 "— set mesh.fsdp > 1 (it would be a silent no-op on this "
                 "mesh)")
-    precision = config.precision
-    if precision.fused_update:
-        raise _not_ported("precision.fused_update", "A13")
-    if precision.remat_policy != "none":
-        raise _not_ported("selective rematerialisation "
-                          "(precision.remat_policy)", "A13")
-    if precision.activation_dtype or precision.matmul_dtype:
-        raise _not_ported("the precision pack (precision.activation_dtype, "
-                          "precision.matmul_dtype)", "A13")
+    if config.precision.fused_update and zs != "shard_map":
+        raise ValueError(
+            "precision.fused_update=true fuses the optax apply into "
+            "the ZeRO bucketed reverse-layer walk and therefore "
+            "requires optimizer.zero_sharding='shard_map'")
+    check_precision(config.model, config.precision)
     return sizes
 
 
@@ -501,6 +507,7 @@ class StepBuilder:
         # fsdp axis folds into the shard count: no parameter gathers.
         zs = zero_mode(config)
         self.zero = zs == "shard_map"
+        self.fused = self.zero and config.precision.fused_update
         self.zero_jit = zs == "jit"
         self.fsdp = sizes["fsdp"] > 1 and not (self.zero or self.zero_jit)
 
@@ -537,7 +544,8 @@ class StepBuilder:
             generator=prng.torch_generator(seed, prng.ROLE_INIT,
                                            self.device),
             in_channels=(None if self.task == "mlm"
-                         else self.config.data.channels), **stage)
+                         else self.config.data.channels),
+            precision=self.config.precision, **stage)
         tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
               else None)
         ep = (ep_lib.ExpertParallel(model, self.runtime)
@@ -619,6 +627,11 @@ class StepBuilder:
             self.config.optimizer, self.config.train.total_steps, model,
             params=None if layout is None else layout.params,
             whole_norms=whole_norms)
+        if self.fused:
+            # One optimizer per ZeRO bucket, over its shards.
+            optimizer = BucketOptimizers(self.config.optimizer,
+                                         self.schedule, model,
+                                         layout.bucket_params())
         self.base_schedule = self.schedule
         ema = {}
         if self.config.optimizer.ema_decay > 0:
@@ -778,9 +791,10 @@ class StepBuilder:
                                      for p in state.model.parameters()])
         if isinstance(layout, DimSharding):
             layout.shard_grads_(state.model)
-        state.optimizer.step(grad_norm)
-        if layout is not None:
-            layout.finish_step_(state.model)
+        if not self.fused:  # the fused walk has updated the parameters
+            state.optimizer.step(grad_norm)
+            if layout is not None:
+                layout.finish_step_(state.model)
         if state.ema_params:
             ema_update_(list(state.ema_params.values()),
                         (layout.ema_sources(state.model)
@@ -800,12 +814,20 @@ class StepBuilder:
         """The shard_map step's collectives, in the JAX order: the
         gradients' mean on the configured wire (with the residual, which
         is replaced by the new one) — under ZeRO the bucketed
-        reduce-scatter onto the shards — the metrics' plain mean, and the
-        mean of the BatchNorm running statistics. Returns the metrics and,
+        reduce-scatter onto the shards, and under ``precision.fused_update``
+        the whole fused walk, update included — the metrics' plain mean,
+        and the mean of the BatchNorm running statistics. Returns the metrics and,
         under ZeRO, the mean gradient's norm from its shards (else None:
         the whole reduced gradients are in ``.grad``)."""
         rt = self.runtime
         named = list(state.model.named_parameters())
+        if self.fused:
+            grad_norm, residual = state.layout.fused_walk_(
+                state.model, state.optimizer,
+                state.collective_residual if self.use_residual else None)
+            if residual is not None:
+                state.collective_residual.update(residual)
+            return self._mean_metrics_and_stats(state, metrics), grad_norm
         if self.zero:
             grad_norm, residual = state.layout.scatter_(
                 state.model, state.collective_residual if self.use_residual

@@ -165,16 +165,3 @@ def test_init_distributions_match_flax(jax_params):
             assert not leaf.any(), path
         if path[-1] == "scale":
             assert (leaf == 1).all(), path
-
-
-@pytest.mark.parametrize("override,match", [
-    ({"name": "inception_v3", "remat": True}, "A18"),
-    ({"name": "resnet50", "remat": True}, "A18"),
-    ({"name": "resnet101", "remat": True}, "A18"),
-    ({"name": "inception-v3", "remat": True}, "A18"),
-    ({"name": "resnet18_cifar", "remat": True}, "A18"),
-])
-def test_unported_configs_name_their_roadmap_item(override, match):
-    cfg = PortModelConfig(**dict(TINY, **override))
-    with pytest.raises(NotImplementedError, match=match):
-        get_model(cfg, device="cpu")

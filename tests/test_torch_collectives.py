@@ -243,7 +243,8 @@ def _step_tally(overrides, runtime, steps=1, model_fn=None):
     return summary, builder, state
 
 
-def _small_resnet(config, *, device, generator=None, in_channels=None):
+def _small_resnet(config, *, device, generator=None, in_channels=None,
+                  precision=None):
     from distributed_tensorflow_framework_torch.models.resnet import ResNet
 
     model = ResNet((1, 1), 10, width=8, cifar_stem=True,

@@ -100,7 +100,8 @@ MLM_EVAL_FILES = (5, 9, 2)
 IMAGENET_FILES = {"train": (3, 2, 3), "validation": (3, 5, 1)}
 
 
-def _small_resnet(config, *, device, generator=None, in_channels=None):
+def _small_resnet(config, *, device, generator=None, in_channels=None,
+                  precision=None):
     """What the port's StepBuilder builds for ``resnet18_cifar`` here:
     stages (1, 1), width 8, the CIFAR stem (tests/test_torch_train_image.py
     holds it against its Flax twin)."""

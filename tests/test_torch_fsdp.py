@@ -109,7 +109,8 @@ WORLD_B = {
 }
 
 
-def _small_resnet(config, *, device, generator=None, in_channels=None):
+def _small_resnet(config, *, device, generator=None, in_channels=None,
+                  precision=None):
     """What the port builds for ``resnet18_cifar`` here: stages (1, 1),
     width 8, the CIFAR stem (as tests/test_torch_ddp.py)."""
     from distributed_tensorflow_framework_torch.models.resnet import ResNet

@@ -385,8 +385,6 @@ def test_max_pool_same_pads_with_minus_infinity():
 
 
 @pytest.mark.parametrize("kw, err, match", [
-    (dict(name="resnet50", remat=True), NotImplementedError, "A18"),
-    (dict(name="inception_v3", remat=True), NotImplementedError, "A18"),
     (dict(name="lenet5", space_to_depth_stem=True), ValueError,
      "space_to_depth_stem"),
     (dict(name="resnet50_cifar", space_to_depth_stem=True), ValueError,

@@ -15,8 +15,8 @@ the counterpart of the JAX package's ``nn.remat(EncoderLayer)``. Checked:
     tests/test_torch_bert.py and tests/test_torch_train.py (the same f32
     arithmetic summed in other orders);
   * ``model.remat_policy`` other than "full" is refused for BERT, as the
-    JAX package refuses it, and ``precision.remat_policy`` stays refused
-    (ROADMAP A13).
+    JAX package refuses it. ``precision.remat_policy`` and the image
+    models' remat are tests/test_torch_remat_images.py's.
 """
 
 import jax
@@ -140,9 +140,3 @@ def test_bert_refuses_the_conv_saved_policy_like_jax():
     with pytest.raises(ValueError, match="remat_policy"):
         get_model(PortModelConfig(**kw), device="cpu")
 
-
-def test_precision_remat_policy_stays_refused():
-    cfg = port_config(overrides=TINY_BERT + [
-        "model.remat=true", "precision.remat_policy=save_nothing"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        StepBuilder(cfg, device="cpu")

@@ -103,7 +103,8 @@ CASES = {
 JIT_BERT = TINY_BERT
 
 
-def _small_resnet(config, *, device, generator=None, in_channels=None):
+def _small_resnet(config, *, device, generator=None, in_channels=None,
+                  precision=None):
     """What the port builds for ``resnet18_cifar`` here: stages (1, 1),
     width 8, the CIFAR stem (as tests/test_torch_ddp.py)."""
     model = ResNet((1, 1), 10, width=8, cifar_stem=True,

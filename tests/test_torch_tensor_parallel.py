@@ -156,7 +156,8 @@ BF16_TOL = {"loss": 2e-3, "grad_norm": 2e-2, "params_lr": 2.0 * STEPS}
 LARS_PARAM_ATOL_LR = 1e-5
 
 
-def _small_resnet(config, *, device, generator=None, in_channels=None):
+def _small_resnet(config, *, device, generator=None, in_channels=None,
+                  precision=None):
     """What the port builds for ``resnet18_cifar`` here: stages (1, 1),
     width 8, the CIFAR stem (as tests/test_torch_ddp.py)."""
     from distributed_tensorflow_framework_torch.models.resnet import ResNet

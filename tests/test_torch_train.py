@@ -450,10 +450,6 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("train.profile_stop=5", "A16"),
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
     ("train.memory_analysis=true", "A16"),
-    ("precision.remat_policy=dots_saveable", "A13"),
-    ("precision.remat_policy=save_nothing", "A13"),
-    ("precision.activation_dtype=bf16", "A13"),
-    ("precision.matmul_dtype=int8", "A13"),
 ])
 def test_unported_knobs_raise(override, item):
     over = TINY_BERT + NO_CKPT + [override]

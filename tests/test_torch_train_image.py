@@ -95,7 +95,8 @@ def small_resnet(monkeypatch):
     ``resnet18_cifar``; returns the Flax twin for the JAX builder."""
     jm, _ = _small_resnets()
 
-    def build(config, *, device, generator=None, in_channels=None):
+    def build(config, *, device, generator=None, in_channels=None,
+              precision=None):
         pm = _small_resnets()[1]
         pm.init_weights(generator)
         return pm.to(device).eval()

@@ -1025,15 +1025,6 @@ def test_bad_zero_mode_rejected():
         _cfg(["optimizer.zero_sharding=zero3"])
 
 
-def test_fused_update_still_names_a13():
-    from distributed_tensorflow_framework_torch.train.step import (
-        check_step_config,
-    )
-
-    with pytest.raises(NotImplementedError, match="A13"):
-        check_step_config(_cfg(ZERO + ["mesh.data=2",
-                                       "precision.fused_update=true"]), 2)
-
 
 if __name__ == "__main__":
     _rank_main(sys.argv[1], sys.argv[2])
