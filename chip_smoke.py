@@ -69,7 +69,9 @@ Phases (any failure raises and the script exits non-zero):
      lengths; a 512-token request goes through ``engine.predict``. Each
      run checks HTTP 200, shapes, finiteness, that the kernel launched 12
      times per batch, and one request's logits against the same model run
-     with the kernel's plain version. SIGTERM drains the server.
+     with the kernel's plain version. The server runs with
+     ``decode.enabled`` (DECODE_OVERRIDES), and one ``POST /generate``
+     (phase 17a) follows the requests. SIGTERM drains the server.
   5. train — ``cli/train.py``'s ``main`` on ``configs/bert_base_mlm.yaml``
      at full width and depth (dropout 0.1, AdamW, clip 1.0) for 30 steps,
      its checkpoint and resilience sections live: the recovery ladder
@@ -410,6 +412,36 @@ Phases (any failure raises and the script exits non-zero):
      printed), and a fused checkpoint restored into an unfused run
      refused. ``--only 16`` runs the
      kernels' build and phase 16 alone (no kernels line, no last line).
+  17. serving beyond the forward: the decode engine (serve/decode.py, the
+     f32 walk of models/bert.py), classification artifacts, live reload
+     and the registries. No flash kernel lies on these paths (the JAX
+     decode forward attends in plain jnp), so the record's launches are
+     unchanged. 17a, right after phase 4 in its process: phase 4's server
+     answers ``POST /generate`` with a chunked NDJSON stream
+     (DECODE_HTTP_NEW token lines, a done line, the step header); then on
+     phase 4's artifact with 16-token pages, 8 streams and 257 pages,
+     continuous against static over DECODE_PROMPTS seeded prompts of
+     16-256 tokens at DECODE_NEW new tokens each (tokens/s, TTFT p50/p99,
+     per-step ms p50, mean occupancy, pages in use); a probe stream alone
+     against the same stream among neighbours (bit-equal logits, or the
+     largest gap with the tokens held equal); the two longest prompts in
+     a pool too small for both, which must evict and still give the
+     uncontended tokens; int8 pages against f32 (DECODE_INT8_RTOL); the
+     probe's prefill and first two decode steps against the same walk in
+     f64 on the CPU (DECODE_F64_RTOL); one decode step and one prefill
+     timed and profiled by kernel class beside the step's bound. 17c: a
+     model and a dataset registered by name train REGISTRY_STEPS steps on
+     the card through the Trainer. 17b, at the end of phase 7:
+     ResNet-50/CIFAR-10 (config 2) exported from phase 7d's step-15 and
+     step-30 checkpoints; ``POST /predict`` of 32x32x3 rows against the
+     model called directly (CLASSIFY_RTOL, bf16); ``POST /reload`` to the
+     step-30 artifact while two clients keep sending requests: none may
+     fail, every reply before the reload says step 15 and every reply
+     after it step 30, and after the swap a request alone equals a cold
+     engine's reply on the step-30 artifact (bits, or the gap within
+     CLASSIFY_RTOL). ``--only 17`` builds the kernels and runs phase 4,
+     17a, 17c and 17b on two checkpoints of a short config-2 run (no
+     kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
@@ -1402,17 +1434,34 @@ def check_logits(torch, ref_model, ids, got, bucket: int, what: str,
 
 class HttpClient(threading.Thread):
     """Waits for the server's endpoint.json, sends concurrent
-    ``POST /predict`` requests, reads ``/healthz``, then SIGTERMs this
-    process so ``cli.serve.main`` drains and returns."""
+    ``POST /predict`` requests, then with ``generate`` one ``POST
+    /generate`` of that many new tokens, reads ``/healthz``, then SIGTERMs
+    this process so ``cli.serve.main`` drains and returns."""
 
     def __init__(self, log_dir: str, vocab: int,
-                 lengths: tuple = HTTP_LENGTHS):
+                 lengths: tuple = HTTP_LENGTHS, generate: int = 0):
         super().__init__(name="chip-smoke-client", daemon=True)
         self.log_dir = log_dir
         self.vocab = vocab
         self.lengths = lengths
+        self.generate = generate
         self.results: dict = {}
         self.error: BaseException | None = None
+
+    def _generate(self, url: str, prompt: list[int]) -> dict:
+        """One streamed decode: the status, headers and NDJSON lines."""
+        body = json.dumps({"prompt": prompt,
+                           "max_new_tokens": self.generate}).encode()
+        req = urllib.request.Request(
+            url + "/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            lines = [json.loads(line) for line in resp.read().splitlines()
+                     if line.strip()]
+            return {"status": resp.status, "headers": dict(resp.headers),
+                    "lines": lines, "prompt": prompt,
+                    "ms": (time.perf_counter() - t0) * 1e3}
 
     def _endpoint(self, timeout_s: float = 600.0) -> str:
         path = os.path.join(self.log_dir, "endpoint.json")
@@ -1462,10 +1511,12 @@ class HttpClient(threading.Thread):
                     raise RuntimeError(
                         f"/predict of {self.lengths[i]} tokens failed: "
                         f"{reply!r}")
+            generated = (self._generate(url, reqs[-1]) if self.generate
+                         else None)
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             self.results = {"requests": reqs, "replies": replies,
-                            "health": health}
+                            "health": health, "generate": generated}
         except BaseException as e:  # noqa: BLE001 — reported by the main thread
             self.error = e
         finally:
@@ -2071,7 +2122,7 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 
     config_path = "configs/bert_base_mlm.yaml"
     overrides = ["serve.port=0", "serve.seq_buckets=[128,256,512]",
-                 f"serve.log_dir={workdir}/logs"]
+                 f"serve.log_dir={workdir}/logs", *DECODE_OVERRIDES]
     cfg = load_config(config_path, overrides=overrides)
     m = cfg.model
     if (m.name, m.num_layers, m.hidden_size, m.num_heads, m.mlp_dim,
@@ -2092,7 +2143,8 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
         f"{time.perf_counter() - t0:.1f} s")
 
     # 4a: the HTTP server through cli/serve.py's main.
-    client = HttpClient(os.path.join(workdir, "logs"), m.vocab_size)
+    client = HttpClient(os.path.join(workdir, "logs"), m.vocab_size,
+                        generate=DECODE_HTTP_NEW)
     reset_counts(fa)
     client.start()
     rc = cli_serve.main(["--artifact", artifact_dir, "--config", config_path,
@@ -2122,6 +2174,7 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
         raise AssertionError(f"expected {12 * http_batches} kernel launches "
                              f"(12 layers x {http_batches} batches), saw "
                              f"{http_launches}")
+    check_generate(res["generate"], res["health"], m.vocab_size)
 
     # 4b: a 512-token and a 300-token request through engine.predict.
     artifact = load_artifact(artifact_dir)
@@ -2153,7 +2206,8 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
                  "engine 512 tokens")
     forward_breakdown(torch, engine.model, ref, m.vocab_size)
     return http_launches + engine_launches, {
-        "requests": len(latencies), "batches": http_batches + engine_batches}
+        "requests": len(latencies), "batches": http_batches + engine_batches,
+        "artifact": artifact, "config": cfg}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -3236,7 +3290,7 @@ def lenet_phase(torch, workdir: str, smi: str) -> None:
     manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
                                                     async_save=False))
     try:
-        step = manager.restore_model(model, step=t.total_steps)
+        step, _ = manager.restore_model(model, step=t.total_steps)
     finally:
         manager.close()
     totals: dict[str, float] = {}
@@ -4969,12 +5023,22 @@ def worst_leaf(torch, got: dict, want: dict) -> tuple[float, str]:
                for k, v in want.items())
 
 
-def tp_phase(torch, workdir: str, smi: str) -> dict:
+def tp_wave(workdir: str, hold: bool = False) -> dict:
+    """Phase 12's two ranks."""
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 12c's determinism
+    return spawn_children([{"kind": "tp", "env": {**gang_env(port, 2, r),
+                                                  **env}}
+                           for port in [free_port()] for r in range(2)],
+                          workdir, "tp_ranks", hold=hold)
+
+
+def tp_phase(torch, workdir: str, smi: str, wave=None) -> dict:
     """Phase 12: 12a (BERT-base through the Trainer, two gloo ranks at
     {data: 1, model: 2}), 12b (12a at dropout 0 against one process) and
     12c (8c's cut in f32 against one process, a resume, the checkpoint
-    read by one process). Returns 12a's attention-kernel launches, both
-    ranks (main-path runs)."""
+    read by one process), on ``wave`` (started held earlier) or on ranks
+    started here. Returns 12a's attention-kernel launches, both ranks
+    (main-path runs)."""
     import dataclasses
 
     from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
@@ -4984,11 +5048,7 @@ def tp_phase(torch, workdir: str, smi: str) -> dict:
     from distributed_tensorflow_framework_torch.train.step import StepBuilder
 
     t0 = time.perf_counter()
-    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 12c's determinism
-    ranks = run_children([{"kind": "tp", "env": {**gang_env(port, 2, r),
-                                                 **env}}
-                          for port in [free_port()] for r in range(2)],
-                         workdir, "tp_ranks", timeout=900)
+    ranks = join_children(wave or tp_wave(workdir), timeout=900)
     if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
         raise AssertionError(f"12a: backends {ranks}")
     bad = []
@@ -6339,6 +6399,11 @@ def moe_phase(torch, fa, workdir: str, smi: str) -> dict:
     from distributed_tensorflow_framework_torch.train.step import StepBuilder
 
     t0 = time.perf_counter()
+    # 15d's two ranks start up (held) while 15a serves: 15b's ms/step is
+    # measured after their start-up.
+    held = spawn_children([{"kind": "moe", "env": gang_env(port, 2, r)}
+                           for port in [free_port()] for r in range(2)],
+                          workdir, "moe_ranks", hold=True)
     serve_launches = moe_serve(torch, fa, workdir, smi)
     t1 = time.perf_counter()
     counts = moe_train(torch, fa, workdir, smi)
@@ -6346,9 +6411,7 @@ def moe_phase(torch, fa, workdir: str, smi: str) -> dict:
     t2 = time.perf_counter()
     moe_correctness(torch, fa)
     t3 = time.perf_counter()
-    ranks = run_children([{"kind": "moe", "env": gang_env(port, 2, r)}
-                          for port in [free_port()] for r in range(2)],
-                         workdir, "moe_ranks", timeout=900)
+    ranks = join_children(held, timeout=900)
     bad = []
     if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
         bad.append(("15d backends", ranks))
@@ -6928,13 +6991,18 @@ def fused_cases(torch, fa, runtime, out_dir: str) -> dict:
     return out
 
 
-def fused_phase(torch, workdir: str, smi: str) -> dict:
-    """16e on two children, under deterministic algorithms. Returns the
-    launch counts of both ranks' runs."""
-    ranks = run_children([{"kind": "fused", "env": gang_env(port, 2, r),
-                           "deterministic": True}
-                          for port in [free_port()] for r in range(2)],
-                         workdir, "fused_ranks")
+def fused_wave(workdir: str, hold: bool = False) -> dict:
+    """16e's two children, under deterministic algorithms."""
+    return spawn_children([{"kind": "fused", "env": gang_env(port, 2, r),
+                            "deterministic": True}
+                           for port in [free_port()] for r in range(2)],
+                          workdir, "fused_ranks", hold=hold)
+
+
+def fused_phase(torch, workdir: str, smi: str, wave=None) -> dict:
+    """16e on two children (``wave``, started held earlier, or started
+    here). Returns the launch counts of both ranks' runs."""
+    ranks = join_children(wave or fused_wave(workdir))
     total = dict.fromkeys(KERNEL_NAMES, 0)
     want = {"fwd": 2 * FUSED_STEPS, "dq": 2 * FUSED_STEPS,
             "dkv": 2 * FUSED_STEPS, "fused": 0}
@@ -6982,15 +7050,579 @@ def precision_phase(torch, fa, workdir: str, smi: str) -> dict:
         parts.append(f"{name} {time.perf_counter() - t:.1f}")
         return out
 
-    counts = [part("16a", remat_bert_phase, torch, fa, smi),
-              part("16b", remat_long_phase, torch, fa, smi)]
+    counts = [part("16a", remat_bert_phase, torch, fa, smi)]
+    # 16e's two ranks start up (held) while 16b-16d run: after 16a, whose
+    # host-bound policies the start-up would slow.
+    held = fused_wave(workdir, hold=True)
+    counts.append(part("16b", remat_long_phase, torch, fa, smi))
     part("16c", remat_image_phase, torch, fa, smi)
     part("16d", lambda: (int8_products_phase(torch, smi),
                          int8_models_phase(torch, fa, smi)))
-    counts.append(part("16e", fused_phase, torch, workdir, smi))
+    counts.append(part("16e", fused_phase, torch, workdir, smi, held))
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s ("
         + ", ".join(parts) + ")")
     return {k: sum(c[k] for c in counts) for k in KERNEL_NAMES}
+
+
+# --------------------------------------------------------------- phase 17
+
+# The decode engine at BERT-base width (17a): phase 4's artifact, 16-token
+# pages, 8 streams, 257 pages (8 streams x 32 pages of a 512-token stream,
+# plus the scratch page). The f32 pool is 12 x 257 x 16 x 768 x 4 B x 2
+# (K and V) = 303 MB.
+DECODE_OVERRIDES = ("decode.enabled=true", "decode.page_size=16",
+                    "decode.max_streams=8", "decode.num_pages=257",
+                    "decode.max_new_tokens=64")
+DECODE_HTTP_NEW = 16
+DECODE_PROMPTS = 16
+DECODE_PROMPT_LENS = (16, 256)
+DECODE_NEW = 64
+DECODE_PROBE = 64            # the probe stream's prompt length
+DECODE_PROBE_NEW = 8
+DECODE_NEIGHBOURS = 7
+# The f32 walk on the card against the same walk in f64 on the CPU, over
+# the prefill's and the first two decode steps' logits: the largest gap
+# relative to the largest |logit| of the f64 walk. An f32 dot of K <= 3072
+# terms carries ~sqrt(K) x 2^-24 ~ 3e-6 relative error; twelve
+# LayerNorm-renormalised layers keep it near that, so 1e-3 leaves two
+# orders of margin and still catches a wrong operation.
+DECODE_F64_RTOL = 1e-3
+# int8 pages against f32 pages, same stream: the largest logit gap,
+# relative to the largest |logit|. The JAX package bounds it at 0.05
+# absolute on its tiny model; a broken codec moves logits by O(1).
+DECODE_INT8_RTOL = 0.05
+# 17b: ResNet-50/CIFAR-10 (config 2) served from two of phase 7d's
+# checkpoints; the logits against the model called directly, in bf16.
+CLASSIFY_ROWS = 8
+CLASSIFY_CLIENT_ROWS = 4
+CLASSIFY_RTOL = 5e-2         # of the largest |logit|, bf16 (IMAGE_RTOL)
+CLASSIFY_TRAFFIC_S = 1.0     # client traffic before and after the reload
+# 17c: a registered model and dataset through the Trainer on the card.
+REGISTRY_STEPS = 3
+
+
+def check_generate(gen: dict, health: dict, vocab: int) -> None:
+    """4a's ``POST /generate`` through ``cli/serve.py`` with
+    ``decode.enabled``: a chunked NDJSON stream of DECODE_HTTP_NEW token
+    lines and a done line, the step header, and the decode section of
+    ``/healthz``."""
+    lines = gen["lines"]
+    tokens = [ln["token"] for ln in lines if "token" in ln]
+    done = lines[-1]
+    log(f"17a http /generate: status {gen['status']}, "
+        f"{gen['headers'].get('Content-Type')}, X-DTF-Step "
+        f"{gen['headers'].get('X-DTF-Step')}, {len(tokens)} token lines + "
+        f"done (finish {done.get('finish')}, ttft {done.get('ttft_ms')} ms)"
+        f" in {gen['ms']:.1f} ms for a {len(gen['prompt'])}-token prompt; "
+        f"healthz decode: {health['decode']['streams_done']} streams, "
+        f"{health['decode']['tokens']} tokens, kv "
+        f"{health['decode']['kv_dtype']}")
+    if (gen["status"] != 200
+            or gen["headers"].get("Content-Type") != "application/x-ndjson"
+            or gen["headers"].get("X-DTF-Step") != "0"
+            or len(tokens) != DECODE_HTTP_NEW or done.get("done") is not True
+            or done.get("tokens") != tokens
+            or [ln["index"] for ln in lines[:-1]] != list(range(len(tokens)))
+            or not all(0 <= t < vocab for t in tokens)
+            or health["decode"]["streams_done"] != 1):
+        raise AssertionError(f"/generate: a malformed stream: {gen}")
+
+
+def decode_prompts(vocab: int) -> tuple[list, list]:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    lengths = rng.integers(DECODE_PROMPT_LENS[0], DECODE_PROMPT_LENS[1] + 1,
+                           DECODE_PROMPTS)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lengths]
+    return prompts, rng.integers(0, vocab, DECODE_PROBE).tolist()
+
+
+def percentile(values: list, q: float) -> float:
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+def decode_arm(torch, artifact, cfg, prompts, workdir: str, name: str,
+               **decode) -> dict:
+    """One engine over ``prompts`` at DECODE_NEW tokens each, after a
+    warm-up of short streams that fills every row bucket (the first runs
+    of its shapes): tokens/s on the host clock, TTFT p50/p99, per-step ms
+    p50 and mean occupancy from its ``decode_step`` events, pages in use
+    from its ``kv_cache`` events."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.core.telemetry import (
+        TelemetryWriter,
+    )
+    from distributed_tensorflow_framework_torch.serve.decode import (
+        DecodeEngine,
+    )
+
+    path = os.path.join(workdir, f"decode_{name}.jsonl")
+    writer = TelemetryWriter(path)
+    serve = dataclasses.replace(cfg.serve, report_interval_s=0.02)
+    eng = DecodeEngine(artifact, dataclasses.replace(cfg.decode, **decode),
+                       serve, device="cuda", telemetry_writer=writer)
+    try:
+        warm = [eng.submit(p[:DECODE_PROMPT_LENS[0]], max_new_tokens=4)
+                for p in prompts[:eng.max_rows]]
+        for st in warm:
+            st.result(300)
+        warm = eng.stats()["steps"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=DECODE_NEW) for p in prompts]
+        outs = [st.result(600) for st in streams]
+        wall = time.perf_counter() - t0
+        stats = eng.stats()
+    finally:
+        drained = eng.drain(60)
+        writer.close()
+    with open(path) as fh:
+        events = [json.loads(line) for line in fh]
+    steps = [e["metrics"] for e in events if e["kind"] == "decode_step"]
+    steps = steps[warm:]
+    kv = [e["metrics"]["pages_used"] for e in events
+          if e["kind"] == "kv_cache"]
+    tokens = sum(len(o["tokens"]) for o in outs)
+    ttft = [o["ttft_ms"] for o in outs]
+    res = {"tokens": [o["tokens"] for o in outs], "wall": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_p50": percentile(ttft, 0.5),
+           "ttft_p99": percentile(ttft, 0.99),
+           "step_p50": percentile([m["step_ms"] for m in steps], 0.5),
+           "occupancy": statistics.mean(m["occupancy"] for m in steps),
+           "steps": len(steps), "pages_max": max(kv), "pages_mean":
+           statistics.mean(kv), "evictions": stats["evictions"],
+           "prefills": stats["prefills"] - min(len(prompts), eng.max_rows),
+           "pages": stats["pages"]["allocatable"], "drained": drained}
+    if (not drained or tokens != DECODE_NEW * len(prompts)
+            or not all(len(o["tokens"]) == DECODE_NEW for o in outs)):
+        raise AssertionError(f"decode {name}: {tokens} tokens, drained "
+                             f"{drained}")
+    return res
+
+
+def probe_logits(artifact, cfg, probe, neighbours=(), **decode):
+    """The probe stream's per-token logits on a fresh engine, alone or
+    submitted beside ``neighbours`` (DECODE_NEW tokens each)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.serve.decode import (
+        DecodeEngine,
+    )
+
+    eng = DecodeEngine(artifact, dataclasses.replace(cfg.decode, **decode),
+                       cfg.serve, device="cuda")
+    try:
+        stream = eng.submit(probe, max_new_tokens=DECODE_PROBE_NEW,
+                            return_logits=True)
+        others = [eng.submit(p, max_new_tokens=DECODE_NEW)
+                  for p in neighbours]
+        events = [ev for kind, ev in stream.events(timeout=600)
+                  if kind == "token"]
+        for other in others:
+            other.result(600)
+        rows = eng.stats()["row_buckets"]
+    finally:
+        if not eng.drain(60):
+            raise AssertionError("decode probe: the engine did not drain")
+    return [ev["token"] for ev in events], [ev["logits"] for ev in events], \
+        rows
+
+
+def decode_f64(torch, artifact, probe, tokens) -> list:
+    """The probe's prefill and its first two decode steps (fed the card's
+    tokens) through the same walk in f64 on the CPU."""
+    from distributed_tensorflow_framework_torch.models.bert import (
+        decode_params,
+    )
+    from distributed_tensorflow_framework_torch.serve.decode import (
+        decode_step,
+        make_kv_pool,
+        prefill,
+    )
+
+    def f64(tree):
+        if isinstance(tree, dict):
+            return {k: f64(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(f64(v) for v in tree)
+        return tree.double()
+
+    mc = artifact.model_config
+    params = f64(decode_params(artifact.state_dict, "cpu"))
+    page = 16
+    pages = -(-(len(probe) + 2) // page)
+    pool = {k: v.double() for k, v in make_kv_pool(
+        mc.num_layers, pages + 1, page, mc.hidden_size, "float32",
+        "cpu").items()}
+    kw = dict(num_heads=mc.num_heads, page_size=page, kv_dtype="float32")
+    table = torch.arange(1, pages + 1)
+    out = [prefill(params, pool, torch.tensor([probe]),
+                   torch.tensor([len(probe)]), table, **kw)]
+    for i in range(2):
+        pos = len(probe) + i
+        out.append(decode_step(params, pool, torch.tensor([tokens[i]]),
+                               torch.tensor([pos]), table[None], **kw)[0])
+    return [o.numpy() for o in out]
+
+
+def decode_kernel_class(name: str) -> str:
+    name = name.lower()
+    if any(t in name for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                               "gemv")):
+        return "gemm"
+    if any(t in name for t in ("index", "gather", "scatter")):
+        return "index"
+    if "reduce" in name or "softmax" in name:
+        return "reduce"
+    return "elementwise"
+
+
+def decode_breakdown(torch, artifact, smi: str) -> None:
+    """Where a decode step's time goes: one step of 8 rows, each at a
+    512-token context (32 pages), and one prefill of a 256-token prompt
+    (the 512 bucket), on the host clock around synchronised calls; the
+    step's kernels by class from the profiler, their count and the
+    device's idle share; the step's bound (the weights and the pages read
+    once, the logits written once, at 3.35 TB/s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tensorflow_framework_torch.models.bert import (
+        decode_params,
+    )
+    from distributed_tensorflow_framework_torch.serve.decode import (
+        decode_step,
+        make_kv_pool,
+        prefill,
+    )
+
+    mc = artifact.model_config
+    rows, pages = 8, mc.max_seq_len // 16
+    params = decode_params(artifact.state_dict, "cuda")
+    pool = make_kv_pool(mc.num_layers, 1 + rows * pages, 16, mc.hidden_size,
+                        "float32", "cuda")
+    kw = dict(num_heads=mc.num_heads, page_size=16, kv_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, mc.vocab_size, (rows,), device="cuda",
+                        generator=gen)
+    pos = torch.full((rows,), 16 * pages - 1, device="cuda")
+    table = 1 + torch.arange(rows * pages, device="cuda").view(rows, pages)
+
+    def step():
+        return decode_step(params, pool, ids, pos, table, **kw).cpu()
+
+    def timed(fn, n=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    step_ms = timed(step)
+    prompt = torch.randint(0, mc.vocab_size, (1, mc.max_seq_len),
+                           device="cuda", generator=gen)
+    prefill_ms = timed(lambda: prefill(
+        params, pool, prompt, torch.tensor([mc.max_seq_len // 2],
+                                           device="cuda"),
+        table[0, :pages // 2], **kw).cpu())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches = sum(count for _, count, _ in device_kernels(prof))
+    kernel_ms = log_profile(
+        prof, f"one decode step, {rows} rows x {16 * pages} keys", 6,
+        decode_kernel_class)
+    weights = sum(t.numel() for t in params["layers"][0].values()
+                  for t in t) * mc.num_layers + params["head"][
+                      "projection"].numel()
+    moved = 4 * (weights + 2 * mc.num_layers * rows * pages * 16
+                 * mc.hidden_size + rows * mc.vocab_size)
+    log(f"17a decode step {rows} rows x {16 * pages} keys: {step_ms:.3f} "
+        f"ms host clock, "
+        f"kernels {kernel_ms:.3f} ms in {launches} launches (device idle "
+        f"{100 * (1 - kernel_ms / step_ms):.1f}%), bound "
+        f"{moved / 3.35e12 * 1e3:.3f} ms ({moved / 1e9:.3f} GB at 3.35 "
+        f"TB/s); prefill of {mc.max_seq_len // 2} tokens "
+        f"({mc.max_seq_len} bucket) {prefill_ms:.3f} ms "
+        f"[{smi}]")
+    del params, pool
+
+
+def decode_phase(torch, artifact, cfg, workdir: str, smi: str) -> None:
+    """17a: the decode engine at BERT-base width (phase 4's artifact, f32
+    walk), continuous against static over 16 seeded prompts of 16-256
+    tokens at 64 new tokens each; a probe stream alone against the same
+    stream among neighbours (bits, or the largest gap with the tokens
+    held equal); a tight pool's eviction giving the uncontended tokens;
+    int8 pages against f32; the first steps against the walk in f64 on
+    the CPU."""
+    import numpy as np
+
+    vocab = artifact.model_config.vocab_size
+    prompts, probe = decode_prompts(vocab)
+    arms = {}
+    for name in ("continuous", "static"):
+        arms[name] = run = decode_arm(torch, artifact, cfg, prompts,
+                                      workdir, name, scheduler=name)
+        log(f"17a decode {name}: {DECODE_PROMPTS} streams of "
+            f"{DECODE_PROMPT_LENS[0]}-{DECODE_PROMPT_LENS[1]} prompt tokens "
+            f"x {DECODE_NEW} new in {run['wall']:.3f} s: "
+            f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{run['ttft_p50']:.1f} ms p99 {run['ttft_p99']:.1f} ms, step "
+            f"p50 {run['step_p50']:.3f} ms over {run['steps']} steps, mean "
+            f"occupancy {run['occupancy']:.3f}, pages in use max "
+            f"{run['pages_max']} mean {run['pages_mean']:.1f} of "
+            f"{run['pages']}, "
+            f"{run['prefills']} prefills, {run['evictions']} evictions "
+            f"[{smi}]")
+    same = sum(a == b for a, b in zip(arms["continuous"]["tokens"],
+                                      arms["static"]["tokens"]))
+    ratio = arms["continuous"]["tokens_per_s"] / arms["static"][
+        "tokens_per_s"]
+    log(f"17a continuous / static tokens/s {ratio:.3f};"
+        f" {same} of {DECODE_PROMPTS} streams' tokens equal across the arms")
+
+    solo_tokens, solo, rows = probe_logits(artifact, cfg, probe)
+    batched_tokens, batched, _ = probe_logits(
+        artifact, cfg, probe, prompts[:DECODE_NEIGHBOURS])
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(solo, batched)]
+    equal = all(np.array_equal(a, b) for a, b in zip(solo, batched))
+    log(f"17a probe ({DECODE_PROBE} tokens, {DECODE_PROBE_NEW} new) alone "
+        f"vs among {DECODE_NEIGHBOURS} neighbours (row buckets {rows}): "
+        f"logits bit-equal {equal}, largest gap {max(gaps):.3e} (per token "
+        f"{[f'{g:.1e}' for g in gaps]}), tokens equal "
+        f"{solo_tokens == batched_tokens}")
+    if solo_tokens != batched_tokens:
+        raise AssertionError("decode: the probe's tokens change among "
+                             "neighbours")
+
+    # Eviction: the two longest prompts in a pool that admits both (their
+    # prompts' pages and one page of headroom) but cannot grow both to
+    # their last token.
+    pair = sorted(range(DECODE_PROMPTS), key=lambda i: -len(prompts[i]))[:2]
+    need = [-(-(len(prompts[i]) + DECODE_NEW) // 16) for i in pair]
+    pages = 2 + sum(-(-len(prompts[i]) // 16) for i in pair)
+    t0 = time.perf_counter()
+    tight = decode_arm(torch, artifact, cfg, [prompts[i] for i in pair],
+                       workdir, "evict", max_streams=2, num_pages=pages)
+    want = [arms["continuous"]["tokens"][i] for i in pair]
+    log(f"17a eviction: prompts of {[len(prompts[i]) for i in pair]} tokens "
+        f"in {pages} pages (they need {need}): {tight['evictions']} "
+        f"evictions, {tight['prefills']} prefills, tokens equal to the "
+        f"uncontended run {tight['tokens'] == want} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if tight["evictions"] < 1 or tight["tokens"] != want:
+        raise AssertionError("decode: eviction lost the uncontended tokens")
+
+    int8_tokens, int8, _ = probe_logits(artifact, cfg, probe,
+                                        kv_dtype="int8")
+    scale = max(float(np.abs(lg).max()) for lg in solo)
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(int8, solo))
+    log(f"17a int8 pages vs f32: largest logit gap {gap:.4e} (tol "
+        f"{DECODE_INT8_RTOL} x max|logit| {scale:.4f}), tokens equal "
+        f"{sum(a == b for a, b in zip(int8_tokens, solo_tokens))} of "
+        f"{DECODE_PROBE_NEW}")
+    if not gap <= DECODE_INT8_RTOL * scale:
+        raise AssertionError("decode: int8 pages drift from f32")
+
+    ref = decode_f64(torch, artifact, probe, solo_tokens)
+    worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(solo[:3], ref))
+    log(f"17a f32 walk on the card vs f64 on the CPU (prefill + 2 decode "
+        f"steps): largest gap {worst:.3e} of max|logit| (tol "
+        f"{DECODE_F64_RTOL})")
+    if not worst <= DECODE_F64_RTOL:
+        raise AssertionError("decode: the card's walk drifts from f64")
+    decode_breakdown(torch, artifact, smi)
+
+
+def classify_phase(torch, ckpt_dir: str, steps: tuple, workdir: str,
+                   smi: str) -> None:
+    """17b: ResNet-50/CIFAR-10 (config 2, bf16) exported from two
+    checkpoints of ``ckpt_dir``; ``POST /predict`` of 32x32x3 rows against
+    the model called directly in eval mode; ``POST /reload`` to the second
+    artifact while a client keeps sending requests: zero failures, the
+    step switches, and after the swap the reply equals a cold engine's on
+    the new artifact at the same batch composition."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        export_checkpoint,
+        load_artifact,
+    )
+    from distributed_tensorflow_framework_torch.serve.server import (
+        ServingServer,
+    )
+    import numpy as np
+
+    cfg = load_config(CIFAR_CONFIG, overrides=[
+        f"checkpoint.directory={ckpt_dir}", "serve.port=0",
+        "serve.max_batch_size=16", "serve.max_wait_ms=2",
+        "serve.report_interval_s=60"])
+    t0 = time.perf_counter()
+    dirs = [export_checkpoint(cfg, os.path.join(workdir, f"art_{s}"),
+                              step=s, device="cuda") for s in steps]
+    arts = [load_artifact(d) for d in dirs]
+    log(f"17b exported steps {steps} of {ckpt_dir} "
+        f"({arts[0].model_config.name}, {arts[0].model_config.dtype}, "
+        f"{len(arts[0].state_dict)} tensors with the BN statistics) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 18)
+    rows = rng.normal(size=(CLASSIFY_ROWS, 32, 32, 3)).astype(np.float32)
+    engine = InferenceEngine(arts[0], cfg.serve, device="cuda")
+    server = ServingServer(engine, cfg.serve)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{server.host}:{server.port}"
+
+    def post(path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+
+    try:
+        status, reply = post("/predict", {"inputs": {"image": rows.tolist()}})
+        model = get_model(arts[0].model_config, device="cuda")
+        model.load_state_dict(arts[0].state_dict)
+        with torch.inference_mode():
+            direct = model(torch.from_numpy(rows).cuda()).float().cpu().numpy()
+        got = np.asarray(reply["outputs"])
+        gap = float(np.abs(got - direct).max() / np.abs(direct).max())
+        log(f"17b /predict {CLASSIFY_ROWS} rows of 32x32x3: status {status}, "
+            f"step {reply['step']}, logits vs the model called directly: "
+            f"largest gap {gap:.3e} of max|logit| (bf16 tol {CLASSIFY_RTOL})")
+        if status != 200 or got.shape != (CLASSIFY_ROWS, 10) or not (
+                gap <= CLASSIFY_RTOL):
+            raise AssertionError("/predict disagrees with the model")
+
+        stop = threading.Event()
+        seen: list = []
+        failures: list = []
+        sample = rows[:CLASSIFY_CLIENT_ROWS].tolist()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    code, rep = post("/predict",
+                                     {"inputs": {"image": sample}})
+                    seen.append((time.perf_counter(), code, rep["step"]))
+                    if code != 200:
+                        failures.append(code)
+                except Exception as e:  # noqa: BLE001 — counted below
+                    failures.append(repr(e))
+
+        clients = [threading.Thread(target=client) for _ in range(2)]
+        for c in clients:
+            c.start()
+        time.sleep(CLASSIFY_TRAFFIC_S)
+        t_reload = time.perf_counter()
+        status, reloaded = post("/reload", {"artifact_dir": dirs[1]})
+        t_done = time.perf_counter()
+        time.sleep(CLASSIFY_TRAFFIC_S)
+        stop.set()
+        for c in clients:
+            c.join(60)
+        before = [s for t, _, s in seen if t < t_reload]
+        after = [s for t, _, s in seen if t > t_done]
+        log(f"17b reload under traffic: /reload status {status} "
+            f"({reloaded.get('from_step')} -> {reloaded.get('to_step')}, "
+            f"{reloaded.get('reload_ms', 0):.1f} ms); {len(seen)} requests "
+            f"from 2 clients, {len(failures)} failed; steps before "
+            f"{sorted(set(before))}, after {sorted(set(after))}")
+        if (status != 200 or failures or set(before) != {steps[0]}
+                or set(after) != {steps[1]}):
+            raise AssertionError(f"reload under traffic: {failures}")
+        _, alone = post("/predict", {"inputs": {"image": sample}})
+    finally:
+        server.shutdown("chip_smoke")
+        thread.join(30)
+    cold = InferenceEngine(arts[1], cfg.serve, device="cuda")
+    try:
+        want = cold.predict({"image": np.asarray(sample, np.float32)},
+                            timeout=120)
+    finally:
+        cold.drain(30)
+    got = np.asarray(alone["outputs"], np.float32)
+    gap = float(np.abs(got - want).max())
+    log(f"17b after the swap, one request alone vs a cold engine on step "
+        f"{steps[1]}: bit-equal {np.array_equal(got, want)}, largest gap "
+        f"{gap:.3e} [{smi}]")
+    if not gap <= CLASSIFY_RTOL * float(np.abs(want).max()):
+        raise AssertionError("the reloaded engine disagrees with a cold one")
+
+
+def registry_phase(torch) -> None:
+    """17c: a model and a dataset registered by name train REGISTRY_STEPS
+    steps on the card through the Trainer."""
+    from torch import nn
+
+    from distributed_tensorflow_framework_torch import data, models
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.data.pipeline import (
+        HostDataset,
+    )
+    from distributed_tensorflow_framework_torch.models.layers import Dense
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+    import numpy as np
+
+    class TinyMLP(nn.Module):
+        def __init__(self, classes, device, generator):
+            super().__init__()
+            self.hidden = Dense(64, 32, dtype=torch.float32, device=device)
+            self.out = Dense(32, classes, dtype=torch.float32, device=device)
+            for layer in (self.hidden, self.out):
+                layer.reset_parameters(generator)
+
+        def forward(self, x, *, train=True):
+            return self.out(torch.relu(self.hidden(x.reshape(len(x), -1))))
+
+    @models.register_model("chip_smoke_mlp")
+    def build(config, *, device=None, generator=None):
+        return TinyMLP(config.num_classes, device, generator)
+
+    @data.register_dataset("chip_smoke_blobs")
+    def blobs(config, process_index, process_count, *, train=True):
+        b = config.global_batch_size // process_count
+
+        def make_iter(state):
+            while True:
+                rng = np.random.default_rng((SEED, state.get("i", 0)))
+                x = rng.normal(size=(b, 8, 8, 1)).astype(np.float32)
+                state["i"] = state.get("i", 0) + 1
+                yield {"image": x,
+                       "label": (x.mean(axis=(1, 2, 3)) > 0).astype(np.int32)}
+
+        return HostDataset(make_iter, element_spec={
+            "image": ((b, 8, 8, 1), np.float32), "label": ((b,), np.int32)})
+
+    cfg = load_config(overrides=[
+        "model.name=chip_smoke_mlp", "model.num_classes=2",
+        "data.name=chip_smoke_blobs", "data.global_batch_size=64",
+        "data.image_size=8", "data.channels=1", "mesh.data=1",
+        f"train.total_steps={REGISTRY_STEPS}", "train.log_interval=1",
+        "checkpoint.directory=", "optimizer.name=sgd_momentum",
+        "optimizer.learning_rate=0.1"])
+    trainer = Trainer(cfg, device="cuda")
+    metrics = trainer.train()
+    where = {p.device.type for p in trainer.state.model.parameters()}
+    log(f"17c registered model + dataset: {REGISTRY_STEPS} steps through the "
+        f"Trainer on {where}: loss {metrics['loss']:.6f}, grad_norm "
+        f"{metrics['grad_norm']:.6f}")
+    if where != {"cuda"} or not math.isfinite(metrics["loss"]):
+        raise AssertionError("17c: the registered pair did not train on the "
+                             "card")
 
 
 def main() -> int:
@@ -7082,6 +7714,29 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as wd:
             precision_phase(torch, fa, wd, gpu)
         return 0
+    if only == "17":
+        # A development run of phase 17 alone (``--only 17``): phase 4 for
+        # its artifact and its decode-enabled server, then 17a, 17c, and
+        # 17b on two checkpoints of a short config-2 run.
+        gpu = smi.splitlines()[0]
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p17_") as wd:
+            _, served = serve_phase(torch, fa, wd)
+            decode_phase(torch, served["artifact"], served["config"], wd, gpu)
+            registry_phase(torch)
+            data = os.path.join(wd, "cifar")
+            os.makedirs(data)
+            write_cifar(data)
+            ckpt = os.path.join(wd, "ckpt_cifar")
+            for steps in (2, 4):
+                if run_cli_train(CIFAR_CONFIG, [
+                        f"data.data_dir={data}",
+                        f"checkpoint.directory={ckpt}",
+                        f"train.total_steps={steps}", "train.log_interval=1",
+                        "train.eval_steps=0"]) != 0:
+                    raise AssertionError("17b: the config-2 run failed")
+            classify_phase(torch, ckpt, (2, 4), wd, gpu)
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -7125,6 +7780,15 @@ def main() -> int:
             f"requests, {served['batches']} batches, {launches} kernel "
             f"launches")
         took("phase 4")
+        t17 = time.perf_counter()
+        log("phase 17a decode at BERT-base width, phase 4's artifact")
+        decode_phase(torch, served["artifact"], served["config"], workdir,
+                     smi.splitlines()[0])
+        del served
+        log("phase 17c a registered model and dataset through the Trainer")
+        registry_phase(torch)
+        p17 = {"17a+17c": time.perf_counter() - t17}
+        took("phases 17a, 17c")
         log("phase 5 train")
         train_counts, full = train_phase(torch, fa, workdir)
         log("phase 5b training parity and learning")
@@ -7163,6 +7827,16 @@ def main() -> int:
         image_parity_phase(torch)
         cifar_det = cifar_resume_phase(torch, workdir, cifar_data)
         took("phase 7")
+        t17 = time.perf_counter()
+        log("phase 17b ResNet-50/CIFAR-10 served from phase 7d's step-15 "
+            "and step-30 checkpoints, reloaded under traffic")
+        classify_phase(torch, os.path.join(workdir, "det_resumed"),
+                       (CIFAR_RESUME_SPLIT, 2 * CIFAR_RESUME_SPLIT), workdir,
+                       gpu)
+        p17["17b"] = time.perf_counter() - t17
+        took("phase 17b")
+        log(f"phase 17 took {sum(p17.values()):.1f} s (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in p17.items()) + ")")
         log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
             "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
         dp_counts, ms_8a = data_parallel_phase(torch, fa, workdir, full,
@@ -7188,22 +7862,26 @@ def main() -> int:
     # Phase 11: ZeRO and FSDP. 11a runs BERT-base through the attention
     # kernels on two ranks in three modes, so its launches join the record.
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_zero_") as workdir:
-        log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the card"
-            " through the Trainer, replicated, ZeRO f32 and ZeRO int8 (11a);"
-            " FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO resume (11c)")
-        zero_counts = zero_phase(torch, workdir, gpu)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_dir:
+        # Phase 12's two ranks start up (held) while phase 11 runs.
+        tp_held = tp_wave(tp_dir, hold=True)
+        with tempfile.TemporaryDirectory(
+                prefix="chip_smoke_zero_") as workdir:
+            log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the "
+                "card through the Trainer, replicated, ZeRO f32 and ZeRO "
+                "int8 (11a); FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO "
+                "resume (11c)")
+            zero_counts = zero_phase(torch, workdir, gpu)
 
-    # Phase 12: tensor parallelism. 12a runs BERT-base through the
-    # attention kernels on two ranks, each on 6 of the 12 heads, so its
-    # launches join the record.
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as workdir:
+        # Phase 12: tensor parallelism. 12a runs BERT-base through the
+        # attention kernels on two ranks, each on 6 of the 12 heads, so
+        # its launches join the record.
+        torch.cuda.empty_cache()
         log("phase 12 tensor parallelism: BERT-base split over two gloo "
             "ranks of the card at {data: 1, model: 2} through the Trainer "
             "(12a); against one process in bf16 (12b) and f32 at 8c's cut "
             "with a resume (12c)")
-        tp_counts = tp_phase(torch, workdir, gpu)
+        tp_counts = tp_phase(torch, tp_dir, gpu, wave=tp_held)
 
     # Phase 13: sequence parallelism. 13b runs the long-context recipe as
     # written through the attention kernels on eight ranks, so its

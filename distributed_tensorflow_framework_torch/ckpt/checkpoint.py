@@ -621,16 +621,22 @@ class CheckpointManager:
                     self.process_count)
         return state.dropout_generator.get_state()
 
-    def restore_model(self, model, *, step: int | None = None) -> int | None:
+    def restore_model(self, model, *, step: int | None = None,
+                      use_ema: bool = False) -> tuple[int, bool] | None:
         """Load only a checkpoint's model tensors into ``model`` (the
-        export path: no optimizer and no generator, so any device);
-        returns the step, or None when there is none."""
+        export path: no optimizer and no generator, so any device), its
+        parameters from the EMA with ``use_ema`` when the checkpoint holds
+        one; returns (the step, whether the EMA was loaded), or None when
+        there is no step."""
         loaded = self._load(step, model)
         if loaded is None:
             return None
         step, _, tensors = loaded
         model.load_state_dict(tensors["model"])
-        return step
+        ema = tensors.get("ema") or {}
+        if use_ema and ema:
+            model.load_state_dict(ema, strict=False)
+        return step, bool(use_ema and ema)
 
     # ---------------------------------------------------------- barrier --
     def wait_until_finished(self) -> None:

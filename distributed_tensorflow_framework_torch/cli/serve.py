@@ -7,7 +7,11 @@ the batched-inference server on a port artifact (serve/export.py).
         [--set serve.port=8000 --set serve.seq_buckets=[128,256,512]]
 
 The model comes from the artifact; ``--config`` is optional and only its
-``serve`` block is consulted. ``--device`` defaults to ``cuda`` and the
+``serve`` and ``decode`` blocks are consulted. With ``decode.enabled``
+(an mlm artifact of the dense bert family) a decode engine
+(serve/decode.py) stands beside the single-shot one and ``POST /generate``
+streams tokens; an artifact that cannot decode is refused with exit code
+2 before the port is bound. ``--device`` defaults to ``cuda`` and the
 command fails when no CUDA device is present, unless ``--device cpu``. The
 process serves until SIGTERM (or SIGINT), then drains in-flight requests and
 exits 0. The resolved endpoint (ephemeral ports included) is written to
@@ -78,9 +82,33 @@ def main(argv=None) -> int:
             config=config.name, role="serve", artifact=artifact_dir,
             model=artifact.model_config.name, step=artifact.step,
             device=args.device)
+        decode_engine = None
+        if config.decode.enabled:
+            from distributed_tensorflow_framework_torch.models import (
+                decode_support_reason,
+            )
+            from distributed_tensorflow_framework_torch.serve.decode import (
+                DecodeEngine,
+            )
+
+            reason = (None if artifact.task == "mlm" else
+                      f"artifact task {artifact.task!r} has no vocabulary")
+            reason = reason or decode_support_reason(artifact.model_config)
+            if reason is not None:
+                # decode.enabled on an unsupported artifact is a config
+                # error, not a silent downgrade: fail before binding the
+                # port.
+                log.error("decode.enabled but artifact cannot decode: %s",
+                          reason)
+                return 2
         engine = InferenceEngine(artifact, srv, device=args.device,
                                  telemetry_writer=writer)
-        server = ServingServer(engine, srv, telemetry_writer=writer)
+        if config.decode.enabled:
+            decode_engine = DecodeEngine(artifact, config.decode, srv,
+                                         device=args.device,
+                                         telemetry_writer=writer)
+        server = ServingServer(engine, srv, decode_engine=decode_engine,
+                               telemetry_writer=writer)
         # The resolved endpoint record: with serve.port=0 the OS picked
         # the port, so tooling polls this file instead of guessing.
         endpoint = {

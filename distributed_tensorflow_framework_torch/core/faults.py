@@ -63,7 +63,10 @@ KIND_POINTS = {
     "crash_in_save": "ckpt_in_save",
     "corrupt_ckpt": "ckpt_committed",
 }
-# The JAX registry's other kinds and the ROADMAP.md item that ports each.
+# The JAX registry's other kinds and the ROADMAP.md item that ports each:
+# A17 the gang and multi-host kinds; A15 the fleet slice's kinds (the
+# router's replica kills and stalls, traffic spikes, tenant stampedes and
+# ``corrupt_reload``, which the JAX fleet fires at its rolling reload).
 NOT_PORTED = {
     "drop_devices": "A17", "kill_worker": "A17", "stall_worker": "A17",
     "drop_worker": "A17", "corrupt_shard": "A17", "skew_shard": "A17",

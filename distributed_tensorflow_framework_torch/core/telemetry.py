@@ -7,8 +7,9 @@ Only the kinds the port emits so far are defined here: the serve kinds;
 the train-step, eval, failure, health, run-meta, startup and data-shard
 kinds of the trainer; the checkpoint kinds (save, quarantine, restore
 fallback, data state); the recovery-ladder kinds (anomaly, rollback,
-skipped batches, infeed stall); the packing census; and the ZeRO plan
-(``zero_update``). The summary rollup of
+skipped batches, infeed stall); the packing census; the ZeRO plan
+(``zero_update``); and the live reload and the decode engine's step and
+KV-pool gauges. The summary rollup of
 ``summarize_events`` is ROADMAP.md queue A item A16.
 """
 
@@ -86,6 +87,17 @@ KIND_SERVE_BATCH = "serve_batch"
 KIND_SERVE_QUEUE = "serve_queue_depth"
 KIND_SERVE_LATENCY = "serve_latency"
 KIND_SERVE_RECOMPILE = "serve_bucket_recompile"
+# One per applied live weight reload (serve/engine.py, serve/decode.py):
+# old → new artifact digest and step, and the ms from the request to the
+# swap.
+KIND_SERVE_RELOAD = "serve_reload"
+# Autoregressive decode (serve/decode.py): one KIND_DECODE_STEP per decode
+# step (real vs padded rows — batch occupancy — plus step and per-token
+# ms), and periodic + eviction-triggered KIND_KV_CACHE gauges of the paged
+# pool (pages in use/free, active/waiting streams, cumulative
+# preemptions).
+KIND_DECODE_STEP = "decode_step"
+KIND_KV_CACHE = "kv_cache"
 
 
 def make_run_id() -> str:

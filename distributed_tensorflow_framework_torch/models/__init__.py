@@ -18,8 +18,15 @@ the int8 block codec (models/layers.py); ``remat_policy``
 (save_nothing or dots_saveable) is the save policy of the per-block
 checkpoint, and of the pipeline stages' per-layer one. The JAX package's
 refusals are kept with its exception types and messages
-(:func:`check_precision`). ``register_model`` and the refusal of the
-precision pack on a custom model are item A19.
+(:func:`check_precision`).
+
+``register_model`` is the extension point (JAX ``models/__init__.py``): a
+user builder registered under a name that no built-in pattern holds
+(:func:`_is_builtin_model_name`) is what ``get_model`` builds for that
+``model.name``, with its task (:func:`custom_model_task`) picking the
+loss and the batch wiring; the precision pack is refused on it, as the
+JAX package refuses it. :func:`decode_support_reason` says why a config
+cannot take the autoregressive decode path (serve/decode.py).
 
 Ring attention builds here and runs under ``train.spmd_mode: jit`` only
 (:func:`check_ring_mode`). With ``model.pipeline_stages > 1`` BERT is
@@ -33,6 +40,7 @@ package's refusals beside the pipeline are kept with its exception types
 from __future__ import annotations
 
 import re
+from typing import Callable
 
 import torch
 from torch import nn
@@ -49,15 +57,103 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _ACTIVATION_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+# name → (builder(config, device=..., generator=...) -> module, task).
+_CUSTOM_MODELS: dict[str, tuple[Callable[..., nn.Module], str]] = {}
+
+
+def _is_builtin_model_name(name: str) -> bool:
+    """Name-pattern twin of :func:`build_model`'s dispatch — keep the two
+    in sync when adding a model family. The whole resnet-N pattern is
+    reserved (including depths that don't exist yet)."""
+    return (name in (*LENET_NAMES, *BERT_NAMES, *INCEPTION_NAMES)
+            or _RESNET.fullmatch(name) is not None)
+
+
+def register_model(name: str, *, task: str = "classification"):
+    """Register a user model builder under ``model.name`` (decorator).
+
+    The builder receives the full ModelConfig plus the keywords the
+    built-ins get (``device``, and ``generator``, the stream its
+    parameters are drawn from) and returns an initialised ``nn.Module``.
+    Its ``forward`` takes a ``train`` keyword, which ``get_model`` fills
+    with the module's ``training`` flag (the trainer switches it to
+    ``train()``), and its positional inputs match ``task``:
+    "classification" (NHWC images → logits) or "mlm" ((ids, mask[,
+    segment_ids]) → logits) — the task picks the loss and batch wiring
+    (train/step.py). The builder owns the interpretation of every other
+    ModelConfig knob. Built-in names cannot be shadowed, and duplicate
+    registrations fail loudly.
+
+        @register_model("my_net")
+        def build(config, *, device=None, generator=None):
+            return MyNet(config.num_classes, device=device,
+                         generator=generator)
+    """
+    key = name.lower()
+    if task not in ("classification", "mlm"):
+        raise ValueError(f"unknown task {task!r} for model {name!r}")
+
+    def deco(builder):
+        if key in _CUSTOM_MODELS:
+            raise ValueError(f"model {name!r} already registered")
+        if _is_builtin_model_name(key):
+            raise ValueError(f"model {name!r} shadows a built-in")
+        _CUSTOM_MODELS[key] = (builder, task)
+        return builder
+
+    return deco
+
+
+def decode_support_reason(model_config) -> str | None:
+    """Why ``model_config`` cannot take the autoregressive decode path
+    (None = supported) — models/bert.py's reason, and a registered model
+    refused by name."""
+    from distributed_tensorflow_framework_torch.models import bert
+
+    if model_config.name.lower() in _CUSTOM_MODELS:
+        return (f"custom model {model_config.name!r} has no causal decode "
+                f"head (decode supports the dense bert family)")
+    return bert.decode_support_reason(model_config)
+
+
+def custom_model_task(name: str) -> str | None:
+    """Task family of a registered custom model, or None if not custom."""
+    entry = _CUSTOM_MODELS.get(name.lower())
+    return entry[1] if entry else None
+
+
+def _pass_train(module: nn.Module, args: tuple, kwargs: dict):
+    """Forward pre-hook of a registered model: ``train=`` from the
+    module's mode unless the caller passed it."""
+    return args, {"train": module.training, **kwargs}
+
+
+def _build_custom(config: ModelConfig, device: torch.device,
+                  generator: torch.Generator, precision) -> nn.Module:
+    check_precision(config, precision)
+    model = _CUSTOM_MODELS[config.name.lower()][0](
+        config, device=device, generator=generator)
+    model.register_forward_pre_hook(_pass_train, with_kwargs=True)
+    return model
+
 
 def check_precision(config: ModelConfig, precision=None) -> None:
     """The JAX ``get_model``'s refusals of the precision pack, in its
-    order: a ``precision.remat_policy`` beside ``model.remat_policy !=
-    full`` or without ``model.remat`` (pipeline stages exempt), and
-    ``precision.matmul_dtype`` on a model other than LeNet and ResNet."""
+    order: any of it on a registered model, a ``precision.remat_policy``
+    beside ``model.remat_policy != full`` or without ``model.remat``
+    (pipeline stages exempt), and ``precision.matmul_dtype`` on a model
+    other than LeNet and ResNet."""
     if precision is None:
         return
     name = config.name.lower()
+    if name in _CUSTOM_MODELS:
+        if (precision.matmul_dtype or precision.activation_dtype
+                or precision.remat_policy != "none"):
+            raise ValueError(
+                f"precision.activation_dtype/matmul_dtype/remat_policy are "
+                f"not threaded through custom model {config.name!r} — the "
+                f"registered builder owns its ModelConfig interpretation")
+        return
     if precision.remat_policy != "none":
         if config.remat_policy != "full":
             raise ValueError(
@@ -215,7 +311,9 @@ def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
               in_channels: int | None = None, runtime=None,
               precision=None) -> nn.Module:
     """Build the model on ``device`` (default CUDA; raises when CUDA is
-    absent unless ``device="cpu"``) under ``precision`` (the config's
+    absent unless ``device="cpu"``) — a registered model from its builder
+    (:func:`register_model`), which draws its own parameters — under
+    ``precision`` (the config's
     ``PrecisionConfig``, or None) with its parameters drawn from
     ``generator`` (default: seed 0 on that device), in f32 whatever the
     precision. Eval mode: the trainer switches it to ``train()``. Image
@@ -225,10 +323,12 @@ def get_model(config: ModelConfig, *, device: str | torch.device = "cuda",
     ``precision.remat_policy`` when set; a ValueError without a runtime,
     as the JAX package's needs the mesh)."""
     dev = resolve_device(device)
-    model = build_model(config, device=dev, in_channels=in_channels,
-                        precision=precision)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    if config.name.lower() in _CUSTOM_MODELS:
+        return _build_custom(config, dev, generator, precision).eval()
+    model = build_model(config, device=dev, in_channels=in_channels,
+                        precision=precision)
     model.init_weights(generator)
     if dev.type == "cuda" and config.name.lower() not in BERT_NAMES:
         model = model.to(memory_format=torch.channels_last)

@@ -416,3 +416,187 @@ class BertForMLM(nn.Module):
         if self.moe_zloss_weight:
             out["moe_zloss"] = totals["zloss"] / n
         return out
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive decode path (serve/decode.py).
+#
+# The port of the JAX package's decode walk (models/bert.py
+# ``bert_decode_layers`` and its helpers): a CAUSAL prefill over the prompt
+# that also exports every layer's K/V, and a per-token step whose keys and
+# values come from a paged cache instead of the layer input. Both are
+# plain functions over :func:`decode_params`, the trained BertForMLM's
+# tensors in f32 with every kernel matrix laid out (K, N) once, with the KV
+# residency behind an ``attend`` callback so the engine owns paging while
+# the model owns the math.
+#
+# A stream's logits must be bit-equal whether it decodes alone or among
+# neighbours (the JAX package pins this). XLA gets that by construction;
+# PyTorch on the CPU does not, so two formulations here are deliberate:
+#   * a one-row product runs as two rows (:func:`_decode_dense`): torch
+#     takes a matrix-vector path for a single row, whose sums differ in
+#     the last bits from the matrix product of every other row count;
+#   * :func:`paged_decode_attention` forms its scores and context by
+#     elementwise products reduced over the head and key dims, not by a
+#     batched matrix product: the batched product's sums change with the
+#     row count, and its and the softmax's inner-dim reductions change
+#     with the padded key count, while a reduction over an outer dim adds
+#     the keys one by one in order, so masked padding (exact zeros after
+#     the softmax) leaves the sums alone.
+# ---------------------------------------------------------------------------
+
+_DECODE_EPS = 1e-6
+
+
+def decode_support_reason(model_config) -> str | None:
+    """Why this model config cannot take the autoregressive decode path
+    (None = supported). The decode walk reads the dense BERT tensors by
+    name; what it does not know is refused by name rather than failing as
+    a KeyError mid-stream."""
+    if model_config.name.lower() not in ("bert", "bert_base", "bert-base"):
+        return (f"model {model_config.name!r} has no causal decode head "
+                f"(decode supports the dense bert family)")
+    if getattr(model_config, "num_experts", 0):
+        return "MoE encoder layers are not supported by the decode path"
+    if getattr(model_config, "pipeline_stages", 1) > 1:
+        return "pipelined checkpoints are not servable (see serve/export.py)"
+    return None
+
+
+def decode_params(state_dict: dict, device=None) -> dict:
+    """The serving layout of a BertForMLM state_dict for the decode walk,
+    on ``device``: f32 tensors, every dense kernel transposed once to a
+    contiguous (K, N) (the separate query/key/value kernels concatenated
+    into one (H, 3H), the fused one as it is), and the tied embedding
+    table pre-transposed to the (H, V) ``projection`` — the counterpart of
+    the JAX ``bert_decode_head_params``. Built at load and at every
+    reload, so the two can never differ in layout."""
+
+    def t(key):
+        return state_dict[key].to(device, torch.float32)
+
+    def dense(prefix):
+        return (t(f"{prefix}.weight").t().contiguous(), t(f"{prefix}.bias"))
+
+    def norm(prefix):
+        return (t(f"{prefix}.weight"), t(f"{prefix}.bias"))
+
+    layers = []
+    i = 0
+    while f"layer{i}.ln1.weight" in state_dict:
+        p = f"layer{i}"
+        if f"{p}.attn.qkv.weight" in state_dict:
+            qkv = dense(f"{p}.attn.qkv")
+        else:
+            parts = [dense(f"{p}.attn.{n}") for n in ("query", "key",
+                                                      "value")]
+            qkv = (torch.cat([w for w, _ in parts], dim=1).contiguous(),
+                   torch.cat([b for _, b in parts]))
+        layers.append({"qkv": qkv, "attn_out": dense(f"{p}.attn.attn_out"),
+                       "ln1": norm(f"{p}.ln1"),
+                       "mlp_in": dense(f"{p}.mlp_in"),
+                       "mlp_out": dense(f"{p}.mlp_out"),
+                       "ln2": norm(f"{p}.ln2")})
+        i += 1
+    table = t("embed_block.embed.weight")
+    return {"embed": table, "pos": t("embed_block.pos_embedding"),
+            "embed_ln": norm("embed_block.embed_ln"), "layers": layers,
+            "head": {"transform": dense("head.mlm_transform"),
+                     "ln": norm("head.mlm_ln"),
+                     "projection": table.t().contiguous(),
+                     "bias": t("head.mlm_bias")}}
+
+
+def _decode_ln(p, x):
+    """f32 LayerNorm, ε = 1e-6, the JAX decode walk's two-pass form."""
+    scale, bias = p
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + _DECODE_EPS) * scale + bias
+
+
+def _decode_matmul(x, w):
+    """``x @ w`` over x's rows flattened, a single row run as two (see
+    the section's comment)."""
+    rows = x.reshape(-1, x.shape[-1])
+    if rows.shape[0] == 1:
+        y = (rows.expand(2, -1) @ w)[:1]
+    else:
+        y = rows @ w
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def _decode_dense(p, x):
+    w, b = p
+    return _decode_matmul(x, w) + b
+
+
+def bert_decode_layers(params: dict, ids, positions, attend):
+    """The shared causal walk: embed -> N x (attn -> add&norm -> MLP ->
+    add&norm), f32. ``ids``/``positions``: (B, T) int64. ``attend(layer,
+    q, k, v) -> context`` with q/k/v/context all (B, T, H) f32 — prefill
+    passes an in-register causal attention, the per-token decode step a
+    paged-pool write and gather. Returns the final hidden states (B, T,
+    H)."""
+    x = params["embed"][ids] + params["pos"][positions]
+    x = _decode_ln(params["embed_ln"], x)
+    h = x.shape[-1]
+    for i, lp in enumerate(params["layers"]):
+        q, k, v = _decode_dense(lp["qkv"], x).split(h, dim=-1)
+        ctx = attend(i, q, k, v)
+        x = _decode_ln(lp["ln1"], x + _decode_dense(lp["attn_out"], ctx))
+        y = F.gelu(_decode_dense(lp["mlp_in"], x), approximate="tanh")
+        x = _decode_ln(lp["ln2"], x + _decode_dense(lp["mlp_out"], y))
+    return x
+
+
+def bert_decode_logits(params: dict, hidden):
+    """MLM head over decode hidden states: transform -> gelu -> LN ->
+    tied-embedding projection + bias, all f32. hidden: (..., H)."""
+    head = params["head"]
+    t = F.gelu(_decode_dense(head["transform"], hidden), approximate="tanh")
+    t = _decode_ln(head["ln"], t)
+    return _decode_matmul(t, head["projection"]) + head["bias"]
+
+
+def _sqrt_f32(d: int) -> float:
+    """√d rounded to f32, as the JAX walk divides by ``jnp.sqrt(f32(d))``."""
+    return float(torch.tensor(float(d)).sqrt())
+
+
+def causal_prefill_attention(q, k, v, length, num_heads: int):
+    """In-register causal attention for the prefill pass. q/k/v:
+    (B, S, H) f32; ``length`` (B,) masks keys past each row's prompt.
+    Query row i attends keys j <= i (and j < length)."""
+    b, s, h = q.shape
+    d = h // num_heads
+    qh = q.reshape(b, s, num_heads, d)
+    kh = k.reshape(b, s, num_heads, d)
+    vh = v.reshape(b, s, num_heads, d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / _sqrt_f32(d)
+    idx = torch.arange(s, device=q.device)
+    causal = idx[None, :] <= idx[:, None]                      # (Sq, Sk)
+    valid = idx[None, None, None, :] < length[:, None, None, None]
+    scores = torch.where(causal[None, None] & valid, scores, _F32_MIN)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, s, h)
+
+
+def paged_decode_attention(q, k_keys, v_keys, positions, num_heads: int):
+    """One-token attention over gathered paged KV. q: (B, H) for the
+    current token; k_keys/v_keys: (B, S_kv, H) gathered from the page
+    pool (padding included); keys at j <= positions[b] are live, the
+    rest — page-table padding and not-yet-written slots — are masked.
+    Reduced over outer dims so that a row's result depends on neither
+    its neighbours nor the padded S_kv (see the section's comment)."""
+    b, h = q.shape
+    s_kv = k_keys.shape[1]
+    d = h // num_heads
+    kh = k_keys.reshape(b, s_kv, num_heads, d)
+    vh = v_keys.reshape(b, s_kv, num_heads, d)
+    scores = (q.reshape(b, 1, num_heads, d) * kh).sum(-1) / _sqrt_f32(d)
+    live = (torch.arange(s_kv, device=q.device)[None, :]
+            <= positions[:, None])                             # (B, S_kv)
+    scores = torch.where(live[:, :, None], scores, _F32_MIN)
+    probs = torch.softmax(scores, dim=1)                       # over keys
+    return (probs[..., None] * vh).sum(1).reshape(b, h)

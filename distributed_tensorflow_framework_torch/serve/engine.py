@@ -1,8 +1,8 @@
 """Standing batched-inference engine with SLO telemetry.
 
-Port of ``serve/engine.py``. Requests of arbitrary row count and sequence
-length arrive at a queue, and a batcher thread decides when a batch is
-worth launching:
+Port of ``serve/engine.py``. Requests of arbitrary row count (and, for
+the mlm task, sequence length) arrive at a queue, and a batcher thread
+decides when a batch is worth launching:
 
   * admission — launch when ``serve.max_batch_size`` rows are waiting OR
     the oldest request has waited ``serve.max_wait_ms``, whichever comes
@@ -12,7 +12,13 @@ worth launching:
     bounded set of shapes (the flash-attention kernel's length guard then
     holds for every batch: each bucket is a multiple of 128 or below it);
   * placement — the parameters are placed on the device once; each batch
-    is one ``torch.inference_mode()`` forward.
+    is one ``torch.inference_mode()`` forward, the model in eval mode (an
+    image model on its artifact's BatchNorm statistics, channels_last on
+    the card as the trainer lays it out);
+  * live reload — :meth:`InferenceEngine.request_reload` verifies and
+    places a new artifact on the caller's thread and the batcher swaps it
+    in between batches, so a reloaded engine answers as a cold one on the
+    new artifact would.
 
 The serving replica is one device (``serve.data`` must be 1). Everything
 observable rides core/telemetry.py with the JAX engine's event kinds.
@@ -21,6 +27,7 @@ observable rides core/telemetry.py with the JAX engine's event kinds.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -38,7 +45,10 @@ from distributed_tensorflow_framework_torch.core.metrics import (
     PercentileReservoir,
 )
 from distributed_tensorflow_framework_torch.models import get_model
-from distributed_tensorflow_framework_torch.serve.export import Artifact
+from distributed_tensorflow_framework_torch.serve.export import (
+    Artifact,
+    load_artifact,
+)
 from distributed_tensorflow_framework_torch.train.step import model_inputs
 
 log = logging.getLogger(__name__)
@@ -58,6 +68,13 @@ class ServeReporterError(RuntimeError):
         super().__init__(
             f"serve reporter thread failed: {type(cause).__name__}: {cause}")
         self.__cause__ = cause
+
+
+class ReloadError(ServeError):
+    """Live weight reload rejected — tampered/unverified artifact, an
+    incompatible model config or input spec, or a reload already in
+    flight. The engine keeps serving the OLD weights; rejection is never
+    an outage (server.py maps this to HTTP 409)."""
 
 
 class OversizeRequestError(ServeError):
@@ -104,11 +121,20 @@ def batch_buckets(max_batch_size: int, dp: int) -> list[int]:
     return out
 
 
+def check_single_replica(serve_cfg: ServeConfig) -> None:
+    """The port serves on one device per replica process."""
+    if serve_cfg.data != 1:
+        raise NotImplementedError(
+            f"serve.data={serve_cfg.data}: the port serves on one device "
+            f"per replica; data-parallel serving belongs to the fleet "
+            f"slice, ROADMAP.md queue A item A15")
+
+
 @dataclass
 class _Request:
     inputs: dict[str, np.ndarray]
     rows: int
-    seq_len: int
+    seq_len: int  # 0 for classification
     future: Future = field(default_factory=Future)
     t_enqueue: float = field(default_factory=time.monotonic)
 
@@ -124,15 +150,7 @@ class InferenceEngine:
 
     def __init__(self, artifact: Artifact, serve_cfg: ServeConfig, *,
                  device: str | torch.device = "cuda", telemetry_writer=None):
-        if serve_cfg.data != 1:
-            raise NotImplementedError(
-                f"serve.data={serve_cfg.data}: the port serves on one device "
-                f"per replica; data-parallel serving is ROADMAP.md queue A "
-                f"item A15")
-        if artifact.task != "mlm":
-            raise NotImplementedError(
-                f"artifact task {artifact.task!r}: the port serves the mlm "
-                f"(bert) task only so far — ROADMAP.md queue A item A15")
+        check_single_replica(serve_cfg)
         self.artifact = artifact
         self.cfg = serve_cfg
         self.device = resolve_device(device)
@@ -140,17 +158,25 @@ class InferenceEngine:
         self.task = artifact.task
         self.row_buckets = batch_buckets(serve_cfg.max_batch_size, 1)
         self.max_rows = self.row_buckets[-1]
-        fixed = int(artifact.input_spec["input_ids"]["shape"][0])
-        self.seq_buckets = [int(b) for b in serve_cfg.seq_buckets] or [fixed]
+        if self.task == "mlm":
+            fixed = int(artifact.input_spec["input_ids"]["shape"][0])
+            self.seq_buckets = ([int(b) for b in serve_cfg.seq_buckets]
+                                or [fixed])
+        else:
+            self.seq_buckets = []
         # One placement at startup; every batch reuses these weights.
-        self.model = get_model(artifact.model_config, device=self.device)
-        self.model.load_state_dict(artifact.state_dict)
+        self.model = self._place_model(artifact)
         self._used: set[tuple] = set()
 
         self._cond = threading.Condition()
         self._queue: deque[_Request] = deque()
         self._stop_reporting = threading.Event()
         self._state = "running"  # running | draining | closed
+        # Staged live reload: (artifact, placed model, future,
+        # t_requested), applied by the batcher BETWEEN batches.
+        self._pending_reload: tuple | None = None
+        self._reloads = 0
+        self._replica_label = os.environ.get("DTF_REPLICA_ID", "engine")
         self._t_start = time.monotonic()
         self._latency = PercentileReservoir()
         self._requests = 0
@@ -171,6 +197,17 @@ class InferenceEngine:
             "engine up: task=%s step=%d device=%s row_buckets=%s "
             "seq_buckets=%s", self.task, artifact.step, self.device,
             self.row_buckets, self.seq_buckets)
+
+    def _place_model(self, artifact: Artifact) -> torch.nn.Module:
+        """The artifact's model on the device, in eval mode, an image
+        model with the channels of its input spec (the same placement for
+        cold start and live reload — parity by construction)."""
+        channels = (None if artifact.task == "mlm"
+                    else int(artifact.input_spec["image"]["shape"][-1]))
+        model = get_model(artifact.model_config, device=self.device,
+                          in_channels=channels)
+        model.load_state_dict(artifact.state_dict)
+        return model
 
     # ------------------------------------------------------- validation
 
@@ -196,6 +233,27 @@ class InferenceEngine:
                     f"input {key!r} has shape {arr.shape}, expected "
                     f"(rows, {', '.join(map(str, info['shape']))})")
             arrays[key] = arr
+        if self.task == "mlm":
+            rows, seq = self._validate_mlm(inputs, arrays)
+        else:
+            rows = arrays["image"].shape[0]
+            want = tuple(spec["image"]["shape"])
+            if arrays["image"].shape[1:] != want:
+                raise ServeError(
+                    f"image rows have shape {arrays['image'].shape[1:]}, "
+                    f"artifact expects {want}")
+            seq = 0
+        if rows < 1:
+            raise ServeError("request has zero rows")
+        if rows > self.max_rows:
+            raise OversizeRequestError(
+                f"request has {rows} rows but serve.max_batch_size="
+                f"{self.cfg.max_batch_size} (padded cap {self.max_rows}) — "
+                f"split the request or raise the knob")
+        return _Request(inputs=arrays, rows=rows, seq_len=seq)
+
+    def _validate_mlm(self, inputs: dict[str, Any],
+                      arrays: dict[str, np.ndarray]) -> tuple[int, int]:
         ids = arrays["input_ids"]
         rows, seq = ids.shape
         if "attention_mask" not in arrays:
@@ -221,14 +279,7 @@ class InferenceEngine:
                 f"sequence length {seq} exceeds the largest padding "
                 f"bucket {self.seq_buckets[-1]} (serve.seq_buckets="
                 f"{self.seq_buckets}) — truncate or add a bucket")
-        if rows < 1:
-            raise ServeError("request has zero rows")
-        if rows > self.max_rows:
-            raise OversizeRequestError(
-                f"request has {rows} rows but serve.max_batch_size="
-                f"{self.cfg.max_batch_size} (padded cap {self.max_rows}) — "
-                f"split the request or raise the knob")
-        return _Request(inputs=arrays, rows=rows, seq_len=seq)
+        return rows, seq
 
     # ------------------------------------------------------- public API
 
@@ -251,6 +302,69 @@ class InferenceEngine:
     def predict(self, inputs: dict[str, Any],
                 timeout: float | None = None) -> np.ndarray:
         return self.submit(inputs).result(timeout)
+
+    def request_reload(self, artifact_dir: str) -> Future:
+        """Stage a live weight swap; the batcher applies it BETWEEN
+        batches, so in-flight requests finish on the old weights and the
+        next batch runs the new ones — zero downtime.
+
+        Manifest verification (serve/export.load_artifact) and placement
+        on the device happen HERE, on the calling thread: a tampered or
+        incompatible artifact raises :class:`ReloadError` without the
+        batcher ever seeing it, and the old weights keep serving. The new
+        model is built as a cold engine builds its own (same model config
+        is enforced), so reloaded responses are bitwise what a cold engine
+        on the new artifact would produce.
+        """
+        try:
+            art = load_artifact(artifact_dir)
+        except (ValueError, OSError) as e:
+            raise ReloadError(
+                f"reload rejected, still serving step "
+                f"{self.artifact.step}: {e}") from e
+        if art.task != self.task:
+            raise ReloadError(
+                f"reload rejected: artifact task {art.task!r} != serving "
+                f"task {self.task!r}")
+        if art.model_config != self.artifact.model_config:
+            raise ReloadError(
+                "reload rejected: model config differs from the serving "
+                "artifact — a fleet swaps weights, not architectures")
+        if art.input_spec != self.artifact.input_spec:
+            raise ReloadError(
+                "reload rejected: input spec differs from the serving "
+                "artifact")
+        t0 = time.monotonic()
+        model = self._place_model(art)
+        fut: Future = Future()
+        with self._cond:
+            if self._state != "running":
+                raise EngineClosedError(
+                    f"engine is {self._state} — not accepting reloads")
+            if self._pending_reload is not None:
+                raise ReloadError(
+                    "reload rejected: another reload is already staged")
+            self._pending_reload = (art, model, fut, t0)
+            self._cond.notify_all()
+        return fut
+
+    def reload(self, artifact_dir: str,
+               timeout: float | None = 60.0) -> dict[str, Any]:
+        """Synchronous :meth:`request_reload` (server.py's POST /reload)."""
+        return self.request_reload(artifact_dir).result(timeout)
+
+    def artifact_info(self) -> dict[str, Any]:
+        """Digest self-report for /healthz: the artifact this engine is
+        ACTUALLY serving."""
+        with self._cond:
+            art = self.artifact
+            reloads = self._reloads
+        return {
+            "step": art.step,
+            "param_spec_digest": art.param_spec_digest,
+            "content_digest": art.version_digest,
+            "reloads": reloads,
+        }
 
     def stats(self) -> dict[str, Any]:
         """Point-in-time counters for healthz."""
@@ -288,10 +402,14 @@ class InferenceEngine:
         with self._cond:
             self._state = "closed"
             leftovers, self._queue = list(self._queue), deque()
+            pending, self._pending_reload = self._pending_reload, None
             self._cond.notify_all()
         for req in leftovers:
             req.future.set_exception(EngineClosedError(
                 "engine drain timed out before this request was served"))
+        if pending is not None:
+            pending[2].set_exception(EngineClosedError(
+                "engine drained before the staged reload applied"))
         self._stop_reporting.set()
         self._reporter.join(max(1.0, self.cfg.report_interval_s))
         self._emit_latency()  # final cumulative rollup — last one wins
@@ -312,6 +430,8 @@ class InferenceEngine:
             while not self._queue:
                 if self._state != "running":
                     return None
+                if self._pending_reload is not None:
+                    return []  # wake the loop so the swap applies now
                 self._cond.wait(0.1)
             deadline = self._queue[0].t_enqueue + self.cfg.max_wait_ms / 1e3
             while (self._state == "running"
@@ -332,31 +452,39 @@ class InferenceEngine:
 
         Sequence padding is zeros with mask 0; filler rows replicate row 0
         (a real row keeps the padded batch numerically unremarkable). Their
-        outputs are sliced off before any future resolves.
+        outputs are sliced off before any future resolves. Image rows go
+        to the device as NHWC f32.
         """
         rows = sum(r.rows for r in batch)
         row_bucket = pick_bucket(rows, self.row_buckets)
-        seq_bucket = max(pick_bucket(r.seq_len, self.seq_buckets)
-                         for r in batch)
-        keys = ["input_ids", "attention_mask"]
-        if any("segment_ids" in r.inputs for r in batch):
-            keys.append("segment_ids")
-        cols = {k: [] for k in keys}
-        for r in batch:
-            for k in keys:
-                arr = r.inputs.get(k)
-                if arr is None:  # segment_ids absent for this request
-                    arr = np.zeros((r.rows, r.seq_len), np.int32)
-                pad = seq_bucket - arr.shape[1]
-                if pad:
-                    arr = np.pad(arr, ((0, 0), (0, pad)))
-                cols[k].append(arr)
-        host = {k: np.concatenate(v) for k, v in cols.items()}
+        if self.task == "mlm":
+            seq_bucket = max(pick_bucket(r.seq_len, self.seq_buckets)
+                             for r in batch)
+            keys = ["input_ids", "attention_mask"]
+            if any("segment_ids" in r.inputs for r in batch):
+                keys.append("segment_ids")
+            cols = {k: [] for k in keys}
+            for r in batch:
+                for k in keys:
+                    arr = r.inputs.get(k)
+                    if arr is None:  # segment_ids absent for this request
+                        arr = np.zeros((r.rows, r.seq_len), np.int32)
+                    pad = seq_bucket - arr.shape[1]
+                    if pad:
+                        arr = np.pad(arr, ((0, 0), (0, pad)))
+                    cols[k].append(arr)
+            host = {k: np.concatenate(v) for k, v in cols.items()}
+        else:
+            seq_bucket = 0
+            host = {"image": np.concatenate([r.inputs["image"]
+                                             for r in batch])}
         fill = row_bucket - rows
         if fill:
             host = {k: np.concatenate([v, np.repeat(v[:1], fill, axis=0)])
                     for k, v in host.items()}
-        placed = {k: torch.from_numpy(v).to(self.device, torch.int64)
+        placed = {k: torch.from_numpy(v).to(
+                      self.device,
+                      torch.float32 if k == "image" else torch.int64)
                   for k, v in host.items()}
         return placed, (seq_bucket, row_bucket), rows
 
@@ -377,7 +505,8 @@ class InferenceEngine:
             # First run of a bucket: on the card it includes building the
             # kernels, the port's counterpart of the JAX engine's compile.
             self._used.add(key)
-            label = f"seq{key[0]}xrows{key[1]}"
+            label = (f"rows{key[1]}" if self.task != "mlm"
+                     else f"seq{key[0]}xrows{key[1]}")
             if self._tw:
                 self._tw.emit(
                     telemetry.KIND_SERVE_RECOMPILE,
@@ -395,7 +524,9 @@ class InferenceEngine:
                          "compute_ms": compute_ms, "queue_depth": depth})
         offset = 0
         for req in batch:
-            out = logits[offset:offset + req.rows, :req.seq_len]
+            out = logits[offset:offset + req.rows]
+            if self.task == "mlm":  # strip the seq padding too
+                out = out[:, :req.seq_len]
             offset += req.rows
             wait_ms = (t_form - req.t_enqueue) * 1e3
             latency_ms = (time.monotonic() - req.t_enqueue) * 1e3
@@ -410,8 +541,42 @@ class InferenceEngine:
                              "latency_ms": latency_ms})
             req.future.set_result(out)
 
+    def _apply_pending_reload(self) -> None:
+        """Batcher-thread half of the reload: swap the verified, already
+        placed model in one locked assignment between batches."""
+        with self._cond:
+            pending, self._pending_reload = self._pending_reload, None
+        if pending is None:
+            return
+        art, model, fut, t0 = pending
+        old = self.artifact
+        with self._cond:
+            self.artifact = art
+            self.model = model
+            self._reloads += 1
+        reload_ms = (time.monotonic() - t0) * 1e3
+        result = {
+            "from_step": old.step, "to_step": art.step,
+            "from_digest": old.version_digest,
+            "to_digest": art.version_digest,
+            "reload_ms": reload_ms,
+        }
+        if self._tw:
+            self._tw.emit(
+                telemetry.KIND_SERVE_RELOAD,
+                metrics={"reload_ms": reload_ms},
+                replica=self._replica_label, ok=True,
+                from_digest=old.version_digest,
+                to_digest=art.version_digest,
+                from_step=old.step, to_step=art.step)
+        log.info("live reload: step %d -> %d, digest %s -> %s (%.0f ms)",
+                 old.step, art.step, old.version_digest[:8],
+                 art.version_digest[:8], reload_ms)
+        fut.set_result(result)
+
     def _batch_loop(self) -> None:
         while True:
+            self._apply_pending_reload()
             batch = self._take_batch()
             if batch is None:
                 return

@@ -6,7 +6,9 @@ An artifact is a directory holding exactly what inference needs:
       artifact.json   — schema, model config, task, step, input spec,
                         sha256 digest of the param tree's spec
       params.npz      — the parameters in the Flax tree layout, one array
-                        per leaf, keyed by the "/"-joined tree path
+                        per leaf, keyed by the "/"-joined tree path, and
+                        an image model's BatchNorm statistics (the Flax
+                        ``batch_stats`` tree) under ``batch_stats/``
       manifest.json   — ckpt/manifest.py integrity commit record over the
                         whole directory
 
@@ -17,7 +19,11 @@ package's loader refuses the other's artifact by name. ``load_artifact``
 checks the manifest and the spec digest, then converts the tree to the
 port's state_dict layout (models/convert.py) on every load.
 ``export_checkpoint`` freezes a committed training checkpoint of the port
-(ckpt/checkpoint.py) into such an artifact.
+(ckpt/checkpoint.py) into such an artifact, for either task: the mlm
+(BERT) one and the classification one (LeNet, ResNet, Inception-v3, a
+registered image model), whose artifact carries the running statistics,
+and with ``serve.use_ema`` the EMA parameters in place of the trained
+ones.
 """
 
 from __future__ import annotations
@@ -41,11 +47,9 @@ from distributed_tensorflow_framework_torch.core.config import (
     ModelConfig,
     _build,
 )
-from distributed_tensorflow_framework_torch.models import (
-    BERT_NAMES,
-    get_model,
-)
+from distributed_tensorflow_framework_torch.models import get_model
 from distributed_tensorflow_framework_torch.models.convert import (
+    batch_stats_to_flax,
     flatten_tree,
     flax_to_state_dict,
     to_flax,
@@ -57,6 +61,8 @@ log = logging.getLogger(__name__)
 ARTIFACT_SCHEMA = "dtf-torch-serve-artifact/1"
 ARTIFACT_JSON = "artifact.json"
 PARAMS_NPZ = "params.npz"
+# The key prefix of the BatchNorm statistics in PARAMS_NPZ.
+_STATS_PREFIX = "batch_stats"
 
 
 def param_tree_digest(tree: dict[str, Any]) -> str:
@@ -101,8 +107,9 @@ def input_spec_for(config: ExperimentConfig, task: str) -> dict[str, Any]:
 
 @dataclasses.dataclass
 class Artifact:
-    """A loaded serving artifact: the parameters as the port's state_dict
-    (converted from the stored Flax tree) and the recorded meta."""
+    """A loaded serving artifact: the parameters (and BatchNorm
+    statistics) as the port's state_dict, converted from the stored Flax
+    trees, and the recorded meta."""
 
     model_config: ModelConfig
     task: str
@@ -132,11 +139,13 @@ def save_artifact(
     step: int,
     input_spec: dict[str, Any],
     source: dict[str, Any] | None = None,
+    batch_stats: dict[str, Any] | None = None,
 ) -> str:
     """Write an artifact from a Flax-layout tree of numpy arrays
     (models/convert.to_flax of a port model, or ``jax.device_get`` of the
-    JAX package's params). Refuses a non-empty target — an artifact is
-    immutable once committed."""
+    JAX package's params) and, for a BatchNorm model, its ``batch_stats``
+    tree (models/convert.batch_stats_to_flax). Refuses a non-empty target
+    — an artifact is immutable once committed."""
     out = os.path.abspath(output_dir)
     if os.path.isdir(out) and os.listdir(out):
         raise ValueError(
@@ -146,6 +155,8 @@ def save_artifact(
     os.makedirs(out, exist_ok=True)
     flat = {"/".join(path): np.asarray(leaf)
             for path, leaf in flatten_tree(params).items()}
+    flat.update({"/".join((_STATS_PREFIX, *path)): np.asarray(leaf)
+                 for path, leaf in flatten_tree(batch_stats or {}).items()})
     np.savez(os.path.join(out, PARAMS_NPZ), **flat)
     meta = {
         "schema": ARTIFACT_SCHEMA,
@@ -172,13 +183,19 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     """Freeze the model of a committed checkpoint in
     ``config.checkpoint.directory`` (``step``, default the newest that
     verifies, through the same integrity checks and quarantine as a
-    restore) into a serving artifact at ``output_dir``. The model is built
-    from ``config.model`` on ``device`` (default CUDA, which it needs
-    unless ``device="cpu"``); only its tensors are read, so a checkpoint
-    trained on either device exports on either. A pipelined model is
-    refused with the JAX package's ValueError (a pipelined run's
-    checkpoint holds the whole layout: export it with
-    ``model.pipeline_stages`` 1)."""
+    restore) into a serving artifact at ``output_dir``: the task from
+    ``task_for_model``, the parameters (the EMA's under ``serve.use_ema``
+    when the checkpoint holds one), an image model's BatchNorm statistics,
+    and the task's ``input_spec_for``. The model is built from
+    ``config.model`` on ``device`` (default CUDA, which it needs unless
+    ``device="cpu"``); only its tensors are read, so a checkpoint trained
+    on either device exports on either. A pipelined model is refused with
+    the JAX package's ValueError (a pipelined run's checkpoint holds the
+    whole layout: export it with ``model.pipeline_stages`` 1)."""
+    from distributed_tensorflow_framework_torch.train.step import (
+        task_for_model,
+    )
+
     if config.model.pipeline_stages > 1:
         raise ValueError(
             "export of pipelined models (model.pipeline_stages>1) is not "
@@ -188,27 +205,28 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     if not config.checkpoint.directory:
         raise ValueError("checkpoint.directory must name the trained run "
                          "to export")
-    if config.model.name.lower() not in BERT_NAMES:
-        raise NotImplementedError(
-            f"exporting {config.model.name!r}: the port exports and serves "
-            f"the mlm (bert) task only so far — ROADMAP.md queue A item A15")
-    model = get_model(config.model, device=device)
+    task = task_for_model(config.model.name)
+    model = get_model(config.model, device=device,
+                      in_channels=(None if task == "mlm"
+                                   else config.data.channels))
     manager = CheckpointManager(dataclasses.replace(config.checkpoint,
                                                     async_save=False))
     try:
-        restored = manager.restore_model(model, step=step)
+        restored = manager.restore_model(model, step=step,
+                                         use_ema=config.serve.use_ema)
     finally:
         manager.close()
     if restored is None:
         raise ValueError(f"no committed checkpoint to export in "
                          f"{config.checkpoint.directory}")
+    restored_step, used_ema = restored
     return save_artifact(
-        output_dir, model_config=config.model, task="mlm",
-        params=to_flax(model), step=restored,
-        input_spec=input_spec_for(config, "mlm"),
+        output_dir, model_config=config.model, task=task,
+        params=to_flax(model), batch_stats=batch_stats_to_flax(model),
+        step=restored_step, input_spec=input_spec_for(config, task),
         source={"checkpoint_dir": os.path.abspath(
                     config.checkpoint.directory),
-                "experiment": config.name})
+                "experiment": config.name, "used_ema": used_ema})
 
 
 def load_artifact(artifact_dir: str) -> Artifact:
@@ -238,8 +256,12 @@ def load_artifact(artifact_dir: str) -> Artifact:
             + "; ".join(errors[:5])
         )
     with np.load(os.path.join(out, PARAMS_NPZ), allow_pickle=False) as npz:
-        params = unflatten_tree(
-            {tuple(name.split("/")): npz[name] for name in npz.files})
+        leaves = {tuple(name.split("/")): npz[name] for name in npz.files}
+    params = unflatten_tree({path: leaf for path, leaf in leaves.items()
+                             if path[0] != _STATS_PREFIX})
+    batch_stats = unflatten_tree({path[1:]: leaf
+                                  for path, leaf in leaves.items()
+                                  if path[0] == _STATS_PREFIX})
     digest = param_tree_digest(params)
     if digest != meta["param_spec_digest"]:
         raise ValueError(
@@ -250,7 +272,7 @@ def load_artifact(artifact_dir: str) -> Artifact:
     return Artifact(
         model_config=_build(ModelConfig, meta["model"]),
         task=meta["task"],
-        state_dict=flax_to_state_dict(params),
+        state_dict=flax_to_state_dict(params, batch_stats),
         step=int(meta["step"]),
         param_spec_digest=digest,
         input_spec=meta["input_spec"],

@@ -7,10 +7,17 @@ coalesces across them — that blocking IS the dynamic batching window):
   * ``POST /predict`` — ``{"inputs": {...}}`` in, ``{"outputs": [...]}``
     out. Validation and oversize/too-long → 400, backpressure and draining
     → 503 (retryable), anything else → 500.
-  * ``GET /healthz`` — liveness, the artifact's input spec and the engine
-    counters.
-  * ``POST /generate`` and ``POST /reload`` answer 404 naming the
-    ROADMAP.md item that ports them.
+  * ``POST /generate`` — ``{"prompt": [ids...], ...}`` in, a chunked
+    NDJSON stream out: one ``{"token", "index"}`` line per generated
+    token as the decode engine (serve/decode.py) produces it, then one
+    ``{"done": true, ...}`` summary line. 404 without a decode engine.
+  * ``POST /reload`` — ``{"artifact_dir": ...}``: live weight swap via
+    the engine's between-batches reload (then the decode engine's, which
+    drains its streams first). Verification failure → 409 with the old
+    weights still serving.
+  * ``GET /healthz`` — liveness, the artifact's input spec, the engine
+    counters, the digest of the artifact actually being served and the
+    decode engine's counters.
 
 SIGTERM drains: stop admission, finish every queued request within
 ``serve.drain_timeout_s``, then return from ``serve_forever``.
@@ -28,11 +35,16 @@ import numpy as np
 
 from distributed_tensorflow_framework_torch.core import telemetry
 from distributed_tensorflow_framework_torch.core.config import ServeConfig
+from distributed_tensorflow_framework_torch.serve.decode import (
+    CacheFullError,
+    StreamTooLongError,
+)
 from distributed_tensorflow_framework_torch.serve.engine import (
     EngineClosedError,
     InferenceEngine,
     OversizeRequestError,
     QueueFullError,
+    ReloadError,
     SequenceTooLongError,
     ServeError,
 )
@@ -40,12 +52,6 @@ from distributed_tensorflow_framework_torch.serve.engine import (
 log = logging.getLogger(__name__)
 
 _MAX_BODY = 64 * 1024 * 1024  # refuse absurd request bodies outright
-_NOT_PORTED = {
-    "/generate": "autoregressive decode is not ported yet — ROADMAP.md "
-                 "queue A item A15",
-    "/reload": "live weight reload is not ported yet — ROADMAP.md queue A "
-               "item A15",
-}
 
 
 class ServeDrainError(RuntimeError):
@@ -64,8 +70,11 @@ class ServingServer:
     """Engine + ThreadingHTTPServer, owning the drain choreography."""
 
     def __init__(self, engine: InferenceEngine, serve_cfg: ServeConfig, *,
-                 telemetry_writer=None):
+                 decode_engine=None, telemetry_writer=None):
         self.engine = engine
+        # Optional serve/decode.DecodeEngine (decode.enabled + mlm task):
+        # adds the streaming POST /generate route.
+        self.decode_engine = decode_engine
         self.cfg = serve_cfg
         self._tw = telemetry_writer
         self._draining = threading.Event()
@@ -96,9 +105,12 @@ class ServingServer:
             def do_POST(self):
                 if self.path == "/predict":
                     outer.handle_predict(self)
+                elif self.path == "/generate":
+                    outer.handle_generate(self)
+                elif self.path == "/reload":
+                    outer.handle_reload(self)
                 else:
-                    self._reply(404, {"error": _NOT_PORTED.get(
-                        self.path, f"no route {self.path}")})
+                    self._reply(404, {"error": f"no route {self.path}"})
 
         class Server(ThreadingHTTPServer):
             # The socketserver default accept backlog of 5 drops
@@ -148,6 +160,153 @@ class ServingServer:
             log.exception("predict failed")
             handler._reply(500, {"error": f"{type(e).__name__}: {e}"})
 
+    @staticmethod
+    def _write_chunk(handler, data: bytes, flush: bool = True) -> None:
+        """One HTTP/1.1 chunked-transfer frame — a token event must
+        reach the client the moment it exists. ``flush=False`` lets the
+        generate loop coalesce a burst of already-queued frames into one
+        syscall; the burst's LAST frame always flushes."""
+        handler.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+        if flush:
+            handler.wfile.flush()
+
+    @staticmethod
+    def _end_chunks(handler) -> None:
+        handler.wfile.write(b"0\r\n\r\n")
+        handler.wfile.flush()
+
+    def handle_generate(self, handler) -> None:
+        """``POST /generate {"prompt": [ids...], ...}`` — streamed
+        autoregressive decode. The reply is chunked NDJSON: one
+        ``{"token": ..., "index": ...}`` line per generated token as the
+        continuous batcher produces it, closed by one ``{"done": true,
+        ...summary}`` line. Submit-time errors map like /predict
+        (too-long/never-fits → 400, backpressure/draining → 503
+        retryable); a mid-stream failure becomes an ``{"error": ...}``
+        line because the 200 status is already on the wire."""
+        if self.decode_engine is None:
+            handler._reply(404, {
+                "error": "decode disabled — set decode.enabled=true and "
+                         "serve an mlm artifact"})
+            return
+        try:
+            if self._draining.is_set():
+                handler._reply(503, {"error": "draining", "retryable": True})
+                return
+            length = int(handler.headers.get("Content-Length", 0))
+            if length <= 0 or length > _MAX_BODY:
+                handler._reply(400, {"error": f"bad Content-Length {length}"})
+                return
+            payload = json.loads(handler.rfile.read(length))
+            prompt = payload.get("prompt")
+            if not isinstance(prompt, list) or not prompt:
+                handler._reply(400, {
+                    "error": "body must be {\"prompt\": [token ids...]}"})
+                return
+            stream = self.decode_engine.submit(
+                prompt,
+                max_new_tokens=payload.get("max_new_tokens"),
+                eos_id=payload.get("eos_id"),
+                return_logits=bool(payload.get("return_logits")))
+        except (StreamTooLongError, CacheFullError) as e:
+            # Neither gets better on retry: the stream as requested can
+            # never be admitted.
+            handler._reply(400, {"error": str(e)})
+            return
+        except (QueueFullError, EngineClosedError) as e:
+            handler._reply(503, {"error": str(e), "retryable": True})
+            return
+        except ServeError as e:
+            handler._reply(400, {"error": str(e)})
+            return
+        except json.JSONDecodeError as e:
+            handler._reply(400, {"error": f"invalid JSON: {e}"})
+            return
+        except Exception as e:  # noqa: BLE001 — server must outlive a bad request
+            log.exception("generate submit failed")
+            handler._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        handler.send_response(200)
+        handler.send_header("Content-Type", "application/x-ndjson")
+        handler.send_header("Transfer-Encoding", "chunked")
+        handler.send_header("X-DTF-Step",
+                            str(self.decode_engine.artifact.step))
+        handler.end_headers()
+        try:
+            for kind, ev in stream.events(timeout=self.cfg.drain_timeout_s):
+                if kind == "token":
+                    if "logits" in ev:
+                        line = json.dumps(
+                            dict(ev, logits=ev["logits"].tolist()))
+                    else:
+                        # Hand-rolled frame for the hot path: one frame
+                        # per generated token.
+                        line = ('{"token":%d,"index":%d}'
+                                % (ev["token"], ev["index"]))
+                else:
+                    line = json.dumps({"done": True, **ev})
+                self._write_chunk(handler, (line + "\n").encode(),
+                                  flush=stream.pending() == 0)
+            self._end_chunks(handler)
+        except Exception as e:  # noqa: BLE001 — status already on the wire
+            log.warning("generate stream aborted: %s: %s",
+                        type(e).__name__, e)
+            try:
+                self._write_chunk(handler, (json.dumps(
+                    {"error": f"{type(e).__name__}: {e}",
+                     "retryable": isinstance(e, EngineClosedError)})
+                    + "\n").encode())
+                self._end_chunks(handler)
+            except OSError:
+                pass  # client already gone
+
+    def handle_reload(self, handler) -> None:
+        """``POST /reload {"artifact_dir": ...}`` — live weight swap.
+
+        Not idempotent: a rejected reload (tamper, mismatch) is 409 with
+        the engine still on the old weights.
+        """
+        if self._draining.is_set():
+            handler._reply(503, {"error": "draining", "retryable": True})
+            return
+        try:
+            length = int(handler.headers.get("Content-Length", 0))
+            if length <= 0 or length > _MAX_BODY:
+                handler._reply(400, {"error": f"bad Content-Length {length}"})
+                return
+            payload = json.loads(handler.rfile.read(length))
+            artifact_dir = payload.get("artifact_dir")
+            if not isinstance(artifact_dir, str) or not artifact_dir:
+                handler._reply(
+                    400, {"error": "body must be {\"artifact_dir\": ...}"})
+                return
+            result = self.engine.reload(
+                artifact_dir, timeout=self.cfg.drain_timeout_s)
+            if self.decode_engine is not None:
+                # Same artifact, second engine: the decode swap blocks
+                # until its in-flight streams finish on the old weights,
+                # so give it the full drain budget. A decode-side
+                # rejection is the same 409 contract — but the
+                # single-shot engine already swapped, so say so.
+                try:
+                    decode_result = self.decode_engine.reload(
+                        artifact_dir, timeout=self.cfg.drain_timeout_s)
+                except ReloadError as e:
+                    raise ReloadError(
+                        f"decode engine rejected the reload (single-shot "
+                        f"engine already swapped): {e}") from e
+                result = {**result, "decode": decode_result}
+            handler._reply(200, {"reloaded": True, **result})
+        except ReloadError as e:
+            handler._reply(409, {"error": str(e), "reloaded": False})
+        except EngineClosedError as e:
+            handler._reply(503, {"error": str(e), "retryable": True})
+        except json.JSONDecodeError as e:
+            handler._reply(400, {"error": f"invalid JSON: {e}"})
+        except Exception as e:  # noqa: BLE001 — server must outlive a bad request
+            log.exception("reload failed")
+            handler._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
     def handle_healthz(self, handler) -> None:
         status = 503 if self._draining.is_set() else 200
         art = self.engine.artifact
@@ -158,10 +317,13 @@ class ServingServer:
             "step": art.step,
             "vocab_size": art.vocab_size,
             "input_spec": art.input_spec,
-            "artifact": {"step": art.step,
-                         "param_spec_digest": art.param_spec_digest,
-                         "content_digest": art.version_digest},
+            # Which weights am I ACTUALLY serving.
+            "artifact": self.engine.artifact_info(),
             "engine": self.engine.stats(),
+            # KV-cache occupancy + stream counters when the decode path
+            # is enabled (None otherwise).
+            "decode": (self.decode_engine.stats()
+                       if self.decode_engine is not None else None),
         })
 
     # ------------------------------------------------------------- drain
@@ -177,6 +339,11 @@ class ServingServer:
         log.info("drain started (%s): refusing new requests, %d queued",
                  reason, self.engine.stats()["queue_depth"])
         drained = self.engine.drain(self.cfg.drain_timeout_s)
+        if self.decode_engine is not None:
+            # Streams still get their remaining tokens during the drain
+            # window — a deploy must not truncate mid-generation.
+            drained = self.decode_engine.drain(
+                self.cfg.drain_timeout_s) and drained
         if self._tw:
             self._tw.emit(
                 telemetry.KIND_HEALTH,
@@ -211,8 +378,8 @@ class ServingServer:
 
     def serve_forever(self) -> None:
         """Block until shutdown() (or SIGTERM via the installed handler)."""
-        log.info("serving on http://%s:%d (predict, healthz)",
-                 self.host, self.port)
+        log.info("serving on http://%s:%d (predict, generate, reload, "
+                 "healthz)", self.host, self.port)
         self.httpd.serve_forever()
         self.httpd.server_close()
         if self._draining.is_set():

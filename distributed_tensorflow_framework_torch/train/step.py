@@ -201,6 +201,7 @@ from distributed_tensorflow_framework_torch.models import (
     BERT_NAMES,
     check_precision,
     check_ring_mode,
+    custom_model_task,
     get_model,
     model_kwargs,
 )
@@ -238,6 +239,9 @@ AUX_LOSS_WEIGHT = 0.4
 
 
 def task_for_model(name: str) -> str:
+    custom = custom_model_task(name)
+    if custom is not None:
+        return custom
     return "mlm" if "bert" in name.lower() else "classification"
 
 

@@ -221,9 +221,9 @@ def test_http_predict_and_healthz_round_trip(engine):
                               {"inputs": {"input_ids": _ids(10, 200).tolist()}})
         assert status == 400 and "exceeds the largest" in reply["error"]
         status, reply = _http("POST", url + "/generate", {"prompt": [1]})
-        assert status == 404 and "ROADMAP.md" in reply["error"]
+        assert status == 404 and "decode disabled" in reply["error"]
         status, reply = _http("POST", url + "/reload", {"artifact_dir": "x"})
-        assert status == 404 and "ROADMAP.md" in reply["error"]
+        assert status == 409 and "still serving step 7" in reply["error"]
     finally:
         assert server.shutdown("test") is True
         thread.join(30)

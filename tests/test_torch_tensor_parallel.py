@@ -295,13 +295,22 @@ def _checkpoints(workdir, runtime) -> dict:
                                    for k, v in ema.items())
         one_builder.train_step(one, _block(batches[2], one_builder))
         out["one_next"] = _whole(one)
-        # cli/export.py's path: the TP checkpoint exports whole.
+        # cli/export.py's path: the TP checkpoint exports whole, its EMA
+        # under serve.use_ema (the default) and the trained tensors
+        # without it.
         art = load_artifact(export_checkpoint(dataclasses.replace(
             one_builder.config, checkpoint=ck), f"{workdir}/art_tp",
             device="cpu"))
+        raw = load_artifact(export_checkpoint(dataclasses.replace(
+            one_builder.config, checkpoint=ck,
+            serve=dataclasses.replace(one_builder.config.serve,
+                                      use_ema=False)),
+            f"{workdir}/art_tp_raw", device="cpu"))
         out["export_step"] = art.step
-        out["export_equal"] = all(torch.equal(art.state_dict[k], v)
-                                  for k, v in whole.items())
+        out["export_equal"] = (
+            all(torch.equal(art.state_dict[k], v) for k, v in ema.items())
+            and all(torch.equal(raw.state_dict[k], v)
+                    for k, v in whole.items()))
         # And the reverse: one process saves, TP restores.
         manager = CheckpointManager(dataclasses.replace(
             ck, directory=f"{workdir}/ck_one"), runtime=None)
