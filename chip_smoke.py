@@ -71,7 +71,8 @@ Phases (any failure raises and the script exits non-zero):
      times per batch, and one request's logits against the same model run
      with the kernel's plain version. The server runs with
      ``decode.enabled`` (DECODE_OVERRIDES), and one ``POST /generate``
-     (phase 17a) follows the requests. SIGTERM drains the server.
+     (phase 17a) and phase 18b's traced requests follow the requests.
+     SIGTERM drains the server.
   5. train — ``cli/train.py``'s ``main`` on ``configs/bert_base_mlm.yaml``
      at full width and depth (dropout 0.1, AdamW, clip 1.0) for 30 steps,
      its checkpoint and resilience sections live: the recovery ladder
@@ -442,15 +443,43 @@ Phases (any failure raises and the script exits non-zero):
      CLASSIFY_RTOL). ``--only 17`` builds the kernels and runs phase 4,
      17a, 17c and 17b on two checkpoints of a short config-2 run (no
      kernels line, no last line).
+  18. observability (core/profiling.py, core/trace_analysis.py,
+     core/memstats.py, core/goodput.py, core/tracing.py; no flash kernel
+     of its own). 18a, after phase 5f: ``cli/train.py``'s ``main`` on
+     phase 5's run (BERT-base at full width and depth, 32 x 512, the
+     config's checkpoint and resilience sections live) for 9 steps with
+     ``train.profile_start=6``/``profile_stop=9`` and
+     ``train.memory_analysis`` (OBS_OVERRIDES). The window's Kineto trace
+     goes through the port's analyzer, whose report is printed; the
+     forward, dQ and dK/dV kernels must appear in the trace exactly as
+     often as their launch counters rose over the window's 3 steps (36
+     each), the coverage lie within OBS_COVERAGE_TOL of 1, the
+     optimizer_update time be nonzero; the launch gap's share is printed
+     beside phase 5's idle share, and the ``trace_summary`` event must
+     validate. The first step's memory analysis must lie between the
+     state's bytes (the step-9 checkpoint's) and the card's capacity, the
+     card's capacity equal core/roofline.py's, every memory sample read
+     the card's allocator, every event validate and the final goodput
+     buckets sum to the wall within OBS_GOODPUT_RTOL. Prints the
+     profiler's cost (ms/step inside the window against steps 4-6) and
+     phase 5's steady ms/step with spans, goodput and memory sampling on.
+     18b, on phase 4's server: TRACED_REQUESTS ``/predict`` requests with
+     an ``X-DTF-Trace`` header each must give ``serve.request`` →
+     ``engine.queue``/``engine.batch`` → ``engine.compute`` under the
+     client's trace id, one with a malformed header answers 200 untraced,
+     ``/healthz``'s ``memory`` must read the card's allocator, and a
+     SIGUSR1 must write the flight recorder's ``dtf-flightrec/1`` dump
+     holding the traced spans. ``--only 18`` builds the kernels and runs
+     phase 4 with 18b, then 18a (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b and 16e, whose
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e and 18a, whose
 children set and read their own counts) and read just after; launches
 made to compare or time a kernel do not count. The record's
 ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a, 12a,
-13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b and 16e, and its
+13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e and 18a, and its
 ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
@@ -526,6 +555,8 @@ DBIAS_RTOL = 1e-5
 LOGIT_MAX_ATOL = 0.15
 LOGIT_MEAN_ATOL = 1e-2
 HTTP_LENGTHS = (4, 8, 12, 16, 24, 32)
+# Phase 18b: requests to phase 4's server under a trace context each.
+TRACED_REQUESTS = 3
 # Phase 5: BERT-base training at full width and depth, with the config's
 # checkpoint and resilience sections live; only checkpoint.directory moves
 # into the script's temporary workdir (the config's /tmp path could hold
@@ -1386,6 +1417,71 @@ def read_counts(fa, serving: bool = False) -> dict:
     return counts
 
 
+def check_traced(traced: dict, health: dict, log_dir: str) -> None:
+    """Phase 18b: every traced request's spans in the server's events
+    (which must all validate) form ``serve.request`` → ``engine.queue`` /
+    ``engine.batch`` → ``engine.compute`` under the client's trace id, the
+    malformed header was answered 200 untraced, ``/healthz``'s memory
+    reads the card's allocator, and SIGUSR1 wrote the flight recorder's
+    dump."""
+    import torch
+
+    from distributed_tensorflow_framework_torch.core import telemetry
+    from distributed_tensorflow_framework_torch.core.tracing import (
+        FLIGHTREC_SCHEMA,
+    )
+
+    if traced["statuses"] != [200] * (TRACED_REQUESTS + 1):
+        raise AssertionError(f"18b statuses {traced['statuses']}")
+    traces: dict = {}
+    for ev in telemetry.read_events(os.path.join(log_dir, "events.jsonl"),
+                                    kind=telemetry.KIND_SPAN):
+        traces.setdefault(ev["extra"]["trace"], []).append(ev)
+    if sorted(traces) != sorted(traced["trace_ids"]):
+        raise AssertionError(f"18b: spans under {sorted(traces)}, sent "
+                             f"{sorted(traced['trace_ids'])}")
+    for trace_id, group in traces.items():
+        by_id = {e["extra"]["span"]: e["extra"] for e in group}
+        tree = {}
+        for x in by_id.values():
+            parent = by_id.get(x["parent"], {}).get("name")
+            tree.setdefault(parent, []).append(x["name"])
+        want = {None: ["serve.request"],
+                "serve.request": ["engine.batch", "engine.queue"],
+                "engine.batch": ["engine.compute"]}
+        if {k: sorted(v) for k, v in tree.items()} != want or any(
+                x["status"] != "ok" for x in by_id.values()):
+            raise AssertionError(f"18b trace {trace_id}: {tree}")
+    ms = {x["name"]: e["metrics"]["dur_ms"] for e in traces[trace_id]
+          for x in [e["extra"]]}
+    log(f"18b traced serve: {len(traces)} traces of 4 spans each under the "
+        f"clients' trace ids, a malformed X-DTF-Trace answered 200 "
+        f"untraced; the last: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in sorted(ms.items())))
+    mem, good = health["memory"], health["goodput"]
+    name = torch.cuda.get_device_name(0)
+    if (mem["source_kind"] != "device_memory_stats"
+            or [d["kind"] for d in mem["devices"]] != [name]
+            or not 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"]
+            or not 0 < good["compute_frac"] < 1):
+        raise AssertionError(f"18b /healthz memory {mem}, goodput {good}")
+    log(f"18b /healthz memory: {mem['source_kind']} on {name}, "
+        f"{mem['bytes_in_use'] / 1e9:.3f} GB in use, peak "
+        f"{mem['peak_bytes_in_use'] / 1e9:.3f} GB; goodput: compute "
+        f"{good['compute_ms_total']:.1f} ms of {good['uptime_s']:.1f} s up "
+        f"(compute_frac {good['compute_frac']:.4f})")
+    dump = traced["dump"]
+    spans = [e["extra"]["name"] for e in dump["events"]
+             if e["kind"] == telemetry.KIND_SPAN]
+    if (dump["schema"] != FLIGHTREC_SCHEMA or dump["reason"] != "SIGUSR1"
+            or spans.count("serve.request") != TRACED_REQUESTS):
+        raise AssertionError(f"18b flight recorder dump: {dump['schema']}, "
+                             f"{dump['reason']}, spans {spans}")
+    log(f"18b SIGUSR1: flight recorder dump {dump['schema']} with "
+        f"{dump['event_count']} events ({len(spans)} spans), "
+        f"{len(dump['open_spans'])} open spans")
+
+
 def reference_model(torch, fa, model_config, state_dict):
     """The served model with every attention call swapped for the
     kernel's plain version, on the card."""
@@ -1435,16 +1531,19 @@ def check_logits(torch, ref_model, ids, got, bucket: int, what: str,
 class HttpClient(threading.Thread):
     """Waits for the server's endpoint.json, sends concurrent
     ``POST /predict`` requests, then with ``generate`` one ``POST
-    /generate`` of that many new tokens, reads ``/healthz``, then SIGTERMs
-    this process so ``cli.serve.main`` drains and returns."""
+    /generate`` of that many new tokens, with ``traced`` phase 18b's
+    requests (:meth:`_traced`), reads ``/healthz``, then SIGTERMs this
+    process so ``cli.serve.main`` drains and returns."""
 
     def __init__(self, log_dir: str, vocab: int,
-                 lengths: tuple = HTTP_LENGTHS, generate: int = 0):
+                 lengths: tuple = HTTP_LENGTHS, generate: int = 0,
+                 traced: bool = False):
         super().__init__(name="chip-smoke-client", daemon=True)
         self.log_dir = log_dir
         self.vocab = vocab
         self.lengths = lengths
         self.generate = generate
+        self.traced = traced
         self.results: dict = {}
         self.error: BaseException | None = None
 
@@ -1473,12 +1572,17 @@ class HttpClient(threading.Thread):
             time.sleep(0.2)
         raise TimeoutError(f"server wrote no {path} in {timeout_s} s")
 
-    def _post(self, url: str, ids: list[int]) -> tuple[int, dict, float]:
+    def _post(self, url: str, ids: list[int],
+              trace: str | None = None) -> tuple[int, dict, float]:
         body = json.dumps({"inputs": {"input_ids": ids,
                                       "attention_mask": [1] * len(ids)}})
-        req = urllib.request.Request(
-            url + "/predict", data=body.encode(),
-            headers={"Content-Type": "application/json"})
+        headers = {"Content-Type": "application/json"}
+        if trace is not None:
+            from distributed_tensorflow_framework_torch.core import tracing
+
+            headers[tracing.TRACE_HEADER] = trace
+        req = urllib.request.Request(url + "/predict", data=body.encode(),
+                                     headers=headers)
         t0 = time.perf_counter()
         with urllib.request.urlopen(req, timeout=300) as resp:
             payload = json.loads(resp.read())
@@ -1513,14 +1617,41 @@ class HttpClient(threading.Thread):
                         f"{reply!r}")
             generated = (self._generate(url, reqs[-1]) if self.generate
                          else None)
+            traced = self._traced(url, reqs[0]) if self.traced else None
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             self.results = {"requests": reqs, "replies": replies,
-                            "health": health, "generate": generated}
+                            "health": health, "generate": generated,
+                            "traced": traced}
         except BaseException as e:  # noqa: BLE001 — reported by the main thread
             self.error = e
         finally:
             os.kill(os.getpid(), signal.SIGTERM)
+
+    def _traced(self, url: str, ids: list[int]) -> dict:
+        """Phase 18b: TRACED_REQUESTS requests, each under a fresh trace
+        context in ``X-DTF-Trace`` (a client with no span of its own, as
+        scripts/load_gen.py sends), one with a malformed header, then a
+        SIGUSR1 to this process (the server's flight recorder) and a wait
+        for its dump."""
+        import uuid
+
+        ids_sent, statuses = [], []
+        for _ in range(TRACED_REQUESTS):
+            trace_id = uuid.uuid4().hex[:16]
+            status, _, _ = self._post(url, ids,
+                                      f"{trace_id}::{time.time():.6f}")
+            ids_sent.append(trace_id)
+            statuses.append(status)
+        statuses.append(self._post(url, ids, "not-a-trace")[0])
+        dump = os.path.join(self.log_dir, f"flightrec-{os.getpid()}.json")
+        os.kill(os.getpid(), signal.SIGUSR1)
+        deadline = time.monotonic() + 30
+        while not os.path.isfile(dump) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        with open(dump) as fh:
+            return {"trace_ids": ids_sent, "statuses": statuses,
+                    "dump": json.load(fh)}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2144,7 +2275,7 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 
     # 4a: the HTTP server through cli/serve.py's main.
     client = HttpClient(os.path.join(workdir, "logs"), m.vocab_size,
-                        generate=DECODE_HTTP_NEW)
+                        generate=DECODE_HTTP_NEW, traced=True)
     reset_counts(fa)
     client.start()
     rc = cli_serve.main(["--artifact", artifact_dir, "--config", config_path,
@@ -2175,6 +2306,7 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
                              f"(12 layers x {http_batches} batches), saw "
                              f"{http_launches}")
     check_generate(res["generate"], res["health"], m.vocab_size)
+    check_traced(res["traced"], res["health"], os.path.join(workdir, "logs"))
 
     # 4b: a 512-token and a 300-token request through engine.predict.
     artifact = load_artifact(artifact_dir)
@@ -2213,11 +2345,12 @@ def serve_phase(torch, fa, workdir: str) -> tuple[int, dict]:
 # ---------------------------------------------------------------- phase 5
 
 def train_breakdown(torch, config, warmup: int = 2, steps: int = 5,
-                    classify=None) -> None:
+                    classify=None) -> float | None:
     """One training step at a main-path run's shape, after the launch
     counts are read: step time over ``steps`` synced steps after
     ``warmup`` (host clock), then one profiled step summed by kernel class;
-    idle = 1 − kernel time / step time."""
+    idle = 1 − kernel time / step time, returned in % (None when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_framework_torch.data import get_dataset
@@ -2242,11 +2375,13 @@ def train_breakdown(torch, config, warmup: int = 2, steps: int = 5,
     log(f"train step {config.data.global_batch_size}x{config.data.seq_len} "
         f"bf16: {step_ms:.3f} ms (host clock, {steps} synced steps)")
     total = log_profile(prof, "one train step", top=12, classify=classify)
+    idle = None
     if total:
-        log(f"train step device idle {100 * max(0.0, 1 - total / step_ms):.1f}%"
-            f" of the step")
+        idle = 100 * max(0.0, 1 - total / step_ms)
+        log(f"train step device idle {idle:.1f}% of the step")
     snapshot_cost(torch, state, f"{config.data.global_batch_size}x"
                                 f"{config.data.seq_len}")
+    return idle
 
 
 def snapshot_cost(torch, state, what: str) -> None:
@@ -2373,12 +2508,12 @@ def train_phase(torch, fa, workdir: str) -> tuple[dict, dict]:
         raise AssertionError(f"expected one committed checkpoint at step "
                              f"{steps} in {ckpt_dir}, found "
                              f"{mf.committed_steps(ckpt_dir)}")
-    train_breakdown(torch, cfg)
+    idle = train_breakdown(torch, cfg)
     return counts, {"ckpt": ckpt_dir, "config": config_path,
                     "losses": {e["step"]: e["metrics"]["loss"]
                                for e in train},
                     "eval": evals[0]["metrics"], "ms_per_step": 1e3 * b / rate,
-                    "want": want}
+                    "want": want, "idle": idle}
 
 
 # --------------------------------------------------------------- phase 5c
@@ -2900,6 +3035,179 @@ def packed_phase(torch, fa, workdir: str) -> dict:
     return {key: {k: packed[key][k] + unpacked[key][k]
                   for k in KERNEL_NAMES}
             for key in ("counts", "segmented")}
+
+# --------------------------------------------------------------- phase 18a
+
+# Phase 18a: phase 5's run (configs/bert_base_mlm.yaml at full width and
+# depth, 32 x 512, the checkpoint and resilience sections live) for 9
+# steps logged every 3, a profile window over steps (6, 9] (steps 1-3 hold
+# the kernel builds and the baseline snapshot, 4-6 are the steady steps
+# outside the window) and the first step's memory analysis; memory is
+# sampled and the goodput ledger written at every fetch.
+OBS_ROWS, OBS_STEPS, OBS_WINDOW = 32, 9, (6, 9)
+OBS_OVERRIDES = (
+    f"data.global_batch_size={OBS_ROWS}", f"train.total_steps={OBS_STEPS}",
+    "train.log_interval=3", "train.eval_steps=0", "train.eval_interval=0",
+    f"train.profile_start={OBS_WINDOW[0]}",
+    f"train.profile_stop={OBS_WINDOW[1]}",
+    "train.memory_analysis=true", "train.memory_interval_s=0",
+    "train.goodput_interval_s=0")
+# The window's flash kernels, counted in the trace by name.
+OBS_KERNELS = ("fwd", "dq", "dkv")
+# Coverage: the analyzer's categories and launch gap over its window.
+OBS_COVERAGE_TOL = 0.01
+# The final goodput event's buckets against its wall.
+OBS_GOODPUT_RTOL = 0.01
+
+
+def observability_phase(torch, fa, workdir: str, full: dict,
+                        smi: str) -> dict:
+    """Phase 18a through ``cli.train.main``: the profile window's Kineto
+    trace read by core/trace_analysis.py (its report; the flash kernels
+    counted against the launch counters' rise over the window's steps;
+    coverage; optimizer time; the launch gap beside phase 5's idle share;
+    the trace_summary event), the first step's memory analysis between
+    the state's bytes and the card's capacity, the memory samples from
+    the card's allocator, the final goodput event, every event valid, and
+    the profiler's cost (ms/step inside the window against the steps
+    before it). Returns the run's launches (a main-path run)."""
+    from distributed_tensorflow_framework_torch.core import (
+        memstats,
+        profiling,
+        roofline,
+        telemetry,
+    )
+    from distributed_tensorflow_framework_torch.core import (
+        trace_analysis as ta,
+    )
+
+    config_path = "configs/bert_base_mlm.yaml"
+    ckpt = os.path.join(workdir, "ckpt_obs")
+    log_dir = os.path.join(workdir, "obs_logs")
+    overrides = [*OBS_OVERRIDES, f"checkpoint.directory={ckpt}"]
+    # The launch counters when the window opens and when it closes (the
+    # ProfileHook synchronizes the card before each).
+    window: dict = {}
+    start_trace, stop_trace = profiling.start_trace, profiling.stop_trace
+
+    def counted_start():
+        window["before"] = read_counts(fa)
+        return start_trace()
+
+    def counted_stop(prof, logdir):
+        window["path"] = stop_trace(prof, logdir)
+        window["after"] = read_counts(fa)
+        return window["path"]
+
+    profiling.start_trace, profiling.stop_trace = counted_start, counted_stop
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        rc = run_cli_train(config_path, overrides, "--log-dir", log_dir)
+    finally:
+        profiling.start_trace, profiling.stop_trace = start_trace, stop_trace
+    counts = read_counts(fa)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"18a: cli.train.main returned {rc}")
+    events = list(telemetry.read_events(os.path.join(log_dir,
+                                                     "events.jsonl")))
+    steps = OBS_STEPS
+    want = {"fwd": 12 * steps, "dq": 12 * steps, "dkv": 12 * steps,
+            "fused": 0}
+    if counts != want:
+        raise AssertionError(f"18a: launches {counts}, expected {want}")
+
+    t1 = time.perf_counter()
+    trace_events = ta.parse_kineto(ta.load_kineto(window["path"]))
+    report = ta.analyze(trace_events)
+    report["trace_path"] = window["path"]
+    parse_s = time.perf_counter() - t1
+    log(f"18a: {steps} steps in {wall:.1f} s, the window's trace "
+        f"{os.path.getsize(window['path']) / 1e6:.1f} MB, "
+        f"{len(trace_events)} timed events read and analyzed in "
+        f"{parse_s:.1f} s")
+    for line in ta.format_report(report).splitlines():
+        log(f"18a | {line}")
+    device = [e for e in trace_events if e.line.startswith("Stream")]
+    seen = {k: sum(KERNEL_NAMES[k] in e.name for e in device)
+            for k in OBS_KERNELS}
+    rose = {k: window["after"][k] - window["before"][k] for k in OBS_KERNELS}
+    window_steps = OBS_WINDOW[1] - OBS_WINDOW[0]
+    log(f"18a flash kernels in the trace {seen}; launch counters over the "
+        f"window's {window_steps} steps {rose}")
+    if seen != rose or rose != {k: 12 * window_steps for k in OBS_KERNELS}:
+        raise AssertionError(f"18a: trace {seen} against counters {rose}")
+    b = report["breakdown"]
+    if abs(report["coverage"] - 1) > OBS_COVERAGE_TOL:
+        raise AssertionError(f"18a coverage {report['coverage']}")
+    if not b["optimizer_update"]["time_ps"] > 0:
+        raise AssertionError("18a: no optimizer_update time in the trace")
+    idle = full.get("idle")
+    log(f"18a launch_gap {100 * b['launch_gap']['fraction_of_window']:.2f}% "
+        f"of the window ({b['launch_gap']['time_ps'] / 1e9:.3f} ms of "
+        f"{report['window_ps'] / 1e9:.3f}); phase 5's profiled step idle "
+        + ("not measured" if idle is None else f"{idle:.2f}%")
+        + f"; optimizer_update "
+        f"{100 * b['optimizer_update']['fraction_of_window']:.2f}%; "
+        f"coverage {report['coverage']:.6f} ({smi})")
+    summary = ta.write_summary_event(
+        report, os.path.join(log_dir, "trace_summary.jsonl"),
+        run_id=events[0]["run_id"])
+    if telemetry.validate_event(summary):
+        raise AssertionError(f"18a: trace_summary {summary}")
+
+    memory = [e for e in events if e["kind"] == telemetry.KIND_MEMORY]
+    [analysis] = [e["extra"]["analysis"] for e in memory
+                  if e["extra"]["source_kind"] == "memory_analysis"]
+    samples = [e for e in memory
+               if e["extra"]["source_kind"] != "memory_analysis"]
+    state = torch.load(os.path.join(ckpt, str(steps), "state.pt"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    state_bytes = memstats.tensor_bytes(state["model"], state["optimizer"])
+    name = torch.cuda.get_device_name(0)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    table = roofline.CHIP_PEAKS.get(name)
+    log(f"18a memory analysis of the first step: argument "
+        f"{analysis['argument_bytes'] / 1e9:.3f} GB, temp "
+        f"{analysis['temp_bytes'] / 1e9:.3f} GB, peak_bytes_est "
+        f"{analysis['peak_bytes_est'] / 1e9:.3f} GB; the state "
+        f"{state_bytes / 1e9:.3f} GB; the card {capacity} bytes "
+        f"(roofline table: {None if table is None else table[2]}); "
+        f"{len(samples)} samples, the last "
+        f"{samples[-1]['metrics']['peak_bytes_in_use'] / 1e9:.3f} GB peak")
+    if not state_bytes < analysis["peak_bytes_est"] < capacity:
+        raise AssertionError(f"18a: peak_bytes_est {analysis} against "
+                             f"{state_bytes} and {capacity}")
+    if table is not None and table[2] != capacity:
+        raise AssertionError(f"18a: core/roofline.py gives {name} "
+                             f"{table[2]} bytes, the card has {capacity}")
+    if not samples or any(e["extra"]["source_kind"] != "device_memory_stats"
+                          for e in samples):
+        raise AssertionError(f"18a memory samples {samples}")
+
+    goodput = [e for e in events if e["kind"] == telemetry.KIND_GOODPUT]
+    final = goodput[-1]
+    buckets, wall_s = final["extra"]["buckets"], final["metrics"]["wall_s"]
+    log(f"18a goodput (final): wall {wall_s:.2f} s, goodput_frac "
+        f"{final['metrics']['goodput_frac']:.4f}; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in buckets.items()))
+    if (not final["extra"]["final"]
+            or abs(sum(buckets.values()) - wall_s) > OBS_GOODPUT_RTOL
+            * wall_s):
+        raise AssertionError(f"18a goodput {final}")
+    ms = {e["step"]: 1e3 * OBS_ROWS / e["throughput"]["examples_per_sec"]
+          for e in events if e["kind"] == telemetry.KIND_TRAIN_STEP}
+    inside, outside = ms[OBS_WINDOW[1]], ms[OBS_WINDOW[0]]
+    log(f"18a profiler cost: {inside:.2f} ms/step inside the window (steps "
+        f"7-9) against {outside:.2f} outside it (steps 4-6), ratio "
+        f"{inside / outside:.3f}; phase 5's steady "
+        + ("not measured" if full.get("ms_per_step") is None else
+           f"{full['ms_per_step']:.2f}")
+        + " ms/step with spans, goodput and memory sampling in every "
+        "trainer")
+    return counts
+
 
 # ---------------------------------------------------------------- phase 6
 
@@ -4679,16 +4987,21 @@ def gb(nbytes: float) -> str:
     return f"{nbytes / 1e9:.3f} GB"
 
 
-def zero_phase(torch, workdir: str, smi: str) -> dict:
-    """Phase 11 on two gloo ranks: 11a (BERT-base, the Trainer:
-    replicated, ZeRO f32, ZeRO int8), then 11b/11c (FSDP and ZeRO-1 at
-    8c's cut, a ZeRO resume) in the same children. Returns 11a's
-    attention-kernel launches, both ranks and the three modes (main-path
-    runs)."""
+def zero_wave(workdir: str, hold: bool = False) -> dict:
+    """Phase 11's two ranks."""
+    return spawn_children([{"kind": "zero", "env": gang_env(port, 2, r)}
+                           for port in [free_port()] for r in range(2)],
+                          workdir, "zero_ranks", hold=hold)
+
+
+def zero_phase(torch, workdir: str, smi: str, wave=None) -> dict:
+    """Phase 11 on two gloo ranks (``wave``, when started held earlier):
+    11a (BERT-base, the Trainer: replicated, ZeRO f32, ZeRO int8), then
+    11b/11c (FSDP and ZeRO-1 at 8c's cut, a ZeRO resume) in the same
+    children. Returns 11a's attention-kernel launches, both ranks and the
+    three modes (main-path runs)."""
     t0 = time.perf_counter()
-    ranks = run_children([{"kind": "zero", "env": gang_env(port, 2, r)}
-                          for port in [free_port()] for r in range(2)],
-                         workdir, "zero_ranks", timeout=900)
+    ranks = join_children(wave or zero_wave(workdir), timeout=900)
     if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
         raise AssertionError(f"11a: backends {ranks}")
     runs = {}
@@ -5428,9 +5741,11 @@ def ring_rank(torch, fa, spec: dict) -> dict:
         runtime.shutdown()
 
 
-def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
-    """Phase 13. Returns 13a's worst errors and 13b's attention-kernel
-    launches, every rank's (main-path runs)."""
+def ring_phase(torch, fa, workdir: str, smi: str,
+               after_b=None) -> tuple[dict, dict]:
+    """Phase 13; ``after_b()`` is called once 13b's ranks have ended.
+    Returns 13a's worst errors and 13b's attention-kernel launches, every
+    rank's (main-path runs)."""
     import dataclasses
 
     from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
@@ -5486,6 +5801,8 @@ def ring_phase(torch, fa, workdir: str, smi: str) -> tuple[dict, dict]:
                           for port in [free_port()]
                           for r in range(RING_RANKS)],
                          workdir, "ring_b", timeout=900)
+    if after_b is not None:
+        after_b()
     b0 = ranks[0]["b"]
     losses = {int(k): v["loss"] for k, v in b0["steps"].items()}
     same = all(r["b"]["steps"] == b0["steps"] for r in ranks)
@@ -5806,13 +6123,23 @@ def pipe_rank(torch, fa, spec: dict) -> dict:
         runtime.shutdown()
 
 
-def pipe_phase(torch, workdir: str, smi: str) -> dict:
-    """Phase 14: 14a (BERT-base through the Trainer on four stages under
-    gpipe, 1f1b and interleaved, against one process at the first step)
-    and 14b (8c's cut in f32 at {data: 2, pipe: 2} against one process, a
-    resume, the checkpoint read by one process). Returns 14a's
-    attention-kernel launches, every rank under every schedule (main-path
-    runs)."""
+def pipe_wave(workdir: str, hold: bool = False) -> dict:
+    """Phase 14's four ranks."""
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 14b's determinism
+    return spawn_children([{"kind": "pipe", "env": {
+                               **gang_env(port, PIPE_RANKS, r), **env}}
+                           for port in [free_port()]
+                           for r in range(PIPE_RANKS)],
+                          workdir, "pipe_ranks", hold=hold)
+
+
+def pipe_phase(torch, workdir: str, smi: str, wave=None) -> dict:
+    """Phase 14 on four gloo ranks (``wave``, when started held earlier):
+    14a (BERT-base through the Trainer on four stages under gpipe, 1f1b
+    and interleaved, against one process at the first step) and 14b (8c's
+    cut in f32 at {data: 2, pipe: 2} against one process, a resume, the
+    checkpoint read by one process). Returns 14a's attention-kernel
+    launches, every rank under every schedule (main-path runs)."""
     import dataclasses
 
     from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
@@ -5830,12 +6157,7 @@ def pipe_phase(torch, workdir: str, smi: str) -> dict:
         raise AssertionError(f"{PIPE_CONFIG} is no longer BERT-base at 512: "
                              f"{cfg}")
     layers = m.num_layers // PIPE_RANKS
-    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 14b's determinism
-    ranks = run_children([{"kind": "pipe", "env": {
-                              **gang_env(port, PIPE_RANKS, r), **env}}
-                          for port in [free_port()]
-                          for r in range(PIPE_RANKS)],
-                         workdir, "pipe_ranks", timeout=900)
+    ranks = join_children(wave or pipe_wave(workdir), timeout=900)
     if any(r["backend"] != "gloo" for r in ranks):
         raise AssertionError(f"14: backends {ranks}")
     t1 = time.perf_counter()
@@ -7737,6 +8059,14 @@ def main() -> int:
                     raise AssertionError("17b: the config-2 run failed")
             classify_phase(torch, ckpt, (2, 4), wd, gpu)
         return 0
+    if only == "18":
+        # A development run of phase 18 alone (``--only 18``): phase 4 for
+        # 18b, then 18a (no kernels line, no last line).
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p18_") as wd:
+            serve_phase(torch, fa, wd)
+            observability_phase(torch, fa, wd, {}, smi.splitlines()[0])
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -7804,6 +8134,11 @@ def main() -> int:
         log("phase 5f packed training from records")
         packed_counts = packed_phase(torch, fa, workdir)
         took("phase 5f")
+        log("phase 18a the profile window, memory analysis and goodput of "
+            "BERT-base training through cli.train")
+        obs_counts = observability_phase(torch, fa, workdir, full,
+                                         smi.splitlines()[0])
+        took("phase 18a")
         log("phase 6 long-context training")
         long_counts = [long_train_phase(torch, fa, workdir, seq, route)
                        for seq, route in long_runs(torch, fa)]
@@ -7853,6 +8188,9 @@ def main() -> int:
     # Phase 10: explicit collectives. 10a and 10a' run BERT-base through
     # the attention kernels, so their launches join the record.
     torch.cuda.empty_cache()
+    zero_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_zero_")
+    # Phase 11's two ranks start up (held) while phase 10 runs.
+    zero_held = zero_wave(zero_dir.name, hold=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as workdir:
         log("phase 10 explicit collectives: BERT-base under shard_map at "
             "world 1 over NCCL, int8 (10a) and no wire (10a'); two gloo "
@@ -7865,13 +8203,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_dir:
         # Phase 12's two ranks start up (held) while phase 11 runs.
         tp_held = tp_wave(tp_dir, hold=True)
-        with tempfile.TemporaryDirectory(
-                prefix="chip_smoke_zero_") as workdir:
+        with zero_dir:
             log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the "
                 "card through the Trainer, replicated, ZeRO f32 and ZeRO "
                 "int8 (11a); FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO "
                 "resume (11c)")
-            zero_counts = zero_phase(torch, workdir, gpu)
+            zero_counts = zero_phase(torch, zero_dir.name, gpu,
+                                     wave=zero_held)
 
         # Phase 12: tensor parallelism. 12a runs BERT-base through the
         # attention kernels on two ranks, each on 6 of the 12 heads, so
@@ -7887,24 +8225,31 @@ def main() -> int:
     # written through the attention kernels on eight ranks, so its
     # launches join the record, and 13a's errors its max_abs_err.
     torch.cuda.empty_cache()
+    pipe_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_")
+    # Phase 14's four ranks start up (held) while 13c and 13d run, after
+    # 13b, whose eight ranks' start-up they would slow.
+    pipe_held = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as workdir:
         log("phase 13 sequence parallelism: the kernels with an lse "
             "cotangent (13a); configs/bert_long_ring.yaml as written on "
             "eight gloo ranks of the card (13b); seq 2 at 16384 against one "
             "process (13c); four ranks at {data: 2, seq: 2} in f32, packed, "
             "both chunk routes, with a resume (13d)")
-        ring_worst, ring_counts = ring_phase(torch, fa, workdir, gpu)
+        ring_worst, ring_counts = ring_phase(
+            torch, fa, workdir, gpu, after_b=lambda: pipe_held.append(
+                pipe_wave(pipe_dir.name, hold=True)))
 
     # Phase 14: pipeline parallelism. 14a runs BERT-base through the
     # attention kernels on four stages under three schedules, so its
     # launches join the record.
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as workdir:
+    with pipe_dir:
         log("phase 14 pipeline parallelism: BERT-base on four gloo stages "
             "of the card at {data: 1, pipe: 4} through the Trainer under "
             "gpipe, 1f1b and interleaved (14a); f32 at {data: 2, pipe: 2} "
             "against one process with a resume (14b)")
-        pipe_counts = pipe_phase(torch, workdir, gpu)
+        pipe_counts = pipe_phase(torch, pipe_dir.name, gpu,
+                                 wave=pipe_held[0])
 
     # Phase 15: Mixture-of-Experts. 15a serves, 15b trains BERT-base with
     # MoE layers through the attention kernels, and 15d's two ranks run
@@ -7931,7 +8276,8 @@ def main() -> int:
         prec_counts = precision_phase(torch, fa, workdir, gpu)
 
     # Launches on the main path: serving, the S=512 training runs (phase 5,
-    # phase 5f's packed and unpacked runs, phase 8a's world-1 DDP run,
+    # phase 5f's packed and unpacked runs, phase 18a's profiled run,
+    # phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
     # ranks of each), the two long-context runs, 13b's eight ranks and
     # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
@@ -7942,6 +8288,7 @@ def main() -> int:
     # kernel on this card, its launches are those of phase 6b's micro-step
     # with FUSED_BWD forced on, and say so.
     launched = {name: train_counts[name] + packed_counts["counts"][name]
+                + obs_counts[name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
                 + ring_counts[name] + pipe_counts[name] + moe_counts[name]

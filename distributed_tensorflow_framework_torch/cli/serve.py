@@ -15,7 +15,9 @@ streams tokens; an artifact that cannot decode is refused with exit code
 command fails when no CUDA device is present, unless ``--device cpu``. The
 process serves until SIGTERM (or SIGINT), then drains in-flight requests and
 exits 0. The resolved endpoint (ephemeral ports included) is written to
-``<log_dir>/endpoint.json``.
+``<log_dir>/endpoint.json``. SIGUSR1 dumps the replica's flight recorder
+(the last ``trace.ring_size`` telemetry events and the open spans) to
+``<log_dir>/flightrec-<pid>.json`` (``trace.dump_dir`` when set).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def main(argv=None) -> int:
         log.error("no artifact: pass --artifact or set serve.artifact_dir")
         return 2
 
-    from distributed_tensorflow_framework_torch.core import telemetry
+    from distributed_tensorflow_framework_torch.core import telemetry, tracing
     from distributed_tensorflow_framework_torch.serve.engine import (
         InferenceEngine,
     )
@@ -102,11 +104,18 @@ def main(argv=None) -> int:
                           reason)
                 return 2
         engine = InferenceEngine(artifact, srv, device=args.device,
-                                 telemetry_writer=writer)
+                                 telemetry_writer=writer,
+                                 trace_enabled=config.trace.enabled)
         if config.decode.enabled:
             decode_engine = DecodeEngine(artifact, config.decode, srv,
                                          device=args.device,
                                          telemetry_writer=writer)
+        # The replica's flight recorder: a ring of recent telemetry (spans
+        # included), dumped to flightrec-<pid>.json on SIGUSR1.
+        recorder = tracing.FlightRecorder(
+            config.trace.ring_size,
+            dump_dir=config.trace.dump_dir or log_dir,
+            tracer=engine.tracer).attach(writer)
         server = ServingServer(engine, srv, decode_engine=decode_engine,
                                telemetry_writer=writer)
         # The resolved endpoint record: with serve.port=0 the OS picked
@@ -117,8 +126,9 @@ def main(argv=None) -> int:
             "artifact": os.path.abspath(artifact_dir),
             "events": os.path.join(log_dir, "events.jsonl"),
         }
-        previous = {sig: signal.getsignal(sig)
-                    for sig in (signal.SIGTERM, signal.SIGINT)}
+        previous = {sig: signal.getsignal(sig) for sig in
+                    (signal.SIGTERM, signal.SIGINT, signal.SIGUSR1)}
+        recorder.install_sigusr1()
         server.install_sigterm_drain()
         try:
             with open(os.path.join(log_dir, "endpoint.json"), "w") as fh:

@@ -16,6 +16,11 @@ resumes. ``--eval-only`` restores the checkpoint (``checkpoint.restore_step``
 or the newest) and evaluates it; it raises when there is none.
 ``--log-dir`` receives ``events.jsonl`` (default: the checkpoint
 directory). After training, ``train.eval_steps > 0`` runs a final eval.
+``--set train.profile_start=N --set train.profile_stop=M`` writes a
+Kineto trace of steps N+1..M under ``<checkpoint.directory>/traces``
+(core/trace_analysis.py reads it); ``train.memory_analysis=true`` measures
+the first step's memory; ``train.compilation_cache_dir`` is logged and
+ignored (the port compiles no programs).
 
 Started N times with the gang environment of ``core/cluster.py``
 (``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES=N``,
@@ -79,6 +84,14 @@ def main(argv=None) -> int:
 
         print(yaml.safe_dump(config.to_dict(), sort_keys=False))
         return 0
+    if config.train.compilation_cache_dir:
+        # The JAX CLI's branch for a JAX without the persistent cache: the
+        # eager port compiles no programs (its kernels persist in
+        # build/kernels/ by source hash), so the run goes on uncached and
+        # its startup event names the setting.
+        log.warning("train.compilation_cache_dir=%s: the port has no "
+                    "compilation cache to enable — continuing uncached",
+                    config.train.compilation_cache_dir)
     from distributed_tensorflow_framework_torch.core.mesh import (
         MeshSizeError,
         initialize_runtime,

@@ -78,6 +78,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_tensorflow_framework_torch.core import profiling
 from distributed_tensorflow_framework_torch.models.convert import flax_layout
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel.quantization import (
@@ -506,7 +507,8 @@ class ZeroUpdate:
                 named[lc.name].grad = None
                 sq = shard.grad.square().sum()
                 sq_sum = sq if sq_sum is None else sq_sum + sq
-            opt.step(None)
+            with profiling.annotate("optimizer_update"):
+                opt.step(None)
             self._gather_bucket_(bucket, named)
         return (torch.sqrt(coll.psum(sq_sum, self.runtime)),
                 new_res if use_ef else None)

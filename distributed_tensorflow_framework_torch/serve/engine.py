@@ -21,7 +21,13 @@ decides when a batch is worth launching:
     new artifact would.
 
 The serving replica is one device (``serve.data`` must be 1). Everything
-observable rides core/telemetry.py with the JAX engine's event kinds.
+observable rides core/telemetry.py with the JAX engine's event kinds. A
+request that arrives with a trace context (``X-DTF-Trace``, parsed by
+server.py) gets the spans ``engine.queue``, ``engine.batch`` and
+``engine.compute`` in its trace, backfilled from the batch's timestamps;
+the replica's one tracer is shared with the server. The reporter thread
+samples device memory (core/memstats.py) at its cadence, and
+``memory_snapshot``/``goodput_snapshot`` feed ``/healthz``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from distributed_tensorflow_framework_torch.core import telemetry
+from distributed_tensorflow_framework_torch.core import (
+    memstats,
+    telemetry,
+    tracing,
+)
 from distributed_tensorflow_framework_torch.core.config import ServeConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.core.metrics import (
@@ -137,6 +147,9 @@ class _Request:
     seq_len: int  # 0 for classification
     future: Future = field(default_factory=Future)
     t_enqueue: float = field(default_factory=time.monotonic)
+    # Incoming trace context (tracing.SpanContext): queue wait, batch
+    # membership and compute become spans in the request's trace tree.
+    trace: Any = None
 
 
 class InferenceEngine:
@@ -149,7 +162,8 @@ class InferenceEngine:
     """
 
     def __init__(self, artifact: Artifact, serve_cfg: ServeConfig, *,
-                 device: str | torch.device = "cuda", telemetry_writer=None):
+                 device: str | torch.device = "cuda", telemetry_writer=None,
+                 trace_enabled: bool = True):
         check_single_replica(serve_cfg)
         self.artifact = artifact
         self.cfg = serve_cfg
@@ -177,6 +191,11 @@ class InferenceEngine:
         self._pending_reload: tuple | None = None
         self._reloads = 0
         self._replica_label = os.environ.get("DTF_REPLICA_ID", "engine")
+        # One tracer per replica process (server.py shares it);
+        # ``trace.enabled`` gates emission.
+        self.tracer = tracing.Tracer(
+            telemetry_writer if trace_enabled else None,
+            service=self._replica_label)
         self._t_start = time.monotonic()
         self._latency = PercentileReservoir()
         self._requests = 0
@@ -186,6 +205,11 @@ class InferenceEngine:
         self._padded_rows = 0
         self._queue_wait_ms = 0.0
         self._compute_ms = 0.0
+        # Device memory: sampled by the reporter thread every
+        # report_interval_s, snapshot on /healthz.
+        self._mem = memstats.MemoryMonitor(
+            telemetry_writer, interval_s=serve_cfg.report_interval_s,
+            source="serve", devices=[self.device])
         self._reporter_error: ServeReporterError | None = None
         self._batcher = threading.Thread(
             target=self._batch_loop, name="dtf-serve-batcher", daemon=True)
@@ -283,10 +307,12 @@ class InferenceEngine:
 
     # ------------------------------------------------------- public API
 
-    def submit(self, inputs: dict[str, Any]) -> Future:
+    def submit(self, inputs: dict[str, Any],
+               trace: "tracing.SpanContext | None" = None) -> Future:
         """Validate + enqueue; returns a Future resolving to the per-row
         logits (np.ndarray, request rows and length only)."""
         req = self._validate(inputs)
+        req.trace = trace
         with self._cond:
             if self._state != "running":
                 raise EngineClosedError(
@@ -300,8 +326,9 @@ class InferenceEngine:
         return req.future
 
     def predict(self, inputs: dict[str, Any],
-                timeout: float | None = None) -> np.ndarray:
-        return self.submit(inputs).result(timeout)
+                timeout: float | None = None,
+                trace: "tracing.SpanContext | None" = None) -> np.ndarray:
+        return self.submit(inputs, trace=trace).result(timeout)
 
     def request_reload(self, artifact_dir: str) -> Future:
         """Stage a live weight swap; the batcher applies it BETWEEN
@@ -387,6 +414,21 @@ class InferenceEngine:
             "seq_buckets": self.seq_buckets,
             "used_buckets": sorted(str(k) for k in self._used),
         }
+
+    def goodput_snapshot(self) -> dict[str, Any]:
+        """Serve-side goodput: the fraction of engine uptime the batcher
+        spent computing, and the request-seconds lost to queueing."""
+        elapsed = max(time.monotonic() - self._t_start, 1e-9)
+        return {
+            "uptime_s": elapsed,
+            "compute_ms_total": self._compute_ms,
+            "queue_wait_ms_total": self._queue_wait_ms,
+            "compute_frac": (self._compute_ms / 1e3) / elapsed,
+        }
+
+    def memory_snapshot(self) -> dict[str, Any]:
+        """Live device-memory view (no telemetry emission) for /healthz."""
+        return self._mem.snapshot()
 
     def drain(self, timeout: float | None = None) -> bool:
         """Stop admission, serve everything already queued, stop threads.
@@ -500,7 +542,8 @@ class InferenceEngine:
             if isinstance(logits, dict):  # MoE: the logits beside the aux
                 logits = logits["logits"]
             logits = logits.cpu().numpy()  # waits for the device
-        compute_ms = (time.monotonic() - t0) * 1e3
+        t_done = time.monotonic()
+        compute_ms = (t_done - t0) * 1e3
         if first_use:
             # First run of a bucket: on the card it includes building the
             # kernels, the port's counterpart of the JAX engine's compile.
@@ -539,7 +582,29 @@ class InferenceEngine:
                     telemetry.KIND_SERVE_REQUEST,
                     metrics={"rows": req.rows, "queue_wait_ms": wait_ms,
                              "latency_ms": latency_ms})
+            if req.trace is not None:
+                self._emit_spans(req, t_form, t0, t_done, first_use,
+                                 rows=rows, padded_rows=row_bucket,
+                                 queue_depth=depth)
             req.future.set_result(out)
+
+    def _emit_spans(self, req: _Request, t_form: float, t0: float,
+                    t_done: float, first_use: bool, **batch_attrs) -> None:
+        """Backfill the request's spans from the timestamps already
+        taken: its queue wait, its membership in the padded batch, and
+        the batch's device compute under the batch span."""
+        self.tracer.emit_span("engine.queue", req.trace,
+                              start_mono=req.t_enqueue, end_mono=t_form,
+                              rows=req.rows)
+        bev = self.tracer.emit_span("engine.batch", req.trace,
+                                    start_mono=t_form, end_mono=t_done,
+                                    batch=self._batches, **batch_attrs)
+        bspan = (bev.get("extra") or {}).get("span")
+        self.tracer.emit_span(
+            "engine.compute",
+            tracing.SpanContext(req.trace.trace_id, bspan or "")
+            if req.trace.trace_id else req.trace,
+            start_mono=t0, end_mono=t_done, first_use=first_use)
 
     def _apply_pending_reload(self) -> None:
         """Batcher-thread half of the reload: swap the verified, already
@@ -612,6 +677,7 @@ class InferenceEngine:
                 if self._tw:
                     self._tw.emit(telemetry.KIND_SERVE_QUEUE,
                                   metrics={"queue_depth": depth})
+                    self._mem.sample()
                 self._emit_latency()
         except BaseException as e:  # surface on drain(), never just stderr
             log.error("serve reporter thread failed", exc_info=True)

@@ -16,8 +16,14 @@ coalesces across them — that blocking IS the dynamic batching window):
     drains its streams first). Verification failure → 409 with the old
     weights still serving.
   * ``GET /healthz`` — liveness, the artifact's input spec, the engine
-    counters, the digest of the artifact actually being served and the
+    counters, the digest of the artifact actually being served, the
+    device memory (core/memstats.py) and the engine's goodput, and the
     decode engine's counters.
+
+A ``/predict`` with an ``X-DTF-Trace`` header (core/tracing.py) adopts
+the sender's clock sample and runs under a ``serve.request`` span that is
+the parent of the engine's spans; a malformed header is logged and the
+request served untraced.
 
 SIGTERM drains: stop admission, finish every queued request within
 ``serve.drain_timeout_s``, then return from ``serve_forever``.
@@ -33,7 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from distributed_tensorflow_framework_torch.core import telemetry
+from distributed_tensorflow_framework_torch.core import telemetry, tracing
 from distributed_tensorflow_framework_torch.core.config import ServeConfig
 from distributed_tensorflow_framework_torch.serve.decode import (
     CacheFullError,
@@ -127,38 +133,57 @@ class ServingServer:
     # ------------------------------------------------------------ routes
 
     def handle_predict(self, handler) -> None:
+        # An incoming X-DTF-Trace: adopt the sender's clock sample, open
+        # the request span, and hand its context to the engine so the
+        # queue/batch/compute spans chain under it.
+        ctx = tracing.safe_parse(handler.headers.get(tracing.TRACE_HEADER))
+        span = None
+        if ctx is not None:
+            self.engine.tracer.adopt(ctx)
+            span = self.engine.tracer.start("serve.request", ctx)
+        sent: dict[str, int] = {}
+
+        def reply(status: int, payload: dict) -> None:
+            sent["status"] = status
+            handler._reply(status, payload)
+
         try:
             if self._draining.is_set():
-                handler._reply(503, {"error": "draining", "retryable": True})
+                reply(503, {"error": "draining", "retryable": True})
                 return
             length = int(handler.headers.get("Content-Length", 0))
             if length <= 0 or length > _MAX_BODY:
-                handler._reply(400, {"error": f"bad Content-Length {length}"})
+                reply(400, {"error": f"bad Content-Length {length}"})
                 return
             payload = json.loads(handler.rfile.read(length))
             inputs = payload.get("inputs")
             if not isinstance(inputs, dict):
-                handler._reply(
-                    400, {"error": "body must be {\"inputs\": {...}}"})
+                reply(400, {"error": "body must be {\"inputs\": {...}}"})
                 return
             outputs = np.asarray(self.engine.predict(
-                inputs, timeout=self.cfg.drain_timeout_s))
-            handler._reply(200, {
+                inputs, timeout=self.cfg.drain_timeout_s,
+                trace=span.context() if span is not None else None))
+            reply(200, {
                 "outputs": outputs.tolist(),
                 "rows": int(outputs.shape[0]),
                 "step": self.engine.artifact.step,
             })
         except (OversizeRequestError, SequenceTooLongError) as e:
-            handler._reply(400, {"error": str(e)})
+            reply(400, {"error": str(e)})
         except (QueueFullError, EngineClosedError) as e:
-            handler._reply(503, {"error": str(e), "retryable": True})
+            reply(503, {"error": str(e), "retryable": True})
         except ServeError as e:
-            handler._reply(400, {"error": str(e)})
+            reply(400, {"error": str(e)})
         except json.JSONDecodeError as e:
-            handler._reply(400, {"error": f"invalid JSON: {e}"})
+            reply(400, {"error": f"invalid JSON: {e}"})
         except Exception as e:  # noqa: BLE001 — server must outlive a bad request
             log.exception("predict failed")
-            handler._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            reply(500, {"error": f"{type(e).__name__}: {e}"})
+        finally:
+            if span is not None:
+                status = sent.get("status", 500)
+                span.end(status="ok" if status < 400 else f"http_{status}",
+                         http_status=status)
 
     @staticmethod
     def _write_chunk(handler, data: bytes, flush: bool = True) -> None:
@@ -320,6 +345,10 @@ class ServingServer:
             # Which weights am I ACTUALLY serving.
             "artifact": self.engine.artifact_info(),
             "engine": self.engine.stats(),
+            # Live device memory and goodput: a load generator diffs them
+            # across a window.
+            "memory": self.engine.memory_snapshot(),
+            "goodput": self.engine.goodput_snapshot(),
             # KV-cache occupancy + stream counters when the decode path
             # is enabled (None otherwise).
             "decode": (self.decode_engine.stats()

@@ -7,8 +7,9 @@ the same hooks at the same steps, as in the JAX trainer: the logging hook
 writes through the chief-only ``MetricWriter``, the checkpoint hook's
 manager writes on the chief alone (core/metrics.py, ckpt/checkpoint.py),
 and each rank beats its own heartbeat file (``heartbeat-p<i>.json``,
-core/cluster.py). The profile hook is not ported (ROADMAP.md queue A item
-A16).
+core/cluster.py). The profile hook captures a Kineto trace over a window
+of steps on the chief (core/profiling.py), and the checkpoint hook saves
+under a ``ckpt.save`` span when the trainer carries a tracer.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import math
 import os
 import time
 
-from distributed_tensorflow_framework_torch.core import telemetry
+import torch
+
+from distributed_tensorflow_framework_torch.core import profiling, telemetry
 from distributed_tensorflow_framework_torch.core.metrics import (
     ThroughputMeter,
 )
@@ -154,15 +157,70 @@ class CheckpointHook(BaseHook):
         self.manager = manager
         self.interval = max(1, interval)
 
-    def after_step(self, trainer, step, metrics) -> None:
-        if step > 0 and step % self.interval == 0:
+    def _traced_save(self, trainer, step: int, *, force: bool = False):
+        """Save under a ``ckpt.save`` span when the trainer carries a
+        tracer and a run span (core/tracing.py); with async saves the span
+        covers the device → host copy the loop waits for, not the commit
+        on the saver thread."""
+        tracer = getattr(trainer, "tracer", None)
+        run_span = getattr(trainer, "run_span", None)
+        span = (tracer.start("ckpt.save", run_span, step=step, force=force)
+                if tracer is not None and run_span is not None else None)
+        try:
             self.manager.save(step, trainer.state,
                               dataset_state=trainer.data_ckpt_state)
+        finally:
+            if span is not None:
+                span.end()
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if step > 0 and step % self.interval == 0:
+            self._traced_save(trainer, step)
 
     def on_end(self, trainer) -> None:
-        self.manager.save(int(trainer.host_step), trainer.state,
-                          dataset_state=trainer.data_ckpt_state)
+        self._traced_save(trainer, int(trainer.host_step), force=True)
         self.manager.wait_until_finished()
+
+
+class ProfileHook(BaseHook):
+    """A Kineto trace over steps (start, stop] (core/profiling.py), the
+    JAX ProfileHook's window: the trace opens after step ``start`` and
+    closes after step ``stop``, when the card has finished the window's
+    work (a synchronize, as the JAX hook blocks on the parameters); a run
+    that ends inside the window closes it in ``on_end``. The card is
+    synchronized when the window opens too, so the trace holds exactly
+    the window's steps."""
+
+    def __init__(self, logdir: str, start: int, stop: int):
+        self.logdir = logdir
+        # after_step first fires at step=1, so a start of 0 means "from the
+        # beginning"; the trace then covers steps (start, stop].
+        self.start = max(1, start)
+        self.stop = stop
+        self._prof = None  # the open window
+
+    @staticmethod
+    def _sync(trainer) -> None:
+        device = getattr(trainer, "device", None)
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def after_step(self, trainer, step, metrics) -> None:
+        if self.start <= step < self.stop and self._prof is None:
+            self._sync(trainer)
+            self._prof = profiling.start_trace()
+        elif step >= self.stop and self._prof is not None:
+            self._close(trainer)
+
+    def on_end(self, trainer) -> None:
+        if self._prof is not None:
+            self._close(trainer)
+
+    def _close(self, trainer) -> None:
+        self._sync(trainer)
+        prof, self._prof = self._prof, None
+        log.info("wrote profile trace %s",
+                 profiling.stop_trace(prof, self.logdir))
 
 
 class HeartbeatHook(BaseHook):

@@ -38,11 +38,25 @@ A SIGTERM (core/supervision.py) stops the loop at the next step boundary
 for a final save. The ``DTF_FAULTS`` points of core/faults.py fire at
 each step's start.
 
-Refused: the profile window and compiled-memory analysis (ROADMAP.md queue
-A item A16) and the XLA compilation cache (``train.compilation_cache_dir``,
-no eager counterpart). Left out because they only write events and change
-no result: tracing spans, the goodput ledger, memory sampling, the flight
-recorder. The first step runs inside the collective tally
+Observability, as in the JAX trainer (core/goodput.py, core/memstats.py,
+core/tracing.py, core/profiling.py): a goodput ledger, backdated to the
+trainer's construction, files every second of the run under its buckets
+and writes ``goodput`` events (periodic, and a final one after the exit
+barrier); device memory is sampled every ``train.memory_interval_s`` and
+at the end (``memory`` events); with ``train.memory_analysis`` the first
+step is measured (a ``memory`` event with ``extra.analysis``); spans
+``worker.run`` → ``train.startup``, ``train.steps`` (one a log window),
+``ckpt.save`` and ``train.rollback`` go out as ``span`` events
+(``trace.enabled``), parented on ``DTF_TRACE_CTX`` when a launcher set
+it; a flight recorder keeps the last ``trace.ring_size`` events and dumps
+them on a graceful preemption, a persistent anomaly and SIGUSR1; and
+``train.profile_start``/``profile_stop`` open a profile window over steps
+(start, stop] into ``<checkpoint.directory>/traces`` (the chief only).
+Each dispatch runs under ``annotate("train_step")``. The XLA compilation
+cache (``train.compilation_cache_dir``) has no eager counterpart: the
+kernels persist in ``build/kernels/`` by source hash, the setting is named
+in the ``startup`` event and the run goes on uncached (cli/train.py logs
+it). The first step runs inside the collective tally
 (parallel/collectives.py), whose summary rides every logged
 ``train_step`` event as its ``collectives`` field (a DDP run's is empty:
 DDP owns its reduction, as XLA does under the JAX package's ``jit``;
@@ -78,7 +92,9 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -89,9 +105,12 @@ from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
 from distributed_tensorflow_framework_torch.core import (
     cluster,
     faults,
+    goodput,
+    memstats,
     profiling,
     supervision,
     telemetry,
+    tracing,
 )
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.mesh import (
@@ -123,20 +142,6 @@ from distributed_tensorflow_framework_torch.train.step import (
 log = logging.getLogger(__name__)
 
 
-def check_trainer_config(config: ExperimentConfig) -> None:
-    """Raise for the loop-level settings the port does not carry."""
-    tcfg = config.train
-    if tcfg.profile_stop > tcfg.profile_start or tcfg.memory_analysis:
-        raise NotImplementedError(
-            "train.profile_start/profile_stop and train.memory_analysis are "
-            "not ported yet — ROADMAP.md queue A item A16")
-    if tcfg.compilation_cache_dir:
-        raise NotImplementedError(
-            "train.compilation_cache_dir is the XLA compilation cache; the "
-            "eager port compiles no programs ahead — ROADMAP.md queue A "
-            "item A16")
-
-
 def _fault_scale(fault: faults.Fault) -> float:
     """The loss multiplier of a step_begin fault (train/step.py)."""
     if fault.kind in ("nan_grads", "repeat_nan"):
@@ -156,8 +161,10 @@ class Trainer:
                  log_dir: str | None = None,
                  runtime: MeshRuntime | None = None):
         setup_logging()
+        # Construction → first completed step (the startup event, the
+        # train.startup span and the ledger's startup bucket).
         self._init_t = time.perf_counter()
-        check_trainer_config(config)
+        self._init_mono = time.monotonic()
         self.config = config
         rt = runtime or initialize_runtime(config.mesh, device)
         self.builder = StepBuilder(config, runtime=rt)
@@ -168,13 +175,36 @@ class Trainer:
         dp = rt.data_group
         self.dataset = get_dataset(config.data, process_index=dp.index,
                                    process_count=dp.size)
-        self.writer = MetricWriter(log_dir or config.checkpoint.directory
-                                   or None, is_chief=rt.is_chief,
+        self.log_dir = log_dir or config.checkpoint.directory or None
+        self.writer = MetricWriter(self.log_dir, is_chief=rt.is_chief,
                                    process_index=rt.process_index,
                                    process_count=rt.process_count)
+        tw = self.writer.telemetry
         self.recovery = (anomaly_lib.RecoveryManager(
-            config.resilience, telemetry_writer=self.writer.telemetry)
+            config.resilience, telemetry_writer=tw)
             if config.resilience.rollback else None)
+        self.goodput = goodput.GoodputLedger(
+            tw, interval_s=config.train.goodput_interval_s,
+            t0_perf=self._init_t,
+            process_id=rt.process_index if rt.process_count > 1 else None)
+        self._startup_accounted = False
+        self.memstats = memstats.MemoryMonitor(
+            tw, interval_s=config.train.memory_interval_s, source="train",
+            devices=[self.device])
+        self.tracer = tracing.Tracer(tw if config.trace.enabled else None,
+                                     service=f"worker{rt.process_index}")
+        self._trace_parent = tracing.env_context()
+        self.tracer.adopt(self._trace_parent)
+        self.run_span: tracing.Span | None = None  # opened by train()
+        self.flightrec = tracing.FlightRecorder(
+            config.trace.ring_size,
+            dump_dir=(config.trace.dump_dir or config.checkpoint.directory
+                      or None),
+            tracer=self.tracer).attach(tw)
+        self.flightrec.install_sigusr1()
+        # The first step's memory analysis (train.memory_analysis), once
+        # measured.
+        self.memory_analysis: dict | None = None
         self.state = None
         self.host_step = 0
         self.preempted = False
@@ -314,6 +344,11 @@ class Trainer:
                 log.warning("train.eval_interval=%d but eval_steps=0 — "
                             "mid-training eval disabled",
                             cfg.train.eval_interval)
+        if cfg.train.profile_stop > cfg.train.profile_start and rt.is_chief:
+            hooks.append(hooks_lib.ProfileHook(
+                os.path.join(cfg.checkpoint.directory or self.log_dir
+                             or tempfile.gettempdir(), "traces"),
+                cfg.train.profile_start, cfg.train.profile_stop))
         return hooks
 
     def train(self, hooks: list | None = None) -> dict[str, float]:
@@ -334,6 +369,12 @@ class Trainer:
                 f"checkpoint.directory to branch, or use --eval-only.")
         cfg = self.config.train
         hooks = self.default_hooks() if hooks is None else hooks
+        # The rank's root span, parented on the launcher's span when
+        # DTF_TRACE_CTX names one; left open on a crash, so the flight
+        # recorder's open spans still show the fault's ancestry.
+        self.run_span = self.tracer.start(
+            "worker.run", self._trace_parent,
+            process=self.runtime.process_index, start_step=self.host_step)
         for h in hooks:
             h.on_start(self)
         infeed = prefetch_to_device(
@@ -353,6 +394,11 @@ class Trainer:
         pending: collections.deque = collections.deque()
         last_metrics: dict[str, float] = {}
         first = True
+        if not self._startup_accounted:
+            # Construction → loop entry (restore, input and eval build);
+            # the first dispatch lands in the recompile bucket.
+            self._startup_accounted = True
+            self.goodput.add("startup", time.perf_counter() - self._init_t)
         try:
             while self.host_step < cfg.total_steps:
                 if supervision.preemption_requested():
@@ -365,6 +411,10 @@ class Trainer:
                         telemetry.KIND_HEALTH, step=self.host_step,
                         health={"event": "graceful_preemption",
                                 "step": self.host_step})
+                    # A supervisor SIGKILLs after its grace window: make
+                    # the stream durable and dump the recorder now.
+                    self.writer.telemetry.flush()
+                    self.flightrec.dump("graceful_preemption")
                     break
                 with timer.phase("infeed"):
                     batch, self.data_ckpt_state = self._next_batch(infeed)
@@ -376,15 +426,17 @@ class Trainer:
                         and len(pending) >= cfg.dispatch_ahead):
                     with timer.phase("backpressure"):
                         float(pending.popleft()["loss"])
-                with timer.phase("compile" if first else "dispatch"):
+                with timer.phase("compile" if first else "dispatch"), \
+                        profiling.annotate("train_step"):
                     if self.collectives_summary is None:
                         with coll.tally() as tly:
-                            metrics = self.builder.train_step(
-                                self.state, batch, fault_scale=scale)
+                            metrics = self._first_step(batch, scale)
                         self.collectives_summary = tly.summary()
                     else:
                         metrics = self.builder.train_step(
                             self.state, batch, fault_scale=scale)
+                if first:
+                    self.goodput.count("recompiles")
                 first = False
                 if cfg.dispatch_ahead > 0:
                     pending.append(metrics)
@@ -395,7 +447,17 @@ class Trainer:
                         telemetry.KIND_STARTUP, step=self.host_step,
                         time_to_first_step_s=(time.perf_counter()
                                               - self._init_t),
+                        restored_step=self.restored_step,
+                        compilation_cache_dir=(cfg.compilation_cache_dir
+                                               or None))
+                    self.tracer.emit_span(
+                        "train.startup", self.run_span,
+                        start_mono=self._init_mono,
+                        end_mono=time.monotonic(),
+                        first_step=self.host_step,
                         restored_step=self.restored_step)
+                    self._window_mono = time.monotonic()
+                    self._window_step = self.host_step
                 host_metrics = None
                 if (self.host_step % cfg.log_interval == 0
                         or self.host_step >= cfg.total_steps):
@@ -406,6 +468,7 @@ class Trainer:
                             k: float(v) for k, v in
                             self.builder.global_metrics(metrics).items()}
                     host_metrics.update(timer.means())
+                    self.goodput.absorb_phases(timer.totals)
                     timer.reset()
                     pending.clear()
                     # A rollback returns None: the hooks never see the
@@ -413,12 +476,26 @@ class Trainer:
                     host_metrics = self._maybe_recover(host_metrics)
                     if host_metrics is not None:
                         last_metrics = host_metrics
+                    self.goodput.maybe_emit(step=self.host_step)
+                    self.memstats.maybe_sample(step=self.host_step)
                     self._emit_packing()
+                    # One span a log window: cheap, and a restart's dead
+                    # time shows as a gap between windows.
+                    now = time.monotonic()
+                    self.tracer.emit_span(
+                        "train.steps", self.run_span,
+                        start_mono=self._window_mono, end_mono=now,
+                        start_step=self._window_step,
+                        end_step=self.host_step)
+                    self._window_mono, self._window_step = (now,
+                                                            self.host_step)
                 for h in hooks:
                     h.after_step(self, self.host_step, host_metrics)
                 if self.recovery is not None and self.recovery.exhausted:
                     # A finite anomaly past max_rollbacks (NaNGuardHook
-                    # sees only non-finite ones), or nan_guard off.
+                    # sees only non-finite ones), or nan_guard off. The
+                    # recorder's ring holds the rollbacks that led here.
+                    self.flightrec.dump("persistent_anomaly")
                     raise anomaly_lib.PersistentAnomalyError(
                         self.recovery.escalation_message(),
                         provenance=self.recovery.provenance())
@@ -428,6 +505,10 @@ class Trainer:
             infeed.close()
             if self._ckpt_manager is not None:
                 self._ckpt_manager.set_data_sources(watermark_source=None)
+            # The phases since the last fetch, on the escalation path too
+            # (its last periodic snapshot is then its ledger of record).
+            self.goodput.absorb_phases(timer.totals)
+            timer.reset()
         for h in hooks:
             h.on_end(self)
         if self._ckpt_manager is not None:
@@ -442,7 +523,36 @@ class Trainer:
                     timeout_s=self.config.cluster.exit_barrier_timeout_s,
                     poll_s=self.config.cluster.exit_barrier_poll_s,
                     is_chief=self.runtime.is_chief)
+        # After the exit barrier, so the last save's blocked ms is in.
+        self.goodput.finalize(step=self.host_step)
+        self.memstats.sample(step=self.host_step, final=True)
+        self.run_span.end(status="preempted" if self.preempted else "ok",
+                          end_step=self.host_step)
         return last_metrics
+
+    def _first_step(self, batch: dict, scale: float) -> dict:
+        """The first dispatch; with ``train.memory_analysis`` (the chief
+        only, as in the JAX trainer) measured by core/memstats.py: the
+        state's and the batch's bytes, and on CUDA the allocator's peak
+        over the step."""
+        def step():
+            return self.builder.train_step(self.state, batch,
+                                           fault_scale=scale)
+
+        if not (self.config.train.memory_analysis
+                and self.runtime.is_chief):
+            return step()
+
+        def argument_bytes() -> int:
+            held = self.state.state_dict()
+            return memstats.tensor_bytes(held["model"], held["optimizer"],
+                                         held.get("ema"),
+                                         held.get("collective_residual"),
+                                         batch)
+
+        metrics, self.memory_analysis = self.memstats.capture_step(
+            step, argument_bytes, self.device)
+        return metrics
 
     def _emit_packing(self) -> None:
         """The packing census riding the step-paired data snapshot
@@ -501,8 +611,20 @@ class Trainer:
         if not rec.can_rollback():
             rec.exhausted = True
             return host_metrics
-        self.state, snap = rec.rollback(self.state,
-                                        from_step=self.host_step)
+        from_step, t_rb = self.host_step, time.monotonic()
+        with self.goodput.timed("rollback"):
+            snap = self._rollback()
+        self.tracer.emit_span(
+            "train.rollback", self.run_span, start_mono=t_rb,
+            end_mono=time.monotonic(), from_step=from_step,
+            to_step=snap.step)
+        return None
+
+    def _rollback(self):
+        """Restore the newest snapshot, record the skipped ordinals,
+        rewind host_step and re-warm the rate; returns the snapshot."""
+        self.state, snap = self.recovery.rollback(self.state,
+                                                  from_step=self.host_step)
         # The data iterator is NOT rewound: record which consumed ordinals
         # were skipped, in the dataset and (rebound, never mutated: queued
         # saves share nested lists) in the step-paired snapshot.
@@ -525,7 +647,7 @@ class Trainer:
             self.builder.set_schedule_wrapper(
                 self.state, lambda sched: schedules.with_rewarmup(
                     sched, snap.step, steps))
-        return None
+        return snap
 
     # ------------------------------------------------------------ eval --
     def _ensure_eval(self):

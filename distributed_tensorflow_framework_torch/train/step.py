@@ -194,7 +194,7 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from distributed_tensorflow_framework_torch.core import mesh as mesh_lib
-from distributed_tensorflow_framework_torch.core import prng
+from distributed_tensorflow_framework_torch.core import prng, profiling
 from distributed_tensorflow_framework_torch.core.config import ExperimentConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import (
@@ -796,7 +796,12 @@ class StepBuilder:
         if isinstance(layout, DimSharding):
             layout.shard_grads_(state.model)
         if not self.fused:  # the fused walk has updated the parameters
-            state.optimizer.step(grad_norm)
+            # The JAX step's named_scope: the trace analyzer
+            # (core/trace_analysis.py) files the kernels launched here
+            # under optimizer_update. The fused walk annotates each
+            # bucket's update between its collectives.
+            with profiling.annotate("optimizer_update"):
+                state.optimizer.step(grad_norm)
             if layout is not None:
                 layout.finish_step_(state.model)
         if state.ema_params:

@@ -451,10 +451,29 @@ def test_cli_print_config_touches_no_device(capsys, monkeypatch):
     ("train.compilation_cache_dir=/tmp/xla", "A16"),
     ("train.memory_analysis=true", "A16"),
 ])
-def test_unported_knobs_raise(override, item):
-    over = TINY_BERT + NO_CKPT + [override]
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(_cli_args(over, "--device", "cpu"))
+def test_unported_knobs_raise(override, item, tmp_path):
+    """The trainer knobs that raised naming their queue item until it was
+    ported: each of item A16's now runs to rc 0 (the profile window writes
+    a trace beside the events, the memory analysis a ``memory`` event, the
+    compilation cache is logged and named in the startup event;
+    tests/test_torch_observability.py checks what each writes)."""
+    import json
+
+    assert item == "A16"
+    over = TINY_BERT + NO_CKPT + ["train.total_steps=6", override]
+    assert port_cli.main(_cli_args(over, "--device", "cpu", "--log-dir",
+                                   str(tmp_path))) == 0
+    with open(tmp_path / "events.jsonl") as fh:
+        events = [json.loads(line) for line in fh]
+    key, value = override.split("=")
+    if key == "train.profile_stop":
+        assert list((tmp_path / "traces").glob("*.pt.trace.json"))
+    elif key == "train.memory_analysis":
+        assert [e for e in events if e["kind"] == "memory"
+                and "analysis" in e["extra"]]
+    else:
+        [startup] = [e for e in events if e["kind"] == "startup"]
+        assert startup["extra"]["compilation_cache_dir"] == value
 
 
 LONG_TINY = ["mesh.seq=1", "model.attention_impl=pallas",
