@@ -217,11 +217,12 @@ Phases (any failure raises and the script exits non-zero):
      writer authors 4,096 train and 1,000 validation JPEG records in the
      workdir (seconds printed). 9b: the reader alone, images/s by path
      (native: DCT-scaled decode and bilinear; tf.data: the window at full
-     scale and TF's bicubic) and thread count. 9c: config 3 as written
-     from the records (tf.data path, then the native path), 20 steps of
-     256 (cut from 4,096), each with its exact eval over the 1,000
-     validation images (eval_examples must be 1,000); 9d: config 4 as
-     written, 20 steps of 256 (cut from 2,048), its exact eval too; then
+     scale and TF's bicubic) at 4 threads and at every CPU. 9c: config 3
+     as written from the records (tf.data path, then the native path),
+     RECORD_OVERRIDES' steps of 256 (cut from 4,096), each with its exact
+     eval over the 1,000 validation images (eval_examples must be 1,000);
+     9d: config 4 as written, the same steps of 256 (cut from 2,048), its
+     exact eval too; then
      each model's step alone on a resident batch of its records,
      profiled by kernel class with the idle share and the peak memory.
      9e: Inception-v3 in f32 on the card against the CPU: eval logits
@@ -471,15 +472,44 @@ Phases (any failure raises and the script exits non-zero):
      SIGUSR1 must write the flight recorder's ``dtf-flightrec/1`` dump
      holding the traced spans. ``--only 18`` builds the kernels and runs
      phase 4 with 18b, then 18a (no kernels line, no last line).
+  19. elastic and gang resilience (cli/train_cluster.py,
+     cli/launch_local_cluster.py, core/cluster.py, core/supervision.py,
+     ckpt/reshard.py, core/faults.py; the flash kernels in every rank).
+     The port's gang supervisor, each a process of this script under
+     ``--gang-supervisor``, runs ``configs/bert_base_mlm.yaml`` at full
+     width and GANG_LAYERS layers, 8 x 512 on two gloo ranks of the card
+     at ``{data: 2}`` with a checkpoint every 2 steps (GANG_OVERRIDES);
+     each rank is this script under ``--rank-worker`` (``cli.train.main``
+     under torch.use_deterministic_algorithms, phase 7d's settings, its
+     launch counts written when it ends). 19a: a control gang of
+     GANG_STEPS steps beside the same run under ``kill_worker:1:2``
+     (GANG_TICK_S ticks): the attempts must be ``crashed`` (worker 1, rc
+     137) then ``done``, the last step's loss and every parameter tensor
+     of the last checkpoint equal the control's bit for bit, and each
+     relaunched rank must have launched the forward, dQ and dK/dV
+     kernels. 19b, from the control's step-2 checkpoint once it commits,
+     DROP_STEPS more steps under ``drop_worker:1:2`` with
+     ``--max-attempts 1``: ``gang_refit`` then ``done``, ``mesh_resized``
+     with process_count 1, dropped [1], ``data`` 1, the effective batch
+     kept ((global_batch, grad_accum) (4, 2)), and the survivor's
+     ``ckpt_resharded`` from ``{data: 2}``, with the kernels launched.
+     19c: the control's checkpoint in one process without
+     ``checkpoint.allow_reshard`` raises MeshTopologyError naming both
+     meshes, its export without ``serve.allow_reshard`` names that knob;
+     the restore's seconds with the reshard and on the same mesh (the
+     survivor's checkpoint) are printed. Each run prints its start-up and
+     step seconds and the restart gap. ``--only 19`` builds the kernels
+     and runs phase 19 alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e and 18a, whose
-children set and read their own counts) and read just after; launches
-made to compare or time a kernel do not count. The record's
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a and 19,
+whose children set and read their own counts) and read just after;
+launches made to compare or time a kernel do not count. The record's
 ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a, 12a,
-13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e and 18a, and its
+13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a and 19 (the relaunched
+ranks of 19a and 19b's survivor), and its
 ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
@@ -645,7 +675,7 @@ CIFAR_SIZES = (5, 2048, 2000)         # train batches x images, test
 # host syncs; the steady window needs more than one). 7c cuts config 3's
 # pod-wide global batch of 4,096 to 256 and runs 10 steps on its synthetic
 # fallback (IMAGENET_SYNTH_OVERRIDES), with the s2d stem as written and
-# with the 7x7 stem beside it; 9c's record runs take 12.
+# with the 7x7 stem beside it; 9c's record runs take 8.
 CIFAR_OVERRIDES = ("train.total_steps=30", "train.log_interval=10")
 CIFAR_RESUME_SPLIT = 15
 IMAGENET_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=20",
@@ -1800,12 +1830,13 @@ RECORD_CORPUS = ("--train-images", "4096", "--validation-images", "1000",
                  "--num-classes", "1000", "--seed", str(SEED))
 RECORD_EVAL_IMAGES = 1000
 # 9c/9d: configs 3 and 4 as written from the corpus, the global batch cut
-# to 256 (config 3: 4,096 on the pod; config 4: 2,048) and the run to 12
-# steps (cut from 20 for the script's time limit), a log every 6; each
-# ends with its exact eval over the 1,000 validation images (the
-# eval_steps of both configs exceed the 4 batches, so the whole set).
-RECORD_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=12",
-                    "train.log_interval=6")
+# to 256 (config 3: 4,096 on the pod; config 4: 2,048) and the run to 8
+# steps (cut from 20, then 12, for the script's time limit), a
+# log every 4; each ends with its exact eval over the 1,000 validation
+# images (the eval_steps of both configs exceed the 4 batches, so the
+# whole set).
+RECORD_OVERRIDES = ("data.global_batch_size=256", "train.total_steps=8",
+                    "train.log_interval=4")
 INCEPTION_CONFIG = "configs/inception_v3.yaml"
 # 9b: batches timed per reader path and thread count, and of config 3's
 # pipeline (an epoch of the corpus is 16 batches).
@@ -1939,7 +1970,9 @@ def reader_throughput(corpus: str, smi: str) -> None:
     mean, std = (np.asarray(v, np.float32) for v in (MEAN_RGB, STDDEV_RGB))
     b, n = 256, READER_BATCHES
     seeds = np.arange(b, dtype=np.uint64)
-    counts = sorted({1, 4, os.cpu_count() or 1})
+    # One thread is left out for the script's time limit: 4 and
+    # every CPU.
+    counts = sorted({4, os.cpu_count() or 1})
     rates = {}
     for threads in counts:
         reader = NativeRecordReader(files)
@@ -5468,7 +5501,7 @@ def tp_phase(torch, workdir: str, smi: str, wave=None) -> dict:
     cfg = load_config(TP_CONFIG, overrides=[*TP_CUT, *TP_RESUME])
     one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
     manager = CheckpointManager(dataclasses.replace(
-        cfg.checkpoint, directory=res["ckpt"]))
+        cfg.checkpoint, directory=res["ckpt"], allow_reshard=True))
     restored = manager.restore(one)
     manager.close()
     saved = torch.load(res["whole"], weights_only=True)
@@ -5935,8 +5968,8 @@ def ring_phase(torch, fa, workdir: str, smi: str,
     res = ranks[0]["d"]["resume"]
     cfg = load_config(DP_BERT[0], overrides=list(one_over))
     one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
-    manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
-                                                    directory=res["ckpt"]))
+    manager = CheckpointManager(dataclasses.replace(
+        cfg.checkpoint, directory=res["ckpt"], allow_reshard=True))
     restored = manager.restore(one)
     manager.close()
     saved = torch.load(res["whole"], weights_only=True)
@@ -6268,7 +6301,7 @@ def pipe_phase(torch, workdir: str, smi: str, wave=None) -> dict:
     one_cfg = load_config(DP_BERT[0], overrides=over)
     one = StepBuilder(one_cfg, device="cuda").init_state(SEED + 1)
     manager = CheckpointManager(dataclasses.replace(
-        one_cfg.checkpoint, directory=res["ckpt"]))
+        one_cfg.checkpoint, directory=res["ckpt"], allow_reshard=True))
     restored = manager.restore(one)
     manager.close()
     saved = torch.load(res["whole"], weights_only=True)
@@ -6804,8 +6837,8 @@ def moe_phase(torch, fa, workdir: str, smi: str) -> dict:
     # The checkpoint written at expert 2, read by one process (expert 1).
     cfg = load_config(MOE_CONFIG, overrides=list(MOE_DP_CUT))
     one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
-    manager = CheckpointManager(dataclasses.replace(cfg.checkpoint,
-                                                    directory=b["ckpt"]))
+    manager = CheckpointManager(dataclasses.replace(
+        cfg.checkpoint, directory=b["ckpt"], allow_reshard=True))
     restored = manager.restore(one)
     manager.close()
     loaded = {k: v.cpu() for k, v in one.model.state_dict().items()}
@@ -7947,12 +7980,334 @@ def registry_phase(torch) -> None:
                              "card")
 
 
+# Phase 19: the port's gang supervisor (cli/train_cluster.py) on
+# BERT-base at full width (hidden 768, 12 heads, S = 512), cut to 2
+# layers and GANG_STEPS steps, on two gloo ranks of the card at
+# {data: 2} with a checkpoint every 2 steps. Each supervisor is this
+# script under ``--gang-supervisor`` (train_cluster's main, its ranks
+# this script under ``--rank-worker``: cli.train's main under
+# torch.use_deterministic_algorithms, phase 7d's settings for a bit-equal
+# resume, its launch counts written to GANG_COUNTS_ENV's directory when
+# it ends). The drills fire at the second chaos tick of GANG_TICK_S,
+# early in the run: a kill before the first save relaunches from
+# scratch, as bit-equal as one after it; the drop drill starts from the
+# control's step-2 checkpoint (DROP_STEPS more steps), so that its
+# survivor always has a two-rank checkpoint to reshard. A rank's start-up
+# on the H100 machine is ~23 s (importing torch alone takes ~10 s there,
+# measured on one H100), so the kill drill runs beside the control gang,
+# and the drop drill starts as soon as the control's step 2 commits.
+GANG_LAYERS = 2
+GANG_STEPS = 8
+DROP_STEPS = 6
+GANG_TICK_S = 1.0
+GANG_OVERRIDES = (
+    "data.global_batch_size=8", f"model.num_layers={GANG_LAYERS}",
+    "train.log_interval=1", "train.eval_steps=0", "train.eval_interval=0",
+    "checkpoint.save_interval_steps=2", "resilience.rollback=false",
+    "mesh.data=2")
+GANG_COUNTS_ENV = "CHIP_SMOKE_GANG_COUNTS"
+
+
+def rank_worker(argv: list[str]) -> int:
+    """One rank of a phase-19 gang: ``cli.train.main(argv)``, deterministic
+    and with TF32 off, its launch counts set to 0 before and written with
+    its rank and exit code after (to GANG_COUNTS_ENV's directory)."""
+    import torch
+
+    from distributed_tensorflow_framework_torch.cli import train as cli_train
+    from distributed_tensorflow_framework_torch.ops import (
+        flash_attention as fa,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    reset_counts(fa)
+    rc = 1
+    try:
+        rc = cli_train.main(argv)
+    finally:
+        out = os.environ.get(GANG_COUNTS_ENV)
+        if out:
+            with open(os.path.join(out, f"launches-{os.getpid()}.json"),
+                      "w") as fh:
+                json.dump({"rank": int(os.environ.get("JAX_PROCESS_ID", 0)),
+                           "rc": rc, "counts": read_counts(fa)}, fh)
+    return rc
+
+
+def gang_supervisor(argv: list[str]) -> int:
+    """cli/train_cluster.py's ``main(argv)`` with this script's
+    ``--rank-worker`` as each rank (DTF_FAULTS from the environment)."""
+    from distributed_tensorflow_framework_torch.cli import (
+        launch_local_cluster as llc,
+    )
+    from distributed_tensorflow_framework_torch.cli import train_cluster
+
+    llc.TRAIN_ENTRY = (os.path.abspath(__file__), "--rank-worker")
+    return train_cluster.main(argv)
+
+
+def gang_start(workdir: str, name: str, *flags: str, faults_spec: str = "",
+               device: str = "cuda",
+               config: str = "configs/bert_base_mlm.yaml",
+               overrides=GANG_OVERRIDES) -> dict:
+    """Start ``--gang-supervisor`` over two ranks (``faults_spec`` its
+    DTF_FAULTS) in a process of its own; :func:`gang_join` waits for it."""
+    ckpt = os.path.join(workdir, name)
+    counts = os.path.join(workdir, f"{name}_launches")
+    os.makedirs(counts)
+    argv = ["--config", config, "--device", device, *sum(
+        (["--set", o] for o in (*overrides, f"checkpoint.directory={ckpt}")),
+        [])]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DTF_FAULTS", "DTF_FAULTS_STATE")}
+    env.update({GANG_COUNTS_ENV: counts, "DTF_FAULTS": faults_spec})
+    logf = open(os.path.join(workdir, f"{name}_supervisor.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gang-supervisor",
+         "--procs", "2", "--workdir", os.path.join(workdir, f"{name}_logs"),
+         "--retry-sleep", "0.2", "--jitter", "0", *flags, "--", *argv],
+        env=env, stdout=logf, stderr=subprocess.STDOUT)
+    return {"name": name, "ckpt": ckpt, "counts": counts, "proc": proc,
+            "log": logf, "t0": time.perf_counter(), "workdir": workdir}
+
+
+def gang_join(run: dict, timeout: float = 300.0) -> dict:
+    """Wait for a :func:`gang_start` run: the supervisor's and the chief's
+    events, the ranks' launch counts and its seconds. A failed run prints
+    the supervisor's and the ranks' log tails and fails the phase."""
+    name, proc = run["name"], run["proc"]
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    seconds = time.perf_counter() - run["t0"]
+    run["log"].close()
+    if rc != 0:
+        logs = os.path.join(run["workdir"], f"{name}_logs")
+        for path in [run["log"].name] + sorted(
+                os.path.join(logs, f) for f in os.listdir(logs)):
+            with open(path) as fh:
+                print(f"19 {name} {os.path.basename(path)}:\n"
+                      f"{fh.read()[-4000:]}", file=sys.stderr)
+        raise AssertionError(f"19 {name}: the supervisor exited {rc}")
+    ranks = []
+    for path in sorted(os.listdir(run["counts"])):
+        with open(os.path.join(run["counts"], path)) as fh:
+            ranks.append(json.load(fh))
+
+    def events(path: str) -> list[dict]:
+        with open(path) as fh:
+            return [json.loads(line) for line in fh]
+
+    sup = events(os.path.join(run["ckpt"], "supervisor_events.jsonl"))
+    return {"ckpt": run["ckpt"], "seconds": seconds, "ranks": ranks,
+            "events": events(os.path.join(run["ckpt"], "events.jsonl")),
+            "attempts": [e["extra"] for e in sup
+                         if e["kind"] == "supervisor_attempt"],
+            "resized": [e["extra"] for e in sup
+                        if e["kind"] == "mesh_resized"],
+            "spans": [e["extra"] for e in sup if e["kind"] == "span"]}
+
+
+def gang_times(run: dict) -> dict:
+    """Where a gang run's seconds went, from the chief's and the
+    supervisor's events: per attempt its start-up (the supervisor's
+    attempt span start to the chief's first step) and its steps (first
+    to last step), and the restart gap (the first attempt's last step to
+    the relaunched gang's first)."""
+    starts = sorted(s["t_start"] for s in run["spans"]
+                    if s["name"] == "supervisor.attempt")
+    steps = []
+    for t0, t1 in zip(starts, starts[1:] + [float("inf")]):
+        steps.append(sorted(ev["t"] for ev in run["events"]
+                            if ev["kind"] == "train_step"
+                            and t0 <= ev["t"] < t1))
+    out = {"startup_s": [round(s[0] - t, 2) if s else None
+                         for s, t in zip(steps, starts)],
+           "steps_s": [round(s[-1] - s[0], 2) if s else None
+                       for s in steps]}
+    if len(steps) > 1 and steps[1]:
+        first = steps[0][-1] if steps[0] else starts[0]
+        out["restart_gap_s"] = round(steps[1][0] - first, 2)
+    return out
+
+
+def gang_launches(run: dict, device: str) -> dict:
+    """The summed launch counts of the ranks that ended 0 (a rank killed
+    by a drill writes none, its peer in the stopped gang ends nonzero);
+    on the card each of them must have launched the forward, dQ and
+    dK/dV kernels."""
+    done = [r for r in run["ranks"] if r["rc"] == 0]
+    if device == "cuda":
+        for r in done:
+            if not all(r["counts"][k] > 0 for k in ("fwd", "dq", "dkv")):
+                raise AssertionError(f"19: rank {r['rank']} launched "
+                                     f"{r['counts']}")
+    return {k: sum(r["counts"][k] for r in done) for k in KERNEL_NAMES}
+
+
+def gang_phase(torch, workdir: str, smi: str, device: str = "cuda",
+               config: str = "configs/bert_base_mlm.yaml",
+               overrides=GANG_OVERRIDES) -> dict:
+    """Phase 19 (its text in the module docstring): the control gang
+    beside 19a's kill drill, 19b's drop drill from the control's step-2
+    checkpoint, then 19c, the gate in one process. Returns the flash kernels' launches of the ranks that
+    ended 0 in the drills (the relaunched gang and the survivor)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt import reshard
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import (
+        load_config,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        export_checkpoint,
+    )
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t_phase = time.perf_counter()
+    kw = {"device": device, "config": config}
+    steps = (*overrides, f"train.total_steps={GANG_STEPS}")
+    tick = ("--chaos-tick", str(GANG_TICK_S))
+    ctrl = gang_start(workdir, "control", "--max-attempts", "1",
+                      "--chaos-tick", "0", overrides=steps, **kw)
+    kill = gang_start(workdir, "kill", "--max-attempts", "3", *tick,
+                      faults_spec="kill_worker:1:2", overrides=steps, **kw)
+    # The drop drill resumes the control's step 2 for DROP_STEPS more, as
+    # soon as its commit record is written (manifest.json, last).
+    committed = os.path.join(ctrl["ckpt"], "2", "manifest.json")
+    while not os.path.exists(committed) and ctrl["proc"].poll() is None:
+        time.sleep(0.2)
+    if os.path.exists(committed):
+        shutil.copytree(os.path.dirname(committed),
+                        os.path.join(workdir, "drop", "2"))
+    drop = gang_start(workdir, "drop", "--max-attempts", "1", *tick,
+                      faults_spec="drop_worker:1:2", overrides=(
+                          *overrides, f"train.total_steps={2 + DROP_STEPS}"),
+                      **kw)
+    ctrl = gang_join(ctrl)
+    log(f"19 control gang (beside 19a's): {ctrl['seconds']:.1f} s, "
+        f"{gang_times(ctrl)}")
+    kill, drop = gang_join(kill), gang_join(drop)
+    classes = [(a["classification"], a.get("process_id"), a["rc"])
+               for a in kill["attempts"]]
+    if classes != [("crashed", 1, 137), ("done", 0, 0)]:
+        raise AssertionError(f"19a: attempts {classes}")
+
+    def last_loss(run):
+        return [ev["metrics"]["loss"] for ev in run["events"]
+                if ev["kind"] == "train_step"
+                and ev["step"] == GANG_STEPS][-1]
+
+    final = {n: torch.load(os.path.join(r["ckpt"], str(GANG_STEPS),
+                                        "state.pt"), weights_only=True)
+             for n, r in (("ctrl", ctrl), ("kill", kill))}
+    same = [torch.equal(t, final["kill"]["model"][k])
+            for k, t in final["ctrl"]["model"].items()]
+    del final
+    restored = [ev["extra"]["restored_step"] for ev in kill["events"]
+                if ev["kind"] == "startup"]
+    kill_counts = gang_launches(kill, device)
+    log(f"19a kill_worker:1:2 (tick {GANG_TICK_S} s): attempts {classes}, "
+        f"the relaunched gang from step {restored[-1]}; step-{GANG_STEPS} "
+        f"loss {last_loss(kill)!r} vs the control's {last_loss(ctrl)!r}; "
+        f"{sum(same)} of {len(same)} parameter tensors bit-equal; the "
+        f"relaunched ranks' launches {kill_counts}; {kill['seconds']:.1f} "
+        f"s, {gang_times(kill)}")
+    if last_loss(kill) != last_loss(ctrl) or not all(same):
+        raise AssertionError("19a: the relaunched gang is not bit-equal to "
+                             "the control")
+    classes = [a["classification"] for a in drop["attempts"]]
+    (resize,) = drop["resized"]
+    resharded = [ev for ev in drop["events"]
+                 if ev["kind"] == "ckpt_resharded"]
+    drop_counts = gang_launches(drop, device)
+    log(f"19b drop_worker:1:2 from the control's step 2: "
+        f"attempts {classes}; mesh_resized process_count "
+        f"{resize['process_count']}, dropped {resize['dropped_workers']}, "
+        f"to {reshard.describe_axes(resize['to_axes'])}, (global_batch, "
+        f"grad_accum) ({resize['global_batch']}, {resize['grad_accum']}), "
+        f"effective batch kept {resize['effective_batch_preserved']}; "
+        f"ckpt_resharded (step, leaves, respec agreement) "
+        f"{[(e['step'], e['extra']['leaf_count'], e['extra']['respec_agreement']) for e in resharded]}; "
+        f"the survivor's launches {drop_counts}; {drop['seconds']:.1f} s, "
+        f"{gang_times(drop)}")
+    if (classes != ["gang_refit", "done"] or resize["process_count"] != 1
+            or resize["dropped_workers"] != [1]
+            or resize["to_axes"]["data"] != 1
+            or not resize["effective_batch_preserved"]
+            or (resize["global_batch"], resize["grad_accum"]) != (4, 2)
+            or len(resharded) != 1
+            or resharded[0]["extra"]["from_axes"]["data"] != 2):
+        raise AssertionError("19b: the refit is not the one asked for")
+    # 19c: the control's {data: 2} checkpoint in one process: one state,
+    # refused, then restored resharded, then restored from the drop
+    # drill's survivor's checkpoint, saved under one process's mesh.
+    cfg = load_config(config, overrides=[
+        o for o in steps if not o.startswith("mesh.")])
+    state = StepBuilder(cfg, device=device).init_state(SEED)
+
+    def restore(ckpt, allow):
+        manager = CheckpointManager(dataclasses.replace(
+            cfg.checkpoint, directory=ckpt, allow_reshard=allow))
+        try:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step = manager.restore(state)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return step, round(time.perf_counter() - t0, 3)
+        finally:
+            manager.close()
+
+    try:
+        restore(ctrl["ckpt"], False)
+        raise AssertionError("19c: the {data:2} checkpoint restored in one "
+                             "process without checkpoint.allow_reshard")
+    except reshard.MeshTopologyError as e:
+        refused = str(e)
+    try:
+        export_checkpoint(dataclasses.replace(
+            cfg, checkpoint=dataclasses.replace(cfg.checkpoint,
+                                                directory=ctrl["ckpt"])),
+            os.path.join(workdir, "gate_art"), device=device)
+        raise AssertionError("19c: exported without serve.allow_reshard")
+    except reshard.MeshTopologyError as e:
+        export_refused = str(e)
+    if not ("{data:2}" in refused and "{1 device}" in refused
+            and "checkpoint.allow_reshard" in refused
+            and "serve.allow_reshard" in export_refused):
+        raise AssertionError(f"19c: {refused} / {export_refused}")
+    restore_s = {"resharded {data:2} -> {1 device}": restore(ctrl["ckpt"],
+                                                             True),
+                 "same mesh {1 device}": restore(drop["ckpt"], False)}
+    del state
+    log(f"19c one process: the restore refused ({refused[:110]}...); the "
+        f"export refused naming serve.allow_reshard; restore (step, s) "
+        f"{restore_s} (a warm read) [{smi}]")
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: kill_counts[k] + drop_counts[k] for k in KERNEL_NAMES}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--gang-supervisor"]:
+        # A phase-19 supervisor (stdlib only: no torch in this process).
+        return gang_supervisor(sys.argv[2:])
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:
+        # One rank of a phase-19 gang, started by cli/train_cluster.py.
+        return rank_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
@@ -8066,6 +8421,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_p18_") as wd:
             serve_phase(torch, fa, wd)
             observability_phase(torch, fa, wd, {}, smi.splitlines()[0])
+        return 0
+    if only == "19":
+        # A development run of phase 19 alone (``--only 19``), after the
+        # kernels' build: no kernels line and no last line.
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as wd:
+            gang_phase(torch, wd, smi.splitlines()[0])
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -8275,13 +8637,26 @@ def main() -> int:
             "the fused ZeRO update on two gloo ranks (16e)")
         prec_counts = precision_phase(torch, fa, workdir, gpu)
 
+    # Phase 19: the gang supervisor. Its relaunched ranks and the refit
+    # survivor run BERT-base through the attention kernels, so their
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as workdir:
+        log("phase 19 elastic and gang resilience: cli/train_cluster.py "
+            "over two gloo ranks of the card at {data: 2}, BERT-base at "
+            "full width and 2 layers; kill_worker against a control gang "
+            "(19a), drop_worker and the refit (19b), the mesh gate in one "
+            "process (19c)")
+        gang_counts = gang_phase(torch, workdir, gpu)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 18a's profiled run,
     # phase 8a's world-1 DDP run,
     # phase 10's shard_map runs, phase 11a's and 12a's two-rank runs, both
     # ranks of each), the two long-context runs, 13b's eight ranks and
     # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
-    # 16a, 16a', 16b and 16e's two ranks; those with
+    # 16a, 16a', 16b and 16e's two ranks, 19's relaunched ranks and its
+    # refit survivor; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -8292,7 +8667,8 @@ def main() -> int:
                 + sum(c[name] for c in long_counts) + dp_counts[name]
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
                 + ring_counts[name] + pipe_counts[name] + moe_counts[name]
-                + prec_counts[name] for name in KERNEL_NAMES}
+                + prec_counts[name] + gang_counts[name]
+                for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
     if forced:

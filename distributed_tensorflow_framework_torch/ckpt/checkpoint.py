@@ -20,8 +20,9 @@ A checkpoint is a step directory, committed by its integrity manifest
                         (``zero_fused``)
       data_iter.json  — the data iterator's state (when given)
       manifest.json   — sha256 and size of each file above, plus the
-                        data-state commit record (data/shard.py); written
-                        last, by tmp + fsync + atomic rename
+                        data-state commit record (data/shard.py) and the
+                        mesh record (ckpt/reshard.py ``state_topology``);
+                        written last, by tmp + fsync + atomic rename
 
 The JAX package writes orbax checkpoints, which need JAX; this format
 needs only torch, and the port does not read orbax checkpoints (the
@@ -86,7 +87,7 @@ BERT's layout, in the natural layer order whatever the schedule, so one
 process, another schedule or another stage count reads it; a restore
 keeps the rank's stage. FSDP,
 ZeRO-1, tensor-parallel and replicated checkpoints restore into one
-another; switching ZeRO
+another, behind the mesh gate below; switching ZeRO
 ``shard_map`` on or off across a resume is refused with the JAX package's
 ValueError, since the stacked and the whole slot layouts are different
 optimizers' states, and so is switching ``precision.fused_update``,
@@ -95,6 +96,17 @@ meta.json ``zero_fused``), even though the bytes are the same. The other
 precision levers leave the checkpoint alone: the parameters are f32
 masters under any ``activation_dtype`` or ``matmul_dtype``, and restore
 without a ``precision`` block.
+
+The mesh gate (ckpt/reshard.py), as in the JAX package: after the
+integrity checks and before any tensor is cut, a restore under another
+mesh (``mesh.*`` sizes) than the record's raises
+:class:`~ckpt.reshard.MeshTopologyError` unless ``checkpoint.allow_reshard``
+is set; with it the cut and the refolds above run, the tensors about to
+be loaded are validated against the run's (``validate_restored``) and a
+``ckpt_resharded`` event is emitted. The chief decides and broadcasts its
+verdict, so every rank takes the same branch. A manifest without a record
+(written before the gate) restores with a warning. ``restore_model``
+(export) gates on the one-process mesh the same way.
 
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
@@ -114,6 +126,7 @@ from typing import Any
 import torch
 
 from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+from distributed_tensorflow_framework_torch.ckpt import reshard
 from distributed_tensorflow_framework_torch.ckpt.async_saver import AsyncSaver
 from distributed_tensorflow_framework_torch.ckpt.reshard import (
     fold_residual,
@@ -221,7 +234,8 @@ class CheckpointManager:
 
     def _write_and_commit(self, step: int, host_state: dict,
                           dataset_state: dict | None, *, t_begin: float,
-                          blocked_s: float | None, watermark: int) -> None:
+                          blocked_s: float | None, watermark: int,
+                          topology: dict | None = None) -> None:
         """The whole durable commit: payload files, the ``ckpt_in_save``
         fault point, the manifest, the ``ckpt_committed`` fault point,
         garbage collection and telemetry. The same code on the saver
@@ -242,16 +256,18 @@ class CheckpointManager:
             **({"zero_rows": host_state["zero_rows"],
                 "zero_fused": host_state["zero_fused"]}
                if "zero_rows" in host_state else {})})
-        extra = None
+        extra = {}
+        if topology is not None:
+            extra[reshard.MESH_RECORD_KEY] = topology
         if dataset_state is not None:
             _write_json(os.path.join(step_dir, DATA_FILE), dataset_state)
-            extra = {data_shard.DATA_RECORD_KEY: data_shard.data_state_record(
+            extra[data_shard.DATA_RECORD_KEY] = data_shard.data_state_record(
                 dataset_state, process_count=self.data_count,
-                repartition=self._data_repartition, watermark=watermark)}
+                repartition=self._data_repartition, watermark=watermark)
         # A crash_in_save fault here leaves a written directory with no
         # manifest: the uncommitted step restore must refuse.
         faults.fire("ckpt_in_save", step=step)
-        mf.write_manifest(step_dir, step, extra=extra)
+        mf.write_manifest(step_dir, step, extra=extra or None)
         for fault in faults.fire("ckpt_committed", step=step):
             if fault.kind == "corrupt_ckpt":
                 faults.corrupt_checkpoint_dir(step_dir)
@@ -323,15 +339,18 @@ class CheckpointManager:
             host_state["collective_residual"] = residual
         ds_state = (None if dataset_state is None
                     else json.loads(json.dumps(dataset_state)))
+        topology = reshard.state_topology(state, self._runtime)
         if self._saver is None:
             self._write_and_commit(step, host_state, ds_state, t_begin=t0,
-                                   blocked_s=None, watermark=watermark)
+                                   blocked_s=None, watermark=watermark,
+                                   topology=topology)
             return True
         blocked_s = time.perf_counter() - t0
         self._saver.submit(
             lambda: self._write_and_commit(
                 step, host_state, ds_state, t_begin=t0,
-                blocked_s=blocked_s, watermark=watermark),
+                blocked_s=blocked_s, watermark=watermark,
+                topology=topology),
             step=step)
         return True
 
@@ -505,6 +524,7 @@ class CheckpointManager:
         if loaded is None:
             return None
         step, meta, tensors = loaded
+        reshard_plan = self._topology_gate(step, state)
         data_state = None
         data_path = os.path.join(self._step_dir(step), DATA_FILE)
         if dataset is not None and os.path.isfile(data_path):
@@ -521,6 +541,8 @@ class CheckpointManager:
                 self._emit(telemetry.KIND_DATA_STATE, step=step, plan=plan)
         tensors = self._own_residual(state, step, tensors)
         tensors = self._own_parts(state, step, meta, tensors)
+        if reshard_plan is not None:
+            self._record_reshard(reshard_plan, state, tensors, step)
         state.load_state_dict({
             **tensors, "step": meta["step"],
             "generator_device": meta["generator_device"],
@@ -528,6 +550,57 @@ class CheckpointManager:
         if data_state is not None:
             dataset.restore(data_state)
         return step
+
+    def _topology_gate(self, step: int, state: TrainState) -> dict | None:
+        """The mesh gate of ``step`` (ckpt/reshard.py
+        ``check_restore_topology``): None to restore as before, a reshard
+        plan, or MeshTopologyError. The chief decides and broadcasts its
+        verdict (0 same mesh, 1 reshard, 2 refused), so every rank takes
+        the same branch; nothing has been loaded yet."""
+        saved = (mf.read_manifest(self._step_dir(step)) or {}).get(
+            reshard.MESH_RECORD_KEY)
+        plan, refused = None, None
+        if self.is_chief:
+            try:
+                plan = reshard.check_restore_topology(
+                    saved, state, self._runtime,
+                    allow_reshard=self.config.allow_reshard,
+                    directory=self._path, step=step)
+            except reshard.MeshTopologyError as e:
+                refused = e
+        if self.process_count > 1:
+            verdict = self._runtime.broadcast_int(
+                2 if refused else 1 if plan is not None else 0)
+            if not self.is_chief and verdict == 1:
+                plan = reshard.plan_reshard(saved, state, self._runtime,
+                                            step=step)
+            elif not self.is_chief and verdict == 2:
+                refused = reshard.MeshTopologyError(
+                    saved["axes"],
+                    reshard.state_topology(state, self._runtime)["axes"],
+                    directory=self._path, step=step)
+        if refused is not None:
+            raise refused
+        return plan
+
+    def _record_reshard(self, plan: dict, state: TrainState, tensors: dict,
+                        step: int) -> None:
+        """After a cross-mesh cut: validate the model tensors about to be
+        loaded against the run's, then record the reshard
+        (``ckpt_resharded``, JAX's fields)."""
+        leaf_count = reshard.validate_restored(
+            {"model": state.model.state_dict()},
+            {"model": tensors["model"]}, step=step)
+        self._emit(telemetry.KIND_CKPT_RESHARDED, step=step,
+                   from_axes=plan["from_axes"], to_axes=plan["to_axes"],
+                   leaf_count=leaf_count,
+                   from_spec_digest=plan["from_spec_digest"],
+                   to_spec_digest=plan["to_spec_digest"],
+                   respec_agreement=plan["respec_agreement"])
+        log.warning("restored checkpoint step %d RESHARDED %s -> %s (%d "
+                    "leaves validated)", step,
+                    reshard.describe_axes(plan["from_axes"]),
+                    reshard.describe_axes(plan["to_axes"]), leaf_count)
 
     def _own_residual(self, state: TrainState, step: int,
                       tensors: dict) -> dict:
@@ -627,11 +700,27 @@ class CheckpointManager:
         export path: no optimizer and no generator, so any device), its
         parameters from the EMA with ``use_ema`` when the checkpoint holds
         one; returns (the step, whether the EMA was loaded), or None when
-        there is no step."""
+        there is no step. The model is one process's, so a checkpoint
+        saved under a mesh of more than one rank passes the gate only
+        with ``checkpoint.allow_reshard`` (the export sets it from
+        ``serve.allow_reshard``)."""
         loaded = self._load(step, model)
         if loaded is None:
             return None
         step, _, tensors = loaded
+        saved = (mf.read_manifest(self._step_dir(step)) or {}).get(
+            reshard.MESH_RECORD_KEY)
+        one = {a: 1 for a in reshard.MESH_AXES}
+        if reshard.must_reshard(saved, one,
+                                allow_reshard=self.config.allow_reshard,
+                                directory=self._path, step=step):
+            count = reshard.validate_restored(
+                {"model": model.state_dict()}, {"model": tensors["model"]},
+                step=step)
+            log.warning("restored the model of checkpoint step %d "
+                        "RESHARDED %s -> %s (%d leaves validated)", step,
+                        reshard.describe_axes(saved["axes"]),
+                        reshard.describe_axes(one), count)
         model.load_state_dict(tensors["model"])
         ema = tensors.get("ema") or {}
         if use_ema and ema:

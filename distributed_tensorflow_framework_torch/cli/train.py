@@ -25,9 +25,10 @@ ignored (the port compiles no programs).
 Started N times with the gang environment of ``core/cluster.py``
 (``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES=N``,
 ``JAX_PROCESS_ID=i``), the processes form one ``torch.distributed`` group
-(NCCL on CUDA, gloo with ``--device cpu``; rank i on GPU i modulo the
-visible count) and train one model data parallel, each rank feeding its
-block of the global batch (core/mesh.py, train/step.py); the ranks along
+(NCCL when each rank has a GPU of its own, gloo with ``--device cpu``
+and when ranks share a card; rank i on GPU i modulo the visible count)
+and train one model data parallel, each rank feeding its block of the
+global batch (core/mesh.py, train/step.py); the ranks along
 ``mesh.seq`` split each row of one block between them under ring
 attention (parallel/ring.py), as ``configs/bert_long_ring.yaml`` asks,
 and the ranks along ``mesh.pipe`` (with ``model.pipeline_stages`` equal
@@ -38,14 +39,22 @@ passed stage to stage under ``model.pipeline_schedule``
 Exit codes: 0 done; 83 (``GRACEFUL_PREEMPT_RC``) after a SIGTERM, which
 stops at the next step boundary and saves a checkpoint; 84
 (``ELASTIC_RESHARD_RC``) when the mesh does not fit the gang's ranks
-(e.g. ``mesh.data=2`` in one process); 85 (``ANOMALY_ESCALATION_RC``)
-when the recovery ladder ran out of rollbacks. Other failures raise.
+(e.g. ``mesh.data=2`` in one process), after writing the device report
+(``devices.json`` in ``checkpoint.directory``: the world the run saw as
+``visible_devices``, a port device being a rank); 85
+(``ANOMALY_ESCALATION_RC``) when the recovery ladder ran out of
+rollbacks. Other failures raise. The supervisors (cli/train_resilient.py,
+cli/train_cluster.py) pass a refit as ``DTF_ELASTIC_OVERRIDES``
+(comma-separated ``key.path=value``), applied after the ``--set``
+overrides so that the refit wins; with it a checkpoint of another mesh
+restores under ``checkpoint.allow_reshard``.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from distributed_tensorflow_framework_torch.core import supervision
@@ -78,7 +87,15 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     setup_logging()
     args = parse_args(argv)
-    config = load_config(args.config, overrides=list(args.overrides))
+    overrides = list(args.overrides)
+    # The supervisor's refit, after the command line's own overrides.
+    elastic = os.environ.get(supervision.ELASTIC_OVERRIDES_ENV, "")
+    if elastic:
+        extra = [e.strip() for e in elastic.split(",") if e.strip()]
+        log.warning("applying elastic overrides from %s: %s",
+                    supervision.ELASTIC_OVERRIDES_ENV, " ".join(extra))
+        overrides += extra
+    config = load_config(args.config, overrides=overrides)
     if args.print_config:
         import yaml
 
@@ -100,9 +117,14 @@ def main(argv=None) -> int:
     try:
         runtime = initialize_runtime(config.mesh, args.device)
     except MeshSizeError as e:
-        # A topology change to refit to (ROADMAP.md A17), not a crash.
+        # A topology change to refit to, not a crash: leave the device
+        # report for the supervisor, which fits the mesh to it.
         log.error("mesh does not fit the gang — exiting rc=%d for an "
                   "elastic refit: %s", supervision.ELASTIC_RESHARD_RC, e)
+        if config.checkpoint.directory:
+            supervision.write_device_report(
+                config.checkpoint.directory, visible_devices=e.available,
+                needed=e.needed, mesh=e.sizes)
         return supervision.ELASTIC_RESHARD_RC
     try:
         return _train(args, config, runtime)

@@ -1,5 +1,5 @@
 """Deterministic fault injection: the port's copy of ``core/faults.py``
-for the single-process fault kinds.
+for the single-process, gang and multi-host fault kinds.
 
 The same ``DTF_FAULTS`` variable and grammar (comma-separated
 ``kind:arg`` entries) and the same ``DTF_FAULTS_STATE`` file, which
@@ -20,17 +20,43 @@ not fire it again:
                      finite jump that only the EWMA z-score catches.
   repeat_nan:N:K     nan_grads on every step in [N, N+K), K firings in all,
                      so replays after a rollback are poisoned again.
+  drop_devices:N:S   before the single-process supervisor's Sth launch
+                     (1-based; default 1) the child's world becomes N
+                     ranks (cli/train_resilient.py's ``relaunch`` point).
+                     A port device is a rank: the child is started as a
+                     gang of N, so a mesh that needs another count exits
+                     84 and is refit. The JAX package masks the virtual
+                     CPU device count instead.
+  kill_worker:W:T    SIGKILL gang worker W (0-based) at the gang
+                     supervisor's Tth chaos tick (1-based; default 1); the
+                     supervisor then stops the survivors and relaunches
+                     the gang (cli/train_cluster.py ``gang_chaos``). The
+                     tick clock starts once every worker has heartbeated.
+  stall_worker:W:S   SIGSTOP gang worker W for S seconds, then SIGCONT (0 =
+                     forever): its heartbeat goes stale while its peers
+                     block in a collective.
+  drop_worker:W:T    SIGKILL gang worker W at tick T and mark it lost for
+                     good: the supervisor refits the mesh to the survivors
+                     without using an attempt.
+  corrupt_shard:K:P  rank K's Pth dataset pull (1-based; default 1) is
+                     poisoned (data/pipeline.py ``data_chaos``): its
+                     floating fields become NaN; a batch without one (an
+                     MLM batch) scales that step's loss by NaN instead
+                     (train/step.py ``fault_scale``), as nan_grads does.
+  skew_shard:K:S     rank K's next dataset pull sleeps S seconds (0 =
+                     forever): the straggler the infeed watchdog catches.
 
 The JAX package's ``nan_grads`` and ``loss_spike`` scale the batch's
 floating-point inputs, and a masked-LM batch has none (token ids, targets
 and the mask are integers); the port scales the step's loss instead, so
 the drills reach BERT (train/step.py ``fault_scale``).
 
-The fleet, gang and multi-host kinds of the JAX registry raise a
-ValueError naming the ROADMAP.md item that ports them. ``fire`` is
-serialized by a process-wide lock, because the infeed point fires on the
-prefetch thread and the checkpoint points on the saver thread. Stdlib
-only; an empty plan costs one check per fault point.
+The fleet kinds of the JAX registry raise a ValueError naming the
+ROADMAP.md item that ports them. ``fire`` is serialized by a process-wide
+lock, because the infeed point fires on the prefetch thread and the
+checkpoint points on the saver thread. The ``worker=`` a call site passes
+(the data pipeline's rank) keeps another rank's one-shot fault from
+matching it. Stdlib only; an empty plan costs one check per fault point.
 """
 
 from __future__ import annotations
@@ -54,6 +80,14 @@ STATE_ENV_VAR = "DTF_FAULTS_STATE"
 #   infeed          data/pipeline.py, each HostDataset pull
 #   ckpt_in_save    ckpt/checkpoint.py, after the payload / before manifest
 #   ckpt_committed  ckpt/checkpoint.py, after the manifest commit
+#   relaunch        cli/train_resilient.py, before launching attempt N
+#                   (``step`` carries the 1-based attempt ordinal)
+#   gang_chaos      cli/train_cluster.py, each supervisor tick once the
+#                   whole gang has heartbeated (``step``: the 1-based
+#                   tick); the supervisor applies the faults to its ranks
+#   data_chaos      data/pipeline.py, each HostDataset pull (``step``: the
+#                   1-based pull ordinal, ``worker``: the rank's shard
+#                   index), applied by the pulling rank itself
 KIND_POINTS = {
     "crash_at_step": "step_begin",
     "nan_grads": "step_begin",
@@ -62,14 +96,18 @@ KIND_POINTS = {
     "stall_infeed": "infeed",
     "crash_in_save": "ckpt_in_save",
     "corrupt_ckpt": "ckpt_committed",
+    "drop_devices": "relaunch",
+    "kill_worker": "gang_chaos",
+    "stall_worker": "gang_chaos",
+    "drop_worker": "gang_chaos",
+    "corrupt_shard": "data_chaos",
+    "skew_shard": "data_chaos",
 }
-# The JAX registry's other kinds and the ROADMAP.md item that ports each:
-# A17 the gang and multi-host kinds; A15 the fleet slice's kinds (the
-# router's replica kills and stalls, traffic spikes, tenant stampedes and
-# ``corrupt_reload``, which the JAX fleet fires at its rolling reload).
+# The JAX registry's other kinds and the ROADMAP.md item that ports them:
+# the fleet slice's (the router's replica kills and stalls, traffic
+# spikes, tenant stampedes and ``corrupt_reload``, which the JAX fleet
+# fires at its rolling reload).
 NOT_PORTED = {
-    "drop_devices": "A17", "kill_worker": "A17", "stall_worker": "A17",
-    "drop_worker": "A17", "corrupt_shard": "A17", "skew_shard": "A17",
     "kill_replica": "A15", "stall_replica": "A15", "spike": "A15",
     "tenant_stampede": "A15", "corrupt_reload": "A15",
 }
@@ -85,6 +123,12 @@ class Fault:
     arg: str = ""
     step: int | None = None
     seconds: float | None = None
+    # drop_devices: the world the child is started in.
+    devices: int | None = None
+    # kill_worker / stall_worker / drop_worker: the 0-based gang process
+    # id; corrupt_shard / skew_shard: the 0-based rank whose pulls it
+    # poisons (matched against the ``worker=`` the pipeline passes).
+    worker: int | None = None
     # A fault may fire at `count` steps of [step, step + count)
     # (repeat_nan); it is spent once `fires` reaches it.
     count: int = 1
@@ -99,12 +143,21 @@ class Fault:
     def fault_id(self) -> str:
         return f"{self.kind}:{self.arg}" if self.arg else self.kind
 
-    def matches(self, point: str, step: int | None) -> bool:
+    def matches(self, point: str, step: int | None,
+                worker: int | None = None) -> bool:
         if self.fired or point != self.point:
             return False
         if self.step is not None:
-            return step is not None and (
-                self.step <= step < self.step + self.count)
+            if step is None or not (
+                    self.step <= step < self.step + self.count):
+                return False
+        # Only a call site that names itself (data_chaos passes the
+        # pulling rank) is filtered: another rank must not consume the
+        # one-shot fault. gang_chaos passes none; the supervisor applies
+        # the fault to the worker it names.
+        if (self.worker is not None and worker is not None
+                and self.worker != worker):
+            return False
         return True
 
 
@@ -140,6 +193,77 @@ def _parse_one(entry: str) -> Fault:
             raise ValueError(
                 f"fault repeat_nan needs step >= 1 and count >= 1, got "
                 f"{arg!r}")
+    elif kind == "drop_devices":
+        head, _, tail = arg.partition(":")
+        try:
+            fault.devices = int(head)
+            fault.step = int(tail) if tail else 1
+        except ValueError:
+            raise ValueError(
+                f"fault drop_devices needs devices[:attempt] (e.g. "
+                f"drop_devices:4:2), got {arg!r}") from None
+        if fault.devices < 1 or fault.step < 1:
+            raise ValueError(
+                f"fault drop_devices needs devices >= 1 and attempt >= 1, "
+                f"got {arg!r}")
+    elif kind in ("kill_worker", "drop_worker"):
+        head, _, tail = arg.partition(":")
+        try:
+            fault.worker = int(head)
+            fault.step = int(tail) if tail else 1
+        except ValueError:
+            raise ValueError(
+                f"fault {kind} needs worker[:tick] (e.g. {kind}:1:3), got "
+                f"{arg!r}") from None
+        if fault.worker < 0 or fault.step < 1:
+            raise ValueError(
+                f"fault {kind} needs worker >= 0 and tick >= 1, got "
+                f"{arg!r}")
+    elif kind == "stall_worker":
+        head, _, tail = arg.partition(":")
+        raw = tail[:-1] if tail.endswith("s") else tail
+        try:
+            fault.worker = int(head)
+            fault.seconds = float(raw) if raw else 0.0
+        except ValueError:
+            raise ValueError(
+                f"fault stall_worker needs worker:seconds (e.g. "
+                f"stall_worker:1:10s), got {arg!r}") from None
+        if fault.worker < 0:
+            raise ValueError(
+                f"fault stall_worker worker must be >= 0, got {arg!r}")
+        if fault.seconds == 0.0:
+            fault.seconds = _STALL_FOREVER_S
+        fault.step = 1  # the first tick, as kill_worker's default
+    elif kind == "corrupt_shard":
+        head, _, tail = arg.partition(":")
+        try:
+            fault.worker = int(head)
+            fault.step = int(tail) if tail else 1
+        except ValueError:
+            raise ValueError(
+                f"fault corrupt_shard needs host[:pull] (e.g. "
+                f"corrupt_shard:1:3), got {arg!r}") from None
+        if fault.worker < 0 or fault.step < 1:
+            raise ValueError(
+                f"fault corrupt_shard needs host >= 0 and pull >= 1, got "
+                f"{arg!r}")
+    elif kind == "skew_shard":
+        head, _, tail = arg.partition(":")
+        raw = tail[:-1] if tail.endswith("s") else tail
+        try:
+            fault.worker = int(head)
+            fault.seconds = float(raw) if raw else 0.0
+        except ValueError:
+            raise ValueError(
+                f"fault skew_shard needs host:seconds (e.g. "
+                f"skew_shard:1:10s), got {arg!r}") from None
+        if fault.worker < 0:
+            raise ValueError(
+                f"fault skew_shard host must be >= 0, got {arg!r}")
+        if fault.seconds == 0.0:
+            fault.seconds = _STALL_FOREVER_S
+        # No pull ordinal: the rank's next pull after arming.
     elif kind == "stall_infeed":
         dur, _, ordinal = arg.partition(":")
         raw = dur[:-1] if dur.endswith("s") else dur
@@ -183,9 +307,10 @@ class FaultPlan:
         return plan
 
     @classmethod
-    def from_env(cls) -> "FaultPlan":
-        return cls.parse(os.environ.get(ENV_VAR, ""),
-                         state_path=os.environ.get(STATE_ENV_VAR) or None)
+    def from_env(cls, env: dict | None = None) -> "FaultPlan":
+        env = os.environ if env is None else env
+        return cls.parse(env.get(ENV_VAR, ""),
+                         state_path=env.get(STATE_ENV_VAR) or None)
 
     @property
     def active(self) -> bool:
@@ -215,14 +340,17 @@ class FaultPlan:
             os.fsync(fh.fileno())
         os.replace(tmp, self.state_path)
 
-    def fire(self, point: str, *, step: int | None = None) -> list[Fault]:
+    def fire(self, point: str, *, step: int | None = None,
+             worker: int | None = None) -> list[Fault]:
         """Execute the self-contained faults matching this point (crash,
         stall) and return the ones the caller applies (nan_grads,
-        loss_spike, repeat_nan, corrupt_ckpt). Matching and recording run
-        under the process-wide lock, so two threads never claim one
-        fault."""
+        loss_spike, repeat_nan, corrupt_ckpt, the gang and data kinds);
+        ``worker`` lets a call site that is one rank claim only the
+        faults aimed at it. Matching and recording run under the
+        process-wide lock, so two threads never claim one fault."""
         with _FIRE_LOCK:
-            matched = [f for f in self.faults if f.matches(point, step)]
+            matched = [f for f in self.faults
+                       if f.matches(point, step, worker)]
             for fault in matched:
                 self._record_fired(fault)
         handled = []
@@ -265,12 +393,13 @@ def install(plan: FaultPlan | str | None) -> FaultPlan:
     return active_plan()
 
 
-def fire(point: str, *, step: int | None = None) -> list[Fault]:
+def fire(point: str, *, step: int | None = None,
+         worker: int | None = None) -> list[Fault]:
     """Fire the process plan at a fault point; a no-op when inactive."""
     plan = active_plan()
     if not plan.active:
         return []
-    return plan.fire(point, step=step)
+    return plan.fire(point, step=step, worker=worker)
 
 
 def corrupt_checkpoint_dir(step_dir: str) -> str | None:

@@ -10,8 +10,10 @@ stands in for the mesh:
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
     ``JAX_PROCESS_ID``), :func:`initialize_runtime` pins the rank to GPU
     ``rank % device_count`` and calls ``init_process_group`` at
-    ``tcp://<coordinator>`` with that world size and rank: NCCL on CUDA,
-    gloo on the CPU, or the ``backend`` the caller names;
+    ``tcp://<coordinator>`` with that world size and rank: the backend
+    :func:`pick_backend` gives (NCCL when every rank has a GPU of its own,
+    gloo on the CPU and when ranks share a card, which NCCL refuses), or
+    the ``backend`` the caller names;
   * without it no group is formed; the world is 1 and the run is the
     single-device path.
 
@@ -160,6 +162,16 @@ def gang_from_env(environ: Mapping[str, str] | None = None
         raise cluster.ClusterSpecError(
             f"rank {rank} outside a gang of {world}")
     return coord, world, rank
+
+
+def pick_backend(device: str | torch.device, world: int) -> str:
+    """The process group's backend for ``world`` ranks on ``device``:
+    NCCL when each rank has a GPU of its own, gloo on the CPU and when
+    the ranks outnumber the visible GPUs (NCCL refuses two ranks on one
+    device, gloo carries them through the host)."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    return "gloo" if world > torch.cuda.device_count() else "nccl"
 
 
 def max_over_ranks(value: int) -> int:
@@ -626,8 +638,8 @@ def initialize_runtime(config: MeshConfig | None = None,
                        environ: Mapping[str, str] | None = None
                        ) -> MeshRuntime:
     """Resolve the mesh against the gang and form the process group.
-    ``backend`` overrides NCCL-on-CUDA / gloo-on-the-CPU (gloo with CUDA
-    tensors runs two ranks on one card). Raises MeshSizeError when the
+    ``backend`` overrides :func:`pick_backend` (gloo with CUDA tensors
+    runs two ranks on one card). Raises MeshSizeError when the
     mesh does not fit the ranks, DeviceUnavailableError for CUDA without a
     card."""
     config = config or MeshConfig()
@@ -643,7 +655,7 @@ def initialize_runtime(config: MeshConfig | None = None,
             resolve_device(dev)  # raises without a card
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dev = resolve_device(dev)
-        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        backend = backend or pick_backend(dev, world)
         if not dist.is_initialized():
             dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                     world_size=world, rank=rank)

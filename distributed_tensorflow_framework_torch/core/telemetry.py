@@ -14,11 +14,13 @@ them. In a gang of more than one every event carries the writer's
 The port emits the trainer's, the serving engines' and the checkpoint's
 kinds, the recovery ladder's, the goodput ledger (``goodput``), memory
 samples and the first step's memory analysis (``memory``), spans
-(``span``) and the trace analyzer's ``trace_summary``. The kinds of the
-fleet, the gang supervisor, elastic resharding, the bench and the
-autotuner are defined because ``summarize_events`` reads them; nothing in
-the port emits them yet (ROADMAP.md queue A items A15 and A17, and the
-port's bench).
+(``span``), the trace analyzer's ``trace_summary``, the supervisors'
+attempts, crash-loop verdicts and refits (``supervisor_attempt``,
+``crash_loop``, ``mesh_resized``: cli/train_resilient.py,
+cli/train_cluster.py) and the checkpoint's reshard
+(``ckpt_resharded``). The kinds of the fleet, the bench and the autotuner
+are defined because ``summarize_events`` reads them; nothing in the port
+emits them yet (ROADMAP.md queue A item A15, and the port's bench).
 """
 
 from __future__ import annotations
@@ -124,16 +126,18 @@ KIND_MEMORY = "memory"
 # clock-offset estimate, so scripts/analyze_trace.py --spans stitches the
 # processes' streams into one trace tree.
 KIND_SPAN = "span"
-# Read by summarize_events; emitted by parts not ported yet: the bench and
-# its backend probe, the gang supervisor's attempts and crash-loop
-# verdict, elastic resharding (ROADMAP.md A17), the fleet router's
-# routing, ejection, scaling and admission (A15), the autotuner.
-KIND_BENCH = "bench_result"
-KIND_BENCH_PROBE = "backend_probe"
+# The supervisors' attempts, crash-loop verdicts and refits
+# (cli/train_resilient.py, cli/train_cluster.py) and a checkpoint restored
+# across meshes (ckpt/checkpoint.py).
 KIND_SUPERVISOR_ATTEMPT = "supervisor_attempt"
 KIND_CRASH_LOOP = "crash_loop"
 KIND_MESH_RESIZED = "mesh_resized"
 KIND_CKPT_RESHARDED = "ckpt_resharded"
+# Read by summarize_events; emitted by parts not ported yet: the bench and
+# its backend probe, the fleet router's routing, ejection, scaling and
+# admission (ROADMAP.md A15), the autotuner.
+KIND_BENCH = "bench_result"
+KIND_BENCH_PROBE = "backend_probe"
 KIND_SERVE_ROUTE = "serve_route"
 KIND_SERVE_EJECT = "serve_eject"
 KIND_SCALE = "fleet_scale"

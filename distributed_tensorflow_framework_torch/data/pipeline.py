@@ -14,14 +14,23 @@ whose dtype carries the metadata tag :data:`BFLOAT16` (the bits
 device copy moves half the bytes of f32, as in the JAX package. The state carries
 ``consumed``, the 1-based ordinal of the last batch handed out, and
 ``batches_skipped``, the ordinals a rollback decided not to train on
-(train/anomaly.py), which a restored stream discards again. Each pull is
-the ``infeed`` fault point (core/faults.py). The multi-host data chaos
-faults are ROADMAP.md queue A item A17.
+(train/anomaly.py), which a restored stream discards again.
+
+Each pull is the ``infeed`` fault point and the ``data_chaos`` point of
+core/faults.py, the latter for this rank alone (its ``JAX_PROCESS_ID``):
+``corrupt_shard`` poisons every floating field of the pull to NaN, as the
+JAX pipeline does; a batch with none (an MLM batch: token ids, targets
+and the mask are integers) instead carries :data:`FAULT_SCALE_KEY`, a
+NaN that the trainer multiplies into the step's loss (train/step.py
+``fault_scale``), the route ``nan_grads`` takes, so the drill reaches
+BERT where the JAX package's leaves the batch as it was. ``skew_shard``
+sleeps, making this rank's reader the gang's straggler.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
@@ -32,6 +41,10 @@ from distributed_tensorflow_framework_torch.core import faults
 log = logging.getLogger(__name__)
 
 Batch = Mapping[str, np.ndarray]
+
+# A batch key the trainer pops and multiplies into the step's loss: how
+# corrupt_shard poisons a batch without floating fields.
+FAULT_SCALE_KEY = "fault_scale"
 
 # uint16 bf16 bits, tagged so that to_device views them as torch.bfloat16.
 BFLOAT16 = np.dtype(np.uint16, metadata={"torch_dtype": "bfloat16"})
@@ -137,11 +150,42 @@ class HostDataset:
         self.cardinality = cardinality
         self.repartition = repartition
         # Process-lifetime pull ordinal (1-based, not reset by restore):
-        # what stall_infeed:S:P counts.
+        # what stall_infeed:S:P and corrupt_shard:K:P count.
         self._pulls = 0
+        # This rank's index for the data_chaos point, read from the gang
+        # environment at the first pull.
+        self._chaos_worker: int | None = None
 
     def __iter__(self):
         return self
+
+    def _chaos_worker_index(self) -> int:
+        if self._chaos_worker is None:
+            from distributed_tensorflow_framework_torch.data import shard
+
+            self._chaos_worker = shard.ShardAssignment.from_env(
+            ).process_index
+        return self._chaos_worker
+
+    def _apply_chaos(self, fault, batch: dict) -> None:
+        """One matched data_chaos fault against a pulled batch (the module
+        docstring)."""
+        if fault.kind == "corrupt_shard":
+            poisoned = []
+            for k, v in batch.items():
+                if np.issubdtype(np.asarray(v).dtype, np.floating):
+                    batch[k] = np.full_like(v, np.nan)
+                    poisoned.append(k)
+            if not poisoned:
+                batch[FAULT_SCALE_KEY] = np.array(np.nan, np.float32)
+            log.warning("data_chaos: corrupt_shard poisoned %s of pull %d",
+                        f"fields {poisoned}" if poisoned
+                        else "the step's loss (no floating fields)",
+                        self._pulls)
+        elif fault.kind == "skew_shard":
+            log.warning("data_chaos: skew_shard sleeping %.1fs at pull %d",
+                        fault.seconds, self._pulls)
+            time.sleep(fault.seconds)
 
     def _pull(self) -> Batch:
         self._pulls += 1
@@ -150,6 +194,12 @@ class HostDataset:
             self._iter = self._make_iter(self._state)
         batch = next(self._iter)
         self._state["consumed"] = int(self._state.get("consumed", 0)) + 1
+        chaos = faults.fire("data_chaos", step=self._pulls,
+                            worker=self._chaos_worker_index())
+        if chaos:
+            batch = dict(batch)
+            for fault in chaos:
+                self._apply_chaos(fault, batch)
         return batch
 
     def __next__(self) -> Batch:

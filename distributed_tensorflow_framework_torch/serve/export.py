@@ -39,6 +39,7 @@ from typing import Any
 import numpy as np
 
 from distributed_tensorflow_framework_torch.ckpt import manifest as mf
+from distributed_tensorflow_framework_torch.ckpt import reshard
 from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
     CheckpointManager,
 )
@@ -59,6 +60,15 @@ from distributed_tensorflow_framework_torch.models.convert import (
 log = logging.getLogger(__name__)
 
 ARTIFACT_SCHEMA = "dtf-torch-serve-artifact/1"
+
+# Appended to a MeshTopologyError on the export path: the operator holds
+# the serve block, not the training checkpoint block (the JAX package's
+# text).
+RESHARD_HINT = (
+    "Serving export: set serve.allow_reshard=true (cli/export.py --set "
+    "serve.allow_reshard=true) to restore this training-mesh checkpoint "
+    "onto the dp-only serving mesh."
+)
 ARTIFACT_JSON = "artifact.json"
 PARAMS_NPZ = "params.npz"
 # The key prefix of the BatchNorm statistics in PARAMS_NPZ.
@@ -191,7 +201,10 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     ``device="cpu"``); only its tensors are read, so a checkpoint trained
     on either device exports on either. A pipelined model is refused with
     the JAX package's ValueError (a pipelined run's checkpoint holds the
-    whole layout: export it with ``model.pipeline_stages`` 1)."""
+    whole layout: export it with ``model.pipeline_stages`` 1). A
+    checkpoint saved under a mesh of more than one rank is refused with
+    :class:`~ckpt.reshard.MeshTopologyError` and :data:`RESHARD_HINT`
+    unless ``serve.allow_reshard``."""
     from distributed_tensorflow_framework_torch.train.step import (
         task_for_model,
     )
@@ -209,11 +222,17 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     model = get_model(config.model, device=device,
                       in_channels=(None if task == "mlm"
                                    else config.data.channels))
-    manager = CheckpointManager(dataclasses.replace(config.checkpoint,
-                                                    async_save=False))
+    manager = CheckpointManager(dataclasses.replace(
+        config.checkpoint, async_save=False,
+        allow_reshard=config.serve.allow_reshard))
     try:
-        restored = manager.restore_model(model, step=step,
-                                         use_ema=config.serve.use_ema)
+        try:
+            restored = manager.restore_model(model, step=step,
+                                             use_ema=config.serve.use_ema)
+        except reshard.MeshTopologyError as e:
+            raise reshard.MeshTopologyError(
+                e.saved_axes, e.requested_axes, directory=e.directory,
+                step=e.step, hint=RESHARD_HINT) from None
     finally:
         manager.close()
     if restored is None:

@@ -128,6 +128,9 @@ from distributed_tensorflow_framework_torch.data.infeed import (
     prefetch_to_device,
     to_device,
 )
+from distributed_tensorflow_framework_torch.data.pipeline import (
+    FAULT_SCALE_KEY,
+)
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import schedule as sched
 from distributed_tensorflow_framework_torch.parallel import zero
@@ -418,7 +421,10 @@ class Trainer:
                     break
                 with timer.phase("infeed"):
                     batch, self.data_ckpt_state = self._next_batch(infeed)
-                scale = 1.0
+                # A corrupt_shard fault on a batch without floating
+                # fields poisons the step's loss (data/pipeline.py).
+                poison = batch.pop(FAULT_SCALE_KEY, None)
+                scale = 1.0 if poison is None else float(poison)
                 for fault in faults.fire("step_begin",
                                          step=self.host_step + 1):
                     scale *= _fault_scale(fault)

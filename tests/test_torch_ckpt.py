@@ -536,7 +536,8 @@ def test_jax_manifest_code_reads_the_port_step_dir(tmp_path):
     assert jax_mf.verify_step_dir(step_dir) == []
     theirs = jax_mf.build_manifest(
         step_dir, 2, extra={shard.DATA_RECORD_KEY:
-                            ours[shard.DATA_RECORD_KEY]})
+                            ours[shard.DATA_RECORD_KEY],
+                            "mesh": ours["mesh"]})
     for record in (ours, theirs):
         record.pop("created_t")
     assert ours == theirs

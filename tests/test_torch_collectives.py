@@ -28,8 +28,6 @@ transport is bit-equal to the native ops. Tallies are equal dicts.
 import functools
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -41,6 +39,7 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import quantization as qz
+from tests.test_torch_gang import run_gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -336,39 +335,14 @@ def _from_json(tree):
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     workdir = str(tmp_path_factory.mktemp("coll"))
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=240)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir],
+             [os.path.join(workdir, f"rank{rank}.log")
+              for rank in range(2)],
+             timeout=240)
     out = []
     for rank in range(2):
         with open(os.path.join(workdir, f"rank{rank}.json")) as fh:
@@ -628,8 +602,9 @@ def _restore_into(directory, overrides):
     )
 
     _, builder, state = _step_tally(overrides, None)
+    # Two ranks' checkpoints come into one process: a change of mesh.
     cfg = dataclasses.replace(builder.config.checkpoint, directory=directory,
-                              async_save=False)
+                              async_save=False, allow_reshard=True)
     manager = CheckpointManager(cfg)
     try:
         assert manager.restore(state) is not None

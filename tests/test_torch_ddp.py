@@ -39,8 +39,6 @@ import glob
 import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -54,6 +52,7 @@ from distributed_tensorflow_framework_torch.data import get_dataset
 from distributed_tensorflow_framework_torch.data.infeed import to_device
 from distributed_tensorflow_framework_torch.models.resnet import ResNet
 from distributed_tensorflow_framework_torch.train import step as port_step
+from tests.test_torch_gang import Gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -302,42 +301,15 @@ def _with_model(name, fn, *args):
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 def _start(task, workdir, world):
-    port = _free_port()
-    procs = []
-    for rank in range(world):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(world),
-               "JAX_PROCESS_ID": str(rank), "OMP_NUM_THREADS": "1",
-               "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"{task}_rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, task, workdir], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    return procs
+    return Gang([HERE, task, workdir],
+                [os.path.join(workdir, f"{task}_rank{rank}.log")
+                 for rank in range(world)])
 
 
-def _join(procs, timeout=240):
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=timeout)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                tail = fh.read()[-3000:]
-            pytest.fail(f"{log.name} exited {proc.returncode}:\n{tail}")
+def _join(gang, timeout=240):
+    gang.join(timeout)
 
 
 @pytest.fixture(scope="module")

@@ -67,8 +67,8 @@ def test_parse_errors():
 
 
 @pytest.mark.parametrize("spec, item", [
-    ("drop_devices:4:2", "A17"), ("kill_worker:1:3", "A17"),
-    ("corrupt_shard:1:3", "A17"), ("kill_replica:1:3", "A15"),
+    ("stall_replica:0:10s", "A15"), ("tenant_stampede:3:4s", "A15"),
+    ("kill_replica:0", "A15"), ("kill_replica:1:3", "A15"),
     ("spike:6:8s", "A15"), ("corrupt_reload", "A15"),
 ])
 def test_unported_kinds_name_their_item(spec, item):

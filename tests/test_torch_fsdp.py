@@ -41,8 +41,6 @@ acceptance tolerance, rtol 0.02 and atol 2e-3 on the losses.
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -54,6 +52,7 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import sharding as shd
+from tests.test_torch_gang import run_gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -199,8 +198,10 @@ def _checkpoint(workdir, runtime) -> dict:
     batches = [_block(next(ds), runtime, 8) for _ in range(3)]
     for b in batches[:2]:
         builder.train_step(state, b)
+    # Read back by the other layouts' meshes too: allow_reshard.
     ck = dataclasses.replace(builder.config.checkpoint,
-                             directory=f"{workdir}/ck_fsdp", async_save=False)
+                             directory=f"{workdir}/ck_fsdp", async_save=False,
+                             allow_reshard=True)
     manager = CheckpointManager(ck, runtime=runtime)
     manager.save(2, state)
     fb, fresh = _builder(over, runtime)
@@ -290,37 +291,12 @@ def _rank_main(workdir: str, world: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 def _spawn(workdir: str, world: str, n: int) -> list:
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"{world}{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir, world], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir, world],
+             [os.path.join(workdir, f"{world}{rank}.log")
+              for rank in range(n)],
+             timeout=300)
     return [torch.load(os.path.join(workdir, f"{world}{r}.pt"),
                        weights_only=False) for r in range(n)]
 

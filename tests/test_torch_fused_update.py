@@ -41,7 +41,6 @@ f32 wire and one int8 quantum on the scatter and one on the gather).
 
 import dataclasses
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -53,7 +52,8 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
-from tests.test_torch_zero import LENET, STEPS, TINY_BERT, ZERO, _free_port
+from tests.test_torch_gang import run_gang
+from tests.test_torch_zero import LENET, STEPS, TINY_BERT, ZERO
 
 HERE = os.path.abspath(__file__)
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -282,30 +282,10 @@ def _rank_main(workdir: str) -> None:
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     workdir = str(tmp_path_factory.mktemp("fused"))
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"f{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir],
+             [os.path.join(workdir, f"f{rank}.log")
+              for rank in range(2)],
+             timeout=300)
     return [torch.load(os.path.join(workdir, f"f{r}.pt"), weights_only=False)
             for r in range(2)]
 

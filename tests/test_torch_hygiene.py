@@ -89,6 +89,9 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import distributed_tensorflow_framework_torch.cli.serve\n"
         "import distributed_tensorflow_framework_torch.cli.train\n"
+        "import distributed_tensorflow_framework_torch.cli.train_cluster\n"
+        "import distributed_tensorflow_framework_torch.cli.train_resilient\n"
+        "import distributed_tensorflow_framework_torch.cli.launch_local_cluster\n"
         "import distributed_tensorflow_framework_torch.train.loop\n"
         "import distributed_tensorflow_framework_torch.serve.server\n"
         "import distributed_tensorflow_framework_torch.serve.engine\n"

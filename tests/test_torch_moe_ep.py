@@ -29,8 +29,6 @@ the ranks' agreement exactly.
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -40,6 +38,7 @@ import torch
 from distributed_tensorflow_framework_torch.core.config import (
     load_config as port_config,
 )
+from tests.test_torch_gang import Gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 from tests.test_torch_moe import TINY_MOE
 
@@ -143,8 +142,10 @@ def _checkpoints(workdir, runtime) -> dict:
     batches = [next(ds) for _ in range(3)]
     for b in batches[:2]:
         builder.train_step(state, _block(b, builder))
+    # Restored across expert sizes and into one process: allow_reshard.
     ck = dataclasses.replace(builder.config.checkpoint,
-                             directory=f"{workdir}/ck_ep", async_save=False)
+                             directory=f"{workdir}/ck_ep", async_save=False,
+                             allow_reshard=True)
     manager = CheckpointManager(ck, runtime=runtime)
     manager.save(2, state)
     manager.close()
@@ -230,43 +231,17 @@ def _rank_main(workdir: str, world: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+
+def _start(workdir: str, world: str, n: int) -> Gang:
+    return Gang([HERE, workdir, world],
+                [os.path.join(workdir, f"{world}{rank}.log")
+                 for rank in range(n)])
 
 
-def _start(workdir: str, world: str, n: int) -> list:
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"{world}{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir, world], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    return procs
-
-
-def _collect(workdir: str, world: str, procs: list) -> list:
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+def _collect(workdir: str, world: str, gang: Gang) -> list:
+    gang.join(timeout=300)
     return [torch.load(os.path.join(workdir, f"{world}{r}.pt"),
-                       weights_only=False) for r in range(len(procs))]
+                       weights_only=False) for r in range(len(gang.logs))]
 
 
 def _port_init():

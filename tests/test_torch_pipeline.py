@@ -46,8 +46,6 @@ checkpoint read, the bubble metric.
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -57,6 +55,7 @@ import torch
 from distributed_tensorflow_framework_torch.core.config import (
     load_config as port_config,
 )
+from tests.test_torch_gang import Gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -213,8 +212,10 @@ def _resume(workdir, runtime) -> dict:
     over = one_over + _mesh_over("dp") + _schedule_over("1f1b", 0)
     straight = _run(over, runtime, 4)
     legs = _run(over, runtime, 2)
+    # Read by one process too: allow_reshard.
     ck = dataclasses.replace(legs["builder"].config.checkpoint,
-                             directory=f"{workdir}/ck_pipe")
+                             directory=f"{workdir}/ck_pipe",
+                             allow_reshard=True)
     manager = CheckpointManager(ck, runtime=runtime)
     manager.save(2, legs["state"])
     manager.close()
@@ -373,42 +374,20 @@ def _rank_main(workdir: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, request):
     """The four ranks' results. The JAX references are computed here
     while the ranks run."""
     workdir = str(tmp_path_factory.mktemp("pipe"))
-    port, n = _free_port(), 4
-    procs = []
-    for rank in range(n):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
+    n = 4
+    gang = Gang([HERE, workdir],
+                [os.path.join(workdir, f"rank{rank}.log")
+                 for rank in range(n)])
     try:
         request.getfixturevalue("jax_runs")
-        for proc, _ in procs:
-            proc.wait(timeout=240)
     finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+        gang.join(timeout=240)
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=False) for r in range(n)]
 

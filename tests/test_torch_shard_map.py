@@ -34,8 +34,6 @@ bit-equal to the jit step.
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -49,6 +47,7 @@ from distributed_tensorflow_framework_torch.data import get_dataset
 from distributed_tensorflow_framework_torch.data.infeed import to_device
 from distributed_tensorflow_framework_torch.models.resnet import ResNet
 from distributed_tensorflow_framework_torch.train import step as port_step
+from tests.test_torch_gang import run_gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -170,39 +169,14 @@ def _rank_main(workdir: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     workdir = str(tmp_path_factory.mktemp("shard_map"))
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir],
+             [os.path.join(workdir, f"rank{rank}.log")
+              for rank in range(2)],
+             timeout=300)
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=True) for r in range(2)]
 

@@ -43,8 +43,6 @@ also splits the LayerNorms' sums over the hidden dim).
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -55,6 +53,7 @@ from distributed_tensorflow_framework_torch.core.config import (
     load_config as port_config,
 )
 from distributed_tensorflow_framework_torch.parallel import sharding as shd
+from tests.test_torch_gang import run_gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -260,8 +259,10 @@ def _checkpoints(workdir, runtime) -> dict:
     batches = [next(ds) for _ in range(3)]
     for b in batches[:2]:
         tp_builder.train_step(tp_state, _block(b, tp_builder))
+    # Restored into one process and back into TP: allow_reshard.
     ck = dataclasses.replace(tp_builder.config.checkpoint,
-                             directory=f"{workdir}/ck_tp", async_save=False)
+                             directory=f"{workdir}/ck_tp", async_save=False,
+                             allow_reshard=True)
     manager = CheckpointManager(ck, runtime=runtime)
     manager.save(2, tp_state)
     manager.close()
@@ -297,14 +298,15 @@ def _checkpoints(workdir, runtime) -> dict:
         out["one_next"] = _whole(one)
         # cli/export.py's path: the TP checkpoint exports whole, its EMA
         # under serve.use_ema (the default) and the trained tensors
-        # without it.
+        # without it, onto one process under serve.allow_reshard.
+        serve = dataclasses.replace(one_builder.config.serve,
+                                    allow_reshard=True)
         art = load_artifact(export_checkpoint(dataclasses.replace(
-            one_builder.config, checkpoint=ck), f"{workdir}/art_tp",
-            device="cpu"))
+            one_builder.config, checkpoint=ck, serve=serve),
+            f"{workdir}/art_tp", device="cpu"))
         raw = load_artifact(export_checkpoint(dataclasses.replace(
             one_builder.config, checkpoint=ck,
-            serve=dataclasses.replace(one_builder.config.serve,
-                                      use_ema=False)),
+            serve=dataclasses.replace(serve, use_ema=False)),
             f"{workdir}/art_tp_raw", device="cpu"))
         out["export_step"] = art.step
         out["export_equal"] = (
@@ -409,37 +411,12 @@ def _rank_main(workdir: str, world: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 def _spawn(workdir: str, world: str, n: int) -> list:
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"{world}{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir, world], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir, world],
+             [os.path.join(workdir, f"{world}{rank}.log")
+              for rank in range(n)],
+             timeout=300)
     return [torch.load(os.path.join(workdir, f"{world}{r}.pt"),
                        weights_only=False) for r in range(n)]
 

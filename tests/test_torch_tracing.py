@@ -384,6 +384,21 @@ def test_traced_predict_gives_the_jax_servers_span_tree(artifacts,
     assert good["compute_ms_total"] > 0 and 0 < good["compute_frac"] < 1
 
 
+def _span_emitted(events, name: str) -> bool:
+    """Whether the stream at ``events`` holds a finished span ``name``."""
+    if not events.exists():
+        return False
+    for line in events.read_text().splitlines():
+        try:
+            ev = json.loads(line)
+        except json.JSONDecodeError:  # a line still being written
+            continue
+        if (ev.get("kind") == "span"
+                and (ev.get("extra") or {}).get("name") == name):
+            return True
+    return False
+
+
 def test_sigusr1_dumps_the_replicas_flight_recorder(artifacts, tmp_path):
     log_dir = tmp_path / "logs"
     cmd = [sys.executable, "-m",
@@ -407,6 +422,14 @@ def test_sigusr1_dumps_the_replicas_flight_recorder(artifacts, tmp_path):
                              {"inputs": {"input_ids": [1, 2, 3]}},
                              {ptr.TRACE_HEADER: ctx.encode()})
         assert status == 200
+        # The server ends serve.request after it has sent the reply (as
+        # the JAX server does): wait for the span to reach the replica's
+        # stream before taking the dump, or it is still open there.
+        events = log_dir / "events.jsonl"
+        while not _span_emitted(events, "serve.request"):
+            assert time.monotonic() < deadline + 60, \
+                "serve.request never ended"
+            time.sleep(0.05)
         dump = log_dir / f"flightrec-{proc.pid}.json"
         proc.send_signal(signal.SIGUSR1)
         while not dump.exists():

@@ -49,8 +49,6 @@ parameters within 1e-6 × lr.
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
@@ -62,6 +60,7 @@ from distributed_tensorflow_framework_torch.core.config import (
 )
 from distributed_tensorflow_framework_torch.parallel import collectives as coll
 from distributed_tensorflow_framework_torch.parallel import zero as port_zero
+from tests.test_torch_gang import run_gang
 from tests.test_torch_hygiene import torch_threads  # noqa: F401
 
 HERE = os.path.abspath(__file__)
@@ -278,7 +277,8 @@ def _checkpoints(workdir: str, runtime) -> dict:
     out["toggle_errors"] = errors
     # World B's four-row checkpoint onto two ranks.
     _, two, _, _, _ = _run_case(ZERO4[:-1], runtime, steps=0, seed=5)
-    m = CheckpointManager(dataclasses.replace(ck, directory=f"{workdir}/ck4"),
+    m = CheckpointManager(dataclasses.replace(ck, directory=f"{workdir}/ck4",
+                                              allow_reshard=True),
                           runtime=runtime)
     out["refold_restored"] = m.restore(two)
     m.close()
@@ -374,37 +374,12 @@ def _rank_main(workdir: str, world: str) -> None:
 
 # ------------------------------------------------------- the test side
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
 
 def _spawn(workdir: str, world: str, n: int) -> list:
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-        log = open(os.path.join(workdir, f"{world}{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, HERE, workdir, world], env=env, stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT), log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    for proc, log in procs:
-        if proc.returncode != 0:
-            with open(log.name) as fh:
-                pytest.fail(f"{log.name} exited {proc.returncode}:\n"
-                            f"{fh.read()[-3000:]}")
+    run_gang([HERE, workdir, world],
+             [os.path.join(workdir, f"{world}{rank}.log")
+              for rank in range(n)],
+             timeout=300)
     return [torch.load(os.path.join(workdir, f"{world}{r}.pt"),
                        weights_only=False) for r in range(n)]
 
