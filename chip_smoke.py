@@ -500,16 +500,45 @@ Phases (any failure raises and the script exits non-zero):
      survivor's checkpoint) are printed. Each run prints its start-up and
      step seconds and the restart gap. ``--only 19`` builds the kernels
      and runs phase 19 alone (no kernels line, no last line).
+  20. the serving fleet (serve/fleet.py, serve/autoscale.py,
+     cli/fleet.py, core/faults.py's fleet kinds; the forward kernel in
+     every replica). The router runs in this process over FLEET_REPLICAS
+     replicas of a BERT-base artifact at full width and depth (weights
+     from a seed; buckets 128/256/512, max batch 8, ``serve.data=-1``,
+     DECODE_OVERRIDES), each this script under ``--replica-worker``
+     (``cli.serve.main``, its launch counts written when it ends), started
+     held while phase 19 runs; FLEET_KNOBS cut the router's timeouts.
+     FLEET_CLIENTS stdlib client threads send ``/predict`` of FLEET_ROWS
+     rows of FLEET_TOKENS tokens (see FLEET_TOKENS for why so short). 20a:
+     FLEET_CHECKS answers through the fleet, both replicas routed, each
+     bit-equal to the same request sent alone to the replica that served
+     it. 20b: ``kill_replica:0`` at the fleet_chaos point under traffic:
+     no failed request, the eject, the supervised restart and the readmit
+     with their seconds, the router's flight-recorder dump naming r0.
+     20c: ``stall_replica:1`` for FLEET_STALL_S with a request in flight
+     on it: no failed request, r1 ejected and readmitted after the
+     SIGCONT. 20d: ``POST /reload`` to a second artifact under traffic:
+     no failed request, its digest on both replicas, then a request alone
+     bit-equal to a cold engine on it; a ``corrupt_reload`` roll refused
+     at r0 (409) with the digest kept everywhere. 20e: ``/generate`` with
+     ``X-DTF-Session`` lands on one replica, gets 409 + Retry-After while
+     it drains in 20d's roll and lands there again. 20f: ``python -m
+     ...cli.fleet --device cuda --replicas 1`` through its endpoint (role
+     fleet, 20a's first answer bit for bit), then SIGTERM: exit 0 and its
+     replica gone. Every replica that ended 0 must have launched the
+     forward kernel. ``--only 20`` builds the kernels and runs phase 20
+     alone (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a and 19,
-whose children set and read their own counts) and read just after;
-launches made to compare or time a kernel do not count. The record's
-``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a', 11a, 12a,
-13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a and 19 (the relaunched
-ranks of 19a and 19b's survivor), and its
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19 and 20,
+whose children and replicas set and read their own counts) and read just
+after; launches made to compare or time a kernel do not count. The
+record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19 (the
+relaunched ranks of 19a and 19b's survivor) and 20 (the replicas that
+ended 0), and its
 ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
@@ -533,6 +562,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 SEED = 0
@@ -2219,7 +2249,14 @@ def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(ms for ms, _, _ in device_kernels(prof)) / iters
+    total = sum(ms for ms, _, _ in device_kernels(prof))
+    if total > 0:
+        return total / iters
+    # Now and then the profiler records no kernel at all in its window on
+    # the H100 machine (a call's device time of 0.0000 ms): CUDA events
+    # around the same calls instead.
+    log("device_ms: the profiler recorded no kernel; CUDA events instead")
+    return time_ms(torch, fn, iters=iters, warmup=0)
 
 
 def log_profile(prof, what: str, top: int, classify=None) -> float:
@@ -8296,6 +8333,576 @@ def gang_phase(torch, workdir: str, smi: str, device: str = "cuda",
     return {k: kill_counts[k] + drop_counts[k] for k in KERNEL_NAMES}
 
 
+# Phase 20: the serving fleet (serve/fleet.py, serve/autoscale.py,
+# cli/fleet.py; the flash forward in every replica). The router runs in
+# this process; it fronts FLEET_REPLICAS replicas of a BERT-base artifact
+# at full width and depth (configs/bert_base_mlm.yaml's model, weights
+# from a seed), each this script under ``--replica-worker``
+# (``cli.serve.main`` with its launch counts set to 0 before and written
+# to FLEET_COUNTS_ENV's directory when it ends). The replicas start held
+# (imports, CUDA) while phase 19 runs. The router's knobs (FLEET_KNOBS)
+# are cut from their 10 s defaults so that a stalled replica's attempts
+# give up inside the drill, and one failed attempt ejects a replica, so
+# that the stall's one request in flight shows the eject and the
+# readmission; the attempt cap stays ten times a reply's time on the
+# card, so that a slow answer does not eject the one replica left during
+# the kill or the stall. An MLM ``/predict`` answers with the whole
+# (rows, tokens, 30522) f32 logits as JSON, which the stdlib router
+# parses and writes again under its one interpreter lock (a row of 128
+# tokens is 3.9 M floats), and clients that send without a pause hold
+# that lock and slow the prober's ticks (readmission 3 s after a
+# SIGCONT, against 0.02 s with the pause, on the H100 machine). The
+# clients' rows are therefore FLEET_TOKENS tokens long (the 128 bucket on
+# the card), FLEET_ROWS of them to a request, each client pausing
+# FLEET_PAUSE_S between its requests.
+FLEET_REPLICAS = 2
+FLEET_OVERRIDES = ("serve.seq_buckets=[128,256,512]", "serve.max_batch_size=8",
+                   "serve.data=-1", *DECODE_OVERRIDES)
+FLEET_KNOBS = {"fleet_probe_interval_s": 0.25, "fleet_attempt_timeout_s": 5.0,
+               "fleet_healthz_stale_s": 6.0, "fleet_deadline_s": 60.0,
+               "fleet_retries": 3, "fleet_retry_backoff_ms": 50.0,
+               "fleet_eject_failures": 1}
+FLEET_CLIENTS = 8
+FLEET_ROWS = (1, 8)
+FLEET_TOKENS = (1, 1)
+FLEET_PAUSE_S = 1.5
+FLEET_CHECKS = 8
+FLEET_KILL_TICKS = 2
+FLEET_STALL_S = 6.0
+FLEET_NEW_TOKENS = 4
+FLEET_COUNTS_ENV = "CHIP_SMOKE_FLEET_COUNTS"
+FLEET_GO_ENV = "CHIP_SMOKE_FLEET_GO"
+# Every process phase 20 starts, stopped when the script ends; cli/fleet.py
+# runs in a session of its own, whose process group (its replicas too) is
+# killed with it.
+_FLEET_PROCS: list = []
+
+
+def stop_fleet_procs() -> None:
+    for proc in _FLEET_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if getattr(proc, "own_session", False):
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(proc.pid, signal.SIGKILL)
+
+
+def replica_worker(argv: list[str]) -> int:
+    """One replica of phase 20: ``cli.serve.main(argv)`` with TF32 off (as
+    this script's own engines), started held while FLEET_GO_ENV names a
+    file that does not exist yet; its launch counts are set to 0 before
+    and written with its exit code after, to FLEET_COUNTS_ENV's
+    directory. A replica killed by a drill writes none."""
+    import torch
+
+    from distributed_tensorflow_framework_torch.cli import serve as cli_serve
+    from distributed_tensorflow_framework_torch.ops import (
+        flash_attention as fa,
+    )
+    from distributed_tensorflow_framework_torch.serve import (  # noqa: F401
+        decode,
+        engine,
+        server,
+    )
+
+    if torch.cuda.is_available():
+        torch.cuda.init()
+    go, parent = os.environ.get(FLEET_GO_ENV), os.getppid()
+    while go and not os.path.exists(go):
+        if os.getppid() != parent:
+            return 1  # the script is gone: nothing will release this one
+        time.sleep(0.05)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts(fa)
+    rc = 1
+    try:
+        rc = cli_serve.main(argv)
+    finally:
+        out = os.environ.get(FLEET_COUNTS_ENV)
+        if out:
+            with open(os.path.join(out, f"launches-{os.getpid()}.json"),
+                      "w") as fh:
+                json.dump({"replica": os.environ.get("DTF_REPLICA_ID"),
+                           "rc": rc, "counts": read_counts(fa, serving=True)},
+                          fh)
+    return rc
+
+
+def fleet_launcher(workdir: str, device: str = "cuda", overrides=()):
+    """cli/fleet.py's replica launcher with this script's
+    ``--replica-worker`` as the replica, over ``<workdir>/v1``."""
+    from distributed_tensorflow_framework_torch.cli import fleet as cli_fleet
+
+    counts = os.path.join(workdir, "launches")
+    os.makedirs(counts, exist_ok=True)
+    os.environ[FLEET_COUNTS_ENV] = counts
+    inner = cli_fleet.make_replica_launcher(
+        os.path.join(workdir, "v1"), os.path.join(workdir, "replicas"),
+        [*FLEET_OVERRIDES, *overrides], device,
+        entry=(os.path.abspath(__file__), "--replica-worker"))
+
+    def launch(index: int):
+        proc, endpoint = inner(index)
+        _FLEET_PROCS.append(proc)
+        return proc, endpoint
+
+    return launch
+
+
+def fleet_wave(workdir: str, device: str = "cuda", overrides=()) -> dict:
+    """Phase 20's first FLEET_REPLICAS replicas, started held: they import
+    torch and the serving stack and reach the card, then wait for
+    ``go``."""
+    held = {"go": os.path.join(workdir, "replicas.go"),
+            "t0": time.perf_counter(),
+            "launch": fleet_launcher(workdir, device, overrides)}
+    os.environ[FLEET_GO_ENV] = held["go"]
+    try:
+        held["procs"] = [held["launch"](i) for i in range(FLEET_REPLICAS)]
+    finally:
+        del os.environ[FLEET_GO_ENV]
+    return held
+
+
+def bert_artifact(torch, cfg, path: str, seed: int,
+                  device: str = "cuda") -> str:
+    """A port artifact of ``cfg``'s model with weights made from ``seed``
+    on ``device``."""
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.models.convert import to_flax
+    from distributed_tensorflow_framework_torch.serve.export import (
+        input_spec_for,
+        save_artifact,
+    )
+
+    model = get_model(cfg.model, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed))
+    out = save_artifact(path, model_config=cfg.model, task="mlm",
+                        params=to_flax(model), step=seed,
+                        input_spec=input_spec_for(cfg, "mlm"),
+                        source={"seed": seed, "made_by": "chip_smoke.py"})
+    del model
+    return out
+
+
+def fleet_post(url: str, path: str, body: dict, headers=None,
+               timeout: float = 300.0) -> tuple[int, bytes, dict]:
+    """One POST: the status, the raw body and the headers."""
+    req = urllib.request.Request(
+        url + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+class FleetTraffic:
+    """FLEET_CLIENTS stdlib threads, each sending ``POST /predict`` of
+    FLEET_ROWS rows of FLEET_TOKENS tokens to the fleet, FLEET_PAUSE_S
+    apart, until stopped.
+    Every request is recorded (sent, answered, status, replica); one that
+    is not answered 200 is a failed request."""
+
+    def __init__(self, url: str, vocab: int):
+        self.url, self.vocab = url, vocab
+        self.stop = threading.Event()
+        self.seen: list = []
+        self.threads = [threading.Thread(target=self._run, args=(i,),
+                                         daemon=True)
+                        for i in range(FLEET_CLIENTS)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, i: int) -> None:
+        import numpy as np
+
+        rng = np.random.default_rng(SEED + 200 + i)
+        while not self.stop.is_set():
+            rows = int(rng.integers(FLEET_ROWS[0], FLEET_ROWS[1] + 1))
+            n = int(rng.integers(FLEET_TOKENS[0], FLEET_TOKENS[1] + 1))
+            ids = rng.integers(0, self.vocab, (rows, n)).tolist()
+            t0 = time.time()
+            try:
+                status, _, headers = fleet_post(
+                    self.url, "/predict", {"inputs": {"input_ids": ids}})
+            except Exception as e:  # noqa: BLE001 — a failed request
+                status, headers = repr(e), {}
+            self.seen.append((t0, time.time(), status,
+                              headers.get("X-DTF-Replica")))
+            self.stop.wait(FLEET_PAUSE_S)
+
+    def finish(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(300)
+
+    def window(self, t0: float, t1: float) -> tuple[int, list]:
+        """The requests in flight at any time in [t0, t1], and those of
+        them that failed."""
+        inside = [s for s in self.seen if s[0] <= t1 and s[1] >= t0]
+        return len(inside), [s[2] for s in inside if s[2] != 200]
+
+
+def fleet_phase(torch, fa, workdir: str, smi: str, held: dict,
+                device: str = "cuda", overrides=()) -> dict:
+    """Phase 20 (its text in the module docstring): 20a routing, 20b
+    ``kill_replica:0``, 20c ``stall_replica:1``, 20d the rolling reload and
+    the ``corrupt_reload`` roll, 20e the session's 409, 20f cli/fleet.py
+    itself. Returns the flash kernels' launches of the replicas that
+    ended 0. ``device`` and model ``overrides`` (held's own) run it small
+    on the CPU, where no kernel launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.core import (
+        faults,
+        telemetry,
+        tracing,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        load_artifact,
+    )
+    from distributed_tensorflow_framework_torch.serve.fleet import (
+        SESSION_HEADER,
+        FleetRouter,
+    )
+
+    t_phase = time.perf_counter()
+    overrides = [*FLEET_OVERRIDES, *overrides]
+    cfg = load_config("configs/bert_base_mlm.yaml", overrides=overrides)
+    m = cfg.model
+    if device == "cuda" and (m.num_layers, m.hidden_size, m.num_heads,
+                             m.attention_impl) != (12, 768, 12, "pallas"):
+        raise AssertionError(f"20: the config is no longer BERT-base: {m}")
+    v1 = bert_artifact(torch, cfg, os.path.join(workdir, "v1"), SEED, device)
+    t_release, held_s = time.time(), time.perf_counter() - held["t0"]
+    v1_s = time.perf_counter() - t_phase
+    open(held["go"], "w").close()
+    # 20f's fleet starts now: its replica's start-up runs beside 20a-20e.
+    cli_dir = os.path.join(workdir, "cli")
+    cli_log = open(os.path.join(workdir, "cli_fleet.log"), "w")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DTF_FAULTS", "DTF_FAULTS_STATE", FLEET_GO_ENV,
+                        FLEET_COUNTS_ENV)}
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_framework_torch.cli."
+         "fleet", "--artifact", v1, "--device", device, "--replicas", "1",
+         *sum((["--set", o] for o in (*overrides, "serve.port=0",
+                                      f"serve.log_dir={cli_dir}")), [])],
+        env=env, stdout=cli_log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    cli_proc.own_session = True
+    _FLEET_PROCS.append(cli_proc)
+    t_v2 = time.perf_counter()
+    v2 = bert_artifact(torch, cfg, os.path.join(workdir, "v2"), SEED + 1,
+                       device)
+    v2_s = time.perf_counter() - t_v2
+    digests = {v: load_artifact(v).content_digest for v in (v1, v2)}
+
+    pending = list(held["procs"])
+
+    def launcher(index: int):
+        if index < len(pending) and pending[index] is not None:
+            out, pending[index] = pending[index], None
+            return out  # a held first start, released above
+        return held["launch"](index)
+
+    router_dir = os.path.join(workdir, "router")
+    os.makedirs(router_dir)
+    events = os.path.join(router_dir, "events.jsonl")
+    writer = telemetry.TelemetryWriter(events)
+    recorder = tracing.FlightRecorder(cfg.trace.ring_size,
+                                      dump_dir=router_dir).attach(writer)
+    router = FleetRouter(dataclasses.replace(cfg.serve, port=0,
+                                             **FLEET_KNOBS),
+                         telemetry_writer=writer, launcher=launcher,
+                         flight_recorder=recorder)
+    thread = threading.Thread(target=router.serve_forever, daemon=True)
+    thread.start()
+    router.spawn_replicas(FLEET_REPLICAS)
+    router.start()
+    url = f"http://{router.host}:{router.port}"
+    traffic = None
+
+    def replicas() -> dict:
+        return {r["replica"]: r for r in
+                router.fleet_healthz()["fleet"]["replicas"]}
+
+    def wait_for(what: str, predicate, timeout: float = 240.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"20: timed out waiting for {what}: "
+                                     f"{replicas()}")
+            time.sleep(0.05)
+
+    def ejects(label: str, action: str, after: float) -> list:
+        writer.flush()
+        return [e["t"] for e in telemetry.read_events(
+                    events, kind=telemetry.KIND_SERVE_EJECT)
+                if e["extra"].get("replica") == label
+                and e["extra"].get("action") == action
+                and e["t"] >= after]
+
+    try:
+        if not router.wait_ready(timeout=300.0):
+            raise AssertionError(f"20: the replicas never came up: "
+                                 f"{replicas()}")
+        startup = {r: round(ejects(r, "readmit", t_release)[0] - t_release, 2)
+                   for r in ("r0", "r1")}
+        log(f"20 fleet of {FLEET_REPLICAS} replicas (BERT-base, serve.data=-1,"
+            f" decode on) admitted; started held {held_s:.1f} s before their "
+            f"release, release to admission {startup} s; the artifacts "
+            f"written in {v1_s:.1f} s (v1, before the release) and "
+            f"{v2_s:.1f} s (v2, beside the start-up)")
+
+        # 20a: each answer through the fleet against the same request sent
+        # to the replica that served it, alone.
+        rng = np.random.default_rng(SEED + 20)
+        urls = {k: r["url"] for k, r in replicas().items()}
+        checks, first = [], None
+        for _ in range(FLEET_CHECKS):
+            rows = int(rng.integers(FLEET_ROWS[0], FLEET_ROWS[1] + 1))
+            n = int(rng.integers(FLEET_TOKENS[0], FLEET_TOKENS[1] + 1))
+            body = {"inputs": {"input_ids": rng.integers(
+                0, m.vocab_size, (rows, n)).tolist()}}
+            status, raw, headers = fleet_post(url, "/predict", body)
+            label = headers.get("X-DTF-Replica")
+            d_status, d_raw, _ = fleet_post(urls[label], "/predict", body)
+            got = json.loads(raw)["outputs"]
+            arr = np.asarray(got, np.float32)
+            checks.append((status, d_status, label, got == json.loads(d_raw)[
+                "outputs"], arr.shape == (rows, n, m.vocab_size)
+                and bool(np.isfinite(arr).all())))
+            first = first or (body, got)
+        log(f"20a routing: {len(checks)} requests of {FLEET_ROWS} rows x "
+            f"{FLEET_TOKENS} tokens; (fleet, direct) statuses "
+            f"{sorted({c[:2] for c in checks})}, served by "
+            f"{[c[2] for c in checks]}, bit-equal to the serving replica "
+            f"alone {sum(c[3] for c in checks)}/{len(checks)}, shapes and "
+            f"finite {sum(c[4] for c in checks)}/{len(checks)}")
+        if not all(c[:2] == (200, 200) and c[3] and c[4] for c in checks) or {
+                c[2] for c in checks} != {"r0", "r1"}:
+            raise AssertionError(f"20a: {checks}")
+
+        # 20b: kill_replica:0 at the fleet_chaos point, under traffic.
+        traffic = FleetTraffic(url, m.vocab_size)
+        with router._lock:
+            tick = router._chaos_tick + FLEET_KILL_TICKS
+        t_kill = time.time()
+        faults.install(f"kill_replica:0:{tick}")
+        wait_for("r0's restart and readmission", lambda: (
+            replicas()["r0"]["restarts"] == 1
+            and replicas()["r0"]["state"] == "admitted"), 300.0)
+        dead, restart = ejects("r0", "eject", t_kill), ejects(
+            "r0", "restart", t_kill)
+        readmit = ejects("r0", "readmit", t_kill)
+        dumps = [json.load(open(os.path.join(router_dir, f)))
+                 for f in os.listdir(router_dir)
+                 if f.startswith("flightrec-")]
+        n_req, failed = traffic.window(t_kill, readmit[0])
+        log(f"20b kill_replica:0 at chaos tick {tick}: eject (dead) "
+            f"{dead[0] - t_kill:.2f} s after the plan, supervised restart "
+            f"{restart[0] - dead[0]:.2f} s later, readmitted "
+            f"{readmit[0] - restart[0]:.2f} s after the restart (its "
+            f"start-up), eject to readmit {readmit[0] - dead[0]:.2f} s; "
+            f"{n_req} requests in the window, {len(failed)} failed; flight "
+            f"recorder dumps {[d['reason'] for d in dumps]} "
+            f"({[d['event_count'] for d in dumps]} events) [{smi}]")
+        if failed or [d["reason"] for d in dumps] != [
+                "replica r0 dead (rc=-9)"]:
+            raise AssertionError(f"20b: failed {failed}, dumps "
+                                 f"{[d['reason'] for d in dumps]}")
+
+        # 20c: stall_replica:1 while a request is in flight on it.
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline:
+            with router._lock:
+                if router._replicas[1].inflight >= 1:
+                    break
+            time.sleep(0.005)
+        with router._lock:
+            inflight = router._replicas[1].inflight
+        t_stall = time.time()
+        router._apply_chaos(faults.FaultPlan.parse(
+            f"stall_replica:1:{FLEET_STALL_S:g}s").faults[0])
+        time.sleep(FLEET_STALL_S)
+        wait_for("r1's SIGCONT and admission", lambda: (
+            router._replicas[1].stalled_until == 0.0
+            and replicas()["r1"]["state"] == "admitted"), 120.0)
+        eject = ejects("r1", "eject", t_stall)
+        readmit = ejects("r1", "readmit", t_stall) or [float("nan")]
+        n_req, failed = traffic.window(t_stall, max(readmit[0], time.time()))
+        log(f"20c stall_replica:1:{FLEET_STALL_S:g}s with {inflight} requests "
+            f"in flight on r1: ejected {[round(t - t_stall, 2) for t in eject]}"
+            f" s after the SIGSTOP, readmitted {readmit[0] - t_stall:.2f} s "
+            f"after it ({readmit[0] - t_stall - FLEET_STALL_S:.2f} s after "
+            f"the SIGCONT); {n_req} requests in the window, {len(failed)} "
+            f"failed [{smi}]")
+        if failed or not eject:
+            raise AssertionError(f"20c: failed {failed}, ejects {eject}")
+
+        # 20d and 20e: the rolling reload to v2 under traffic, while a
+        # decode session pinned to one replica keeps asking.
+        gen = {"prompt": rng.integers(0, m.vocab_size, 8).tolist(),
+               "max_new_tokens": FLEET_NEW_TOKENS}
+        session = {SESSION_HEADER: "chip-smoke"}
+        status, raw, headers = fleet_post(url, "/generate", gen, session)
+        pinned = headers.get("X-DTF-Replica")
+        if status != 200 or json.loads(raw.splitlines()[-1]).get(
+                "done") is not True:
+            raise AssertionError(f"20e: /generate {status} {raw[-200:]}")
+        asks, stop_asking = [], threading.Event()
+
+        def ask():
+            while not stop_asking.is_set():
+                st, _, hd = fleet_post(url, "/generate", gen, session)
+                asks.append((time.time(), st, hd.get("X-DTF-Replica"),
+                             hd.get("Retry-After")))
+                time.sleep(0.05)
+
+        asker = threading.Thread(target=ask, daemon=True)
+        asker.start()
+        # The cold engine on v2 (for after the roll) is built beside it.
+        cold: list = []
+        warming = threading.Thread(target=lambda: cold.append(
+            InferenceEngine(load_artifact(v2), cfg.serve, device=device)),
+            daemon=True)
+        warming.start()
+        t_roll = time.time()
+        status, raw, _ = fleet_post(url, "/reload", {"artifact_dir": v2})
+        t_rolled = time.time()
+        # The session lands again once its replica is readmitted.
+        wait_for("the session's answer after its 409s", lambda: any(
+            a[1] == 200 and a[0] > max([b[0] for b in asks if b[1] == 409],
+                                       default=t_rolled) for a in asks), 60)
+        stop_asking.set()
+        asker.join(60)
+        traffic.finish()
+        rolled = json.loads(raw)
+        n_req, failed = traffic.window(t_roll, t_rolled)
+        now = {k: r["artifact"].get("content_digest")
+               for k, r in replicas().items()}
+        log(f"20d rolling reload to v2 under traffic: status {status}, "
+            f"{[(r['replica'], r['ok'], round(r['reload_ms'])) for r in rolled.get('replicas', [])]}"
+            f" (replica, ok, ms), {t_rolled - t_roll:.2f} s; {n_req} requests "
+            f"in the roll, {len(failed)} failed; digests {now} (v2 "
+            f"{digests[v2][:12]})")
+        if status != 200 or not rolled.get("reloaded") or set(
+                now.values()) != {digests[v2]} or failed:
+            raise AssertionError(f"20d: {rolled}, failed {failed}")
+        statuses = [a[1] for a in asks]
+        conflict = [a for a in asks if a[1] == 409]
+        after = [a for a in asks if a[1] == 200 and conflict
+                 and a[0] > conflict[-1][0]]
+        log(f"20e /generate with {SESSION_HEADER}: pinned to {pinned}; "
+            f"during the roll {len(asks)} asks, statuses "
+            f"{sorted(set(statuses))}, {len(conflict)} x 409 with "
+            f"Retry-After {sorted({a[3] for a in conflict})} while it "
+            f"drained, then 200 on {sorted({a[2] for a in after})}")
+        if not conflict or not all(a[3] and float(a[3]) > 0
+                                   for a in conflict) or not after or {
+                a[2] for a in after} != {pinned} or set(statuses) - {
+                200, 409}:
+            raise AssertionError(f"20e: {asks}")
+
+        # After the roll: a request alone against a cold engine on v2.
+        body = first[0]
+        status, raw, _ = fleet_post(url, "/predict", body)
+        got = np.asarray(json.loads(raw)["outputs"], np.float32)
+        warming.join(300)
+        try:
+            want = cold[0].predict({"input_ids": np.asarray(
+                body["inputs"]["input_ids"], np.int32)}, timeout=300)
+        finally:
+            cold[0].drain(30)
+        log(f"20d after the roll, one request alone vs a cold engine on v2: "
+            f"bit-equal {np.array_equal(got, want)}, largest gap "
+            f"{float(np.abs(got - want).max()):.3e} [{smi}]")
+        if status != 200 or not np.array_equal(got, want):
+            raise AssertionError("20d: the rolled fleet disagrees with a "
+                                 "cold engine on v2")
+        # The corrupt_reload roll: refused at r0, v2 kept everywhere.
+        bad = os.path.join(workdir, "v1_corrupt")
+        shutil.copytree(v1, bad)
+        faults.install("corrupt_reload:chip-smoke")
+        status, raw, _ = fleet_post(url, "/reload", {"artifact_dir": bad})
+        rolled = json.loads(raw)
+        kept = {k: r["artifact"].get("content_digest")
+                for k, r in replicas().items()}
+        log(f"20d corrupt_reload roll: status {status}, "
+            f"{[(r['replica'], r['status']) for r in rolled.get('replicas', [])]}"
+            f"; digests kept {set(kept.values()) == {digests[v2]}}")
+        if status != 409 or [(r["replica"], r["status"])
+                             for r in rolled["replicas"]] != [("r0", 409)] \
+                or set(kept.values()) != {digests[v2]}:
+            raise AssertionError(f"20d corrupt_reload: {rolled}")
+
+        # 20f: cli/fleet.py itself through its endpoint, then SIGTERM.
+        endpoint = os.path.join(cli_dir, "endpoint.json")
+        wait_for("cli/fleet.py's endpoint.json", lambda: os.path.exists(
+            endpoint) or cli_proc.poll() is not None, 240.0)
+        time.sleep(0.2)
+        with open(endpoint) as fh:
+            record = json.load(fh)
+        status, raw, headers = fleet_post(record["url"], "/predict",
+                                          first[0])
+        same = status == 200 and json.loads(raw)["outputs"] == first[1]
+        with open(os.path.join(cli_dir, "r0", "endpoint.json")) as fh:
+            cli_replica = json.load(fh)["pid"]
+        t_term = time.perf_counter()
+        cli_proc.send_signal(signal.SIGTERM)
+        rc = cli_proc.wait(120)
+        try:
+            os.kill(cli_replica, 0)
+            replica_gone = False
+        except ProcessLookupError:
+            replica_gone = True
+        log(f"20f cli/fleet.py --device {device} --replicas 1: role "
+            f"{record['role']}, /predict {status} bit-equal to 20a's answer "
+            f"on v1 {same}; SIGTERM: exit {rc} in "
+            f"{time.perf_counter() - t_term:.2f} s, its replica ended "
+            f"{replica_gone}")
+        if record["role"] != "fleet" or not same or rc != 0 or (
+                not replica_gone):
+            raise AssertionError("20f: cli/fleet.py")
+    finally:
+        if traffic is not None:
+            traffic.finish()
+        faults.install(faults.FaultPlan())
+        router.shutdown("chip_smoke")
+        thread.join(60)
+        writer.close()
+        stop_fleet_procs()
+        cli_log.close()
+    summary = telemetry.summarize_events(events)["fleet"]
+    ended = []
+    for name in sorted(os.listdir(os.path.join(workdir, "launches"))):
+        with open(os.path.join(workdir, "launches", name)) as fh:
+            ended.append(json.load(fh))
+    done = [r for r in ended if r["rc"] == 0]
+    log(f"20 router: {summary['requests']} proxied, routed "
+        f"{summary['routed']}, retries {summary['retries']}, shed "
+        f"{summary['shed']}, readmits {summary['readmits']}, restarts "
+        f"{summary['restarts']}; replicas that wrote counts "
+        f"{[(r['replica'], r['rc'], r['counts']['fwd']) for r in ended]} "
+        f"(replica, rc, forward launches)")
+    if len(done) != FLEET_REPLICAS or not all(
+            r["counts"]["fwd"] > 0 or device != "cuda" for r in done):
+        raise AssertionError(f"20: replicas ended {ended}")
+    log(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(r["counts"][k] for r in done) for k in KERNEL_NAMES}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gang-supervisor"]:
         # A phase-19 supervisor (stdlib only: no torch in this process).
@@ -8308,6 +8915,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:
         # One rank of a phase-19 gang, started by cli/train_cluster.py.
         return rank_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--replica-worker"]:
+        # One replica of phase 20's fleet, started by its router.
+        return replica_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
@@ -8428,6 +9038,13 @@ def main() -> int:
         _build.build_all()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as wd:
             gang_phase(torch, wd, smi.splitlines()[0])
+        return 0
+    if only == "20":
+        # A development run of phase 20 alone (``--only 20``), after the
+        # kernels' build: no kernels line and no last line.
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as wd:
+            fleet_phase(torch, fa, wd, smi.splitlines()[0], fleet_wave(wd))
         return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
@@ -8641,6 +9258,9 @@ def main() -> int:
     # survivor run BERT-base through the attention kernels, so their
     # launches join the record.
     torch.cuda.empty_cache()
+    fleet_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    # Phase 20's replicas start up (held) while phase 19 runs.
+    fleet_held = fleet_wave(fleet_dir.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as workdir:
         log("phase 19 elastic and gang resilience: cli/train_cluster.py "
             "over two gloo ranks of the card at {data: 2}, BERT-base at "
@@ -8649,6 +9269,18 @@ def main() -> int:
             "process (19c)")
         gang_counts = gang_phase(torch, workdir, gpu)
 
+    # Phase 20: the serving fleet. Its replicas serve BERT-base through
+    # the forward kernel, so their launches join the record.
+    torch.cuda.empty_cache()
+    with fleet_dir:
+        log("phase 20 the serving fleet: the router in this process over two"
+            " BERT-base replicas of the card; routing (20a), kill_replica "
+            "(20b), stall_replica (20c), the rolling reload and a "
+            "corrupt_reload roll under traffic (20d), a decode session's 409"
+            " (20e), cli/fleet.py and its SIGTERM (20f)")
+        fleet_counts = fleet_phase(torch, fa, fleet_dir.name, gpu,
+                                   fleet_held)
+
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 18a's profiled run,
     # phase 8a's world-1 DDP run,
@@ -8656,7 +9288,7 @@ def main() -> int:
     # ranks of each), the two long-context runs, 13b's eight ranks and
     # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
     # 16a, 16a', 16b and 16e's two ranks, 19's relaunched ranks and its
-    # refit survivor; those with
+    # refit survivor, 20's replicas that ended 0; those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -8668,6 +9300,7 @@ def main() -> int:
                 + coll_counts[name] + zero_counts[name] + tp_counts[name]
                 + ring_counts[name] + pipe_counts[name] + moe_counts[name]
                 + prec_counts[name] + gang_counts[name]
+                + fleet_counts[name]
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
@@ -8708,4 +9341,5 @@ if __name__ == "__main__":
     finally:
         for wave in list(_WAVES):
             stop_children(wave)
+        stop_fleet_procs()
     sys.exit(code)

@@ -1,5 +1,5 @@
 """Deterministic fault injection: the port's copy of ``core/faults.py``
-for the single-process, gang and multi-host fault kinds.
+for the single-process, fleet, gang and multi-host fault kinds.
 
 The same ``DTF_FAULTS`` variable and grammar (comma-separated
 ``kind:arg`` entries) and the same ``DTF_FAULTS_STATE`` file, which
@@ -27,6 +27,29 @@ not fire it again:
                      gang of N, so a mesh that needs another count exits
                      84 and is refit. The JAX package masks the virtual
                      CPU device count instead.
+  kill_replica:N:T   SIGKILL serving replica N (0-based) at the fleet
+                     prober's Tth chaos tick (1-based; default 1); the
+                     router ejects it and its supervision restarts and
+                     readmits it (serve/fleet.py ``fleet_chaos``). The
+                     chaos clock starts once the whole fleet is admitted.
+  stall_replica:N:S  SIGSTOP serving replica N for S seconds, then SIGCONT
+                     (0 = forever), at the first chaos tick: alive, its
+                     port accepting, answering nothing. The router's
+                     per-attempt cap routes the requests in flight around
+                     it.
+  spike:F:S          for S seconds from the first chaos tick the router's
+                     autoscaler sees F extra queued requests per admitted
+                     replica; real traffic is not touched.
+  tenant_stampede:T  at chaos tick T (optional duration
+                     ``tenant_stampede:T:4s``, default 5 s) synthetic
+                     batch-class load fills every replica's unreserved
+                     queue slots: batch and default traffic shed (503 +
+                     Retry-After), high-class traffic keeps its reserve.
+  corrupt_reload     before the next rolling reload begins, truncate the
+                     largest payload file of the new artifact, so that
+                     every replica's verification refuses the swap (409)
+                     and keeps serving the old weights (serve/fleet.py
+                     ``fleet_reload``). The arg is a label for logs.
   kill_worker:W:T    SIGKILL gang worker W (0-based) at the gang
                      supervisor's Tth chaos tick (1-based; default 1); the
                      supervisor then stops the survivors and relaunches
@@ -51,8 +74,7 @@ floating-point inputs, and a masked-LM batch has none (token ids, targets
 and the mask are integers); the port scales the step's loss instead, so
 the drills reach BERT (train/step.py ``fault_scale``).
 
-The fleet kinds of the JAX registry raise a ValueError naming the
-ROADMAP.md item that ports them. ``fire`` is serialized by a process-wide
+``fire`` is serialized by a process-wide
 lock, because the infeed point fires on the prefetch thread and the
 checkpoint points on the saver thread. The ``worker=`` a call site passes
 (the data pipeline's rank) keeps another rank's one-shot fault from
@@ -82,6 +104,10 @@ STATE_ENV_VAR = "DTF_FAULTS_STATE"
 #   ckpt_committed  ckpt/checkpoint.py, after the manifest commit
 #   relaunch        cli/train_resilient.py, before launching attempt N
 #                   (``step`` carries the 1-based attempt ordinal)
+#   fleet_chaos     serve/fleet.py, each prober tick once the fleet is
+#                   admitted (``step``: the 1-based tick); the router
+#                   applies the faults to its replicas or to itself
+#   fleet_reload    serve/fleet.py, before a rolling reload begins
 #   gang_chaos      cli/train_cluster.py, each supervisor tick once the
 #                   whole gang has heartbeated (``step``: the 1-based
 #                   tick); the supervisor applies the faults to its ranks
@@ -97,19 +123,16 @@ KIND_POINTS = {
     "crash_in_save": "ckpt_in_save",
     "corrupt_ckpt": "ckpt_committed",
     "drop_devices": "relaunch",
+    "kill_replica": "fleet_chaos",
+    "stall_replica": "fleet_chaos",
+    "spike": "fleet_chaos",
+    "tenant_stampede": "fleet_chaos",
+    "corrupt_reload": "fleet_reload",
     "kill_worker": "gang_chaos",
     "stall_worker": "gang_chaos",
     "drop_worker": "gang_chaos",
     "corrupt_shard": "data_chaos",
     "skew_shard": "data_chaos",
-}
-# The JAX registry's other kinds and the ROADMAP.md item that ports them:
-# the fleet slice's (the router's replica kills and stalls, traffic
-# spikes, tenant stampedes and ``corrupt_reload``, which the JAX fleet
-# fires at its rolling reload).
-NOT_PORTED = {
-    "kill_replica": "A15", "stall_replica": "A15", "spike": "A15",
-    "tenant_stampede": "A15", "corrupt_reload": "A15",
 }
 _STEP_KINDS = ("crash_at_step", "crash_in_save", "nan_grads", "loss_spike")
 _STALL_FOREVER_S = 6 * 3600.0
@@ -125,10 +148,15 @@ class Fault:
     seconds: float | None = None
     # drop_devices: the world the child is started in.
     devices: int | None = None
+    # kill_replica / stall_replica: the 0-based replica index.
+    replica: int | None = None
     # kill_worker / stall_worker / drop_worker: the 0-based gang process
     # id; corrupt_shard / skew_shard: the 0-based rank whose pulls it
     # poisons (matched against the ``worker=`` the pipeline passes).
     worker: int | None = None
+    # spike: synthetic queued requests per admitted replica, added to the
+    # autoscaler's pressure while the window is open.
+    factor: float | None = None
     # A fault may fire at `count` steps of [step, step + count)
     # (repeat_nan); it is spent once `fires` reaches it.
     count: int = 1
@@ -164,10 +192,6 @@ class Fault:
 def _parse_one(entry: str) -> Fault:
     kind, _, arg = entry.partition(":")
     kind, arg = kind.strip(), arg.strip()
-    if kind in NOT_PORTED:
-        raise ValueError(
-            f"fault kind {kind!r} in {ENV_VAR} entry {entry!r} is not ported "
-            f"yet — ROADMAP.md queue A item {NOT_PORTED[kind]}")
     if kind not in KIND_POINTS:
         raise ValueError(
             f"unknown fault kind {kind!r} in {ENV_VAR} entry {entry!r}; "
@@ -206,6 +230,68 @@ def _parse_one(entry: str) -> Fault:
             raise ValueError(
                 f"fault drop_devices needs devices >= 1 and attempt >= 1, "
                 f"got {arg!r}")
+    elif kind == "kill_replica":
+        head, _, tail = arg.partition(":")
+        try:
+            fault.replica = int(head)
+            fault.step = int(tail) if tail else 1
+        except ValueError:
+            raise ValueError(
+                f"fault kill_replica needs replica[:tick] (e.g. "
+                f"kill_replica:1:3), got {arg!r}") from None
+        if fault.replica < 0 or fault.step < 1:
+            raise ValueError(
+                f"fault kill_replica needs replica >= 0 and tick >= 1, got "
+                f"{arg!r}")
+    elif kind == "stall_replica":
+        head, _, tail = arg.partition(":")
+        raw = tail[:-1] if tail.endswith("s") else tail
+        try:
+            fault.replica = int(head)
+            fault.seconds = float(raw) if raw else 0.0
+        except ValueError:
+            raise ValueError(
+                f"fault stall_replica needs replica:seconds (e.g. "
+                f"stall_replica:0:10s), got {arg!r}") from None
+        if fault.replica < 0:
+            raise ValueError(
+                f"fault stall_replica replica must be >= 0, got {arg!r}")
+        if fault.seconds == 0.0:
+            fault.seconds = _STALL_FOREVER_S
+        fault.step = 1  # the first tick, as kill_replica's default
+    elif kind == "spike":
+        head, _, tail = arg.partition(":")
+        raw = tail[:-1] if tail.endswith("s") else tail
+        try:
+            fault.factor = float(head)
+            fault.seconds = float(raw) if raw else 0.0
+        except ValueError:
+            raise ValueError(
+                f"fault spike needs factor:seconds (e.g. spike:6:8s), got "
+                f"{arg!r}") from None
+        if fault.factor <= 0:
+            raise ValueError(f"fault spike factor must be > 0, got {arg!r}")
+        if fault.seconds <= 0:
+            raise ValueError(
+                f"fault spike needs a positive duration, got {arg!r}")
+        fault.step = 1  # the spike starts at readiness
+    elif kind == "tenant_stampede":
+        head, _, tail = arg.partition(":")
+        raw = tail[:-1] if tail.endswith("s") else tail
+        try:
+            fault.step = int(head)
+            fault.seconds = float(raw) if raw else 5.0
+        except ValueError:
+            raise ValueError(
+                f"fault tenant_stampede needs tick[:seconds] (e.g. "
+                f"tenant_stampede:3:4s), got {arg!r}") from None
+        if fault.step < 1:
+            raise ValueError(
+                f"fault tenant_stampede tick must be >= 1, got {arg!r}")
+        if fault.seconds <= 0:
+            raise ValueError(
+                f"fault tenant_stampede needs a positive duration, got "
+                f"{arg!r}")
     elif kind in ("kill_worker", "drop_worker"):
         head, _, tail = arg.partition(":")
         try:
@@ -344,7 +430,8 @@ class FaultPlan:
              worker: int | None = None) -> list[Fault]:
         """Execute the self-contained faults matching this point (crash,
         stall) and return the ones the caller applies (nan_grads,
-        loss_spike, repeat_nan, corrupt_ckpt, the gang and data kinds);
+        loss_spike, repeat_nan, corrupt_ckpt, the fleet, gang and data
+        kinds);
         ``worker`` lets a call site that is one rank claim only the
         faults aimed at it. Matching and recording run under the
         process-wide lock, so two threads never claim one fault."""

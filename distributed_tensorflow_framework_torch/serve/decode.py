@@ -416,11 +416,11 @@ class DecodeEngine:
         reason = decode_support_reason(artifact.model_config)
         if reason:
             raise DecodeError(f"decode unsupported: {reason}")
-        check_single_replica(serve_cfg)
+        self.device = resolve_device(device)
+        check_single_replica(serve_cfg, self.device)
         self.artifact = artifact
         self.cfg = decode_cfg
         self.serve_cfg = serve_cfg
-        self.device = resolve_device(device)
         self._tw = telemetry_writer
         mc = artifact.model_config
         self.hidden = int(mc.hidden_size)

@@ -51,6 +51,7 @@ from distributed_tensorflow_framework_torch.core import (
 )
 from distributed_tensorflow_framework_torch.core.config import ServeConfig
 from distributed_tensorflow_framework_torch.core.device import resolve_device
+from distributed_tensorflow_framework_torch.core.mesh import MeshSizeError
 from distributed_tensorflow_framework_torch.core.metrics import (
     PercentileReservoir,
 )
@@ -131,13 +132,24 @@ def batch_buckets(max_batch_size: int, dp: int) -> list[int]:
     return out
 
 
-def check_single_replica(serve_cfg: ServeConfig) -> None:
-    """The port serves on one device per replica process."""
-    if serve_cfg.data != 1:
+def check_single_replica(serve_cfg: ServeConfig,
+                         device: torch.device) -> None:
+    """The port serves on one device per replica process. ``serve.data``
+    0 and -1 mean every visible device, as the JAX package's
+    ``serving_mesh`` reads them: ``torch.cuda.device_count()`` on CUDA,
+    one on the CPU. A count above the visible devices raises
+    MeshSizeError, as there; above one, data-parallel serving, it raises
+    NotImplementedError."""
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = visible if serve_cfg.data in (0, -1) else int(serve_cfg.data)
+    if n > visible:
+        raise MeshSizeError({"data": n}, n, visible)
+    if n != 1:
         raise NotImplementedError(
-            f"serve.data={serve_cfg.data}: the port serves on one device "
-            f"per replica; data-parallel serving belongs to the fleet "
-            f"slice, ROADMAP.md queue A item A15")
+            f"serve.data={serve_cfg.data} ({n} devices): the port serves on "
+            f"one device per replica process (a fleet of replicas scales "
+            f"out, serve/fleet.py); data-parallel serving is ROADMAP.md "
+            f"queue A item A15")
 
 
 @dataclass
@@ -164,10 +176,10 @@ class InferenceEngine:
     def __init__(self, artifact: Artifact, serve_cfg: ServeConfig, *,
                  device: str | torch.device = "cuda", telemetry_writer=None,
                  trace_enabled: bool = True):
-        check_single_replica(serve_cfg)
+        self.device = resolve_device(device)
+        check_single_replica(serve_cfg, self.device)
         self.artifact = artifact
         self.cfg = serve_cfg
-        self.device = resolve_device(device)
         self._tw = telemetry_writer
         self.task = artifact.task
         self.row_buckets = batch_buckets(serve_cfg.max_batch_size, 1)

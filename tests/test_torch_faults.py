@@ -6,8 +6,8 @@ same specs), once-only firing in a process and across relaunches through
 ``DTF_FAULTS_STATE``, the infeed stall in ``HostDataset``, checkpoint
 corruption, and the checkpoint fault points: ``crash_in_save`` leaves an
 uncommitted step that restore quarantines, ``corrupt_ckpt`` a torn one it
-falls back from. The fleet, gang and multi-host kinds raise naming the
-ROADMAP.md item that ports them. ``crash_at_step`` is a real SIGKILL, so
+falls back from. The fleet kinds parse to the JAX package's fields.
+``crash_at_step`` is a real SIGKILL, so
 it runs in the one subprocess of the port's tests.
 """
 
@@ -72,9 +72,17 @@ def test_parse_errors():
     ("spike:6:8s", "A15"), ("corrupt_reload", "A15"),
 ])
 def test_unported_kinds_name_their_item(spec, item):
-    jax_faults.FaultPlan.parse(spec)  # a valid spec for the JAX package
-    with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
-        faults.FaultPlan.parse(spec)
+    """The fleet kinds, refused until queue A item ``item`` ported them,
+    parse to the JAX package's fields and fire at the router's points."""
+    import dataclasses
+
+    ours = faults.FaultPlan.parse(spec).faults
+    ref = jax_faults.FaultPlan.parse(spec).faults
+    assert [dataclasses.asdict(f) for f in ours] == [
+        dataclasses.asdict(f) for f in ref]
+    assert [f.point for f in ours] == [f.point for f in ref]
+    assert ours[0].point in ("fleet_chaos", "fleet_reload")
+    assert item == "A15"
 
 
 def test_stall_zero_means_forever():

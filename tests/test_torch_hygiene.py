@@ -92,6 +92,8 @@ def test_port_imports_with_jax_blocked():
         "import distributed_tensorflow_framework_torch.cli.train_cluster\n"
         "import distributed_tensorflow_framework_torch.cli.train_resilient\n"
         "import distributed_tensorflow_framework_torch.cli.launch_local_cluster\n"
+        "import distributed_tensorflow_framework_torch.cli.fleet\n"
+        "import distributed_tensorflow_framework_torch.serve.fleet\n"
         "import distributed_tensorflow_framework_torch.train.loop\n"
         "import distributed_tensorflow_framework_torch.serve.server\n"
         "import distributed_tensorflow_framework_torch.serve.engine\n"
@@ -184,9 +186,16 @@ def test_train_cli_and_trainer_need_cuda_unless_cpu(no_cuda):
                                              [])]) == 0
 
 
-def test_engine_refuses_multi_device_serving(tiny_artifact):
+def test_engine_refuses_multi_device_serving(tiny_artifact, monkeypatch):
+    """Two devices where the CPU has one: MeshSizeError, as the JAX
+    package's ``serving_mesh``; on a machine that has two cards,
+    data-parallel serving is refused naming its queue-A item."""
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        MeshSizeError,
+    )
     from distributed_tensorflow_framework_torch.serve.engine import (
         InferenceEngine,
+        check_single_replica,
     )
     from distributed_tensorflow_framework_torch.serve.export import (
         load_artifact,
@@ -194,8 +203,11 @@ def test_engine_refuses_multi_device_serving(tiny_artifact):
 
     path, cfg = tiny_artifact
     cfg.serve.data = 2
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(MeshSizeError, match="needs 2 devices but 1"):
         InferenceEngine(load_artifact(path), cfg.serve, device="cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="A15"):
+        check_single_replica(cfg.serve, torch.device("cuda", 0))
 
 
 def test_model_config_round_trips_through_the_artifact(tiny_artifact):

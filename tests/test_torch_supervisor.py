@@ -316,6 +316,13 @@ def test_drop_devices_starts_the_child_as_a_gang(tmp_path, monkeypatch,
             fh.write(f"{{world}} {{rank}} {{refit}}\\n")
         if "mesh.data=2" not in refit and world != 1:
             if rank == 0:
+                # The launcher stops the gang as soon as one rank exits:
+                # rank 1 writes its line first.
+                import time
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and not any(
+                        line.startswith("2 1") for line in open({str(seen)!r})):
+                    time.sleep(0.05)
                 json.dump({{"visible_devices": world, "needed": 1,
                            "mesh": {{"data": 1}}}},
                           open({str(ck / "devices.json")!r}, "w"))
