@@ -3,7 +3,18 @@
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero). Phases 1-3
+run alone; then phases 11-14, 16, 19 and 21 run in that order in a
+second process, the lane (``--lane``), beside phases 4-10 and 15 in this
+one: the ranks of the lane's phases mostly wait on the host (start-ups,
+gloo) and leave the card idle, so the two share it. The lane's lines are
+printed, on the script's clock, when this process has ended phase 15 and
+joined it; phase 20 runs after both, alone, since its drills time ejects
+and readmissions. Host-clock times of either lane's phases are taken
+beside the other's work; the kernel times of phase 3 are taken alone.
+Every process the script starts ends with the process that started it
+(a watcher thread in each), and the script's last act stops whatever a
+failure left running.
 
   1. device — requires ``torch.cuda.is_available()``; prints the card's
      name and power limit (nvidia-smi). TF32 is switched off for matmuls
@@ -329,14 +340,16 @@ Phases (any failure raises and the script exits non-zero):
      the micro-batches times (twice for the forward: the remat
      recompute); per rank the peak memory and step times (gloo through
      the host, not a scaling figure). 13c: ``{data: 1, seq: 2}`` at 16384
-     (8192-token chunks), 2 layers, dropout 0, against one process (seq 1,
-     pallas) within RING_LOSS_TOL, the leaf that differs most named. 13d:
+     (8192-token chunks), 2 layers, dropout 0, RING_PAIR_STEPS steps,
+     against one process (seq 1, pallas) within RING_LOSS_TOL, the leaf
+     that differs most named. 13d:
      four ranks at ``{data: 2, seq: 2}``, 8c's cut in f32 with ring
      attention, packed 4:1 from a corpus of data/progression.py, under
      deterministic algorithms, on the kernel route (FLASH_CHUNK_MIN 0) and
-     the plain chain, each against one process within DP_TOL; 2 steps, a
-     save, a restore into another seed's state and 2 more, bit-equal to 4
-     straight steps; the checkpoint read by one process bit for bit.
+     the plain chain, each against one process within DP_TOL; 1 step, a
+     save, a restore into another seed's state and 2 more, bit-equal to
+     the kernel route's 3 steps; the checkpoint read by one process bit
+     for bit.
      ``--only 13`` runs the kernels' build and phase 13 alone (no kernels
      line, no last line).
   14. pipeline parallelism (``mesh.pipe``, ``model.pipeline_stages``;
@@ -500,45 +513,65 @@ Phases (any failure raises and the script exits non-zero):
      survivor's checkpoint) are printed. Each run prints its start-up and
      step seconds and the restart gap. ``--only 19`` builds the kernels
      and runs phase 19 alone (no kernels line, no last line).
-  20. the serving fleet (serve/fleet.py, serve/autoscale.py,
-     cli/fleet.py, core/faults.py's fleet kinds; the forward kernel in
-     every replica). The router runs in this process over FLEET_REPLICAS
-     replicas of a BERT-base artifact at full width and depth (weights
-     from a seed; buckets 128/256/512, max batch 8, ``serve.data=-1``,
-     DECODE_OVERRIDES), each this script under ``--replica-worker``
-     (``cli.serve.main``, its launch counts written when it ends), started
-     held while phase 19 runs; FLEET_KNOBS cut the router's timeouts.
-     FLEET_CLIENTS stdlib client threads send ``/predict`` of FLEET_ROWS
-     rows of FLEET_TOKENS tokens (see FLEET_TOKENS for why so short). 20a:
+  20. the serving fleet (serve/fleet.py, serve/autoscale.py, cli/fleet.py,
+     core/faults.py's fleet kinds; the forward kernel in every replica). The
+     router runs in this process over FLEET_REPLICAS replicas of a BERT-base
+     artifact at full width and depth (weights from a seed; buckets
+     128/256/512, max batch 8, ``serve.data=-1``, DECODE_OVERRIDES), each
+     this script under ``--replica-worker`` (``cli.serve.main``, its
+     launches written when it ends), started held while phase 15 runs and
+     the lane ends; FLEET_KNOBS cut the router's timeouts. FLEET_CLIENTS
+     stdlib client threads send ``/predict`` of FLEET_ROWS rows of
+     FLEET_TOKENS tokens (see FLEET_TOKENS for why so short). 20a:
      FLEET_CHECKS answers through the fleet, both replicas routed, each
-     bit-equal to the same request sent alone to the replica that served
-     it. 20b: ``kill_replica:0`` at the fleet_chaos point under traffic:
-     no failed request, the eject, the supervised restart and the readmit
-     with their seconds, the router's flight-recorder dump naming r0.
-     20c: ``stall_replica:1`` for FLEET_STALL_S with a request in flight
-     on it: no failed request, r1 ejected and readmitted after the
-     SIGCONT. 20d: ``POST /reload`` to a second artifact under traffic:
-     no failed request, its digest on both replicas, then a request alone
-     bit-equal to a cold engine on it; a ``corrupt_reload`` roll refused
-     at r0 (409) with the digest kept everywhere. 20e: ``/generate`` with
-     ``X-DTF-Session`` lands on one replica, gets 409 + Retry-After while
-     it drains in 20d's roll and lands there again. 20f: ``python -m
-     ...cli.fleet --device cuda --replicas 1`` through its endpoint (role
-     fleet, 20a's first answer bit for bit), then SIGTERM: exit 0 and its
-     replica gone. Every replica that ended 0 must have launched the
-     forward kernel. ``--only 20`` builds the kernels and runs phase 20
-     alone (no kernels line, no last line).
+     bit-equal to the same request sent alone to the replica that served it.
+     20b: ``kill_replica:0`` at the fleet_chaos point under traffic: no
+     failed request, the eject, the supervised restart and the readmit with
+     their seconds, the router's flight-recorder dump naming r0. 20c:
+     ``stall_replica:1`` for FLEET_STALL_S with a request in flight on it:
+     no failed request, r1 ejected and readmitted after the SIGCONT. 20d:
+     ``POST /reload`` to a second artifact under traffic: no failed request,
+     its digest on both replicas, then a request alone bit-equal to a cold
+     engine on it; a ``corrupt_reload`` roll refused at r0 (409) with the
+     digest kept everywhere. 20e: ``/generate`` with ``X-DTF-Session`` lands
+     on one replica, gets 409 + Retry-After while it drains in 20d's roll
+     and lands there again. 20f: ``python -m ...cli.fleet --device cuda
+     --replicas 1`` (run as ``-m`` runs it, by this script's
+     ``--watched-module``) through its endpoint (role fleet, 20a's first
+     answer bit for bit), then SIGTERM: exit 0 and its replica gone. Every
+     replica that ended 0 must have launched the forward kernel. ``--only
+     20`` builds the kernels and runs phase 20 alone (no kernels line, no
+     last line).
+  21. the composed training meshes — one wave of four gloo ranks on the
+     card (started held during phase 19). 21a: MoE BERT-base (phase 15's
+     setting: 4 experts every second layer, top-2, the flash kernels) at
+     full width and COMPOSE_LAYERS layers, bf16, through the Trainer at
+     ``{data: 1, expert: 2, model: 2}``: each rank holds 2 of each MoE
+     layer's experts at F/2 and 6 of the 12 heads; then 8c's cut with MoE
+     in f32 at that mesh against one process within DP_TOL. 21b:
+     BERT-base at full width, rows of 4096 tokens, ring attention at
+     ``{data: 1, fsdp: 2, seq: 2}`` with ZeRO-1, bf16, through the
+     Trainer: each rank's 2048-token chunks take the flash kernels with
+     their lse; then the same in f32 at a cut against one process on
+     the same batches (pallas at 4096) within DP_TOL, a resume bit-equal
+     to straight steps and the checkpoint read by one process (the
+     one-process references computed while the ranks work). 21c: the
+     A10 path, 6 heads at ``{data: 1, model: 4}``, f32 at 384 wide,
+     against one process within DP_TOL. The launches of the ranks'
+     main-path runs (21a's and 21b's Trainer runs, 21c's) join the
+     record. ``--only 21`` builds the kernels and runs phase 21 alone (no
+     kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19 and 20,
-whose children and replicas set and read their own counts) and read just
-after; launches made to compare or time a kernel do not count. The
-record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19, 20
+and 21, whose children and replicas set and read their own counts) and
+read just after; launches made to compare or time a kernel do not count.
+The record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
 11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19 (the
-relaunched ranks of 19a and 19b's survivor) and 20 (the replicas that
-ended 0), and its
+relaunched ranks of 19a and 19b's survivor), 20 (the replicas that
+ended 0) and 21 (21a, 21b and 21c on each rank), and its
 ``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
@@ -730,12 +763,109 @@ IMAGE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1.5e-1}
 
 
 _START = time.perf_counter()
+# The lane's log lines count from the script's start: its _START, on the
+# machine's monotonic clock (perf_counter), which every process shares.
+START_ENV = "CHIP_SMOKE_START"
+# Every process this script starts, and every process those start, ends
+# with the process that started it, whatever ended that one (a failure, a
+# signal, a time limit): each runs :func:`watch_parent`, which reads its
+# starter's pid here, and the script's last act stops what is left of its
+# tree (:func:`stop_descendants`).
+PARENT_ENV = "CHIP_SMOKE_PARENT"
 
 
 def log(msg: str) -> None:
     """A line of the report, after the seconds since the script started
     (where the time limit goes)."""
     print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
+
+
+def _proc_stat(pid: int) -> tuple[str, int] | None:
+    """(state, parent pid) of ``pid`` from /proc, or None if it is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            fields = fh.read().rsplit(")", 1)[1].split()
+    except (OSError, IndexError):
+        return None
+    return fields[0], int(fields[1])
+
+
+def _running(pid: int) -> bool:
+    stat = _proc_stat(pid)
+    return stat is not None and stat[0] not in ("Z", "X")
+
+
+def watch_parent() -> None:
+    """End this process as soon as the process that started it is gone:
+    a daemon thread polls the parent pid, and on a change kills this
+    process, with its process group when it leads one (cli/fleet.py's
+    session: its replica too). The starter's pid comes from PARENT_ENV,
+    so a starter that is already gone is seen; this process then puts
+    its own pid there for what it starts."""
+    parent = os.getppid()
+    try:
+        starter = int(os.environ.get(PARENT_ENV, ""))
+    except ValueError:
+        starter = parent
+    os.environ[PARENT_ENV] = str(os.getpid())
+
+    def end() -> None:
+        if os.getpgrp() == os.getpid():
+            with contextlib.suppress(OSError):
+                os.killpg(os.getpid(), signal.SIGKILL)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    if starter != parent and not _running(starter):
+        end()
+
+    def watch() -> None:
+        while os.getppid() == parent:
+            time.sleep(0.2)
+        end()
+
+    threading.Thread(target=watch, name="chip-smoke-watch",
+                     daemon=True).start()
+
+
+def descendants(root: int | None = None) -> list[int]:
+    """Every process below ``root`` (this one), from /proc's parent pids."""
+    below: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            stat = _proc_stat(int(entry))
+            if stat is not None:
+                below.setdefault(stat[1], []).append(int(entry))
+    out, todo = [], [os.getpid() if root is None else root]
+    while todo:
+        for pid in below.get(todo.pop(), []):
+            out.append(pid)
+            todo.append(pid)
+    return out
+
+
+def terminated(signum, frame) -> None:
+    """SIGTERM in the script's own processes: exit through the cleanup
+    (the ``finally`` at the end of the file) rather than at once."""
+    del frame
+    raise SystemExit(128 + signum)
+
+
+def stop_descendants(timeout: float = 10.0) -> list[int]:
+    """Kill every process below this one and wait until none runs; what
+    the phases stop on their own is gone by then, so this finds only what
+    a failure left. Returns the pids it found."""
+    found = pids = descendants()
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout
+    while pids and time.monotonic() < deadline:
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0] > 0:
+                pass
+        pids = [pid for pid in pids if _running(pid)]
+        time.sleep(0.05)
+    return found
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2181,8 +2311,10 @@ def inception_parity(torch) -> None:
                              "the CPU")
 
 
-def image_records_phase(torch, workdir: str, smi: str, parts: str) -> None:
-    """Phase 9 (the parts named in ``parts``: a-f)."""
+def image_records_phase(torch, workdir: str, smi: str, parts: str,
+                        before_e=None) -> None:
+    """Phase 9 (the parts named in ``parts``: a-f); ``before_e()`` is
+    called after 9d."""
     log("9 jpeg toolchain: " + json.dumps(jpeg_toolchain()))
     codec_phase(torch)
     corpus = None
@@ -2195,6 +2327,8 @@ def image_records_phase(torch, workdir: str, smi: str, parts: str) -> None:
     if set(parts) & set("cd"):
         log("phase 9c/9d configs 3 and 4 from records")
         records_phase(torch, workdir, corpus, smi)
+    if before_e is not None:
+        before_e()
     if "e" in parts:
         log("phase 9e Inception-v3 on the card vs the CPU")
         inception_parity(torch)
@@ -4034,7 +4168,7 @@ def spawn_children(specs: list[dict], workdir: str, name: str,
     _WAVES.append(wave)
     for i, spec in enumerate(specs):
         path = os.path.join(workdir, f"{name}_{i}.json")
-        spec = {**spec, "out": path, "hold": hold, "parent": os.getpid()}
+        spec = {**spec, "out": path, "hold": hold}
         env = spec.pop("env")
         with open(path + ".spec", "w") as fh:
             json.dump(spec, fh)
@@ -4057,6 +4191,15 @@ def stop_children(wave: dict) -> None:
         _WAVES.remove(wave)
 
 
+def release_children(wave: dict) -> None:
+    """Release a held ``wave`` now, so that its work overlaps what the
+    caller does before :func:`join_children`."""
+    if wave["hold"] and "released" not in wave:
+        for _, _, path in wave["procs"]:
+            open(path + ".go", "w").close()
+        wave["released"] = time.perf_counter()
+
+
 def join_children(wave: dict, timeout: float = 600.0) -> list[dict]:
     """Release ``wave`` if it was held, wait for every child and return
     what each wrote. A child that fails or times out fails the phase,
@@ -4065,11 +4208,9 @@ def join_children(wave: dict, timeout: float = 600.0) -> list[dict]:
     (imports, CUDA), wait for its release and work on its own clock, and
     the rest of its life (the interpreter's start and exit)."""
     name, procs = wave["name"], wave["procs"]
-    t0, ended = time.perf_counter(), {}
+    release_children(wave)
+    t0, ended = wave.get("released", time.perf_counter()), {}
     try:
-        for _, _, path in procs:
-            if wave["hold"]:
-                open(path + ".go", "w").close()
         # Poll them all: a rank that fails leaves its peers blocked in a
         # collective, so the first failure stops the rest.
         deadline = time.monotonic() + timeout
@@ -4148,7 +4289,8 @@ def child_main(spec_path: str) -> int:
     once or more (:func:`cli_run`); ``rank`` is one rank of 8c, ``coll``
     one rank of 10b, ``zero`` one rank of 11a, 11b and 11c,
     ``tp`` one of phase 12, ``ring`` one of 13b, 13c or 13d, ``pipe``
-    one of phase 14, ``moe`` one of 15d and ``fused`` one of 16e.
+    one of phase 14, ``moe`` one of 15d, ``fused`` one of 16e and
+    ``compose`` one of phase 21.
     Writes its result as JSON to the spec's ``out``."""
     import torch
 
@@ -4162,9 +4304,7 @@ def child_main(spec_path: str) -> int:
     ready = time.perf_counter() - _START
     go = spec["out"] + ".go"
     while spec["hold"] and not os.path.exists(go):
-        if os.getppid() != spec["parent"]:
-            return 1  # the script is gone: nothing will release this child
-        time.sleep(0.05)
+        time.sleep(0.05)  # a script that is gone ends this child (watcher)
     start = time.perf_counter() - _START
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4187,6 +4327,8 @@ def child_main(spec_path: str) -> int:
         result = moe_rank(torch, fa, os.path.dirname(spec["out"]))
     elif spec["kind"] == "fused":
         result = fused_rank(torch, fa, os.path.dirname(spec["out"]))
+    elif spec["kind"] == "compose":
+        result = compose_rank(torch, fa, os.path.dirname(spec["out"]))
     else:
         result = dp_rank(torch, os.path.dirname(spec["out"]))
     with open(spec["out"], "w") as fh:
@@ -4358,21 +4500,10 @@ def dp_compare(torch, name: str, ranks: list[dict], ref: dict,
                              f"f64 step than one process is")
 
 
-def data_parallel_phase(torch, fa, workdir: str, full: dict,
-                        cifar: dict, cifar_ms: float, smi: str) -> dict:
-    """Phase 8: 8a and 8b run ``cli.train`` one after the other in a child
-    process, each with the gang environment of a world of 1 (an NCCL
-    group, the model under DDP), at phase 5's and phase 7d's cuts, whose
-    losses must be phase 5's and the deterministic 7d run's bit for bit;
-    8c runs two gloo ranks on the one card against one process. Returns
-    8a's launch counts (the main path's run of this phase) and its steady
-    ms/step."""
-    # 8c's ranks start up while 8a and 8b run.
-    dp_ranks = spawn_children([{"kind": "rank", "env": gang_env(port, 2, r)}
-                               for port in [free_port()] for r in range(2)],
-                              workdir, "dp_ranks", hold=True)
-    # 8a: BERT-base at world 1 over NCCL, phase 5's cut; 8b: ResNet-50/
-    # CIFAR-10 at world 1 over NCCL, 7d's deterministic cut.
+def dp_world1_wave(workdir: str, full: dict, cifar: dict,
+                   hold: bool = False) -> dict:
+    """8a and 8b's child: BERT-base at world 1 over NCCL, phase 5's cut;
+    ResNet-50/CIFAR-10 at world 1 over NCCL, 7d's deterministic cut."""
     log_dir = os.path.join(workdir, "dp_bert_logs")
     argv = ["--config", full["config"], "--device", "cuda", "--log-dir",
             log_dir, *sum((["--set", o] for o in (
@@ -4385,8 +4516,26 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
     cifar_argv = ["--config", CIFAR_CONFIG, "--device", "cuda", *sum(
         (["--set", o] for o in (*over, f"checkpoint.directory={cifar_dir}")),
         [])]
-    (runs,) = run_children([cli_runs((argv, False), (cifar_argv, True))],
-                           workdir, "dp_world1")
+    return spawn_children([cli_runs((argv, False), (cifar_argv, True))],
+                          workdir, "dp_world1", hold=hold)
+
+
+def data_parallel_phase(torch, fa, workdir: str, full: dict,
+                        cifar: dict, cifar_ms: float, smi: str,
+                        world1=None) -> dict:
+    """Phase 8: 8a and 8b run ``cli.train`` one after the other in a child
+    process (``world1``, started held earlier, or started here), each with
+    the gang environment of a world of 1 (an NCCL group, the model under
+    DDP), at phase 5's and phase 7d's cuts, whose losses must be phase
+    5's and the deterministic 7d run's bit for bit; 8c runs two gloo
+    ranks on the one card against one process. Returns 8a's launch
+    counts (the main path's run of this phase) and its steady ms/step."""
+    # 8c's ranks start up while 8a and 8b run.
+    dp_ranks = spawn_children([{"kind": "rank", "env": gang_env(port, 2, r)}
+                               for port in [free_port()] for r in range(2)],
+                              workdir, "dp_ranks", hold=True)
+    log_dir = os.path.join(workdir, "dp_bert_logs")
+    (runs,) = join_children(world1 or dp_world1_wave(workdir, full, cifar))
     res = runs[0]
     events = read_events(log_dir)
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
@@ -4406,7 +4555,7 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
         raise AssertionError("8a: the world-1 NCCL run differs from phase 5")
     counts = res["counts"]
     res = runs[1]
-    events = read_events(cifar_dir)
+    events = read_events(os.path.join(workdir, "dp_cifar"))
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     losses = {e["step"]: e["metrics"]["loss"] for e in events
               if e["kind"] == "train_step"}
@@ -4451,6 +4600,13 @@ def data_parallel_phase(torch, fa, workdir: str, full: dict,
 COLL_OVERRIDES = ("train.spmd_mode=shard_map",
                   "parallel.collective_dtype=int8")
 COLL_PLAIN_STEPS = 10
+# 10a's child: the int8 error-feedback wire at full width (10a), and
+# shard_map with no wire, bit-equal to phase 5's first steps (10a'; no
+# checkpoint: nothing reads it, and its save costs seconds).
+COLL_WORLD1 = {"coll_int8": COLL_OVERRIDES,
+               "coll_plain": ("train.spmd_mode=shard_map",
+                              f"train.total_steps={COLL_PLAIN_STEPS}",
+                              "checkpoint.directory=")}
 # The int8 run's losses against phase 5's at the log steps, and 10b's
 # int8 LeNet against its f32 run: the tolerance of
 # tests/test_compressed_allreduce.py::test_int8_ef_dp_loss_parity.
@@ -4634,19 +4790,29 @@ def coll_rank(torch, out_dir: str) -> dict:
         runtime.shutdown()
 
 
-def coll_cli_runs(workdir: str, full: dict, **runs) -> dict:
-    """``cli.train.main`` at phase 5's cut plus each run's extra
-    overrides, one after the other in a child, each in a world of 1
-    (NCCL): {name: (result, events, checkpoint directory)}."""
-    argvs, dirs = [], {}
-    for name, extra in runs.items():
-        log_dir, ckpt = dirs[name] = (os.path.join(workdir, f"{name}_logs"),
-                                      os.path.join(workdir, name))
-        over = (*TRAIN_OVERRIDES, *extra, f"checkpoint.directory={ckpt}")
+def coll_world1_wave(workdir: str, full: dict, hold: bool = False) -> dict:
+    """The child of :func:`coll_cli_runs`: ``cli.train.main`` at phase
+    5's cut plus each of COLL_WORLD1's extra overrides, one after the
+    other, each in a world of 1 (NCCL)."""
+    argvs = []
+    for name, extra in COLL_WORLD1.items():
+        log_dir, ckpt = (os.path.join(workdir, f"{name}_logs"),
+                         os.path.join(workdir, name))
+        over = (*TRAIN_OVERRIDES, f"checkpoint.directory={ckpt}", *extra)
         argvs.append((["--config", full["config"], "--device", "cuda",
                        "--log-dir", log_dir,
                        *sum((["--set", o] for o in over), [])], False))
-    (results,) = run_children([cli_runs(*argvs)], workdir, "coll_world1")
+    return spawn_children([cli_runs(*argvs)], workdir, "coll_world1",
+                          hold=hold)
+
+
+def coll_cli_runs(workdir: str, full: dict, wave=None) -> dict:
+    """The runs of :func:`coll_world1_wave` (``wave``, started held
+    earlier, or started here): {name: (result, events, checkpoint
+    directory)}."""
+    dirs = {name: (os.path.join(workdir, f"{name}_logs"),
+                   os.path.join(workdir, name)) for name in COLL_WORLD1}
+    (results,) = join_children(wave or coll_world1_wave(workdir, full))
     out = {}
     for (name, (log_dir, ckpt)), res in zip(dirs.items(), results):
         if res["rc"] != 0:
@@ -4657,10 +4823,11 @@ def coll_cli_runs(workdir: str, full: dict, **runs) -> dict:
 
 
 def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
-                      smi: str) -> dict:
+                      smi: str, world1=None) -> dict:
     """Phase 10: 10a/10a' (BERT-base at world 1 over NCCL under shard_map,
-    int8 and no wire) and 10b (two gloo ranks on the card). Returns the
-    attention kernels' launches of 10a and 10a' (main-path runs)."""
+    int8 and no wire; ``world1``: their child, started held earlier) and
+    10b (two gloo ranks on the card). Returns the attention kernels'
+    launches of 10a and 10a' (main-path runs)."""
     t0 = time.perf_counter()
     # 10b's ranks start up while 10a and 10a' run.
     coll_ranks = spawn_children([{"kind": "coll", "env": gang_env(port, 2, r),
@@ -4669,10 +4836,7 @@ def collectives_phase(torch, workdir: str, full: dict, ms_8a: float,
                                 workdir, "coll_ranks", hold=True)
     # 10a: the int8 error-feedback wire at full width; 10a': shard_map with
     # no wire, bit-equal to phase 5's first steps. One child runs both.
-    world1 = coll_cli_runs(
-        workdir, full, coll_int8=COLL_OVERRIDES,
-        coll_plain=("train.spmd_mode=shard_map",
-                    f"train.total_steps={COLL_PLAIN_STEPS}"))
+    world1 = coll_cli_runs(workdir, full, wave=world1)
     res, events, ckpt = world1["coll_int8"]
     meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
     train = [e for e in events if e["kind"] == "train_step"]
@@ -4967,9 +5131,10 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         state = builder.init_state(seed)
     ds = get_dataset(cfg.data)
     # Each data-parallel rank takes its block; the ranks along mesh.model
-    # take the same one.
-    dp = (1, 0) if runtime is None else (runtime.data_group.size,
-                                         runtime.data_group.index)
+    # take the same one. The step builder's runtime: a runtime formed for
+    # another mesh is re-formed for this one.
+    dp = (1, 0) if runtime is None else (builder.data_group.size,
+                                         builder.data_group.index)
     b = cfg.data.global_batch_size // dp[0]
     r = dp[1]
     losses, grad_norms = [], []
@@ -4987,10 +5152,11 @@ def zero_cut_case(torch, overrides, runtime, steps: int,
         whole = state.layout.whole_params(state.model)
     with whole:
         tensors = state.model.state_dict()
-        if state.tp is not None:
-            tensors = state.tp.whole(tensors)  # every rank of the group
+        # The inverse of the cuts' order (tensor, then expert).
         if state.ep is not None:
             tensors = state.ep.whole(tensors)  # every rank of the line
+        if state.tp is not None:
+            tensors = state.tp.whole(tensors)  # every rank of the group
         if state.pipe is not None:
             tensors = state.pipe.whole(tensors)  # every stage of the line
         tensors = {k: v.detach().cpu().clone() for k, v in tensors.items()}
@@ -5596,6 +5762,9 @@ RING_PAIR = ("mesh.data=1", "mesh.seq=2", "model.num_layers=2",
              "model.dropout_rate=0.0")
 RING_PAIR_ONE = ("mesh.seq=1", "model.attention_impl=pallas",
                  "model.num_layers=2", "model.dropout_rate=0.0")
+# 13c's steps, cut from RING_STEPS (2) to keep the script inside its time
+# limit beside phase 21.
+RING_PAIR_STEPS = 1
 RING_LOSS_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
 # 13d: four ranks at {data: 2, seq: 2}: configs/bert_base_mlm.yaml at 8c's
 # cut (2 layers, full width, f32, dropout 0, 8 rows, clipping 1.0) with
@@ -5604,16 +5773,17 @@ RING_LOSS_TOL = {"loss": 2e-3, "grad_norm": 2e-2}
 # Once with FLASH_CHUNK_MIN = 0 (the kernels take the chunks) and once at
 # its default (the plain chain), each against one process with the same
 # attention on the same batches, within DP_TOL's BERT tolerances (f32
-# sums in other orders). Then 2 steps, a save, a restore into a state
-# from another seed and 2 more, bit-equal to 4 straight steps, and the
-# checkpoint read by one process bit for bit.
+# sums in other orders). Then 1 step, a save, a restore into a state from
+# another seed and 2 more, bit-equal to the kernel route's own DP_STEPS
+# steps (cut from 2 + 2 against 4 straight steps, for the script's time
+# limit), and the checkpoint read by one process bit for bit.
 RING_CORPUS = ("--seq-len", "512", "--train-seqs", "512", "--eval-seqs",
                "8", "--shards", "2", "--min-doc", "32", "--max-doc", "224",
                "--seed", str(SEED))
 RING_F32 = (*DP_BERT[1], "model.attention_impl=ring",
             "checkpoint.async_save=false")
 RING_F32_MESH = ("mesh.data=2", "mesh.seq=2")
-RING_RESUME_STEPS, RING_RESUME_SPLIT = 4, 2
+RING_RESUME_STEPS, RING_RESUME_SPLIT = DP_STEPS, 1
 
 
 def ring_kernel_parity(torch, fa) -> dict:
@@ -5739,11 +5909,11 @@ def ring_f32_rank(torch, fa, runtime, out_dir: str, corpus: str) -> dict:
                                     "counts": read_counts(fa),
                                     "segmented": read_segmented(fa),
                                     "tensors": path}
+            if route == "kernels":
+                straight = res  # the resume's straight steps
             del res
         ring.FLASH_CHUNK_MIN = 0
         kw = {"config_path": DP_BERT[0]}
-        straight = zero_cut_case(torch, over, runtime, RING_RESUME_STEPS,
-                                 **kw)
         legs = zero_cut_case(torch, over, runtime, RING_RESUME_SPLIT, **kw)
         ckpt = os.path.join(out_dir, "ring_resume")
         manager = CheckpointManager(dataclasses.replace(
@@ -5794,7 +5964,8 @@ def ring_rank(torch, fa, spec: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             reset_counts(fa)
             res = zero_cut_case(torch, (*RING_OVERRIDES, *RING_PAIR),
-                                runtime, RING_STEPS, config_path=LONG_CONFIG)
+                                runtime, RING_PAIR_STEPS,
+                                config_path=LONG_CONFIG)
             path = os.path.join(out_dir,
                                 f"ring_c_rank{runtime.process_index}.pt")
             torch.save(res["tensors"], path)
@@ -5811,11 +5982,22 @@ def ring_rank(torch, fa, spec: dict) -> dict:
         runtime.shutdown()
 
 
+def ring_b_wave(workdir: str, hold: bool = False) -> dict:
+    """13b's eight ranks."""
+    return spawn_children([{"kind": "ring", "part": "b",
+                            "mesh": {"data": -1, "seq": RING_RANKS},
+                            "env": gang_env(port, RING_RANKS, r)}
+                           for port in [free_port()]
+                           for r in range(RING_RANKS)],
+                          workdir, "ring_b", hold=hold)
+
+
 def ring_phase(torch, fa, workdir: str, smi: str,
-               after_b=None) -> tuple[dict, dict]:
-    """Phase 13; ``after_b()`` is called once 13b's ranks have ended.
-    Returns 13a's worst errors and 13b's attention-kernel launches, every
-    rank's (main-path runs)."""
+               after_b=None, b_wave=None) -> tuple[dict, dict]:
+    """Phase 13; ``after_b()`` is called once 13b's ranks have ended;
+    ``b_wave``: 13b's ranks, started held earlier in ``workdir`` (else
+    they start here). Returns 13a's worst errors and 13b's
+    attention-kernel launches, every rank's (main-path runs)."""
     import dataclasses
 
     from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
@@ -5865,12 +6047,7 @@ def ring_phase(torch, fa, workdir: str, smi: str,
     fused = route == "fused"
     want = {"fwd": 2 * calls, "dq": 0 if fused else calls,
             "dkv": 0 if fused else calls, "fused": calls if fused else 0}
-    ranks = run_children([{"kind": "ring", "part": "b",
-                           "mesh": {"data": -1, "seq": RING_RANKS},
-                           "env": gang_env(port, RING_RANKS, r)}
-                          for port in [free_port()]
-                          for r in range(RING_RANKS)],
-                         workdir, "ring_b", timeout=900)
+    ranks = join_children(b_wave or ring_b_wave(workdir), timeout=900)
     if after_b is not None:
         after_b()
     b0 = ranks[0]["b"]
@@ -5917,11 +6094,12 @@ def ring_phase(torch, fa, workdir: str, smi: str,
     t2 = time.perf_counter()
     log(f"13b took {t2 - t1:.1f} s")
 
-    # 13c.
-    ranks = join_children(ring_c)
+    # 13c: one process on the same batches while the ranks work.
+    release_children(ring_c)
     torch.cuda.empty_cache()
     ref = zero_cut_case(torch, (*RING_OVERRIDES, *RING_PAIR_ONE), None,
-                        RING_STEPS, config_path=LONG_CONFIG)
+                        RING_PAIR_STEPS, config_path=LONG_CONFIG)
+    ranks = join_children(ring_c)
     c = ranks[0]["c"]
     gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(c[name], ref[name]))
             for key, name in (("loss", "losses"),
@@ -5932,12 +6110,13 @@ def ring_phase(torch, fa, workdir: str, smi: str,
     pair_layers = load_config(LONG_CONFIG, overrides=list(
         RING_PAIR)).model.num_layers
     log(f"13c ring at {{data: 1, seq: 2}} (8192-token chunks, {pair_layers} "
-        f"of 12 layers, dropout 0) vs one process (seq 1, pallas), {RING_STEPS} "
+        f"of 12 layers, dropout 0) vs one process (seq 1, pallas), "
+        f"{RING_PAIR_STEPS} "
         f"steps of 8x16384: losses {c['losses']} vs {ref['losses']}; "
         f"grad_norm {c['grad_norms']} vs {ref['grad_norms']}; largest "
         f"relative gap loss {gaps['loss']:.3e}, grad_norm "
         f"{gaps['grad_norm']:.3e} (tol {RING_LOSS_TOL}); the leaf that "
-        f"differs most at step {RING_STEPS}: {leaf} ({diff:.3e} = "
+        f"differs most at step {RING_PAIR_STEPS}: {leaf} ({diff:.3e} = "
         f"{diff / lr:.3e} x lr); launches per rank "
         f"{[r['c']['counts'] for r in ranks]}, peak "
         f"{[round(r['c']['peak_gb'], 2) for r in ranks]} GB [{smi}]")
@@ -6421,8 +6600,8 @@ def moe_routes(seen: list):
 
     tables = moe_mod.sorted_tables
 
-    def recorded(probs, expert_a, topk, capacity):
-        out = tables(probs, expert_a, topk, capacity)
+    def recorded(probs, expert_a, topk, capacity, *base):
+        out = tables(probs, expert_a, topk, capacity, *base)
         seen.append((expert_a.cpu(), (out[3] > 0).cpu()))
         return out
 
@@ -8408,11 +8587,9 @@ def replica_worker(argv: list[str]) -> int:
 
     if torch.cuda.is_available():
         torch.cuda.init()
-    go, parent = os.environ.get(FLEET_GO_ENV), os.getppid()
+    go = os.environ.get(FLEET_GO_ENV)
     while go and not os.path.exists(go):
-        if os.getppid() != parent:
-            return 1  # the script is gone: nothing will release this one
-        time.sleep(0.05)
+        time.sleep(0.05)  # a script that is gone ends this one (watcher)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reset_counts(fa)
@@ -8593,9 +8770,11 @@ def fleet_phase(torch, fa, workdir: str, smi: str, held: dict,
     env = {k: v for k, v in os.environ.items()
            if k not in ("DTF_FAULTS", "DTF_FAULTS_STATE", FLEET_GO_ENV,
                         FLEET_COUNTS_ENV)}
+    # ``python -m`` under this script's watcher (``--watched-module``).
     cli_proc = subprocess.Popen(
-        [sys.executable, "-m", "distributed_tensorflow_framework_torch.cli."
-         "fleet", "--artifact", v1, "--device", device, "--replicas", "1",
+        [sys.executable, os.path.abspath(__file__), "--watched-module",
+         "distributed_tensorflow_framework_torch.cli.fleet", "--artifact",
+         v1, "--device", device, "--replicas", "1",
          *sum((["--set", o] for o in (*overrides, "serve.port=0",
                                       f"serve.log_dir={cli_dir}")), [])],
         env=env, stdout=cli_log, stderr=subprocess.STDOUT,
@@ -8903,26 +9082,560 @@ def fleet_phase(torch, fa, workdir: str, smi: str, held: dict,
     return {k: sum(r["counts"][k] for r in done) for k in KERNEL_NAMES}
 
 
+# --------------------------------------------------------------- phase 21
+
+# Phase 21: the composed training meshes, four gloo ranks on the card.
+# 21a: phase 15's MoE setting (MOE, the flash kernels, bf16, dropout 0.1,
+# clipping 1.0) at full width through the Trainer at COMPOSE_MOE_MESH:
+# the batch is split over expert (16 rows a data-parallel rank), each
+# rank holds E/2 experts of F/2 and 6 of the 12 heads. Depth cut to
+# COMPOSE_LAYERS (the fewest with a MoE layer) and COMPOSE_STEPS steps to
+# keep the script inside its time limit.
+COMPOSE_RANKS = 4
+COMPOSE_LAYERS = 2
+COMPOSE_STEPS = 3
+COMPOSE_TRAIN = (f"model.num_layers={COMPOSE_LAYERS}",
+                 f"train.total_steps={COMPOSE_STEPS}",
+                 "train.log_interval=1", "train.eval_steps=0",
+                 "train.eval_interval=0", "resilience.rollback=false",
+                 "checkpoint.directory=")
+COMPOSE_MOE_MESH = ("mesh.data=1", "mesh.expert=2", "mesh.model=2")
+COMPOSE_MOE = (*MOE, "data.global_batch_size=32", *COMPOSE_TRAIN)
+# 21b: BERT-base with ring attention at rows of 4096 tokens: each seq
+# rank's 2048-token chunks take the flash kernels with their lse
+# (parallel/ring.py FLASH_CHUNK_MIN), at COMPOSE_RING_MESH with ZeRO-1.
+COMPOSE_SEQ = 4096
+COMPOSE_RING_MESH = ("mesh.data=1", "mesh.fsdp=2", "mesh.seq=2",
+                     "optimizer.zero_sharding=jit")
+COMPOSE_LONG = ("model.attention_impl=ring", f"model.max_seq_len={COMPOSE_SEQ}",
+                f"data.seq_len={COMPOSE_SEQ}")
+COMPOSE_RING = (*COMPOSE_LONG, "data.global_batch_size=4", *COMPOSE_TRAIN)
+# The f32 cuts, each against one process on the same batches within
+# DP_TOL["bert"] (f32 sums in other orders: the row- and expert-parallel
+# reductions, the ring's merge), written before the first run. 21a: 8c's
+# cut with MOE. 21b: 8c's cut at 4 rows of 4096 (one process: pallas at
+# 4096), under deterministic algorithms with the two-pass backward (the
+# fused kernel sums dq by atomics), then a resume: 1 step, a save, a
+# restore into a state from another seed and 2 more, bit-equal to the
+# cut's own DP_STEPS steps, and the checkpoint read by one process. 21c: 8c's cut
+# at 384 wide with 6 heads of 64 over model 4 (the QKV columns split
+# inside a head: Q, K and V gathered whole), against one process.
+COMPOSE_MOE_CUT = (*DP_BERT[1], *MOE)
+COMPOSE_RING_CUT = (*DP_BERT[1], f"model.max_seq_len={COMPOSE_SEQ}",
+                    f"data.seq_len={COMPOSE_SEQ}", "data.global_batch_size=4",
+                    "checkpoint.async_save=false")
+COMPOSE_HEADS_CUT = (*DP_BERT[1], "model.hidden_size=384", "model.num_heads=6",
+                     "model.mlp_dim=1536")
+COMPOSE_HEADS_MESH = ("mesh.data=1", "mesh.model=4")
+COMPOSE_RESUME_STEPS, COMPOSE_RESUME_SPLIT = DP_STEPS, 1
+
+
+def compose_trainer_run(torch, fa, runtime, out_dir: str, name: str,
+                        over) -> dict:
+    """21a or 21b on one rank: the Trainer with the launch counts set to 0
+    just before and read just after, the heads each attention call saw,
+    the parts' shapes, the bytes at rest and the peak memory."""
+    import gc
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models.bert import (
+        MultiHeadAttention,
+    )
+    from distributed_tensorflow_framework_torch.train.loop import Trainer
+
+    logs = os.path.join(out_dir, f"compose_{name}_logs")
+    cfg = load_config(DP_BERT[0], overrides=list(over))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, log_dir=logs, runtime=runtime)
+    trainer.build()
+    heads = set()
+    for module in trainer.state.model.modules():
+        if isinstance(module, MultiHeadAttention):
+            module.attention_fn = heads_seen(module.attention_fn, heads)
+    record = StepRecord()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(hooks=trainer.default_hooks() + [record])
+    finally:
+        trainer.writer.close()
+    counts = read_counts(fa)
+    seconds = time.perf_counter() - t0
+    state = trainer.state
+    held = (state.layout.params if state.layout is not None
+            else dict(state.model.named_parameters()))
+    return {"counts": counts, "heads": sorted(heads), "steps": record.steps,
+            "s": seconds, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "bytes": state_bytes(torch, state), "logs": logs,
+            "parts": {k: list(held[k].shape) for k in (
+                "layer1.moe.wi", "layer1.moe.wo", "layer0.attn.qkv.weight",
+                "embed_block.embed.weight") if k in held}}
+
+
+def compose_cut(torch, fa, runtime, out_dir: str, name: str, over,
+                keep: bool = False) -> dict:
+    """An f32 cut of DP_STEPS steps on one rank: the losses, grad_norms,
+    the whole tensors (saved under ``out_dir``) and the launches; with
+    ``keep`` the run itself under ``run``."""
+    reset_counts(fa)
+    res = zero_cut_case(torch, over, runtime, DP_STEPS,
+                        config_path=DP_BERT[0])
+    counts = read_counts(fa)
+    path = os.path.join(out_dir,
+                        f"compose_{name}_rank{runtime.process_index}.pt")
+    torch.save(res["tensors"], path)
+    return {"losses": res["losses"], "grad_norms": res["grad_norms"],
+            "tensors": path, "counts": counts, "bytes": res["bytes"],
+            **({"run": res} if keep else {})}
+
+
+def compose_resume(torch, runtime, out_dir: str, over, straight) -> dict:
+    """21b's resume: two legs across a save and a restore into a state
+    from another seed against ``straight``, the cut's own run of the
+    same steps."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+
+    rank = runtime.process_index
+    kw = {"config_path": DP_BERT[0]}
+    legs = zero_cut_case(torch, over, runtime, COMPOSE_RESUME_SPLIT, **kw)
+    ckpt = os.path.join(out_dir, "compose_resume")
+    manager = CheckpointManager(dataclasses.replace(
+        legs["builder"].config.checkpoint, directory=ckpt), runtime=runtime)
+    manager.save(COMPOSE_RESUME_SPLIT, legs["state"])
+    whole = os.path.join(out_dir, f"compose_saved_rank{rank}.pt")
+    torch.save(legs["tensors"], whole)
+    fresh = zero_cut_case(torch, over, runtime, 0, seed=SEED + 1, **kw)
+    restored = manager.restore(fresh["state"])
+    manager.close()
+    tail = zero_cut_case(
+        torch, over, runtime, COMPOSE_RESUME_STEPS - COMPOSE_RESUME_SPLIT,
+        state=fresh["state"], builder=fresh["builder"],
+        skip=COMPOSE_RESUME_SPLIT, **kw)
+    want, got = (list(tensor_leaves(x["state"].state_dict()))
+                 for x in (straight, tail))
+    return {"restored": restored, "ckpt": ckpt, "whole": whole,
+            "losses_equal": tail["losses"] == straight["losses"][
+                COMPOSE_RESUME_SPLIT:],
+            "tensors": len(want),
+            "equal": sum(torch.equal(x, y) for x, y in zip(got, want))}
+
+
+def compose_rank(torch, fa, out_dir: str) -> dict:
+    """One rank of phase 21: a gloo group of four on the card, its
+    subgroups formed for each of the phase's meshes
+    (``MeshRuntime.remesh``)."""
+    from distributed_tensorflow_framework_torch.core.config import (
+        MeshConfig,
+        load_config,
+    )
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        initialize_runtime,
+        resolve_mesh,
+    )
+
+    runtime = initialize_runtime(MeshConfig(data=-1), "cuda",
+                                 backend="gloo")
+    rank = runtime.process_index
+    # Each mesh's subgroups formed once, not by every step builder.
+    rt = {k: runtime.remesh(resolve_mesh(load_config(
+        DP_BERT[0], overrides=list(mesh)).mesh, runtime.process_count))
+        for k, mesh in (("a", COMPOSE_MOE_MESH), ("b", COMPOSE_RING_MESH),
+                        ("c", COMPOSE_HEADS_MESH))}
+    try:
+        out = {"rank": rank, "backend": runtime.backend, "s": {}}
+        t = [time.perf_counter()]
+        out["a"] = compose_trainer_run(torch, fa, rt["a"], out_dir, "a",
+                                       (*COMPOSE_MOE, *COMPOSE_MOE_MESH))
+        torch.cuda.empty_cache()
+        out["a_cut"] = compose_cut(torch, fa, rt["a"], out_dir, "a_cut",
+                                   (*COMPOSE_MOE_CUT, *COMPOSE_MOE_MESH))
+        t.append(time.perf_counter())
+        out["b"] = compose_trainer_run(torch, fa, rt["b"], out_dir, "b",
+                                       (*COMPOSE_RING, *COMPOSE_RING_MESH))
+        torch.cuda.empty_cache()
+        over = (*COMPOSE_RING_CUT, *COMPOSE_LONG[:1], *COMPOSE_RING_MESH)
+        torch.use_deterministic_algorithms(True)
+        try:
+            with fused_bwd(fa, False):
+                cut = compose_cut(torch, fa, rt["b"], out_dir, "b_cut", over,
+                                  keep=True)
+                out["resume"] = compose_resume(torch, rt["b"], out_dir, over,
+                                               cut.pop("run"))
+                out["b_cut"] = cut
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+        out["c"] = compose_cut(torch, fa, rt["c"], out_dir, "c",
+                               (*COMPOSE_HEADS_CUT, *COMPOSE_HEADS_MESH))
+        t.append(time.perf_counter())
+        out["s"] = {k: t[i + 1] - t[i] for i, k in enumerate("abc")}
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def compose_wave(workdir: str, hold: bool = False) -> dict:
+    """Phase 21's four ranks."""
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # for 21b's determinism
+    return spawn_children([{"kind": "compose",
+                            "env": {**gang_env(port, COMPOSE_RANKS, r), **env}}
+                           for port in [free_port()]
+                           for r in range(COMPOSE_RANKS)],
+                          workdir, "compose_ranks", hold=hold)
+
+
+def compose_gaps(torch, got: dict, ref: dict, lr: float) -> tuple:
+    """The largest relative gaps of the losses and grad_norms, and the
+    worst parameter's |diff| (over lr) and leaf, of a cut against one
+    process."""
+    gaps = {key: max(abs(g - w) / abs(w) for g, w in zip(got[k], ref[k]))
+            for key, k in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+    tensors = torch.load(got["tensors"], weights_only=True)
+    diff, leaf = worst_leaf(torch, tensors, ref["tensors"])
+    return gaps, diff / lr, leaf
+
+
+def compose_phase(torch, fa, workdir: str, smi: str, wave=None) -> dict:
+    """Phase 21 (see the module docstring) on ``wave`` (started held
+    earlier) or on ranks started here. Returns the attention-kernel
+    launches of 21a's and 21b's Trainer runs and 21c, every rank
+    (main-path runs)."""
+    import dataclasses
+
+    from distributed_tensorflow_framework_torch.ckpt.checkpoint import (
+        CheckpointManager,
+    )
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.train.step import StepBuilder
+
+    t0 = time.perf_counter()
+    wave = wave or compose_wave(workdir)
+    release_children(wave)
+    # The f32 cuts' one-process references, on the same batches, while
+    # the ranks work.
+    refs = {}
+    for part, one_over in (
+            ("a_cut", COMPOSE_MOE_CUT),
+            ("b_cut", (*COMPOSE_RING_CUT, "model.attention_impl=pallas")),
+            ("c", COMPOSE_HEADS_CUT)):
+        with (fused_bwd(fa, False) if part == "b_cut"
+              else contextlib.nullcontext()):
+            ref = zero_cut_case(torch, one_over, None, DP_STEPS,
+                                config_path=DP_BERT[0])
+        refs[part] = {k: ref[k] for k in ("losses", "grad_norms", "tensors",
+                                          "bytes")}
+        refs[part]["lr"] = ref["builder"].config.optimizer.learning_rate
+        del ref
+        torch.cuda.empty_cache()
+    ranks = join_children(wave, timeout=900)
+    bad = []
+    if [r["backend"] for r in ranks] != ["gloo"] * COMPOSE_RANKS:
+        bad.append(("21 backends", [r["backend"] for r in ranks]))
+    counts = {k: 0 for k in KERNEL_NAMES}
+    tol = DP_TOL["bert"]
+    for part, what in (("a", "MoE bert-base bf16 at {data: 1, expert: 2, "
+                             "model: 2}, 32x512 (16 rows a data-parallel "
+                             "rank)"),
+                       ("b", f"bert-base bf16, ring attention at {{data: 1, "
+                             f"fsdp: 2, seq: 2}} with ZeRO-1, 4x"
+                             f"{COMPOSE_SEQ} (2048-token chunks)")):
+        runs = [r[part] for r in ranks]
+        events = read_events(runs[0]["logs"])
+        meta = next(e for e in events if e["kind"] == "run_meta")["extra"]
+        ms = steady_ms(events)
+        steps = runs[0]["steps"]
+        finite = (sorted(int(k) for k in steps)
+                  == list(range(1, COMPOSE_STEPS + 1))
+                  and all(math.isfinite(v["loss"])
+                          and math.isfinite(v["grad_norm"])
+                          for v in steps.values()))
+        same = all(r["steps"] == steps for r in runs)
+        log(f"21{part} {what}, {COMPOSE_LAYERS} layers, mesh {meta['mesh']}"
+            f" (tp leaves {meta.get('tp_sharded_leaves')}, ep leaves "
+            f"{meta.get('ep_sharded_leaves')}, zero {meta.get('zero_sharding')})"
+            f", {COMPOSE_STEPS} steps through the Trainer: losses " + ", ".join(
+                f"step {k} {v['loss']!r}" for k, v in sorted(
+                    steps.items(), key=lambda kv: int(kv[0])))
+            + f"; equal on every rank {same}, finite {finite}; {ms:.1f} "
+            f"ms/step (steps 2-{COMPOSE_STEPS}, chief's clock; gloo through "
+            f"the host, not a scaling figure) [{smi}]")
+        if not (same and finite):
+            bad.append((f"21{part}", same, finite))
+        for r in ranks:
+            a = r[part]
+            log(f"21{part} rank {r['rank']}: parts {a['parts']}, parameters "
+                f"{gb(a['bytes']['params'])}, slots {gb(a['bytes']['slots'])}"
+                f" at rest, peak {a['peak_gb']:.2f} GB, attention on "
+                f"{a['heads']} heads, launches {a['counts']} [{smi}]")
+            counts = {k: counts[k] + a["counts"][k] for k in counts}
+    moe_want = {"fwd": COMPOSE_LAYERS * COMPOSE_STEPS,
+                "dq": COMPOSE_LAYERS * COMPOSE_STEPS,
+                "dkv": COMPOSE_LAYERS * COMPOSE_STEPS, "fused": 0}
+    # 21b: each layer's forward runs the kernel on the two chunks (its
+    # own and the one the ring brings), its backward on both again.
+    chunks = 2 * COMPOSE_LAYERS * COMPOSE_STEPS
+    for r in ranks:
+        a, b = r["a"], r["b"]
+        if (a["counts"] != moe_want or a["heads"] != [6]
+                or a["parts"].get("layer1.moe.wi") != [2, 768, 1536]):
+            bad.append((r["rank"], "21a launches, heads or parts",
+                        a["counts"], a["heads"], a["parts"]))
+        if (b["counts"]["fwd"] != chunks
+                or b["counts"]["fused"] + b["counts"]["dq"] != chunks
+                or b["counts"]["dq"] != b["counts"]["dkv"]
+                or b["heads"] != [12]):
+            bad.append((r["rank"], "21b launches or heads", b["counts"]))
+        counts = {k: counts[k] + r["c"]["counts"][k] for k in counts}
+    # The f32 cuts against one process on the same batches.
+    for part, label in (
+            ("a_cut", "21a f32 MoE 2 layers at {data: 1, expert: 2, model: "
+             "2}, 8x512"),
+            ("b_cut", f"21b f32 2 layers, ring at {{data: 1, fsdp: 2, seq: "
+             f"2}} with ZeRO-1 (two-pass backward), 4x{COMPOSE_SEQ}"),
+            ("c", "21c f32 2 layers 384 wide, 6 heads at {data: 1, model: "
+             "4} (columns split inside a head), 8x512")):
+        ref = refs.pop(part)
+        got = ranks[0][part]
+        gaps, diff, leaf = compose_gaps(torch, got, ref, ref["lr"])
+        log(f"{label} vs one process, {DP_STEPS} steps: losses "
+            f"{got['losses']} vs {ref['losses']}; largest relative gap loss "
+            f"{gaps['loss']:.3e}, grad_norm {gaps['grad_norm']:.3e}; worst "
+            f"parameter |diff| {diff:.3e} x lr ({leaf}); tol {tol}; "
+            f"launches {got['counts']}; parameters at rest per rank "
+            f"{gb(got['bytes']['params'])} against one process's "
+            f"{gb(ref['bytes']['params'])}")
+        if (gaps["loss"] > tol["loss"] or gaps["grad_norm"] > tol["grad_norm"]
+                or diff > tol["params"]
+                or any(r[part]["losses"] != got["losses"] for r in ranks)):
+            bad.append((part, gaps, diff))
+    for r in ranks:
+        res = r["resume"]
+        log(f"21b rank {r['rank']} resume (deterministic algorithms): "
+            f"restored step {res['restored']}; losses after the restore equal"
+            f" {res['losses_equal']}; {res['equal']} of {res['tensors']} "
+            f"tensors (parameters and ZeRO-1 slot parts) bit-equal to "
+            f"{COMPOSE_RESUME_STEPS} straight steps")
+        if not (res["restored"] == COMPOSE_RESUME_SPLIT and res["losses_equal"]
+                and res["equal"] == res["tensors"]):
+            bad.append((r["rank"], "21b resume"))
+    res = ranks[0]["resume"]
+    cfg = load_config(DP_BERT[0], overrides=[*COMPOSE_RING_CUT,
+                                             "model.attention_impl=pallas"])
+    one = StepBuilder(cfg, device="cuda").init_state(SEED + 1)
+    manager = CheckpointManager(dataclasses.replace(
+        cfg.checkpoint, directory=res["ckpt"], allow_reshard=True))
+    restored = manager.restore(one)
+    manager.close()
+    saved = torch.load(res["whole"], weights_only=True)
+    loaded = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    equal = sum(torch.equal(loaded[k], v) for k, v in saved.items())
+    log(f"21b the checkpoint written at {{fsdp: 2, seq: 2}} with ZeRO-1 read "
+        f"by one process: restored step {restored}; {equal} of {len(saved)} "
+        f"model tensors bit-equal to the parameters at the save")
+    if restored != COMPOSE_RESUME_SPLIT or equal != len(saved):
+        bad.append(("21b one-process restore", restored, equal))
+    if bad:
+        raise AssertionError(f"phase 21: {bad}")
+    s = ranks[0]["s"]
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s (on rank 0: 21a "
+        f"{s['a']:.1f}, 21b {s['b']:.1f}, 21c {s['c']:.1f})")
+    return counts
+
+
+
+# The lane: phases 11-14, 16, 19 and 21, in this order, in a process of
+# their own (``--lane OUT``) beside the main one's phases 4-10 and 15. Its
+# waves start held during its phase before theirs, as in the main lane;
+# its lines (on the script's clock) are printed when the main lane joins
+# it, and what its phases return is read from OUT: the launches of their
+# main-path runs (LANE_COUNTS) and 13a's worst errors.
+LANE_COUNTS = ("zero", "tp", "ring", "pipe", "prec", "gang", "compose")
+
+
+def lane_main(torch, fa, gpu: str) -> dict:
+    """Phases 11-14, 16, 19 and 21 (each described in the module
+    docstring); returns their launches by LANE_COUNTS and ``ring_worst``."""
+    out = {}
+    # Phase 11: ZeRO and FSDP. 11a runs BERT-base through the attention
+    # kernels on two ranks in three modes, so its launches join the record.
+    zero_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_zero_")
+    zero_ranks = zero_wave(zero_dir.name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_dir:
+        # Phase 12's two ranks start up (held) while phase 11 runs.
+        tp_held = tp_wave(tp_dir, hold=True)
+        with zero_dir:
+            log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the "
+                "card through the Trainer, replicated, ZeRO f32 and ZeRO "
+                "int8 (11a); FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO "
+                "resume (11c)")
+            out["zero"] = zero_phase(torch, zero_dir.name, gpu,
+                                     wave=zero_ranks)
+
+        # Phase 12: tensor parallelism. 12a runs BERT-base through the
+        # attention kernels on two ranks, each on 6 of the 12 heads, so
+        # its launches join the record.
+        torch.cuda.empty_cache()
+        # 13b's eight ranks start up (held) while phase 12 runs.
+        ring_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ring_")
+        ring_b_held = ring_b_wave(ring_dir.name, hold=True)
+        log("phase 12 tensor parallelism: BERT-base split over two gloo "
+            "ranks of the card at {data: 1, model: 2} through the Trainer "
+            "(12a); against one process in bf16 (12b) and f32 at 8c's cut "
+            "with a resume (12c)")
+        out["tp"] = tp_phase(torch, tp_dir, gpu, wave=tp_held)
+
+    # Phase 13: sequence parallelism. 13b runs the long-context recipe as
+    # written through the attention kernels on eight ranks, so its
+    # launches join the record, and 13a's errors its max_abs_err.
+    torch.cuda.empty_cache()
+    pipe_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_")
+    # Phase 14's four ranks start up (held) while 13c and 13d run, after
+    # 13b, whose eight ranks' start-up they would slow.
+    pipe_held = []
+    with ring_dir as workdir:
+        log("phase 13 sequence parallelism: the kernels with an lse "
+            "cotangent (13a); configs/bert_long_ring.yaml as written on "
+            "eight gloo ranks of the card (13b); seq 2 at 16384 against one "
+            "process (13c); four ranks at {data: 2, seq: 2} in f32, packed, "
+            "both chunk routes, with a resume (13d)")
+        out["ring_worst"], out["ring"] = ring_phase(
+            torch, fa, workdir, gpu, after_b=lambda: pipe_held.append(
+                pipe_wave(pipe_dir.name, hold=True)), b_wave=ring_b_held)
+
+    # Phase 14: pipeline parallelism. 14a runs BERT-base through the
+    # attention kernels on four stages under three schedules, so its
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with pipe_dir:
+        log("phase 14 pipeline parallelism: BERT-base on four gloo stages "
+            "of the card at {data: 1, pipe: 4} through the Trainer under "
+            "gpipe, 1f1b and interleaved (14a); f32 at {data: 2, pipe: 2} "
+            "against one process with a resume (14b)")
+        out["pipe"] = pipe_phase(torch, pipe_dir.name, gpu,
+                                 wave=pipe_held[0])
+
+    # Phase 16: the precision pack and remat. 16a, 16a' and 16b train
+    # BERT through the attention kernels (16a' on their f32 variants), and
+    # 16e's two ranks run ZeRO with and without the fused update, so their
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as workdir:
+        log("phase 16 precision and remat: BERT-base under remat policies "
+            "(16a) and f32 activations (16a'); the long-context config at "
+            "8192 with dots_saveable (16b); ResNet-50/CIFAR-10 under remat "
+            "(16c); the int8 products, LeNet-5 and ResNet-50 on them (16d); "
+            "the fused ZeRO update on two gloo ranks (16e)")
+        out["prec"] = precision_phase(torch, fa, workdir, gpu)
+
+    # Phase 19: the gang supervisor. Its relaunched ranks and the refit
+    # survivor run BERT-base through the attention kernels, so their
+    # launches join the record.
+    torch.cuda.empty_cache()
+    compose_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_compose_")
+    # Phase 21's four ranks start up (held) while phase 19 runs.
+    compose_held = compose_wave(compose_dir.name, hold=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as workdir:
+        log("phase 19 elastic and gang resilience: cli/train_cluster.py "
+            "over two gloo ranks of the card at {data: 2}, BERT-base at "
+            "full width and 2 layers; kill_worker against a control gang "
+            "(19a), drop_worker and the refit (19b), the mesh gate in one "
+            "process (19c)")
+        out["gang"] = gang_phase(torch, workdir, gpu)
+
+    # Phase 21: the composed training meshes. 21a and 21b train BERT-base
+    # through the attention kernels on four ranks, 21c at a cut, so their
+    # launches join the record.
+    torch.cuda.empty_cache()
+    with compose_dir:
+        log("phase 21 the composed training meshes: MoE BERT-base at {data: "
+            "1, expert: 2, model: 2} (21a), BERT-base with ring attention at "
+            "4096 tokens on {data: 1, fsdp: 2, seq: 2} with ZeRO-1 (21b), "
+            "6 heads over model 4 (21c), on four gloo ranks of the card")
+        out["compose"] = compose_phase(torch, fa, compose_dir.name, gpu,
+                                       compose_held)
+    return out
+
+
+def start_lane(workdir: str) -> dict:
+    """Start ``--lane`` in ``workdir``: its stdout and stderr go to files
+    there until :func:`join_lane`."""
+    out = os.path.join(workdir, "lane.json")
+    logs = [open(os.path.join(workdir, f"lane.{n}"), "w")
+            for n in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lane", out],
+        env={**os.environ, START_ENV: repr(_START)}, stdout=logs[0],
+        stderr=logs[1])
+    return {"proc": proc, "logs": logs, "out": out,
+            "t0": time.perf_counter()}
+
+
+def join_lane(lane: dict, timeout: float = 1500.0) -> dict:
+    """Wait for the lane, print its lines (its stdout here, its stderr to
+    this stderr) and return what it wrote; a lane that failed fails the
+    script."""
+    t0 = time.perf_counter()
+    try:
+        rc = lane["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        lane["proc"].kill()
+        rc = lane["proc"].wait()
+    for fh, dest in zip(lane["logs"], (sys.stdout, sys.stderr)):
+        fh.close()
+        with open(fh.name) as src:
+            dest.write(src.read())
+        dest.flush()
+    log(f"the lane (phases 11-14, 16, 19, 21): exit {rc} after "
+        f"{time.perf_counter() - lane['t0']:.1f} s, the main lane's wait "
+        f"for it {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or not os.path.exists(lane["out"]):
+        raise AssertionError(f"the lane exited {rc}")
+    with open(lane["out"]) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
-    if sys.argv[1:2] == ["--gang-supervisor"]:
+    mode = sys.argv[1] if len(sys.argv) > 1 else None
+    if mode in ("--gang-supervisor", "--rank-worker", "--replica-worker",
+                "--child", "--lane", "--watched-module"):
+        watch_parent()
+    else:
+        os.environ[PARENT_ENV] = str(os.getpid())
+    if mode == "--gang-supervisor":
         # A phase-19 supervisor (stdlib only: no torch in this process).
         return gang_supervisor(sys.argv[2:])
+    if mode == "--watched-module":
+        # 20f's cli/fleet.py: the module run as ``python -m`` runs it, in
+        # a process that ends, with its session (its replica), when the
+        # script does.
+        import runpy
+
+        sys.argv = sys.argv[2:]
+        runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+        return 0
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--rank-worker"]:
+    if mode == "--rank-worker":
         # One rank of a phase-19 gang, started by cli/train_cluster.py.
         return rank_worker(sys.argv[2:])
-    if sys.argv[1:2] == ["--replica-worker"]:
+    if mode == "--replica-worker":
         # One replica of phase 20's fleet, started by its router.
         return replica_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "drives the port on an NVIDIA GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--child"]:
+    if mode == "--child":
         # A child ends as soon as its result is written: its process
         # groups are shut down and its files closed, and the interpreter's
         # exit (CUDA's teardown) would only hold up its wave.
@@ -8943,7 +9656,19 @@ def main() -> int:
               f"run from the repository root", file=sys.stderr)
         return 2
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
-    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
+    signal.signal(signal.SIGTERM, terminated)
+    if mode == "--lane":
+        global _START
+        _START = float(os.environ.get(START_ENV, _START))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.build_all()  # the main lane's build, reused
+        out = lane_main(torch, fa, gpu_name_and_power_limit().splitlines()[0])
+        with open(sys.argv[2] + ".tmp", "w") as fh:
+            json.dump(out, fh, default=float)
+        os.replace(sys.argv[2] + ".tmp", sys.argv[2])
+        return 0
+    only = sys.argv[2] if mode == "--only" else None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -9046,6 +9771,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as wd:
             fleet_phase(torch, fa, wd, smi.splitlines()[0], fleet_wave(wd))
         return 0
+    if only == "21":
+        # A development run of phase 21 alone (``--only 21``), after the
+        # kernels' build: no kernels line and no last line.
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_compose_") as wd:
+            compose_phase(torch, fa, wd, smi.splitlines()[0])
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -9064,12 +9796,16 @@ def main() -> int:
     fused_beside_pair(report)
 
     stamp = time.perf_counter()
+    lanes = []
 
     def took(what: str) -> None:
         nonlocal stamp
         now = time.perf_counter()
         log(f"{what} took {now - stamp:.1f} s")
         stamp = now
+        for lane in lanes:  # a lane that failed fails the script now
+            if lane["proc"].poll() not in (None, 0):
+                join_lane(lane)
 
     log("phase 3 kernel parity")
     parity = kernel_parity(torch, fa)
@@ -9081,6 +9817,13 @@ def main() -> int:
     long_worst = long_kernel_parity(torch, fa)
     long_timing = long_kernel_timing(torch, fa)
     took("phases 2-3c")
+    # Phases 11-14, 16, 19 and 21 run in a process of their own, the lane,
+    # beside phases 4-10 and 15 in this one: their ranks wait on the host
+    # (gloo, start-ups) and leave the card idle much of the time. Phase
+    # 20, whose drills time their ejects and readmissions, runs after both.
+    lane_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_lane_")
+    lane = start_lane(lane_dir.name)
+    lanes.append(lane)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         log("phase 4 serve")
@@ -9141,6 +9884,8 @@ def main() -> int:
         image_parity_phase(torch)
         cifar_det = cifar_resume_phase(torch, workdir, cifar_data)
         took("phase 7")
+        # 8a and 8b's child starts up (held) while 17b runs.
+        dp_world1 = dp_world1_wave(workdir, full, cifar_det, hold=True)
         t17 = time.perf_counter()
         log("phase 17b ResNet-50/CIFAR-10 served from phase 7d's step-15 "
             "and step-30 checkpoints, reloaded under traffic")
@@ -9154,120 +9899,53 @@ def main() -> int:
         log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
             "ResNet-50/CIFAR-10), two gloo ranks on the card (8c)")
         dp_counts, ms_8a = data_parallel_phase(torch, fa, workdir, full,
-                                               cifar_det, cifar_ms, gpu)
+                                               cifar_det, cifar_ms, gpu,
+                                               world1=dp_world1)
         took("phase 8")
 
     # Phase 9: ImageNet from records, Inception-v3, the one-device BN. No
     # attention kernel lies on this path either.
     torch.cuda.empty_cache()
+    coll_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_coll_")
+    coll_held = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as workdir:
-        image_records_phase(torch, workdir, gpu, "abcdef")
+        # 10a's child starts up (held) while 9e and 9f run.
+        image_records_phase(
+            torch, workdir, gpu, "abcdef", before_e=lambda: coll_held.append(
+                coll_world1_wave(coll_dir.name, full, hold=True)))
     took("phase 9")
 
     # Phase 10: explicit collectives. 10a and 10a' run BERT-base through
     # the attention kernels, so their launches join the record.
     torch.cuda.empty_cache()
-    zero_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_zero_")
-    # Phase 11's two ranks start up (held) while phase 10 runs.
-    zero_held = zero_wave(zero_dir.name, hold=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_coll_") as workdir:
+    with coll_dir as workdir:
         log("phase 10 explicit collectives: BERT-base under shard_map at "
             "world 1 over NCCL, int8 (10a) and no wire (10a'); two gloo "
             "ranks on the card (10b)")
-        coll_counts = collectives_phase(torch, workdir, full, ms_8a, gpu)
-
-    # Phase 11: ZeRO and FSDP. 11a runs BERT-base through the attention
-    # kernels on two ranks in three modes, so its launches join the record.
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_dir:
-        # Phase 12's two ranks start up (held) while phase 11 runs.
-        tp_held = tp_wave(tp_dir, hold=True)
-        with zero_dir:
-            log("phase 11 ZeRO and FSDP: BERT-base on two gloo ranks of the "
-                "card through the Trainer, replicated, ZeRO f32 and ZeRO "
-                "int8 (11a); FSDP and ZeRO-1 at 8c's cut (11b); a ZeRO "
-                "resume (11c)")
-            zero_counts = zero_phase(torch, zero_dir.name, gpu,
-                                     wave=zero_held)
-
-        # Phase 12: tensor parallelism. 12a runs BERT-base through the
-        # attention kernels on two ranks, each on 6 of the 12 heads, so
-        # its launches join the record.
-        torch.cuda.empty_cache()
-        log("phase 12 tensor parallelism: BERT-base split over two gloo "
-            "ranks of the card at {data: 1, model: 2} through the Trainer "
-            "(12a); against one process in bf16 (12b) and f32 at 8c's cut "
-            "with a resume (12c)")
-        tp_counts = tp_phase(torch, tp_dir, gpu, wave=tp_held)
-
-    # Phase 13: sequence parallelism. 13b runs the long-context recipe as
-    # written through the attention kernels on eight ranks, so its
-    # launches join the record, and 13a's errors its max_abs_err.
-    torch.cuda.empty_cache()
-    pipe_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_")
-    # Phase 14's four ranks start up (held) while 13c and 13d run, after
-    # 13b, whose eight ranks' start-up they would slow.
-    pipe_held = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as workdir:
-        log("phase 13 sequence parallelism: the kernels with an lse "
-            "cotangent (13a); configs/bert_long_ring.yaml as written on "
-            "eight gloo ranks of the card (13b); seq 2 at 16384 against one "
-            "process (13c); four ranks at {data: 2, seq: 2} in f32, packed, "
-            "both chunk routes, with a resume (13d)")
-        ring_worst, ring_counts = ring_phase(
-            torch, fa, workdir, gpu, after_b=lambda: pipe_held.append(
-                pipe_wave(pipe_dir.name, hold=True)))
-
-    # Phase 14: pipeline parallelism. 14a runs BERT-base through the
-    # attention kernels on four stages under three schedules, so its
-    # launches join the record.
-    torch.cuda.empty_cache()
-    with pipe_dir:
-        log("phase 14 pipeline parallelism: BERT-base on four gloo stages "
-            "of the card at {data: 1, pipe: 4} through the Trainer under "
-            "gpipe, 1f1b and interleaved (14a); f32 at {data: 2, pipe: 2} "
-            "against one process with a resume (14b)")
-        pipe_counts = pipe_phase(torch, pipe_dir.name, gpu,
-                                 wave=pipe_held[0])
+        coll_counts = collectives_phase(torch, workdir, full, ms_8a, gpu,
+                                        world1=coll_held[0])
 
     # Phase 15: Mixture-of-Experts. 15a serves, 15b trains BERT-base with
     # MoE layers through the attention kernels, and 15d's two ranks run
     # the Trainer expert-parallel, so their launches join the record.
     torch.cuda.empty_cache()
+    fleet_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    # Phase 20's replicas start up (held) while phase 15 runs and the
+    # lane ends.
+    fleet_held = fleet_wave(fleet_dir.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as workdir:
         log("phase 15 Mixture-of-Experts: BERT-base with 4 experts in every"
             " second layer, top-2, served (15a) and trained at full depth "
             "(15b); f32 correctness at 2 layers (15c); expert parallel on "
             "two gloo ranks of the card at {data: 1, expert: 2} (15d)")
         moe_counts = moe_phase(torch, fa, workdir, gpu)
+    took("phases 10 and 15")
+    log(f"the main lane (phases 4-10 and 15) took "
+        f"{time.perf_counter() - lane['t0']:.1f} s")
 
-    # Phase 16: the precision pack and remat. 16a, 16a' and 16b train
-    # BERT through the attention kernels (16a' on their f32 variants), and
-    # 16e's two ranks run ZeRO with and without the fused update, so their
-    # launches join the record.
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as workdir:
-        log("phase 16 precision and remat: BERT-base under remat policies "
-            "(16a) and f32 activations (16a'); the long-context config at "
-            "8192 with dots_saveable (16b); ResNet-50/CIFAR-10 under remat "
-            "(16c); the int8 products, LeNet-5 and ResNet-50 on them (16d); "
-            "the fused ZeRO update on two gloo ranks (16e)")
-        prec_counts = precision_phase(torch, fa, workdir, gpu)
-
-    # Phase 19: the gang supervisor. Its relaunched ranks and the refit
-    # survivor run BERT-base through the attention kernels, so their
-    # launches join the record.
-    torch.cuda.empty_cache()
-    fleet_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
-    # Phase 20's replicas start up (held) while phase 19 runs.
-    fleet_held = fleet_wave(fleet_dir.name)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gang_") as workdir:
-        log("phase 19 elastic and gang resilience: cli/train_cluster.py "
-            "over two gloo ranks of the card at {data: 2}, BERT-base at "
-            "full width and 2 layers; kill_worker against a control gang "
-            "(19a), drop_worker and the refit (19b), the mesh gate in one "
-            "process (19c)")
-        gang_counts = gang_phase(torch, workdir, gpu)
+    lane_out = join_lane(lane)
+    lane_dir.cleanup()
+    took("the wait for the lane")
 
     # Phase 20: the serving fleet. Its replicas serve BERT-base through
     # the forward kernel, so their launches join the record.
@@ -9280,6 +9958,7 @@ def main() -> int:
             " (20e), cli/fleet.py and its SIGTERM (20f)")
         fleet_counts = fleet_phase(torch, fa, fleet_dir.name, gpu,
                                    fleet_held)
+    ring_worst = lane_out["ring_worst"]
 
     # Launches on the main path: serving, the S=512 training runs (phase 5,
     # phase 5f's packed and unpacked runs, phase 18a's profiled run,
@@ -9288,7 +9967,8 @@ def main() -> int:
     # ranks of each), the two long-context runs, 13b's eight ranks and
     # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
     # 16a, 16a', 16b and 16e's two ranks, 19's relaunched ranks and its
-    # refit survivor, 20's replicas that ended 0; those with
+    # refit survivor, 20's replicas that ended 0, 21's four ranks (21a,
+    # 21b, 21c); those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -9297,10 +9977,8 @@ def main() -> int:
     launched = {name: train_counts[name] + packed_counts["counts"][name]
                 + obs_counts[name]
                 + sum(c[name] for c in long_counts) + dp_counts[name]
-                + coll_counts[name] + zero_counts[name] + tp_counts[name]
-                + ring_counts[name] + pipe_counts[name] + moe_counts[name]
-                + prec_counts[name] + gang_counts[name]
-                + fleet_counts[name]
+                + coll_counts[name] + moe_counts[name] + fleet_counts[name]
+                + sum(lane_out[phase][name] for phase in LANE_COUNTS)
                 for name in KERNEL_NAMES}
     launched["fwd"] += launches
     forced = launched["fused"] == 0
@@ -9342,4 +10020,9 @@ if __name__ == "__main__":
         for wave in list(_WAVES):
             stop_children(wave)
         stop_fleet_procs()
+        if len(sys.argv) < 2 or sys.argv[1] in ("--only", "--lane"):
+            left = stop_descendants()
+            if left:
+                print(f"chip_smoke: stopped {len(left)} process(es) a "
+                      f"failure left behind", file=sys.stderr)
     sys.exit(code)

@@ -305,10 +305,11 @@ class CheckpointManager:
         live = state.state_dict()
         if state.layout is not None:
             live = state.layout.global_state(live, state.optimizer.names)
-        if state.tp is not None:
-            live = state.tp.global_state(live, state.optimizer.names)
+        # The inverse of the cuts' order (tensor, expert, FSDP).
         if state.ep is not None:
             live = state.ep.global_state(live, state.optimizer.names)
+        if state.tp is not None:
+            live = state.tp.global_state(live, state.optimizer.names)
         if state.pipe is not None:
             live = state.pipe.global_state(live, state.optimizer.names)
         if not self.is_chief:

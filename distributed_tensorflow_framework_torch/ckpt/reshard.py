@@ -122,6 +122,21 @@ def _leaf_layouts(state) -> dict[str, list[str]]:
     return out
 
 
+def _whole_shapes(state) -> dict[str, tuple[int, ...]]:
+    """Each parameter's key → the whole leaf's port shape: the shape
+    before the first of the cuts (tensor, expert, FSDP) that split it."""
+    fsdp = state.layout if isinstance(state.layout, DimSharding) else None
+    out = {}
+    for key, p in state.model.named_parameters():
+        shape = tuple(p.shape)
+        for layout in (fsdp, state.ep, state.tp):  # the last cut first
+            leaf = None if layout is None else layout.leaves.get(key)
+            if leaf is not None:
+                shape = tuple(leaf.shape)
+        out[key] = shape
+    return out
+
+
 def spec_digest(state) -> str:
     """sha256 over every model tensor's (key, layout) in this run: a
     fingerprint of how the state is sharded, recorded for forensics and
@@ -170,7 +185,8 @@ def plan_reshard(saved: dict, state, runtime, *, step: int) -> dict:
     the JAX package's) at the new mesh — informational: a ``shard_map``
     run, which keeps every parameter whole, scores low."""
     target = state_topology(state, runtime)
-    specs = infer_param_specs(state.model, target["axes"])
+    specs = infer_param_specs(state.model, target["axes"],
+                              _whole_shapes(state))
     layouts = _leaf_layouts(state)
     match = total = 0
     for key, _ in state.model.named_parameters():

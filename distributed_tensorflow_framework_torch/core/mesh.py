@@ -45,9 +45,14 @@ collective (DDP's bucketed all-reduces fire from autograd hooks while the
 ring's, the pipeline's or the dispatch's backward sends) ever shares it;
 the pipeline's broadcasts from one stage (:meth:`MeshRuntime.line_broadcast_`)
 take the same group. The MoE router's balance statistics are summed over
-the data-parallel ranks inside the forward and the backward as well, so
-the line along ``DATA_AXES`` has a group of its own too
-(:attr:`MeshRuntime.router_group`). NCCL, and gloo on CPU tensors, send
+the ranks that hold tokens of the global batch inside the forward and the
+backward as well, so the line along ``DATA_AXES`` has a group of its own
+too (:attr:`MeshRuntime.router_group`), and so has the line along
+``TOKEN_AXES`` (data × fsdp × expert × seq) when ``seq`` exceeds 1, which
+the statistics span under sequence parallelism
+(:meth:`MeshRuntime.token_group`); the MoE layers' per-row slot counts
+travel along ``seq`` on the ring's group, in the same order on every
+rank. NCCL, and gloo on CPU tensors, send
 and receive natively (``batch_isend_irecv``, both directions in one
 batch); gloo's ``send`` and ``recv`` take a tensor's raw pointer without
 checking its device, so CUDA tensors there go through the host
@@ -101,8 +106,12 @@ MESH_AXES = ("data", "fsdp", "expert", "pipe", "seq", "model")
 # The axes a batch is split over and the (non-expert) gradients are
 # reduced over: the JAX package's ``batch_spec`` (core/mesh.py).
 DATA_AXES = ("data", "fsdp", "expert")
+# The ranks that hold tokens of the global batch under sequence
+# parallelism: each data-parallel rank's rows are split over ``seq``.
+TOKEN_AXES = DATA_AXES + ("seq",)
 # The lines that get a process group of their own (see the module
-# docstring): one axis each, and the data-parallel line.
+# docstring): one axis each, and the data-parallel line; and the token
+# line when ``seq`` exceeds 1 (else it is the data-parallel one).
 LINE_AXES = (("expert",), ("pipe",), ("seq",), DATA_AXES)
 
 
@@ -380,6 +389,15 @@ class MeshRuntime:
         router's statistics."""
         return self.line_group(DATA_AXES)
 
+    def token_group(self, seq_parallel: bool) -> AxisGroup:
+        """The line of the ranks that hold tokens of the global batch, on
+        a process group of its own, for the MoE router's statistics:
+        :attr:`router_group` when the rows are whole, the line along
+        ``TOKEN_AXES`` when ``seq_parallel`` splits them over ``seq``."""
+        if seq_parallel and self.sizes["seq"] > 1:
+            return self.line_group(TOKEN_AXES)
+        return self.router_group
+
     @property
     def seq_group(self) -> AxisGroup:
         """This rank's ``seq`` line, on the ring's own process group:
@@ -610,14 +628,15 @@ def _form_subgroups(sizes: Mapping[str, int], rank: int) -> dict:
 
 
 def _form_line_groups(sizes: Mapping[str, int], rank: int) -> dict:
-    """A process group for each line of LINE_AXES of more than one rank
-    (every rank calls ``new_group`` for each, in the same order), used by
-    that line's own collectives alone (the MoE dispatch's along
-    ``expert``, the pipeline's along ``pipe``, the ring's along ``seq``,
-    the MoE router's along ``DATA_AXES``); returns this rank's, by
-    axes."""
+    """A process group for each line of LINE_AXES (and of TOKEN_AXES when
+    ``seq`` exceeds 1) of more than one rank (every rank calls
+    ``new_group`` for each, in the same order), used by that line's own
+    collectives alone (the MoE dispatch's along ``expert``, the
+    pipeline's along ``pipe``, the ring's and the MoE slot counts' along
+    ``seq``, the MoE router's along ``DATA_AXES`` or ``TOKEN_AXES``);
+    returns this rank's, by axes."""
     mine = {}
-    for axes in LINE_AXES:
+    for axes in LINE_AXES + ((TOKEN_AXES,) if sizes["seq"] > 1 else ()):
         if math.prod(sizes[a] for a in axes) == 1:
             continue
         others = [a for a in MESH_AXES if a not in axes]

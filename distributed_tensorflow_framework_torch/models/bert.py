@@ -34,9 +34,12 @@ after each draw, are those of one process at ``seq = 1``.
 
 Under tensor parallelism (parallel/tensor_parallel.py) the projections
 are split over the mesh's ``model`` axis: ``tp_size`` of the attention is
-the axis's size, and its ``nh / tp_size`` heads are this rank's; the
-embedding table is held as this rank's H-part and gathered whole once per
-forward (``Embed.table``).
+the axis's size, and its ``nh / tp_size`` heads are this rank's; when the
+axis does not divide the heads, ``head_group`` is the axis's group
+instead, the projections' columns are gathered whole before the
+attention runs on every head, and this rank keeps its columns of the
+context; the embedding table is held as this rank's H-part and gathered
+whole once per forward (``Embed.table``).
 
 Mixture-of-Experts (``num_experts > 0``; models/moe.py): every
 ``moe_every``-th layer (layers ``moe_every − 1``, ``2·moe_every − 1``, ...)
@@ -74,7 +77,7 @@ from distributed_tensorflow_framework_torch.models.layers import (
     dropout,
     normal_,
 )
-from distributed_tensorflow_framework_torch.models.moe import MoEMlp
+from distributed_tensorflow_framework_torch.models.moe import MoEMlp, SeqSlots
 from distributed_tensorflow_framework_torch.ops.flash_attention import (
     flash_attention,
 )
@@ -115,8 +118,10 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.fused_qkv = fused_qkv
-        # The tensor-parallel split of the heads (1: every head here).
+        # The tensor-parallel split of the heads (1: every head here), or
+        # the ``model`` group whose columns are gathered across the heads.
         self.tp_size = 1
+        self.head_group = None
         # The ring's runtime (core/mesh.py) under sequence parallelism;
         # None: a ring of one rank.
         self.seq_runtime = None
@@ -149,15 +154,30 @@ class MultiHeadAttention(nn.Module):
         nh = self.num_heads // self.tp_size
         width = nh * (h // self.num_heads)
         heads = (b, s, nh, h // self.num_heads)
+        group = self.head_group
+        if group is not None:
+            from distributed_tensorflow_framework_torch.parallel import (
+                tensor_parallel as tpl,
+            )
+
+            def whole(y):  # this rank's columns → every column
+                return tpl.gather_from_group(y, group, y.dim() - 1)
         if self.fused_qkv:
-            qkv = self.qkv(x).view(b, s, 3, width)
+            cols = width if group is None else width // group.size
+            qkv = self.qkv(x).view(b, s, 3, cols)
+            if group is not None:
+                qkv = whole(qkv)
             q, k, v = (qkv[:, :, i, :].reshape(heads) for i in range(3))
         else:
-            q = self.query(x).reshape(heads)
-            k = self.key(x).reshape(heads)
-            v = self.value(x).reshape(heads)
+            q, k, v = (p(x) for p in (self.query, self.key, self.value))
+            if group is not None:
+                q, k, v = whole(q), whole(k), whole(v)
+            q, k, v = q.reshape(heads), k.reshape(heads), v.reshape(heads)
         out = self.attention_fn(q, k, v, mask=mask, segment_ids=segment_ids)
-        return self.attn_out(out.reshape(b, s, width))
+        out = out.reshape(b, s, width)
+        if group is not None:
+            out = tpl.split_to_group(out, group, 2)
+        return self.attn_out(out)
 
 
 # The keys of an encoder layer's aux dict (models/moe.py).
@@ -359,7 +379,8 @@ class BertForMLM(nn.Module):
     def shard_sequence(self, runtime) -> None:
         """Sequence parallelism over ``runtime``'s ``seq`` ranks (ring
         attention): from here on ``forward`` takes whole rows and returns
-        the logits of this rank's part of each."""
+        the logits of this rank's part of each; the MoE layers route
+        their part with the whole row's slots (models/moe.py)."""
         group = runtime.axis_group("seq")
         part = (group.index, group.size)
         self.seq_runtime = runtime
@@ -368,6 +389,8 @@ class BertForMLM(nn.Module):
             layer = getattr(self, f"layer{i}")
             layer.seq_part = part
             layer.attn.seq_runtime = runtime
+            if layer.moe is not None:
+                layer.moe.seq = SeqSlots(runtime)
 
     def forward(self, input_ids, attention_mask=None, segment_ids=None, *,
                 dropout_generator: torch.Generator | None = None):

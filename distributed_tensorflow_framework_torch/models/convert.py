@@ -118,18 +118,20 @@ def flax_to_state_dict(params: dict[str, Any],
     return out
 
 
-def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...],
-                                                     tuple[int, ...]]]:
+def flax_layout(model: nn.Module, shapes=None
+                ) -> dict[str, tuple[tuple[str, ...], tuple[int, ...]]]:
     """Each parameter's state_dict key in the port model → (its Flax path,
     the Flax leaf's shape), with layouts taken from the module types (a
     Dense's Flax kernel shape is (in, *out), where the fused ``qkv``
-    output is (3, H); a Conv's is (kh, kw, cin, cout))."""
+    output is (3, H); a Conv's is (kh, kw, cin, cout)). ``shapes`` (key →
+    port shape) overrides the parameters' own shapes (a split model's
+    whole leaves)."""
     modules = dict(model.named_modules())
     out = {}
     for key, tensor in model.named_parameters():
         *mods, name = key.split(".")
         owner = modules[".".join(mods)]
-        shape = tuple(tensor.shape)
+        shape = tuple(tensor.shape if shapes is None else shapes[key])
         if isinstance(owner, Dense):
             out_shape = ((3, shape[0] // 3) if mods[-1] == "qkv"
                          else (shape[0],))

@@ -49,6 +49,27 @@ ranks' gradients is the gradient of the global loss. When ``ep`` is set
 (an :class:`~distributed_tensorflow_framework_torch.parallel.expert.ExpertExchange`),
 ``wi`` and ``wo`` hold this rank's ``E/n`` experts and the (B, E, C, H)
 expert buffers travel to the ranks that hold their experts and back.
+
+Tensor parallelism (``tp``, the ``model`` group of
+parallel/tensor_parallel.py; the JAX package's ``MOE_RULES``): ``wi``
+(E, H, F) holds this rank's block of F (column-parallel) and ``wo`` (E, F,
+H) the same block of its rows (row-parallel); the expert buffers enter
+through ``copy_to_group`` and the expert outputs are summed over
+``model`` (``reduce_from_group``) before they travel back. The routing,
+the gate and the combine are replicated along ``model``.
+
+Sequence parallelism (``seq``, a :class:`SeqSlots`; models/bert.py
+``shard_sequence``): the layer holds this rank's part of each row. The
+dispatch group stays the whole row, as in the JAX package: the capacity
+is the whole row's, and the slots are claimed in (round, position) order
+over the whole row, so this rank's first slot for (row, round, expert)
+is the count of the row's assignments before it in that order: those of
+the earlier rounds over the whole row and those of this round on the
+earlier ``seq`` ranks. One all-gather of the (B, K, E) integer counts
+along ``seq`` gives them (:meth:`SeqSlots.offsets`). The expert MLP is
+token-wise with no bias, so this rank's buffers hold only its own tokens,
+at their whole-row slots, and the zeros elsewhere give zero outputs that
+no token of this rank reads.
 """
 
 from __future__ import annotations
@@ -113,16 +134,21 @@ def balance_loss(probs: torch.Tensor, first_mask: torch.Tensor
 
 
 def dense_tables(probs: torch.Tensor, choices: torch.Tensor, topk: int,
-                 capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+                 capacity: int, base: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The one-hot (B, S, E, C) ``dispatch`` and the weighted ``combine``
     of the JAX ``topk_dispatch``: round k claims the slots after the
-    earlier rounds' claims, in token order."""
+    earlier rounds' claims, in token order. ``base`` (B, K, E): the first
+    slot of each round's claims instead (a part of the row: the module
+    docstring's sequence parallelism)."""
     b, s, e = probs.shape
     dispatch = probs.new_zeros((b, s, e, capacity))
     gate_weights = probs.new_zeros((b, s, e))
     claimed = probs.new_zeros((b, e))
     for k in range(topk):
         mask = F.one_hot(choices[:, k], e).to(probs.dtype)  # (B, S, E)
+        if base is not None:
+            claimed = base[:, k].to(probs.dtype)
         # Position of each token within its chosen expert's buffer.
         pos = torch.cumsum(mask, dim=1) - 1.0 + claimed[:, None, :]
         mask = mask * (pos < capacity)
@@ -139,10 +165,12 @@ def dense_tables(probs: torch.Tensor, choices: torch.Tensor, topk: int,
 
 
 def sorted_tables(probs: torch.Tensor, expert_a: torch.Tensor, topk: int,
-                  capacity: int) -> tuple[torch.Tensor, ...]:
+                  capacity: int, base: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, ...]:
     """The index tables of the JAX ``topk_dispatch_sorted``: (token_table
     (B, E, C) int64, table_valid (B, E, C) f32, pos_a (B, K, S) clamped to
-    [0, C), combine_w (B, K, S), 0 for a dropped assignment)."""
+    [0, C), combine_w (B, K, S), 0 for a dropped assignment). ``base`` as
+    in :func:`dense_tables`."""
     b, s, e = probs.shape
     dev = probs.device
     w_a = torch.gather(probs[:, None].expand(b, topk, s, e), -1,
@@ -159,6 +187,14 @@ def sorted_tables(probs: torch.Tensor, expert_a: torch.Tensor, topk: int,
     counts = F.one_hot(expert_f, e).sum(dim=1)           # (B, E)
     starts = torch.cumsum(counts, dim=-1) - counts       # exclusive
     pos_sorted = index[None, :] - torch.gather(starts, -1, se_)
+    if base is not None:
+        # Within its expert an assignment of round k sits after this
+        # part's claims of the earlier rounds; move it to ``base``.
+        per_round = F.one_hot(expert_a, e).sum(dim=2)    # (B, K, E)
+        shift = base - (torch.cumsum(per_round, dim=1) - per_round)
+        k_sorted = order // s
+        pos_sorted = pos_sorted + torch.gather(
+            shift.reshape(b, topk * e), -1, k_sorted * e + se_)
     valid_sorted = pos_sorted < capacity
     dest = torch.where(valid_sorted, pos_sorted, capacity)  # dump column C
     bidx = torch.arange(b, device=dev)[:, None].expand(b, a)
@@ -210,6 +246,30 @@ def capacity_for(seq_len: int, num_experts: int, topk: int,
                                    * capacity_factor)))
 
 
+class SeqSlots:
+    """A MoE layer's ``seq`` under sequence parallelism: this rank's place
+    on its ``seq`` line and the exchange of the per-row slot counts along
+    it (the ring's own process group, core/mesh.py ``seq_group``)."""
+
+    def __init__(self, runtime):
+        self.runtime = runtime
+        self.group = runtime.seq_group
+        self.size, self.index = self.group.size, self.group.index
+
+    def offsets(self, choices: torch.Tensor, e: int) -> torch.Tensor:
+        """(B, K, E) int64: the whole-row slot at which this rank's claims
+        of each (row, round, expert) start, from ``choices`` (B, K, S/n),
+        this rank's tokens' experts."""
+        counts = F.one_hot(choices, e).sum(dim=2)        # (B, K, E)
+        every = self.runtime.all_gather_(
+            counts.new_empty((self.size * counts.shape[0],)
+                             + tuple(counts.shape[1:])),
+            counts, self.group).view((self.size,) + tuple(counts.shape))
+        rounds = every.sum(dim=0)
+        earlier_rounds = torch.cumsum(rounds, dim=1) - rounds
+        return earlier_rounds + every[:self.index].sum(dim=0)
+
+
 class MoEMlp(nn.Module):
     """The MoE FFN that replaces an encoder layer's dense MLP: Flax
     ``moe/{gate/kernel, wi, wo}``. ``stats`` and ``ep`` (the module
@@ -234,6 +294,8 @@ class MoEMlp(nn.Module):
         self.dtype = dtype
         self.stats = None
         self.ep = None
+        self.tp = None
+        self.seq = None
         self.gate = Dense(hidden, num_experts, dtype=torch.float32,
                           use_bias=False, device=device)
         self.wi = nn.Parameter(torch.empty(
@@ -251,34 +313,48 @@ class MoEMlp(nn.Module):
     def _experts(self, xe: torch.Tensor) -> torch.Tensor:
         """The expert MLPs on their (B, E, C, H) buffers, in ``dtype``;
         under expert parallelism on this rank's experts of every rank's
-        buffers."""
+        buffers, under tensor parallelism on this rank's block of F with
+        the outputs summed over ``model``."""
+        from distributed_tensorflow_framework_torch.parallel import (
+            tensor_parallel as tpl,
+        )
+
         dtype = self.dtype
         b = xe.shape[0]
         if self.ep is not None:
             xe = self.ep.to_experts(xe)
+        if self.tp is not None:
+            xe = tpl.copy_to_group(xe, self.tp)
         he = F.gelu(torch.einsum("bech,ehf->becf", xe, self.wi.to(dtype)),
                     approximate="tanh")
         oe = torch.einsum("becf,efh->bech", he, self.wo.to(dtype))
+        if self.tp is not None:
+            oe = tpl.reduce_from_group(oe, self.tp)
         return oe if self.ep is None else self.ep.from_experts(oe, b)
 
     def forward(self, x: torch.Tensor
                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         b, s, _ = x.shape
         e, k, dtype = self.num_experts, self.topk, self.dtype
-        capacity = capacity_for(s, e, k, self.capacity_factor)
+        # The dispatch group is the whole row, also when this rank holds
+        # a part of it.
+        row = s if self.seq is None else s * self.seq.size
+        capacity = capacity_for(row, e, k, self.capacity_factor)
         gate_logits = self.gate(x.float())
         probs, choices, first_mask = route(gate_logits, k)
+        base = None if self.seq is None else self.seq.offsets(choices, e)
         rows = torch.arange(b, device=x.device)[:, None, None]
         if self.dispatch_impl == "sorted":
             token_table, table_valid, pos_a, combine_w = sorted_tables(
-                probs, choices, k, capacity)
+                probs, choices, k, capacity, base)
             placed = table_valid.sum()
             # Each expert's claimed tokens, (B, E, C, H), with no (B, S,
             # E, C) intermediary.
             xe = (x.to(dtype)[rows, token_table]
                   * table_valid[..., None].to(dtype))
         else:
-            dispatch, combine = dense_tables(probs, choices, k, capacity)
+            dispatch, combine = dense_tables(probs, choices, k, capacity,
+                                             base)
             placed = dispatch.sum()
             xe = torch.einsum("bsec,bsh->bech", dispatch.to(dtype),
                               x.to(dtype))
@@ -288,9 +364,10 @@ class MoEMlp(nn.Module):
             out = (og * combine_w[..., None].to(dtype)).sum(dim=1)
         else:
             out = torch.einsum("bsec,bech->bsh", combine.to(dtype), oe)
-        # The statistics as sums over this rank's rows: [Σ probs (E), Σ
+        # The statistics as sums over this rank's tokens: [Σ probs (E), Σ
         # z² (1), Σ first choices (E), placed (1), tokens (1)]; summed
-        # over the data-parallel ranks when ``stats`` is set.
+        # over the ranks that hold the global batch's tokens when
+        # ``stats`` is set.
         z2 = (torch.logsumexp(gate_logits, dim=-1).square().sum()
               if self.zloss_weight else gate_logits.new_zeros(()))
         sums = torch.cat([probs.sum(dim=(0, 1)), z2[None],

@@ -24,19 +24,29 @@ port runs one process per rank, so it places them by hand:
     ``model.remat`` the recompute replays the exchange: every rank
     recomputes the same layers in the same order;
   * :class:`RouterStats` sums a layer's balance statistics over the
-    data-parallel ranks (core/mesh.py ``router_group``), so that the
-    balance loss, the z-loss and the dropped fraction are the global
-    batch's, as under the JAX ``jit`` step; its backward all-reduces the
-    gradient, which makes DDP's average of the ranks' gradients the
-    gradient of the global loss whatever loss scale each rank applies.
+    ranks that hold tokens of the global batch (core/mesh.py
+    ``token_group``: the data-parallel ranks, and under sequence
+    parallelism the ``seq`` ranks of each, never the ranks along
+    ``model``, which repeat the routing), so that the balance loss, the
+    z-loss and the dropped fraction are the global batch's, as under the
+    JAX ``jit`` step; its backward all-reduces the gradient, which makes
+    DDP's average of the ranks' gradients the gradient of the global loss
+    whatever loss scale each rank applies.
 
 The gradients. Every leaf that is not an expert part is reduced by DDP
-over data × fsdp × expert, as a replicated leaf. An expert part's
-gradient already holds every rank of its expert line's tokens (the
-exchange's backward brought them), each scaled as its rank scaled its
-loss; so DDP leaves the parts out, and :meth:`ExpertParallel.reduce_grads_`
-sums them over data × fsdp in one all-reduce and divides by the
-data-parallel count, as DDP's average does.
+over data × fsdp × expert (× seq under sequence parallelism), as a
+replicated leaf. An expert part's gradient already holds every rank of
+its expert line's tokens (the exchange's backward brought them), each
+scaled as its rank scaled its loss; so DDP leaves the parts out, and
+:meth:`ExpertParallel.reduce_grads_` sums them over data × fsdp (× seq)
+in one all-reduce and divides by the count DDP's average divides by.
+
+Beside tensor parallelism (``tp``) the expert parts are cut from the
+tensor-parallel parts (E/n of the experts of this rank's block of F), and
+``grad_norm`` counts each part once: the squares of the leaves split over
+``expert`` and ``model`` summed over both, those split over ``model``
+alone over ``model``, a replicated leaf's once. FSDP may cut the parts
+further (parallel/sharding.py), along a dim neither axis took.
 """
 
 from __future__ import annotations
@@ -83,12 +93,12 @@ class _SumOverRanks(torch.autograd.Function):
 
 
 class RouterStats:
-    """A MoE layer's ``stats`` (models/moe.py): the sum over the
-    data-parallel ranks, differentiable."""
+    """A MoE layer's ``stats`` (models/moe.py): the sum over the ranks
+    that hold the global batch's tokens, differentiable."""
 
-    def __init__(self, runtime):
+    def __init__(self, runtime, seq_parallel: bool = False):
         self.runtime = runtime
-        self.group = runtime.router_group
+        self.group = runtime.token_group(seq_parallel)
 
     def __call__(self, sums: torch.Tensor) -> torch.Tensor:
         return _SumOverRanks.apply(sums, self.runtime, self.group)
@@ -130,14 +140,16 @@ def moe_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
             if isinstance(m, MoEMlp)]
 
 
-def attach_router_stats(model: nn.Module, runtime) -> None:
+def attach_router_stats(model: nn.Module, runtime,
+                        seq_parallel: bool = False) -> None:
     """Give every MoE layer of ``model`` the sum of its statistics over
-    ``runtime``'s data-parallel ranks (none at one rank)."""
+    ``runtime``'s data-parallel ranks, and their ``seq`` ranks when
+    ``seq_parallel`` (none at one rank)."""
     if runtime is None or runtime.backend is None \
-            or runtime.router_group.size <= 1:
+            or runtime.token_group(seq_parallel).size <= 1:
         return
     for _, m in moe_layers(model):
-        m.stats = RouterStats(runtime)
+        m.stats = RouterStats(runtime, seq_parallel)
 
 
 class ExpertParallel(PartLayout):
@@ -146,10 +158,13 @@ class ExpertParallel(PartLayout):
     each ``wi``/``wo`` whose E the axis divides into this rank's experts
     (the model's parameter becomes the part) and gives those layers their
     :class:`ExpertExchange`. ``leaves``: key → :class:`FsdpLeaf` over
-    dim 0, or None for a leaf held whole."""
+    dim 0, or None for a leaf held whole. ``tp``: the tensor-parallel
+    layout that cut the model first (parallel/tensor_parallel.py), or
+    None."""
 
-    def __init__(self, model: nn.Module, runtime):
+    def __init__(self, model: nn.Module, runtime, tp=None):
         self.runtime, self.axes, self.at_rest = runtime, "expert", True
+        self.tp = tp
         group = runtime.axis_group("expert")
         self.index, n = group.index, group.size
         specs = infer_param_specs(model, {"expert": n})
@@ -175,18 +190,26 @@ class ExpertParallel(PartLayout):
     def part_keys(self) -> list[str]:
         return [k for k, leaf in self.leaves.items() if leaf is not None]
 
+    def split_axes(self, key: str) -> tuple[str, ...]:
+        """The mesh axes whose ranks hold parts of ``key``'s leaf."""
+        tp = None if self.tp is None else self.tp.leaves.get(key)
+        return (("expert",) if self.leaves.get(key) is not None else ()) + (
+            ("model",) if tp is not None else ())
+
     @torch.no_grad()
-    def reduce_grads_(self, model: nn.Module, count: int) -> None:
-        """The expert parts' gradients summed over data × fsdp (one
-        all-reduce of them laid end to end) and divided by ``count``, the
-        data-parallel ranks DDP averages over."""
+    def reduce_grads_(self, model: nn.Module, count: int,
+                      seq: bool = False) -> None:
+        """The expert parts' gradients summed over data × fsdp, and
+        ``seq`` when ``seq`` (one all-reduce of them laid end to end), and
+        divided by ``count``, the ranks DDP averages over."""
         params = dict(model.named_parameters())
         grads = [params[k].grad for k in self.part_keys()]
         if not grads:
             return
-        # The data-parallel axes but ``expert``: the exchange's backward
-        # already summed over those.
-        group = self.runtime.axis_group(("data", "fsdp"))
+        # The ranks DDP reduces over but ``expert``: the exchange's
+        # backward already summed over those.
+        group = self.runtime.axis_group(("data", "fsdp")
+                                        + (("seq",) if seq else ()))
         if group.size > 1:
             flat = torch.cat([g.reshape(-1) for g in grads])
             self.runtime.all_reduce_(flat, group)
@@ -195,33 +218,39 @@ class ExpertParallel(PartLayout):
                     flat.split([g.numel() for g in grads]), grads)])
         torch._foreach_mul_(grads, 1.0 / count)
 
-    def _sum_split(self, sq: torch.Tensor, mask: torch.Tensor
-                   ) -> torch.Tensor:
+    def _sum_split(self, sq: torch.Tensor, mask: torch.Tensor,
+                   axes=("expert",)) -> torch.Tensor:
         split = torch.where(mask, sq, torch.zeros_like(sq))
-        return self.runtime.all_reduce_(split, self.runtime.axis_group(
-            "expert"))
+        return self.runtime.all_reduce_(split, self.runtime.axis_group(axes))
 
     def global_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
-        """The global L2 norm of the whole gradient from the parts': the
-        parts' squared norms summed over the expert line (one
-        all-reduce), a replicated leaf counted once."""
-        if not self.sharded:
+        """The global L2 norm of the whole gradient from the parts': each
+        leaf's squared norm summed over the axes that split it (one
+        all-reduce a set of axes), a replicated leaf counted once."""
+        if not self.sharded and self.tp is None:
             return global_norm(list(grads.values()))
         keys = list(grads)
         sq = torch.stack(torch._foreach_norm(
             [grads[k].float() for k in keys])).square()
-        mask = torch.tensor([self.leaves[k] is not None for k in keys],
-                            device=sq.device)
-        whole = torch.where(mask, torch.zeros_like(sq), sq).sum()
-        return torch.sqrt(self._sum_split(sq, mask).sum() + whole)
+        axes = [self.split_axes(k) for k in keys]
+        mask = torch.tensor([not a for a in axes], device=sq.device)
+        total = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+        for split in sorted(set(axes) - {()}):
+            mask = torch.tensor([a == split for a in axes], device=sq.device)
+            total = total + self._sum_split(sq, mask, split).sum()
+        return torch.sqrt(total)
 
-    def whole_norms(self, params: dict[str, torch.Tensor]):
-        """LARS's ``whole_norms`` (train/optimizers.py): a part's norm →
-        the whole leaf's (one all-reduce of the squares over the expert
+    def whole_norms(self, params: dict[str, torch.Tensor], inner=None):
+        """LARS's ``whole_norms`` (train/optimizers.py) for the tensors the
+        optimizer updates (``params``, key → tensor): ``inner``'s (the
+        tensor-parallel and FSDP norms) first, then a part's norm → the
+        whole leaf's (one all-reduce of the squares over the expert
         line)."""
         split = {id(params[k]) for k in self.part_keys()}
 
         def fn(tensors, norms):
+            if inner is not None:
+                norms = inner(tensors, norms)
             mask = torch.tensor([id(t) in split for t in tensors],
                                 device=norms.device)
             total = self._sum_split(norms.square(), mask).sqrt()

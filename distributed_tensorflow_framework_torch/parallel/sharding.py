@@ -24,10 +24,11 @@ view and its sharded dim, and cuts and joins along it; :class:`TpLeaf`
 adds the shape of the part a tensor-parallel layer computes with.
 
 Tensor parallelism cuts first (parallel/tensor_parallel.py: the model's
-parameters become its parts, :func:`tp_layout`), and FSDP then cuts
-those parts along a dim the ``model`` axis left free (``taken``), which
-gives each rank the block of the JAX leaf at its (fsdp, model)
-coordinates.
+parameters become its parts, :func:`tp_layout`), expert parallelism next
+(parallel/expert.py: E/n of the experts of those parts), and FSDP then
+cuts those parts along a dim the ``model`` and ``expert`` axes left free
+(``taken``), which gives each rank the block of the JAX leaf at its
+(expert, fsdp, model) coordinates.
 
 :class:`DimSharding` keeps a run's tensors in that layout over the fsdp
 axis of the mesh (the ranks of one ``fsdp`` subgroup, core/mesh.py):
@@ -59,9 +60,9 @@ part); a restore cuts each rank's part back out
 
 The MoE rules (``MOE_RULES``) come before the TP rules, as in the JAX
 package: a MoE layer's ``wi`` (E, H, F) and ``wo`` (E, F, H) put their
-leading E over the ``expert`` axis (and F over ``model``, which the port
-refuses beside MoE); parallel/expert.py holds each rank's contiguous block
-of E/n experts, its slots and EMA alike.
+leading E over the ``expert`` axis and F over ``model``; parallel/expert.py
+holds each rank's contiguous block of E/n experts, its slots and EMA
+alike, cut from the tensor-parallel part.
 """
 
 from __future__ import annotations
@@ -146,16 +147,18 @@ def pick_fsdp_dim(shape: tuple[int, ...], fsdp: int,
     return best
 
 
-def infer_param_specs(model: nn.Module, sizes: Mapping[str, int]
+def infer_param_specs(model: nn.Module, sizes: Mapping[str, int],
+                      shapes: Mapping[str, tuple[int, ...]] | None = None
                       ) -> dict[str, tuple[str | None, ...]]:
     """Each parameter's state_dict key → the JAX package's
     ``PartitionSpec`` of its Flax leaf on a mesh of ``sizes`` (one axis
     name or None per Flax dim): ``MOE_RULES`` first, then ``TP_RULES``
     when ``model`` exceeds 1, then the fsdp dim among those still free
-    when ``fsdp`` exceeds 1. ``model`` holds its whole parameters."""
+    when ``fsdp`` exceeds 1. ``model`` holds its whole parameters, or
+    ``shapes`` gives them (key → the whole port tensor's shape)."""
     out = {}
     fsdp = sizes.get("fsdp", 1)
-    for key, (path, shape) in flax_layout(model).items():
+    for key, (path, shape) in flax_layout(model, shapes).items():
         spec = _match_rules("/".join(path), shape, sizes, MOE_RULES)
         if spec is None and sizes.get("model", 1) > 1:
             spec = _match_rules("/".join(path), shape, sizes, TP_RULES)
@@ -169,21 +172,24 @@ def infer_param_specs(model: nn.Module, sizes: Mapping[str, int]
 
 
 def infer_fsdp_dims(model: nn.Module, fsdp: int,
-                    taken: Mapping[str, int] | None = None
+                    taken: Mapping[str, int | tuple[int, ...]] | None = None
                     ) -> dict[str, int]:
     """Each parameter's state_dict key → the dim of its FLAX leaf that the
     JAX package's ``infer_param_specs`` shards over ``fsdp`` (-1:
     replicated; every leaf is replicated when ``fsdp`` is 1). ``taken``
-    maps a key to the Flax dim tensor parallelism already split, which
-    fsdp leaves alone (``model`` then holds the parts)."""
+    maps a key to the Flax dim (or dims) that tensor and expert
+    parallelism already split, which fsdp leaves alone (``model`` then
+    holds the parts)."""
     if fsdp <= 1:
         return {key: -1 for key, _ in model.named_parameters()}
     taken = taken or {}
     out = {}
     for key, (_, shape) in flax_layout(model).items():
         spec = [None] * len(shape)
-        if taken.get(key, -1) >= 0:
-            spec[taken[key]] = "model"
+        dims = taken.get(key, -1)
+        for dim in (dims,) if isinstance(dims, int) else dims:
+            if dim >= 0:
+                spec[dim] = "taken"
         out[key] = pick_fsdp_dim(shape, fsdp, tuple(spec))
     return out
 
@@ -272,7 +278,7 @@ def tp_layout(model: nn.Module, count: int) -> dict[str, TpLeaf | None]:
 
 
 def fsdp_layout(model: nn.Module, fsdp: int,
-                taken: Mapping[str, int] | None = None,
+                taken: Mapping[str, int | tuple[int, ...]] | None = None,
                 whole=()) -> dict[str, FsdpLeaf | None]:
     """Each parameter's state_dict key → its :class:`FsdpLeaf`, or None
     for a replicated leaf; ``taken`` as in :func:`infer_fsdp_dims`; the
@@ -370,15 +376,16 @@ class DimSharding(PartLayout):
     tensor the optimizer updates: this rank's part of a sharded leaf, the
     parameter itself for a replicated one. ``wire`` and ``block_size``
     are the gather's under ``shard_map`` (``tally``: it is the explicit,
-    tallied collective); None gathers exactly. ``taken``: the Flax dim of
-    each leaf that tensor parallelism split (``model`` holds the parts;
-    :func:`fsdp_layout`); ``whole``: the keys that stay whole (a pipelined
+    tallied collective); None gathers exactly. ``taken``: the Flax dims
+    of each leaf that tensor and expert parallelism split (``model``
+    holds the parts; :func:`fsdp_layout`); ``whole``: the keys that stay whole (a pipelined
     stage's layers)."""
 
     def __init__(self, model: nn.Module, runtime, *, at_rest: bool,
                  tally: bool = False, wire=None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 taken: Mapping[str, int] | None = None, whole=()):
+                 taken: Mapping[str, int | tuple[int, ...]] | None = None,
+                 whole=()):
         self.runtime, self.axes = runtime, "fsdp"
         self.group = runtime.axis_group("fsdp")
         self.index = self.group.index

@@ -27,7 +27,20 @@ split:
 The attention between the two projections runs on this rank's heads,
 ``[r·nh/m, (r+1)·nh/m)``, which are the columns the split of the (H, 3, H)
 kernel's last dim gives rank r; it calls the same attention function, so
-on the card the flash kernels see ``nh/m`` heads. Everything else (the
+on the card the flash kernels see ``nh/m`` heads. When ``m`` does not
+divide the heads (but divides H, so the rules still split the columns)
+a rank's columns cut across a head: Q, K and V are gathered whole over
+``model`` (:func:`gather_from_group`), every rank runs the attention on
+every head, and keeps its columns of the context for the row-parallel
+``attn_out`` (:func:`split_to_group`, whose backward gathers the
+context's gradient whole, so that the attention's backward, and with it
+the gradient that reaches the gather, is the same on every rank). GSPMD
+reshards the same way.
+
+A MoE layer's ``wi`` (E, H, F) is column-parallel and its ``wo`` (E, F,
+H) row-parallel over F (the ``MOE_RULES``): the layer's ``tp`` is the
+group, its expert buffers pass through :func:`copy_to_group` and its
+expert outputs through :func:`reduce_from_group` (models/moe.py). Everything else (the
 LayerNorms, ``pos_embedding``, the MLM head, the biases) is replicated
 and computed on replicated activations, so its gradient is the same on
 every rank of the group and no reduction over ``model`` is needed.
@@ -142,6 +155,18 @@ class _Gather(torch.autograd.Function):
         return part.contiguous(), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        size = x.shape[dim] // group.size
+        return x.narrow(dim, group.index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.gather(grad, ctx.dim), None, None
+
+
 def copy_to_group(x: torch.Tensor, group: Group) -> torch.Tensor:
     """Identity forward; the gradient is summed over the group."""
     return _Copy.apply(x, group)
@@ -158,6 +183,12 @@ def gather_from_group(x: torch.Tensor, group: Group,
     rank's slice (exact when the upstream gradient is the same on every
     member: the module docstring)."""
     return _Gather.apply(x, group, dim)
+
+
+def split_to_group(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` (the same on every member) along
+    ``dim``; the gradient is every member's block joined whole."""
+    return _Split.apply(x, group, dim)
 
 
 class ColumnParallel:
@@ -218,6 +249,7 @@ class TensorParallel(PartLayout):
             MultiHeadAttention,
         )
         from distributed_tensorflow_framework_torch.models.layers import Dense
+        from distributed_tensorflow_framework_torch.models.moe import MoEMlp
 
         self.runtime, self.axes, self.at_rest = runtime, "model", True
         self.group = Group(runtime)
@@ -235,18 +267,18 @@ class TensorParallel(PartLayout):
                 if self.leaves[f"{proj}.weight"] is None:
                     continue
                 if module.num_heads % m:
-                    raise NotImplementedError(
-                        f"{proj} is split over mesh.model={m} but "
-                        f"num_heads={module.num_heads} is not divisible by "
-                        f"it — ROADMAP.md queue A item A10 (tensor "
-                        f"parallel, heads not divisible by mesh.model)")
-                module.tp_size = m
+                    # The columns cut across a head: gather Q/K/V whole.
+                    module.head_group = self.group
+                else:
+                    module.tp_size = m
         for key, leaf in self.leaves.items():
             if leaf is None:
                 continue
             owner = modules[key.rsplit(".", 1)[0]]
             dim = self.flax_dims[key]
-            if isinstance(owner, Dense) and dim == 0:
+            if isinstance(owner, MoEMlp):
+                owner.tp = self.group
+            elif isinstance(owner, Dense) and dim == 0:
                 owner.tp = RowParallel(self.group)
             elif isinstance(owner, Dense):
                 _, bias_shape = layout[key.rsplit(".", 1)[0] + ".bias"]

@@ -52,7 +52,13 @@ rank. FSDP and ZeRO-1 cut the tensor-parallel parts further, along a dim
 ``model`` left free (parallel/sharding.py). Under ``shard_map`` there is
 no tensor parallelism, as in the JAX package (its ``shard_map`` step
 replicates every leaf): the ranks along ``model`` repeat the data × fsdp
-step on the same batch and every collective spans data × fsdp.
+step on the same batch and every collective spans data × fsdp. A fused
+or separate QKV whose heads ``model`` does not divide (while it divides
+H) keeps its column split: the columns are gathered whole over ``model``
+before the attention, which every rank runs on every head, and each rank
+keeps its columns of the context for the row-parallel ``attn_out``
+(parallel/tensor_parallel.py); a leaf whose dim ``model`` does not
+divide stays whole, as JAX's ``_match_rules`` leaves it.
 
 Sequence parallelism (``mesh.seq > 1`` with ``attention_impl: ring``
 under ``jit``; ROADMAP.md A11): the ranks along ``seq`` share a
@@ -66,9 +72,12 @@ weight, the task metrics and the exact eval's sums all span data × fsdp
 meaning. With ``mesh.seq > 1`` and another attention, or another model,
 the ranks along ``seq`` repeat the data-parallel step on the same batch,
 as GSPMD replicates it. Ring attention under ``shard_map`` raises the
-JAX package's failure as a ValueError (models/__init__.py); ``seq`` with
-``fsdp``, ``model`` or ZeRO raises NotImplementedError naming "A11 (seq
-with fsdp/model/ZeRO)".
+JAX package's failure as a ValueError (models/__init__.py). Beside
+``fsdp`` (and ZeRO-1) the parameters are gathered per step and the
+gradient is reduced over data × fsdp × seq before each rank keeps its
+part; beside ``model`` each ``model`` rank rotates its own heads' K/V
+around its ``seq`` line (core/mesh.py forms the line per (data, fsdp,
+expert, model) index).
 
 Pipeline parallelism (``mesh.pipe > 1`` with ``model.pipeline_stages``
 equal to it, BERT under ``jit``; ROADMAP.md A12): each rank along
@@ -102,13 +111,18 @@ rank along ``expert`` holds ``num_experts / mesh.expert`` of every MoE
 layer's experts (parallel/expert.py ``ExpertParallel``): DDP reduces
 every other leaf over data × fsdp × expert and leaves the expert parts
 out, whose gradients one all-reduce over data × fsdp carries;
-``grad_norm`` (and the clipping) is the whole gradient's. The JAX
-package's refusals hold: ``mesh.expert > 1`` under ``shard_map``, MoE or
-``expert`` beside ``pipe``. ``mesh.expert > 1`` beside ``fsdp``,
-``model`` or ``seq``, and MoE beside tensor or sequence parallelism,
-raise NotImplementedError naming "A8 (experts beside fsdp/model/seq)".
-Under ``shard_map`` (``expert`` 1) each rank routes its own rows, as the
-JAX ``shard_map`` step's replicas do.
+``grad_norm`` (and the clipping) is the whole gradient's. Beside
+``model`` the MoE layers follow ``MOE_RULES`` (``wi`` column-parallel and
+``wo`` row-parallel over F, the expert outputs summed over ``model``), and
+the expert parts are cut from the tensor-parallel ones; beside ``fsdp``
+FSDP cuts them further along the dim JAX's ``_apply_fsdp`` picks; under
+the ring each ``seq`` rank routes its part of every row with the whole
+row's capacity and claim order (one exchange of slot counts along
+``seq``, models/moe.py), the router's statistics span data × fsdp ×
+expert × seq, and the expert parts' gradients data × fsdp × seq. The
+JAX package's refusals hold: ``mesh.expert > 1`` under ``shard_map``, MoE
+or ``expert`` beside ``pipe``. Under ``shard_map`` (``expert`` 1) each
+rank routes its own rows, as the JAX ``shard_map`` step's replicas do.
 
 Under ``train.spmd_mode: shard_map`` (the JAX package's explicit
 per-replica step, ``_train_step_replica``) there is no DDP wrapper: each
@@ -177,12 +191,8 @@ reduce-scatter, the update by that bucket's optimizer
 (``BucketOptimizers``), the all-gather and the apply, in place of the
 three whole-tree passes.
 
-Every knob whose JAX machinery is not ported raises NotImplementedError
-naming its ROADMAP.md item when it is not at its off value: experts
-beside ``fsdp``, ``model`` or ``seq``, ``seq`` beside ``fsdp``, ``model``
-or ZeRO, a split fused QKV whose heads ``mesh.model`` does not divide. A
-wire dtype under ``jit`` and a ``train.grad_allreduce_accum`` other than
-float32 or wire raise the JAX package's ValueErrors.
+A wire dtype under ``jit`` and a ``train.grad_allreduce_accum`` other
+than float32 or wire raise the JAX package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -258,11 +268,6 @@ def model_inputs(task: str, batch: Any) -> tuple:
     return (batch["image"],)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet — ROADMAP.md queue A item {item}")
-
-
 def zero_mode(config: ExperimentConfig) -> str:
     """``optimizer.zero_sharding``, with the deprecated
     ``optimizer.shard_opt_state`` honoured as "jit" for configs built
@@ -314,24 +319,6 @@ def check_pipeline(config: ExperimentConfig, sizes: dict[str, int]) -> None:
     model_kwargs(mcfg)
 
 
-def check_experts(config: ExperimentConfig, sizes: dict[str, int]) -> None:
-    """What expert parallelism and MoE do not compose with yet."""
-    moe = (config.model.num_experts > 0
-           and config.model.name.lower() in BERT_NAMES)
-    beside = ([a for a in ("fsdp", "model", "seq") if sizes[a] > 1]
-              if sizes["expert"] > 1 else [])
-    if moe and sizes["model"] > 1 and "model" not in beside:
-        beside.append("model")
-    if moe and sequence_parallel(config, sizes) and "seq" not in beside:
-        beside.append("seq")
-    if beside:
-        raise _not_ported(
-            f"{'MoE' if moe else 'mesh.expert'} beside "
-            + ", ".join(f"mesh.{a}={sizes[a]}" for a in beside)
-            + f" (mesh.expert={sizes['expert']})",
-            "A8 (experts beside fsdp/model/seq)")
-
-
 def check_step_config(config: ExperimentConfig, world: int = 1
                       ) -> dict[str, int]:
     """Raise for every setting the data-parallel step over ``world`` ranks
@@ -340,9 +327,7 @@ def check_step_config(config: ExperimentConfig, world: int = 1
     a bad ``train.grad_allreduce_accum``, ZeRO and explicit FSDP where
     their update cannot run, ring attention under ``shard_map``, a row
     the ring cannot split, a pipeline it cannot run, expert parallelism
-    under ``shard_map``), NotImplementedError for what is not ported
-    (experts beside ``fsdp``, ``model`` or ``seq``, ``seq`` beside
-    ``fsdp``, ``model`` or ZeRO). Returns the mesh's sizes."""
+    under ``shard_map``). Returns the mesh's sizes."""
     sizes = mesh_lib.resolve_mesh(config.mesh, world)
     tcfg = config.train
     if tcfg.spmd_mode not in ("jit", "shard_map"):
@@ -354,14 +339,7 @@ def check_step_config(config: ExperimentConfig, world: int = 1
             "expert parallelism (mesh.expert>1) requires spmd_mode='jit'")
     check_pipeline(config, sizes)
     check_ring_mode(config.model, tcfg.spmd_mode)
-    check_experts(config, sizes)
     if sequence_parallel(config, sizes):
-        if (sizes["fsdp"] > 1 or sizes["model"] > 1
-                or zero_mode(config) != "off"):
-            raise _not_ported(
-                f"mesh.seq={sizes['seq']} beside mesh.fsdp={sizes['fsdp']}, "
-                f"mesh.model={sizes['model']} or optimizer.zero_sharding="
-                f"{zero_mode(config)!r}", "A11 (seq with fsdp/model/ZeRO)")
         for data in (config.data, config.eval_data):
             if data is not None:
                 ring.check_ring_shape(data.seq_len, sizes["seq"])
@@ -438,6 +416,21 @@ def check_step_config(config: ExperimentConfig, world: int = 1
     return sizes
 
 
+def _taken_dims(tp, ep) -> dict[str, tuple[int, ...]] | None:
+    """Each leaf's Flax dims that tensor and expert parallelism split,
+    which FSDP leaves alone; None when neither splits anything."""
+    if tp is None and ep is None:
+        return None
+    out: dict[str, tuple[int, ...]] = {}
+    for layout in (tp, ep):
+        for key, leaf in ({} if layout is None else layout.leaves).items():
+            if leaf is None:
+                continue
+            dim = tp.flax_dims[key] if layout is tp else 0
+            out[key] = out.get(key, ()) + (dim,)
+    return out
+
+
 class StepBuilder:
     """Builds the train state and the train/eval steps for a workload on
     one device (default CUDA; ``device="cpu"`` runs the plain path), or,
@@ -470,12 +463,12 @@ class StepBuilder:
         self.expert_parallel = (runtime is not None and sizes["expert"] > 1
                                 and config.train.spmd_mode == "jit")
         # Sequence parallelism: the ranks the gradients, the loss weight
-        # and the metrics reduce over are data × fsdp × seq.
+        # and the metrics reduce over are data × fsdp × expert × seq.
         self.seq_parallel = (runtime is not None
                              and sequence_parallel(config, sizes))
         self.reduce_group = (
             None if runtime is None
-            else runtime.axis_group(mesh_lib.DATA_AXES + ("seq",))
+            else runtime.axis_group(mesh_lib.TOKEN_AXES)
             if self.seq_parallel else self.data_group)
         self.reduce_world = (1 if runtime is None
                              else self.reduce_group.size)
@@ -552,14 +545,15 @@ class StepBuilder:
             precision=self.config.precision, **stage)
         tp = (TensorParallel(model, self.runtime) if self.tensor_parallel
               else None)
-        ep = (ep_lib.ExpertParallel(model, self.runtime)
+        ep = (ep_lib.ExpertParallel(model, self.runtime, tp)
               if self.expert_parallel else None)
         if ep is not None and not ep.sharded:
             ep = None
         if not self.shard_map:
             # The JAX jit step routes the global batch: the balance
-            # statistics are summed over the data-parallel ranks.
-            ep_lib.attach_router_stats(model, self.runtime)
+            # statistics are summed over the ranks that hold its tokens.
+            ep_lib.attach_router_stats(model, self.runtime,
+                                       self.seq_parallel)
         pipe = StageLayout(model) if self.pipelined else None
         if self.seq_parallel:
             model.shard_sequence(self.runtime)
@@ -616,17 +610,17 @@ class StepBuilder:
                                  tally=self.shard_map,
                                  wire=self.wire or None,
                                  block_size=self.block,
-                                 taken=None if tp is None else tp.flax_dims,
+                                 taken=_taken_dims(tp, ep),
                                  whole=() if pipe is None else [
                                      k for k, _ in model.named_parameters()
                                      if model.is_stage_key(k)])
             whole_norms = layout.whole_norms()
+        params = (dict(model.named_parameters()) if layout is None
+                  else layout.params)
         if tp is not None:
-            whole_norms = tp.whole_norms(
-                dict(model.named_parameters()) if layout is None
-                else layout.params, whole_norms)
+            whole_norms = tp.whole_norms(params, whole_norms)
         if ep is not None:
-            whole_norms = ep.whole_norms(dict(model.named_parameters()))
+            whole_norms = ep.whole_norms(params, whole_norms)
         optimizer, self.schedule = make_optimizer(
             self.config.optimizer, self.config.train.total_steps, model,
             params=None if layout is None else layout.params,
@@ -781,7 +775,8 @@ class StepBuilder:
         if self.shard_map:
             metrics, grad_norm = self._explicit_collectives(state, metrics)
         if state.ep is not None:
-            state.ep.reduce_grads_(state.model, self.reduce_world)
+            state.ep.reduce_grads_(state.model, self.reduce_world,
+                                   seq=self.seq_parallel)
             grad_norm = state.ep.global_norm(
                 {k: p.grad for k, p in state.model.named_parameters()})
         if grad_norm is None and state.tp is not None:

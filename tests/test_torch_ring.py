@@ -925,13 +925,19 @@ def test_ring_under_shard_map_is_jax_failure():
     ["mesh.data=1", "mesh.seq=2", "mesh.fsdp=2",
      "optimizer.zero_sharding=jit"]])
 def test_seq_compositions_name_their_item(mesh):
+    """The ring beside ``fsdp``, ``model`` and ZeRO-1 passes the step's
+    checks (tests/test_torch_compose_ring.py trains them against the JAX
+    step); the same mesh under ``shard_map`` keeps the JAX refusal."""
     from distributed_tensorflow_framework_torch.train.step import (
         check_step_config,
     )
 
     cfg = port_config(overrides=TINY_BERT + mesh)
-    with pytest.raises(NotImplementedError,
-                       match="A11 \\(seq with fsdp/model/ZeRO\\)"):
+    sizes = check_step_config(cfg, 4)
+    assert sizes["seq"] == 2 and sizes["fsdp"] * sizes["model"] == 2
+    cfg = port_config(overrides=TINY_BERT + [
+        o for o in mesh if "zero" not in o] + ["train.spmd_mode=shard_map"])
+    with pytest.raises(ValueError, match="context mesh"):
         check_step_config(cfg, 4)
 
 

@@ -356,12 +356,18 @@ def _trainer(workdir, runtime) -> dict:
     return out
 
 
-def _heads_refusal(runtime) -> str | None:
-    try:
-        _builder(TINY_BERT + TP2 + ["model.num_heads=1"], runtime)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+def _heads_not_divisible(runtime) -> dict:
+    """One head over ``model`` 2: the QKV columns split inside the head
+    (gathered whole before the attention), the step run; rank 0 runs one
+    process on the same batches."""
+    over = TINY_BERT + ["model.num_heads=1"]
+    out = {"tp": _run(over + TP2, runtime)}
+    out["head_groups"] = sum(
+        getattr(m, "head_group", None) is not None
+        for m in _builder(over + TP2, runtime)[1].model.modules())
+    if runtime.process_index == 0:
+        out["one"] = _run(over, None)
+    return out
 
 
 def _mesh_checks(runtime) -> dict:
@@ -401,7 +407,7 @@ def _rank_main(workdir: str, world: str) -> None:
             out["one"] = {n: _run(o, None) for n, o in ONE.items()}
         out["ckpt"] = _checkpoints(workdir, runtime)
         out["trainer"] = _trainer(workdir, runtime)
-        out["heads_refusal"] = _heads_refusal(runtime)
+        out["heads_refusal"] = _heads_not_divisible(runtime)
     else:
         out["mesh"] = _mesh_checks(runtime)
     runtime.shutdown()
@@ -848,11 +854,18 @@ def test_trainer_reads_one_block_and_names_the_split(worlds):
 
 
 def test_heads_not_divisible_raise(worlds):
+    """A QKV whose heads ``model`` does not divide no longer raises: it
+    keeps JAX's column split (``TP_RULES``), gathers Q/K/V whole for the
+    attention and trains as one process does."""
+    one = worlds["a"][0]["heads_refusal"]["one"]
     for r in worlds["a"]:
-        msg = r["heads_refusal"]
-        assert msg is not None
-        assert "A10 (tensor parallel, heads not divisible by mesh.model)" \
-            in msg
+        got = r["heads_refusal"]
+        assert got["head_groups"] == 2 and got["tp"]["tp"] == 9
+        assert got["tp"]["parts"]["layer0.attn.qkv.weight"] == (96, 64)
+        _close(got["tp"], one,
+               port_config(overrides=TINY_BERT).optimizer.learning_rate)
+        assert got["tp"]["metrics"] == \
+            worlds["a"][0]["heads_refusal"]["tp"]["metrics"]
 
 
 if __name__ == "__main__":
