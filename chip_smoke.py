@@ -5,8 +5,8 @@
 
 Phases (any failure raises and the script exits non-zero). Phases 1-3
 run alone; then phases 11-14, 16, 19 and 21 run in that order in a
-second process, the lane (``--lane``), beside phases 4-10 and 15 in this
-one: the ranks of the lane's phases mostly wait on the host (start-ups,
+second process, the lane (``--lane``), beside phases 4-10, 15 and 22 in
+this one: the ranks of the lane's phases mostly wait on the host (start-ups,
 gloo) and leave the card idle, so the two share it. The lane's lines are
 printed, on the script's clock, when this process has ended phase 15 and
 joined it; phase 20 runs after both, alone, since its drills time ejects
@@ -561,18 +561,46 @@ failure left running.
      main-path runs (21a's and 21b's Trainer runs, 21c's) join the
      record. ``--only 21`` builds the kernels and runs phase 21 alone (no
      kernels line, no last line).
+  22. data-parallel serving (serve/engine.py ``serving_devices`` and the
+     sharded batch, serve/decode.py, core/memstats.py; the forward kernel
+     in every shard), in this lane after 17b. 22a: ``serving_devices``
+     gives every card for -1 and 0 and cuda:0 for 1; ``serve.data=2`` on
+     one visible card raises MeshSizeError. 22b: phase 4's BERT-base
+     artifact in engines at ``devices`` [cuda:0] x DP_SERVE and [cuda:0],
+     on a request of each DP_SERVE_REQUESTS (1, 3 and 5 rows, one batch
+     each; the last row of each with trailing padding): the ladders and
+     padded rows, the forward kernel launched 12 x DP_SERVE a batch (12
+     at one replica) with no plain version called (its functions wrapped
+     with a counter), the shards on DP_SERVE streams, each launch's o
+     against ``flash_attention_reference`` within O_RTOL of its max|o|
+     (phase 3c's measure: the layers' o exceeds 1), and the logits
+     against one replica's within LOGIT_MAX_ATOL/LOGIT_MEAN_ATOL (bit
+     equality printed); then the engines' compute ms per 8 x 512 batch in
+     turns and the peak memory. 22c: a reload to a second artifact (weights
+     from a seed) while two clients send 3 x 128 requests: no failed
+     request, every answer before it the old weights' and after it the
+     new's, every replica holding the new tensors, and a 4 x 256 request
+     (two shards) against a cold engine at DP_SERVE. 22d: 17b's ResNet-50
+     artifact at DP_SERVE replicas against one on 1, 3 and 5 rows within
+     CLASSIFY_RTOL, the BatchNorm statistics on every replica, ms per
+     8-row batch. 22e: the decode engine at DP_SERVE devices has the
+     ladder of DP_SERVE multiples and one device's tokens. Two replicas on
+     one card show the split, not a speed-up. The launches of 22b's and
+     22c's engines join the record, and 22b's o error its max_abs_err.
+     ``--only 22`` builds the kernels and runs phase 22 alone on
+     artifacts from seeds (no kernels line, no last line).
 
 Every count is set to 0 just before a main-path run (the serve runs, the
 training runs, the resumed, rolled-back, preempted, evaluated and
 exported runs, the packed and unpacked runs, the runs of 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19, 20
-and 21, whose children and replicas set and read their own counts) and
-read just after; launches made to compare or time a kernel do not count.
-The record's ``launches`` are those of phases 4, 5, 5f, 6, 8a, 10a, 10a',
-11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19 (the
-relaunched ranks of 19a and 19b's survivor), 20 (the replicas that
-ended 0) and 21 (21a, 21b and 21c on each rank), and its
-``max_abs_err`` covers phases 3, 3b, 3c and 13a; its
+11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a, 19, 20,
+21 and 22, whose children and replicas set and read their own counts)
+and read just after; launches made to compare or time a kernel do not
+count. The record's ``launches`` are those of phases 4, 5, 5f, 6, 8a,
+10a, 10a', 11a, 12a, 13b, 14a, 15a, 15b, 15d, 16a, 16a', 16b, 16e, 18a,
+19 (the relaunched ranks of 19a and 19b's survivor), 20 (the replicas
+that ended 0), 21 (21a, 21b and 21c on each rank) and 22 (22b and 22c),
+and its ``max_abs_err`` covers phases 3, 3b, 3c, 13a and 22b; its
 ``segmented_launches`` (launches with segment ids) those of phase 5f. Where auto picks the fused kernel nowhere on this
 card, its ``launches`` in the record are those of phase 6b's forced
 micro-step, marked ``launches_forced``. The line before the last is the
@@ -9456,6 +9484,416 @@ def compose_phase(torch, fa, workdir: str, smi: str, wave=None) -> dict:
 # its lines (on the script's clock) are printed when the main lane joins
 # it, and what its phases return is read from OUT: the launches of their
 # main-path runs (LANE_COUNTS) and 13a's worst errors.
+# ---------------------------------------------------------------- phase 22
+
+# Data-parallel serving: DP_SERVE replicas of phase 4's BERT-base artifact
+# on the one card (devices [cuda:0, cuda:0]) against one replica, on a
+# request of each DP_SERVE_REQUESTS (rows, tokens): odd row counts pad
+# with copies of row 0, so each shard holds real and filler rows. Logits
+# held to one replica's within the served-logit tolerance of phase 4 (bf16
+# activations through 12 layers: a shard's GEMMs run on other row counts),
+# each shard's flash forward to its plain version within O_RTOL. Two
+# replicas on one card show that the split works, not a speed-up: the
+# machine has one card, so no scaling figure exists.
+DP_SERVE = 2
+DP_SERVE_REQUESTS = ((1, 512), (3, 300), (5, 128))
+DP_SERVE_TIMED = 5           # 8 x 512 batches timed per engine and turn
+DP_SERVE_TRAFFIC_S = 1.0     # 22c: client traffic before and after reload
+DP_DECODE_PROMPTS = 3        # 22e: 17a's first prompts (an odd count)
+DP_DECODE_NEW = 8
+
+
+def engine_ms(engine, request: dict, batches: int) -> float:
+    """The engine's compute ms per batch (host clock around the shards'
+    forwards and the logits' copy to the host) over ``batches`` requests
+    of ``request`` sent one at a time."""
+    before = engine.stats()
+    for _ in range(batches):
+        engine.predict(request, timeout=600)
+    after = engine.stats()
+    if after["batches"] - before["batches"] != batches:
+        raise AssertionError("a timed request did not run as one batch")
+    return (after["compute_ms_total"] - before["compute_ms_total"]) / batches
+
+
+def held_weights(torch, engine, artifact) -> bool:
+    """Every replica of ``engine`` holds ``artifact``'s tensors, in the
+    replica's dtype."""
+    for model in engine.replicas:
+        state = model.state_dict()
+        for key, want in artifact.state_dict.items():
+            got = state[key]
+            if not torch.equal(got, want.to(got.device, got.dtype)):
+                return False
+    return True
+
+
+def dp_shards(torch, fa, artifact, cfg, smi: str) -> tuple[int, float]:
+    """22a and 22b; returns the forward kernel's main-path launches (the
+    requests and the timed batches of both engines) and the shards' worst
+    o error against the plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.core.mesh import (
+        MeshSizeError,
+    )
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+        serving_devices,
+    )
+
+    count = torch.cuda.device_count()
+    every = [torch.device("cuda", i) for i in range(count)]
+    if (serving_devices(-1, "cuda") != every
+            or serving_devices(0, "cuda") != every
+            or serving_devices(1, "cuda") != every[:1]):
+        raise AssertionError("22a: serving_devices disagrees")
+    refused = "not tried: more than one card visible"
+    if count == 1:
+        try:
+            InferenceEngine(artifact, dataclasses.replace(cfg.serve, data=2),
+                            device="cuda")
+        except MeshSizeError as e:
+            refused = f"MeshSizeError: {e}"
+        else:
+            raise AssertionError("22a: serve.data=2 on one card served")
+    log(f"22a serving_devices on {count} card(s): -1 and 0 give "
+        f"{[str(d) for d in every]}, 1 gives cuda:0; serve.data=2: "
+        f"{refused}")
+
+    vocab = artifact.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 22)
+    requests = []
+    for rows, tokens in DP_SERVE_REQUESTS:
+        ids = rng.integers(0, vocab, (rows, tokens)).astype(np.int32)
+        mask = np.ones_like(ids)
+        mask[-1, tokens // 2:] = 0  # the last row's trailing padding
+        requests.append({"input_ids": ids, "attention_mask": mask})
+    cuda = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    two = InferenceEngine(artifact, cfg.serve, devices=[cuda] * DP_SERVE)
+    one = InferenceEngine(artifact, cfg.serve, devices=[cuda])
+    kernel = fa.flash_attention_kernel
+    plains = {"flash_attention_reference": fa.flash_attention_reference,
+              "flash_attention_kb_reference": fa.flash_attention_kb_reference}
+    calls, plain = [], []
+
+    def recorded(q, k, v, bias, q_seg=None, kv_seg=None):
+        o, lse = kernel(q, k, v, bias, q_seg, kv_seg)
+        calls.append((torch.cuda.current_stream(q.device).cuda_stream,
+                      (q, k, v, bias, q_seg, kv_seg), o))
+        return o, lse
+
+    def counted(name):
+        def run(*args, **kwargs):
+            plain.append(name)
+            return plains[name](*args, **kwargs)
+        return run
+
+    try:
+        for name in plains:
+            setattr(fa, name, counted(name))
+        fa.flash_attention_kernel = recorded
+        reset_counts(fa)
+        got = [two.predict(r, timeout=600) for r in requests]
+        two_launches = read_counts(fa, serving=True)["fwd"]
+        fa.flash_attention_kernel = kernel
+        reset_counts(fa)
+        want = [one.predict(r, timeout=600) for r in requests]
+        one_launches = read_counts(fa, serving=True)["fwd"]
+    finally:
+        fa.flash_attention_kernel = kernel
+        for name, fn in plains.items():
+            setattr(fa, name, fn)
+    s2, s1 = two.stats(), one.stats()
+    n = len(requests)
+    log(f"22b BERT-base at devices [cuda:0] x {DP_SERVE} and [cuda:0]: row "
+        f"ladders {s2['row_buckets']} and {s1['row_buckets']}; requests of "
+        f"{[list(r) for r in DP_SERVE_REQUESTS]} (rows, tokens), one batch "
+        f"each: padded rows {s2['padded_rows']} and {s1['padded_rows']}; "
+        f"forward launches {two_launches} ({s2['batches']} batches) and "
+        f"{one_launches} ({s1['batches']}); plain versions called {plain}")
+    if (s2["batches"], s1["batches"]) != (n, n) or plain or (
+            two_launches != 12 * DP_SERVE * n
+            or one_launches != 12 * n):
+        raise AssertionError("22b: not every shard went through the kernel")
+    streams = {stream for stream, _, _ in calls}
+    worst = rel = 0.0
+    for _, args, o in calls:
+        ref, _ = plains["flash_attention_reference"](*args)
+        err = (o.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        rel = max(rel, err / ref.float().abs().max().item())
+    tol = O_RTOL[str(calls[0][2].dtype).split(".")[-1]]
+    log(f"22b each shard's flash forward ({len(calls)} launches on "
+        f"{len(streams)} streams, shapes "
+        f"{sorted({tuple(args[0].shape) for _, args, _ in calls})}) vs "
+        f"flash_attention_reference: o max|err| {worst:.3e}, over the "
+        f"launch's max|o| {rel:.3e} (tol {tol}: the layers' o exceeds 1, "
+        f"where a bf16 ulp is 2^-7 or more)")
+    if rel > tol or len(streams) != DP_SERVE:
+        raise AssertionError("22b: a shard's forward disagrees or the "
+                             "shards shared a stream")
+    del calls
+    for (rows, tokens), g, w in zip(DP_SERVE_REQUESTS, got, want):
+        gap = np.abs(g - w)
+        log(f"22b {rows} x {tokens}: logits {DP_SERVE} replicas vs one: "
+            f"bit-equal {np.array_equal(g, w)}, max|gap| {gap.max():.4e} "
+            f"(tol {LOGIT_MAX_ATOL}), mean {gap.mean():.4e} (tol "
+            f"{LOGIT_MEAN_ATOL}), finite {bool(np.isfinite(g).all())}")
+        if g.shape != (rows, tokens, vocab) or not (
+                np.isfinite(g).all() and gap.max() <= LOGIT_MAX_ATOL
+                and gap.mean() <= LOGIT_MEAN_ATOL):
+            raise AssertionError("22b: two replicas disagree with one")
+
+    full = {"input_ids": rng.integers(0, vocab, (8, 512)).astype(np.int32)}
+    two.predict(full, timeout=600)  # each engine's 8 x 512 bucket, once
+    one.predict(full, timeout=600)
+    reset_counts(fa)
+    turns = [("one", one), ("two", two), ("two", two), ("one", one)]
+    ms = {"one": [], "two": []}
+    for name, eng in turns:
+        ms[name].append(engine_ms(eng, full, DP_SERVE_TIMED))
+    timed = read_counts(fa, serving=True)["fwd"]
+    if timed != 12 * (1 + DP_SERVE) * 2 * DP_SERVE_TIMED:
+        raise AssertionError(f"22b: {timed} launches in the timed batches")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"22b engine compute ms per 8 x 512 batch (host clock: the shards' "
+        f"forwards and the 8 x 512 x {vocab} f32 logits' copy to the host; "
+        f"turns one, two, two, one, {DP_SERVE_TIMED} batches each): one "
+        f"replica {[round(x, 3) for x in ms['one']]}, {DP_SERVE} replicas "
+        f"{[round(x, 3) for x in ms['two']]}; peak memory of this process "
+        f"{peak / 1e9:.3f} GB with three BERT-base replicas up; two "
+        f"replicas on one card, not a scaling figure [{smi}]")
+    one.drain(60)
+    two.drain(60)
+    return two_launches + one_launches + timed, worst
+
+
+def dp_reload(torch, fa, artifact, cfg, workdir: str, smi: str) -> int:
+    """22c; returns the forward kernel's launches of the engine under
+    traffic (the requests before, during and after the reload)."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        load_artifact,
+    )
+
+    cuda = torch.device("cuda", 0)
+    new_dir = bert_artifact(torch, cfg, os.path.join(workdir, "dp_reload"),
+                            SEED + 23)
+    new = load_artifact(new_dir)
+    vocab = artifact.model_config.vocab_size
+    rng = np.random.default_rng(SEED + 23)
+    sample = {"input_ids": rng.integers(0, vocab, (3, 128)).astype(np.int32)}
+    split = {"input_ids": rng.integers(0, vocab, (4, 256)).astype(np.int32)}
+    eng = InferenceEngine(artifact, cfg.serve, devices=[cuda] * DP_SERVE)
+    cold = InferenceEngine(new, cfg.serve, devices=[cuda] * DP_SERVE)
+    try:
+        refs = {"old": eng.predict(sample, timeout=600),
+                "new": cold.predict(sample, timeout=600)}
+        cold_split = cold.predict(split, timeout=600)
+    finally:
+        cold.drain(60)
+    stop = threading.Event()
+    seen: list = []
+    failures: list = []
+
+    def client():
+        while not stop.is_set():
+            t_submit = time.perf_counter()
+            try:
+                out = eng.predict(sample, timeout=600)
+            except Exception as e:  # noqa: BLE001 — counted below
+                failures.append(repr(e))
+                continue
+            gaps = {k: float(np.abs(out - v).max()) for k, v in refs.items()}
+            which = min(gaps, key=gaps.get)
+            seen.append((t_submit, time.perf_counter(), which, gaps[which]))
+
+    reset_counts(fa)
+    batches0 = eng.stats()["batches"]
+    clients = [threading.Thread(target=client) for _ in range(2)]
+    for c in clients:
+        c.start()
+    time.sleep(DP_SERVE_TRAFFIC_S)
+    t_reload = time.perf_counter()
+    result = eng.reload(new_dir, timeout=600)
+    t_done = time.perf_counter()
+    time.sleep(DP_SERVE_TRAFFIC_S)
+    stop.set()
+    for c in clients:
+        c.join(600)
+    got_split = eng.predict(split, timeout=600)
+    launches = read_counts(fa, serving=True)["fwd"]
+    batches = eng.stats()["batches"] - batches0
+    held = held_weights(torch, eng, new)
+    eng.drain(60)
+    before = {w for _, t, w, _ in seen if t < t_reload}
+    after = {w for t, _, w, _ in seen if t > t_done}
+    worst = max(g for _, _, _, g in seen)
+    gap = float(np.abs(got_split - cold_split).max())
+    log(f"22c reload under traffic at {DP_SERVE} replicas: "
+        f"{result['reload_ms']:.1f} ms ({result['from_step']} -> "
+        f"{result['to_step']}); {len(seen)} requests of 3 x 128 from 2 "
+        f"clients, {len(failures)} failed; weights answered before "
+        f"{sorted(before)}, after {sorted(after)}, each within "
+        f"{worst:.4e} of its cold answer (tol {LOGIT_MAX_ATOL}); every "
+        f"replica holds the new tensors {held}; 4 x 256 after the swap "
+        f"(two shards) vs a cold engine: bit-equal "
+        f"{np.array_equal(got_split, cold_split)}, max|gap| {gap:.4e}; "
+        f"{launches} forward launches in {batches} batches [{smi}]")
+    if (failures or before != {"old"} or after != {"new"} or not held
+            or worst > LOGIT_MAX_ATOL or gap > LOGIT_MAX_ATOL
+            or launches != 12 * DP_SERVE * batches):
+        raise AssertionError(f"22c: the reload under traffic failed "
+                             f"({failures[:3]})")
+    return launches
+
+
+def dp_classify(torch, cifar_dir: str, smi: str) -> None:
+    """22d: ResNet-50/CIFAR-10 (17b's artifact, bf16, its BatchNorm
+    statistics) at DP_SERVE replicas against one."""
+    import numpy as np
+
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        InferenceEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        load_artifact,
+    )
+
+    art = load_artifact(cifar_dir)
+    serve = load_config(CIFAR_CONFIG, overrides=[
+        "serve.max_batch_size=8", "serve.report_interval_s=60"]).serve
+    cuda = torch.device("cuda", 0)
+    two = InferenceEngine(art, serve, devices=[cuda] * DP_SERVE)
+    one = InferenceEngine(art, serve, devices=[cuda])
+    rng = np.random.default_rng(SEED + 24)
+    try:
+        held = held_weights(torch, two, art)
+        for rows in (1, 3, 5):
+            images = rng.normal(size=(rows, 32, 32, 3)).astype(np.float32)
+            g = two.predict({"image": images}, timeout=600)
+            w = one.predict({"image": images}, timeout=600)
+            gap = float(np.abs(g - w).max()
+                        / max(float(np.abs(w).max()), 1e-30))
+            log(f"22d {art.model_config.name} step {art.step}, {rows} rows: "
+                f"{DP_SERVE} replicas vs one: bit-equal "
+                f"{np.array_equal(g, w)}, largest gap {gap:.3e} of "
+                f"max|logit| (bf16 tol {CLASSIFY_RTOL})")
+            if g.shape != (rows, 10) or not gap <= CLASSIFY_RTOL:
+                raise AssertionError("22d: two replicas disagree with one")
+        full = {"image": rng.normal(size=(8, 32, 32, 3)).astype(np.float32)}
+        two.predict(full, timeout=600)
+        one.predict(full, timeout=600)
+        ms = {"one": [], "two": []}
+        for name, eng in (("one", one), ("two", two), ("two", two),
+                          ("one", one)):
+            ms[name].append(engine_ms(eng, full, DP_SERVE_TIMED))
+    finally:
+        two.drain(60)
+        one.drain(60)
+    log(f"22d every replica holds the artifact's tensors (BatchNorm "
+        f"statistics included) {held}; engine compute ms per 8-row batch "
+        f"(turns one, two, two, one): one replica "
+        f"{[round(x, 3) for x in ms['one']]}, {DP_SERVE} replicas "
+        f"{[round(x, 3) for x in ms['two']]} [{smi}]")
+    if not held:
+        raise AssertionError("22d: a replica lacks the artifact's tensors")
+
+
+def dp_decode(torch, artifact, cfg) -> None:
+    """22e: the decode engine at DP_SERVE devices: JAX's ladder of dp
+    multiples, and one replica's tokens."""
+    from distributed_tensorflow_framework_torch.serve.decode import (
+        DecodeEngine,
+    )
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        batch_buckets,
+    )
+
+    cuda = torch.device("cuda", 0)
+    prompts = decode_prompts(artifact.model_config.vocab_size)[0][
+        :DP_DECODE_PROMPTS]
+    out = {}
+    for dp in (DP_SERVE, 1):
+        eng = DecodeEngine(artifact, cfg.decode, cfg.serve,
+                           devices=[cuda] * dp)
+        try:
+            streams = [eng.submit(p, max_new_tokens=DP_DECODE_NEW)
+                       for p in prompts]
+            out[dp] = (eng.row_buckets,
+                       [st.result(600)["tokens"] for st in streams])
+        finally:
+            eng.drain(60)
+    ladder = batch_buckets(cfg.decode.max_streams, DP_SERVE)
+    log(f"22e decode at devices [cuda:0] x {DP_SERVE}: row ladder "
+        f"{out[DP_SERVE][0]} (one device {out[1][0]}); {len(prompts)} "
+        f"prompts of {[len(p) for p in prompts]} tokens x {DP_DECODE_NEW} "
+        f"new: tokens equal to one device's "
+        f"{out[DP_SERVE][1] == out[1][1]}")
+    if out[DP_SERVE][0] != ladder or out[DP_SERVE][1] != out[1][1]:
+        raise AssertionError("22e: decode at dp disagrees with one device")
+
+
+def dp_serve_artifacts(torch, workdir: str) -> tuple:
+    """``--only 22``'s inputs: phase 4's config and a BERT-base artifact
+    from SEED, and a ResNet-50/CIFAR-10 artifact from SEED whose BatchNorm
+    statistics are perturbed; returns (the loaded BERT artifact, the
+    config, the ResNet artifact's directory)."""
+    from distributed_tensorflow_framework_torch.core.config import load_config
+    from distributed_tensorflow_framework_torch.models import get_model
+    from distributed_tensorflow_framework_torch.models.convert import (
+        batch_stats_to_flax,
+        to_flax,
+    )
+    from distributed_tensorflow_framework_torch.serve.export import (
+        input_spec_for,
+        load_artifact,
+        save_artifact,
+    )
+
+    cfg = load_config("configs/bert_base_mlm.yaml", overrides=[
+        "serve.seq_buckets=[128,256,512]", *DECODE_OVERRIDES])
+    artifact = load_artifact(bert_artifact(
+        torch, cfg, os.path.join(workdir, "bert"), SEED))
+    ccfg = load_config(CIFAR_CONFIG)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = get_model(ccfg.model, device="cuda", in_channels=3,
+                      generator=gen)
+    with torch.no_grad():  # no zero-initialised head: nonzero logits
+        for p in model.parameters():
+            p.add_(0.01 * torch.randn(p.shape, device="cuda", generator=gen))
+    for name, buf in model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            buf.add_(torch.rand(buf.shape, device="cuda", generator=gen))
+    cifar_dir = save_artifact(
+        os.path.join(workdir, "resnet"), model_config=ccfg.model,
+        task="classification", params=to_flax(model),
+        batch_stats=batch_stats_to_flax(model), step=SEED,
+        input_spec=input_spec_for(ccfg, "classification"),
+        source={"seed": SEED, "made_by": "chip_smoke.py"})
+    return artifact, cfg, cifar_dir
+
+
+def dp_serve_phase(torch, fa, artifact, cfg, cifar_dir: str, workdir: str,
+                   smi: str) -> tuple[int, float]:
+    """Phase 22 (see the module docstring); returns the forward kernel's
+    main-path launches and the shards' worst o error."""
+    launches, worst = dp_shards(torch, fa, artifact, cfg, smi)
+    launches += dp_reload(torch, fa, artifact, cfg, workdir, smi)
+    dp_classify(torch, cifar_dir, smi)
+    dp_decode(torch, artifact, cfg)
+    return launches, worst
+
+
 LANE_COUNTS = ("zero", "tp", "ring", "pipe", "prec", "gang", "compose")
 
 
@@ -9778,6 +10216,17 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_compose_") as wd:
             compose_phase(torch, fa, wd, smi.splitlines()[0])
         return 0
+    if only == "22":
+        # A development run of phase 22 alone (``--only 22``), after the
+        # kernels' build, on a BERT-base artifact and a ResNet-50/CIFAR-10
+        # one with perturbed BatchNorm statistics, both from seeds: no
+        # kernels line and no last line.
+        _build.build_all()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p22_") as wd:
+            artifact, cfg, cifar_dir = dp_serve_artifacts(torch, wd)
+            dp_serve_phase(torch, fa, artifact, cfg, cifar_dir, wd,
+                           smi.splitlines()[0])
+        return 0
     if only is not None:
         # A development run of phase 9's parts alone (``--only 9bf``): no
         # kernels line and no last line, which only a whole run prints.
@@ -9836,6 +10285,7 @@ def main() -> int:
         log("phase 17a decode at BERT-base width, phase 4's artifact")
         decode_phase(torch, served["artifact"], served["config"], workdir,
                      smi.splitlines()[0])
+        bert = {k: served[k] for k in ("artifact", "config")}  # phase 22's
         del served
         log("phase 17c a registered model and dataset through the Trainer")
         registry_phase(torch)
@@ -9894,6 +10344,15 @@ def main() -> int:
                        gpu)
         p17["17b"] = time.perf_counter() - t17
         took("phase 17b")
+        log("phase 22 data-parallel serving: serving_devices (22a); phase "
+            f"4's BERT-base artifact at devices [cuda:0] x {DP_SERVE} "
+            "against one (22b), reloaded under traffic (22c); 17b's "
+            "ResNet-50 artifact (22d); decode (22e)")
+        dp_launches, dp_worst = dp_serve_phase(
+            torch, fa, bert["artifact"], bert["config"], os.path.join(
+                workdir, f"art_{2 * CIFAR_RESUME_SPLIT}"), workdir, gpu)
+        del bert
+        took("phase 22")
         log(f"phase 17 took {sum(p17.values()):.1f} s (" + ", ".join(
             f"{k} {v:.1f}" for k, v in p17.items()) + ")")
         log("phase 8 data parallel: world 1 over NCCL (8a BERT-base, 8b "
@@ -9940,7 +10399,7 @@ def main() -> int:
             "two gloo ranks of the card at {data: 1, expert: 2} (15d)")
         moe_counts = moe_phase(torch, fa, workdir, gpu)
     took("phases 10 and 15")
-    log(f"the main lane (phases 4-10 and 15) took "
+    log(f"the main lane (phases 4-10, 15 and 22) took "
         f"{time.perf_counter() - lane['t0']:.1f} s")
 
     lane_out = join_lane(lane)
@@ -9968,7 +10427,7 @@ def main() -> int:
     # 14a's four stages under each schedule, 15a, 15b and 15d's two ranks,
     # 16a, 16a', 16b and 16e's two ranks, 19's relaunched ranks and its
     # refit survivor, 20's replicas that ended 0, 21's four ranks (21a,
-    # 21b, 21c); those with
+    # 21b, 21c), 22's engines (22b, 22c); those with
     # segment ids all come from phase 5f. Times, bounds and the plain and
     # library times are those at the long-context shapes (phase 3c); "s512" keeps the
     # S=512 ones of phases 3 and 3b. Where auto does not pick the fused
@@ -9980,12 +10439,12 @@ def main() -> int:
                 + coll_counts[name] + moe_counts[name] + fleet_counts[name]
                 + sum(lane_out[phase][name] for phase in LANE_COUNTS)
                 for name in KERNEL_NAMES}
-    launched["fwd"] += launches
+    launched["fwd"] += launches + dp_launches
     forced = launched["fused"] == 0
     if forced:
         launched["fused"] = forced_launches
     short = {"fwd": timing, **bwd_timing}
-    worst = {"fwd": parity["max_abs_err"], **bwd_worst}
+    worst = {"fwd": max(parity["max_abs_err"], dp_worst), **bwd_worst}
     extra = {"fused": {"launches_forced": forced, "step_8192": step_8192}}
     record = {"kernels": [
         {"name": KERNEL_NAMES[name], "route": "cuda", "source": SOURCES[name],

@@ -106,7 +106,7 @@ be loaded are validated against the run's (``validate_restored``) and a
 ``ckpt_resharded`` event is emitted. The chief decides and broadcasts its
 verdict, so every rank takes the same branch. A manifest without a record
 (written before the gate) restores with a warning. ``restore_model``
-(export) gates on the one-process mesh the same way.
+(export) gates on the serving mesh it is given the same way.
 
 Per-save telemetry (``ckpt_save``): ``ckpt_save_blocked_ms`` is the time
 the training thread spent in ``save`` (the wait for the previous commit
@@ -695,15 +695,17 @@ class CheckpointManager:
                     self.process_count)
         return state.dropout_generator.get_state()
 
-    def restore_model(self, model, *, step: int | None = None,
+    def restore_model(self, model, *, axes: dict | None = None,
+                      step: int | None = None,
                       use_ema: bool = False) -> tuple[int, bool] | None:
         """Load only a checkpoint's model tensors into ``model`` (the
         export path: no optimizer and no generator, so any device), its
         parameters from the EMA with ``use_ema`` when the checkpoint holds
         one; returns (the step, whether the EMA was loaded), or None when
-        there is no step. The model is one process's, so a checkpoint
-        saved under a mesh of more than one rank passes the gate only
-        with ``checkpoint.allow_reshard`` (the export sets it from
+        there is no step. ``axes`` is the mesh the model is restored onto
+        (the export's serving mesh; None, one device): a checkpoint saved
+        under another passes the gate only with
+        ``checkpoint.allow_reshard`` (the export sets it from
         ``serve.allow_reshard``)."""
         loaded = self._load(step, model)
         if loaded is None:
@@ -711,8 +713,8 @@ class CheckpointManager:
         step, _, tensors = loaded
         saved = (mf.read_manifest(self._step_dir(step)) or {}).get(
             reshard.MESH_RECORD_KEY)
-        one = {a: 1 for a in reshard.MESH_AXES}
-        if reshard.must_reshard(saved, one,
+        target = reshard.normalize_axes(axes or {})
+        if reshard.must_reshard(saved, target,
                                 allow_reshard=self.config.allow_reshard,
                                 directory=self._path, step=step):
             count = reshard.validate_restored(
@@ -721,7 +723,7 @@ class CheckpointManager:
             log.warning("restored the model of checkpoint step %d "
                         "RESHARDED %s -> %s (%d leaves validated)", step,
                         reshard.describe_axes(saved["axes"]),
-                        reshard.describe_axes(one), count)
+                        reshard.describe_axes(target), count)
         model.load_state_dict(tensors["model"])
         ema = tensors.get("ema") or {}
         if use_ema and ema:

@@ -8,8 +8,10 @@ a training checkpoint into a serving artifact.
 The config names the training run (``checkpoint.directory``) and the
 model. The artifact (``dtf-torch-serve-artifact/1``, serve/export.py) is
 what ``cli/serve.py --artifact DIR`` loads. ``--step`` picks a committed
-step (default: the newest that verifies). ``--device`` defaults to
-``cuda`` and fails without one, unless ``--device cpu``. Prints the
+step (default: the newest that verifies). The checkpoint restores onto
+the serving mesh of ``serve.data`` devices; one saved under another mesh
+needs ``serve.allow_reshard`` (the error says so). ``--device`` defaults
+to ``cuda`` and fails without one, unless ``--device cpu``. Prints the
 artifact's path.
 """
 

@@ -11,7 +11,9 @@ The model comes from the artifact; ``--config`` is optional and only its
 (an mlm artifact of the dense bert family) a decode engine
 (serve/decode.py) stands beside the single-shot one and ``POST /generate``
 streams tokens; an artifact that cannot decode is refused with exit code
-2 before the port is bound. ``--device`` defaults to ``cuda`` and the
+2 before the port is bound. ``serve.data`` devices serve the batches
+(engine.py ``serving_devices``), and the decode engine takes the same
+ones. ``--device`` defaults to ``cuda`` and the
 command fails when no CUDA device is present, unless ``--device cpu``. The
 process serves until SIGTERM (or SIGINT), then drains in-flight requests and
 exits 0. The resolved endpoint (ephemeral ports included) is written to
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
                                  trace_enabled=config.trace.enabled)
         if config.decode.enabled:
             decode_engine = DecodeEngine(artifact, config.decode, srv,
-                                         device=args.device,
+                                         devices=engine.devices,
                                          telemetry_writer=writer)
         # The replica's flight recorder: a ring of recent telemetry (spans
         # included), dumped to flightrec-<pid>.json on SIGUSR1.

@@ -62,7 +62,9 @@ def default_devices() -> list[torch.device]:
 
 
 def device_memory_snapshot(devices=None) -> dict:
-    """One sample across ``devices`` (default :func:`default_devices`).
+    """One sample across ``devices`` (default :func:`default_devices`),
+    each distinct device once (data-parallel serving may list a card
+    twice).
 
     Returns per-device MAXIMA in the top-level fields — the binding
     constraint of a program over several cards is its worst card:
@@ -71,8 +73,9 @@ def device_memory_snapshot(devices=None) -> dict:
        "source_kind": "device_memory_stats" | "host_rss",
        "devices": [{"id", "kind", "bytes_in_use", "peak_bytes_in_use"}]}
     """
-    devices = [torch.device(d) for d in
-               (default_devices() if devices is None else devices)]
+    devices = list(dict.fromkeys(  # each device once, in order
+        torch.device(d) for d in
+        (default_devices() if devices is None else devices)))
     per_device = []
     for d in devices:
         if d.type != "cuda":

@@ -28,6 +28,12 @@ ms) and the pool rides KIND_KV_CACHE (pages in use/free, evictions), with
 the JAX package's field names, so its ``summarize_events`` rolls them up.
 Page 0 is scratch: filler rows and page-table padding point at it, so
 they are inert.
+
+On a serving mesh of ``dp`` devices the row ladder holds multiples of
+``dp``, as the JAX engine's. The JAX engine replicates the pool and the
+parameters over the mesh and splits nothing, so every device computes
+every row; the port runs the step on the first device alone, with the
+same ladder and the same tokens (a redundant copy computes nothing new).
 """
 
 from __future__ import annotations
@@ -49,7 +55,6 @@ from distributed_tensorflow_framework_torch.core.config import (
     DecodeConfig,
     ServeConfig,
 )
-from distributed_tensorflow_framework_torch.core.device import resolve_device
 from distributed_tensorflow_framework_torch.models import (
     decode_support_reason,
 )
@@ -71,8 +76,8 @@ from distributed_tensorflow_framework_torch.serve.engine import (
     ReloadError,
     ServeError,
     batch_buckets,
-    check_single_replica,
     pick_bucket,
+    resolve_devices,
 )
 from distributed_tensorflow_framework_torch.serve.export import (
     Artifact,
@@ -396,9 +401,11 @@ class DecodeStream:
 
 class DecodeEngine:
     """Continuous-batching decode engine over a loaded
-    :class:`~serve.export.Artifact` (mlm task, dense bert family) on one
-    device (default CUDA; raises when CUDA is absent unless
-    ``device="cpu"``).
+    :class:`~serve.export.Artifact` (mlm task, dense bert family).
+    ``devices`` takes the place of the JAX engine's ``mesh=`` (without it,
+    ``serving_devices`` of ``serve.data`` and ``device``, default CUDA,
+    which raises when CUDA is absent unless ``device="cpu"``): their count
+    sets the row ladder, and the step runs on the first.
 
     Thread layout: callers enqueue streams in :meth:`submit`; ONE
     scheduler thread owns admission, paging, eviction, the prefill/decode
@@ -408,7 +415,7 @@ class DecodeEngine:
 
     def __init__(self, artifact: Artifact, decode_cfg: DecodeConfig,
                  serve_cfg: ServeConfig, *,
-                 device: str | torch.device = "cuda",
+                 device: str | torch.device = "cuda", devices=None,
                  telemetry_writer=None):
         if artifact.task != "mlm":
             raise DecodeError(
@@ -416,8 +423,9 @@ class DecodeEngine:
         reason = decode_support_reason(artifact.model_config)
         if reason:
             raise DecodeError(f"decode unsupported: {reason}")
-        self.device = resolve_device(device)
-        check_single_replica(serve_cfg, self.device)
+        self.devices = resolve_devices(devices, serve_cfg.data, device)
+        self.device = self.devices[0]
+        self.dp = len(self.devices)
         self.artifact = artifact
         self.cfg = decode_cfg
         self.serve_cfg = serve_cfg
@@ -429,7 +437,7 @@ class DecodeEngine:
         self.max_len = int(decode_cfg.max_len or mc.max_seq_len)
         self.page_size = int(decode_cfg.page_size)
         self.kv_dtype = decode_cfg.kv_dtype
-        self.row_buckets = batch_buckets(decode_cfg.max_streams, 1)
+        self.row_buckets = batch_buckets(decode_cfg.max_streams, self.dp)
         self.max_rows = self.row_buckets[-1]
         self.page_buckets = page_table_buckets(
             self.max_len, self.page_size, decode_cfg.page_buckets)
@@ -472,9 +480,10 @@ class DecodeEngine:
             daemon=True)
         self._scheduler.start()
         log.info(
-            "decode engine up: step=%d device=%s scheduler=%s kv=%s "
+            "decode engine up: step=%d dp=%d device=%s scheduler=%s kv=%s "
             "pages=%dx%d rows=%s page_buckets=%s prompt_buckets=%s "
-            "max_len=%d", artifact.step, self.device, decode_cfg.scheduler,
+            "max_len=%d", artifact.step, self.dp, self.device,
+            decode_cfg.scheduler,
             self.kv_dtype, decode_cfg.num_pages, self.page_size,
             self.row_buckets, self.page_buckets, self.prompt_buckets,
             self.max_len)

@@ -11,27 +11,34 @@ decides when a batch is worth launching:
     entry and row counts to a power-of-two ladder, so the engine runs a
     bounded set of shapes (the flash-attention kernel's length guard then
     holds for every batch: each bucket is a multiple of 128 or below it);
-  * placement — the parameters are placed on the device once; each batch
-    is one ``torch.inference_mode()`` forward, the model in eval mode (an
-    image model on its artifact's BatchNorm statistics, channels_last on
-    the card as the trainer lays it out);
+  * placement — one replica of the model is placed on each serving
+    device once, in eval mode (an image model on its artifact's BatchNorm
+    statistics, channels_last on the card as the trainer lays it out);
+  * data parallelism — ``serve.data`` devices (:func:`serving_devices`,
+    the JAX package's ``serving_mesh``; or an explicit ``devices`` list)
+    each take a contiguous equal shard of the padded batch, as the JAX
+    engine shards the batch dimension over ``data``: every shard is
+    launched before the first wait (on CUDA each replica on a stream of
+    its own), and the outputs are gathered in row order. The row ladder
+    holds multiples of the device count, so every batch divides;
   * live reload — :meth:`InferenceEngine.request_reload` verifies and
-    places a new artifact on the caller's thread and the batcher swaps it
-    in between batches, so a reloaded engine answers as a cold one on the
-    new artifact would.
+    places a new artifact on every replica on the caller's thread and the
+    batcher swaps it in between batches, so a reloaded engine answers as a
+    cold one on the new artifact would.
 
-The serving replica is one device (``serve.data`` must be 1). Everything
-observable rides core/telemetry.py with the JAX engine's event kinds. A
-request that arrives with a trace context (``X-DTF-Trace``, parsed by
-server.py) gets the spans ``engine.queue``, ``engine.batch`` and
-``engine.compute`` in its trace, backfilled from the batch's timestamps;
-the replica's one tracer is shared with the server. The reporter thread
-samples device memory (core/memstats.py) at its cadence, and
-``memory_snapshot``/``goodput_snapshot`` feed ``/healthz``.
+Everything observable rides core/telemetry.py with the JAX engine's
+event kinds. A request that arrives with a trace context
+(``X-DTF-Trace``, parsed by server.py) gets the spans ``engine.queue``,
+``engine.batch`` and ``engine.compute`` in its trace, backfilled from
+the batch's timestamps; the replica's one tracer is shared with the
+server. The reporter thread samples device memory (core/memstats.py) at
+its cadence, and ``memory_snapshot``/``goodput_snapshot`` feed
+``/healthz``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -132,24 +139,42 @@ def batch_buckets(max_batch_size: int, dp: int) -> list[int]:
     return out
 
 
-def check_single_replica(serve_cfg: ServeConfig,
-                         device: torch.device) -> None:
-    """The port serves on one device per replica process. ``serve.data``
-    0 and -1 mean every visible device, as the JAX package's
-    ``serving_mesh`` reads them: ``torch.cuda.device_count()`` on CUDA,
-    one on the CPU. A count above the visible devices raises
-    MeshSizeError, as there; above one, data-parallel serving, it raises
-    NotImplementedError."""
+def serving_devices(data: int,
+                    device: str | torch.device = "cuda") -> list[torch.device]:
+    """The serving devices, the counterpart of the JAX package's
+    ``serving_mesh``: the first ``data`` devices of ``device``'s kind. 0
+    and -1 mean every visible device: ``torch.cuda.device_count()`` on
+    CUDA, one on the CPU. More than are visible raises MeshSizeError, as
+    there. One device is ``device`` itself (so ``cuda:1`` stays itself);
+    more are ``cuda:0`` … ``cuda:n-1``."""
+    device = resolve_device(device)
     visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    n = visible if serve_cfg.data in (0, -1) else int(serve_cfg.data)
+    n = visible if data in (0, -1) else int(data)
     if n > visible:
         raise MeshSizeError({"data": n}, n, visible)
-    if n != 1:
-        raise NotImplementedError(
-            f"serve.data={serve_cfg.data} ({n} devices): the port serves on "
-            f"one device per replica process (a fleet of replicas scales "
-            f"out, serve/fleet.py); data-parallel serving is ROADMAP.md "
-            f"queue A item A15")
+    if n == 1:
+        return [device]
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def resolve_devices(devices, data: int,
+                    device: str | torch.device) -> list[torch.device]:
+    """An engine's devices: ``devices`` when given (it may repeat a
+    device, as the tests' stand-in for the JAX package's virtual CPU
+    devices does), else :func:`serving_devices` of ``data``."""
+    if devices is None:
+        return serving_devices(data, device)
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("devices must name at least one device")
+    return out
+
+
+def _on_stream(stream):
+    """``torch.cuda.stream(stream)``, or no change for None (the CPU, or
+    one replica on the device's current stream)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(
+        stream)
 
 
 @dataclass
@@ -168,21 +193,26 @@ class InferenceEngine:
     """Standing engine over a loaded :class:`~serve.export.Artifact`.
 
     Callers block in :meth:`predict`; one batcher thread forms and runs
-    batches (so device work is serial); one reporter thread emits periodic
-    queue-depth/latency telemetry. ``device`` defaults to CUDA and raises
-    when it is absent; tests pass ``device="cpu"``.
+    batches (so device work is serial, and every kernel launch and its
+    count come from that thread); one reporter thread emits periodic
+    queue-depth/latency telemetry. ``devices`` takes the place of the JAX
+    engine's ``mesh=``: one replica a listed device. Without it the
+    engine serves on :func:`serving_devices` of ``serve.data`` and
+    ``device``, which defaults to CUDA and raises when it is absent;
+    tests pass ``device="cpu"``.
     """
 
     def __init__(self, artifact: Artifact, serve_cfg: ServeConfig, *,
-                 device: str | torch.device = "cuda", telemetry_writer=None,
-                 trace_enabled: bool = True):
-        self.device = resolve_device(device)
-        check_single_replica(serve_cfg, self.device)
+                 device: str | torch.device = "cuda", devices=None,
+                 telemetry_writer=None, trace_enabled: bool = True):
+        self.devices = resolve_devices(devices, serve_cfg.data, device)
+        self.device = self.devices[0]
+        self.dp = len(self.devices)
         self.artifact = artifact
         self.cfg = serve_cfg
         self._tw = telemetry_writer
         self.task = artifact.task
-        self.row_buckets = batch_buckets(serve_cfg.max_batch_size, 1)
+        self.row_buckets = batch_buckets(serve_cfg.max_batch_size, self.dp)
         self.max_rows = self.row_buckets[-1]
         if self.task == "mlm":
             fixed = int(artifact.input_spec["input_ids"]["shape"][0])
@@ -190,15 +220,20 @@ class InferenceEngine:
                                 or [fixed])
         else:
             self.seq_buckets = []
-        # One placement at startup; every batch reuses these weights.
-        self.model = self._place_model(artifact)
+        # One placement at startup; every batch reuses these weights. On
+        # CUDA above one replica each replica runs on a stream of its own,
+        # so that two on one card overlap.
+        self.replicas = self._place_replicas(artifact)
+        self._streams = [
+            torch.cuda.Stream(d) if d.type == "cuda" and self.dp > 1
+            else None for d in self.devices]
         self._used: set[tuple] = set()
 
         self._cond = threading.Condition()
         self._queue: deque[_Request] = deque()
         self._stop_reporting = threading.Event()
         self._state = "running"  # running | draining | closed
-        # Staged live reload: (artifact, placed model, future,
+        # Staged live reload: (artifact, placed replicas, future,
         # t_requested), applied by the batcher BETWEEN batches.
         self._pending_reload: tuple | None = None
         self._reloads = 0
@@ -218,10 +253,10 @@ class InferenceEngine:
         self._queue_wait_ms = 0.0
         self._compute_ms = 0.0
         # Device memory: sampled by the reporter thread every
-        # report_interval_s, snapshot on /healthz.
+        # report_interval_s, snapshot on /healthz (each device once).
         self._mem = memstats.MemoryMonitor(
             telemetry_writer, interval_s=serve_cfg.report_interval_s,
-            source="serve", devices=[self.device])
+            source="serve", devices=self.devices)
         self._reporter_error: ServeReporterError | None = None
         self._batcher = threading.Thread(
             target=self._batch_loop, name="dtf-serve-batcher", daemon=True)
@@ -230,20 +265,35 @@ class InferenceEngine:
             target=self._report_loop, name="dtf-serve-reporter", daemon=True)
         self._reporter.start()
         log.info(
-            "engine up: task=%s step=%d device=%s row_buckets=%s "
-            "seq_buckets=%s", self.task, artifact.step, self.device,
-            self.row_buckets, self.seq_buckets)
+            "engine up: task=%s step=%d dp=%d devices=%s row_buckets=%s "
+            "seq_buckets=%s", self.task, artifact.step, self.dp,
+            [str(d) for d in self.devices], self.row_buckets,
+            self.seq_buckets)
 
-    def _place_model(self, artifact: Artifact) -> torch.nn.Module:
-        """The artifact's model on the device, in eval mode, an image
-        model with the channels of its input spec (the same placement for
-        cold start and live reload — parity by construction)."""
+    @property
+    def model(self) -> torch.nn.Module:
+        """The first replica (every replica holds the same weights)."""
+        return self.replicas[0]
+
+    def _place_replicas(self, artifact: Artifact) -> list[torch.nn.Module]:
+        """The artifact's model on every serving device, one replica each,
+        in eval mode, an image model with the channels of its input spec
+        (the same placement for cold start and live reload — parity by
+        construction). No two replicas share a tensor; each card is
+        synchronised after, so that a replica's stream never reads
+        weights whose copy is still in flight."""
         channels = (None if artifact.task == "mlm"
                     else int(artifact.input_spec["image"]["shape"][-1]))
-        model = get_model(artifact.model_config, device=self.device,
-                          in_channels=channels)
-        model.load_state_dict(artifact.state_dict)
-        return model
+        replicas = []
+        for device in self.devices:
+            model = get_model(artifact.model_config, device=device,
+                              in_channels=channels)
+            model.load_state_dict(artifact.state_dict)
+            replicas.append(model)
+        for device in dict.fromkeys(self.devices):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return replicas
 
     # ------------------------------------------------------- validation
 
@@ -348,7 +398,7 @@ class InferenceEngine:
         next batch runs the new ones — zero downtime.
 
         Manifest verification (serve/export.load_artifact) and placement
-        on the device happen HERE, on the calling thread: a tampered or
+        on every replica's device happen HERE, on the calling thread: a tampered or
         incompatible artifact raises :class:`ReloadError` without the
         batcher ever seeing it, and the old weights keep serving. The new
         model is built as a cold engine builds its own (same model config
@@ -374,7 +424,7 @@ class InferenceEngine:
                 "reload rejected: input spec differs from the serving "
                 "artifact")
         t0 = time.monotonic()
-        model = self._place_model(art)
+        replicas = self._place_replicas(art)
         fut: Future = Future()
         with self._cond:
             if self._state != "running":
@@ -383,7 +433,7 @@ class InferenceEngine:
             if self._pending_reload is not None:
                 raise ReloadError(
                     "reload rejected: another reload is already staged")
-            self._pending_reload = (art, model, fut, t0)
+            self._pending_reload = (art, replicas, fut, t0)
             self._cond.notify_all()
         return fut
 
@@ -502,12 +552,12 @@ class InferenceEngine:
             return batch
 
     def _assemble(self, batch: list[_Request]) -> tuple[dict, tuple, int]:
-        """Pad requests into one fixed (row_bucket, seq_bucket) batch.
+        """Pad requests into one fixed (row_bucket, seq_bucket) host
+        batch.
 
         Sequence padding is zeros with mask 0; filler rows replicate row 0
         (a real row keeps the padded batch numerically unremarkable). Their
-        outputs are sliced off before any future resolves. Image rows go
-        to the device as NHWC f32.
+        outputs are sliced off before any future resolves.
         """
         rows = sum(r.rows for r in batch)
         row_bucket = pick_bucket(rows, self.row_buckets)
@@ -536,24 +586,45 @@ class InferenceEngine:
         if fill:
             host = {k: np.concatenate([v, np.repeat(v[:1], fill, axis=0)])
                     for k, v in host.items()}
-        placed = {k: torch.from_numpy(v).to(
-                      self.device,
-                      torch.float32 if k == "image" else torch.int64)
-                  for k, v in host.items()}
-        return placed, (seq_bucket, row_bucket), rows
+        return host, (seq_bucket, row_bucket), rows
+
+    def _forward(self, host: dict[str, np.ndarray],
+                 row_bucket: int) -> np.ndarray:
+        """The padded batch's logits: ``dp`` contiguous equal shards, shard
+        i on replica i (image rows as NHWC f32), every shard launched
+        before the first wait, each copied into its rows of one host
+        array."""
+        shard = row_bucket // self.dp
+        launched = []
+        with torch.inference_mode():
+            for i, (model, device, stream) in enumerate(
+                    zip(self.replicas, self.devices, self._streams)):
+                with _on_stream(stream):
+                    placed = {k: torch.from_numpy(
+                                  v[i * shard:(i + 1) * shard]).to(
+                                  device, torch.float32 if k == "image"
+                                  else torch.int64)
+                              for k, v in host.items()}
+                    logits = model(*model_inputs(self.task, placed))
+                    if isinstance(logits, dict):  # MoE: beside the aux
+                        logits = logits["logits"]
+                launched.append(logits)
+            out = torch.empty((row_bucket, *launched[0].shape[1:]),
+                              dtype=launched[0].dtype)
+            for i, (logits, stream) in enumerate(
+                    zip(launched, self._streams)):
+                with _on_stream(stream):  # waits for the shard
+                    out[i * shard:(i + 1) * shard].copy_(logits)
+        return out.numpy()
 
     def _run_batch(self, batch: list[_Request]) -> None:
         with self._cond:
             depth = len(self._queue)
         t_form = time.monotonic()
-        placed, key, rows = self._assemble(batch)
+        host, key, rows = self._assemble(batch)
         first_use = key not in self._used
         t0 = time.monotonic()
-        with torch.inference_mode():
-            logits = self.model(*model_inputs(self.task, placed))
-            if isinstance(logits, dict):  # MoE: the logits beside the aux
-                logits = logits["logits"]
-            logits = logits.cpu().numpy()  # waits for the device
+        logits = self._forward(host, key[1])
         t_done = time.monotonic()
         compute_ms = (t_done - t0) * 1e3
         if first_use:
@@ -620,16 +691,16 @@ class InferenceEngine:
 
     def _apply_pending_reload(self) -> None:
         """Batcher-thread half of the reload: swap the verified, already
-        placed model in one locked assignment between batches."""
+        placed replicas in one locked assignment between batches."""
         with self._cond:
             pending, self._pending_reload = self._pending_reload, None
         if pending is None:
             return
-        art, model, fut, t0 = pending
+        art, replicas, fut, t0 = pending
         old = self.artifact
         with self._cond:
             self.artifact = art
-            self.model = model
+            self.replicas = replicas
             self._reloads += 1
         reload_ms = (time.monotonic() - t0) * 1e3
         result = {

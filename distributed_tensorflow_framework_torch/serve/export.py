@@ -34,6 +34,7 @@ import json
 import logging
 import os
 import time
+import types
 from typing import Any
 
 import numpy as np
@@ -188,23 +189,33 @@ def save_artifact(
 
 
 def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
-                      step: int | None = None,
-                      device: str = "cuda") -> str:
+                      step: int | None = None, device: str = "cuda",
+                      devices=None) -> str:
     """Freeze the model of a committed checkpoint in
     ``config.checkpoint.directory`` (``step``, default the newest that
     verifies, through the same integrity checks and quarantine as a
     restore) into a serving artifact at ``output_dir``: the task from
     ``task_for_model``, the parameters (the EMA's under ``serve.use_ema``
     when the checkpoint holds one), an image model's BatchNorm statistics,
-    and the task's ``input_spec_for``. The model is built from
-    ``config.model`` on ``device`` (default CUDA, which it needs unless
-    ``device="cpu"``); only its tensors are read, so a checkpoint trained
-    on either device exports on either. A pipelined model is refused with
-    the JAX package's ValueError (a pipelined run's checkpoint holds the
-    whole layout: export it with ``model.pipeline_stages`` 1). A
-    checkpoint saved under a mesh of more than one rank is refused with
-    :class:`~ckpt.reshard.MeshTopologyError` and :data:`RESHARD_HINT`
-    unless ``serve.allow_reshard``."""
+    and the task's ``input_spec_for``.
+
+    The checkpoint restores onto the serving mesh ``{data: n}``, the other
+    axes 1, as the JAX export's: ``n`` is the length of ``devices`` (the
+    engines' stand-in for the JAX ``mesh=``) or else the count of
+    ``serving_devices(serve.data, device)``. A checkpoint saved under
+    another mesh is refused with :class:`~ckpt.reshard.MeshTopologyError`
+    and :data:`RESHARD_HINT` unless ``serve.allow_reshard``. The model is
+    built from ``config.model`` on the first device (default CUDA, which
+    it needs unless ``device="cpu"``); only its tensors are read, so a
+    checkpoint trained on either device exports on either. A pipelined
+    model is refused with the JAX package's ValueError (a pipelined run's
+    checkpoint holds the whole layout: export it with
+    ``model.pipeline_stages`` 1). ``source`` records the serving mesh and
+    the port's ``reshard.spec_digest`` of the restored model beside the
+    JAX export's other keys."""
+    from distributed_tensorflow_framework_torch.serve.engine import (
+        resolve_devices,
+    )
     from distributed_tensorflow_framework_torch.train.step import (
         task_for_model,
     )
@@ -218,8 +229,10 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
     if not config.checkpoint.directory:
         raise ValueError("checkpoint.directory must name the trained run "
                          "to export")
+    devices = resolve_devices(devices, config.serve.data, device)
+    mesh = reshard.normalize_axes({"data": len(devices)})
     task = task_for_model(config.model.name)
-    model = get_model(config.model, device=device,
+    model = get_model(config.model, device=devices[0],
                       in_channels=(None if task == "mlm"
                                    else config.data.channels))
     manager = CheckpointManager(dataclasses.replace(
@@ -227,7 +240,7 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
         allow_reshard=config.serve.allow_reshard))
     try:
         try:
-            restored = manager.restore_model(model, step=step,
+            restored = manager.restore_model(model, axes=mesh, step=step,
                                              use_ema=config.serve.use_ema)
         except reshard.MeshTopologyError as e:
             raise reshard.MeshTopologyError(
@@ -239,13 +252,18 @@ def export_checkpoint(config: ExperimentConfig, output_dir: str, *,
         raise ValueError(f"no committed checkpoint to export in "
                          f"{config.checkpoint.directory}")
     restored_step, used_ema = restored
+    # A serving replica holds every tensor whole: no layout of any axis.
+    whole = types.SimpleNamespace(model=model, layout=None, tp=None,
+                                  ep=None, pipe=None)
     return save_artifact(
         output_dir, model_config=config.model, task=task,
         params=to_flax(model), batch_stats=batch_stats_to_flax(model),
         step=restored_step, input_spec=input_spec_for(config, task),
         source={"checkpoint_dir": os.path.abspath(
                     config.checkpoint.directory),
-                "experiment": config.name, "used_ema": used_ema})
+                "experiment": config.name, "used_ema": used_ema,
+                "serve_mesh": mesh,
+                "sharding_spec_digest": reshard.spec_digest(whole)})
 
 
 def load_artifact(artifact_dir: str) -> Artifact:

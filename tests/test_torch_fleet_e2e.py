@@ -132,18 +132,21 @@ def test_serve_data_above_the_visible_devices_raises(arts):
 
 
 @pytest.mark.parametrize("data, error", [
-    (1, None), (-1, NotImplementedError), (0, NotImplementedError),
-    (2, NotImplementedError), (4, NotImplementedError), (5, MeshSizeError)])
+    (1, None), (-1, None), (0, None), (2, None), (4, None),
+    (5, MeshSizeError)])
 def test_serve_data_on_a_machine_of_four_gpus(monkeypatch, data, error):
-    """What a machine of four cards gets: every count it has above one is
-    data-parallel serving (queue A, A15), more than it has MeshSizeError."""
+    """What a machine of four cards gets: -1 and 0 every card, a count up
+    to four that many (cuda:0 …), more than it has MeshSizeError."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cfg = dataclasses.replace(_configs()[0].serve, data=data)
     if error is None:
-        pe.check_single_replica(cfg, torch.device("cuda", 0))
+        n = 4 if data in (-1, 0) else data
+        assert pe.serving_devices(cfg.data, torch.device("cuda", 0)) == [
+            torch.device("cuda", i) for i in range(n)]
     else:
-        with pytest.raises(error, match="A15|needs"):
-            pe.check_single_replica(cfg, torch.device("cuda", 0))
+        with pytest.raises(error, match="needs 5 devices but 4"):
+            pe.serving_devices(cfg.data, torch.device("cuda", 0))
 
 
 # -------------------------------------------------------- the fleet

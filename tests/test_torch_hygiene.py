@@ -189,13 +189,13 @@ def test_train_cli_and_trainer_need_cuda_unless_cpu(no_cuda):
 def test_engine_refuses_multi_device_serving(tiny_artifact, monkeypatch):
     """Two devices where the CPU has one: MeshSizeError, as the JAX
     package's ``serving_mesh``; on a machine that has two cards,
-    data-parallel serving is refused naming its queue-A item."""
+    ``serve.data=2`` serves on both."""
     from distributed_tensorflow_framework_torch.core.mesh import (
         MeshSizeError,
     )
     from distributed_tensorflow_framework_torch.serve.engine import (
         InferenceEngine,
-        check_single_replica,
+        serving_devices,
     )
     from distributed_tensorflow_framework_torch.serve.export import (
         load_artifact,
@@ -205,9 +205,10 @@ def test_engine_refuses_multi_device_serving(tiny_artifact, monkeypatch):
     cfg.serve.data = 2
     with pytest.raises(MeshSizeError, match="needs 2 devices but 1"):
         InferenceEngine(load_artifact(path), cfg.serve, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        check_single_replica(cfg.serve, torch.device("cuda", 0))
+    assert serving_devices(cfg.serve.data, torch.device("cuda", 0)) == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
 
 
 def test_model_config_round_trips_through_the_artifact(tiny_artifact):
